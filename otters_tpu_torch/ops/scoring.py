@@ -1,0 +1,513 @@
+"""Batched scoring + exact global top-k in torch (the slice's subset).
+
+Counterpart of the JAX package's ``ops/scoring.py``: device storage and its
+int8 quantization, the certificate's per-query / per-row terms, and the two
+plain scoring programs the main path can fall into (``direct`` for small
+stores, ``scan`` when the certificate widens past the fused kernel's k
+limit). The ``panel`` mode is served by the hand-written fused kernel
+(``ops/fused_topk.py``); its uncertified and non-int8 modes are not ported
+yet and raise ``NotImplementedError`` naming the mode.
+
+Exactness: f32 matrix products run in full f32. On CUDA that needs TF32
+off, which :func:`require_full_f32` checks (it never changes the global
+setting behind the caller's back). Top-k selection breaks ties toward the
+lower flat index, like ``lax.top_k`` (``torch.topk`` does not).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..errors import OttersError
+from ..types import VPU_METRICS, Cmp, Metric
+
+# Rows are padded to a multiple of SCAN_TILE for large stores so the scan can
+# walk [N, D] in whole tiles.
+SCAN_TILE = 8192
+# Largest flattened candidate count (B * N_pad) handled by the direct path.
+# A module constant so tests can patch it (as for the JAX package).
+DIRECT_LIMIT = 1 << 22
+SMALL_PAD = 128
+MID_PAD = 512
+PANEL_BIN = 512
+PANEL_K_MAX = 1024
+SCAN_K_MAX = DIRECT_LIMIT // 4
+HIER_BIN = 512
+# certificate bin width; must equal ops.fused_topk.BIN (asserted there)
+CERT_BIN = 512
+
+_NEG_INF = float("-inf")
+
+
+def require_full_f32(t: torch.Tensor) -> None:
+    """Raise unless f32 matmuls on ``t``'s device run in full f32.
+
+    The exact rerank and the certificate's rescore assume IEEE f32 products
+    (JAX's Precision.HIGHEST); TF32 keeps ~10 mantissa bits and would void
+    the certificate's arithmetic headroom."""
+    if t.device.type != "cuda":
+        return
+    if torch.backends.cuda.matmul.allow_tf32 or (
+        torch.get_float32_matmul_precision() != "highest"
+    ):
+        raise OttersError(
+            "exact f32 scoring needs torch.backends.cuda.matmul.allow_tf32 "
+            "= False and torch.get_float32_matmul_precision() == 'highest'"
+        )
+
+
+class DeviceVecs(NamedTuple):
+    """Device-resident vector store.
+
+    vectors  : [N_pad, D] float32 or int8
+    norms_sq : [N_pad]    float32, squared L2 norms (0 for padding)
+    inv_norms: [N_pad]    float32, 1/||v|| with 0 for zero-norm rows
+    valid    : [N_pad]    bool, False for padding rows
+
+    int8 stores additionally carry sound per-row quantization-residual
+    bounds (the certified-exact machinery):
+
+    resid    : [N_pad] f32, >= ||v/||v|| - v8/||v8|||| per row (0 padding)
+    resid_bin: [N_pad/512] f32, per-512-row-bin max of resid (None when
+               N_pad is not 512-aligned)
+    resid_max: [] f32 scalar, max over valid rows
+    """
+
+    vectors: torch.Tensor
+    norms_sq: torch.Tensor
+    inv_norms: torch.Tensor
+    valid: torch.Tensor
+    resid: Optional[torch.Tensor] = None
+    resid_bin: Optional[torch.Tensor] = None
+    resid_max: Optional[torch.Tensor] = None
+
+
+def pad_rows(n: int) -> int:
+    """Padded row count for a store of n vectors."""
+    if n > DIRECT_LIMIT // 8:  # large store: align to the scan tile
+        tile = SCAN_TILE
+    elif n > 4096:
+        tile = MID_PAD
+    else:
+        tile = SMALL_PAD
+    return max(tile, -(-n // tile) * tile)
+
+
+def _valid_mask(n_pad: int, n: int, device) -> torch.Tensor:
+    return torch.arange(n_pad, device=device) < n
+
+
+def materialize(vectors_np: np.ndarray, dtype=torch.float32, *, device) -> DeviceVecs:
+    """Ship an [n, d] host array to the device with norms computed there."""
+    n, d = vectors_np.shape
+    n_pad = pad_rows(n)
+    host = np.zeros((n_pad, d), dtype=np.float32)
+    host[:n] = vectors_np
+    vecs = torch.from_numpy(host).to(device)
+    if dtype == torch.int8:
+        return _materialize_int8(vecs, n)
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            f"{dtype} storage is not ported yet (float32 and int8 are)"
+        )
+    valid = _valid_mask(n_pad, n, device)
+    norms_sq, inv_norms = _device_norms(vecs)
+    return DeviceVecs(vecs, norms_sq, inv_norms, valid)
+
+
+def _materialize_int8(vecs_f32: torch.Tensor, n_valid: int) -> DeviceVecs:
+    """Quantized cosine storage: per-row symmetric int8 with residuals."""
+    n_pad = vecs_f32.shape[0]
+    v8, norms_sq, inv, resid = _quantize_rows_int8_resid(vecs_f32)
+    valid = _valid_mask(n_pad, n_valid, vecs_f32.device)
+    resid = torch.where(valid, resid, 0.0)
+    rbin, rmax = finalize_resid(resid)
+    return DeviceVecs(v8, norms_sq, inv, valid, resid, rbin, rmax)
+
+
+def _inv_or_zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x != 0.0, 1.0 / x, 0.0)
+
+
+def _device_norms(vecs: torch.Tensor):
+    v32 = vecs.float()
+    norms_sq = (v32 * v32).sum(dim=1)
+    return norms_sq, _inv_or_zero(torch.sqrt(norms_sq))
+
+
+def _quantize_rows_int8(vecs: torch.Tensor):
+    amax = vecs.abs().amax(dim=1, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    v8 = torch.clamp(torch.round(vecs / scale), -127, 127).to(torch.int8)
+    v8f = v8.float()
+    norms_sq = (v8f * v8f).sum(dim=1)
+    return v8, norms_sq, _inv_or_zero(torch.sqrt(norms_sq))
+
+
+def unit_resid(a32, b32, inv_a, inv_b):
+    """Sound per-row bound on ||a/||a|| - b/||b|||| in f32 (see the JAX
+    package's scoring.unit_resid for the error analysis). Zero-norm rows
+    (either side) get 0: both score paths define their cosine as 0."""
+    u = a32 * inv_a[:, None] - b32 * inv_b[:, None]
+    r = torch.sqrt((u * u).sum(dim=1))
+    zero = (inv_a == 0.0) | (inv_b == 0.0)
+    return torch.where(zero, 0.0, r * (1.0 + 1e-4) + 1e-6)
+
+
+def _quantize_rows_int8_resid(vecs: torch.Tensor):
+    """Quantize + sound per-row residual bound (certified-exact int8)."""
+    v8, norms_sq, inv8 = _quantize_rows_int8(vecs)
+    v32 = vecs.float()
+    nv = torch.sqrt((v32 * v32).sum(dim=1))
+    resid = unit_resid(v32, v8.float(), _inv_or_zero(nv), inv8)
+    return v8, norms_sq, inv8, resid
+
+
+def bf16_query_unit_resid(queries: torch.Tensor) -> torch.Tensor:
+    """[B] sound bounds on ||q/||q|| - qh/||qh|||| for qh = bf16(q).
+
+    Queries that are nonzero in f32 but round to bf16 zero get the
+    trivially sound bound 2.0."""
+    q32 = queries.float()
+    qh32 = q32.to(torch.bfloat16).float()
+    inv_q = _inv_or_zero(torch.sqrt((q32 * q32).sum(dim=1)))
+    inv_h = _inv_or_zero(torch.sqrt((qh32 * qh32).sum(dim=1)))
+    r = unit_resid(q32, qh32, inv_q, inv_h)
+    return torch.where((inv_q != 0.0) & (inv_h == 0.0), 2.0, r)
+
+
+def finalize_resid(resid: torch.Tensor):
+    """-> (resid_bin | None, resid_max) from a [N_pad] residual array."""
+    n_pad = resid.shape[0]
+    rmax = resid.max() if n_pad else resid.new_zeros(())
+    rbin = None
+    if n_pad and n_pad % CERT_BIN == 0:
+        rbin = resid.reshape(-1, CERT_BIN).amax(dim=1)
+    return rbin, rmax
+
+
+def mixed_cert_eps(d: int) -> float:
+    """Arithmetic headroom for the MIXED certified scan (bf16 queries x int8
+    rows, f32 accumulation): gamma_d-class accumulation error of the scan
+    and of the f32 rerank, plus a few ulps of the inverse-norm multiplies.
+    The kernel's accumulation error is measured against it on the card."""
+    return 4.0 * d * 2.0**-24 + 4.0e-6
+
+
+def cert_query_coeffs(metric: Metric, queries: torch.Tensor, d: int):
+    """Per-query coefficients of the certificate fold (Cosine on int8
+    storage): -> (qh32, c0[B], c1[B], c2[B]) with c0 = e_unit + eps_arith,
+    c1 = 1, c2 = 0 (see the JAX package for the derivation)."""
+    if metric is not Metric.Cosine:
+        raise NotImplementedError(
+            f"the {metric.value} certificate belongs to bfloat16 storage, "
+            "which is not ported yet"
+        )
+    e_q = bf16_query_unit_resid(queries)
+    qh32 = queries.float().to(torch.bfloat16).float()
+    c0 = e_q + mixed_cert_eps(d)
+    return qh32, c0, torch.ones_like(c0), torch.zeros_like(c0)
+
+
+def cert_row_lanes(metric: Metric, storage_dtype, resid, inv_norms, norms_sq, d: int):
+    """-> (lane_a[N], lane_b[N]) per-row lanes of the certificate fold. For
+    int8 Cosine the stored residual is already the unit residual."""
+    if metric is not Metric.Cosine or storage_dtype != torch.int8:
+        raise NotImplementedError(
+            "only the int8 Cosine certificate is ported yet"
+        )
+    return resid, torch.zeros_like(resid)
+
+
+def cert_global_slack(c0, c1, c2, lane_a, lane_b, norms_sq, q_valid=None):
+    """Scalar >= slack(q, row) over every valid (q, row) pair — loosens the
+    score filter so no truly passing row is dropped on its scan score, and
+    is the global term of the direct/scan certificates."""
+    if q_valid is not None:
+        c0 = torch.where(q_valid, c0, 0.0)
+        c1 = torch.where(q_valid, c1, 0.0)
+        c2 = torch.where(q_valid, c2, 0.0)
+    vn_max = torch.sqrt(norms_sq.max())
+    return (
+        c0.max()
+        + c1.max() * lane_a.max()
+        + c2.max() * vn_max
+        + lane_b.max()
+    )
+
+
+def materialize_int8_slabs(slab_fn, n: int, d: int, slab_rows: int, *, device) -> DeviceVecs:
+    """Build an int8 DeviceVecs slab by slab, quantizing on the device.
+
+    ``slab_fn(start, rows)`` returns an f32 ``[rows, d]`` tensor (device or
+    host) or numpy array of rows ``start .. start+rows`` (rows past ``n`` may
+    hold anything; validity masks them out). Each slab is quantized and
+    written in place into the preallocated int8 buffers, so the peak memory
+    is the int8 store plus one slab and its temporaries."""
+    device = torch.device(device)
+    n_pad = pad_rows(n)
+    buf8 = torch.zeros((n_pad, d), dtype=torch.int8, device=device)
+    norms_sq = torch.zeros((n_pad,), dtype=torch.float32, device=device)
+    inv = torch.zeros((n_pad,), dtype=torch.float32, device=device)
+    resid = torch.zeros((n_pad,), dtype=torch.float32, device=device)
+    slab_rows = max(1, min(slab_rows, n_pad))
+    for start in range(0, n_pad, slab_rows):
+        rows = min(slab_rows, n_pad - start)
+        slab = torch.as_tensor(slab_fn(start, rows), dtype=torch.float32, device=device)
+        v8, nsq, iv, rs = _quantize_rows_int8_resid(slab)
+        end = start + rows
+        buf8[start:end] = v8
+        norms_sq[start:end] = nsq
+        inv[start:end] = iv
+        resid[start:end] = rs
+        del slab, v8, nsq, iv, rs
+    valid = _valid_mask(n_pad, n, device)
+    resid = torch.where(valid, resid, 0.0)
+    rbin, rmax = finalize_resid(resid)
+    return DeviceVecs(buf8, norms_sq, inv, valid, resid, rbin, rmax)
+
+
+def _score_block(queries, q_inv, q_sq, vecs, v_inv, v_sq, metric: Metric):
+    """[B, D] x [T, D] -> [B, T] scores.
+
+    cosine   = (q . v) * inv||q|| * inv||v||
+    euclid   = ||q||^2 + ||v||^2 - 2 q . v     (squared)
+    dot      = q . v
+    """
+    if metric in VPU_METRICS:
+        raise NotImplementedError(
+            f"the {metric.value} metric (VPU metrics) is not ported yet"
+        )
+    if queries.dtype == torch.bfloat16:
+        # MIXED certified scan: bf16-rounded queries x stored rows, f32
+        # accumulation (int8 codes and bf16 x int8 products are exact in
+        # f32). Callers signal the mode by handing the queries in bf16.
+        qh32 = queries.float()
+        require_full_f32(qh32)
+        dots = qh32 @ vecs.float().T
+        if metric is Metric.DotProduct:
+            return dots
+        if metric is Metric.Cosine:
+            qih = _inv_or_zero(torch.sqrt((qh32 * qh32).sum(dim=1)))
+            return dots * qih[:, None] * v_inv[None, :]
+        qn2 = (qh32 * qh32).sum(dim=1)
+        return qn2[:, None] + v_sq[None, :] - 2.0 * dots
+    if vecs.dtype == torch.int8:
+        if metric is not Metric.Cosine:
+            raise OttersError(
+                "int8 quantized storage supports the Cosine metric only"
+            )
+        # quantized cosine: symmetric int8 queries; the int8 x int8 dots are
+        # integers below 2^53, so a float64 product is exact (the JAX
+        # package's int32 accumulation)
+        q8, _, q_inv8 = _quantize_rows_int8(queries)
+        dots = (q8.double() @ vecs.double().T).float()
+        return dots * q_inv8[:, None] * v_inv[None, :]
+    require_full_f32(queries)
+    dots = queries.float() @ vecs.float().T
+    if metric is Metric.DotProduct:
+        return dots
+    if metric is Metric.Cosine:
+        return dots * q_inv[:, None] * v_inv[None, :]
+    return q_sq[:, None] + v_sq[None, :] - 2.0 * dots
+
+
+def _filter_ok(scores, thr, cmp: Optional[Cmp]):
+    if cmp is None:
+        return torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
+    if cmp is Cmp.Lt:
+        return scores < thr
+    if cmp is Cmp.Gt:
+        return scores > thr
+    if cmp is Cmp.Lte:
+        return scores <= thr
+    if cmp is Cmp.Gte:
+        return scores >= thr
+    return scores == thr
+
+
+def _query_norms(queries: torch.Tensor):
+    q = queries.float()
+    q_sq = (q * q).sum(dim=1)
+    return q_sq, _inv_or_zero(torch.sqrt(q_sq))
+
+
+def _stable_topk(key: torch.Tensor, k: int):
+    vals, idx = torch.sort(key, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def exact_topk_flat(key: torch.Tensor, k: int):
+    """Exact top-k over a 1D key, ties toward the lower index (lax.top_k's
+    order; ``torch.topk`` gives no tie order).
+
+    Large inputs prefilter by per-512-entry maxima: every true top-k entry's
+    bin max is >= the k-th value, and the top bins taken in stable order
+    include the lowest-index entries of any tie, so sorting their entries
+    by (value desc, index asc) gives the exact answer."""
+    n = key.shape[0]
+    k = min(k, n)
+    if n <= (1 << 15) or k * HIER_BIN * 4 >= n:
+        return _stable_topk(key, k)
+    pad = (-n) % HIER_BIN
+    if pad:  # padding entries sit past every real one, so never win a tie
+        key = torch.cat([key, key.new_full((pad,), _NEG_INF)])
+    bins = key.reshape(-1, HIER_BIN)
+    km = min(k, bins.shape[0])
+    _, top_bins = exact_topk_flat(bins.amax(dim=1), km)
+    top_bins, _ = torch.sort(top_bins)  # candidates in ascending index order
+    cand = bins[top_bins].reshape(-1)
+    cand_idx = (
+        top_bins[:, None] * HIER_BIN
+        + torch.arange(HIER_BIN, device=key.device)[None, :]
+    ).reshape(-1)
+    vals, sel = _stable_topk(cand, k)
+    return vals, cand_idx[sel]
+
+
+def _masked_key(scores, ok, take_min: bool):
+    key = torch.where(ok, scores, float("inf") if take_min else _NEG_INF)
+    return -key if take_min else key
+
+
+def direct_topk_core(
+    vectors, norms_sq, inv_norms, valid, queries, row_mask, thr, *,
+    metric: Metric, k: int, take_min: bool, cmp: Optional[Cmp], q_valid=None,
+):
+    """[B, N] scores -> merged global (rows, scores, valid)."""
+    n_pad = vectors.shape[0]
+    q_sq, q_inv = _query_norms(queries)
+    scores = _score_block(
+        queries, q_inv, q_sq, vectors, inv_norms, norms_sq, metric
+    )
+    ok = valid[None, :]
+    if row_mask is not None:
+        ok = ok & row_mask[None, :]
+    if q_valid is not None:
+        ok = ok & q_valid[:, None]
+    ok = ok & _filter_ok(scores, thr, cmp) & ~torch.isnan(scores)
+    _, top_flat = exact_topk_flat(_masked_key(scores, ok, take_min).reshape(-1), k)
+    rows = (top_flat % n_pad).to(torch.int32)
+    return rows, scores.reshape(-1)[top_flat], ok.reshape(-1)[top_flat]
+
+
+def scan_topk_core(
+    vectors, norms_sq, inv_norms, valid, queries, row_mask, thr, *,
+    metric: Metric, k: int, take_min: bool, cmp: Optional[Cmp], tile: int,
+    q_valid=None,
+):
+    """Streaming top-k over row tiles with a carried k-sized buffer.
+
+    The JAX package skips a tile's merge when it cannot beat the k-th best
+    (``lax.cond``); a skipped merge and a performed one give the same buffer
+    (the carried entries come first, so they win every tie), so this loop
+    always merges and never waits on the device to decide."""
+    n_pad, _ = vectors.shape
+    b = queries.shape[0]
+    dev = vectors.device
+    q_sq, q_inv = _query_norms(queries)
+    kk = min(k, b * tile)
+    best_key = torch.full((k,), _NEG_INF, device=dev)
+    best_row = torch.zeros((k,), dtype=torch.int32, device=dev)
+    best_score = torch.zeros((k,), device=dev)
+    best_valid = torch.zeros((k,), dtype=torch.bool, device=dev)
+    for start in range(0, n_pad, tile):
+        sl = slice(start, start + tile)
+        scores = _score_block(
+            queries, q_inv, q_sq, vectors[sl], inv_norms[sl], norms_sq[sl], metric
+        )
+        ok = valid[sl][None, :]
+        if row_mask is not None:
+            ok = ok & row_mask[sl][None, :]
+        if q_valid is not None:
+            ok = ok & q_valid[:, None]
+        ok = ok & _filter_ok(scores, thr, cmp) & ~torch.isnan(scores)
+        t_key, t_flat = exact_topk_flat(
+            _masked_key(scores, ok, take_min).reshape(-1), kk
+        )
+        m_key = torch.cat([best_key, t_key])
+        m_row = torch.cat([best_row, (start + t_flat % tile).to(torch.int32)])
+        m_score = torch.cat([best_score, scores.reshape(-1)[t_flat]])
+        m_valid = torch.cat([best_valid, ok.reshape(-1)[t_flat]])
+        best_key, sel = _stable_topk(m_key, k)
+        best_row, best_score, best_valid = m_row[sel], m_score[sel], m_valid[sel]
+    return best_row, best_score, best_valid
+
+
+def needs_windowed(n_pad: int, b: int, k_eff: int) -> bool:
+    """True when no on-device top-k strategy fits this (b, n_pad, k): the
+    take-all regime, whose windowed host collection is not ported yet."""
+    if b * n_pad <= DIRECT_LIMIT:
+        return (
+            k_eff > PANEL_K_MAX
+            and 4 * k_eff > b * n_pad
+            and b * n_pad > (1 << 20)
+        )
+    if k_eff <= PANEL_K_MAX and n_pad % PANEL_BIN == 0:
+        return False
+    if n_pad % SCAN_TILE == 0 and k_eff <= SCAN_K_MAX:
+        return False
+    return True
+
+
+def choose_mode(n_pad: int, b: int, k_eff: int) -> str:
+    """Pick the scoring strategy: 'direct' | 'panel' | 'scan'.
+
+    direct: small candidate count -> one stable top-k is fine.
+    panel : large N, small k      -> the fused bin-max kernel.
+    scan  : large N, large k      -> streaming tiles.
+    """
+    if b * n_pad <= DIRECT_LIMIT:
+        return "direct"
+    if k_eff <= PANEL_K_MAX and n_pad % PANEL_BIN == 0:
+        return "panel"
+    if n_pad % SCAN_TILE == 0 and k_eff <= SCAN_K_MAX:
+        return "scan"
+    if b * n_pad * 4 <= 2 << 30:
+        return "direct"
+    raise OttersError(
+        f"take({k_eff}) over {b} queries x {n_pad} rows is too large for "
+        "device memory; use an explicit smaller take(k)"
+    )
+
+
+def run_vec_topk(
+    dv: DeviceVecs,
+    queries: torch.Tensor,
+    metric: Metric,
+    k: int,
+    take_min: bool,
+    cmp: Optional[Cmp],
+    thr: Optional[float],
+    row_mask=None,
+):
+    """Execute an uncertified scoring program; returns host numpy
+    (rows, scores, valid). Used by the hash-collision redo."""
+    n_pad = dv.vectors.shape[0]
+    b = queries.shape[0]
+    k_eff = min(k, b * n_pad)
+    if k_eff <= 0:
+        return np.array([], np.int32), np.array([], np.float32), np.array([], bool)
+    if dv.vectors.dtype == torch.int8 and metric is not Metric.Cosine:
+        raise OttersError("int8 quantized storage supports the Cosine metric only")
+    if needs_windowed(n_pad, b, k_eff):
+        raise NotImplementedError("take-all windowing is not ported yet")
+    mode = choose_mode(n_pad, b, k_eff)
+    if mode == "panel":
+        from . import fused_topk
+
+        fused_topk.kernel_mode(dv.vectors.dtype, metric, take_min, certify=False)
+    q = queries.float()
+    thr_t = torch.tensor(0.0 if thr is None else thr, dtype=torch.float32, device=q.device)
+    kwargs = dict(
+        metric=metric, k=k_eff, take_min=take_min, cmp=None if thr is None else cmp
+    )
+    args = (dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, q, row_mask, thr_t)
+    if mode == "direct":
+        out = direct_topk_core(*args, **kwargs)
+    else:
+        out = scan_topk_core(*args, tile=SCAN_TILE, **kwargs)
+    return tuple(t.cpu().numpy() for t in out)
