@@ -4,11 +4,14 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 1. the card: name and power limit (nvidia-smi);
-2. the build: every Hopper kernel of the main path from ``csrc/`` with nvcc
-   (one process per source, started together);
-3. the kernel phase: K1 (csrc/cert_cos_binmax.cu) against its plain torch
-   version at d = 768, b = 256, 1024-row chunks with half of them pruned,
-   plus its accumulation error against float64 dots;
+2. the build: every Hopper kernel from ``csrc/`` with nvcc (one process
+   per source, started together);
+3. the kernel phase: K1 (csrc/cert_cos_binmax.cu), K2 (int8_binmax.cu), K3
+   (f32_binmax.cu) and K4 (bf16x3_binmax.cu) against their plain torch
+   versions at d = 768, b = 256 and 70, 2M rows in 1024-row chunks with
+   half of them pruned, every metric and Gt / Lt / Eq filters; K2's int32
+   dots bit for bit; K1, K3 and K4 against float64 dots (K4 within the
+   ``4 d 2^-24`` accumulation share of ``high_precision_bound``);
 4. the main path at the bench's size: a 10M x 768 int8 store quantized on
    the device from seeded f32 rows, bench.py's price/version columns, the
    filter ``price < 50 & version >= 2`` (prunes half the chunks), pipelined
@@ -16,15 +19,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ``take(10, rerank_from=100)`` and ``resolve``; every query certified and
    equal to an exact f32 filtered top-10; then K1 timed at these shapes
    against its plain version, a library yardstick and its bound;
+   4u. bench.py's ``filtered_uncert`` on the same store
+   (``certify=False``): K2, recall@10 against the f32 truth, K2 timed;
    4b. adversarial near-ties (1M x 768) that make the certificate widen
    through the fused kernel and past it into the scan program;
-5. the twin of examples/demo.py on the card.
+5. the twin of examples/demo.py on the card;
+6. bench.py's exact-f32 section: a 4M x 768 f32 store built on the device,
+   the same columns and filter, pipelined ``take(10)`` batches of 256
+   Cosine queries through the verified fast-exact K4 (every check passes),
+   one Dot and one Euclid batch, each equal to the exact f32 truth; K4 and
+   K3 timed at these shapes;
+   6b. exact ties copied into more bins than the fast mode examines: its
+   check fails and K3 reruns, equal to the truth; a Dot ``vec_filter(Eq)``
+   and a ``take(200)`` reach K3 directly;
+7. VecStore at 1M x 768: f32 storage (K4) and int8 storage (K2), each
+   equal to the exact top-10 of its storage.
 
-Phase 4 also traces one pipelined round with torch.profiler (device time
-by kernel, the device's busy share). The script prints the kernels JSON
-line and the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``. Any failed check exits non-zero without that line; so
-does a machine without a CUDA device.
+Phases 4 and 6 also trace one pipelined round with torch.profiler (device
+time by kernel, the device's busy share). Every path sets the launch
+counts to 0 before it runs and asserts that its kernel launched. The script
+prints the kernels JSON line and the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
+that line; so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,8 +61,15 @@ K = 10
 K_WIDE = 100
 BATCHES = 8
 SLAB = 500_000
+KERNEL_ROWS = 2_000_000  # the kernel phase's stores
+F32_ROWS = 4_000_000  # bench.py's exact-f32 section (bench.py:10-11,39)
+NEAR_ROWS = 1_000_000
+VEC_ROWS = 1_000_000  # bench.py's 1M f32 section, through VecStore
+N_DUP = 60  # bins holding copies of the tied row: more than 4k = 40
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 SEED = 1234
 
 
@@ -94,9 +117,21 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def k1_inputs(dv, queries, chunk_mask):
-    """K1's operands for a store, a query batch and a chunk mask, built the
-    way the fused path builds them (certified cosine, no score filter)."""
+def rows_alive(chunk_mask, n_pad):
+    """[n_chunks] chunk mask -> [n_pad] row mask (padding rows dead)."""
+    import torch
+
+    alive = torch.repeat_interleave(chunk_mask, CHUNK)[:n_pad]
+    if alive.shape[0] < n_pad:
+        alive = torch.cat([alive, alive.new_zeros(n_pad - alive.shape[0])])
+    return alive
+
+
+def mode_inputs(mode, dv, queries, chunk_mask, thr=0.0):
+    """A kernel's operands for a store, a query batch and a chunk mask,
+    built the way the fused path builds them: K1 takes the bf16-rounded
+    queries and the row lane (certified cosine), K2 quantizes the queries,
+    K3 / K4 take them in f32."""
     import torch
 
     from otters_tpu_torch.ops import fused_topk as ft
@@ -104,109 +139,298 @@ def k1_inputs(dv, queries, chunk_mask):
     from otters_tpu_torch.types import Metric
 
     n_pad, d = dv.vectors.shape
-    qh32, c0, _, _ = sc.cert_query_coeffs(Metric.Cosine, queries, d)
-    _, q_inv = sc._query_norms(qh32)
-    alive = ft.bins_alive_from_chunk_mask(chunk_mask, CHUNK, n_pad)
-    surv, n_surv = ft.survivor_bins(alive)
-    rows_alive = torch.repeat_interleave(chunk_mask, CHUNK)[:n_pad]
-    if rows_alive.shape[0] < n_pad:
-        rows_alive = torch.cat([rows_alive, rows_alive.new_zeros(n_pad - rows_alive.shape[0])])
-    rmask = (dv.valid & rows_alive).float()
-    thr = torch.zeros(1, device=queries.device)
-    q_ok = torch.ones(queries.shape[0], device=queries.device)
-    return [qh32.to(torch.bfloat16), dv.vectors, dv.inv_norms, rmask, dv.resid,
-            q_inv, q_ok, thr, surv, n_surv]
+    dev = queries.device
+    surv, n_surv = ft.survivor_bins(ft.bins_alive_from_chunk_mask(chunk_mask, CHUNK, n_pad))
+    rmask = (dv.valid & rows_alive(chunk_mask, n_pad)).float()
+    q_ok = torch.ones(queries.shape[0], device=dev)
+    thr_t = torch.full((1,), float(thr), device=dev)
+    if mode == "K1":
+        qh32, _, _, _ = sc.cert_query_coeffs(Metric.Cosine, queries, d)
+        _, q_inv = sc._query_norms(qh32)
+        return [qh32.to(torch.bfloat16), dv.vectors, dv.inv_norms, rmask, dv.resid,
+                q_inv, q_ok, thr_t, surv, n_surv]
+    q = sc._quantize_rows_int8(queries.float())[0] if mode == "K2" else queries.float()
+    q_sq, q_inv = sc._query_norms(q.float())
+    return [q.contiguous(), dv.vectors, dv.inv_norms, dv.norms_sq, rmask, q_inv, q_sq,
+            q_ok, thr_t, surv, n_surv]
 
 
-def compare_k1(args, cmp=None):
-    """Kernel vs plain on the same operands -> max abs error (checked)."""
+def launch(mode, args, metric, take_min=False, cmp=None):
+    """The kernel's wrapper on ``args`` (K1 is certified cosine only)."""
+    from otters_tpu_torch.ops import fused_topk as ft
+
+    if mode == "K1":
+        return ft.cert_cos_binmax(*args, cmp)
+    return ft.KERNELS[mode](*args, metric, take_min, cmp)
+
+
+def plain(mode, args, metric, take_min=False, cmp=None):
+    """The kernel's plain torch version on ``args``."""
+    from otters_tpu_torch.ops import fused_topk as ft
+
+    if mode == "K1":
+        return ft.cert_cos_binmax_plain(*args, cmp)
+    return ft.binmax_plain(mode, *args, metric=metric, take_min=take_min, cmp=cmp)
+
+
+def mode_tol(mode, args, metric, want):
+    """Kernel vs plain tolerance on the bin maxima ``want``. K1: the
+    certificate's ``mixed_cert_eps(d)``. K2: the int32 dots are exact in
+    both, so 4 ulps of the epilogue. K3: the two sum in other orders,
+    d 2^-24 |q| |v|. K4: both are bf16x3 sums within
+    ``high_precision_bound(d)`` |q| |v| of the exact dot. Dot / Euclid scale
+    by max |q| max |v| (Euclid twice, for its -2 dot), plus 4 ulps."""
+    import numpy as np
+
+    from otters_tpu_torch.ops import scoring as sc
+    from otters_tpu_torch.types import Metric
+
+    d = args[0].shape[1]
+    if mode == "K1":
+        return sc.mixed_cert_eps(d)
+    ulps = 4 * float(np.spacing(np.float32(float(want.abs().max()))))
+    if mode == "K2":
+        return ulps
+    base = d * 2.0**-24 if mode == "K3" else sc.high_precision_bound(d)
+    if metric is Metric.Cosine:
+        return base + ulps
+    scale = float(args[0].float().norm(dim=1).max()) * float(args[3].max().sqrt())
+    return base * scale * (2.0 if metric is Metric.Euclidean else 1.0) + ulps
+
+
+def compare_mode(mode, args, metric, take_min=False, cmp=None):
+    """Kernel vs plain on the same operands -> (max abs error, tolerance),
+    checked."""
     import torch
 
-    from otters_tpu_torch.ops import fused_topk as ft
-    from otters_tpu_torch.ops.scoring import mixed_cert_eps
-
-    got = ft.cert_cos_binmax(*args, cmp)
-    want = ft.cert_cos_binmax_plain(*args, cmp)
-    torch.cuda.synchronize()
+    got = launch(mode, args, metric, take_min, cmp)
+    want = plain(mode, args, metric, take_min, cmp)
+    sync(got.device)
     fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
-    assert torch.equal(fin_g, fin_w), "K1: -inf pattern differs from the plain version"
-    assert bool(fin_w.any()) and not bool(fin_w.all()), "K1: degenerate test pattern"
+    assert torch.equal(fin_g, fin_w), f"{mode}: -inf pattern differs from the plain version"
+    assert bool(fin_w.any()) and not bool(fin_w.all()), f"{mode}: degenerate test pattern"
     err = float((got[fin_w] - want[fin_w]).abs().max())
-    tol = mixed_cert_eps(args[0].shape[1])
-    assert err <= tol, f"K1: max |kernel - plain| = {err} > mixed_cert_eps = {tol}"
+    tol = mode_tol(mode, args, metric, want[fin_w])
+    assert err <= tol, f"{mode} {metric} {cmp}: max |kernel - plain| = {err} > {tol}"
     return err, tol
 
 
-def accumulation_error(args):
-    """Largest |kernel dot - float64 dot| / (|qh| |v|) over one unmasked row
-    per live bin: with unit norms and zero lanes K1's bin max is exactly the
-    accumulated dot of that row."""
+def one_row_per_bin(mode, args, salt):
+    """(live bins, one row of each, the operands that make each bin max
+    exactly that row's accumulated dot: unit norms, no lane, no filter, and
+    the Dot metric for K2 - K4)."""
     import torch
 
     from otters_tpu_torch.ops import fused_topk as ft
 
-    q, v, _, _, _, _, _, _, surv, n_surv = args
-    n_pad = v.shape[0]
+    q, v, surv, n_surv = args[0], args[1], args[-2], args[-1]
+    n_pad, dev, b = v.shape[0], q.device, q.shape[0]
     live = surv[: int(n_surv[0])].long()
-    worst = 0.0
+    rows = live * ft.BIN + (live * 37 + salt) % ft.BIN
+    rmask = torch.zeros(n_pad, device=dev)
+    rmask[rows] = 1.0
+    ones_n, ones_b = torch.ones(n_pad, device=dev), torch.ones(b, device=dev)
+    zero_n, zero_b, zero_1 = (torch.zeros(m, device=dev) for m in (n_pad, b, 1))
+    if mode == "K1":
+        ops = [q, v, ones_n, rmask, zero_n, ones_b, ones_b, zero_1, surv, n_surv]
+    else:
+        ops = [q, v, ones_n, ones_n, rmask, ones_b, zero_b, ones_b, zero_1, surv, n_surv]
+    return live, rows, ops
+
+
+def accumulation_error(mode, args):
+    """K1 / K3 / K4 dots against float64 over one unmasked row per live bin,
+    twice -> (worst |dot - ref| / (|q| |v|) with ref the float64 value of
+    what the mode computes: the exact dot for K1 (of its bf16 queries) and
+    K3, the sum of the three split products for K4; the same against the
+    exact dot)."""
+    from otters_tpu_torch.types import Metric
+
+    worst_ref = worst_true = 0.0
     for salt in (11, 301):
-        rows = live * ft.BIN + (live * 37 + salt) % ft.BIN
-        rmask = torch.zeros(n_pad, device=q.device)
-        rmask[rows] = 1.0
-        ones_b = torch.ones(q.shape[0], device=q.device)
-        out = ft.cert_cos_binmax(
-            q, v, torch.ones(n_pad, device=q.device), rmask,
-            torch.zeros(n_pad, device=q.device), ones_b, ones_b,
-            torch.zeros(1, device=q.device), surv, n_surv, None,
-        )
-        got = out[live].double()
-        vr = v[rows].double()
-        qd = q.double()
-        exact = vr @ qd.T
-        scale = vr.norm(dim=1)[:, None] * qd.norm(dim=1)[None, :]
+        live, rows, ops = one_row_per_bin(mode, args, salt)
+        got = launch(mode, ops, Metric.DotProduct)[live].double()  # [n_live, b]
+        q, vr = args[0], args[1][rows]
+        exact = vr.double() @ q.double().T
+        if mode == "K4":
+            qh, vh = q.bfloat16(), vr.bfloat16()
+            ql = (q - qh.float()).bfloat16().double()
+            vl = (vr - vh.float()).bfloat16().double()
+            qh, vh = qh.double(), vh.double()
+            ref = vh @ qh.T + vl @ qh.T + vh @ ql.T
+        else:
+            ref = exact
+        scale = vr.double().norm(dim=1)[:, None] * q.double().norm(dim=1)[None, :]
         nz = scale > 0
-        worst = max(worst, float(((got - exact).abs()[nz] / scale[nz]).max()))
-    return worst
+        worst_ref = max(worst_ref, float(((got - ref).abs()[nz] / scale[nz]).max()))
+        worst_true = max(worst_true, float(((got - exact).abs()[nz] / scale[nz]).max()))
+    return worst_ref, worst_true
 
 
 def kernel_phase(torch, dev):
-    """K1 vs plain at d = 768, b = 256, 2M rows, half the chunks dead."""
+    """Every kernel vs its plain version at d = 768, b = 256 and 70, 2M rows
+    with half the chunks dead: every metric, Gt / Lt / Eq filters, nothing
+    alive; K2's dots bit for bit; K1, K3 and K4 against float64 (K1 and K3
+    within d 2^-24, K4 within its bound's 4 d 2^-24 share) -> (worst error
+    over tolerance per kernel, accumulation errors)."""
     from otters_tpu_torch.ops import fused_topk as ft
     from otters_tpu_torch.ops import scoring as sc
-    from otters_tpu_torch.types import Cmp
+    from otters_tpu_torch.types import Cmp, Metric
 
-    n = 2_000_000
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    dv = sc.materialize_int8_slabs(
-        lambda s, r: torch.randn((r, D), generator=g, device=dev), n, D, SLAB, device=dev
-    )
-    n_chunks = -(-n // CHUNK)
-    chunk_mask = torch.arange(n_chunks, device=dev) % 2 == 1
+    n = KERNEL_ROWS
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    f32 = torch.zeros((sc.pad_rows(n), D), device=dev)
+    f32[:n] = torch.randn((n, D), generator=g, device=dev)
+    dv8 = sc.materialize_int8_slabs(lambda s, r: f32[s : s + r], n, D, SLAB, device=dev)
+    dvf = sc.materialize_f32_slabs(lambda s, r: f32[s : s + r], n, D, SLAB, device=dev)
+    del f32
+    chunk_mask = torch.arange(-(-n // CHUNK), device=dev) % 2 == 1
     queries = torch.randn((B, D), generator=g, device=dev)
-    args = k1_inputs(dv, queries, chunk_mask)
-    err, tol = compare_k1(args)
-    log(f"K1 vs plain (2M rows, b={B}, no filter): max_abs_err={err:.3e} tol={tol:.3e}")
-    # a score filter, a batch that is not a whole number of query blocks
-    args70 = k1_inputs(dv, queries[:70].contiguous(), chunk_mask)
-    args70[7] = torch.full((1,), 0.05, device=dev)
-    err70, _ = compare_k1(args70, Cmp.Gt)
-    log(f"K1 vs plain (b=70, Gt 0.05): max_abs_err={err70:.3e}")
+    ratio = dict.fromkeys(ft.KERNELS, 0.0)
+    cases = [
+        ("K1", dv8, Metric.Cosine, False, None, 0.0, B),
+        ("K1", dv8, Metric.Cosine, False, Cmp.Gt, 0.05, 70),
+        ("K2", dv8, Metric.Cosine, False, None, 0.0, B),
+        ("K2", dv8, Metric.Cosine, False, Cmp.Gt, 0.05, 70),
+        ("K2", dv8, Metric.Cosine, True, Cmp.Lte, -0.05, B),
+        ("K3", dvf, Metric.Cosine, False, Cmp.Gte, 0.05, B),
+        ("K3", dvf, Metric.DotProduct, False, None, 0.0, 70),
+        ("K3", dvf, Metric.Euclidean, True, Cmp.Lt, 1450.0, B),
+        ("K4", dvf, Metric.Cosine, False, None, 0.0, B),
+        ("K4", dvf, Metric.DotProduct, False, Cmp.Gt, 2.0, 70),
+        ("K4", dvf, Metric.Euclidean, True, None, 0.0, B),
+    ]
+    for mode, dv, metric, take_min, cmp, thr, b in cases:
+        args = mode_inputs(mode, dv, queries[:b], chunk_mask, thr)
+        err, tol = compare_mode(mode, args, metric, take_min, cmp)
+        ratio[mode] = max(ratio[mode], err / tol)
+        log(f"{mode} vs plain ({n} rows, b={b}, {metric.value}"
+            f"{' take-min' if take_min else ''}, {cmp.value if cmp else 'no'} filter): "
+            f"max_abs_err={err:.3e} tol={tol:.3e} err/tol={err / tol:.3f}")
+    # Eq needs scores that both versions compute exactly: integer rows and
+    # queries, Dot metric
+    ni = 200_000
+    ints = torch.zeros((sc.pad_rows(ni), D), device=dev)
+    ints[:ni] = torch.randint(-2, 3, (ni, D), generator=g, device=dev).float()
+    dvi = sc.materialize_f32_slabs(lambda s, r: ints[s : s + r], ni, D, SLAB, device=dev)
+    qi = torch.randint(-2, 3, (64, D), generator=g, device=dev).float()
+    thr = float(qi[0] @ ints[777])
+    args = mode_inputs("K3", dvi, qi, torch.arange(-(-ni // CHUNK), device=dev) % 2 == 1, thr)
+    err, tol = compare_mode("K3", args, Metric.DotProduct, False, Cmp.Eq)
+    ratio["K3"] = max(ratio["K3"], err / tol)
+    log(f"K3 vs plain ({ni} integer rows, b=64, dot_product, Eq {thr}): max_abs_err={err:.3e} "
+        f"tol={tol:.3e} err/tol={err / tol:.3f}")
+    del ints, dvi, args
     # nothing alive: every block returns at once
-    none_alive = list(args)
-    none_alive[8], none_alive[9] = ft.survivor_bins(
-        torch.zeros(dv.vectors.shape[0] // ft.BIN, dtype=torch.bool, device=dev)
-    )
-    out0 = ft.cert_cos_binmax(*none_alive)
-    torch.cuda.synchronize()
-    assert bool(torch.isneginf(out0).all()), "K1: n_surv = 0 must leave every bin -inf"
-    acc = accumulation_error(args)
+    for mode, dv in (("K1", dv8), ("K2", dv8), ("K3", dvf), ("K4", dvf)):
+        args = mode_inputs(mode, dv, queries, torch.zeros_like(chunk_mask))
+        out0 = launch(mode, args, Metric.Cosine)
+        sync(dev)
+        assert bool(torch.isneginf(out0).all()), f"{mode}: n_surv = 0 must leave every bin -inf"
+    # K2's int32 dots are those of an exact integer product, bit for bit
+    args = mode_inputs("K2", dv8, queries, chunk_mask)
+    live, rows, ops = one_row_per_bin("K2", args, 11)
+    got = launch("K2", ops, Metric.DotProduct)[live].double()
+    exact = dv8.vectors[rows].double() @ args[0].double().T  # |dot| < 2^53: exact
+    assert torch.equal(got, exact), "K2: int32 dots differ from the exact integer product"
+    log(f"K2 dots: {got.numel()} equal to the exact integer product bit for bit")
+    acc = {}
     gamma = D * 2.0**-24
-    log(f"K1 accumulation error: max |dot - f64| / (|qh||v|) = {acc:.3e}  "
-        f"(d*2^-24 = {gamma:.3e}, mixed_cert_eps = {sc.mixed_cert_eps(D):.3e})")
-    assert acc <= gamma, "K1 accumulation error exceeds the certificate's d*2^-24 share"
-    del dv, args, args70, none_alive
+    for mode, dv in (("K1", dv8), ("K3", dvf), ("K4", dvf)):
+        args = mode_inputs(mode, dv, queries, chunk_mask)
+        ref_err, true_err = accumulation_error(mode, args)
+        acc[mode] = ref_err
+        if mode == "K4":
+            lim, hpb = 4 * gamma, sc.high_precision_bound(D)
+            log(f"K4 accumulation error: max |dot - f64(split products)| / (|q||v|) = "
+                f"{ref_err:.3e} (the bound's 4*d*2^-24 share = {lim:.3e}); vs the exact "
+                f"dot {true_err:.3e} (high_precision_bound = {hpb:.3e})")
+            assert ref_err <= lim, "K4 accumulation error exceeds the bound's 4*d*2^-24 share"
+            assert true_err <= hpb, "K4 error exceeds high_precision_bound(d)"
+        else:
+            log(f"{mode} accumulation error: max |dot - f64| / (|q||v|) = {ref_err:.3e} "
+                f"(d*2^-24 = {gamma:.3e})")
+            assert ref_err <= gamma, f"{mode} accumulation error exceeds d*2^-24"
+    del dv8, dvf, args, ops
     torch.cuda.empty_cache()
-    return acc
+    return ratio, acc
+
+
+def exact_topk(torch, vectors, n, queries, metric, k, *, take_min=False, row_ok=None):
+    """The exact global top-k over every (query, row) pair of ``vectors[:n]``,
+    the port's score formulas in full f32 (TF32 off) with the row norms
+    taken from the rows, slab by slab -> (rows, scores), best first.
+    ``row_ok(rows)`` masks rows out (the filter); an int8 store's dots are
+    exact in f32 (|dot| < 2^24)."""
+    from otters_tpu_torch.ops import fused_topk as ft
+    from otters_tpu_torch.ops import scoring as sc
+
+    q = queries.float()
+    q_sq, q_inv = sc._query_norms(q)
+    keys, rows, scores = [], [], []
+    for s in range(0, n, SLAB):
+        e = min(n, s + SLAB)
+        v = vectors[s:e].float()
+        nsq, inv = sc._query_norms(v)
+        sc_ = ft._scores(q @ v.T, q_inv[:, None], q_sq[:, None], inv[None, :], nsq[None, :],
+                         metric)
+        key = -sc_ if take_min else sc_
+        if row_ok is not None:
+            key = torch.where(row_ok(torch.arange(s, e, device=q.device))[None, :], key,
+                              float("-inf"))
+        top = torch.topk(key.reshape(-1), min(k, key.numel()))
+        keys.append(top.values)
+        rows.append(top.indices % (e - s) + s)
+        scores.append(sc_.reshape(-1)[top.indices])
+    top = torch.topk(torch.cat(keys), k)
+    return torch.cat(rows)[top.indices].tolist(), torch.cat(scores)[top.indices].tolist()
+
+
+def odd_chunks(rows):
+    """The rows the bench's filter keeps (its columns fail on even chunks)."""
+    return (rows // CHUNK) % 2 == 1
+
+
+
+
+def score_tol(metric, queries, dv):
+    """Two f32 sums of one dot in other orders differ by <= 2 d 2^-24 |q| |v|
+    (Cosine: |q| |v| = 1 after the norms), plus the epilogue's ulps."""
+    from otters_tpu_torch.types import Metric
+
+    scale = 1.0
+    if metric is not Metric.Cosine:
+        scale = float(queries.float().norm(dim=1).max()) * float(dv.norms_sq.max().sqrt())
+        scale *= 2.0 if metric is Metric.Euclidean else 1.0
+    return 2 * D * 2.0**-24 * scale
+
+
+def check_topk(label, rows, scores, want_rows, want_scores, tol):
+    """The port's top-k equals the exact truth: the same rows (a multiset: a
+    row can win for two queries) except where a row ties the k-th score
+    within ``tol`` (two f32 sums of one dot may round apart), and the scores
+    rank for rank within ``tol``. -> (boundary ties, max score error)."""
+    from collections import Counter
+
+    assert len(rows) == len(want_rows), f"{label}: {len(rows)} results, truth {len(want_rows)}"
+    kth = want_scores[-1]
+    got_s, want_s = dict(zip(rows, scores)), dict(zip(want_rows, want_scores))
+    got_c, want_c = Counter(rows), Counter(want_rows)
+    diff = list(((got_c - want_c) + (want_c - got_c)).elements())
+    for r in diff:
+        s = got_s[r] if r in got_s else want_s[r]
+        assert abs(s - kth) <= tol, (
+            f"{label}: row {r} (score {s}) is not in both top-k; the k-th truth score is {kth}"
+        )
+    err = max(abs(a - b) for a, b in zip(sorted(scores), sorted(want_scores)))
+    assert err <= tol, f"{label}: scores differ from the truth by {err} > {tol}"
+    return len(diff), err
+
+
+def counts():
+    from otters_tpu_torch.ops import fused_topk as ft
+
+    return {m: fn.launches for m, fn in ft.KERNELS.items()}
 
 
 def price_version_columns(n):
@@ -223,28 +447,6 @@ def price_version_columns(n):
         Column("price", DataType.Float64).from_values(price),
         Column("version", DataType.Int32).from_values(version),
     ]
-
-
-def ground_truth(f32, n, queries, k=K):
-    """Exact f32 filtered (odd chunks) global top-k of one batch, in slabs."""
-    import torch
-
-    qn = queries / queries.norm(dim=1, keepdim=True)
-    best_s = torch.empty(0, device=f32.device)
-    best_r = torch.empty(0, dtype=torch.int64, device=f32.device)
-    for s in range(0, n, SLAB):
-        rows = torch.arange(s, min(n, s + SLAB), device=f32.device)
-        keep = rows[(rows // CHUNK) % 2 == 1]
-        if keep.numel() == 0:
-            continue
-        v = f32[keep]
-        vn = v / v.norm(dim=1, keepdim=True)
-        scores = (qn @ vn.T).reshape(-1)
-        top = torch.topk(scores, min(k, scores.numel()))
-        best_s = torch.cat([best_s, top.values])
-        best_r = torch.cat([best_r, keep[top.indices % keep.numel()]])
-    top = torch.topk(best_s, k)
-    return best_r[top.indices].tolist(), top.values.tolist()
 
 
 def main_path(torch, dev, n, card=""):
@@ -285,12 +487,9 @@ def main_path(torch, dev, n, card=""):
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.2f} s, chunks={store.n_chunks()}")
 
-    def flt():
-        return tx.col("price").lt(50.0) & tx.col("version").gte(2)
-
     def pending(q):
         return (
-            store.query_batch(q, tx.Metric.Cosine).meta_filter(flt())
+            store.query_batch(q, tx.Metric.Cosine).meta_filter(bench_filter())
             .take(K, rerank_from=K_WIDE).collect_async()
         )
 
@@ -325,8 +524,11 @@ def main_path(torch, dev, n, card=""):
         assert st.pruned_chunks == (store.n_chunks() + 1) // 2, f"batch {i}: {st}"
     small_res = pending(small).result()
     checked = 0
+    truths = []
     for q, res in list(zip(batches, results)) + [(small, small_res)]:
-        gt_rows, gt_scores = ground_truth(f32, n, q)
+        gt_rows, gt_scores = exact_topk(torch, f32, n, q, tx.Metric.Cosine, K,
+                                        row_ok=odd_chunks)
+        truths.append(gt_rows)
         assert sorted(res.indices) == sorted(gt_rows), (res.indices, gt_rows)
         want = dict(zip(gt_rows, gt_scores))
         err = max(abs(s - want[r]) for r, s in zip(res.indices, res.scores))
@@ -338,7 +540,132 @@ def main_path(torch, dev, n, card=""):
         profile_batches(torch, pending, batches)
     stats = {"qps": qps, "build_s": build_s, "synth_s": synth_s,
              "launches": launches, "scan_k_wide": pend[-1].stats().scan_k_wide}
-    return store, f32, batches[0], stats
+    return store, f32, batches, truths[:BATCHES], stats
+
+
+def bench_filter():
+    import otters_tpu_torch as tx
+
+    return tx.col("price").lt(50.0) & tx.col("version").gte(2)
+
+
+def uncert_path(torch, store, batches, truths):
+    """bench.py's ``filtered_uncert`` on the 10M int8 store: the same filter
+    and batches, ``take(10, rerank_from=100, certify=False)``, so the scan
+    is K2 (int8 queries x int8 rows, exact int32 dots) and the rerank exact
+    f32. Recall@10 against the f32 truth is reported, not promised."""
+    import otters_tpu_torch as tx
+
+    def pending(q):
+        return (
+            store.query_batch(q, tx.Metric.Cosine).meta_filter(bench_filter())
+            .take(K, rerank_from=K_WIDE, certify=False).collect_async()
+        )
+
+    tx.resolve([pending(batches[-1])])  # warm-up
+    from otters_tpu_torch.ops import fused_topk as ft
+
+    ft.reset_launches()
+    sync(batches[0].device)
+    t0 = time.perf_counter()
+    pend = [pending(q) for q in batches]
+    results = tx.resolve(pend)
+    sync(batches[0].device)
+    elapsed = time.perf_counter() - t0
+    launched = counts()
+    qps = len(batches) * B / elapsed
+    hits = [len(set(res.indices) & set(gt)) / K for res, gt in zip(results, truths)]
+    recall = sum(hits) / len(hits)
+    log(f"filtered_uncert: {len(batches)} pipelined batches of {B} in {elapsed:.3f} s = "
+        f"{qps:.1f} q/s; launches {launched}; recall@{K} vs the f32 truth {recall:.4f} "
+        f"(per batch {hits})")
+    for i, p in enumerate(pend):
+        st = p.stats()
+        assert st.certified is None, f"batch {i}: an uncertified query reports {st.certified}"
+        assert st.pruned_chunks == (store.n_chunks() + 1) // 2, f"batch {i}: {st}"
+        assert len(results[i]) == K
+    if batches[0].device.type == "cuda":
+        assert launched["K2"] >= len(batches) and launched["K1"] == 0, launched
+    assert recall > 0.5, f"filtered_uncert recall@{K} = {recall}"
+    return {"qps": qps, "launches": launched["K2"], "recall": recall}
+
+
+def library_fn(torch, mode, q, v_live, n_live):
+    """One PyTorch call (plus a bin max) for the same function: the
+    yardstick; the port never calls it. K1: a bf16 matmul on rows cast
+    beforehand; K2: ``torch._int_mm``; K3: an f32 matmul, TF32 off; K4:
+    three bf16 matmuls on planes split beforehand."""
+    from otters_tpu_torch.ops import fused_topk as ft
+
+    b = q.shape[0]
+
+    def binmax(x):
+        return x.reshape(b, n_live, ft.BIN).amax(dim=2)
+
+    if mode == "K1":
+        vb = v_live.bfloat16()
+        return lambda: binmax(torch.matmul(q, vb.T))
+    if mode == "K2":
+        return lambda: binmax(torch._int_mm(q, v_live.T))
+    if mode == "K3":
+        return lambda: binmax(torch.matmul(q, v_live.T))
+    qh, vh = q.bfloat16(), v_live.bfloat16()
+    ql, vl = (q - qh.float()).bfloat16(), (v_live - vh.float()).bfloat16()
+    return lambda: binmax(
+        torch.matmul(qh, vh.T) + torch.matmul(qh, vl.T) + torch.matmul(ql, vh.T)
+    )
+
+
+def cosine_bound(mode, n_live, b, v_elt, q_elt):
+    """-> (bound ms, "bytes" or "operations", bytes, operations) for one
+    Cosine call over ``n_live`` live bins. The function must read each live
+    row once with its inv and rmask (K1: and its lane), each query with its
+    q_inv and q_ok, thr and the live part of the survivor list with its
+    count, and write the live bins' maxima once (the dead bins' -inf is the
+    wrapper's fill, not the function's work). K4 does three products."""
+    from otters_tpu_torch.ops import fused_topk as ft
+
+    live_rows = n_live * ft.BIN
+    row_bytes = D * v_elt + (12 if mode == "K1" else 8)
+    bytes_moved = (live_rows * row_bytes + b * (D * q_elt + 8) + 4
+                   + n_live * 4 + 4 + n_live * b * 4)
+    ops = 2.0 * b * D * live_rows * (3 if mode == "K4" else 1)
+    peak = {"K1": PEAK_BF16_FLOPS, "K2": PEAK_INT8_OPS, "K3": PEAK_F32_FLOPS,
+            "K4": PEAK_BF16_FLOPS}[mode]
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_S, ops / peak
+    return (max(t_bytes, t_ops) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            bytes_moved, ops)
+
+
+def time_mode(torch, mode, dv, queries, n_chunks):
+    """A kernel at a path's shapes (Cosine, half the chunks dead): held
+    against plain, then timed beside plain, the yardstick and the bound."""
+    from otters_tpu_torch.ops import fused_topk as ft
+    from otters_tpu_torch.types import Metric
+
+    chunk_mask = torch.arange(n_chunks, device=queries.device) % 2 == 1
+    args = mode_inputs(mode, dv, queries, chunk_mask)
+    err, tol = compare_mode(mode, args, Metric.Cosine)
+    n_live = int(args[-1][0])
+    live_rows = n_live * ft.BIN
+    kernel_ms = time_ms(lambda: launch(mode, args, Metric.Cosine), reps=10)
+    plain_ms = time_ms(lambda: plain(mode, args, Metric.Cosine), reps=3, warm=1)
+    live = args[-2][:n_live].long()
+    rows = (live[:, None] * ft.BIN + torch.arange(ft.BIN, device=live.device)).reshape(-1)
+    v_live = dv.vectors[rows]
+    library_ms = time_ms(library_fn(torch, mode, args[0], v_live, n_live), reps=10)
+    del v_live
+    torch.cuda.empty_cache()
+    bound_ms, bound_by, bytes_moved, ops = cosine_bound(
+        mode, n_live, args[0].shape[0], dv.vectors.element_size(), args[0].element_size()
+    )
+    log(f"{mode} at the path's shapes: live rows {live_rows}, kernel {kernel_ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({bound_by}: {bytes_moved / 1e9:.3f} GB, {ops / 1e12:.3f} T ops), "
+        f"max_abs_err {err:.3e} (tol {tol:.3e})")
+    return dict(max_abs_err=err, tol=tol, ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                live_rows=live_rows)
 
 
 def profile_batches(torch, pending, batches):
@@ -359,46 +686,6 @@ def profile_batches(torch, pending, batches):
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of wall)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<5d} {e.key[:90]}")
-
-
-def time_k1(torch, store, queries):
-    """K1, its plain version and a library yardstick at the main path's
-    shapes, and the bound for the same work."""
-    from otters_tpu_torch.ops import fused_topk as ft
-
-    dv = store._dv
-    n_chunks = store.n_chunks()
-    chunk_mask = torch.arange(n_chunks, device=queries.device) % 2 == 1
-    args = k1_inputs(dv, queries, chunk_mask)
-    err, tol = compare_k1(args)
-    n_live = int(args[9][0])
-    live_rows = n_live * ft.BIN
-    kernel_ms = time_ms(lambda: ft.cert_cos_binmax(*args))
-    plain_ms = time_ms(lambda: ft.cert_cos_binmax_plain(*args), reps=20, warm=1)
-    # yardstick: one bf16 matmul of the queries against the live rows (cast
-    # to bf16 beforehand) plus a max over 512-row bins; the port never uses it
-    live = args[8][:n_live].long()
-    rows = (live[:, None] * ft.BIN + torch.arange(ft.BIN, device=live.device)).reshape(-1)
-    v_bf16 = dv.vectors[rows].to(torch.bfloat16)
-    q_bf16 = args[0]
-    library_ms = time_ms(
-        lambda: torch.matmul(q_bf16, v_bf16.T).reshape(B, n_live, ft.BIN).amax(dim=2)
-    )
-    del v_bf16
-    n_bins = dv.vectors.shape[0] // ft.BIN
-    bytes_moved = (live_rows * D + live_rows * 12 + B * D * 2 + B * 8 + 4
-                   + n_bins * 4 + n_bins * B * 4)
-    ops = 2.0 * B * D * live_rows
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_S, ops / PEAK_BF16_FLOPS
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    log(f"K1 at the main path: live rows {live_rows}, kernel {kernel_ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
-        f"({'operations' if t_ops >= t_bytes else 'bytes'}), max_abs_err {err:.3e}")
-    return dict(
-        max_abs_err=err, tol=tol, ms=kernel_ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=bound_ms,
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-    )
 
 
 def widen_phase(torch, dev):
@@ -440,10 +727,8 @@ def widen_phase(torch, dev):
     res = p.result()
     st = p.stats()
     launches = ft.cert_cos_binmax.launches - before
-    qn = queries / queries.norm(dim=1, keepdim=True)
-    vn = f32[:n] / f32[:n].norm(dim=1, keepdim=True)
-    top = torch.topk((qn @ vn.T).reshape(-1), K)
-    truth = dict(zip((top.indices % n).tolist(), top.values.tolist()))
+    rows, scores = exact_topk(torch, f32, n, queries, tx.Metric.Cosine, K)
+    truth = dict(zip(rows, scores))
     err = max(abs(sv - truth.get(r, float("inf"))) for r, sv in zip(res.indices, res.scores))
     log(f"near-ties: certified={st.certified} scan_k_wide={st.scan_k_wide} "
         f"K1 launches={launches}; top-{K} vs f32 truth: max score diff {err:.2e}")
@@ -451,6 +736,214 @@ def widen_phase(torch, dev):
     if dev.type == "cuda":
         assert launches >= 2, "the widen loop should rescan on the fused kernel"
     assert sorted(res.indices) == sorted(truth) and err <= 1e-5, (res.indices, truth)
+
+
+def f32_path(torch, dev, card=""):
+    """bench.py's exact-f32 section (4M x 768, bench.py:678-737) on the port:
+    a store built on the device slab by slab, the bench's columns and
+    filter, pipelined ``take(10)`` batches of 256 Cosine queries. The scan
+    is the verified fast-exact K4 and every check must pass (no K3 rerun);
+    every top-10 equals the exact f32 truth. Then one batch each of Dot and
+    Euclid (take-min), and a profiled round."""
+    import otters_tpu_torch as tx
+    from otters_tpu_torch.ops import fused_topk as ft
+    from otters_tpu_torch.ops import scoring as sc
+
+    n = F32_ROWS
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    t0 = time.perf_counter()
+    dv = sc.materialize_f32_slabs(
+        lambda s, r: torch.randn((r, D), generator=g, device=dev), n, D, SLAB, device=dev
+    )
+    sync(dev)
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = (
+        tx.MetaStore.from_columns(price_version_columns(n))
+        .with_vectors(dv, n_rows=n).with_chunk_size(CHUNK).with_device(dev).build()
+    )
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    log(f"{n} x {D} f32 store ({dv.vectors.nbytes / 1e9:.1f} GB): synthesis "
+        f"{synth_s:.2f} s, build {build_s:.2f} s, chunks={store.n_chunks()}")
+
+    def pending(q, metric=tx.Metric.Cosine):
+        return store.query_batch(q, metric).meta_filter(bench_filter()).take(K).collect_async()
+
+    batches = [torch.randn((B, D), generator=g, device=dev) for _ in range(BATCHES)]
+    t0 = time.perf_counter()
+    tx.resolve([pending(torch.randn((B, D), generator=g, device=dev))])
+    log(f"warm-up batch: {time.perf_counter() - t0:.2f} s")
+    ft.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    pend = [pending(q) for q in batches]
+    results = tx.resolve(pend)
+    sync(dev)
+    elapsed = time.perf_counter() - t0
+    launched = counts()
+    qps = BATCHES * B / elapsed
+    log(f"f32 path: {BATCHES} pipelined batches of {B} in {elapsed:.3f} s = {qps:.1f} q/s "
+        f"on {card}; launches {launched}")
+    if dev.type == "cuda":
+        # K4 scanned every batch and no check failed (a failure reruns K3)
+        assert launched["K4"] >= BATCHES and launched["K3"] == 0, launched
+    for i, p in enumerate(pend):
+        assert p.stats().pruned_chunks == (store.n_chunks() + 1) // 2, p.stats()
+    tol = score_tol(tx.Metric.Cosine, batches[0], dv)
+    ties, worst = 0, 0.0
+    for i, (q, res) in enumerate(zip(batches, results)):
+        want = exact_topk(torch, dv.vectors, n, q, tx.Metric.Cosine, K, row_ok=odd_chunks)
+        t, e = check_topk(f"f32 batch {i}", res.indices, res.scores, *want, tol)
+        ties, worst = ties + t, max(worst, e)
+    log(f"exact f32 truth: top-{K} equal for {BATCHES} batches of {B} "
+        f"(max score diff {worst:.2e}, tol {tol:.2e}, boundary ties {ties})")
+    for metric in (tx.Metric.DotProduct, tx.Metric.Euclidean):
+        q = torch.randn((B, D), generator=g, device=dev)
+        ft.reset_launches()
+        res = pending(q, metric).result()
+        launched_m = counts()
+        if dev.type == "cuda":
+            assert launched_m["K4"] >= 1 and launched_m["K3"] == 0, (metric, launched_m)
+        tol_m = score_tol(metric, q, dv)
+        want = exact_topk(torch, dv.vectors, n, q, metric, K,
+                          take_min=metric is tx.Metric.Euclidean, row_ok=odd_chunks)
+        t, e = check_topk(f"f32 {metric.value}", res.indices, res.scores, *want, tol_m)
+        log(f"f32 {metric.value}{' (take-min)' if metric is tx.Metric.Euclidean else ''}: "
+            f"top-{K} equal to the exact truth (max score diff {e:.2e}, tol {tol_m:.2e}, "
+            f"boundary ties {t}); launches {launched_m}")
+    if dev.type == "cuda":
+        profile_batches(torch, pending, batches)
+    stats = {"qps": qps, "launches": launched["K4"], "synth_s": synth_s, "build_s": build_s}
+    return store, dv, batches[0], stats
+
+
+def near_tie_path(torch, dev):
+    """A store where the fast check must fail, through the public API: the
+    top row of query 0 is copied into N_DUP > 4k bins, so the fast mode's
+    candidate bins cannot hold every tie and its check fails; K3 reruns and
+    the answer is the lowest-index copies. Then a Dot ``vec_filter(Eq)`` and
+    a ``take(200)``, which go to K3 directly. Rows and queries are small
+    integers so Eq sees exact scores."""
+    import numpy as np
+
+    import otters_tpu_torch as tx
+    from otters_tpu_torch.ops import fused_topk as ft
+    from otters_tpu_torch.ops import scoring as sc
+
+    n = NEAR_ROWS
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    u = torch.randint(-3, 4, (D,), generator=g, device=dev).float()
+    step = (n // ft.BIN) // N_DUP
+    dup_rows = torch.arange(N_DUP, device=dev) * step * ft.BIN + 200
+
+    def slab(s, r):
+        x = torch.randint(-3, 4, (r, D), generator=g, device=dev).float()
+        inside = dup_rows[(dup_rows >= s) & (dup_rows < s + r)]
+        x[inside - s] = u
+        return x
+
+    dv = sc.materialize_f32_slabs(slab, n, D, SLAB, device=dev)
+    store = (
+        tx.MetaStore.from_columns([tx.Column("id", tx.DataType.Int64).from_values(np.arange(n))])
+        .with_vectors(dv, n_rows=n).with_device(dev).build()
+    )
+    queries = torch.cat([u[None, :], torch.randint(-3, 4, (7, D), generator=g, device=dev).float()])
+    on_card = dev.type == "cuda"
+
+    ft.reset_launches()
+    res = store.query_batch(queries, tx.Metric.Cosine).take(K).collect()
+    near = counts()
+    want = exact_topk(torch, dv.vectors, n, queries, tx.Metric.Cosine, K)
+    check_topk("near-ties", res.indices, res.scores, *want,
+               score_tol(tx.Metric.Cosine, queries, dv))
+    assert sorted(res.indices) == dup_rows[:K].tolist(), (res.indices, dup_rows[:K].tolist())
+    if on_card:
+        assert near["K4"] >= 1 and near["K3"] >= 1, near
+    log(f"near-ties ({N_DUP} copies of query 0's top row, {n} x {D}): the check failed and "
+        f"K3 reran; top-{K} = the {K} lowest-index copies, as the truth; launches {near}")
+
+    # Dot with an Eq score filter: exact integer scores; the answer is the
+    # matching pairs in slot order (bin, query, row), the first k of them
+    thr = float(queries[1] @ dv.vectors[4321])
+    ft.reset_launches()
+    res = (store.query_batch(queries, tx.Metric.DotProduct).vec_filter(thr, tx.Cmp.Eq)
+           .take(K).collect())
+    eq = counts()
+    dots = queries @ dv.vectors[:n].T
+    qi, ri = torch.nonzero(dots == thr, as_tuple=True)
+    order = sorted(zip((ri // ft.BIN).tolist(), qi.tolist(), ri.tolist()))
+    want_rows = [r for _, _, r in order[:K]]
+    assert sorted(res.indices) == sorted(want_rows), (res.indices, want_rows)
+    assert all(s == thr for s in res.scores), res.scores
+    if on_card:
+        assert eq["K3"] >= 1 and eq["K4"] == 0, eq
+    log(f"Dot vec_filter(Eq {thr}): {len(order)} matching pairs, top-{K} equal to the "
+        f"truth; launches {eq}")
+
+    # k > 128: no fast mode
+    ft.reset_launches()
+    res = store.query_batch(queries, tx.Metric.Cosine).take(200).collect()
+    wide = counts()
+    want = exact_topk(torch, dv.vectors, n, queries, tx.Metric.Cosine, 200)
+    t, e = check_topk("take(200)", res.indices, res.scores, *want,
+                      score_tol(tx.Metric.Cosine, queries, dv))
+    if on_card:
+        assert wide["K3"] >= 1 and wide["K4"] == 0, wide
+    log(f"take(200): equal to the exact truth (max score diff {e:.2e}, boundary ties {t}); "
+        f"launches {wide}")
+    return {"launches": near["K3"]}
+
+
+def vecstore_path(torch, dev):
+    """VecStore at 1M x 768: 256 Cosine queries, ``take(10)``. f32 storage
+    runs K4 with its check (no K3 rerun) and equals the exact f32 truth;
+    int8 storage runs K2 and equals the exact top-10 of its quantized
+    scores (recall@10 against the f32 truth is reported)."""
+    import otters_tpu_torch as tx
+    from otters_tpu_torch.ops import fused_topk as ft
+    from otters_tpu_torch.ops import scoring as sc
+
+    n = VEC_ROWS
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    host = torch.randn((n, D), generator=g, device=dev).cpu().numpy()
+    queries = torch.randn((B, D), generator=g, device=dev)
+    q_np = queries.cpu().numpy()
+    out, f32_truth = {}, None
+    for dtype, mode in (("float32", "K4"), ("int8", "K2")):
+        store = tx.VecStore(D, dtype=dtype, device=dev)
+        store.add_vectors(host)
+        t0 = time.perf_counter()
+        dv = store.device()
+        sync(dev)
+        upload_s = time.perf_counter() - t0
+        ft.reset_launches()
+        t0 = time.perf_counter()
+        res = store.query(q_np, tx.Metric.Cosine).take(K).collect()
+        query_s = time.perf_counter() - t0
+        launched = counts()
+        rows, scores = [r.index for r in res], [r.score for r in res]
+        if dtype == "float32":
+            q_truth = queries
+        else:
+            q_truth = sc._quantize_rows_int8(queries)[0].float()
+        want = exact_topk(torch, dv.vectors, n, q_truth, tx.Metric.Cosine, K)
+        t, e = check_topk(f"VecStore {dtype}", rows, scores, *want,
+                          score_tol(tx.Metric.Cosine, q_truth, dv))
+        if dtype == "float32":
+            f32_truth = want[0]
+        recall = len(set(rows) & set(f32_truth)) / K
+        if dev.type == "cuda":
+            assert launched[mode] >= 1, launched
+            if mode == "K4":
+                assert launched["K3"] == 0, launched
+        log(f"VecStore {dtype} ({n} x {D}, upload {upload_s:.2f} s): {B} queries take({K}) "
+            f"in {query_s:.3f} s, equal to the exact truth of its storage (max score diff "
+            f"{e:.2e}, boundary ties {t}); recall@{K} vs f32 {recall:.2f}; launches {launched}")
+        out[mode] = launched[mode]
+        del store, dv
+        torch.cuda.empty_cache()
+    return out
 
 
 def demo_phase():
@@ -498,38 +991,67 @@ def main() -> int:
         log(card)
     with phase("2 build"):
         t0 = time.perf_counter()
-        kernels.build(["cert_cos_binmax"])
-        log(f"nvcc build of cert_cos_binmax.cu: {time.perf_counter() - t0:.2f} s")
+        kernels.build(kernels.SOURCES)
+        log(f"nvcc build of {', '.join(s + '.cu' for s in kernels.SOURCES)} (in parallel): "
+            f"{time.perf_counter() - t0:.2f} s")
         for name, text in kernels.build_logs.items():
             log(f"[{name}] {text.strip()}")
-    with phase("3 kernel (K1 vs plain, accumulation error)"):
-        acc = kernel_phase(torch, dev)
+    with phase("3 kernels vs plain (K1, K2, K3, K4), accumulation errors"):
+        err_ratio, acc = kernel_phase(torch, dev)
     with phase(f"4 main path ({ROWS} x {D})"):
-        store, f32, q0, stats = main_path(torch, dev, ROWS, card)
+        ft.reset_launches()
+        store, f32, batches, truths, stats = main_path(torch, dev, ROWS, card)
+    with phase("4u filtered_uncert on the same store (K2)"):
+        uncert = uncert_path(torch, store, batches, truths)
         del f32
         torch.cuda.empty_cache()
-        timing = time_k1(torch, store, q0)
-        del store
+        timing = {m: time_mode(torch, m, store._dv, batches[0], store.n_chunks())
+                  for m in ("K1", "K2")}
+        del store, batches
         torch.cuda.empty_cache()
     with phase("4b certificate widening on adversarial near-ties"):
         widen_phase(torch, dev)
         torch.cuda.empty_cache()
     with phase("5 demo twin"):
         demo_phase()
+    with phase(f"6 exact f32 path ({F32_ROWS} x {D}, K4 fast-exact)"):
+        store, dv, q0, f32_stats = f32_path(torch, dev, card)
+        for m in ("K4", "K3"):
+            timing[m] = time_mode(torch, m, dv, q0, store.n_chunks())
+        del store, dv
+        torch.cuda.empty_cache()
+    with phase(f"6b failed fast check, Eq and take(200) ({NEAR_ROWS} x {D}, K3)"):
+        near = near_tie_path(torch, dev)
+        torch.cuda.empty_cache()
+    with phase(f"7 VecStore ({VEC_ROWS} x {D}, f32 K4 and int8 K2)"):
+        vec = vecstore_path(torch, dev)
 
-    entry = {
-        "name": "cert_cos_binmax",
-        "route": "cuda",
-        "source": "otters_tpu_torch/csrc/cert_cos_binmax.cu",
-        "replaces": "otters_tpu/ops/pallas_topk.py:123 (_kernel[certify,cert_cos])",
-        "launches": stats["launches"],
-        **timing,
-        "kernel_ms": timing["ms"],
-        "accumulation_rel_err": acc,
-        "main_path_qps": stats["qps"],
-        "main_path_rows": ROWS,
-    }
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    modes = [
+        ("K1", "cert_cos_binmax", ":123 (_kernel[certify,cert_cos])", stats["launches"],
+         {"path": f"certified main path {ROWS} x {D}", "path_qps": stats["qps"]}),
+        ("K2", "int8_binmax", ":149 (_kernel[int8, uncertified])", uncert["launches"],
+         {"path": f"filtered_uncert {ROWS} x {D}", "path_qps": uncert["qps"],
+          "recall_at_10": uncert["recall"], "vecstore_launches": vec["K2"]}),
+        ("K3", "f32_binmax", ":182 (_kernel[prec=highest])", near["launches"],
+         {"path": f"near-tie strict rerun {NEAR_ROWS} x {D}"}),
+        ("K4", "bf16x3_binmax", ":168 (_kernel[prec=high, fast])", f32_stats["launches"],
+         {"path": f"exact f32 {F32_ROWS} x {D}", "path_qps": f32_stats["qps"],
+          "vecstore_launches": vec["K4"]}),
+    ]
+    entries = []
+    for mode, name, line, launches, extra in modes:
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"otters_tpu_torch/csrc/{name}.cu",
+            "replaces": f"otters_tpu/ops/pallas_topk.py{line}",
+            "launches": launches, **timing[mode],
+            # the worst max |kernel - plain| / tolerance over the kernel
+            # phase's cases, each case against its own tolerance
+            "kernel_phase_err_over_tol": err_ratio[mode],
+            **({"accumulation_rel_err": acc[mode]} if mode in acc else {}),
+            **extra,
+        })
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

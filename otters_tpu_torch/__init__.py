@@ -4,10 +4,12 @@ The port of the JAX package ``otters_tpu`` to an NVIDIA H100 (Hopper). It
 imports torch and never JAX. Stores run on the current CUDA device unless
 the builder names another (``MetaStoreBuilder.with_device("cpu")``).
 
-This slice runs the certified int8 filtered MetaStore path end to end: the
-builder, zonemap / Bloom pruning, the hand-written Hopper kernel for the
-certified-cosine bin maxima (``csrc/cert_cos_binmax.cu``), the exact f32
-rerank with its certificate, and pipelined ``collect_async`` / ``resolve``.
+Ported so far: the MetaStore builder, zonemap / Bloom pruning, pipelined
+``collect_async`` / ``resolve``, and ``VecStore`` / ``VecQueryPlan``; f32
+storage with exact search (the verified fast-exact bf16x3 scan and its
+strict exact-f32 rerun) and int8 storage, certified through the exact f32
+rerank or uncertified. Each TPU kernel mode on these paths is a kernel
+written by hand for Hopper (``csrc/``, see ``ops/fused_topk.py``).
 """
 
 from .column import Column
@@ -33,7 +35,9 @@ from .meta import (
     MetaStoreBuilder,
     resolve,
 )
-from .types import Cmp, CmpOp, DataType, Metric, TakeType
+from .ops.distance import cosine_similarity, dot_product, euclidean_distance_squared
+from .types import Cmp, CmpOp, DataType, Metric, SearchResult, TakeType
+from .vec import VecQueryPlan, VecStore
 
 __version__ = "0.1.0"
 
@@ -60,9 +64,15 @@ __all__ = [
     "MetaStore",
     "MetaStoreBuilder",
     "resolve",
+    "cosine_similarity",
+    "dot_product",
+    "euclidean_distance_squared",
     "Cmp",
     "CmpOp",
     "DataType",
     "Metric",
+    "SearchResult",
     "TakeType",
+    "VecQueryPlan",
+    "VecStore",
 ]

@@ -1,0 +1,79 @@
+// Shared pieces of the uncertified bin-max kernels (K2, K3, K4).
+//
+// Each kernel computes, for every live 512-row bin and every query, the
+// bin maximum of the masked key of otters_tpu/ops/pallas_topk.py::_kernel:
+//
+//   score = (dot * q_inv) * inv          Cosine    (metric 0)
+//         = dot                          Dot       (metric 1)
+//         = (q_sq + nsq) - 2 * dot       Euclid    (metric 2)
+//   ok    = q_ok > 0 && rmask > 0 && !isnan(score) && cmp(score, thr)
+//   key   = ok ? (take_min ? -score : score) : -inf
+//
+// with JAX's order of operations kept by the rounded intrinsics (nvcc
+// would otherwise contract a*b + c into an FMA). cmp: 0 none, 1 Gt, 2 Gte,
+// 3 Lt, 4 Lte, 5 Eq; the kernels receive it as cmp_mask(cmp).
+//
+// Conventions shared with K1 (csrc/cert_cos_binmax.cu): the grid covers
+// every bin times every 64-query block; a block whose survivor slot is
+// >= n_surv returns at once (pruned bins cost no loads and no math); the
+// output [n_bins, b] is pre-filled with -inf by the caller; padded query
+// rows carry q_ok = 0.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace binmax {
+
+constexpr int BIN = 512;      // rows per bin (= scoring.CERT_BIN)
+constexpr int QB = 64;        // queries per block
+constexpr int THREADS = 256;  // threads per block
+
+// The epilogue is branch-free: every metric form is computed and one is
+// selected, and the filter is a mask of the accepted orderings. (Branches
+// on the same runtime parameters, inlined once per register-tile element,
+// let the compiler's correlated-branch threading blow up.)
+__device__ __forceinline__ float score_of(float dot, float qi, float qsq,
+                                          float inv, float nsq, int metric) {
+    const float cosv = __fmul_rn(__fmul_rn(dot, qi), inv);
+    const float eucl = __fsub_rn(__fadd_rn(qsq, nsq), __fmul_rn(2.0f, dot));
+    return metric == 0 ? cosv : (metric == 2 ? eucl : dot);
+}
+
+// accepted orderings of (score vs thr): bit 0 greater, bit 1 equal, bit 2
+// less; no filter accepts all three (NaN is excluded on its own)
+__host__ __device__ __forceinline__ int cmp_mask(int cmp) {
+    switch (cmp) {
+        case 1: return 1;  // Gt
+        case 2: return 3;  // Gte
+        case 3: return 4;  // Lt
+        case 4: return 6;  // Lte
+        case 5: return 2;  // Eq
+        default: return 7;
+    }
+}
+
+// sgn = -1 for take-min (the key is the negated score), +1 otherwise
+__device__ __forceinline__ float key_of(float dot, float qi, float qsq, bool qok,
+                                        float inv, float nsq, float rm, float thr,
+                                        int metric, float sgn, int cmask) {
+    const float s = score_of(dot, qi, qsq, inv, nsq, metric);
+    const int order = (s > thr ? 1 : 0) | (s == thr ? 2 : 0) | (s < thr ? 4 : 0);
+    const bool ok = qok & (rm > 0.f) & !isnan(s) & ((order & cmask) != 0);
+    return ok ? __fmul_rn(sgn, s) : -INFINITY;
+}
+
+// 16 bytes from p, of which the first n are real (the rest read as 0);
+// vec: p is 16-byte aligned, so a whole vector load is safe when n >= 16
+__device__ __forceinline__ int4 load16(const void* p, int n, bool vec) {
+    if (vec && n >= 16) return *reinterpret_cast<const int4*>(p);
+    int4 out = make_int4(0, 0, 0, 0);
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(p);
+    unsigned char* dst = reinterpret_cast<unsigned char*>(&out);
+    for (int e = 0; e < 16 && e < n; ++e) dst[e] = src[e];
+    return out;
+}
+
+}  // namespace binmax

@@ -3,15 +3,16 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ctypes (no PyTorch headers, so a
 build takes seconds). Libraries go to ``build/otters_tpu_torch/`` named by
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing is built at import: the first launch
-builds, and ``build`` lets a caller build every kernel up front, one
-``nvcc`` per source, all started together.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source rebuilds and an unchanged one is reused. Nothing is
+built at import: the first launch builds, and ``build`` lets a caller build
+every kernel up front, one ``nvcc`` per source, all started together.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -25,6 +26,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# every kernel source of the port, one library each
+SOURCES = ("cert_cos_binmax", "int8_binmax", "f32_binmax", "bf16x3_binmax")
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas register / shared-memory report of each build, for the smoke log
 build_logs: Dict[str, str] = {}
@@ -38,9 +41,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(_CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+    for path in [os.path.join(_CSRC, f"{name}.cu")] + headers:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()
     return os.path.join(build_dir(), f"lib{name}_{digest[:16]}.so")
 
 

@@ -15,6 +15,13 @@ copied to pinned host buffers behind a CUDA event that ``result()`` and
 ``resolve()`` wait on. Errors from the kernel or the device propagate:
 there is no fallback to another path.
 
+Scoring at scale runs the fused kernels (``ops/fused_topk.py``): f32
+storage takes the verified fast-exact K4 (bf16x3) by default, with a check
+that ``result()`` / ``resolve()`` read when they fetch; a failed check
+re-runs the scan strictly in exact f32 (K3), as do Eq score filters and
+k > 128. int8 storage takes K1 with the certificate (``take(k,
+rerank_from=...)``) and K2 without it.
+
 Exactness: string equality evaluates by 64-bit hash on the device and the
 returned rows are re-verified host-side against the actual strings; a hash
 collision that falsely includes a row re-runs the query with an exact
@@ -22,12 +29,13 @@ host-computed row mask.
 
 Not ported yet (each raises where a query would need it): with_sort_by /
 with_z_order, delete / append, persistence, take-all windowing, the VPU
-metrics, extended string predicates, bfloat16 storage, and the fused
-kernel's modes other than K1.
+metrics, extended string predicates, bfloat16 storage (kernel mode K5) and
+the one-pass bf16 store precisions ("default" / "bf16").
 """
 
 from __future__ import annotations
 
+import functools
 import time
 import warnings
 from dataclasses import dataclass
@@ -36,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .column import Column
 from .display import format_build_stats, format_query_stats, metastore_head
 from .errors import ExprError, OttersError
@@ -186,17 +195,6 @@ class _HostCopy:
         return tuple(h.numpy() for h in self._host)
 
 
-def _resolve_device(device) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise OttersError(
-            "no CUDA device is available; name the device explicitly with "
-            "MetaStoreBuilder.with_device('cpu') to run on the CPU"
-        )
-    return torch.device("cuda", torch.cuda.current_device())
-
-
 # ---------------------------------------------------------------------------
 # Device state construction
 # ---------------------------------------------------------------------------
@@ -255,7 +253,7 @@ def _build_device_column(col: Column, n: int, n_pad: int, chunk_size: int,
 
 def _meta_query_program(store: "MetaStore", cols, queries, plan_static,
                         plan_params, thr, *, metric, k, take_min, cmp, tile,
-                        certify):
+                        certify, fast=False):
     """The whole meta query, enqueued on the device without waiting:
 
     zonemap chunk-mask pruning + stats -> row-mask predicate tensors ->
@@ -264,8 +262,9 @@ def _meta_query_program(store: "MetaStore", cols, queries, plan_static,
 
     certify=True (int8 + rerank): the 5th output is a sound upper bound on
     the true cosine of every row NOT among the returned candidates; -inf
-    otherwise. Returns device tensors (rows, scores, ok, check, bound,
-    evaluated, rows_eval)."""
+    otherwise. fast=True (f32 rows): the 4th output is the fast-exact
+    check, False when the query must be re-run strictly. Returns device
+    tensors (rows, scores, ok, check, bound, evaluated, rows_eval)."""
     dv = store._dv
     dev = dv.vectors.device
     n_pad = dv.vectors.shape[0]
@@ -291,7 +290,7 @@ def _meta_query_program(store: "MetaStore", cols, queries, plan_static,
         rows, scores, ok, check, bound = fused_topk.fused_topk(
             dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, queries, rmask,
             thr, alive, metric=metric, k=k, take_min=take_min, cmp=cmp,
-            certify=certify, resid=dv.resid,
+            certify=certify, prec=store.precision, fast=fast, resid=dv.resid,
         )
         return rows, scores, ok, check, bound, evaluated, rows_eval
 
@@ -509,7 +508,7 @@ class MetaStoreBuilder:
     def build(self) -> "MetaStore":
         if self._vectors is None:
             raise OttersError("vectors must be provided to build MetaStore")
-        device = _resolve_device(self._device)
+        device = resolve_device(self._device, "MetaStoreBuilder.with_device('cpu')")
         vectors = self._vectors
         pre_built = isinstance(vectors, scoring.DeviceVecs)
         if pre_built:
@@ -661,6 +660,9 @@ class MetaStore:
         self._plan_cache = _LruCache(256)
         self._build_stats: Optional[MetaBuildStats] = None
         self._last_stats: Optional[MetaQueryStats] = None
+        # scan precision of f32 storage: "highest" (exact; the verified
+        # fast-exact K4 with a strict K3 rerun) or "high" (bf16x3, K4)
+        self.precision: str = "highest"
 
     # -- constructors ------------------------------------------------------
     @staticmethod
@@ -738,9 +740,11 @@ class MetaStore:
 
     # -- the device program ----------------------------------------------------
     def _run_query_program(self, cols_sub, queries, plan_params, thr, plan_static,
-                           metric, k, take_min, cmp, certify=False):
+                           metric, k, take_min, cmp, strict=False, certify=False):
         """Pick the mode as the JAX package's ``_prepare_program`` does and
-        enqueue the program. -> device tensors (see _meta_query_program)."""
+        enqueue the program. ``strict`` turns the fast-exact mode off (the
+        redo after a failed check). -> device tensors (see
+        _meta_query_program)."""
         dv = self._dv
         n_pad = dv.vectors.shape[0]
         b = queries.shape[0]
@@ -750,21 +754,32 @@ class MetaStore:
         if metric in VPU_METRICS:
             raise NotImplementedError(f"the {metric.value} metric (VPU metrics) is not ported yet")
         tile = scoring.choose_mode(n_pad, b, k_eff)
+        fast = False
         if tile == "panel":
             # panel's shape (k <= 1024, 512-aligned rows) is the fused path's
             tile = "fused"
+            fast = (
+                not strict
+                and dv.vectors.dtype != torch.int8
+                and fused_topk.fast_ok(metric, take_min, cmp, k_eff, self.precision)
+            )
         certify = (
             certify
+            and not strict
             and self._certify_supported(metric, take_min, cmp)
             and (tile != "fused" or dv.resid_bin is not None)
         )
+        # certify and fast are disjoint kernel modes; certify wins
+        fast = fast and not certify
         if tile == "fused":
-            fused_topk.kernel_mode(dv.vectors.dtype, metric, take_min, certify)
+            fused_topk.kernel_mode(
+                dv.vectors.dtype, metric, take_min, certify, self.precision, fast
+            )
         thr_t = _scalar(float(thr), torch.float32, self._device)
         return _meta_query_program(
             self, cols_sub, queries, plan_static, plan_params, thr_t,
             metric=metric, k=k_eff, take_min=take_min, cmp=cmp, tile=tile,
-            certify=certify,
+            certify=certify, fast=fast,
         )
 
     def _certify_supported(self, metric, take_min, cmp) -> bool:
@@ -787,6 +802,7 @@ class MetaStore:
         return scoring.run_vec_topk(
             self._dv, queries, metric, k, take_min=take_min, cmp=cmp, thr=thr,
             row_mask=torch.from_numpy(exact_mask).to(self._device),
+            prec=self.precision,
         )
 
     # -- query ---------------------------------------------------------------
@@ -892,9 +908,8 @@ class MetaQueryPlan:
                 _scalar(wrapped, torch.int32, dev),
             )
         if dtype is DataType.Float32:
-            return ("f32", leaf.column, leaf.cmp), (
-                _scalar(float(np.float32(leaf.rhs)), torch.float32, dev),
-            )
+            rhs32 = zm.flush_subnormal_f32(float(np.float32(leaf.rhs)))
+            return ("f32", leaf.column, leaf.cmp), (_scalar(rhs32, torch.float32, dev),)
         if dtype in (DataType.Int64, DataType.DateTime):
             return ("i64", leaf.column, leaf.cmp), (
                 _scalar(int(leaf.rhs), torch.int64, dev),
@@ -1036,6 +1051,7 @@ class MetaQueryPlan:
         score_start = time.perf_counter()
         copy = None
         rerun_widened = None
+        strict_redo = None
         if store.n_rows > 0 and k > 0 and b > 0:
             if queries.shape[1] != store._dim:
                 raise OttersError(
@@ -1073,19 +1089,21 @@ class MetaQueryPlan:
                     )
                 raise NotImplementedError("take-all windowing is not ported yet")
 
-            def run(k_run=k):
+            def run(k_run=k, strict=False):
                 return store._run_query_program(
                     cols_sub, queries, plan_params, 0.0 if thr is None else thr,
                     plan_static, self._metric, k_run, take_min,
-                    None if thr is None else cmp, certify=certify,
+                    None if thr is None else cmp, strict=strict, certify=certify,
                 )
 
             copy = _HostCopy(run())
             rerun_widened = run if certify else None
+            strict_redo = functools.partial(run, strict=True)
         return PendingMetaQuery(
             plan=self, copy=copy, queries=queries, k=k, take_type=take_type,
             has_filter=has_filter, total_start=total_start, prune_dur=prune_dur,
             score_start=score_start, rerun_widened=rerun_widened,
+            strict_redo=strict_redo,
         )
 
 
@@ -1127,9 +1145,10 @@ class PendingMetaQuery:
 
     def __init__(self, plan: MetaQueryPlan, copy: Optional[_HostCopy], queries, k,
                  take_type, has_filter, total_start, prune_dur, score_start,
-                 rerun_widened=None):
+                 rerun_widened=None, strict_redo=None):
         self._plan = plan
         self._copy = copy
+        self._strict_redo = strict_redo
         self._queries = queries
         self._k = k
         self._take_type = take_type
@@ -1152,8 +1171,14 @@ class PendingMetaQuery:
         return self._stats
 
     def _fetch(self) -> tuple:
+        """The scan's outputs on the host. A failed fast-exact check (the
+        4th output) re-runs the scan strictly in exact f32 here, where the
+        outputs are fetched anyway; collect_async never waits for it."""
         if self._fetched is None:
-            self._fetched = self._copy.wait()
+            fetched = self._copy.wait()
+            if not bool(fetched[3]) and self._strict_redo is not None:
+                fetched = _HostCopy(self._strict_redo()).wait()
+            self._fetched = fetched
         return self._fetched
 
     def _exact_rerank(self, indices):

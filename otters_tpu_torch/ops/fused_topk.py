@@ -1,23 +1,33 @@
-"""Fused pruned scoring + exact top-k: the K1 kernel and its phase 2.
+"""Fused pruned scoring + exact top-k: the Hopper kernels and their phase 2.
 
 Counterpart of the JAX package's ``ops/pallas_topk.py``. The chunk mask
 becomes a per-512-row-bin alive mask, and a **survivor list** of live bins
 is built on the device (a cumsum of the alive flags and a scatter), so no
-host round trip decides what to scan. Phase 1 is the hand-written Hopper
-kernel ``csrc/cert_cos_binmax.cu`` (K1, the certified-cosine mode over int8
-rows): per-bin maxima of the certificate-adjusted key for the live bins
-only. Phase 2 re-scores the winning bins and selects the k candidates by
-the adjusted key, returning the certificate's bound, in plain torch (it is
-XLA code in the JAX package).
+host round trip decides what to scan. Phase 1 is a hand-written Hopper
+kernel that writes the per-bin maxima of the masked key for the live bins
+only; each replaces one mode of the TPU kernel
+(``otters_tpu/ops/pallas_topk.py::_kernel``):
 
-Only K1 is ported. The other modes of the TPU kernel (K2 uncertified int8,
-K3 exact f32/bf16, K4 bf16x3 fast-exact, K5 the general certificate fold)
-raise ``NotImplementedError`` naming the mode; nothing routes silently to a
-plain torch path.
+- K1 ``csrc/cert_cos_binmax.cu``: certified cosine over int8 rows
+  (bf16-rounded queries, the per-row certificate lane folded in);
+- K2 ``csrc/int8_binmax.cu``: uncertified int8 cosine, int8 queries x int8
+  rows into exact int32 dots;
+- K3 ``csrc/f32_binmax.cu``: exact f32 (``prec="highest"``), the strict
+  mode, for Cosine / Dot / Euclid and every score filter;
+- K4 ``csrc/bf16x3_binmax.cu``: the bf16x3 fast-exact mode (``prec="high"``
+  or the default verified fast path), three bf16 tensor-core products.
 
-Exactness: the k winning bins by adjusted bin max are a superset of the
-best k adjusted keys; the bound covers every row not returned (see the JAX
-package's ``_pallas_topk_jit``).
+K5 (the general certified fold over bfloat16 storage) is not ported and
+raises ``NotImplementedError``, as bfloat16 storage does. Phase 2 re-scores
+the winning bins and selects the k results in plain torch (it is XLA code in
+the JAX package). Every kernel has a plain torch version in this module,
+which serves CPU tensors; a CUDA tensor launches the kernel or raises.
+
+Exactness: the k winning bins by bin max are a superset of the best k keys.
+In the fast mode the check ``kth_key >= boundary + slack`` certifies that no
+unexamined bin can hold a better row; callers re-run strictly (K3) when it
+fails. With certify (K1) the bound covers every row not returned (see the
+JAX package's ``_pallas_topk_jit``).
 """
 
 from __future__ import annotations
@@ -28,16 +38,18 @@ from typing import Optional
 
 import torch
 
-from ..types import Cmp, Metric
+from ..types import VPU_METRICS, Cmp, Metric
 from .scoring import (
     CERT_BIN,
     _filter_ok,
+    _quantize_rows_int8,
     _query_norms,
     _stable_topk,
     cert_global_slack,
     cert_query_coeffs,
     cert_row_lanes,
     exact_topk_flat,
+    high_precision_bound,
     require_full_f32,
 )
 
@@ -46,27 +58,55 @@ assert BIN == CERT_BIN  # resid_bin granularity must match the kernel's bins
 # widest top-k the fused path accepts; the certificate's widen loop clamps
 # its sequence to this boundary (meta.py widen loop)
 FUSED_K_MAX = 1024
-QUERY_BLOCK = 64  # queries per kernel block (csrc/cert_cos_binmax.cu QB)
-_CMP_CODE = {None: 0, Cmp.Gt: 1, Cmp.Gte: 2}
+QUERY_BLOCK = 64  # queries per kernel block (every csrc/*.cu kernel's QB)
+_CMP_CODE = {None: 0, Cmp.Gt: 1, Cmp.Gte: 2, Cmp.Lt: 3, Cmp.Lte: 4, Cmp.Eq: 5}
+_METRIC_CODE = {Metric.Cosine: 0, Metric.DotProduct: 1, Metric.Euclidean: 2}
 _NEG_INF = float("-inf")
+_SMEM_MAX = 232448  # a block's shared memory on Hopper (227 KB)
 
 
-def kernel_mode(storage_dtype, metric: Metric, take_min: bool, certify: bool) -> str:
-    """Name the TPU kernel mode a fused query needs; raise unless ported."""
-    if storage_dtype == torch.int8 and certify:
+def fast_ok(metric: Metric, take_min: bool, cmp, k: int, prec: str) -> bool:
+    """Is the verified fast-exact mode (K4 + check) applicable?
+
+    The matmul metrics qualify at the store's default precision; an Eq
+    score filter would need a two-sided slack, and a large k makes the
+    4k-bin candidate set expensive (the JAX package's rule)."""
+    return (
+        prec == "highest"
+        and metric not in VPU_METRICS
+        and cmp is not Cmp.Eq
+        and k <= 128
+    )
+
+
+def kernel_mode(storage_dtype, metric: Metric, take_min: bool, certify: bool,
+                prec: str = "highest", fast: bool = False) -> str:
+    """Name the TPU kernel mode a fused query needs ("K1" .. "K4"); raise
+    ``NotImplementedError`` for the modes that are not ported."""
+    if storage_dtype == torch.int8:
+        if not certify:
+            return "K2"
         if metric is Metric.Cosine and not take_min:
             return "K1"
         raise NotImplementedError("this certified int8 plan shape is not a K1 query")
-    if storage_dtype == torch.int8:
-        name = "K2 (uncertified int8 cosine)"
-    elif certify:
-        name = "K5 (general certified fold, bfloat16 storage)"
-    else:
-        name = "K3/K4 (exact f32 / bf16x3 fast-exact)"
-    raise NotImplementedError(
-        f"fused kernel mode {name} is not ported yet; only K1 (certified "
-        "cosine over int8 rows) runs on the port"
-    )
+    if storage_dtype != torch.float32:
+        raise NotImplementedError(
+            f"{storage_dtype} storage (kernel mode K5, the general certified "
+            "fold over bfloat16 rows) is not ported yet"
+        )
+    if certify:
+        raise NotImplementedError(
+            "fused kernel mode K5 (general certified fold, bfloat16 storage) "
+            "is not ported yet"
+        )
+    if prec in ("default", "bf16"):
+        raise NotImplementedError(
+            f'store precision "{prec}" (one bf16 pass) is not ported yet; '
+            'use "highest" or "high"'
+        )
+    if prec not in ("highest", "high"):
+        raise ValueError(f"unknown store precision {prec!r}")
+    return "K4" if (fast or prec == "high") else "K3"
 
 
 def bins_alive_from_chunk_mask(chunk_mask: torch.Tensor, chunk_size: int, n_pad: int):
@@ -101,10 +141,26 @@ def survivor_bins(bin_alive: torch.Tensor):
     return surv[:n_bins], n_surv
 
 
+def _check_operands(kernel: str, q, n_pad: int, operands) -> None:
+    """Raise unless every (name, tensor, dtype, shape) operand matches, lies
+    on q's device and is contiguous, and the rows are whole bins."""
+    for name, t, dtype, shape in operands:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{kernel}: {name} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}"
+            )
+        if t.device != q.device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+    if n_pad % BIN:
+        raise ValueError(f"{kernel}: n_pad={n_pad} is not a multiple of {BIN}")
+
+
 def _check_k1_inputs(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv):
     b, d = q.shape
     n_pad = v.shape[0]
-    want = [
+    _check_operands("cert_cos_binmax", q, n_pad, [
         ("q", q, torch.bfloat16, (b, d)),
         ("v", v, torch.int8, (n_pad, d)),
         ("inv", inv, torch.float32, (n_pad,)),
@@ -115,19 +171,19 @@ def _check_k1_inputs(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv):
         ("thr", thr, torch.float32, (1,)),
         ("surv", surv, torch.int32, (n_pad // BIN,)),
         ("n_surv", n_surv, torch.int32, (1,)),
-    ]
-    for name, t, dtype, shape in want:
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"cert_cos_binmax: {name} must be {dtype} {shape}, got "
-                f"{t.dtype} {tuple(t.shape)}"
-            )
-        if t.device != q.device:
-            raise ValueError(f"cert_cos_binmax: {name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"cert_cos_binmax: {name} must be contiguous")
-    if n_pad % BIN:
-        raise ValueError(f"cert_cos_binmax: n_pad={n_pad} is not a multiple of {BIN}")
+    ])
+
+
+def _pad_query_blocks(q, *per_query):
+    """Pad the batch to whole QUERY_BLOCKs -> (n_qb, q, per_query): padded
+    lanes are zero, so their q_ok = 0 keeps them out of every bin max."""
+    b, d = q.shape
+    n_qb = -(-b // QUERY_BLOCK)
+    pad = n_qb * QUERY_BLOCK - b
+    if pad:
+        q = torch.cat([q, q.new_zeros((pad, d))])
+        per_query = tuple(torch.cat([t, t.new_zeros(pad)]) for t in per_query)
+    return n_qb, q, per_query
 
 
 def cert_cos_binmax_plain(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv,
@@ -161,19 +217,20 @@ def cert_cos_binmax_plain(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_su
 
 
 @functools.lru_cache(maxsize=None)
-def _k1_lib():
-    """The built K1 library with its C signatures declared (built on the
-    first call, never at import)."""
+def _kernel_fns(source: str, n_ptrs: int, n_ints: int):
+    """A built kernel library's (smem_bytes, launch) C functions with their
+    signatures declared: launch takes n_ptrs pointers, n_ints ints and the
+    stream. Built on the first call, never at import."""
     from .. import kernels
 
-    lib = kernels.load("cert_cos_binmax")
-    lib.cert_cos_binmax_smem_bytes.argtypes = [ctypes.c_int]
-    lib.cert_cos_binmax_smem_bytes.restype = ctypes.c_size_t
-    lib.cert_cos_binmax_launch.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    )
-    lib.cert_cos_binmax_launch.restype = ctypes.c_int
-    return lib
+    lib = kernels.load(source)
+    smem = getattr(lib, f"{source}_smem_bytes")
+    smem.argtypes = [ctypes.c_int]
+    smem.restype = ctypes.c_size_t
+    launch = getattr(lib, f"{source}_launch")
+    launch.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    return smem, launch
 
 
 def cert_cos_binmax(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv,
@@ -194,21 +251,15 @@ def cert_cos_binmax(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv,
     if d % 16:
         raise ValueError(f"cert_cos_binmax: d={d} must be a multiple of 16")
     n_bins = v.shape[0] // BIN
-    lib = _k1_lib()
-    smem = lib.cert_cos_binmax_smem_bytes(d)
-    if smem > 232448:
+    smem_bytes, launch = _kernel_fns("cert_cos_binmax", 11, 5)
+    smem = smem_bytes(d)
+    if smem > _SMEM_MAX:
         raise ValueError(f"cert_cos_binmax: d={d} needs {smem} B of shared memory (> 227 KB)")
-    # pad the batch to whole query blocks; padded lanes have q_ok = 0
-    n_qb = -(-b // QUERY_BLOCK)
-    bq = n_qb * QUERY_BLOCK
-    if bq != b:
-        q = torch.cat([q, q.new_zeros((bq - b, d))])
-        q_inv = torch.cat([q_inv, q_inv.new_zeros(bq - b)])
-        q_ok = torch.cat([q_ok, q_ok.new_zeros(bq - b)])
+    n_qb, q, (q_inv, q_ok) = _pad_query_blocks(q, q_inv, q_ok)
     out = torch.full((n_bins, b), _NEG_INF, device=q.device)
     if n_bins == 0 or b == 0:
         return out
-    err = lib.cert_cos_binmax_launch(
+    err = launch(
         q.data_ptr(), v.data_ptr(), inv.data_ptr(), rmask.data_ptr(),
         lane_a.data_ptr(), q_inv.data_ptr(), q_ok.data_ptr(), thr.data_ptr(),
         surv.data_ptr(), n_surv.data_ptr(), out.data_ptr(),
@@ -222,6 +273,192 @@ def cert_cos_binmax(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv,
 
 
 cert_cos_binmax.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3 / K4: the uncertified modes
+# ---------------------------------------------------------------------------
+
+# kernel name -> (csrc source, query dtype, row dtype)
+_MODES = {
+    "K2": ("int8_binmax", torch.int8, torch.int8),
+    "K3": ("f32_binmax", torch.float32, torch.float32),
+    "K4": ("bf16x3_binmax", torch.float32, torch.float32),
+}
+
+
+def _check_inputs(name, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
+                  n_surv, qdtype, vdtype):
+    b, d = q.shape
+    n_pad = v.shape[0]
+    _check_operands(name, q, n_pad, [
+        ("q", q, qdtype, (b, d)),
+        ("v", v, vdtype, (n_pad, d)),
+        ("inv", inv, torch.float32, (n_pad,)),
+        ("nsq", nsq, torch.float32, (n_pad,)),
+        ("rmask", rmask, torch.float32, (n_pad,)),
+        ("q_inv", q_inv, torch.float32, (b,)),
+        ("q_sq", q_sq, torch.float32, (b,)),
+        ("q_ok", q_ok, torch.float32, (b,)),
+        ("thr", thr, torch.float32, (1,)),
+        ("surv", surv, torch.int32, (n_pad // BIN,)),
+        ("n_surv", n_surv, torch.int32, (1,)),
+    ])
+
+
+def _exact_int8_dots(q8, v8):
+    """int8 x int8 dots, exact: every partial sum is an integer of magnitude
+    <= 127^2 d, exact in f32 below 2^24 (d <= 1040) and in f64 beyond."""
+    d = q8.shape[-1]
+    dt = torch.float32 if 127 * 127 * d < (1 << 24) else torch.float64
+    return (q8.to(dt) @ v8.to(dt).transpose(-1, -2)).float()
+
+
+def bf16x3_dots(q32, v32):
+    """The bf16x3 product qh.vh + qh.vl + ql.vh with JAX's splits
+    (x_h = bf16(x), x_l = bf16(x - x_h)), each partial product exact in f32
+    and summed in f32 in that order; the ql.vl term is dropped."""
+    qh = q32.to(torch.bfloat16).float()
+    ql = (q32 - qh).to(torch.bfloat16).float()
+    vh = v32.to(torch.bfloat16).float()
+    vl = (v32 - vh).to(torch.bfloat16).float()
+    vht, vlt = vh.transpose(-1, -2), vl.transpose(-1, -2)
+    return qh @ vht + qh @ vlt + ql @ vht
+
+
+def _scores(dots, q_inv, q_sq, inv, nsq, metric: Metric):
+    """The metric epilogue in JAX's order of ops: (dot * q_inv) * inv;
+    (q_sq + nsq) - 2 dot; dot."""
+    if metric is Metric.Cosine:
+        return dots * q_inv * inv
+    if metric is Metric.Euclidean:
+        return q_sq + nsq - 2.0 * dots
+    return dots
+
+
+def _masked_key(scores, ok, take_min: bool):
+    key = torch.where(ok, scores, float("inf") if take_min else _NEG_INF)
+    return -key if take_min else key
+
+
+def binmax_plain(mode: str, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
+                 n_surv, *, metric: Metric, take_min: bool, cmp: Optional[Cmp],
+                 slab_bins: int = 256):
+    """K2 / K3 / K4 in plain torch: [n_bins, b] per-bin maxima of
+
+        key = where(ok, score, -inf) (negated for take_min),
+        ok  = rmask > 0 & q_ok > 0 & !isnan(score) & cmp(score, thr),
+
+    over the live bins ``surv[:n_surv]`` only (dead bins stay -inf), with
+    the dots of the mode: exact int32 for K2, full f32 for K3, bf16x3 for
+    K4. Slabs of ``slab_bins`` bins bound the temporaries."""
+    if mode == "K3":
+        require_full_f32(q)
+    b = q.shape[0]
+    n_bins = v.shape[0] // BIN
+    out = torch.full((n_bins, b), _NEG_INF, device=q.device)
+    live = surv[: int(n_surv[0])].long()
+    ar = torch.arange(BIN, device=q.device)
+    for s in range(0, live.shape[0], slab_bins):
+        bins = live[s : s + slab_bins]
+        rows = (bins[:, None] * BIN + ar[None, :]).reshape(-1)
+        if mode == "K2":
+            dots = _exact_int8_dots(q, v[rows])
+        elif mode == "K3":
+            dots = q @ v[rows].T
+        else:
+            dots = bf16x3_dots(q, v[rows])
+        score = _scores(dots, q_inv[:, None], q_sq[:, None], inv[rows][None, :],
+                        nsq[rows][None, :], metric)
+        ok = (rmask[rows] > 0)[None, :] & (q_ok > 0)[:, None] & ~torch.isnan(score)
+        if cmp is not None:
+            ok = ok & _filter_ok(score, thr[0], cmp)
+        key = _masked_key(score, ok, take_min)
+        out[bins] = key.reshape(b, -1, BIN).amax(dim=2).T
+    return out
+
+
+def _binmax(mode, wrapper, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
+            n_surv, metric, take_min, cmp):
+    source, qdtype, vdtype = _MODES[mode]
+    _check_inputs(source, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
+                  n_surv, qdtype, vdtype)
+    if metric not in _METRIC_CODE:
+        raise ValueError(f"{source}: metric {metric} has no matmul form")
+    if q.device.type == "cpu":
+        return binmax_plain(
+            mode, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv,
+            metric=metric, take_min=take_min, cmp=cmp,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"{source}: unsupported device {q.device}")
+    b, d = q.shape
+    if mode == "K2" and 127 * 127 * d >= (1 << 31):
+        raise ValueError(f"{source}: d={d} could overflow the int32 dots")
+    if v.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError(f"{source}: q and v must start on a 16-byte boundary")
+    smem_bytes, launch = _kernel_fns(source, 12, 7)
+    smem = smem_bytes(d)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"{source}: d={d} needs {smem} B of shared memory (> 227 KB)")
+    n_bins = v.shape[0] // BIN
+    n_qb, q, (q_inv, q_sq, q_ok) = _pad_query_blocks(q, q_inv, q_sq, q_ok)
+    out = torch.full((n_bins, b), _NEG_INF, device=q.device)
+    if n_bins == 0 or b == 0:
+        return out
+    err = launch(
+        q.data_ptr(), v.data_ptr(), inv.data_ptr(), nsq.data_ptr(),
+        rmask.data_ptr(), q_inv.data_ptr(), q_sq.data_ptr(), q_ok.data_ptr(),
+        thr.data_ptr(), surv.data_ptr(), n_surv.data_ptr(), out.data_ptr(),
+        n_bins, d, b, n_qb, _METRIC_CODE[metric], int(take_min), _CMP_CODE[cmp],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
+    return out
+
+
+def int8_binmax(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv,
+                metric: Metric = Metric.Cosine, take_min: bool = False,
+                cmp: Optional[Cmp] = None):
+    """K2 bin maxima (int8 queries x int8 rows, exact int32 dots; see
+    :func:`binmax_plain`). CPU tensors take the plain version; CUDA tensors
+    launch csrc/int8_binmax.cu or raise. ``.launches`` counts launches."""
+    return _binmax("K2", int8_binmax, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok,
+                   thr, surv, n_surv, metric, take_min, cmp)
+
+
+def f32_binmax(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv,
+               metric: Metric = Metric.Cosine, take_min: bool = False,
+               cmp: Optional[Cmp] = None):
+    """K3 bin maxima (exact f32 dots on the CUDA cores; see
+    :func:`binmax_plain`). CPU tensors take the plain version; CUDA tensors
+    launch csrc/f32_binmax.cu or raise. ``.launches`` counts launches."""
+    return _binmax("K3", f32_binmax, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok,
+                   thr, surv, n_surv, metric, take_min, cmp)
+
+
+def bf16x3_binmax(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv,
+                  metric: Metric = Metric.Cosine, take_min: bool = False,
+                  cmp: Optional[Cmp] = None):
+    """K4 bin maxima (bf16x3 dots on the tensor cores; see
+    :func:`binmax_plain`). CPU tensors take the plain version; CUDA tensors
+    launch csrc/bf16x3_binmax.cu or raise. ``.launches`` counts launches."""
+    return _binmax("K4", bf16x3_binmax, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok,
+                   thr, surv, n_surv, metric, take_min, cmp)
+
+
+int8_binmax.launches = 0
+f32_binmax.launches = 0
+bf16x3_binmax.launches = 0
+KERNELS = {"K1": cert_cos_binmax, "K2": int8_binmax, "K3": f32_binmax, "K4": bf16x3_binmax}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for fn in KERNELS.values():
+        fn.launches = 0
 
 
 def fused_topk(
@@ -238,22 +475,126 @@ def fused_topk(
     k: int,
     take_min: bool,
     cmp: Optional[Cmp],
-    certify: bool,
+    certify: bool = False,
+    prec: str = "highest",
+    fast: bool = False,
     resid=None,
     q_valid=None,
 ):
-    """Fused pruned scoring + top-k candidates with the certificate bound.
+    """Fused pruned scoring + top-k candidates.
 
     bin_alive: [n_pad / 512] bool — False bins are skipped entirely (no
     loads, no math). Soundness requires that every row of a dead bin fails
     ``row_mask`` (zonemap pruning guarantees this). ``thr`` is a device f32
-    scalar.
+    scalar. ``fast`` (f32 rows only, see :func:`fast_ok`) runs K4 with the
+    phase-1 filter loosened by the bf16x3 error bound and examines 4k bins.
 
-    Returns (rows[k], scores[k], valid[k], check, bound): ``bound`` is a
-    sound upper bound on the true f32 cosine of every row not returned;
-    ``check`` is always True (the fast-exact mode K4 is not ported)."""
-    kernel_mode(vectors.dtype, metric, take_min, certify)
-    if cmp not in _CMP_CODE:
+    Returns (rows[k], scores[k], valid[k], check, bound): ``check`` is False
+    only when the fast mode cannot certify its answer (re-run with
+    fast=False); ``bound`` is the certificate's bound on the true score of
+    every row not returned (-inf without certify)."""
+    mode = kernel_mode(vectors.dtype, metric, take_min, certify, prec, fast)
+    if mode == "K1":
+        return _fused_k1(vectors, norms_sq, inv_norms, valid, queries, row_mask,
+                         thr, bin_alive, metric=metric, k=k, cmp=cmp,
+                         resid=resid, q_valid=q_valid)
+    if fast and not fast_ok(metric, take_min, cmp, k, prec):
+        raise ValueError("the fast-exact mode does not apply to this query")
+    n_pad, d = vectors.shape
+    b = queries.shape[0]
+    dev = vectors.device
+    if mode == "K2":
+        # uncertified quantized cosine: symmetric int8 queries; both phases
+        # take exact int32 dots
+        q_kern, _, _ = _quantize_rows_int8(queries.float())
+        q32 = q_kern.float()  # for the query norms only
+    else:
+        q32 = q_kern = queries.float().contiguous()
+    q_sq, q_inv = _query_norms(q32)
+    thr1 = thr
+    slack = torch.zeros((), device=dev)
+    if fast:
+        base = high_precision_bound(d)
+        if metric is Metric.Cosine:
+            # cosine is norm-scaled: the bound is dimension-only
+            slack = torch.full((), base, device=dev)
+        else:
+            # |dot_bf16x3 - dot| <= base ||q|| ||v||, bounded globally by the
+            # max norms (on the device); Euclid doubles it for the -2 dot term
+            mult = 2.0 if metric is Metric.Euclidean else 1.0
+            slack = base * torch.sqrt(q_sq.max()) * torch.sqrt(norms_sq.max()) * mult
+        # loosen the phase-1 filter so no row that truly passes is excluded
+        if cmp in (Cmp.Gt, Cmp.Gte):
+            thr1 = thr - slack
+        elif cmp in (Cmp.Lt, Cmp.Lte):
+            thr1 = thr + slack
+    q_ok = torch.ones(b, device=dev) if q_valid is None else q_valid.to(torch.float32)
+    rmask01 = valid.to(torch.float32)
+    if row_mask is not None:
+        rmask01 = rmask01 * row_mask.to(torch.float32)
+    surv, n_surv = survivor_bins(bin_alive)
+    bins = KERNELS[mode](
+        q_kern, vectors, inv_norms, norms_sq, rmask01, q_inv, q_sq, q_ok,
+        thr1.reshape(1).to(torch.float32), surv, n_surv, metric, take_min, cmp,
+    )
+
+    # ---- phase 2: winner-bin rescore and exact selection ----
+    flat = bins.reshape(-1)  # slot = bin * b + query
+    n_slots = flat.shape[0]
+    boundary = torch.full((), _NEG_INF, device=dev)
+    if fast:
+        kb = min(4 * k, n_slots)
+        sel_n = min(kb + 1, n_slots)
+        top_vals, top_all = exact_topk_flat(flat, sel_n)
+        if sel_n > kb:
+            boundary = top_vals[-1]  # best bf16x3 bin max left unexamined
+        top_slots = top_all[:kb]
+        kb = top_slots.shape[0]
+    else:
+        kb = min(k, n_slots)
+        _, top_slots = exact_topk_flat(flat, kb)
+    bsel = top_slots // b
+    qsel = top_slots % b
+    rows_flat = (bsel[:, None] * BIN + torch.arange(BIN, device=dev)[None, :]).reshape(-1)
+    blk = vectors[rows_flat].reshape(kb, BIN, d)
+    qc = q_kern[qsel][:, None, :]
+    if mode == "K2":
+        dots = _exact_int8_dots(qc, blk)[:, 0, :]
+    else:
+        # the exact f32 rescore of both K3 and K4 (the JAX package's HIGHEST
+        # on its own backend's terms: full f32, no TF32)
+        require_full_f32(qc)
+        dots = torch.bmm(qc, blk.transpose(1, 2))[:, 0, :]
+    inv_r = inv_norms[rows_flat].reshape(kb, BIN)
+    nsq_r = norms_sq[rows_flat].reshape(kb, BIN)
+    scores = _scores(dots, q_inv[qsel][:, None], q_sq[qsel][:, None], inv_r, nsq_r, metric)
+    ok = valid[rows_flat].reshape(kb, BIN) & ~torch.isnan(scores)
+    if row_mask is not None:
+        ok = ok & row_mask[rows_flat].reshape(kb, BIN)
+    if q_valid is not None:
+        ok = ok & q_valid[qsel][:, None]
+    if cmp is not None:
+        ok = ok & _filter_ok(scores, thr, cmp)
+    key_flat = _masked_key(scores, ok, take_min).reshape(-1)
+    top_keys, sel = _stable_topk(key_flat, min(k, key_flat.shape[0]))
+    out_rows = rows_flat[sel].to(torch.int32)
+    out_scores = scores.reshape(-1)[sel]
+    out_ok = ok.reshape(-1)[sel]
+    if fast:
+        # the k-th exact key must beat anything an unexamined bin could
+        # hold: its bf16x3 max plus the sound error bound
+        check = top_keys[-1] >= boundary + slack
+    else:
+        check = torch.ones((), dtype=torch.bool, device=dev)
+    bound = torch.full((), _NEG_INF, device=dev)
+    return out_rows, out_scores, out_ok, check, bound
+
+
+def _fused_k1(vectors, norms_sq, inv_norms, valid, queries, row_mask, thr,
+              bin_alive, *, metric, k, cmp, resid, q_valid):
+    """The certified int8 cosine path (K1): candidates selected by the
+    certificate-adjusted key, with the bound on every row not returned."""
+    if cmp not in (None, Cmp.Gt, Cmp.Gte):
         raise NotImplementedError(f"K1 takes no {cmp} score filter")
     if resid is None:
         raise ValueError("certified fused scan needs the per-row residuals")

@@ -1,17 +1,18 @@
 """Batched scoring + exact global top-k in torch (the slice's subset).
 
-Counterpart of the JAX package's ``ops/scoring.py``: device storage and its
-int8 quantization, the certificate's per-query / per-row terms, and the two
-plain scoring programs the main path can fall into (``direct`` for small
-stores, ``scan`` when the certificate widens past the fused kernel's k
-limit). The ``panel`` mode is served by the hand-written fused kernel
-(``ops/fused_topk.py``); its uncertified and non-int8 modes are not ported
-yet and raise ``NotImplementedError`` naming the mode.
+Counterpart of the JAX package's ``ops/scoring.py``: device storage (f32,
+and int8 with its quantization), the certificate's per-query / per-row
+terms, the bf16x3 error bound, and the two plain scoring programs the query
+paths can fall into (``direct`` for small stores, ``scan`` for wide k). The
+``panel`` mode is served by the hand-written fused kernels
+(``ops/fused_topk.py``: K1 certified int8, K2 uncertified int8, K3 exact
+f32, K4 bf16x3 fast-exact); only bfloat16 storage (K5) is not ported yet.
 
 Exactness: f32 matrix products run in full f32. On CUDA that needs TF32
 off, which :func:`require_full_f32` checks (it never changes the global
-setting behind the caller's back). Top-k selection breaks ties toward the
-lower flat index, like ``lax.top_k`` (``torch.topk`` does not).
+setting behind the caller's back). Top-k selection breaks ties like
+``lax.top_k`` (``torch.topk`` gives no tie order), and the hierarchical
+form keeps the JAX package's candidate order.
 """
 
 from __future__ import annotations
@@ -270,6 +271,32 @@ def materialize_int8_slabs(slab_fn, n: int, d: int, slab_rows: int, *, device) -
     return DeviceVecs(buf8, norms_sq, inv, valid, resid, rbin, rmax)
 
 
+def materialize_f32_slabs(slab_fn, n: int, d: int, slab_rows: int, *, device) -> DeviceVecs:
+    """Build an f32 DeviceVecs slab by slab with in-place writes.
+
+    Same ``slab_fn`` contract as :func:`materialize_int8_slabs`; the peak
+    memory is the store plus one slab (a concatenation would double it)."""
+    device = torch.device(device)
+    n_pad = pad_rows(n)
+    buf = torch.zeros((n_pad, d), dtype=torch.float32, device=device)
+    slab_rows = max(1, min(slab_rows, n_pad))
+    for start in range(0, n_pad, slab_rows):
+        rows = min(slab_rows, n_pad - start)
+        buf[start : start + rows] = torch.as_tensor(
+            slab_fn(start, rows), dtype=torch.float32, device=device
+        )
+    norms_sq, inv = _device_norms(buf)
+    return DeviceVecs(buf, norms_sq, inv, _valid_mask(n_pad, n, device))
+
+
+def high_precision_bound(d: int) -> float:
+    """Sound bound on |dot_bf16x3 - dot_f32| / (||q|| * ||v||): the dropped
+    ql.vl term and the split residuals cost <= 2^-14.4 ||q|| ||v||, and the
+    f32 accumulation of the three partial products gamma_d ~ d * 2^-24 per
+    partial sum (see the JAX package's derivation). 2^-14 + 4 d 2^-24."""
+    return 2.0**-14 + 4.0 * d * 2.0**-24
+
+
 def _score_block(queries, q_inv, q_sq, vecs, v_inv, v_sq, metric: Metric):
     """[B, D] x [T, D] -> [B, T] scores.
 
@@ -341,24 +368,22 @@ def _stable_topk(key: torch.Tensor, k: int):
 
 
 def exact_topk_flat(key: torch.Tensor, k: int):
-    """Exact top-k over a 1D key, ties toward the lower index (lax.top_k's
-    order; ``torch.topk`` gives no tie order).
+    """Exact top-k over a 1D key, in ``lax.top_k``'s tie order, fast at
+    scale: the JAX package's structure, kept step for step so ties resolve
+    the same way.
 
-    Large inputs prefilter by per-512-entry maxima: every true top-k entry's
-    bin max is >= the k-th value, and the top bins taken in stable order
-    include the lowest-index entries of any tie, so sorting their entries
-    by (value desc, index asc) gives the exact answer."""
+    Large inputs whose length is a multiple of 512 prefilter by per-512-entry
+    maxima: every true top-k entry's bin max is >= the k-th value, so the
+    top bins (recursively selected) are a superset of the answer. The bins
+    stay in the order that selection returns them, and the final stable
+    top-k over their entries breaks ties by that bin rank, then by index."""
     n = key.shape[0]
     k = min(k, n)
-    if n <= (1 << 15) or k * HIER_BIN * 4 >= n:
+    if n <= (1 << 15) or n % HIER_BIN != 0 or k * HIER_BIN * 4 >= n:
         return _stable_topk(key, k)
-    pad = (-n) % HIER_BIN
-    if pad:  # padding entries sit past every real one, so never win a tie
-        key = torch.cat([key, key.new_full((pad,), _NEG_INF)])
     bins = key.reshape(-1, HIER_BIN)
     km = min(k, bins.shape[0])
-    _, top_bins = exact_topk_flat(bins.amax(dim=1), km)
-    top_bins, _ = torch.sort(top_bins)  # candidates in ascending index order
+    _, top_bins = exact_topk_flat(bins.amax(dim=1), km)  # recurse while large
     cand = bins[top_bins].reshape(-1)
     cand_idx = (
         top_bins[:, None] * HIER_BIN
@@ -483,9 +508,15 @@ def run_vec_topk(
     cmp: Optional[Cmp],
     thr: Optional[float],
     row_mask=None,
+    prec: str = "highest",
 ):
     """Execute an uncertified scoring program; returns host numpy
-    (rows, scores, valid). Used by the hash-collision redo."""
+    (rows, scores, valid). Used by VecStore and the hash-collision redo.
+
+    The ``panel`` shape goes to the fused kernels: K2 over int8 rows; over
+    f32 rows the verified fast-exact K4 where :func:`fused_topk.fast_ok`
+    allows it, re-run strictly (K3) when its check fails, else K3 (or K4
+    for the store precision "high")."""
     n_pad = dv.vectors.shape[0]
     b = queries.shape[0]
     k_eff = min(k, b * n_pad)
@@ -493,20 +524,36 @@ def run_vec_topk(
         return np.array([], np.int32), np.array([], np.float32), np.array([], bool)
     if dv.vectors.dtype == torch.int8 and metric is not Metric.Cosine:
         raise OttersError("int8 quantized storage supports the Cosine metric only")
+    if metric in VPU_METRICS:
+        raise NotImplementedError(
+            f"the {metric.value} metric (VPU metrics) is not ported yet"
+        )
     if needs_windowed(n_pad, b, k_eff):
         raise NotImplementedError("take-all windowing is not ported yet")
     mode = choose_mode(n_pad, b, k_eff)
-    if mode == "panel":
-        from . import fused_topk
-
-        fused_topk.kernel_mode(dv.vectors.dtype, metric, take_min, certify=False)
     q = queries.float()
     thr_t = torch.tensor(0.0 if thr is None else thr, dtype=torch.float32, device=q.device)
-    kwargs = dict(
-        metric=metric, k=k_eff, take_min=take_min, cmp=None if thr is None else cmp
-    )
+    cmp_eff = None if thr is None else cmp
+    kwargs = dict(metric=metric, k=k_eff, take_min=take_min, cmp=cmp_eff)
     args = (dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, q, row_mask, thr_t)
-    if mode == "direct":
+    if mode == "panel":
+        from . import fused_topk as ft
+
+        alive = torch.ones(n_pad // ft.BIN, dtype=torch.bool, device=q.device)
+        fast = dv.vectors.dtype != torch.int8 and ft.fast_ok(
+            metric, take_min, cmp_eff, k_eff, prec
+        )
+        rows, scores, valid, check, _ = ft.fused_topk(
+            *args, alive, prec=prec, fast=fast, **kwargs
+        )
+        if fast and not bool(check):
+            # the verified fast-exact check failed (ties near the boundary):
+            # re-run strictly in exact f32
+            rows, scores, valid, _, _ = ft.fused_topk(
+                *args, alive, prec=prec, fast=False, **kwargs
+            )
+        out = (rows, scores, valid)
+    elif mode == "direct":
         out = direct_topk_core(*args, **kwargs)
     else:
         out = scan_topk_core(*args, tile=SCAN_TILE, **kwargs)

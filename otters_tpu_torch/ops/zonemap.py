@@ -13,15 +13,30 @@ Semantics match the JAX package's zonemaps exactly:
   and compare natively instead of as the JAX package's (hi, lo) 32-bit
   pairs. Float64 values are canonicalised (-0.0 -> +0.0) as the JAX
   package's ordered-integer mapping does.
+- Float32 values flush subnormals to zero of the same sign, as the JAX
+  package's f32 compares do (XLA flushes them on the CPU and the TPU);
+  literals compared against a Float32 column flush the same way
+  (:func:`flush_subnormal_f32`).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 _I32 = np.iinfo(np.int32)
 _I64 = np.iinfo(np.int64)
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def flush_subnormal_f32(x):
+    """+-subnormal Float32 values -> +-0 (a tensor, or one Python float);
+    every other value, NaN included, is kept."""
+    if isinstance(x, torch.Tensor):
+        return torch.where(x.abs() < _F32_TINY, x * 0.0, x)
+    return math.copysign(0.0, x) if abs(x) < _F32_TINY else x
 
 
 def _chunk_view(x, excl_fill, *, c: int, n_chunks: int):
@@ -93,7 +108,9 @@ def build_i64(vals, nulls, *, c: int, n_chunks: int, n_pad: int):
 
 
 def build_f32(vals, nulls, *, c: int, n_chunks: int, n_pad: int):
-    return _build_float(vals, nulls, c=c, n_chunks=n_chunks, n_pad=n_pad)
+    """Float32 zonemaps over values with subnormals flushed to +-0."""
+    return _build_float(flush_subnormal_f32(vals), nulls, c=c, n_chunks=n_chunks,
+                        n_pad=n_pad)
 
 
 def build_f64(vals, nulls, *, c: int, n_chunks: int, n_pad: int):

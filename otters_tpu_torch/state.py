@@ -1,7 +1,9 @@
 """Carry device state across from the JAX package.
 
 The parity tests hand the port the very arrays the JAX package built (as
-numpy), so both packages' kernels see the same quantized store bit for bit.
+numpy), so both packages' kernels see the same store bit for bit: a
+``DeviceVecs`` (int8 with its residuals, or f32 without them) and a
+``VecStore``'s staged rows.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ def device_vecs_from_numpy(
     resid_max=None, *, device,
 ) -> DeviceVecs:
     """Adopt a JAX ``DeviceVecs``'s arrays (as numpy) into the port's
-    ``DeviceVecs`` on ``device``."""
+    ``DeviceVecs`` on ``device``. The residual fields may be absent (an f32
+    store has none)."""
 
     def t(x):
         if x is None:
@@ -28,3 +31,15 @@ def device_vecs_from_numpy(
         t(vectors), t(norms_sq), t(inv_norms), t(valid), t(resid),
         t(resid_bin), t(resid_max),
     )
+
+
+def vec_store_from_numpy(rows, dim: int, dtype: str = "float32", *, device):
+    """A port ``VecStore`` holding the same staged rows as a JAX one (pass
+    its ``_host_matrix()``), so both materialize the same store."""
+    from .vec import VecStore
+
+    store = VecStore(dim, dtype=dtype, device=device)
+    rows = np.asarray(rows, dtype=np.float32)
+    if rows.shape[0]:
+        store.add_vectors(rows)
+    return store

@@ -6,6 +6,7 @@ Core types of the reference, as the JAX package defines them:
 - ``TakeType``   <-> ``src/vec.rs:18-22``
 - ``Cmp``        <-> ``src/vec.rs:24-31`` (score filters)
 - ``CmpOp``      <-> ``src/expr.rs:83-91`` (metadata predicates)
+- ``SearchResult`` <-> ``src/vec.rs:33-53``
 
 The CUDA device has native int64 and float64, so 64-bit columns live on the
 device in their own type (see ``otters_tpu_torch.ops.zonemap``).
@@ -14,6 +15,7 @@ device in their own type (see ``otters_tpu_torch.ops.zonemap``).
 from __future__ import annotations
 
 import enum
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -176,3 +178,16 @@ def default_take_type(metric: Metric) -> TakeType:
     if metric in (Metric.Euclidean, Metric.Manhattan, Metric.Hamming):
         return TakeType.Min
     return TakeType.Max
+
+
+@dataclass(frozen=True)
+class SearchResult:
+    index: int
+    score: float
+
+    def __str__(self) -> str:
+        return f"#{self.index} score={self.score:.6f}"
+
+    @classmethod
+    def from_tuple(cls, t) -> "SearchResult":
+        return cls(index=int(t[0]), score=float(t[1]))

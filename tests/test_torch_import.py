@@ -18,7 +18,8 @@ REPO = os.path.dirname(PKG_DIR)
 def test_import_leaves_jax_and_otters_tpu_out():
     code = (
         "import sys, otters_tpu_torch, otters_tpu_torch.meta, otters_tpu_torch.demo, "
-        "otters_tpu_torch.ops.fused_topk, otters_tpu_torch.state, otters_tpu_torch.kernels\n"
+        "otters_tpu_torch.ops.fused_topk, otters_tpu_torch.state, otters_tpu_torch.kernels, "
+        "otters_tpu_torch.vec, otters_tpu_torch.ops.distance\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'otters_tpu' or m.startswith('otters_tpu.')]\n"
         "print(bad)\n"
@@ -65,8 +66,9 @@ def test_build_without_a_device_named_needs_cuda(monkeypatch):
 
 
 def test_kernel_wrapper_never_falls_back_off_cpu():
-    """A tensor on a device that is neither the CPU nor CUDA is refused
-    (the plain version serves CPU tensors only)."""
+    """A tensor on a device that is neither the CPU nor CUDA is refused by
+    every kernel wrapper (K1 .. K4; the plain versions serve CPU tensors
+    only)."""
     import torch
 
     from otters_tpu_torch.ops import fused_topk as ft
@@ -83,3 +85,15 @@ def test_kernel_wrapper_never_falls_back_off_cpu():
     ]
     with pytest.raises(ValueError, match="unsupported device"):
         ft.cert_cos_binmax(*args)
+    for mode, (source, qdtype, vdtype) in ft._MODES.items():
+        args = [
+            torch.empty((8, 16), dtype=qdtype, device=meta),
+            torch.empty((512, 16), dtype=vdtype, device=meta),
+            *[torch.empty(512, device=meta) for _ in range(3)],
+            *[torch.empty(8, device=meta) for _ in range(3)],
+            torch.empty(1, device=meta),
+            torch.empty(1, dtype=torch.int32, device=meta),
+            torch.empty(1, dtype=torch.int32, device=meta),
+        ]
+        with pytest.raises(ValueError, match=f"{source}: unsupported device"):
+            ft.KERNELS[mode](*args)

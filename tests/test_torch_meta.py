@@ -1,11 +1,15 @@
-"""The port's certified int8 filtered MetaStore path against the JAX package.
+"""The port's MetaStore query paths against the JAX package.
 
 Same numpy inputs through ``otters_tpu`` (JAX, CPU) and ``otters_tpu_torch``
-(CPU device): identical indices in order, scores within 1e-6, and the same
-``certified`` / ``scan_k_wide`` / pruned / evaluated counts — through
-``collect()`` and through ``collect_async`` + ``resolve``. Both the direct
-program (small stores) and the fused-kernel path (JAX's Pallas kernel in
-interpret mode, the port's K1 through its plain version) are covered.
+(CPU device): identical indices in order, scores within 1e-6 (Euclid within
+the ulps of q^2 + v^2 its formula cancels), and the same ``certified`` /
+``scan_k_wide`` / pruned / evaluated counts — through ``collect()`` and
+through ``collect_async`` + ``resolve``. Both the direct program (small
+stores) and the fused-kernel path (JAX's Pallas kernel in interpret mode,
+the port's kernels through their plain versions) are covered: the certified
+int8 path (K1), f32 storage (K4 fast-exact, its failed check and strict K3
+redo, Eq filters and wide k on K3, precision "high"), and uncertified int8
+(K2).
 """
 
 import contextlib
@@ -21,6 +25,7 @@ from otters_tpu.meta import resolve as jresolve
 from test_cert_exact import _near_tie_vectors
 from torch_parity import (
     assert_same_results,
+    stats_tuple,
     twin_stores,
     use_fused_path,
 )
@@ -259,15 +264,175 @@ def test_string_filter_verify_and_collision_redo(monkeypatch):
 
 
 def test_unported_kernel_modes_raise_through_the_api(monkeypatch):
-    """Queries that need a TPU kernel mode the port lacks raise, naming it."""
+    """Only bfloat16 storage (kernel mode K5) and the one-pass bf16 store
+    precisions raise; f32 and int8 stores answer fused-size queries."""
     use_fused_path(monkeypatch)
     vecs = np.random.default_rng(2).normal(size=(8192, 16)).astype(np.float32)
+    cols = [tx.Column("id", tx.DataType.Int64).from_values(range(8192))]
     f32_store, int8_store = (
-        tx.MetaStore.from_columns([tx.Column("id", tx.DataType.Int64).from_values(range(8192))])
-        .with_vectors(vecs).with_storage_dtype(dt).with_device("cpu").build()
+        tx.MetaStore.from_columns(cols).with_vectors(vecs).with_storage_dtype(dt)
+        .with_device("cpu").build()
         for dt in ("float32", "int8")
     )
-    with pytest.raises(NotImplementedError, match="K3/K4"):
-        f32_store.query(vecs[0], tx.Metric.Cosine).take(5).collect()
-    with pytest.raises(NotImplementedError, match="K2"):
-        int8_store.query(vecs[0], tx.Metric.Cosine).take(5).collect()
+    assert len(f32_store.query(vecs[0], tx.Metric.Cosine).take(5).collect()) == 5
+    assert len(int8_store.query(vecs[0], tx.Metric.Cosine).take(5).collect()) == 5
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tx.MetaStore.from_columns(cols).with_vectors(vecs).with_storage_dtype("bfloat16")
+    for prec in ("default", "bf16"):
+        f32_store.precision = prec
+        with pytest.raises(NotImplementedError, match=prec):
+            f32_store.query(vecs[0], tx.Metric.Cosine).take(5).collect()
+
+
+# ---------------------------------------------------------------------------
+# f32 storage (K4 fast-exact + K3 strict) and uncertified int8 (K2)
+# ---------------------------------------------------------------------------
+
+
+def _count_modes(monkeypatch):
+    """Record which kernel modes the port's queries run (their plain
+    versions serve the CPU tensors)."""
+    from otters_tpu_torch.ops import fused_topk
+
+    calls = []
+    plain = fused_topk.binmax_plain
+    monkeypatch.setattr(
+        fused_topk, "binmax_plain",
+        lambda *a, **k: calls.append(a[0]) or plain(*a, **k),
+    )
+    return calls
+
+
+def _price_version_twins(storage, rerank=False, n=16384, d=64, seed=17):
+    rng = np.random.default_rng(seed)
+    vecs = rng.normal(size=(n, d)).astype(np.float32)
+    spec = _price_version_spec(n, 1024)
+    return vecs, twin_stores(vecs, spec, chunk=1024, storage=storage, rerank=rerank)
+
+
+def _query(store, pkg, q, metric, *, k, vf=None, flt=True, **take):
+    plan = store.query_batch(q, getattr(pkg.Metric, metric))
+    if flt:
+        plan = plan.meta_filter(_bench_filter(pkg))
+    if vf is not None:
+        plan = plan.vec_filter(vf[0], getattr(pkg.Cmp, vf[1]))
+    return plan.take(k, **take)
+
+
+F32_CASES = [
+    ("Cosine", 10, None, "K4"),
+    ("DotProduct", 10, (1.0, "Gt"), "K4"),
+    ("Euclidean", 10, None, "K4"),
+    ("Cosine", 200, None, "K3"),
+    ("Euclidean", 10, (100.0, "Lte"), "K4"),
+]
+
+
+@pytest.mark.parametrize("metric,k,vf,mode", F32_CASES)
+def test_f32_store_matches_jax(monkeypatch, metric, k, vf, mode):
+    use_fused_path(monkeypatch)
+    calls = _count_modes(monkeypatch)
+    _, (sj, st) = _price_version_twins("float32")
+    q = np.random.default_rng(5).normal(size=(3, 64)).astype(np.float32)
+    rj = _query(sj, jx, q, metric, k=k, vf=vf).collect()
+    rt = _query(st, tx, q, metric, k=k, vf=vf).collect()
+    assert calls == [mode]
+    assert len(rt) == k
+    # Dot scores (~30 here) agree to 1e-6 relative, the dot orders differing;
+    # Euclid's q^2 + v^2 - 2 q.v cancels: ulps of q^2 + v^2 (~128 here)
+    atol = {"Cosine": 1e-6, "DotProduct": 0.0, "Euclidean": 4e-5}[metric]
+    assert rt.indices == rj.indices
+    np.testing.assert_allclose(rt.scores, rj.scores, rtol=1e-6, atol=atol)
+    assert stats_tuple(st) == stats_tuple(sj)
+    assert st.last_query_stats().pruned_chunks == st.n_chunks() // 2
+
+
+def test_f32_eq_filter_runs_k3_and_matches_jax(monkeypatch):
+    """An Eq score filter takes the strict mode directly (no two-sided
+    slack in the fast mode): integer rows make the Dot scores exact."""
+    use_fused_path(monkeypatch)
+    calls = _count_modes(monkeypatch)
+    rng = np.random.default_rng(7)
+    n, d = 16384, 64
+    vecs = rng.integers(-2, 3, size=(n, d)).astype(np.float32)
+    q = rng.integers(-2, 3, size=(2, d)).astype(np.float32)
+    target = float(vecs[5000] @ q[0])
+    sj, st = twin_stores(vecs, _id_spec(n), chunk=512, storage="float32", rerank=False)
+    rj = _query(sj, jx, q, "DotProduct", k=50, vf=(target, "Eq"), flt=False).collect()
+    rt = _query(st, tx, q, "DotProduct", k=50, vf=(target, "Eq"), flt=False).collect()
+    assert calls == ["K3"]
+    assert_same_results(rj, rt, sj, st)
+    assert len(rt) == 50 and set(rt.scores) == {target}
+
+
+def _tie_store(n=16384, d=64, k=5, seed=19):
+    """The k-th best row copied into more than 4k bins: the fast mode
+    cannot examine them all and its check fails (in both packages)."""
+    rng = np.random.default_rng(seed)
+    vecs = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(1, d)).astype(np.float32)
+    vecs[: k - 1] = q + 0.1 * rng.normal(size=(k - 1, d))
+    vecs[np.arange(4 * k + 3) * 512 + 300] = q[0] + 0.5 * rng.normal(size=d)
+    return vecs, q
+
+
+def test_f32_failed_check_redoes_strictly_like_jax(monkeypatch):
+    use_fused_path(monkeypatch)
+    calls = _count_modes(monkeypatch)
+    vecs, q = _tie_store()
+    sj, st = twin_stores(vecs, _id_spec(len(vecs)), chunk=512, storage="float32",
+                         rerank=False)
+    rj = _query(sj, jx, q, "Cosine", k=5, flt=False).collect()
+    rt = _query(st, tx, q, "Cosine", k=5, flt=False).collect()
+    assert calls == ["K4", "K3"]
+    assert_same_results(rj, rt, sj, st)
+    assert rt.indices[-1] == 300  # the lowest tied copy
+    # pipelined: the redo happens where resolve() fetches the scan outputs
+    calls.clear()
+    pend = [_query(st, tx, qq, "Cosine", k=5, flt=False).collect_async()
+            for qq in (q, q + 0.0)]
+    assert calls == ["K4", "K4"]
+    res = tx.resolve(pend)
+    assert calls == ["K4", "K4", "K3", "K3"]
+    assert all(r.indices == rj.indices for r in res)
+
+
+def test_f32_precision_high_runs_k4_strictly(monkeypatch):
+    use_fused_path(monkeypatch)
+    calls = _count_modes(monkeypatch)
+    _, (sj, st) = _price_version_twins("float32", seed=23)
+    sj.precision = st.precision = "high"
+    q = np.random.default_rng(9).normal(size=(2, 64)).astype(np.float32)
+    rj = _query(sj, jx, q, "Cosine", k=10).collect()
+    rt = _query(st, tx, q, "Cosine", k=10).collect()
+    assert calls == ["K4"]
+    assert_same_results(rj, rt, sj, st)
+
+
+@pytest.mark.parametrize("take", [dict(), dict(rerank_from=40, certify=False)])
+def test_uncertified_int8_matches_jax(monkeypatch, take):
+    """take(k) with no rerank, and bench.py's filtered_uncert shape
+    take(k, rerank_from=..., certify=False): K2 in the port."""
+    use_fused_path(monkeypatch)
+    calls = _count_modes(monkeypatch)
+    _, (sj, st) = _price_version_twins("int8", rerank=True, seed=29)
+    q = np.random.default_rng(11).normal(size=(3, 64)).astype(np.float32)
+    rj = _query(sj, jx, q, "Cosine", k=10, **take).collect()
+    rt = _query(st, tx, q, "Cosine", k=10, **take).collect()
+    assert calls == ["K2"]
+    assert_same_results(rj, rt, sj, st)
+    assert st.last_query_stats().certified is None
+    assert st.last_query_stats().pruned_chunks == st.n_chunks() // 2
+
+
+def test_f32_direct_program_matches_jax():
+    """A small f32 store takes the direct program in both packages."""
+    rng = np.random.default_rng(13)
+    vecs = rng.normal(size=(3000, 32)).astype(np.float32)
+    sj, st = twin_stores(vecs, _id_spec(3000), chunk=512, storage="float32", rerank=False)
+    q = rng.normal(size=(2, 32)).astype(np.float32)
+    for metric in ("Cosine", "DotProduct", "Euclidean"):
+        rj = _query(sj, jx, q, metric, k=7, flt=False).collect()
+        rt = _query(st, tx, q, metric, k=7, flt=False).collect()
+        assert rt.indices == rj.indices
+        np.testing.assert_allclose(rt.scores, rj.scores, rtol=0, atol=2e-5)

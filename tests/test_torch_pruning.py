@@ -150,20 +150,21 @@ def test_float32_nan_negzero_match():
 
 
 def test_float32_subnormals_keep_ieee_semantics():
-    """Known divergence: the JAX package's f32 compares flush subnormals to
-    zero (XLA on the CPU, and the TPU), so +-1e-45 == 0.0 there; the port
-    keeps IEEE semantics, like numpy, on the CPU and on CUDA."""
-    sj, st = _twins([("x", "Float32", F32_SUBNORMALS)], chunk=3)
-    vals = np.array([np.nan if v is None else v for v in F32_SUBNORMALS], np.float32)
-    want = np.flatnonzero((vals == 0.0) & ~np.isnan(vals)).tolist()
+    """Float32 subnormals compare as the JAX package's do: flushed to zero
+    (XLA on the CPU and the TPU), in the column and in the literal, so
+    +-1e-45 == 0.0. Masks, rows and counts equal JAX's for every compare."""
+    stores = _twins([("x", "Float32", F32_SUBNORMALS)], chunk=3)
+    sj, st = stores
     got = st.query([1.0, 0.0], tx.Metric.DotProduct).meta_filter(
         tx.col("x").eq(0.0)
     ).take(9).collect()
-    assert sorted(got.indices) == want == [1, 2]
     ref = sj.query([1.0, 0.0], jx.Metric.DotProduct).meta_filter(
         jx.col("x").eq(0.0)
     ).take(9).collect()
-    assert sorted(ref.indices) == [1, 2, 3, 4]
+    assert sorted(got.indices) == sorted(ref.indices) == [1, 2, 3, 4]
+    for cmp in CMPS:
+        for thr in [0.0, -0.0, 1e-45, -1e-45, 1e-30, 3.0, float("nan")]:
+            _check(stores, lambda p, t=thr, c=cmp: getattr(p.col("x"), c)(t))
 
 
 def test_zonemap_min_max_excludes_nan_and_nulls():
