@@ -7,10 +7,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 2. the build: every Hopper kernel from ``csrc/`` with nvcc (one process
    per source, started together);
 3. the kernel phase: K1 (csrc/cert_cos_binmax.cu), K2 (int8_binmax.cu), K3
-   (f32_binmax.cu) and K4 (bf16x3_binmax.cu) against their plain torch
-   versions at d = 768, b = 256 and 70, 2M rows in 1024-row chunks with
-   half of them pruned, every metric and Gt / Lt / Eq filters; K2's int32
-   dots bit for bit; K1, K3 and K4 against float64 dots (K4 within the
+   (f32_binmax.cu), K4 (bf16x3_binmax.cu) and K5 (cert_fold_binmax.cu)
+   against their plain torch versions at d = 768, b = 256 and 70, 2M rows in
+   1024-row chunks with half of them pruned, every metric and Gt / Lt / Eq
+   filters, over int8 / f32 rows and (K1, K3, K4, K5) bfloat16 rows; K2's
+   int32 dots bit for bit; the others against float64 dots (K4 within the
    ``4 d 2^-24`` accumulation share of ``high_precision_bound``);
 4. the main path at the bench's size: a 10M x 768 int8 store quantized on
    the device from seeded f32 rows, bench.py's price/version columns, the
@@ -21,6 +22,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    against its plain version, a library yardstick and its bound;
    4u. bench.py's ``filtered_uncert`` on the same store
    (``certify=False``): K2, recall@10 against the f32 truth, K2 timed;
+   4f. bfloat16 storage: a 10M x 768 bf16 store made on the device from
+   the same f32 rows (which stay the rerank source), the same columns,
+   filter and batches; certified ``take(10, rerank_from=100)`` for Cosine
+   (K1 over bf16 rows), Dot (K5) and Euclid take-min (K5), every query
+   certified and equal to the exact f32 filtered top-10; uncertified
+   Cosine ``take(10)`` (K4 over bf16 rows, every check passing), equal to
+   the exact top-10 of the stored values; the four bf16-row modes timed;
+   4g. 1M x 768 bf16 stores: exact ties in more bins than the fast mode
+   examines (its check fails, K3 over bf16 rows reruns) and Dot / Euclid
+   near-ties that make the certificate widen on K5;
    4b. adversarial near-ties (1M x 768) that make the certificate widen
    through the fused kernel and past it into the scan program;
 5. the twin of examples/demo.py on the card;
@@ -32,8 +43,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    6b. exact ties copied into more bins than the fast mode examines: its
    check fails and K3 reruns, equal to the truth; a Dot ``vec_filter(Eq)``
    and a ``take(200)`` reach K3 directly;
-7. VecStore at 1M x 768: f32 storage (K4) and int8 storage (K2), each
-   equal to the exact top-10 of its storage.
+7. VecStore at 1M x 768: f32 and bf16 storage (K4) and int8 storage
+   (K2), each equal to the exact top-10 of its storage.
 
 Phases 4 and 6 also trace one pipelined round with torch.profiler (device
 time by kernel, the device's busy share). Every path sets the launch
@@ -127,10 +138,14 @@ def rows_alive(chunk_mask, n_pad):
     return alive
 
 
-def mode_inputs(mode, dv, queries, chunk_mask, thr=0.0):
+CERT_MODES = ("K1", "K1-bf16", "K5")  # the certified scans
+
+
+def mode_inputs(mode, dv, queries, chunk_mask, thr=0.0, metric=None, cmp=None):
     """A kernel's operands for a store, a query batch and a chunk mask,
-    built the way the fused path builds them: K1 takes the bf16-rounded
-    queries and the row lane (certified cosine), K2 quantizes the queries,
+    built the way the fused path builds them: the certified scans (K1, K5)
+    through ``fused_topk.cert_scan`` (bf16-rounded queries, the certificate
+    terms of ``metric``, the filter loosened), K2 quantizes the queries,
     K3 / K4 take them in f32."""
     import torch
 
@@ -138,17 +153,20 @@ def mode_inputs(mode, dv, queries, chunk_mask, thr=0.0):
     from otters_tpu_torch.ops import scoring as sc
     from otters_tpu_torch.types import Metric
 
-    n_pad, d = dv.vectors.shape
+    n_pad = dv.vectors.shape[0]
     dev = queries.device
-    surv, n_surv = ft.survivor_bins(ft.bins_alive_from_chunk_mask(chunk_mask, CHUNK, n_pad))
+    alive = ft.bins_alive_from_chunk_mask(chunk_mask, CHUNK, n_pad)
+    if mode in CERT_MODES:
+        metric = metric or (Metric.DotProduct if mode == "K5" else Metric.Cosine)
+        return ft.cert_scan(
+            mode, dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, queries,
+            rows_alive(chunk_mask, n_pad), torch.tensor(float(thr), device=dev), alive,
+            metric=metric, cmp=cmp, resid=dv.resid,
+        ).ops
+    surv, n_surv = ft.survivor_bins(alive)
     rmask = (dv.valid & rows_alive(chunk_mask, n_pad)).float()
     q_ok = torch.ones(queries.shape[0], device=dev)
     thr_t = torch.full((1,), float(thr), device=dev)
-    if mode == "K1":
-        qh32, _, _, _ = sc.cert_query_coeffs(Metric.Cosine, queries, d)
-        _, q_inv = sc._query_norms(qh32)
-        return [qh32.to(torch.bfloat16), dv.vectors, dv.inv_norms, rmask, dv.resid,
-                q_inv, q_ok, thr_t, surv, n_surv]
     q = sc._quantize_rows_int8(queries.float())[0] if mode == "K2" else queries.float()
     q_sq, q_inv = sc._query_norms(q.float())
     return [q.contiguous(), dv.vectors, dv.inv_norms, dv.norms_sq, rmask, q_inv, q_sq,
@@ -159,8 +177,8 @@ def launch(mode, args, metric, take_min=False, cmp=None):
     """The kernel's wrapper on ``args`` (K1 is certified cosine only)."""
     from otters_tpu_torch.ops import fused_topk as ft
 
-    if mode == "K1":
-        return ft.cert_cos_binmax(*args, cmp)
+    if mode in ("K1", "K1-bf16"):
+        return ft.KERNELS[mode](*args, cmp)
     return ft.KERNELS[mode](*args, metric, take_min, cmp)
 
 
@@ -168,8 +186,10 @@ def plain(mode, args, metric, take_min=False, cmp=None):
     """The kernel's plain torch version on ``args``."""
     from otters_tpu_torch.ops import fused_topk as ft
 
-    if mode == "K1":
+    if mode in ("K1", "K1-bf16"):
         return ft.cert_cos_binmax_plain(*args, cmp)
+    if mode == "K5":
+        return ft.cert_fold_binmax_plain(*args, metric=metric, take_min=take_min, cmp=cmp)
     return ft.binmax_plain(mode, *args, metric=metric, take_min=take_min, cmp=cmp)
 
 
@@ -178,20 +198,27 @@ def mode_tol(mode, args, metric, want):
     certificate's ``mixed_cert_eps(d)``. K2: the int32 dots are exact in
     both, so 4 ulps of the epilogue. K3: the two sum in other orders,
     d 2^-24 |q| |v|. K4: both are bf16x3 sums within
-    ``high_precision_bound(d)`` |q| |v| of the exact dot. Dot / Euclid scale
-    by max |q| max |v| (Euclid twice, for its -2 dot), plus 4 ulps."""
+    ``high_precision_bound(d)`` |q| |v| of the exact dot. K5: exact bf16
+    products summed in f32 in other orders, 4 d 2^-24 |qh| |v|. Dot /
+    Euclid scale by max |q| max |v| (Euclid twice, for its -2 dot), plus 4
+    ulps (of the folded key for K5)."""
     import numpy as np
 
     from otters_tpu_torch.ops import scoring as sc
     from otters_tpu_torch.types import Metric
 
     d = args[0].shape[1]
-    if mode == "K1":
+    if mode in ("K1", "K1-bf16"):
         return sc.mixed_cert_eps(d)
     ulps = 4 * float(np.spacing(np.float32(float(want.abs().max()))))
     if mode == "K2":
         return ulps
-    base = d * 2.0**-24 if mode == "K3" else sc.high_precision_bound(d)
+    if mode == "K5":
+        base = 4 * d * 2.0**-24
+    elif mode.startswith("K3"):
+        base = d * 2.0**-24
+    else:
+        base = sc.high_precision_bound(d)
     if metric is Metric.Cosine:
         return base + ulps
     scale = float(args[0].float().norm(dim=1).max()) * float(args[3].max().sqrt())
@@ -217,8 +244,8 @@ def compare_mode(mode, args, metric, take_min=False, cmp=None):
 
 def one_row_per_bin(mode, args, salt):
     """(live bins, one row of each, the operands that make each bin max
-    exactly that row's accumulated dot: unit norms, no lane, no filter, and
-    the Dot metric for K2 - K4)."""
+    exactly that row's accumulated dot: unit norms, no lane or certificate
+    term, no filter, and the Dot metric for K2 - K5)."""
     import torch
 
     from otters_tpu_torch.ops import fused_topk as ft
@@ -231,19 +258,22 @@ def one_row_per_bin(mode, args, salt):
     rmask[rows] = 1.0
     ones_n, ones_b = torch.ones(n_pad, device=dev), torch.ones(b, device=dev)
     zero_n, zero_b, zero_1 = (torch.zeros(m, device=dev) for m in (n_pad, b, 1))
-    if mode == "K1":
+    if mode in ("K1", "K1-bf16"):
         ops = [q, v, ones_n, rmask, zero_n, ones_b, ones_b, zero_1, surv, n_surv]
+    elif mode == "K5":
+        ops = [q, v, ones_n, ones_n, rmask, zero_n, zero_n, ones_b, zero_b, ones_b,
+               zero_b, zero_b, zero_b, zero_1, surv, n_surv]
     else:
         ops = [q, v, ones_n, ones_n, rmask, ones_b, zero_b, ones_b, zero_1, surv, n_surv]
     return live, rows, ops
 
 
 def accumulation_error(mode, args):
-    """K1 / K3 / K4 dots against float64 over one unmasked row per live bin,
-    twice -> (worst |dot - ref| / (|q| |v|) with ref the float64 value of
-    what the mode computes: the exact dot for K1 (of its bf16 queries) and
-    K3, the sum of the three split products for K4; the same against the
-    exact dot)."""
+    """K1 / K3 / K4 / K5 dots against float64 over one unmasked row per live
+    bin, twice -> (worst |dot - ref| / (|q| |v|) with ref the float64 value
+    of what the mode computes: the exact dot for K1 / K5 (of their bf16
+    queries) and K3, the sum of the split products for K4 (over bf16 rows
+    the low plane is 0); the same against the exact dot)."""
     from otters_tpu_torch.types import Metric
 
     worst_ref = worst_true = 0.0
@@ -252,10 +282,10 @@ def accumulation_error(mode, args):
         got = launch(mode, ops, Metric.DotProduct)[live].double()  # [n_live, b]
         q, vr = args[0], args[1][rows]
         exact = vr.double() @ q.double().T
-        if mode == "K4":
+        if mode.startswith("K4"):
             qh, vh = q.bfloat16(), vr.bfloat16()
             ql = (q - qh.float()).bfloat16().double()
-            vl = (vr - vh.float()).bfloat16().double()
+            vl = (vr.float() - vh.float()).bfloat16().double()
             qh, vh = qh.double(), vh.double()
             ref = vh @ qh.T + vl @ qh.T + vh @ ql.T
         else:
@@ -269,10 +299,11 @@ def accumulation_error(mode, args):
 
 def kernel_phase(torch, dev):
     """Every kernel vs its plain version at d = 768, b = 256 and 70, 2M rows
-    with half the chunks dead: every metric, Gt / Lt / Eq filters, nothing
-    alive; K2's dots bit for bit; K1, K3 and K4 against float64 (K1 and K3
-    within d 2^-24, K4 within its bound's 4 d 2^-24 share) -> (worst error
-    over tolerance per kernel, accumulation errors)."""
+    (int8, f32 and bf16 stores of the same rows) with half the chunks dead:
+    every metric, Gt / Lt / Eq filters, nothing alive; K2's dots bit for
+    bit; the others against float64 (K1, K3, K5 within d 2^-24, K4 within
+    its bound's 4 d 2^-24 share) -> (worst error over tolerance per kernel,
+    accumulation errors)."""
     from otters_tpu_torch.ops import fused_topk as ft
     from otters_tpu_torch.ops import scoring as sc
     from otters_tpu_torch.types import Cmp, Metric
@@ -283,6 +314,7 @@ def kernel_phase(torch, dev):
     f32[:n] = torch.randn((n, D), generator=g, device=dev)
     dv8 = sc.materialize_int8_slabs(lambda s, r: f32[s : s + r], n, D, SLAB, device=dev)
     dvf = sc.materialize_f32_slabs(lambda s, r: f32[s : s + r], n, D, SLAB, device=dev)
+    dvb = sc.materialize_from_device(f32, n_valid=n, dtype=torch.bfloat16)
     del f32
     chunk_mask = torch.arange(-(-n // CHUNK), device=dev) % 2 == 1
     queries = torch.randn((B, D), generator=g, device=dev)
@@ -299,9 +331,20 @@ def kernel_phase(torch, dev):
         ("K4", dvf, Metric.Cosine, False, None, 0.0, B),
         ("K4", dvf, Metric.DotProduct, False, Cmp.Gt, 2.0, 70),
         ("K4", dvf, Metric.Euclidean, True, None, 0.0, B),
+        ("K1-bf16", dvb, Metric.Cosine, False, None, 0.0, B),
+        ("K1-bf16", dvb, Metric.Cosine, False, Cmp.Gt, 0.05, 70),
+        ("K5", dvb, Metric.DotProduct, False, None, 0.0, B),
+        ("K5", dvb, Metric.DotProduct, False, Cmp.Gt, 2.0, 70),
+        ("K5", dvb, Metric.Euclidean, True, None, 0.0, B),
+        ("K5", dvb, Metric.Euclidean, True, Cmp.Lt, 1450.0, 70),
+        ("K3-bf16", dvb, Metric.Cosine, False, Cmp.Gte, 0.05, B),
+        ("K3-bf16", dvb, Metric.Euclidean, True, Cmp.Lt, 1450.0, 70),
+        ("K4-bf16", dvb, Metric.Cosine, False, None, 0.0, B),
+        ("K4-bf16", dvb, Metric.DotProduct, False, Cmp.Gt, 2.0, 70),
+        ("K4-bf16", dvb, Metric.Euclidean, True, None, 0.0, B),
     ]
     for mode, dv, metric, take_min, cmp, thr, b in cases:
-        args = mode_inputs(mode, dv, queries[:b], chunk_mask, thr)
+        args = mode_inputs(mode, dv, queries[:b], chunk_mask, thr, metric, cmp)
         err, tol = compare_mode(mode, args, metric, take_min, cmp)
         ratio[mode] = max(ratio[mode], err / tol)
         log(f"{mode} vs plain ({n} rows, b={b}, {metric.value}"
@@ -322,9 +365,11 @@ def kernel_phase(torch, dev):
         f"tol={tol:.3e} err/tol={err / tol:.3f}")
     del ints, dvi, args
     # nothing alive: every block returns at once
-    for mode, dv in (("K1", dv8), ("K2", dv8), ("K3", dvf), ("K4", dvf)):
-        args = mode_inputs(mode, dv, queries, torch.zeros_like(chunk_mask))
-        out0 = launch(mode, args, Metric.Cosine)
+    for mode, dv in (("K1", dv8), ("K2", dv8), ("K3", dvf), ("K4", dvf), ("K1-bf16", dvb),
+                     ("K3-bf16", dvb), ("K4-bf16", dvb), ("K5", dvb)):
+        metric = Metric.DotProduct if mode == "K5" else Metric.Cosine
+        args = mode_inputs(mode, dv, queries, torch.zeros_like(chunk_mask), metric=metric)
+        out0 = launch(mode, args, metric)
         sync(dev)
         assert bool(torch.isneginf(out0).all()), f"{mode}: n_surv = 0 must leave every bin -inf"
     # K2's int32 dots are those of an exact integer product, bit for bit
@@ -336,22 +381,23 @@ def kernel_phase(torch, dev):
     log(f"K2 dots: {got.numel()} equal to the exact integer product bit for bit")
     acc = {}
     gamma = D * 2.0**-24
-    for mode, dv in (("K1", dv8), ("K3", dvf), ("K4", dvf)):
+    for mode, dv in (("K1", dv8), ("K3", dvf), ("K4", dvf), ("K1-bf16", dvb), ("K5", dvb),
+                     ("K3-bf16", dvb), ("K4-bf16", dvb)):
         args = mode_inputs(mode, dv, queries, chunk_mask)
         ref_err, true_err = accumulation_error(mode, args)
         acc[mode] = ref_err
-        if mode == "K4":
+        if mode.startswith("K4"):
             lim, hpb = 4 * gamma, sc.high_precision_bound(D)
-            log(f"K4 accumulation error: max |dot - f64(split products)| / (|q||v|) = "
+            log(f"{mode} accumulation error: max |dot - f64(split products)| / (|q||v|) = "
                 f"{ref_err:.3e} (the bound's 4*d*2^-24 share = {lim:.3e}); vs the exact "
                 f"dot {true_err:.3e} (high_precision_bound = {hpb:.3e})")
-            assert ref_err <= lim, "K4 accumulation error exceeds the bound's 4*d*2^-24 share"
-            assert true_err <= hpb, "K4 error exceeds high_precision_bound(d)"
+            assert ref_err <= lim, f"{mode} accumulation error exceeds the bound's share"
+            assert true_err <= hpb, f"{mode} error exceeds high_precision_bound(d)"
         else:
             log(f"{mode} accumulation error: max |dot - f64| / (|q||v|) = {ref_err:.3e} "
                 f"(d*2^-24 = {gamma:.3e})")
             assert ref_err <= gamma, f"{mode} accumulation error exceeds d*2^-24"
-    del dv8, dvf, args, ops
+    del dv8, dvf, dvb, args, ops
     torch.cuda.empty_cache()
     return ratio, acc
 
@@ -592,9 +638,10 @@ def uncert_path(torch, store, batches, truths):
 
 def library_fn(torch, mode, q, v_live, n_live):
     """One PyTorch call (plus a bin max) for the same function: the
-    yardstick; the port never calls it. K1: a bf16 matmul on rows cast
-    beforehand; K2: ``torch._int_mm``; K3: an f32 matmul, TF32 off; K4:
-    three bf16 matmuls on planes split beforehand."""
+    yardstick; the port never calls it. K1 / K5: a bf16 matmul on rows cast
+    beforehand (bf16 rows as they are); K2: ``torch._int_mm``; K3: an f32
+    matmul, TF32 off, on rows upcast beforehand; K4: three bf16 matmuls on
+    planes split beforehand (two over bf16 rows, whose low plane is 0)."""
     from otters_tpu_torch.ops import fused_topk as ft
 
     b = q.shape[0]
@@ -602,64 +649,76 @@ def library_fn(torch, mode, q, v_live, n_live):
     def binmax(x):
         return x.reshape(b, n_live, ft.BIN).amax(dim=2)
 
-    if mode == "K1":
+    if mode in CERT_MODES:
         vb = v_live.bfloat16()
         return lambda: binmax(torch.matmul(q, vb.T))
     if mode == "K2":
         return lambda: binmax(torch._int_mm(q, v_live.T))
-    if mode == "K3":
-        return lambda: binmax(torch.matmul(q, v_live.T))
+    if mode.startswith("K3"):
+        v32 = v_live.float()
+        return lambda: binmax(torch.matmul(q, v32.T))
     qh, vh = q.bfloat16(), v_live.bfloat16()
+    if mode == "K4-bf16":
+        ql = (q - qh.float()).bfloat16()
+        return lambda: binmax(torch.matmul(qh, vh.T) + torch.matmul(ql, vh.T))
     ql, vl = (q - qh.float()).bfloat16(), (v_live - vh.float()).bfloat16()
     return lambda: binmax(
         torch.matmul(qh, vh.T) + torch.matmul(qh, vl.T) + torch.matmul(ql, vh.T)
     )
 
 
-def cosine_bound(mode, n_live, b, v_elt, q_elt):
-    """-> (bound ms, "bytes" or "operations", bytes, operations) for one
-    Cosine call over ``n_live`` live bins. The function must read each live
-    row once with its inv and rmask (K1: and its lane), each query with its
-    q_inv and q_ok, thr and the live part of the survivor list with its
-    count, and write the live bins' maxima once (the dead bins' -inf is the
-    wrapper's fill, not the function's work). K4 does three products."""
+def scan_bound(mode, n_live, b, v_elt, q_elt):
+    """-> (bound ms, "bytes" or "operations", bytes, operations) for one call
+    over ``n_live`` live bins (Cosine; K5 Dot or Euclid). The function must
+    read each live row once with the side data it needs (Cosine: inv and
+    rmask, K1 also its lane; K5: nsq, rmask and both lanes), each query with
+    its per-query values (q_inv and q_ok; K5 q_sq, q_ok, c0, c1, c2), thr
+    and the live part of the survivor list with its count, and write the
+    live bins' maxima once (the dead bins' -inf is the wrapper's fill, not
+    the function's work). K4 does three products, two over bf16 rows."""
     from otters_tpu_torch.ops import fused_topk as ft
 
     live_rows = n_live * ft.BIN
-    row_bytes = D * v_elt + (12 if mode == "K1" else 8)
-    bytes_moved = (live_rows * row_bytes + b * (D * q_elt + 8) + 4
+    side = {"K1": 12, "K1-bf16": 12, "K5": 16}.get(mode, 8)
+    per_query = 20 if mode == "K5" else 8
+    bytes_moved = (live_rows * (D * v_elt + side) + b * (D * q_elt + per_query) + 4
                    + n_live * 4 + 4 + n_live * b * 4)
-    ops = 2.0 * b * D * live_rows * (3 if mode == "K4" else 1)
-    peak = {"K1": PEAK_BF16_FLOPS, "K2": PEAK_INT8_OPS, "K3": PEAK_F32_FLOPS,
-            "K4": PEAK_BF16_FLOPS}[mode]
+    products = {"K4": 3, "K4-bf16": 2}.get(mode, 1)
+    ops = 2.0 * b * D * live_rows * products
+    peak = {"K2": PEAK_INT8_OPS, "K3": PEAK_F32_FLOPS,
+            "K3-bf16": PEAK_F32_FLOPS}.get(mode, PEAK_BF16_FLOPS)
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_S, ops / peak
     return (max(t_bytes, t_ops) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
             bytes_moved, ops)
 
 
-def time_mode(torch, mode, dv, queries, n_chunks):
-    """A kernel at a path's shapes (Cosine, half the chunks dead): held
-    against plain, then timed beside plain, the yardstick and the bound."""
+def time_mode(torch, mode, dv, queries, n_chunks, metric=None):
+    """A kernel at a path's shapes (Cosine unless ``metric`` is named, half
+    the chunks dead): held against plain, then timed beside plain, the
+    yardstick and the bound."""
     from otters_tpu_torch.ops import fused_topk as ft
     from otters_tpu_torch.types import Metric
 
+    metric = metric or Metric.Cosine
+    take_min = metric is Metric.Euclidean
     chunk_mask = torch.arange(n_chunks, device=queries.device) % 2 == 1
-    args = mode_inputs(mode, dv, queries, chunk_mask)
-    err, tol = compare_mode(mode, args, Metric.Cosine)
+    args = mode_inputs(mode, dv, queries, chunk_mask, metric=metric)
+    err, tol = compare_mode(mode, args, metric, take_min)
     n_live = int(args[-1][0])
     live_rows = n_live * ft.BIN
-    kernel_ms = time_ms(lambda: launch(mode, args, Metric.Cosine), reps=10)
-    plain_ms = time_ms(lambda: plain(mode, args, Metric.Cosine), reps=3, warm=1)
+    kernel_ms = time_ms(lambda: launch(mode, args, metric, take_min), reps=10)
+    plain_ms = time_ms(lambda: plain(mode, args, metric, take_min), reps=3, warm=1)
     live = args[-2][:n_live].long()
     rows = (live[:, None] * ft.BIN + torch.arange(ft.BIN, device=live.device)).reshape(-1)
     v_live = dv.vectors[rows]
     library_ms = time_ms(library_fn(torch, mode, args[0], v_live, n_live), reps=10)
     del v_live
     torch.cuda.empty_cache()
-    bound_ms, bound_by, bytes_moved, ops = cosine_bound(
+    bound_ms, bound_by, bytes_moved, ops = scan_bound(
         mode, n_live, args[0].shape[0], dv.vectors.element_size(), args[0].element_size()
     )
-    log(f"{mode} at the path's shapes: live rows {live_rows}, kernel {kernel_ms:.3f} ms, "
+    log(f"{mode} ({metric.value}) at the path's shapes: live rows {live_rows}, "
+        f"kernel {kernel_ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
         f"({bound_by}: {bytes_moved / 1e9:.3f} GB, {ops / 1e12:.3f} T ops), "
         f"max_abs_err {err:.3e} (tol {tol:.3e})")
@@ -686,6 +745,190 @@ def profile_batches(torch, pending, batches):
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of wall)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def bf16_path(torch, dev, f32, batches, card=""):
+    """bfloat16 storage at the bench's size: a 10M x 768 bf16 store made on
+    the device from the main path's seeded f32 rows (its residuals computed
+    slab by slab), the f32 rows as the rerank source, the same columns,
+    filter and batches. Certified ``take(10, rerank_from=100)`` for Cosine
+    (K1 over bf16 rows), Dot (K5) and Euclid take-min (K5): every query
+    certified, every top-10 equal to the exact f32 filtered top-10. Then
+    uncertified Cosine ``take(10)``: K4 over bf16 rows with every check
+    passing, equal to the exact top-10 of the stored values."""
+    import numpy as np
+
+    import otters_tpu_torch as tx
+    from otters_tpu_torch.ops import fused_topk as ft
+    from otters_tpu_torch.ops import scoring as sc
+
+    n = ROWS
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    t0 = time.perf_counter()
+    dvb = sc.materialize_from_device(f32, n_valid=n, dtype=torch.bfloat16)
+    sync(dev)
+    ingest_s = time.perf_counter() - t0
+
+    def fetch(ids):
+        return f32[torch.as_tensor(np.asarray(ids, dtype=np.int64), device=dev)]
+
+    t0 = time.perf_counter()
+    store = (
+        tx.MetaStore.from_columns(price_version_columns(n))
+        .with_vectors(dvb, n_rows=n).with_chunk_size(CHUNK)
+        .with_rerank_source(fetch_vectors=fetch).with_device(dev).build()
+    )
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    log(f"{n} x {D} bf16 store ({dvb.vectors.nbytes / 1e9:.1f} GB) from the f32 rows: "
+        f"{ingest_s:.2f} s, build {build_s:.2f} s, chunks={store.n_chunks()}, "
+        f"max resid {float(dvb.resid_max):.3e}")
+    on_card = dev.type == "cuda"
+    out = {"build_s": build_s, "ingest_s": ingest_s}
+
+    def run(metric, mode, take, label, truth_rows):
+        def pending(q):
+            plan = store.query_batch(q, metric).meta_filter(bench_filter())
+            return plan.take(K, **take).collect_async()
+
+        tx.resolve([pending(torch.randn((B, D), generator=g, device=dev))])  # warm-up
+        ft.reset_launches()
+        sync(dev)
+        t0 = time.perf_counter()
+        pend = [pending(q) for q in batches]
+        results = tx.resolve(pend)
+        sync(dev)
+        elapsed = time.perf_counter() - t0
+        launched = counts()
+        qps = len(batches) * B / elapsed
+        certify = "rerank_from" in take
+        for i, p in enumerate(pend):
+            st = p.stats()
+            assert st.certified is (True if certify else None), f"{label} batch {i}: {st}"
+            assert st.pruned_chunks == (store.n_chunks() + 1) // 2, f"{label} batch {i}: {st}"
+        if on_card:
+            assert launched[mode] >= len(batches), (label, launched)
+            if mode == "K4-bf16":
+                assert launched["K3-bf16"] == 0, launched  # every check passed
+        take_min = metric is tx.Metric.Euclidean
+        ties, worst = 0, 0.0
+        for i, (q, res) in enumerate(zip(batches, results)):
+            want = exact_topk(torch, truth_rows, n, q, metric, K, take_min=take_min,
+                              row_ok=odd_chunks)
+            t, e = check_topk(f"{label} batch {i}", res.indices, res.scores, *want,
+                              score_tol(metric, q, dvb))
+            ties, worst = ties + t, max(worst, e)
+        log(f"{label}: {len(batches)} pipelined batches of {B} in {elapsed:.3f} s = "
+            f"{qps:.1f} q/s on {card}; scan_k_wide={pend[-1].stats().scan_k_wide}; "
+            f"top-{K} equal to the exact truth for all {len(batches) * B} queries "
+            f"(max score diff {worst:.2e}, boundary ties {ties}); launches {launched}")
+        if on_card and metric is tx.Metric.DotProduct and certify:
+            profile_batches(torch, pending, batches)
+        return {"qps": qps, "launches": launched[mode]}
+
+    for key, metric, mode in (("cosine", tx.Metric.Cosine, "K1-bf16"),
+                              ("dot", tx.Metric.DotProduct, "K5"),
+                              ("euclid", tx.Metric.Euclidean, "K5")):
+        label = f"bf16 certified {metric.value}"
+        out[key] = run(metric, mode, dict(rerank_from=K_WIDE), label, f32)
+    out["uncert"] = run(tx.Metric.Cosine, "K4-bf16", {}, "bf16 uncertified Cosine take(10)",
+                        dvb.vectors)
+    return store, dvb, out
+
+
+def bf16_small_phase(torch, dev):
+    """1M x 768 bf16 stores. (a) Small-integer rows (exact in bf16) with query
+    0's top row copied into N_DUP > 4k bins: the fast K4 check fails, K3
+    over bf16 rows reruns, and the answer is the lowest-index copies. (b)
+    test_cert_metrics.py's near-ties at d = 768 (192 rows along one
+    direction, norms 3e-5 apart: far below bf16 rounding): certified Dot
+    and Euclid ``take(10, rerank_from=16)`` must widen on K5 and equal the
+    exact f32 truth, in order. The batch of 8 queries makes the store large
+    enough (8 x 1M candidates) for the fused kernel rather than the direct
+    program."""
+    import numpy as np
+
+    import otters_tpu_torch as tx
+    from otters_tpu_torch.ops import fused_topk as ft
+    from otters_tpu_torch.ops import scoring as sc
+
+    n = NEAR_ROWS
+    n_pad = sc.pad_rows(n)
+    on_card = dev.type == "cuda"
+    ids = [tx.Column("id", tx.DataType.Int64).from_values(np.arange(n))]
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+    # (a) the failed fast check
+    u = torch.randint(-3, 4, (D,), generator=g, device=dev).float()
+    step = (n // ft.BIN) // N_DUP
+    dup_rows = torch.arange(N_DUP, device=dev) * step * ft.BIN + 200
+    rows = torch.zeros((n_pad, D), device=dev)
+    rows[:n] = torch.randint(-3, 4, (n, D), generator=g, device=dev).float()
+    rows[dup_rows] = u
+    dvb = sc.materialize_from_device(rows, n_valid=n, dtype=torch.bfloat16)
+    del rows
+    store = tx.MetaStore.from_columns(ids).with_vectors(dvb, n_rows=n).with_device(dev).build()
+    queries = torch.cat([u[None, :], torch.randint(-3, 4, (7, D), generator=g, device=dev).float()])
+    ft.reset_launches()
+    res = store.query_batch(queries, tx.Metric.Cosine).take(K).collect()
+    near = counts()
+    want = exact_topk(torch, dvb.vectors, n, queries, tx.Metric.Cosine, K)
+    check_topk("bf16 near-ties", res.indices, res.scores, *want,
+               score_tol(tx.Metric.Cosine, queries, dvb))
+    assert sorted(res.indices) == dup_rows[:K].tolist(), (res.indices, dup_rows[:K].tolist())
+    if on_card:
+        assert near["K4-bf16"] >= 1 and near["K3-bf16"] >= 1, near
+    log(f"bf16 exact ties ({N_DUP} copies of query 0's top row, {n} x {D}): the check failed "
+        f"and K3 over bf16 rows reran; top-{K} = the {K} lowest-index copies; launches {near}")
+    del store, dvb
+    torch.cuda.empty_cache()
+
+    # (b) near-ties for the general fold
+    n_tie = 192
+    uu = torch.randn(D, generator=g, device=dev)
+    uu /= uu.norm()
+    f32 = torch.zeros((n_pad, D), device=dev)
+    f32[:n] = 0.05 * torch.randn((n, D), generator=g, device=dev)
+    scale = 1.0 + 3e-5 * torch.randperm(n_tie, generator=g, device=dev).float()
+    w = torch.randn((n_tie, D), generator=g, device=dev)
+    w -= (w @ uu)[:, None] * uu[None, :]
+    w /= w.norm(dim=1, keepdim=True)
+    a = 0.2 * torch.rand((n_tie, 1), generator=g, device=dev)
+    f32[:n_tie] = scale[:, None] * (uu[None, :] + a * w)
+    dvb = sc.materialize_from_device(f32, n_valid=n, dtype=torch.bfloat16)
+
+    def fetch(ids_):
+        return f32[torch.as_tensor(np.asarray(ids_, dtype=np.int64), device=dev)]
+
+    # query 0 along the ties; 7 more of the same norm in random directions,
+    # whose best scores stay far from query 0's, so the batch's global top-k
+    # is query 0's (and the batch is large enough for the fused kernel)
+    others = torch.randn((7, D), generator=g, device=dev)
+    q = torch.cat([2.0 * uu[None, :], 2.0 * others / others.norm(dim=1, keepdim=True)])
+    widen = {}
+    for metric in (tx.Metric.DotProduct, tx.Metric.Euclidean):
+        # a store each: the widths that certified are remembered per store
+        # and plan shape, and the second metric would start at the first's
+        store = (tx.MetaStore.from_columns(ids).with_vectors(dvb, n_rows=n)
+                 .with_rerank_source(fetch_vectors=fetch).with_device(dev).build())
+        ft.reset_launches()
+        p = store.query_batch(q, metric).take(K, rerank_from=16).collect_async()
+        res = p.result()
+        st = p.stats()
+        launched = counts()
+        take_min = metric is tx.Metric.Euclidean
+        rows_t, scores_t = exact_topk(torch, f32, n, q, metric, K, take_min=take_min)
+        assert st.certified is True and st.scan_k_wide > 16, (metric, st)
+        assert res.indices == rows_t, (metric, res.indices, rows_t)
+        err = max(abs(a_ - b_) for a_, b_ in zip(res.scores, scores_t))
+        assert err <= score_tol(metric, q, dvb), (metric, err)
+        if on_card:
+            assert launched["K5"] >= 2, ("the widen loop should rescan on K5", launched)
+        widen[metric.value] = st.scan_k_wide
+        log(f"bf16 near-ties {metric.value}: certified at scan_k_wide={st.scan_k_wide} after "
+            f"{launched['K5']} K5 launches; top-{K} equal to the f32 truth in order (max score "
+            f"diff {err:.2e})")
+    return {"launches": near["K3-bf16"], "widen": widen}
 
 
 def widen_phase(torch, dev):
@@ -896,10 +1139,11 @@ def near_tie_path(torch, dev):
 
 
 def vecstore_path(torch, dev):
-    """VecStore at 1M x 768: 256 Cosine queries, ``take(10)``. f32 storage
-    runs K4 with its check (no K3 rerun) and equals the exact f32 truth;
-    int8 storage runs K2 and equals the exact top-10 of its quantized
-    scores (recall@10 against the f32 truth is reported)."""
+    """VecStore at 1M x 768: 256 Cosine queries, ``take(10)``. f32 and bf16
+    storage run K4 with its check (no K3 rerun) and equal the exact truth
+    of their stored values; int8 storage runs K2 and equals the exact
+    top-10 of its quantized scores (recall@10 against the f32 truth is
+    reported)."""
     import otters_tpu_torch as tx
     from otters_tpu_torch.ops import fused_topk as ft
     from otters_tpu_torch.ops import scoring as sc
@@ -910,7 +1154,7 @@ def vecstore_path(torch, dev):
     queries = torch.randn((B, D), generator=g, device=dev)
     q_np = queries.cpu().numpy()
     out, f32_truth = {}, None
-    for dtype, mode in (("float32", "K4"), ("int8", "K2")):
+    for dtype, mode in (("float32", "K4"), ("bfloat16", "K4-bf16"), ("int8", "K2")):
         store = tx.VecStore(D, dtype=dtype, device=dev)
         store.add_vectors(host)
         t0 = time.perf_counter()
@@ -923,10 +1167,10 @@ def vecstore_path(torch, dev):
         query_s = time.perf_counter() - t0
         launched = counts()
         rows, scores = [r.index for r in res], [r.score for r in res]
-        if dtype == "float32":
-            q_truth = queries
-        else:
+        if dtype == "int8":
             q_truth = sc._quantize_rows_int8(queries)[0].float()
+        else:
+            q_truth = queries
         want = exact_topk(torch, dv.vectors, n, q_truth, tx.Metric.Cosine, K)
         t, e = check_topk(f"VecStore {dtype}", rows, scores, *want,
                           score_tol(tx.Metric.Cosine, q_truth, dv))
@@ -935,8 +1179,8 @@ def vecstore_path(torch, dev):
         recall = len(set(rows) & set(f32_truth)) / K
         if dev.type == "cuda":
             assert launched[mode] >= 1, launched
-            if mode == "K4":
-                assert launched["K3"] == 0, launched
+            if mode.startswith("K4"):
+                assert launched["K3"] == launched["K3-bf16"] == 0, launched
         log(f"VecStore {dtype} ({n} x {D}, upload {upload_s:.2f} s): {B} queries take({K}) "
             f"in {query_s:.3f} s, equal to the exact truth of its storage (max score diff "
             f"{e:.2e}, boundary ties {t}); recall@{K} vs f32 {recall:.2f}; launches {launched}")
@@ -976,6 +1220,7 @@ def main() -> int:
         import otters_tpu_torch  # noqa: F401
         from otters_tpu_torch import kernels
         from otters_tpu_torch.ops import fused_topk as ft
+        from otters_tpu_torch.types import Metric
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repo ({e})", file=sys.stderr)
         return 1
@@ -996,18 +1241,31 @@ def main() -> int:
             f"{time.perf_counter() - t0:.2f} s")
         for name, text in kernels.build_logs.items():
             log(f"[{name}] {text.strip()}")
-    with phase("3 kernels vs plain (K1, K2, K3, K4), accumulation errors"):
+    with phase("3 kernels vs plain (K1 - K5, int8 / f32 / bf16 rows), accumulation errors"):
         err_ratio, acc = kernel_phase(torch, dev)
     with phase(f"4 main path ({ROWS} x {D})"):
         ft.reset_launches()
         store, f32, batches, truths, stats = main_path(torch, dev, ROWS, card)
     with phase("4u filtered_uncert on the same store (K2)"):
         uncert = uncert_path(torch, store, batches, truths)
-        del f32
-        torch.cuda.empty_cache()
         timing = {m: time_mode(torch, m, store._dv, batches[0], store.n_chunks())
                   for m in ("K1", "K2")}
-        del store, batches
+        del store
+        torch.cuda.empty_cache()
+    with phase(f"4f bfloat16 storage ({ROWS} x {D}): K1 / K5 certified, K4 uncertified"):
+        store, dvb, bf16 = bf16_path(torch, dev, f32, batches, card)
+        del f32
+        torch.cuda.empty_cache()
+        n_chunks = store.n_chunks()
+        del store
+        for m in ("K1-bf16", "K4-bf16", "K3-bf16"):
+            timing[m] = time_mode(torch, m, dvb, batches[0], n_chunks)
+        timing["K5"] = time_mode(torch, "K5", dvb, batches[0], n_chunks, Metric.DotProduct)
+        k5_euclid = time_mode(torch, "K5", dvb, batches[0], n_chunks, Metric.Euclidean)
+        del dvb, batches
+        torch.cuda.empty_cache()
+    with phase(f"4g bf16 stores ({NEAR_ROWS} x {D}): failed check (K3), near-ties (K5 widen)"):
+        bf16_small = bf16_small_phase(torch, dev)
         torch.cuda.empty_cache()
     with phase("4b certificate widening on adversarial near-ties"):
         widen_phase(torch, dev)
@@ -1023,26 +1281,51 @@ def main() -> int:
     with phase(f"6b failed fast check, Eq and take(200) ({NEAR_ROWS} x {D}, K3)"):
         near = near_tie_path(torch, dev)
         torch.cuda.empty_cache()
-    with phase(f"7 VecStore ({VEC_ROWS} x {D}, f32 K4 and int8 K2)"):
+    with phase(f"7 VecStore ({VEC_ROWS} x {D}, f32 and bf16 K4, int8 K2)"):
         vec = vecstore_path(torch, dev)
 
+    log(f"peak device memory allocated: {torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
+    bf16_path_name = f"bf16 {ROWS} x {D}"
     modes = [
-        ("K1", "cert_cos_binmax", ":123 (_kernel[certify,cert_cos])", stats["launches"],
+        ("K1", "cert_cos_binmax", "cert_cos_binmax", ":123 (_kernel[certify,cert_cos])",
+         stats["launches"],
          {"path": f"certified main path {ROWS} x {D}", "path_qps": stats["qps"]}),
-        ("K2", "int8_binmax", ":149 (_kernel[int8, uncertified])", uncert["launches"],
+        ("K2", "int8_binmax", "int8_binmax", ":149 (_kernel[int8, uncertified])",
+         uncert["launches"],
          {"path": f"filtered_uncert {ROWS} x {D}", "path_qps": uncert["qps"],
           "recall_at_10": uncert["recall"], "vecstore_launches": vec["K2"]}),
-        ("K3", "f32_binmax", ":182 (_kernel[prec=highest])", near["launches"],
+        ("K3", "f32_binmax", "f32_binmax", ":182 (_kernel[prec=highest])", near["launches"],
          {"path": f"near-tie strict rerun {NEAR_ROWS} x {D}"}),
-        ("K4", "bf16x3_binmax", ":168 (_kernel[prec=high, fast])", f32_stats["launches"],
+        ("K4", "bf16x3_binmax", "bf16x3_binmax", ":168 (_kernel[prec=high, fast])",
+         f32_stats["launches"],
          {"path": f"exact f32 {F32_ROWS} x {D}", "path_qps": f32_stats["qps"],
           "vecstore_launches": vec["K4"]}),
+        ("K1-bf16", "cert_cos_binmax_bf16", "cert_cos_binmax",
+         ":234 (_kernel[certify,cert_cos], bf16 rows)", bf16["cosine"]["launches"],
+         {"path": f"certified Cosine {bf16_path_name}",
+          "path_qps": bf16["cosine"]["qps"]}),
+        ("K5", "cert_fold_binmax", "cert_fold_binmax",
+         ":244 (_kernel[certify, general fold])", bf16["dot"]["launches"],
+         {"path": f"certified Dot {bf16_path_name}",
+          "path_qps": bf16["dot"]["qps"],
+          "euclid_path_qps": bf16["euclid"]["qps"],
+          "euclid_launches": bf16["euclid"]["launches"],
+          "euclid_ms": k5_euclid["ms"], "euclid_plain_ms": k5_euclid["plain_ms"],
+          "euclid_max_abs_err": k5_euclid["max_abs_err"],
+          "near_tie_scan_k_wide": bf16_small["widen"]}),
+        ("K3-bf16", "f32_binmax_bf16", "f32_binmax",
+         ":182 (_kernel[prec=highest], bf16 rows)", bf16_small["launches"],
+         {"path": f"bf16 near-tie strict rerun {NEAR_ROWS} x {D}"}),
+        ("K4-bf16", "bf16x3_binmax_bf16", "bf16x3_binmax",
+         ":168 (_kernel[prec=high, fast], bf16 rows)", bf16["uncert"]["launches"],
+         {"path": f"uncertified Cosine {bf16_path_name}", "path_qps": bf16["uncert"]["qps"],
+          "vecstore_launches": vec["K4-bf16"]}),
     ]
     entries = []
-    for mode, name, line, launches, extra in modes:
+    for mode, name, source, line, launches, extra in modes:
         entries.append({
             "name": name, "route": "cuda",
-            "source": f"otters_tpu_torch/csrc/{name}.cu",
+            "source": f"otters_tpu_torch/csrc/{source}.cu",
             "replaces": f"otters_tpu/ops/pallas_topk.py{line}",
             "launches": launches, **timing[mode],
             # the worst max |kernel - plain| / tolerance over the kernel

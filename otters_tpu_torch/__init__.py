@@ -7,9 +7,11 @@ the builder names another (``MetaStoreBuilder.with_device("cpu")``).
 Ported so far: the MetaStore builder, zonemap / Bloom pruning, pipelined
 ``collect_async`` / ``resolve``, and ``VecStore`` / ``VecQueryPlan``; f32
 storage with exact search (the verified fast-exact bf16x3 scan and its
-strict exact-f32 rerun) and int8 storage, certified through the exact f32
-rerank or uncertified. Each TPU kernel mode on these paths is a kernel
-written by hand for Hopper (``csrc/``, see ``ops/fused_topk.py``).
+strict exact-f32 rerun); bfloat16 storage, searched the same way over its
+stored values or certified exact through the f32 rerank for Cosine, Dot
+and Euclid; and int8 storage, certified through the exact f32 rerank or
+uncertified. Each TPU kernel mode on these paths is a kernel written by
+hand for Hopper (``csrc/``, see ``ops/fused_topk.py``).
 """
 
 from .column import Column

@@ -1,14 +1,19 @@
-// K4: bf16x3 fast-exact bin maxima over f32 rows, for Hopper (sm_90a).
+// K4: bf16x3 fast-exact bin maxima over f32 or bfloat16 rows, for Hopper
+// (sm_90a).
 //
 // Replaces otters_tpu/ops/pallas_topk.py::_kernel in its prec="high" mode
 // (the verified fast-exact phase 1, fast=True, and the store precision
-// "high"): each dot is
+// "high"), over f32 rows (entry bf16x3_binmax) and bfloat16 rows (entry
+// bf16x3_binmax_bf16): each dot is
 //
 //   qh.vh + qh.vl + ql.vh,   x_h = bf16_rn(x),  x_l = bf16_rn(x - x_h),
 //
 // three bf16 tensor-core products with f32 accumulation (ql.vl dropped),
 // then the masked key of binmax_common.cuh and its maximum over each live
-// 512-row bin. scoring.high_precision_bound(d) = 2^-14 + 4 d 2^-24 bounds
+// 512-row bin. A bf16 row is its own high plane: JAX upcasts it to f32 and
+// splits it, giving vh = v exactly and vl = 0, so qh.vl is identically zero
+// and this kernel skips that product (two products, qh.v + ql.v).
+// scoring.high_precision_bound(d) = 2^-14 + 4 d 2^-24 bounds
 // |dot_bf16x3 - dot| / (|q| |v|); phase 2 re-scores in exact f32 and the
 // check kth_key >= boundary + slack decides whether the answer stands.
 //
@@ -28,7 +33,9 @@
 // Bound at the f32 path's shapes (4M x 768 f32 store, 256 queries, half of
 // the 1024-row chunks pruned: about 2.0M live rows): 3 x 2 x 256 x 768 x
 // 2.0M = 2.36 T bf16 operations, 2.4 ms at 989 TFLOP/s, against 6.1 GB of
-// rows, 1.8 ms at 3.35 TB/s. So the tensor cores bound it. This first
+// rows, 1.8 ms at 3.35 TB/s. So the tensor cores bound it. Over bf16 rows
+// (10M x 768 store, about 5.0M live rows) the two products are 3.93 T
+// operations, 4.0 ms, against 7.7 GB of rows: operations again. This first
 // version is simple (synchronous loads, the split redone per query block,
 // WMMA); wgmma, TMA and a stored plane pair are later work.
 //
@@ -44,6 +51,8 @@
 #include <cuda_bf16.h>
 #include <mma.h>
 
+#include <type_traits>
+
 #include "binmax_common.cuh"
 
 using namespace nvcuda;
@@ -55,6 +64,13 @@ constexpr int RN = 128;       // rows per sub-tile
 constexpr int BK = 64;        // depth per staged step
 constexpr int PLD = BK + 8;   // bf16 plane leading dimension, in elements
 constexpr int CLD = RN + 4;   // f32 dot tile leading dimension
+
+// dynamic shared memory: the query and row planes, one f32 dot tile (a
+// bf16-row launch leaves the row low plane unused)
+constexpr size_t smem_bytes() {
+    return (size_t)2 * (QB + RN) * PLD * sizeof(__nv_bfloat16)
+         + (size_t)QB * CLD * sizeof(float);
+}
 
 // rows [r0, r0 + rows) x [k0, k0 + BK) of an f32 [*, d] matrix into the
 // bf16 high / low planes [rows][PLD] (zeros past d)
@@ -89,9 +105,33 @@ __device__ __forceinline__ void split_tile(
     }
 }
 
+// rows [r0, r0 + rows) x [k0, k0 + BK) of a bf16 [*, d] matrix copied as
+// they are into the plane [rows][PLD] (zeros past d); vec: d % 4 == 0, so
+// 4 elements are one aligned 8-byte load
+__device__ __forceinline__ void copy_tile(
+    const __nv_bfloat16* __restrict__ src, size_t r0, int rows, int d, int k0,
+    bool vec, __nv_bfloat16* dst, int tid)
+{
+    constexpr int C4 = BK / 4;
+    for (int i = tid; i < rows * C4; i += THREADS) {
+        const int r = i / C4, c = i - r * C4;
+        const int kk = k0 + c * 4;
+        const __nv_bfloat16* p = src + (r0 + r) * (size_t)d + kk;
+        __nv_bfloat16* o = dst + r * PLD + c * 4;
+        if (vec && kk + 4 <= d) {
+            *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(p);
+        } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                o[e] = kk + e < d ? p[e] : __float2bfloat16_rn(0.f);
+        }
+    }
+}
+
+template <typename RowT>
 __global__ void __launch_bounds__(THREADS) bf16x3_binmax_kernel(
     const float* __restrict__ q,       // [bq, d]
-    const float* __restrict__ v,       // [n_pad, d]
+    const RowT* __restrict__ v,        // [n_pad, d] f32 or bf16
     const float* __restrict__ inv,     // [n_pad]
     const float* __restrict__ nsq,     // [n_pad]
     const float* __restrict__ rmask,   // [n_pad] 0/1
@@ -110,6 +150,7 @@ __global__ void __launch_bounds__(THREADS) bf16x3_binmax_kernel(
     const int bin = surv[slot];
     const int q0 = qblk * QB;
     const bool vec = (d % 4) == 0;
+    constexpr bool ROW_BF16 = std::is_same<RowT, __nv_bfloat16>::value;
 
     extern __shared__ __align__(128) unsigned char smem[];
     __nv_bfloat16* qh = reinterpret_cast<__nv_bfloat16*>(smem);   // [QB][PLD]
@@ -143,7 +184,8 @@ __global__ void __launch_bounds__(THREADS) bf16x3_binmax_kernel(
 
         for (int k0 = 0; k0 < d; k0 += BK) {
             split_tile(q, (size_t)q0, QB, d, k0, vec, qh, ql, tid);
-            split_tile(v, row0, RN, d, k0, vec, vh, vl, tid);
+            if constexpr (ROW_BF16) copy_tile(v, row0, RN, d, k0, vec, vh, tid);
+            else split_tile(v, row0, RN, d, k0, vec, vh, vl, tid);
             __syncthreads();
             wmma::fragment<wmma::accumulator, 16, 16, 16, float> part[2][2];
 #pragma unroll
@@ -166,14 +208,16 @@ __global__ void __launch_bounds__(THREADS) bf16x3_binmax_kernel(
                 for (int j = 0; j < 2; ++j) {
                     const int off = (wn * 32 + j * 16) * PLD + kk;
                     wmma::load_matrix_sync(bh[j], vh + off, PLD);
-                    wmma::load_matrix_sync(bl[j], vl + off, PLD);
+                    if constexpr (!ROW_BF16) wmma::load_matrix_sync(bl[j], vl + off, PLD);
                 }
 #pragma unroll
                 for (int i = 0; i < 2; ++i)
 #pragma unroll
                     for (int j = 0; j < 2; ++j) {
                         wmma::mma_sync(part[i][j], ah[i], bh[j], part[i][j]);
-                        wmma::mma_sync(part[i][j], ah[i], bl[j], part[i][j]);
+                        // bf16 rows: vl = 0, so qh.vl adds nothing
+                        if constexpr (!ROW_BF16)
+                            wmma::mma_sync(part[i][j], ah[i], bl[j], part[i][j]);
                         wmma::mma_sync(part[i][j], al[i], bh[j], part[i][j]);
                     }
             }
@@ -209,13 +253,31 @@ __global__ void __launch_bounds__(THREADS) bf16x3_binmax_kernel(
     if (esub == 0 && q0 + eq < b) out[(size_t)bin * b + q0 + eq] = best;
 }
 
+template <typename RowT>
+int launch(const void* q, const void* v, const void* inv, const void* nsq,
+           const void* rmask, const void* q_inv, const void* q_sq, const void* q_ok,
+           const void* thr, const void* surv, const void* n_surv, void* out,
+           int n_bins, int d, int b, int n_qblocks, int metric, int take_min, int cmp,
+           void* stream)
+{
+    const size_t smem = smem_bytes();
+    cudaError_t err = cudaFuncSetAttribute(
+        bf16x3_binmax_kernel<RowT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)n_bins * (unsigned)n_qblocks);
+    bf16x3_binmax_kernel<RowT><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)q, (const RowT*)v, (const float*)inv, (const float*)nsq,
+        (const float*)rmask, (const float*)q_inv, (const float*)q_sq,
+        (const float*)q_ok, (const float*)thr, (const int*)surv,
+        (const int*)n_surv, (float*)out, d, b, n_qblocks, metric, take_min, cmp);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" size_t bf16x3_binmax_smem_bytes(int d) {
-    (void)d;
-    return (size_t)2 * (QB + RN) * PLD * sizeof(__nv_bfloat16)
-         + (size_t)QB * CLD * sizeof(float);
-}
+extern "C" size_t bf16x3_binmax_smem_bytes(int) { return smem_bytes(); }
+extern "C" size_t bf16x3_binmax_bf16_smem_bytes(int) { return smem_bytes(); }
 
 extern "C" int bf16x3_binmax_launch(
     const void* q, const void* v, const void* inv, const void* nsq,
@@ -224,15 +286,18 @@ extern "C" int bf16x3_binmax_launch(
     int n_bins, int d, int b, int n_qblocks, int metric, int take_min, int cmp,
     void* stream)
 {
-    const size_t smem = bf16x3_binmax_smem_bytes(d);
-    cudaError_t err = cudaFuncSetAttribute(
-        bf16x3_binmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)n_bins * (unsigned)n_qblocks);
-    bf16x3_binmax_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        (const float*)q, (const float*)v, (const float*)inv, (const float*)nsq,
-        (const float*)rmask, (const float*)q_inv, (const float*)q_sq,
-        (const float*)q_ok, (const float*)thr, (const int*)surv,
-        (const int*)n_surv, (float*)out, d, b, n_qblocks, metric, take_min, cmp);
-    return (int)cudaGetLastError();
+    return launch<float>(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv,
+                         out, n_bins, d, b, n_qblocks, metric, take_min, cmp, stream);
+}
+
+extern "C" int bf16x3_binmax_bf16_launch(
+    const void* q, const void* v, const void* inv, const void* nsq,
+    const void* rmask, const void* q_inv, const void* q_sq, const void* q_ok,
+    const void* thr, const void* surv, const void* n_surv, void* out,
+    int n_bins, int d, int b, int n_qblocks, int metric, int take_min, int cmp,
+    void* stream)
+{
+    return launch<__nv_bfloat16>(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
+                                 n_surv, out, n_bins, d, b, n_qblocks, metric, take_min,
+                                 cmp, stream);
 }

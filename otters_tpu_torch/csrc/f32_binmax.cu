@@ -1,8 +1,10 @@
-// K3: exact f32 bin maxima over f32 rows, for Hopper (sm_90a).
+// K3: exact f32 bin maxima over f32 or bfloat16 rows, for Hopper (sm_90a).
 //
 // Replaces otters_tpu/ops/pallas_topk.py::_kernel in its prec="highest"
-// mode over f32 rows (the strict mode: the rerun when the fast check
-// fails, Eq score filters, k > 128): each dot is an f32 product with one
+// mode (the strict mode: the rerun when the fast check fails, Eq score
+// filters, k > 128), over f32 rows (entry f32_binmax) and over bfloat16
+// rows upcast exactly to f32 as JAX's `v_ref[:].astype(jnp.float32)` does
+// (entry f32_binmax_bf16): each dot is an f32 product with one
 // IEEE rounding per term (FFMA on the CUDA cores; no TF32, no tensor
 // cores, independent of torch's TF32 switch), then the masked key of
 // binmax_common.cuh and its maximum over each live 512-row bin.
@@ -26,13 +28,19 @@
 // the 1024-row chunks pruned: about 2.0M live rows): 2 x 256 x 768 x 2.0M
 // = 0.79 T f32 operations, 11.7 ms at the 67 TFLOP/s of the CUDA cores,
 // against 6.1 GB of rows, 1.8 ms at 3.35 TB/s. So operations bound it.
+// Over bf16 rows (10M x 768 store, about 5.0M live rows) the same count is
+// 1.97 T operations, 29 ms, against 7.7 GB of rows: operations again.
 // This first version is simple: synchronous loads, no double buffering.
 //
 // Hazards handled:
 // - Zero padding past d: 0 * 0 adds nothing; d need not be a multiple of 4.
+// - bf16 rows: __bfloat162float is exact, so the products are those of the
+//   stored values, as in JAX.
 // - Padded query rows (q_ok = 0) come out -inf; out is written only for
 //   query lanes < b; n_surv = 0 launches safely.
 // - Launch errors: the launcher returns cudaGetLastError().
+
+#include <cuda_bf16.h>
 
 #include "binmax_common.cuh"
 
@@ -47,10 +55,32 @@ constexpr int VLD = RN + 4;
 constexpr int TQ = 4;          // queries per thread
 constexpr int TR = 8;          // rows per thread
 
-// rows [r0, r0 + rows) x [k0, k0 + BK) of an f32 [*, d] matrix, transposed
-// into dst[BK][ld] (zeros past d)
+// 4 elements at p, of which the first n are real (the rest read as 0), as
+// f32; vec: a whole 16-byte (f32) or 8-byte (bf16) load is aligned
+__device__ __forceinline__ void load4(const float* p, int n, bool vec, float x[4]) {
+    const int4 raw = load16(p, 4 * n, vec);
+    const float* f = reinterpret_cast<const float*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = f[e];
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, int n, bool vec, float x[4]) {
+    if (vec && n >= 4) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(p);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+        const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+        x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+        return;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = e < n ? __bfloat162float(p[e]) : 0.f;
+}
+
+// rows [r0, r0 + rows) x [k0, k0 + BK) of an f32 or bf16 [*, d] matrix, as
+// f32, transposed into dst[BK][ld] (zeros past d)
+template <typename T>
 __device__ __forceinline__ void stage_t(
-    const float* __restrict__ src, size_t r0, int rows, int d, int k0, bool vec,
+    const T* __restrict__ src, size_t r0, int rows, int d, int k0, bool vec,
     float* dst, int ld, int tid)
 {
     constexpr int C4 = BK / 4;
@@ -58,20 +88,16 @@ __device__ __forceinline__ void stage_t(
         const int r = i / C4, c = i - r * C4;
         const int kk = k0 + c * 4;
         float x[4] = {0.f, 0.f, 0.f, 0.f};
-        if (kk < d) {
-            const int4 raw = load16(src + (r0 + r) * (size_t)d + kk, 4 * (d - kk), vec);
-            const float* f = reinterpret_cast<const float*>(&raw);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) x[e] = f[e];
-        }
+        if (kk < d) load4(src + (r0 + r) * (size_t)d + kk, d - kk, vec, x);
 #pragma unroll
         for (int e = 0; e < 4; ++e) dst[(c * 4 + e) * ld + r] = x[e];
     }
 }
 
+template <typename RowT>
 __global__ void __launch_bounds__(THREADS) f32_binmax_kernel(
     const float* __restrict__ q,       // [bq, d]
-    const float* __restrict__ v,       // [n_pad, d]
+    const RowT* __restrict__ v,        // [n_pad, d] f32 or bf16
     const float* __restrict__ inv,     // [n_pad]
     const float* __restrict__ nsq,     // [n_pad]
     const float* __restrict__ rmask,   // [n_pad] 0/1
@@ -163,12 +189,27 @@ __global__ void __launch_bounds__(THREADS) f32_binmax_kernel(
     }
 }
 
+template <typename RowT>
+int launch(const void* q, const void* v, const void* inv, const void* nsq,
+           const void* rmask, const void* q_inv, const void* q_sq, const void* q_ok,
+           const void* thr, const void* surv, const void* n_surv, void* out,
+           int n_bins, int d, int b, int n_qblocks, int metric, int take_min, int cmp,
+           void* stream)
+{
+    const dim3 grid((unsigned)n_bins * (unsigned)n_qblocks);
+    f32_binmax_kernel<RowT><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)q, (const RowT*)v, (const float*)inv, (const float*)nsq,
+        (const float*)rmask, (const float*)q_inv, (const float*)q_sq,
+        (const float*)q_ok, (const float*)thr, (const int*)surv,
+        (const int*)n_surv, (float*)out, d, b, n_qblocks, metric, take_min, cmp);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" size_t f32_binmax_smem_bytes(int d) {
-    (void)d;
-    return 0;  // static shared memory only
-}
+// static shared memory only
+extern "C" size_t f32_binmax_smem_bytes(int) { return 0; }
+extern "C" size_t f32_binmax_bf16_smem_bytes(int) { return 0; }
 
 extern "C" int f32_binmax_launch(
     const void* q, const void* v, const void* inv, const void* nsq,
@@ -177,11 +218,18 @@ extern "C" int f32_binmax_launch(
     int n_bins, int d, int b, int n_qblocks, int metric, int take_min, int cmp,
     void* stream)
 {
-    const dim3 grid((unsigned)n_bins * (unsigned)n_qblocks);
-    f32_binmax_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)q, (const float*)v, (const float*)inv, (const float*)nsq,
-        (const float*)rmask, (const float*)q_inv, (const float*)q_sq,
-        (const float*)q_ok, (const float*)thr, (const int*)surv,
-        (const int*)n_surv, (float*)out, d, b, n_qblocks, metric, take_min, cmp);
-    return (int)cudaGetLastError();
+    return launch<float>(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv,
+                         out, n_bins, d, b, n_qblocks, metric, take_min, cmp, stream);
+}
+
+extern "C" int f32_binmax_bf16_launch(
+    const void* q, const void* v, const void* inv, const void* nsq,
+    const void* rmask, const void* q_inv, const void* q_sq, const void* q_ok,
+    const void* thr, const void* surv, const void* n_surv, void* out,
+    int n_bins, int d, int b, int n_qblocks, int metric, int take_min, int cmp,
+    void* stream)
+{
+    return launch<__nv_bfloat16>(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
+                                 n_surv, out, n_bins, d, b, n_qblocks, metric, take_min,
+                                 cmp, stream);
 }

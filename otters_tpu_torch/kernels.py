@@ -27,7 +27,9 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 # every kernel source of the port, one library each
-SOURCES = ("cert_cos_binmax", "int8_binmax", "f32_binmax", "bf16x3_binmax")
+SOURCES = (
+    "cert_cos_binmax", "cert_fold_binmax", "int8_binmax", "f32_binmax", "bf16x3_binmax",
+)
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas register / shared-memory report of each build, for the smoke log
 build_logs: Dict[str, str] = {}

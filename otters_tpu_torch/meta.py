@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``meta.py`` (the slice the main path
 runs). The store is one device-resident state:
 
-- vectors ``[N_pad, D]`` (float32, or int8 with certificate residuals);
+- vectors ``[N_pad, D]`` (float32, or bfloat16 / int8 with certificate
+  residuals);
 - per-column value tensors + null masks ``[N_pad]`` (64-bit columns in
   int64 / float64, strings as 64-bit identity hashes);
 - zonemaps as ``[n_chunks]`` tensors; Bloom filters as one
@@ -15,12 +16,13 @@ copied to pinned host buffers behind a CUDA event that ``result()`` and
 ``resolve()`` wait on. Errors from the kernel or the device propagate:
 there is no fallback to another path.
 
-Scoring at scale runs the fused kernels (``ops/fused_topk.py``): f32
-storage takes the verified fast-exact K4 (bf16x3) by default, with a check
-that ``result()`` / ``resolve()`` read when they fetch; a failed check
+Scoring at scale runs the fused kernels (``ops/fused_topk.py``): f32 and
+bfloat16 storage take the verified fast-exact K4 (bf16x3) by default, with a
+check that ``result()`` / ``resolve()`` read when they fetch; a failed check
 re-runs the scan strictly in exact f32 (K3), as do Eq score filters and
-k > 128. int8 storage takes K1 with the certificate (``take(k,
-rerank_from=...)``) and K2 without it.
+k > 128. With the certificate (``take(k, rerank_from=...)``) int8 storage
+takes K1 (Cosine), bfloat16 storage K1 for Cosine and K5 for Dot and
+Euclid; uncertified int8 takes K2.
 
 Exactness: string equality evaluates by 64-bit hash on the device and the
 returned rows are re-verified host-side against the actual strings; a hash
@@ -29,8 +31,8 @@ host-computed row mask.
 
 Not ported yet (each raises where a query would need it): with_sort_by /
 with_z_order, delete / append, persistence, take-all windowing, the VPU
-metrics, extended string predicates, bfloat16 storage (kernel mode K5) and
-the one-pass bf16 store precisions ("default" / "bf16").
+metrics, extended string predicates and the one-pass bf16 store precisions
+("default" / "bf16").
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ class MetaQueryStats:
     score_duration: float
     merge_duration: float
     total_duration: float
-    # exactness certificate (take(k, rerank_from=...) on int8 storage):
+    # exactness certificate (take(k, rerank_from=...) on int8 / bf16 storage):
     # None = not applicable; True = recall 1.0 by construction; False =
     # widening hit its cap
     certified: Optional[bool] = None
@@ -260,11 +262,12 @@ def _meta_query_program(store: "MetaStore", cols, queries, plan_static,
     scoring with fused masking -> exact global top-k (the fusion of the
     reference's prune/score/merge phases, meta.rs:632-709).
 
-    certify=True (int8 + rerank): the 5th output is a sound upper bound on
-    the true cosine of every row NOT among the returned candidates; -inf
-    otherwise. fast=True (f32 rows): the 4th output is the fast-exact
-    check, False when the query must be re-run strictly. Returns device
-    tensors (rows, scores, ok, check, bound, evaluated, rows_eval)."""
+    certify=True (int8 / bf16 + rerank): the 5th output is a sound bound,
+    in the key space (negated for take-min), on the true score of every row
+    NOT among the returned candidates; -inf otherwise. fast=True (f32 / bf16
+    rows): the 4th output is the fast-exact check, False when the query
+    must be re-run strictly. Returns device tensors (rows, scores, ok,
+    check, bound, evaluated, rows_eval)."""
     dv = store._dv
     dev = dv.vectors.device
     n_pad = dv.vectors.shape[0]
@@ -413,6 +416,9 @@ def _device_rerank_finish(plist, cands, fetched) -> None:
 # MetaStore + builder
 # ---------------------------------------------------------------------------
 
+# storage dtype name of a pre-built DeviceVecs's rows
+_STORAGE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.int8: "int8"}
+
 
 class MetaStoreBuilder:
     """Builder (reference meta.rs:62-110, 113-148)."""
@@ -439,8 +445,8 @@ class MetaStoreBuilder:
         """Attach a source of TRUE f32 vectors for exact re-ranking.
 
         ``.take(k, rerank_from=k_wide)`` then scans ``k_wide`` candidates
-        from the (int8) storage and re-scores them in exact f32. Exactly
-        one of:
+        from the (int8 / bfloat16) storage and re-scores them in exact f32.
+        Exactly one of:
         - ``fetch_vectors(indices) -> [m, d] float32`` (numpy or a torch
           tensor, e.g. a gather from device-resident f32 rows), called with
           row ids;
@@ -458,7 +464,8 @@ class MetaStoreBuilder:
         """Supply vectors: a [n, d] numpy array / list of rows, or a
         pre-built ``scoring.DeviceVecs`` (e.g. from
         ``scoring.materialize_int8_slabs`` for stores too large to exist in
-        f32), adopted as-is; ``n_rows`` is required then."""
+        f32), adopted as-is with its storage dtype; ``n_rows`` is required
+        then."""
         self._vectors = vectors
         self._vectors_n = n_rows
         return self
@@ -468,14 +475,14 @@ class MetaStoreBuilder:
         return self
 
     def with_storage_dtype(self, dtype: str) -> "MetaStoreBuilder":
-        """Device storage dtype for vectors: "float32" (default, exact) or
-        "int8" (per-row symmetric quantization, Cosine-only; exact results
-        through ``take(k, rerank_from=...)`` and the certificate).
-        "bfloat16" is not ported yet."""
+        """Device storage dtype for vectors: "float32" (default, exact),
+        "bfloat16" (half the memory; ``take(k)`` is exact over the stored
+        values, ``take(k, rerank_from=...)`` certified exact for Cosine, Dot
+        and Euclid) or "int8" (per-row symmetric quantization, Cosine-only;
+        exact results through ``take(k, rerank_from=...)`` and the
+        certificate)."""
         if dtype not in ("float32", "bfloat16", "int8"):
             raise OttersError(f"unsupported storage dtype {dtype!r}")
-        if dtype == "bfloat16":
-            raise NotImplementedError("bfloat16 storage is not ported yet")
         self._storage_dtype = dtype
         return self
 
@@ -524,7 +531,7 @@ class MetaStoreBuilder:
                 )
             n_rows = int(self._vectors_n)
             dim = int(vectors.vectors.shape[1])
-            self._storage_dtype = "int8" if vectors.vectors.dtype == torch.int8 else "float32"
+            self._storage_dtype = _STORAGE_NAMES[vectors.vectors.dtype]
         elif isinstance(vectors, torch.Tensor):
             raise NotImplementedError(
                 "with_vectors(torch.Tensor) is not ported yet; pass numpy "
@@ -579,7 +586,7 @@ class MetaStoreBuilder:
         if pre_built:
             dv = vectors
         else:
-            dtype = torch.int8 if self._storage_dtype == "int8" else torch.float32
+            dtype = getattr(torch, self._storage_dtype)
             dv = scoring.materialize(vectors, dtype=dtype, device=device)
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # honest ingest timing
@@ -660,8 +667,8 @@ class MetaStore:
         self._plan_cache = _LruCache(256)
         self._build_stats: Optional[MetaBuildStats] = None
         self._last_stats: Optional[MetaQueryStats] = None
-        # scan precision of f32 storage: "highest" (exact; the verified
-        # fast-exact K4 with a strict K3 rerun) or "high" (bf16x3, K4)
+        # scan precision of f32 / bf16 storage: "highest" (exact; the
+        # verified fast-exact K4 with a strict K3 rerun) or "high" (bf16x3)
         self.precision: str = "highest"
 
     # -- constructors ------------------------------------------------------
@@ -783,12 +790,22 @@ class MetaStore:
         )
 
     def _certify_supported(self, metric, take_min, cmp) -> bool:
-        """int8 storage: Cosine + take-max + no/Gt/Gte filter. (bfloat16
-        storage, whose certificate covers more metrics, is not ported.)"""
+        """Can the exactness certificate cover this plan shape? int8 storage:
+        Cosine + take-max + no/Gt/Gte filter. bfloat16 storage: Cosine and
+        DotProduct (take-max, no/Gt/Gte) and Euclidean (take-min, no/Lt/Lte),
+        through the general residual fold. f32 storage is exact and needs
+        none. Stores without residuals (pre-quantized codes) cannot."""
         dv = self._dv
-        if dv.resid is None or dv.vectors.dtype != torch.int8:
+        if dv.resid is None:
             return False
-        return metric is Metric.Cosine and not take_min and cmp in (None, Cmp.Gt, Cmp.Gte)
+        if dv.vectors.dtype == torch.int8:
+            return metric is Metric.Cosine and not take_min and cmp in (None, Cmp.Gt, Cmp.Gte)
+        if dv.vectors.dtype == torch.bfloat16:
+            if metric in (Metric.Cosine, Metric.DotProduct):
+                return not take_min and cmp in (None, Cmp.Gt, Cmp.Gte)
+            if metric is Metric.Euclidean:
+                return take_min and cmp in (None, Cmp.Lt, Cmp.Lte)
+        return False
 
     def _direct_k_ok(self, k: int, b: int) -> bool:
         """Can the device top-k program run take(k) for a b-query batch?
@@ -859,8 +876,9 @@ class MetaQueryPlan:
         of every row it did not hand to the rerank; ``result()`` compares it
         with the k-th exact score and re-runs 4x wider until it passes.
         ``None`` (default) enables it where it applies (int8 + Cosine, no /
-        Gt / Gte vec_filter); False disables; True raises where it cannot
-        apply."""
+        Gt / Gte vec_filter; bfloat16 + Cosine / DotProduct likewise, or
+        Euclidean take-min with no / Lt / Lte vec_filter); False disables;
+        True raises where it cannot apply."""
         self._take_count = int(k)
         self._take_type = default_take_type(self._metric)
         if rerank_from is not None:
@@ -1066,10 +1084,20 @@ class MetaQueryPlan:
                     self._metric, take_min, None if thr is None else cmp
                 )
                 if self._certify is True and not supported:
+                    if store._dv.vectors.dtype == torch.int8 and store._dv.resid is None:
+                        # the one precondition invisible from the plan
+                        raise OttersError(
+                            "take(certify=True): this int8 store has no "
+                            "quantization-residual bounds (it was built "
+                            "from pre-quantized codes); certification "
+                            "requires quantize-from-f32 ingest"
+                        )
                     raise OttersError(
                         "take(certify=True): the exactness certificate "
-                        "requires int8 storage quantized from f32 at ingest "
-                        "(Cosine + take-max + no/Gt/Gte vec_filter)"
+                        "requires storage quantized from f32 at ingest "
+                        "(int8: Cosine + take-max + no/Gt/Gte vec_filter; "
+                        "bfloat16: also DotProduct, and Euclidean with "
+                        "take-min + no/Lt/Lte vec_filter)"
                     )
                 certify = supported
                 if certify:
@@ -1365,7 +1393,7 @@ class PendingMetaQuery:
             store._cert_kwide_hint[hk] = k_used
         if not certified:
             warnings.warn(
-                "int8 exactness certificate did not pass at "
+                f"{store._storage_dtype} exactness certificate did not pass at "
                 f"scan width {k_used} (cap {cap}); results "
                 "match the quantized-scan + exact-rerank "
                 "contract but recall 1.0 is not certified for "

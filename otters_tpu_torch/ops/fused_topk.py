@@ -6,35 +6,42 @@ is built on the device (a cumsum of the alive flags and a scatter), so no
 host round trip decides what to scan. Phase 1 is a hand-written Hopper
 kernel that writes the per-bin maxima of the masked key for the live bins
 only; each replaces one mode of the TPU kernel
-(``otters_tpu/ops/pallas_topk.py::_kernel``):
+(``otters_tpu/ops/pallas_topk.py::_kernel``), named by its key in
+:data:`KERNELS`:
 
-- K1 ``csrc/cert_cos_binmax.cu``: certified cosine over int8 rows
-  (bf16-rounded queries, the per-row certificate lane folded in);
+- K1 ``csrc/cert_cos_binmax.cu``: certified Cosine (bf16-rounded queries,
+  the per-row certificate lane folded in), over int8 rows ("K1") and over
+  bfloat16 rows ("K1-bf16");
 - K2 ``csrc/int8_binmax.cu``: uncertified int8 cosine, int8 queries x int8
   rows into exact int32 dots;
 - K3 ``csrc/f32_binmax.cu``: exact f32 (``prec="highest"``), the strict
-  mode, for Cosine / Dot / Euclid and every score filter;
+  mode, for Cosine / Dot / Euclid and every score filter, over f32 rows
+  ("K3") and bfloat16 rows upcast exactly ("K3-bf16");
 - K4 ``csrc/bf16x3_binmax.cu``: the bf16x3 fast-exact mode (``prec="high"``
-  or the default verified fast path), three bf16 tensor-core products.
+  or the default verified fast path), over f32 rows ("K4") and bfloat16
+  rows ("K4-bf16", whose low plane is zero, so two products);
+- K5 ``csrc/cert_fold_binmax.cu``: the general certified fold over bfloat16
+  rows, Dot (take-max) and Euclid (take-min),
+  ``key + c0 + c1*lane_a + c2*||v|| + lane_b``.
 
-K5 (the general certified fold over bfloat16 storage) is not ported and
-raises ``NotImplementedError``, as bfloat16 storage does. Phase 2 re-scores
-the winning bins and selects the k results in plain torch (it is XLA code in
-the JAX package). Every kernel has a plain torch version in this module,
-which serves CPU tensors; a CUDA tensor launches the kernel or raises.
+Phase 2 re-scores the winning bins and selects the k results in plain
+torch (it is XLA code in the JAX package). Every kernel has a plain torch
+version in this module, which serves CPU tensors; a CUDA tensor launches
+the kernel or raises. The one-pass bf16 store precisions ("default" /
+"bf16") are not ported and raise ``NotImplementedError``.
 
 Exactness: the k winning bins by bin max are a superset of the best k keys.
 In the fast mode the check ``kth_key >= boundary + slack`` certifies that no
 unexamined bin can hold a better row; callers re-run strictly (K3) when it
-fails. With certify (K1) the bound covers every row not returned (see the
-JAX package's ``_pallas_topk_jit``).
+fails. With certify (K1, K5) the bound covers every row not returned (see
+the JAX package's ``_pallas_topk_jit``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -81,24 +88,27 @@ def fast_ok(metric: Metric, take_min: bool, cmp, k: int, prec: str) -> bool:
 
 def kernel_mode(storage_dtype, metric: Metric, take_min: bool, certify: bool,
                 prec: str = "highest", fast: bool = False) -> str:
-    """Name the TPU kernel mode a fused query needs ("K1" .. "K4"); raise
-    ``NotImplementedError`` for the modes that are not ported."""
+    """Name the kernel a fused query needs (a key of :data:`KERNELS`);
+    raise ``NotImplementedError`` for the one-pass bf16 precisions, which
+    are not ported."""
     if storage_dtype == torch.int8:
         if not certify:
             return "K2"
         if metric is Metric.Cosine and not take_min:
             return "K1"
         raise NotImplementedError("this certified int8 plan shape is not a K1 query")
-    if storage_dtype != torch.float32:
-        raise NotImplementedError(
-            f"{storage_dtype} storage (kernel mode K5, the general certified "
-            "fold over bfloat16 rows) is not ported yet"
-        )
+    if storage_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"unsupported storage dtype {storage_dtype}")
     if certify:
-        raise NotImplementedError(
-            "fused kernel mode K5 (general certified fold, bfloat16 storage) "
-            "is not ported yet"
-        )
+        if storage_dtype != torch.bfloat16:
+            raise ValueError("f32 storage is exact and carries no certificate")
+        if metric is Metric.Cosine and not take_min:
+            return "K1-bf16"
+        if metric is Metric.DotProduct and not take_min:
+            return "K5"
+        if metric is Metric.Euclidean and take_min:
+            return "K5"
+        raise ValueError(f"no certificate for {metric} with take_min={take_min}")
     if prec in ("default", "bf16"):
         raise NotImplementedError(
             f'store precision "{prec}" (one bf16 pass) is not ported yet; '
@@ -106,7 +116,8 @@ def kernel_mode(storage_dtype, metric: Metric, take_min: bool, certify: bool,
         )
     if prec not in ("highest", "high"):
         raise ValueError(f"unknown store precision {prec!r}")
-    return "K4" if (fast or prec == "high") else "K3"
+    mode = "K4" if (fast or prec == "high") else "K3"
+    return mode if storage_dtype == torch.float32 else f"{mode}-bf16"
 
 
 def bins_alive_from_chunk_mask(chunk_mask: torch.Tensor, chunk_size: int, n_pad: int):
@@ -157,23 +168,6 @@ def _check_operands(kernel: str, q, n_pad: int, operands) -> None:
         raise ValueError(f"{kernel}: n_pad={n_pad} is not a multiple of {BIN}")
 
 
-def _check_k1_inputs(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv):
-    b, d = q.shape
-    n_pad = v.shape[0]
-    _check_operands("cert_cos_binmax", q, n_pad, [
-        ("q", q, torch.bfloat16, (b, d)),
-        ("v", v, torch.int8, (n_pad, d)),
-        ("inv", inv, torch.float32, (n_pad,)),
-        ("rmask", rmask, torch.float32, (n_pad,)),
-        ("lane_a", lane_a, torch.float32, (n_pad,)),
-        ("q_inv", q_inv, torch.float32, (b,)),
-        ("q_ok", q_ok, torch.float32, (b,)),
-        ("thr", thr, torch.float32, (1,)),
-        ("surv", surv, torch.int32, (n_pad // BIN,)),
-        ("n_surv", n_surv, torch.int32, (1,)),
-    ])
-
-
 def _pad_query_blocks(q, *per_query):
     """Pad the batch to whole QUERY_BLOCKs -> (n_qb, q, per_query): padded
     lanes are zero, so their q_ok = 0 keeps them out of every bin max."""
@@ -186,6 +180,69 @@ def _pad_query_blocks(q, *per_query):
     return n_qb, q, per_query
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_fns(source: str, entry: str, n_ptrs: int, n_ints: int):
+    """The (smem_bytes, launch) C functions ``{entry}_smem_bytes`` and
+    ``{entry}_launch`` of a built kernel library with their signatures
+    declared: launch takes n_ptrs pointers, n_ints ints and the stream.
+    Built on the first call, never at import."""
+    from .. import kernels
+
+    lib = kernels.load(source)
+    smem = getattr(lib, f"{entry}_smem_bytes")
+    smem.argtypes = [ctypes.c_int]
+    smem.restype = ctypes.c_size_t
+    launch = getattr(lib, f"{entry}_launch")
+    launch.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    return smem, launch
+
+
+def _launch(wrapper, source, entry, q, v, ptrs, ints, *, d_multiple=1):
+    """Launch ``entry`` of ``source`` on q's stream with the pointers
+    ``ptrs`` (q and v first) and the output [n_bins, b], pre-filled with
+    -inf, then n_bins, d and the ints ``ints`` (b and n_qb first).
+    ``q`` is already padded to whole query blocks; b is the real batch.
+    Raises if the kernel cannot build or launch; counts the launch on
+    ``wrapper.launches``."""
+    b, d = ints[0], q.shape[1]
+    if d % d_multiple:
+        raise ValueError(f"{entry}: d={d} must be a multiple of {d_multiple}")
+    if v.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError(f"{entry}: q and v must start on a 16-byte boundary")
+    smem_bytes, launch = _kernel_fns(source, entry, len(ptrs) + 1, len(ints) + 2)
+    smem = smem_bytes(d)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"{entry}: d={d} needs {smem} B of shared memory (> 227 KB)")
+    n_bins = v.shape[0] // BIN
+    out = torch.full((n_bins, b), _NEG_INF, device=q.device)
+    if n_bins == 0 or b == 0:
+        return out
+    err = launch(
+        *(t.data_ptr() for t in ptrs), out.data_ptr(), n_bins, d, *ints,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
+    return out
+
+
+def _on_card(name, q) -> bool:
+    """False for a CPU tensor (the plain version serves it), True for a
+    CUDA one; raise for any other device."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    return True
+
+
+# ---------------------------------------------------------------------------
+# K1: certified Cosine (int8 or bfloat16 rows)
+# ---------------------------------------------------------------------------
+
+
 def cert_cos_binmax_plain(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv,
                           cmp: Optional[Cmp] = None, slab_bins: int = 256):
     """The K1 function in plain torch: [n_bins, b] per-bin maxima of
@@ -193,11 +250,12 @@ def cert_cos_binmax_plain(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_su
         key = where(ok, (dot * q_inv) * inv, -inf) + lane_a,
         ok  = rmask > 0 & q_ok > 0 & !isnan(score) & cmp(score, thr),
 
-    with dot the f32 product of the bf16-rounded queries and the int8 rows,
-    over the live bins ``surv[:n_surv]`` only; dead bins stay -inf. Slabs of
-    ``slab_bins`` bins bound the temporaries."""
+    with dot the f32 product of the bf16-rounded queries and the stored
+    (int8 or bf16) rows, exact products summed in f32, over the live bins
+    ``surv[:n_surv]`` only; dead bins stay -inf. Slabs of ``slab_bins``
+    bins bound the temporaries."""
     require_full_f32(q)
-    b, d = q.shape
+    b = q.shape[0]
     n_bins = v.shape[0] // BIN
     out = torch.full((n_bins, b), _NEG_INF, device=q.device)
     live = surv[: int(n_surv[0])].long()
@@ -216,94 +274,160 @@ def cert_cos_binmax_plain(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_su
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fns(source: str, n_ptrs: int, n_ints: int):
-    """A built kernel library's (smem_bytes, launch) C functions with their
-    signatures declared: launch takes n_ptrs pointers, n_ints ints and the
-    stream. Built on the first call, never at import."""
-    from .. import kernels
-
-    lib = kernels.load(source)
-    smem = getattr(lib, f"{source}_smem_bytes")
-    smem.argtypes = [ctypes.c_int]
-    smem.restype = ctypes.c_size_t
-    launch = getattr(lib, f"{source}_launch")
-    launch.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-    launch.restype = ctypes.c_int
-    return smem, launch
+def _cert_cos(wrapper, entry, vdtype, q, v, inv, rmask, lane_a, q_inv, q_ok, thr,
+              surv, n_surv, cmp):
+    b, d = q.shape
+    n_pad = v.shape[0]
+    _check_operands(entry, q, n_pad, [
+        ("q", q, torch.bfloat16, (b, d)),
+        ("v", v, vdtype, (n_pad, d)),
+        ("inv", inv, torch.float32, (n_pad,)),
+        ("rmask", rmask, torch.float32, (n_pad,)),
+        ("lane_a", lane_a, torch.float32, (n_pad,)),
+        ("q_inv", q_inv, torch.float32, (b,)),
+        ("q_ok", q_ok, torch.float32, (b,)),
+        ("thr", thr, torch.float32, (1,)),
+        ("surv", surv, torch.int32, (n_pad // BIN,)),
+        ("n_surv", n_surv, torch.int32, (1,)),
+    ])
+    if cmp not in (None, Cmp.Gt, Cmp.Gte):
+        raise ValueError(f"{entry}: certified Cosine takes no {cmp} score filter")
+    if not _on_card(entry, q):
+        return cert_cos_binmax_plain(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv,
+                                     n_surv, cmp)
+    n_qb, q, (q_inv, q_ok) = _pad_query_blocks(q, q_inv, q_ok)
+    return _launch(
+        wrapper, "cert_cos_binmax", entry, q, v,
+        [q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv],
+        [b, n_qb, _CMP_CODE[cmp]], d_multiple=16,
+    )
 
 
 def cert_cos_binmax(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv,
                     cmp: Optional[Cmp] = None):
-    """K1 bin maxima (see :func:`cert_cos_binmax_plain` for the function).
+    """K1 bin maxima over int8 rows (see :func:`cert_cos_binmax_plain`).
 
     CPU tensors take the plain version; CUDA tensors launch the Hopper
     kernel (csrc/cert_cos_binmax.cu) and raise if it cannot build or
     launch. ``cert_cos_binmax.launches`` counts kernel launches."""
-    _check_k1_inputs(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv)
-    if q.device.type == "cpu":
-        return cert_cos_binmax_plain(
-            q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv, cmp
-        )
-    if q.device.type != "cuda":
-        raise ValueError(f"cert_cos_binmax: unsupported device {q.device}")
-    b, d = q.shape
-    if d % 16:
-        raise ValueError(f"cert_cos_binmax: d={d} must be a multiple of 16")
+    return _cert_cos(cert_cos_binmax, "cert_cos_binmax", torch.int8, q, v, inv, rmask,
+                     lane_a, q_inv, q_ok, thr, surv, n_surv, cmp)
+
+
+def cert_cos_binmax_bf16(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv,
+                         cmp: Optional[Cmp] = None):
+    """K1 bin maxima over bfloat16 rows: the same function and kernel
+    source as :func:`cert_cos_binmax`, the rows loaded as bf16 (no
+    conversion). ``.launches`` counts kernel launches."""
+    return _cert_cos(cert_cos_binmax_bf16, "cert_cos_binmax_bf16", torch.bfloat16, q, v,
+                     inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv, cmp)
+
+
+# ---------------------------------------------------------------------------
+# K5: the general certified fold (bfloat16 rows, Dot and Euclid)
+# ---------------------------------------------------------------------------
+
+
+def _general_fold(key, c0, c1, c2, lane_a, vn, lane_b):
+    """key + c0 + c1*lane_a + c2*||v|| + lane_b, each op rounded in JAX's
+    order: (((key + c0) + c1*lane_a) + c2*vn) + lane_b."""
+    return key + c0 + c1 * lane_a + c2 * vn + lane_b
+
+
+def cert_fold_binmax_plain(q, v, inv, nsq, rmask, lane_a, lane_b, q_inv, q_sq, q_ok,
+                           c0, c1, c2, thr, surv, n_surv, *, metric: Metric,
+                           take_min: bool, cmp: Optional[Cmp], slab_bins: int = 256):
+    """The K5 function in plain torch: [n_bins, b] per-bin maxima of
+
+        key = where(ok, score, -inf) (negated for take_min)
+              + c0 + c1*lane_a + c2*sqrt(nsq) + lane_b,
+        ok  = rmask > 0 & q_ok > 0 & !isnan(score) & cmp(score, thr),
+
+    with the score of the metric over the f32 dots of the bf16-rounded
+    queries and the bf16 rows (exact products, f32 sums); per-query c0 /
+    c1 / c2, per-row lanes; live bins only, dead bins -inf."""
+    require_full_f32(q)
+    b = q.shape[0]
     n_bins = v.shape[0] // BIN
-    smem_bytes, launch = _kernel_fns("cert_cos_binmax", 11, 5)
-    smem = smem_bytes(d)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"cert_cos_binmax: d={d} needs {smem} B of shared memory (> 227 KB)")
-    n_qb, q, (q_inv, q_ok) = _pad_query_blocks(q, q_inv, q_ok)
     out = torch.full((n_bins, b), _NEG_INF, device=q.device)
-    if n_bins == 0 or b == 0:
-        return out
-    err = launch(
-        q.data_ptr(), v.data_ptr(), inv.data_ptr(), rmask.data_ptr(),
-        lane_a.data_ptr(), q_inv.data_ptr(), q_ok.data_ptr(), thr.data_ptr(),
-        surv.data_ptr(), n_surv.data_ptr(), out.data_ptr(),
-        n_bins, d, b, n_qb, _CMP_CODE[cmp],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"cert_cos_binmax kernel launch failed: CUDA error {err}")
-    cert_cos_binmax.launches += 1
+    live = surv[: int(n_surv[0])].long()
+    q32 = q.float()
+    ar = torch.arange(BIN, device=q.device)
+    for s in range(0, live.shape[0], slab_bins):
+        bins = live[s : s + slab_bins]
+        rows = (bins[:, None] * BIN + ar[None, :]).reshape(-1)
+        dots = q32 @ v[rows].float().T
+        score = _scores(dots, q_inv[:, None], q_sq[:, None], inv[rows][None, :],
+                        nsq[rows][None, :], metric)
+        ok = (rmask[rows] > 0)[None, :] & (q_ok > 0)[:, None] & ~torch.isnan(score)
+        if cmp is not None:
+            ok = ok & _filter_ok(score, thr[0], cmp)
+        key = _general_fold(
+            _masked_key(score, ok, take_min), c0[:, None], c1[:, None], c2[:, None],
+            lane_a[rows][None, :], torch.sqrt(nsq[rows])[None, :], lane_b[rows][None, :],
+        )
+        out[bins] = key.reshape(b, -1, BIN).amax(dim=2).T
     return out
 
 
+def cert_fold_binmax(q, v, inv, nsq, rmask, lane_a, lane_b, q_inv, q_sq, q_ok, c0, c1,
+                     c2, thr, surv, n_surv, metric: Metric = Metric.DotProduct,
+                     take_min: bool = False, cmp: Optional[Cmp] = None):
+    """K5 bin maxima (see :func:`cert_fold_binmax_plain`). CPU tensors take
+    the plain version; CUDA tensors launch csrc/cert_fold_binmax.cu or
+    raise. ``.launches`` counts kernel launches."""
+    b, d = q.shape
+    n_pad = v.shape[0]
+    per_query = [("q_inv", q_inv), ("q_sq", q_sq), ("q_ok", q_ok), ("c0", c0),
+                 ("c1", c1), ("c2", c2)]
+    _check_operands("cert_fold_binmax", q, n_pad, [
+        ("q", q, torch.bfloat16, (b, d)),
+        ("v", v, torch.bfloat16, (n_pad, d)),
+        *((name, t, torch.float32, (n_pad,)) for name, t in (
+            ("inv", inv), ("nsq", nsq), ("rmask", rmask), ("lane_a", lane_a),
+            ("lane_b", lane_b))),
+        *((name, t, torch.float32, (b,)) for name, t in per_query),
+        ("thr", thr, torch.float32, (1,)),
+        ("surv", surv, torch.int32, (n_pad // BIN,)),
+        ("n_surv", n_surv, torch.int32, (1,)),
+    ])
+    if metric not in (Metric.DotProduct, Metric.Euclidean):
+        raise ValueError(f"cert_fold_binmax: the general fold takes Dot or Euclid, not {metric}")
+    if (metric is Metric.Euclidean) != bool(take_min):
+        raise ValueError("cert_fold_binmax: Euclid is take-min, Dot take-max")
+    allowed = (None, Cmp.Lt, Cmp.Lte) if take_min else (None, Cmp.Gt, Cmp.Gte)
+    if cmp not in allowed:
+        raise ValueError(f"cert_fold_binmax: no {cmp} score filter with take_min={take_min}")
+    if not _on_card("cert_fold_binmax", q):
+        return cert_fold_binmax_plain(
+            q, v, inv, nsq, rmask, lane_a, lane_b, q_inv, q_sq, q_ok, c0, c1, c2, thr,
+            surv, n_surv, metric=metric, take_min=take_min, cmp=cmp,
+        )
+    n_qb, q, pq = _pad_query_blocks(q, *(t for _, t in per_query))
+    return _launch(
+        cert_fold_binmax, "cert_fold_binmax", "cert_fold_binmax", q, v,
+        [q, v, inv, nsq, rmask, lane_a, lane_b, *pq, thr, surv, n_surv],
+        [b, n_qb, _METRIC_CODE[metric], int(take_min), _CMP_CODE[cmp]], d_multiple=16,
+    )
+
+
 cert_cos_binmax.launches = 0
+cert_cos_binmax_bf16.launches = 0
+cert_fold_binmax.launches = 0
 
 
 # ---------------------------------------------------------------------------
 # K2 / K3 / K4: the uncertified modes
 # ---------------------------------------------------------------------------
 
-# kernel name -> (csrc source, query dtype, row dtype)
+# kernel name -> (csrc source, C entry, query dtype, row dtype)
 _MODES = {
-    "K2": ("int8_binmax", torch.int8, torch.int8),
-    "K3": ("f32_binmax", torch.float32, torch.float32),
-    "K4": ("bf16x3_binmax", torch.float32, torch.float32),
+    "K2": ("int8_binmax", "int8_binmax", torch.int8, torch.int8),
+    "K3": ("f32_binmax", "f32_binmax", torch.float32, torch.float32),
+    "K3-bf16": ("f32_binmax", "f32_binmax_bf16", torch.float32, torch.bfloat16),
+    "K4": ("bf16x3_binmax", "bf16x3_binmax", torch.float32, torch.float32),
+    "K4-bf16": ("bf16x3_binmax", "bf16x3_binmax_bf16", torch.float32, torch.bfloat16),
 }
-
-
-def _check_inputs(name, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
-                  n_surv, qdtype, vdtype):
-    b, d = q.shape
-    n_pad = v.shape[0]
-    _check_operands(name, q, n_pad, [
-        ("q", q, qdtype, (b, d)),
-        ("v", v, vdtype, (n_pad, d)),
-        ("inv", inv, torch.float32, (n_pad,)),
-        ("nsq", nsq, torch.float32, (n_pad,)),
-        ("rmask", rmask, torch.float32, (n_pad,)),
-        ("q_inv", q_inv, torch.float32, (b,)),
-        ("q_sq", q_sq, torch.float32, (b,)),
-        ("q_ok", q_ok, torch.float32, (b,)),
-        ("thr", thr, torch.float32, (1,)),
-        ("surv", surv, torch.int32, (n_pad // BIN,)),
-        ("n_surv", n_surv, torch.int32, (1,)),
-    ])
 
 
 def _exact_int8_dots(q8, v8):
@@ -314,14 +438,19 @@ def _exact_int8_dots(q8, v8):
     return (q8.to(dt) @ v8.to(dt).transpose(-1, -2)).float()
 
 
-def bf16x3_dots(q32, v32):
+def bf16x3_dots(q32, v):
     """The bf16x3 product qh.vh + qh.vl + ql.vh with JAX's splits
     (x_h = bf16(x), x_l = bf16(x - x_h)), each partial product exact in f32
-    and summed in f32 in that order; the ql.vl term is dropped."""
+    and summed in f32 in that order; the ql.vl term is dropped. bfloat16
+    rows ``v`` are their own high plane (vl = 0), so qh.vl is identically
+    zero and is skipped."""
     qh = q32.to(torch.bfloat16).float()
     ql = (q32 - qh).to(torch.bfloat16).float()
-    vh = v32.to(torch.bfloat16).float()
-    vl = (v32 - vh).to(torch.bfloat16).float()
+    if v.dtype == torch.bfloat16:
+        vht = v.float().transpose(-1, -2)
+        return qh @ vht + ql @ vht
+    vh = v.to(torch.bfloat16).float()
+    vl = (v - vh).to(torch.bfloat16).float()
     vht, vlt = vh.transpose(-1, -2), vl.transpose(-1, -2)
     return qh @ vht + qh @ vlt + ql @ vht
 
@@ -344,15 +473,18 @@ def _masked_key(scores, ok, take_min: bool):
 def binmax_plain(mode: str, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
                  n_surv, *, metric: Metric, take_min: bool, cmp: Optional[Cmp],
                  slab_bins: int = 256):
-    """K2 / K3 / K4 in plain torch: [n_bins, b] per-bin maxima of
+    """K2 / K3 / K4 (over f32 or bfloat16 rows) in plain torch: [n_bins, b]
+    per-bin maxima of
 
         key = where(ok, score, -inf) (negated for take_min),
         ok  = rmask > 0 & q_ok > 0 & !isnan(score) & cmp(score, thr),
 
     over the live bins ``surv[:n_surv]`` only (dead bins stay -inf), with
-    the dots of the mode: exact int32 for K2, full f32 for K3, bf16x3 for
-    K4. Slabs of ``slab_bins`` bins bound the temporaries."""
-    if mode == "K3":
+    the dots of the mode: exact int32 for K2, full f32 for K3 (bf16 rows
+    upcast exactly), bf16x3 for K4. Slabs of ``slab_bins`` bins bound the
+    temporaries."""
+    strict = mode.startswith("K3")
+    if strict:
         require_full_f32(q)
     b = q.shape[0]
     n_bins = v.shape[0] // BIN
@@ -364,8 +496,8 @@ def binmax_plain(mode: str, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
         rows = (bins[:, None] * BIN + ar[None, :]).reshape(-1)
         if mode == "K2":
             dots = _exact_int8_dots(q, v[rows])
-        elif mode == "K3":
-            dots = q @ v[rows].T
+        elif strict:
+            dots = q @ v[rows].float().T
         else:
             dots = bf16x3_dots(q, v[rows])
         score = _scores(dots, q_inv[:, None], q_sq[:, None], inv[rows][None, :],
@@ -380,85 +512,83 @@ def binmax_plain(mode: str, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
 
 def _binmax(mode, wrapper, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
             n_surv, metric, take_min, cmp):
-    source, qdtype, vdtype = _MODES[mode]
-    _check_inputs(source, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
-                  n_surv, qdtype, vdtype)
+    source, entry, qdtype, vdtype = _MODES[mode]
+    b, d = q.shape
+    n_pad = v.shape[0]
+    _check_operands(entry, q, n_pad, [
+        ("q", q, qdtype, (b, d)),
+        ("v", v, vdtype, (n_pad, d)),
+        ("inv", inv, torch.float32, (n_pad,)),
+        ("nsq", nsq, torch.float32, (n_pad,)),
+        ("rmask", rmask, torch.float32, (n_pad,)),
+        ("q_inv", q_inv, torch.float32, (b,)),
+        ("q_sq", q_sq, torch.float32, (b,)),
+        ("q_ok", q_ok, torch.float32, (b,)),
+        ("thr", thr, torch.float32, (1,)),
+        ("surv", surv, torch.int32, (n_pad // BIN,)),
+        ("n_surv", n_surv, torch.int32, (1,)),
+    ])
     if metric not in _METRIC_CODE:
-        raise ValueError(f"{source}: metric {metric} has no matmul form")
-    if q.device.type == "cpu":
+        raise ValueError(f"{entry}: metric {metric} has no matmul form")
+    if not _on_card(entry, q):
         return binmax_plain(
             mode, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv,
             metric=metric, take_min=take_min, cmp=cmp,
         )
-    if q.device.type != "cuda":
-        raise ValueError(f"{source}: unsupported device {q.device}")
-    b, d = q.shape
     if mode == "K2" and 127 * 127 * d >= (1 << 31):
-        raise ValueError(f"{source}: d={d} could overflow the int32 dots")
-    if v.data_ptr() % 16 or q.data_ptr() % 16:
-        raise ValueError(f"{source}: q and v must start on a 16-byte boundary")
-    smem_bytes, launch = _kernel_fns(source, 12, 7)
-    smem = smem_bytes(d)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"{source}: d={d} needs {smem} B of shared memory (> 227 KB)")
-    n_bins = v.shape[0] // BIN
+        raise ValueError(f"{entry}: d={d} could overflow the int32 dots")
     n_qb, q, (q_inv, q_sq, q_ok) = _pad_query_blocks(q, q_inv, q_sq, q_ok)
-    out = torch.full((n_bins, b), _NEG_INF, device=q.device)
-    if n_bins == 0 or b == 0:
-        return out
-    err = launch(
-        q.data_ptr(), v.data_ptr(), inv.data_ptr(), nsq.data_ptr(),
-        rmask.data_ptr(), q_inv.data_ptr(), q_sq.data_ptr(), q_ok.data_ptr(),
-        thr.data_ptr(), surv.data_ptr(), n_surv.data_ptr(), out.data_ptr(),
-        n_bins, d, b, n_qb, _METRIC_CODE[metric], int(take_min), _CMP_CODE[cmp],
-        torch.cuda.current_stream(q.device).cuda_stream,
+    return _launch(
+        wrapper, source, entry, q, v,
+        [q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv],
+        [b, n_qb, _METRIC_CODE[metric], int(take_min), _CMP_CODE[cmp]],
     )
-    if err != 0:
-        raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
-    wrapper.launches += 1
-    return out
 
 
-def int8_binmax(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv,
+def _mode_wrapper(mode: str, doc: str):
+    """The wrapper of an uncertified kernel: CPU tensors take
+    :func:`binmax_plain`, CUDA tensors launch the kernel or raise;
+    ``.launches`` counts kernel launches."""
+
+    def wrapper(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv,
                 metric: Metric = Metric.Cosine, take_min: bool = False,
                 cmp: Optional[Cmp] = None):
-    """K2 bin maxima (int8 queries x int8 rows, exact int32 dots; see
-    :func:`binmax_plain`). CPU tensors take the plain version; CUDA tensors
-    launch csrc/int8_binmax.cu or raise. ``.launches`` counts launches."""
-    return _binmax("K2", int8_binmax, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok,
-                   thr, surv, n_surv, metric, take_min, cmp)
+        return _binmax(mode, wrapper, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr,
+                       surv, n_surv, metric, take_min, cmp)
+
+    wrapper.__name__ = wrapper.__qualname__ = _MODES[mode][1]
+    wrapper.__doc__ = f"{doc} (see :func:`binmax_plain`). {_mode_wrapper.__doc__}"
+    wrapper.launches = 0
+    return wrapper
 
 
-def f32_binmax(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv,
-               metric: Metric = Metric.Cosine, take_min: bool = False,
-               cmp: Optional[Cmp] = None):
-    """K3 bin maxima (exact f32 dots on the CUDA cores; see
-    :func:`binmax_plain`). CPU tensors take the plain version; CUDA tensors
-    launch csrc/f32_binmax.cu or raise. ``.launches`` counts launches."""
-    return _binmax("K3", f32_binmax, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok,
-                   thr, surv, n_surv, metric, take_min, cmp)
+int8_binmax = _mode_wrapper("K2", "K2 bin maxima: int8 queries x int8 rows, exact int32 dots")
+f32_binmax = _mode_wrapper("K3", "K3 bin maxima: exact f32 dots on the CUDA cores")
+f32_binmax_bf16 = _mode_wrapper(
+    "K3-bf16", "K3 bin maxima over bfloat16 rows, upcast exactly: exact f32 dots")
+bf16x3_binmax = _mode_wrapper("K4", "K4 bin maxima: bf16x3 dots on the tensor cores")
+bf16x3_binmax_bf16 = _mode_wrapper(
+    "K4-bf16", "K4 bin maxima over bfloat16 rows: qh.v + ql.v (the low plane of v is 0)")
 
-
-def bf16x3_binmax(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv,
-                  metric: Metric = Metric.Cosine, take_min: bool = False,
-                  cmp: Optional[Cmp] = None):
-    """K4 bin maxima (bf16x3 dots on the tensor cores; see
-    :func:`binmax_plain`). CPU tensors take the plain version; CUDA tensors
-    launch csrc/bf16x3_binmax.cu or raise. ``.launches`` counts launches."""
-    return _binmax("K4", bf16x3_binmax, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok,
-                   thr, surv, n_surv, metric, take_min, cmp)
-
-
-int8_binmax.launches = 0
-f32_binmax.launches = 0
-bf16x3_binmax.launches = 0
-KERNELS = {"K1": cert_cos_binmax, "K2": int8_binmax, "K3": f32_binmax, "K4": bf16x3_binmax}
+KERNELS = {
+    "K1": cert_cos_binmax, "K1-bf16": cert_cos_binmax_bf16, "K2": int8_binmax,
+    "K3": f32_binmax, "K3-bf16": f32_binmax_bf16, "K4": bf16x3_binmax,
+    "K4-bf16": bf16x3_binmax_bf16, "K5": cert_fold_binmax,
+}
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def _winner_rows(top_slots, b: int, dev):
+    """Flat slots (bin * b + query) -> (query of each slot, the [kb * 512]
+    rows of the winning bins)."""
+    bsel = top_slots // b
+    rows_flat = (bsel[:, None] * BIN + torch.arange(BIN, device=dev)[None, :]).reshape(-1)
+    return top_slots % b, rows_flat
 
 
 def fused_topk(
@@ -486,18 +616,21 @@ def fused_topk(
     bin_alive: [n_pad / 512] bool — False bins are skipped entirely (no
     loads, no math). Soundness requires that every row of a dead bin fails
     ``row_mask`` (zonemap pruning guarantees this). ``thr`` is a device f32
-    scalar. ``fast`` (f32 rows only, see :func:`fast_ok`) runs K4 with the
-    phase-1 filter loosened by the bf16x3 error bound and examines 4k bins.
+    scalar. ``fast`` (f32 / bf16 rows, see :func:`fast_ok`) runs K4 with
+    the phase-1 filter loosened by the bf16x3 error bound and examines 4k
+    bins. ``certify`` (int8 or bf16 rows, with their ``resid``) runs K1 /
+    K5 and returns the certificate's bound.
 
     Returns (rows[k], scores[k], valid[k], check, bound): ``check`` is False
     only when the fast mode cannot certify its answer (re-run with
-    fast=False); ``bound`` is the certificate's bound on the true score of
-    every row not returned (-inf without certify)."""
+    fast=False); ``bound`` is the certificate's bound, in the key space
+    (negated for take_min), on the true score of every row not returned
+    (-inf without certify)."""
     mode = kernel_mode(vectors.dtype, metric, take_min, certify, prec, fast)
-    if mode == "K1":
-        return _fused_k1(vectors, norms_sq, inv_norms, valid, queries, row_mask,
-                         thr, bin_alive, metric=metric, k=k, cmp=cmp,
-                         resid=resid, q_valid=q_valid)
+    if certify:
+        return _fused_cert(mode, vectors, norms_sq, inv_norms, valid, queries, row_mask,
+                           thr, bin_alive, metric=metric, k=k, take_min=take_min,
+                           cmp=cmp, resid=resid, q_valid=q_valid)
     if fast and not fast_ok(metric, take_min, cmp, k, prec):
         raise ValueError("the fast-exact mode does not apply to this query")
     n_pad, d = vectors.shape
@@ -553,28 +686,21 @@ def fused_topk(
     else:
         kb = min(k, n_slots)
         _, top_slots = exact_topk_flat(flat, kb)
-    bsel = top_slots // b
-    qsel = top_slots % b
-    rows_flat = (bsel[:, None] * BIN + torch.arange(BIN, device=dev)[None, :]).reshape(-1)
+    qsel, rows_flat = _winner_rows(top_slots, b, dev)
     blk = vectors[rows_flat].reshape(kb, BIN, d)
     qc = q_kern[qsel][:, None, :]
     if mode == "K2":
         dots = _exact_int8_dots(qc, blk)[:, 0, :]
     else:
         # the exact f32 rescore of both K3 and K4 (the JAX package's HIGHEST
-        # on its own backend's terms: full f32, no TF32)
+        # on its own backend's terms: full f32, no TF32); bf16 rows upcast
+        # exactly, as there
         require_full_f32(qc)
-        dots = torch.bmm(qc, blk.transpose(1, 2))[:, 0, :]
+        dots = torch.bmm(qc, blk.float().transpose(1, 2))[:, 0, :]
     inv_r = inv_norms[rows_flat].reshape(kb, BIN)
     nsq_r = norms_sq[rows_flat].reshape(kb, BIN)
     scores = _scores(dots, q_inv[qsel][:, None], q_sq[qsel][:, None], inv_r, nsq_r, metric)
-    ok = valid[rows_flat].reshape(kb, BIN) & ~torch.isnan(scores)
-    if row_mask is not None:
-        ok = ok & row_mask[rows_flat].reshape(kb, BIN)
-    if q_valid is not None:
-        ok = ok & q_valid[qsel][:, None]
-    if cmp is not None:
-        ok = ok & _filter_ok(scores, thr, cmp)
+    ok = _phase2_ok(scores, valid, row_mask, q_valid, rows_flat, qsel, kb, thr, cmp)
     key_flat = _masked_key(scores, ok, take_min).reshape(-1)
     top_keys, sel = _stable_topk(key_flat, min(k, key_flat.shape[0]))
     out_rows = rows_flat[sel].to(torch.int32)
@@ -590,71 +716,125 @@ def fused_topk(
     return out_rows, out_scores, out_ok, check, bound
 
 
-def _fused_k1(vectors, norms_sq, inv_norms, valid, queries, row_mask, thr,
-              bin_alive, *, metric, k, cmp, resid, q_valid):
-    """The certified int8 cosine path (K1): candidates selected by the
-    certificate-adjusted key, with the bound on every row not returned."""
-    if cmp not in (None, Cmp.Gt, Cmp.Gte):
-        raise NotImplementedError(f"K1 takes no {cmp} score filter")
-    if resid is None:
-        raise ValueError("certified fused scan needs the per-row residuals")
-    n_pad, d = vectors.shape
-    b = queries.shape[0]
-    dev = vectors.device
-    # MIXED certified scan: queries rounded once to bf16 and kept
-    # unquantized; c0 carries their rounding residual + arithmetic headroom
-    qh32, c0, c1, c2 = cert_query_coeffs(metric, queries, d)
-    q_kern = qh32.to(torch.bfloat16)
-    lane_a, lane_b = cert_row_lanes(metric, vectors.dtype, resid, inv_norms, norms_sq, d)
-    _, q_inv = _query_norms(qh32)
-    # the global slack only loosens the score filter, so no truly passing
-    # row is dropped on its scan score
-    slack_g = cert_global_slack(c0, c1, c2, lane_a, lane_b, norms_sq, q_valid=q_valid)
-    thr1 = thr - slack_g if cmp in (Cmp.Gt, Cmp.Gte) else thr
-    q_ok = (
-        torch.ones(b, device=dev) if q_valid is None else q_valid.to(torch.float32)
-    )
-    rmask01 = valid.to(torch.float32)
-    if row_mask is not None:
-        rmask01 = rmask01 * row_mask.to(torch.float32)
-    surv, n_surv = survivor_bins(bin_alive)
-    bins = cert_cos_binmax(
-        q_kern, vectors, inv_norms, rmask01, lane_a, q_inv, q_ok,
-        thr1.reshape(1).to(torch.float32), surv, n_surv, cmp,
-    )
-
-    # ---- phase 2: winner-bin rescore and adjusted-key selection ----
-    # the per-query c0 joins here: max(key) + c0 is the fully adjusted bin
-    # max (max is monotone; -inf stays -inf)
-    flat = (bins + c0[None, :]).reshape(-1)  # slot = bin * b + query
-    kb = min(k, flat.shape[0])
-    _, top_slots = exact_topk_flat(flat, kb)
-    # phase-1 term of the bound: an unselected bin's adjusted max bounds
-    # the true score of every row it holds
-    bound1 = flat.scatter(0, top_slots, _NEG_INF).max()
-    bsel = top_slots // b
-    qsel = top_slots % b
-    rows_flat = (
-        bsel[:, None] * BIN + torch.arange(BIN, device=dev)[None, :]
-    ).reshape(-1)
-    # mixed rescore: bf16 queries x int8 rows, f32 products and sums (the
-    # same arithmetic class as phase 1, covered by mixed_cert_eps)
-    require_full_f32(qh32)
-    blk = vectors[rows_flat].reshape(kb, BIN, d).float()
-    dots = torch.bmm(blk, qh32[qsel][:, :, None])[:, :, 0]  # [kb, BIN]
-    scores = dots * q_inv[qsel][:, None] * inv_norms[rows_flat].reshape(kb, BIN)
+def _phase2_ok(scores, valid, row_mask, q_valid, rows_flat, qsel, kb, thr, cmp):
+    """Which re-scored (winner bin, row) pairs pass: valid, not NaN, in the
+    row mask, of a valid query, through the score filter at ``thr``."""
     ok = valid[rows_flat].reshape(kb, BIN) & ~torch.isnan(scores)
     if row_mask is not None:
         ok = ok & row_mask[rows_flat].reshape(kb, BIN)
     if q_valid is not None:
         ok = ok & q_valid[qsel][:, None]
     if cmp is not None:
-        # phase-2 scores are still approximate: keep the loosened threshold
-        ok = ok & _filter_ok(scores, thr1, cmp)
+        ok = ok & _filter_ok(scores, thr, cmp)
+    return ok
+
+
+class CertScan(NamedTuple):
+    """The certified scan's operands and terms (see :func:`cert_scan`)."""
+
+    ops: list  # the kernel's operands, in its wrapper's order
+    qh32: torch.Tensor  # [b, d] bf16-rounded queries, as f32
+    c0: torch.Tensor  # [b] per-query certificate coefficients
+    c1: torch.Tensor
+    c2: torch.Tensor
+    lane_a: torch.Tensor  # [n_pad] per-row certificate lanes
+    lane_b: torch.Tensor
+    q_sq: torch.Tensor  # [b] norms of the bf16-rounded queries
+    q_inv: torch.Tensor
+    thr1: torch.Tensor  # [1] the score filter's threshold, loosened
+
+
+def cert_scan(mode, vectors, norms_sq, inv_norms, valid, queries, row_mask, thr,
+              bin_alive, *, metric, cmp, resid, q_valid=None) -> CertScan:
+    """Set up the certified scan as the JAX package's ``_pallas_topk_jit``
+    does: queries rounded once to bf16 (kept unquantized), the per-query
+    coefficients c0 / c1 / c2 and per-row lanes of the certificate fold,
+    the score filter loosened by the global slack, the survivor list. K1
+    (``mode`` "K1" / "K1-bf16") takes the Cosine lane and leaves c0 to
+    phase 2; K5 takes every term."""
+    d = vectors.shape[1]
+    b = queries.shape[0]
+    dev = vectors.device
+    qh32, c0, c1, c2 = cert_query_coeffs(metric, queries, d)
+    q_kern = qh32.to(torch.bfloat16)
+    lane_a, lane_b = cert_row_lanes(metric, vectors.dtype, resid, inv_norms, norms_sq, d)
+    q_sq, q_inv = _query_norms(qh32)
+    # the global slack only loosens the score filter, so no truly passing
+    # row is dropped on its scan score
+    slack_g = cert_global_slack(c0, c1, c2, lane_a, lane_b, norms_sq, q_valid=q_valid)
+    thr1 = thr
+    if cmp in (Cmp.Gt, Cmp.Gte):
+        thr1 = thr - slack_g
+    elif cmp in (Cmp.Lt, Cmp.Lte):
+        thr1 = thr + slack_g
+    thr1 = thr1.reshape(1).to(torch.float32)
+    q_ok = torch.ones(b, device=dev) if q_valid is None else q_valid.to(torch.float32)
+    rmask01 = valid.to(torch.float32)
+    if row_mask is not None:
+        rmask01 = rmask01 * row_mask.to(torch.float32)
+    surv, n_surv = survivor_bins(bin_alive)
+    if mode == "K5":
+        ops = [q_kern, vectors, inv_norms, norms_sq, rmask01, lane_a, lane_b, q_inv, q_sq,
+               q_ok, c0, c1, c2, thr1, surv, n_surv]
+    else:
+        ops = [q_kern, vectors, inv_norms, rmask01, lane_a, q_inv, q_ok, thr1, surv, n_surv]
+    return CertScan(ops, qh32, c0, c1, c2, lane_a, lane_b, q_sq, q_inv, thr1)
+
+
+def _fused_cert(mode, vectors, norms_sq, inv_norms, valid, queries, row_mask, thr,
+                bin_alive, *, metric, k, take_min, cmp, resid, q_valid):
+    """The certified paths: K1 (Cosine over int8 or bf16 rows) and K5 (Dot,
+    Euclid take-min, over bf16 rows). Candidates are selected by the
+    certificate-adjusted key, with the bound on every row not returned."""
+    allowed = (None, Cmp.Lt, Cmp.Lte) if take_min else (None, Cmp.Gt, Cmp.Gte)
+    if cmp not in allowed:
+        raise ValueError(f"the certified scan takes no {cmp} score filter here")
+    if resid is None:
+        raise ValueError("certified fused scan needs the per-row residuals")
+    d = vectors.shape[1]
+    b = queries.shape[0]
+    dev = vectors.device
+    cs = cert_scan(mode, vectors, norms_sq, inv_norms, valid, queries, row_mask, thr,
+                   bin_alive, metric=metric, cmp=cmp, resid=resid, q_valid=q_valid)
+    _, qh32, c0, c1, c2, lane_a, lane_b, q_sq, q_inv, thr1 = cs
+    if mode == "K5":
+        # the kernel folds the whole slack, c0 included
+        flat = cert_fold_binmax(*cs.ops, metric, take_min, cmp).reshape(-1)
+    else:
+        # the Cosine fold's per-query c0 joins here: max(key) + c0 is the
+        # fully adjusted bin max (max is monotone; -inf stays -inf)
+        flat = (KERNELS[mode](*cs.ops, cmp) + c0[None, :]).reshape(-1)
+    # slot = bin * b + query
+
+    # ---- phase 2: winner-bin rescore and adjusted-key selection ----
+    kb = min(k, flat.shape[0])
+    _, top_slots = exact_topk_flat(flat, kb)
+    # phase-1 term of the bound: an unselected bin's adjusted max bounds
+    # the true score (key) of every row it holds
+    bound1 = flat.scatter(0, top_slots, _NEG_INF).max()
+    qsel, rows_flat = _winner_rows(top_slots, b, dev)
+    # mixed rescore: bf16 queries x stored rows upcast exactly, f32
+    # products and sums (the same arithmetic class as phase 1)
+    require_full_f32(qh32)
+    blk = vectors[rows_flat].reshape(kb, BIN, d).float()
+    dots = torch.bmm(blk, qh32[qsel][:, :, None])[:, :, 0]  # [kb, BIN]
+    nsq_r = norms_sq[rows_flat].reshape(kb, BIN)
+    scores = _scores(dots, q_inv[qsel][:, None], q_sq[qsel][:, None],
+                     inv_norms[rows_flat].reshape(kb, BIN), nsq_r, metric)
+    # phase-2 scores are still approximate: keep the loosened threshold
+    ok = _phase2_ok(scores, valid, row_mask, q_valid, rows_flat, qsel, kb, thr1[0], cmp)
     # select by the ADJUSTED key (scan key + per-(query, row) slack): the
     # unreturned rows are then the smallest adjusted values, which
     # minimizes the bound; the rerank re-scores candidates exactly
-    adj = scores + c0[qsel][:, None] + lane_a[rows_flat].reshape(kb, BIN)
+    base = -scores if take_min else scores
+    lane_a_r = lane_a[rows_flat].reshape(kb, BIN)
+    if mode == "K5":
+        adj = _general_fold(
+            base, c0[qsel][:, None], c1[qsel][:, None], c2[qsel][:, None], lane_a_r,
+            torch.sqrt(nsq_r), lane_b[rows_flat].reshape(kb, BIN),
+        )
+    else:
+        adj = base + c0[qsel][:, None] + lane_a_r
     key_flat = torch.where(ok, adj, _NEG_INF).reshape(-1)
     _, sel = _stable_topk(key_flat, min(k, key_flat.shape[0]))
     out_rows = rows_flat[sel].to(torch.int32)

@@ -1,12 +1,11 @@
 """Batched scoring + exact global top-k in torch (the slice's subset).
 
 Counterpart of the JAX package's ``ops/scoring.py``: device storage (f32,
-and int8 with its quantization), the certificate's per-query / per-row
-terms, the bf16x3 error bound, and the two plain scoring programs the query
-paths can fall into (``direct`` for small stores, ``scan`` for wide k). The
-``panel`` mode is served by the hand-written fused kernels
-(``ops/fused_topk.py``: K1 certified int8, K2 uncertified int8, K3 exact
-f32, K4 bf16x3 fast-exact); only bfloat16 storage (K5) is not ported yet.
+bfloat16 with its rounding residuals, int8 with its quantization), the
+certificate's per-query / per-row terms for Cosine, Dot and Euclid, the
+bf16x3 error bound, and the two plain scoring programs the query paths can
+fall into (``direct`` for small stores, ``scan`` for wide k). The ``panel``
+mode is served by the hand-written fused kernels (``ops/fused_topk.py``).
 
 Exactness: f32 matrix products run in full f32. On CUDA that needs TF32
 off, which :func:`require_full_f32` checks (it never changes the global
@@ -63,15 +62,18 @@ def require_full_f32(t: torch.Tensor) -> None:
 class DeviceVecs(NamedTuple):
     """Device-resident vector store.
 
-    vectors  : [N_pad, D] float32 or int8
-    norms_sq : [N_pad]    float32, squared L2 norms (0 for padding)
+    vectors  : [N_pad, D] float32, bfloat16 or int8
+    norms_sq : [N_pad]    float32, squared L2 norms of the stored rows (0
+               for padding)
     inv_norms: [N_pad]    float32, 1/||v|| with 0 for zero-norm rows
     valid    : [N_pad]    bool, False for padding rows
 
-    int8 stores additionally carry sound per-row quantization-residual
+    int8 and bfloat16 stores additionally carry sound per-row residual
     bounds (the certified-exact machinery):
 
-    resid    : [N_pad] f32, >= ||v/||v|| - v8/||v8|||| per row (0 padding)
+    resid    : [N_pad] f32 (0 on padding rows); int8: the UNIT residual
+               >= ||v/||v|| - v8/||v8||||; bfloat16: the ABSOLUTE residual
+               >= ||v - bf16(v)|| (see cert_row_lanes)
     resid_bin: [N_pad/512] f32, per-512-row-bin max of resid (None when
                N_pad is not 512-aligned)
     resid_max: [] f32 scalar, max over valid rows
@@ -110,13 +112,43 @@ def materialize(vectors_np: np.ndarray, dtype=torch.float32, *, device) -> Devic
     vecs = torch.from_numpy(host).to(device)
     if dtype == torch.int8:
         return _materialize_int8(vecs, n)
+    if dtype == torch.bfloat16:
+        return _materialize_bf16(vecs, n)
     if dtype != torch.float32:
-        raise NotImplementedError(
-            f"{dtype} storage is not ported yet (float32 and int8 are)"
-        )
+        raise OttersError(f"unsupported storage dtype {dtype}")
     valid = _valid_mask(n_pad, n, device)
     norms_sq, inv_norms = _device_norms(vecs)
     return DeviceVecs(vecs, norms_sq, inv_norms, valid)
+
+
+# rows per slab of the bfloat16 ingest: its f32 temporaries stay near 1 GB
+# at d = 768, where a whole-store one would double a 10M-row f32 source
+BF16_SLAB_ROWS = 1 << 18
+
+
+def _materialize_bf16(vecs_f32: torch.Tensor, n_valid: int,
+                      slab_rows: int = BF16_SLAB_ROWS) -> DeviceVecs:
+    """bfloat16 storage with per-row ABSOLUTE rounding residuals attached:
+    half the device memory of f32, and the certificate covers Cosine, Dot
+    and Euclid on it. The codes, norms and residuals are computed slab by
+    slab and written in place (rows are independent)."""
+    n_pad, d = vecs_f32.shape
+    dev = vecs_f32.device
+    vecs = torch.empty((n_pad, d), dtype=torch.bfloat16, device=dev)
+    norms_sq = torch.empty((n_pad,), dtype=torch.float32, device=dev)
+    inv = torch.empty_like(norms_sq)
+    resid = torch.empty_like(norms_sq)
+    for s in range(0, n_pad, max(1, slab_rows)):
+        e = min(n_pad, s + slab_rows)
+        x = vecs_f32[s:e].float()
+        vecs[s:e] = x.to(torch.bfloat16)
+        norms_sq[s:e], inv[s:e] = _device_norms(vecs[s:e])
+        resid[s:e] = bf16_abs_resid(x)
+        del x
+    valid = _valid_mask(n_pad, n_valid, dev)
+    resid = torch.where(valid, resid, 0.0)
+    rbin, rmax = finalize_resid(resid)
+    return DeviceVecs(vecs, norms_sq, inv, valid, resid, rbin, rmax)
 
 
 def _materialize_int8(vecs_f32: torch.Tensor, n_valid: int) -> DeviceVecs:
@@ -198,29 +230,95 @@ def mixed_cert_eps(d: int) -> float:
     return 4.0 * d * 2.0**-24 + 4.0e-6
 
 
+def _resid_inflation(d: int) -> float:
+    """1 + max(1e-4, 4 d 2^-24): covers the f32 sum of squares of a
+    residual norm (gamma_d relative) with room to spare."""
+    return 1.0 + max(1e-4, 4.0 * d * 2.0**-24)
+
+
+def bf16_abs_resid(vecs_f32: torch.Tensor) -> torch.Tensor:
+    """[N] sound per-row bounds on ||v - bf16(v)|| (ABSOLUTE residual).
+
+    v - bf16(v) is exact in f32 per element (Sterbenz); the sum of squares
+    accumulates gamma_d relative error, covered by the inflation. Rows that
+    are exact in bf16 get a true 0."""
+    v32 = vecs_f32.float()
+    u = v32 - v32.to(torch.bfloat16).float()
+    return torch.sqrt((u * u).sum(dim=1)) * _resid_inflation(v32.shape[1])
+
+
+def bf16_query_abs(queries: torch.Tensor):
+    """-> (qh32, e_qa[B], hq[B]): the bf16-rounded queries (as f32), a sound
+    bound on ||q - qh|| per query and ||qh|| per query (inflated alike):
+    the query side of the Dot / Euclid certificate coefficients."""
+    q32 = queries.float()
+    qh32 = q32.to(torch.bfloat16).float()
+    u = q32 - qh32  # exact per element
+    infl = _resid_inflation(q32.shape[1])
+    e_qa = torch.sqrt((u * u).sum(dim=1)) * infl
+    hq = torch.sqrt((qh32 * qh32).sum(dim=1)) * infl
+    return qh32, e_qa, hq
+
+
+def _cert_kd(d: int) -> float:
+    """The f32 accumulation term 4 (d + 8) 2^-24 of the Dot / Euclid
+    certificate (scan and rerank sides)."""
+    return 4.0 * (d + 8) * 2.0**-24
+
+
 def cert_query_coeffs(metric: Metric, queries: torch.Tensor, d: int):
-    """Per-query coefficients of the certificate fold (Cosine on int8
-    storage): -> (qh32, c0[B], c1[B], c2[B]) with c0 = e_unit + eps_arith,
-    c1 = 1, c2 = 0 (see the JAX package for the derivation)."""
-    if metric is not Metric.Cosine:
-        raise NotImplementedError(
-            f"the {metric.value} certificate belongs to bfloat16 storage, "
-            "which is not ported yet"
-        )
-    e_q = bf16_query_unit_resid(queries)
-    qh32 = queries.float().to(torch.bfloat16).float()
-    c0 = e_q + mixed_cert_eps(d)
-    return qh32, c0, torch.ones_like(c0), torch.zeros_like(c0)
+    """Per-query coefficients of the certificate fold: every row's true
+    score is within
+
+        slack(q, row) = c0(q) + c1(q)*lane_a(row) + c2(q)*||v_row|| + lane_b(row)
+
+    of its scan score (for Euclid a lower bound, folded in the negated key
+    space). -> (qh32, c0[B], c1[B], c2[B]); see the JAX package for the
+    derivations.
+
+    Cosine  c0 = e_unit + eps_arith, c1 = 1, c2 = 0;
+    Dot     c0 = 0, c1 = (hq + e_qa) m + kd hq, c2 = e_qa m + kd (hq + e_qa);
+    Euclid  c0 = e_qa (2 hq + e_qa) m + kd hq^2, c1 and c2 doubled;
+    with m = 1 + 1e-6 and kd = 4 (d + 8) 2^-24."""
+    if metric is Metric.Cosine:
+        e_q = bf16_query_unit_resid(queries)
+        qh32 = queries.float().to(torch.bfloat16).float()
+        c0 = e_q + mixed_cert_eps(d)
+        return qh32, c0, torch.ones_like(c0), torch.zeros_like(c0)
+    if metric not in (Metric.DotProduct, Metric.Euclidean):
+        raise OttersError(f"certificate does not support metric {metric}")
+    qh32, e_qa, hq = bf16_query_abs(queries)
+    kd = _cert_kd(d)
+    m = 1.0 + 1e-6
+    c1 = (hq + e_qa) * m + kd * hq
+    c2 = e_qa * m + kd * (hq + e_qa)
+    if metric is Metric.DotProduct:
+        return qh32, torch.zeros_like(hq), c1, c2
+    c0 = (e_qa * (2.0 * hq + e_qa)) * m + kd * hq * hq
+    return qh32, c0, 2.0 * c1, 2.0 * c2
 
 
 def cert_row_lanes(metric: Metric, storage_dtype, resid, inv_norms, norms_sq, d: int):
-    """-> (lane_a[N], lane_b[N]) per-row lanes of the certificate fold. For
-    int8 Cosine the stored residual is already the unit residual."""
-    if metric is not Metric.Cosine or storage_dtype != torch.int8:
-        raise NotImplementedError(
-            "only the int8 Cosine certificate is ported yet"
-        )
-    return resid, torch.zeros_like(resid)
+    """-> (lane_a[N], lane_b[N]) per-row lanes of the certificate fold.
+
+    ``resid`` is the stored per-row residual: the UNIT residual for int8
+    storage (Cosine only), the ABSOLUTE residual ||v - bf16(v)|| for
+    bfloat16 storage. Padding rows carry resid = 0 and norms_sq = 0, so
+    both lanes vanish there."""
+    if metric is Metric.Cosine:
+        if storage_dtype == torch.int8:
+            lane_a = resid  # already a unit residual
+        else:
+            # ||a/||a|| - b/||b|||| <= 2 ||a - b|| / max(||a||, ||b||)
+            lane_a = 2.0 * resid * inv_norms * (1.0 + 1e-5)
+        return lane_a, torch.zeros_like(lane_a)
+    if metric is Metric.DotProduct:
+        return resid, torch.zeros_like(resid)
+    if metric is Metric.Euclidean:
+        vn = torch.sqrt(norms_sq)
+        lane_b = (2.0 * vn * resid + resid * resid) * (1.0 + 1e-6) + _cert_kd(d) * norms_sq
+        return resid, lane_b
+    raise OttersError(f"certificate does not support metric {metric}")
 
 
 def cert_global_slack(c0, c1, c2, lane_a, lane_b, norms_sq, q_valid=None):
@@ -238,6 +336,32 @@ def cert_global_slack(c0, c1, c2, lane_a, lane_b, norms_sq, q_valid=None):
         + c2.max() * vn_max
         + lane_b.max()
     )
+
+
+def materialize_from_device(vecs: torch.Tensor, n_valid: Optional[int] = None,
+                            dtype=None) -> DeviceVecs:
+    """Build a DeviceVecs from rows already on their device (no host round
+    trip), padding rows there. ``dtype`` (default: the rows' own) is the
+    storage: int8 quantizes, bfloat16 rounds with residuals (slab by slab),
+    float32 keeps. Rows past ``n_valid`` are masked out of every query. A
+    caller short of memory passes rows already padded to ``pad_rows(n)``:
+    the padding is then a no-op, not a copy."""
+    n, d = vecs.shape
+    n_pad = pad_rows(n)
+    n_valid = n if n_valid is None else n_valid
+    dtype = vecs.dtype if dtype is None else dtype
+    if n_pad != n:
+        pad = vecs.new_zeros((n_pad - n, d))
+        vecs = torch.cat([vecs, pad])
+    if dtype == torch.int8:
+        return _materialize_int8(vecs.float(), n_valid)
+    if dtype == torch.bfloat16 and vecs.dtype != torch.bfloat16:
+        return _materialize_bf16(vecs, n_valid)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise OttersError(f"unsupported storage dtype {dtype}")
+    vecs = vecs.to(dtype)
+    norms_sq, inv_norms = _device_norms(vecs)
+    return DeviceVecs(vecs, norms_sq, inv_norms, _valid_mask(n_pad, n_valid, vecs.device))
 
 
 def materialize_int8_slabs(slab_fn, n: int, d: int, slab_rows: int, *, device) -> DeviceVecs:
@@ -333,6 +457,8 @@ def _score_block(queries, q_inv, q_sq, vecs, v_inv, v_sq, metric: Metric):
         q8, _, q_inv8 = _quantize_rows_int8(queries)
         dots = (q8.double() @ vecs.double().T).float()
         return dots * q_inv8[:, None] * v_inv[None, :]
+    # f32 (and bfloat16 rows, upcast exactly, as JAX's f32 x bf16 matmul
+    # promotes them) in full f32
     require_full_f32(queries)
     dots = queries.float() @ vecs.float().T
     if metric is Metric.DotProduct:
@@ -514,9 +640,9 @@ def run_vec_topk(
     (rows, scores, valid). Used by VecStore and the hash-collision redo.
 
     The ``panel`` shape goes to the fused kernels: K2 over int8 rows; over
-    f32 rows the verified fast-exact K4 where :func:`fused_topk.fast_ok`
-    allows it, re-run strictly (K3) when its check fails, else K3 (or K4
-    for the store precision "high")."""
+    f32 and bfloat16 rows the verified fast-exact K4 where
+    :func:`fused_topk.fast_ok` allows it, re-run strictly (K3) when its
+    check fails, else K3 (or K4 for the store precision "high")."""
     n_pad = dv.vectors.shape[0]
     b = queries.shape[0]
     k_eff = min(k, b * n_pad)

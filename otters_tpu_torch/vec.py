@@ -4,7 +4,7 @@ Counterpart of the JAX package's ``vec.py`` (reference ``src/vec.rs``):
 
 - ``VecStore`` stages vectors host-side (amortized appends) and lazily
   materializes one ``[N_pad, D]`` tensor on the device with device-computed
-  norms (float32, or int8 for Cosine). Appending invalidates the device
+  norms (float32, bfloat16, or int8 for Cosine). Appending invalidates the device
   copy. The store runs on the current CUDA device unless the caller names
   another (``VecStore(dim, device="cpu")``), and raises without one.
 - ``VecQueryPlan`` is the same lazy builder with **deferred errors**:
@@ -14,10 +14,10 @@ Counterpart of the JAX package's ``vec.py`` (reference ``src/vec.rs``):
   with fused masking, and one exact global top-k merged across the whole
   batch (single-collector semantics, vec.rs:217-219). At scale that is a
   fused kernel (``ops/fused_topk.py``): K4 with a strict K3 rerun over f32
-  rows, K2 over int8 rows.
+  and bfloat16 rows (exact over the stored values), K2 over int8 rows.
 
-Not ported yet: bfloat16 storage, and ``save`` / ``load`` (they wait for
-``io.py``); both raise ``NotImplementedError``.
+Not ported yet: ``save`` / ``load`` (they wait for ``io.py``); both raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,17 +51,16 @@ class VecStore:
     def __init__(self, dim: int, dtype: str = "float32", device=None):
         if dtype not in ("float32", "bfloat16", "int8"):
             raise OttersError(f"unsupported storage dtype {dtype!r}")
-        if dtype == "bfloat16":
-            raise NotImplementedError("bfloat16 storage is not ported yet")
         self.dim = int(dim)
         self._rows: List[np.ndarray] = []  # staged host chunks
         self._n = 0
         self._device: Optional[scoring.DeviceVecs] = None
-        # device storage: "float32" (exact) | "int8" (cosine-only,
-        # approximate; see ops/scoring._materialize_int8)
+        # device storage: "float32" (exact) | "bfloat16" (half the memory,
+        # exact over the stored values) | "int8" (cosine-only, approximate;
+        # see ops/scoring._materialize_int8)
         self._dtype = dtype
         self._where = None if device is None else torch.device(device)
-        # scan precision of f32 storage (see MetaStore.precision)
+        # scan precision of f32 / bf16 storage (see MetaStore.precision)
         self.precision: str = "highest"
 
     # ---- ingest ----------------------------------------------------------
@@ -125,8 +124,9 @@ class VecStore:
         """Materialize (and cache) the device-resident store."""
         if self._device is None:
             where = resolve_device(self._where, "VecStore(dim, device='cpu')")
-            dtype = torch.int8 if self._dtype == "int8" else torch.float32
-            self._device = scoring.materialize(self._host_matrix(), dtype=dtype, device=where)
+            self._device = scoring.materialize(
+                self._host_matrix(), dtype=getattr(torch, self._dtype), device=where
+            )
         return self._device
 
     # ---- query -----------------------------------------------------------

@@ -15,7 +15,8 @@ One store, built by the JAX package and carried across with
   and the same ``check``, including a check that fails on exact ties.
 
 CUDA-only tests hold the Hopper kernels against their plain versions on the
-card (``tests/test_torch_kernels_cuda.py`` for K2 / K3 / K4).
+card (``tests/test_torch_kernels_cuda.py`` for K2 - K5 and the bf16-row
+modes); the bf16-row modes' parity with JAX is in ``tests/test_torch_bf16.py``.
 """
 
 from functools import partial
@@ -210,20 +211,27 @@ def test_survivor_list_and_bin_liveness():
 
 
 def test_unported_kernel_modes_raise():
-    """Only K5 (certified, bfloat16 storage), bfloat16 storage itself and
-    the one-pass bf16 precisions raise; K1 .. K4 are ported."""
-    for dtype, certify, name in ((torch.float32, True, "K5"), (torch.bfloat16, False, "K5")):
-        with pytest.raises(NotImplementedError, match=name):
-            ft.kernel_mode(dtype, Metric.Cosine, False, certify)
+    """Only the one-pass bf16 precisions raise; every other mode names its
+    kernel: K1 .. K4 over int8 / f32 rows, K1 / K3 / K4 over bfloat16 rows
+    and K5 (the general certified fold) for bf16 Dot and Euclid."""
     for prec in ("default", "bf16"):
-        with pytest.raises(NotImplementedError, match=prec):
-            ft.kernel_mode(torch.float32, Metric.Cosine, False, False, prec)
+        for dtype in (torch.float32, torch.bfloat16):
+            with pytest.raises(NotImplementedError, match=prec):
+                ft.kernel_mode(dtype, Metric.Cosine, False, False, prec)
+    with pytest.raises(ValueError, match="no certificate"):
+        ft.kernel_mode(torch.float32, Metric.Cosine, False, True)
+    with pytest.raises(ValueError, match="no certificate"):
+        ft.kernel_mode(torch.bfloat16, Metric.Euclidean, False, True)
     assert ft.kernel_mode(torch.int8, Metric.Cosine, False, True) == "K1"
     assert ft.kernel_mode(torch.int8, Metric.Cosine, True, False) == "K2"
+    assert ft.kernel_mode(torch.bfloat16, Metric.Cosine, False, True) == "K1-bf16"
+    assert ft.kernel_mode(torch.bfloat16, Metric.DotProduct, False, True) == "K5"
+    assert ft.kernel_mode(torch.bfloat16, Metric.Euclidean, True, True) == "K5"
     for metric in (Metric.Cosine, Metric.DotProduct, Metric.Euclidean):
-        assert ft.kernel_mode(torch.float32, metric, False, False) == "K3"
-        assert ft.kernel_mode(torch.float32, metric, False, False, fast=True) == "K4"
-        assert ft.kernel_mode(torch.float32, metric, False, False, "high") == "K4"
+        for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "-bf16")):
+            assert ft.kernel_mode(dtype, metric, False, False) == "K3" + sfx
+            assert ft.kernel_mode(dtype, metric, False, False, fast=True) == "K4" + sfx
+            assert ft.kernel_mode(dtype, metric, False, False, "high") == "K4" + sfx
 
 
 @pytest.mark.cuda

@@ -67,33 +67,31 @@ def test_build_without_a_device_named_needs_cuda(monkeypatch):
 
 def test_kernel_wrapper_never_falls_back_off_cpu():
     """A tensor on a device that is neither the CPU nor CUDA is refused by
-    every kernel wrapper (K1 .. K4; the plain versions serve CPU tensors
-    only)."""
+    every kernel wrapper (K1 .. K5, every row type; the plain versions serve
+    CPU tensors only)."""
     import torch
 
     from otters_tpu_torch.ops import fused_topk as ft
 
     meta = torch.device("meta")
-    args = [
-        torch.empty((8, 16), dtype=torch.bfloat16, device=meta),
-        torch.empty((512, 16), dtype=torch.int8, device=meta),
-        *[torch.empty(512, device=meta) for _ in range(3)],
-        *[torch.empty(8, device=meta) for _ in range(2)],
-        torch.empty(1, device=meta),
-        torch.empty(1, dtype=torch.int32, device=meta),
-        torch.empty(1, dtype=torch.int32, device=meta),
-    ]
-    with pytest.raises(ValueError, match="unsupported device"):
-        ft.cert_cos_binmax(*args)
-    for mode, (source, qdtype, vdtype) in ft._MODES.items():
-        args = [
-            torch.empty((8, 16), dtype=qdtype, device=meta),
-            torch.empty((512, 16), dtype=vdtype, device=meta),
-            *[torch.empty(512, device=meta) for _ in range(3)],
-            *[torch.empty(8, device=meta) for _ in range(3)],
-            torch.empty(1, device=meta),
-            torch.empty(1, dtype=torch.int32, device=meta),
-            torch.empty(1, dtype=torch.int32, device=meta),
-        ]
-        with pytest.raises(ValueError, match=f"{source}: unsupported device"):
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=meta)
+
+    def tail():
+        return [empty(1), empty(1, dtype=torch.int32), empty(1, dtype=torch.int32)]
+
+    for name, vdtype in (("cert_cos_binmax", torch.int8), ("cert_cos_binmax_bf16", torch.bfloat16)):
+        args = [empty(8, 16, dtype=torch.bfloat16), empty(512, 16, dtype=vdtype),
+                *[empty(512) for _ in range(3)], *[empty(8) for _ in range(2)], *tail()]
+        with pytest.raises(ValueError, match=f"{name}: unsupported device"):
+            getattr(ft, name)(*args)
+    args = [empty(8, 16, dtype=torch.bfloat16), empty(512, 16, dtype=torch.bfloat16),
+            *[empty(512) for _ in range(5)], *[empty(8) for _ in range(6)], *tail()]
+    with pytest.raises(ValueError, match="cert_fold_binmax: unsupported device"):
+        ft.cert_fold_binmax(*args)
+    for mode, (_, entry, qdtype, vdtype) in ft._MODES.items():
+        args = [empty(8, 16, dtype=qdtype), empty(512, 16, dtype=vdtype),
+                *[empty(512) for _ in range(3)], *[empty(8) for _ in range(3)], *tail()]
+        with pytest.raises(ValueError, match=f"{entry}: unsupported device"):
             ft.KERNELS[mode](*args)

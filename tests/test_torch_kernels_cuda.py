@@ -1,4 +1,7 @@
-"""K2 / K3 / K4 Hopper kernels against their plain torch versions, on the card.
+"""The Hopper kernels against their plain torch versions, on the card.
+
+K2 / K3 / K4 over int8 / f32 rows; over bfloat16 rows K1 (certified
+Cosine), K3, K4 and K5 (the general certified fold, Dot and Euclid).
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
@@ -10,7 +13,10 @@ agree within 4 ulps (the epilogue multiplies are the same rounded ops, the
 plain version's may be fused differently by torch); K3 sums in another
 order than the plain f32 product, within d 2^-24 |q| |v|; K4 within
 ``high_precision_bound(d)`` |q| |v| (both are bf16x3 sums, of different
-orders, each within the bound of the exact dot).
+orders, each within the bound of the exact dot); K3 and K4 over bf16 rows
+likewise. The certified scans sum exact bf16 products in f32 in another
+order than the plain product: K1 within ``mixed_cert_eps(d)``, K5 within
+``4 d 2^-24 |qh| max|v|`` (twice for Euclid) plus 4 ulps of the key.
 """
 
 import numpy as np
@@ -51,15 +57,64 @@ def _operands(mode, dev, *, n=40_000, d=128, b=70, seed=0, thr=0.0):
             torch.ones(b, device=dev), torch.full((1,), thr, device=dev), surv, n_surv]
 
 
+def _bf16_store(dev, g, n, d):
+    n_pad = sc.pad_rows(n)
+    f32 = torch.randn((n_pad, d), generator=g, device=dev)
+    f32[n:] = 0.0
+    return sc.materialize_from_device(f32, n_valid=n, dtype=torch.bfloat16)
+
+
+def _bf16_operands(mode, dev, metric, *, n=40_000, d=128, b=70, seed=0, thr=0.0,
+                   cmp=None):
+    """Operands of a bf16-row mode over a bf16 store: the certified scans'
+    (K1-bf16, K5) as the fused path sets them up, or K3 / K4's f32 queries."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dv = _bf16_store(dev, g, n, d)
+    q = torch.randn((b, d), generator=g, device=dev)
+    n_pad = dv.vectors.shape[0]
+    alive = torch.rand(n_pad // ft.BIN, generator=g, device=dev) < 0.6
+    row_mask = torch.rand(n_pad, generator=g, device=dev) < 0.9
+    thr_t = torch.tensor(thr, device=dev)
+    if mode in ("K1-bf16", "K5"):
+        return ft.cert_scan(mode, dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, q,
+                            row_mask, thr_t, alive, metric=metric, cmp=cmp,
+                            resid=dv.resid).ops
+    q_sq, q_inv = sc._query_norms(q)
+    surv, n_surv = ft.survivor_bins(alive)
+    rmask = (dv.valid & row_mask).float()
+    return [q, dv.vectors, dv.inv_norms, dv.norms_sq, rmask, q_inv, q_sq,
+            torch.ones(b, device=dev), thr_t.reshape(1), surv, n_surv]
+
+
+def _call(mode, args, metric, take_min, cmp, plain=False):
+    if mode == "K1-bf16":
+        fn = ft.cert_cos_binmax_plain if plain else ft.cert_cos_binmax_bf16
+        return fn(*args, cmp)
+    if mode == "K5":
+        if plain:
+            return ft.cert_fold_binmax_plain(*args, metric=metric, take_min=take_min, cmp=cmp)
+        return ft.cert_fold_binmax(*args, metric, take_min, cmp)
+    if plain:
+        return ft.binmax_plain(mode, *args, metric=metric, take_min=take_min, cmp=cmp)
+    return ft.KERNELS[mode](*args, metric, take_min, cmp)
+
+
 def _tol(mode, args, metric):
     q, v = args[0].float(), args[1]
     d = q.shape[1]
     if mode == "K2":
         return 0.0
-    base = d * 2.0**-24 if mode == "K3" else sc.high_precision_bound(d)
+    if mode == "K1-bf16":
+        return sc.mixed_cert_eps(d)
+    if mode == "K5":
+        base = 4 * d * 2.0**-24
+    elif mode.startswith("K3"):
+        base = d * 2.0**-24
+    else:
+        base = sc.high_precision_bound(d)
     if metric is Metric.Cosine:
         return base
-    scale = float(q.norm(dim=1).max()) * float(args[3].max().sqrt())
+    scale = float(q.norm(dim=1).max()) * float(args[3].max().sqrt())  # args[3]: nsq
     return base * scale * (2.0 if metric is Metric.Euclidean else 1.0)
 
 
@@ -123,14 +178,59 @@ def test_k2_dots_are_bit_exact():
     assert torch.equal(out.cpu(), exact.float())
 
 
+BF16_CASES = [
+    ("K1-bf16", Metric.Cosine, False, None, 0.0),
+    ("K1-bf16", Metric.Cosine, False, Cmp.Gt, 0.05),
+    ("K5", Metric.DotProduct, False, None, 0.0),
+    ("K5", Metric.DotProduct, False, Cmp.Gt, 2.0),
+    ("K5", Metric.Euclidean, True, None, 0.0),
+    ("K5", Metric.Euclidean, True, Cmp.Lt, 250.0),
+    ("K3-bf16", Metric.Cosine, False, Cmp.Gte, 0.05),
+    ("K3-bf16", Metric.Euclidean, True, Cmp.Lt, 250.0),
+    ("K4-bf16", Metric.Cosine, False, None, 0.0),
+    ("K4-bf16", Metric.DotProduct, False, Cmp.Gt, 2.0),
+    ("K4-bf16", Metric.Euclidean, True, None, 0.0),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["K2", "K3", "K4"])
+@pytest.mark.parametrize("mode,metric,take_min,cmp,thr", BF16_CASES)
+@pytest.mark.parametrize("d", [128, 100])
+def test_bf16_row_kernel_matches_plain(mode, metric, take_min, cmp, thr, d):
+    """The bf16-row modes; the certified ones (K1, K5) need d % 16 == 0, so
+    d = 100 runs only K3 / K4 there."""
+    dev = _device()
+    if d % 16 and mode in ("K1-bf16", "K5"):
+        d = 112
+    args = _bf16_operands(mode, dev, metric, d=d, thr=thr, cmp=cmp)
+    fn = ft.KERNELS[mode]
+    before = fn.launches
+    got = _call(mode, args, metric, take_min, cmp)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = _call(mode, args, metric, take_min, cmp, plain=True)
+    fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
+    assert torch.equal(fin_g, fin_w)
+    assert bool(fin_w.any()) and not bool(fin_w.all())
+    err = float((got[fin_w] - want[fin_w]).abs().max())
+    tol = _tol(mode, args, metric)
+    if metric is not Metric.Cosine or mode == "K5":
+        tol += 4 * float(np.spacing(np.float32(float(want[fin_w].abs().max()))))
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["K2", "K3", "K4", "K1-bf16", "K3-bf16", "K4-bf16", "K5"])
 def test_no_live_bin_leaves_every_bin_neg_inf(mode):
     dev = _device()
-    args = _operands(mode, dev, n=5000)
-    args[9], args[10] = ft.survivor_bins(
+    metric = Metric.DotProduct if mode == "K5" else Metric.Cosine
+    if mode in ("K2", "K3", "K4"):
+        args = _operands(mode, dev, n=5000)
+    else:
+        args = _bf16_operands(mode, dev, metric, n=5000)
+    args[-2], args[-1] = ft.survivor_bins(
         torch.zeros(args[1].shape[0] // ft.BIN, dtype=torch.bool, device=dev)
     )
-    out = ft.KERNELS[mode](*args)
+    out = _call(mode, args, metric, False, None)
     torch.cuda.synchronize()
     assert bool(torch.isneginf(out).all())

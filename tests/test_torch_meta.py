@@ -264,24 +264,23 @@ def test_string_filter_verify_and_collision_redo(monkeypatch):
 
 
 def test_unported_kernel_modes_raise_through_the_api(monkeypatch):
-    """Only bfloat16 storage (kernel mode K5) and the one-pass bf16 store
-    precisions raise; f32 and int8 stores answer fused-size queries."""
+    """Only the one-pass bf16 store precisions raise; f32, bfloat16 and int8
+    stores answer fused-size queries."""
     use_fused_path(monkeypatch)
     vecs = np.random.default_rng(2).normal(size=(8192, 16)).astype(np.float32)
     cols = [tx.Column("id", tx.DataType.Int64).from_values(range(8192))]
-    f32_store, int8_store = (
+    f32_store, bf16_store, int8_store = (
         tx.MetaStore.from_columns(cols).with_vectors(vecs).with_storage_dtype(dt)
         .with_device("cpu").build()
-        for dt in ("float32", "int8")
+        for dt in ("float32", "bfloat16", "int8")
     )
-    assert len(f32_store.query(vecs[0], tx.Metric.Cosine).take(5).collect()) == 5
-    assert len(int8_store.query(vecs[0], tx.Metric.Cosine).take(5).collect()) == 5
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tx.MetaStore.from_columns(cols).with_vectors(vecs).with_storage_dtype("bfloat16")
-    for prec in ("default", "bf16"):
-        f32_store.precision = prec
-        with pytest.raises(NotImplementedError, match=prec):
-            f32_store.query(vecs[0], tx.Metric.Cosine).take(5).collect()
+    for store in (f32_store, bf16_store, int8_store):
+        assert len(store.query(vecs[0], tx.Metric.Cosine).take(5).collect()) == 5
+    for store in (f32_store, bf16_store):
+        for prec in ("default", "bf16"):
+            store.precision = prec
+            with pytest.raises(NotImplementedError, match=prec):
+                store.query(vecs[0], tx.Metric.Cosine).take(5).collect()
 
 
 # ---------------------------------------------------------------------------

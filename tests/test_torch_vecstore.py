@@ -639,8 +639,11 @@ def test_empty_query_vectors_in_batch():
 
 
 def test_unported_storage_and_persistence_raise():
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tx.VecStore(3, "bfloat16")
+    """Only persistence waits; bfloat16 storage is ported."""
+    store = tx.VecStore(3, "bfloat16", device="cpu")
+    store.add_vectors(np.eye(3, dtype=np.float32))
+    assert store.device().vectors.dtype == torch.bfloat16
+    assert [r.index for r in store.query([0.0, 1.0, 0.0], Metric.Cosine).take(1).collect()] == [1]
     with pytest.raises(OttersError, match="unsupported storage dtype"):
         tx.VecStore(3, "float16")
     store = VecStore(3)
@@ -687,6 +690,10 @@ FUSED_VEC_CASES = [
     ("float32", "Cosine", 0.2, "Eq", 10),
     ("float32", "Cosine", None, None, 200),
     ("int8", "Cosine", 0.1, "Gte", 10),
+    ("bfloat16", "Cosine", None, None, 10),
+    ("bfloat16", "DotProduct", 2.0, "Gt", 25),
+    ("bfloat16", "Euclidean", 40.0, "Lt", 7),
+    ("bfloat16", "Cosine", None, None, 200),
 ]
 
 
@@ -711,16 +718,17 @@ def test_fused_size_vecstore_matches_jax(monkeypatch, dtype, metric, thr, cmp, k
 
     rj, rt = run(sj, jx), run(st, tx)
     want_mode = "K2" if dtype == "int8" else ("K4" if k <= 128 and cmp != "Eq" else "K3")
-    assert calls == [want_mode]
+    assert calls == [want_mode + ("-bf16" if dtype == "bfloat16" else "")]
     # Euclid's q^2 + v^2 - 2 q.v cancels: ulps of q^2 + v^2 (~64 here)
     _same(rj, rt, atol=2e-5 if metric == "Euclidean" else 1e-6)
     if cmp != "Eq":
         assert len(rt) == k
 
 
-def test_failed_check_reruns_strictly_like_jax(monkeypatch):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_failed_check_reruns_strictly_like_jax(monkeypatch, dtype):
     """Exact ties across more than 4k bins: the fast check fails and both
-    packages re-run strictly, with the same results."""
+    packages re-run strictly, with the same results (f32 and bf16 rows)."""
     use_fused_path(monkeypatch)
     from otters_tpu_torch.ops import fused_topk as ft
 
@@ -730,12 +738,27 @@ def test_failed_check_reruns_strictly_like_jax(monkeypatch):
     q = rng.normal(size=(1, 32)).astype(np.float32)
     rows[: k - 1] = q + 0.1 * rng.normal(size=(k - 1, 32))
     rows[np.arange(4 * k + 2) * ft.BIN + 9] = q[0] + 0.4 * rng.normal(size=32)
-    sj, st = _twin_vecstores(rows)
+    sj, st = _twin_vecstores(rows, dtype)
     calls = []
     monkeypatch.setattr(ft, "binmax_plain",
                         lambda *a, _f=ft.binmax_plain, **kw: calls.append(a[0]) or _f(*a, **kw))
     rj = sj.query(q, jx.Metric.Cosine).take(k).collect()
     rt = st.query(q, tx.Metric.Cosine).take(k).collect()
-    assert calls == ["K4", "K3"]
+    sfx = "-bf16" if dtype == "bfloat16" else ""
+    assert calls == ["K4" + sfx, "K3" + sfx]
     _same(rj, rt)
     assert len(rt) == k and rt[-1].index == 9  # the lowest tied copy
+
+
+@pytest.mark.parametrize("metric", ["Cosine", "DotProduct", "Euclidean"])
+def test_small_bf16_vecstore_matches_jax(metric):
+    """A small bf16 store takes the direct program in both packages: the
+    exact top-k of the stored values."""
+    rng = np.random.default_rng(47)
+    rows = rng.normal(size=(3000, 24)).astype(np.float32)
+    q = rng.normal(size=(2, 24)).astype(np.float32)
+    sj, st = _twin_vecstores(rows, "bfloat16")
+    rj = sj.query(q, getattr(jx.Metric, metric)).take(9).collect()
+    rt = st.query(q, getattr(tx.Metric, metric)).take(9).collect()
+    _same(rj, rt, atol=2e-5 if metric == "Euclidean" else 1e-6)
+    assert len(rt) == 9
