@@ -7,12 +7,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 2. the build: every Hopper kernel from ``csrc/`` with nvcc (one process
    per source, started together);
 3. the kernel phase: K1 (csrc/cert_cos_binmax.cu), K2 (int8_binmax.cu), K3
-   (f32_binmax.cu), K4 (bf16x3_binmax.cu) and K5 (cert_fold_binmax.cu)
-   against their plain torch versions at d = 768, b = 256 and 70, 2M rows in
-   1024-row chunks with half of them pruned, every metric and Gt / Lt / Eq
-   filters, over int8 / f32 rows and (K1, K3, K4, K5) bfloat16 rows; K2's
-   int32 dots bit for bit; the others against float64 dots (K4 within the
-   ``4 d 2^-24`` accumulation share of ``high_precision_bound``);
+   (f32_binmax.cu), K4 (bf16x3_binmax.cu), K5 (cert_fold_binmax.cu) and K6
+   (bf16_binmax.cu) against their plain torch versions at d = 768, b = 256
+   and 70, 2M rows in 1024-row chunks with half of them pruned, every metric
+   and Gt / Lt / Eq filters, over int8 / f32 rows and (K1, K3, K4, K5, K6)
+   bfloat16 rows; K2's int32 dots bit for bit; the others against float64
+   dots (K4 within the ``4 d 2^-24`` accumulation share of
+   ``high_precision_bound``, K6 against the product of its bf16-rounded
+   operands);
 4. the main path at the bench's size: a 10M x 768 int8 store quantized on
    the device from seeded f32 rows, bench.py's price/version columns, the
    filter ``price < 50 & version >= 2`` (prunes half the chunks), pipelined
@@ -28,7 +30,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    (K1 over bf16 rows), Dot (K5) and Euclid take-min (K5), every query
    certified and equal to the exact f32 filtered top-10; uncertified
    Cosine ``take(10)`` (K4 over bf16 rows, every check passing), equal to
-   the exact top-10 of the stored values; the four bf16-row modes timed;
+   the exact top-10 of the stored values; the same at the store precisions
+   "default" (8 batches) and "bf16" (one): K6 over bf16 rows, equal to the
+   exact top-10 of the one-pass scores, recall@10 against the f32 truth
+   reported; the five bf16-row modes timed;
    4g. 1M x 768 bf16 stores: exact ties in more bins than the fast mode
    examines (its check fails, K3 over bf16 rows reruns) and Dot / Euclid
    near-ties that make the certificate widen on K5;
@@ -38,13 +43,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 6. bench.py's exact-f32 section: a 4M x 768 f32 store built on the device,
    the same columns and filter, pipelined ``take(10)`` batches of 256
    Cosine queries through the verified fast-exact K4 (every check passes),
-   one Dot and one Euclid batch, each equal to the exact f32 truth; K4 and
-   K3 timed at these shapes;
+   one Dot and one Euclid batch, each equal to the exact f32 truth; the
+   same 8 batches at the store precision "default" through K6 over f32
+   rows, equal to the exact top-10 of the one-pass scores; K4, K3 and K6
+   timed at these shapes;
+   6t. take-all on the same store: ``collect()`` with no ``take`` for 16
+   Cosine queries under the bench's filter (the windowed host collection),
+   equal to a stable sort of the filtered f32 score matrix;
    6b. exact ties copied into more bins than the fast mode examines: its
    check fails and K3 reruns, equal to the truth; a Dot ``vec_filter(Eq)``
    and a ``take(200)`` reach K3 directly;
 7. VecStore at 1M x 768: f32 and bf16 storage (K4) and int8 storage
-   (K2), each equal to the exact top-10 of its storage.
+   (K2), each equal to the exact top-10 of its storage; a windowed
+   take-all of 1.2M results equal to a stable sort of the score matrix;
+8. the three profiling probes (``otters_tpu_torch.profile_variants``,
+   csrc/profile_probes.cu) at the shapes of
+   scripts/kernel_profile_variants.py: each run by the module's timing
+   entry, held against its plain version and timed beside a library
+   yardstick and its bound; ``k_mm`` may not beat its FFMA bound.
 
 Phases 4 and 6 also trace one pipelined round with torch.profiler (device
 time by kernel, the device's busy share). Every path sets the launch
@@ -77,6 +93,7 @@ F32_ROWS = 4_000_000  # bench.py's exact-f32 section (bench.py:10-11,39)
 NEAR_ROWS = 1_000_000
 VEC_ROWS = 1_000_000  # bench.py's 1M f32 section, through VecStore
 N_DUP = 60  # bins holding copies of the tied row: more than 4k = 40
+TAKE_ALL_B = 16  # queries of the take-all batches
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
@@ -146,7 +163,7 @@ def mode_inputs(mode, dv, queries, chunk_mask, thr=0.0, metric=None, cmp=None):
     built the way the fused path builds them: the certified scans (K1, K5)
     through ``fused_topk.cert_scan`` (bf16-rounded queries, the certificate
     terms of ``metric``, the filter loosened), K2 quantizes the queries,
-    K3 / K4 take them in f32."""
+    K3 / K4 take them in f32, K6 rounded to bf16 with their f32 norms."""
     import torch
 
     from otters_tpu_torch.ops import fused_topk as ft
@@ -169,6 +186,8 @@ def mode_inputs(mode, dv, queries, chunk_mask, thr=0.0, metric=None, cmp=None):
     thr_t = torch.full((1,), float(thr), device=dev)
     q = sc._quantize_rows_int8(queries.float())[0] if mode == "K2" else queries.float()
     q_sq, q_inv = sc._query_norms(q.float())
+    if mode.startswith("K6"):
+        q = q.bfloat16()
     return [q.contiguous(), dv.vectors, dv.inv_norms, dv.norms_sq, rmask, q_inv, q_sq,
             q_ok, thr_t, surv, n_surv]
 
@@ -199,9 +218,11 @@ def mode_tol(mode, args, metric, want):
     both, so 4 ulps of the epilogue. K3: the two sum in other orders,
     d 2^-24 |q| |v|. K4: both are bf16x3 sums within
     ``high_precision_bound(d)`` |q| |v| of the exact dot. K5: exact bf16
-    products summed in f32 in other orders, 4 d 2^-24 |qh| |v|. Dot /
-    Euclid scale by max |q| max |v| (Euclid twice, for its -2 dot), plus 4
-    ulps (of the folded key for K5)."""
+    products summed in f32 in other orders, 4 d 2^-24 |qh| |v|. K6: the
+    same exact bf16 products summed in f32 in other orders, d 2^-24 |qh|
+    |vh| (|vh| <= |v| (1 + 2^-8)). Dot / Euclid scale by max |q| max |v|
+    (Euclid twice, for its -2 dot), plus 4 ulps (of the folded key for
+    K5)."""
     import numpy as np
 
     from otters_tpu_torch.ops import scoring as sc
@@ -215,13 +236,14 @@ def mode_tol(mode, args, metric, want):
         return ulps
     if mode == "K5":
         base = 4 * d * 2.0**-24
-    elif mode.startswith("K3"):
+    elif mode.startswith(("K3", "K6")):
         base = d * 2.0**-24
     else:
         base = sc.high_precision_bound(d)
     if metric is Metric.Cosine:
         return base + ulps
     scale = float(args[0].float().norm(dim=1).max()) * float(args[3].max().sqrt())
+    scale *= 1 + 2.0**-7 if mode.startswith("K6") else 1.0
     return base * scale * (2.0 if metric is Metric.Euclidean else 1.0) + ulps
 
 
@@ -269,11 +291,12 @@ def one_row_per_bin(mode, args, salt):
 
 
 def accumulation_error(mode, args):
-    """K1 / K3 / K4 / K5 dots against float64 over one unmasked row per live
-    bin, twice -> (worst |dot - ref| / (|q| |v|) with ref the float64 value
-    of what the mode computes: the exact dot for K1 / K5 (of their bf16
-    queries) and K3, the sum of the split products for K4 (over bf16 rows
-    the low plane is 0); the same against the exact dot)."""
+    """K1 / K3 / K4 / K5 / K6 dots against float64 over one unmasked row
+    per live bin, twice -> (worst |dot - ref| / (|q| |v|) with ref the
+    float64 value of what the mode computes: the exact dot for K1 / K5 (of
+    their bf16 queries) and K3, the sum of the split products for K4 (over
+    bf16 rows the low plane is 0), the product of the bf16-rounded rows for
+    K6; the same against the exact dot)."""
     from otters_tpu_torch.types import Metric
 
     worst_ref = worst_true = 0.0
@@ -288,6 +311,8 @@ def accumulation_error(mode, args):
             vl = (vr.float() - vh.float()).bfloat16().double()
             qh, vh = qh.double(), vh.double()
             ref = vh @ qh.T + vl @ qh.T + vh @ ql.T
+        elif mode.startswith("K6"):
+            ref = vr.bfloat16().double() @ q.double().T
         else:
             ref = exact
         scale = vr.double().norm(dim=1)[:, None] * q.double().norm(dim=1)[None, :]
@@ -342,6 +367,12 @@ def kernel_phase(torch, dev):
         ("K4-bf16", dvb, Metric.Cosine, False, None, 0.0, B),
         ("K4-bf16", dvb, Metric.DotProduct, False, Cmp.Gt, 2.0, 70),
         ("K4-bf16", dvb, Metric.Euclidean, True, None, 0.0, B),
+        ("K6", dvf, Metric.Cosine, False, Cmp.Gt, 0.05, B),
+        ("K6", dvf, Metric.DotProduct, False, None, 0.0, 70),
+        ("K6", dvf, Metric.Euclidean, True, Cmp.Lt, 1450.0, B),
+        ("K6-bf16", dvb, Metric.Cosine, False, None, 0.0, 70),
+        ("K6-bf16", dvb, Metric.DotProduct, False, Cmp.Gt, 2.0, B),
+        ("K6-bf16", dvb, Metric.Euclidean, True, Cmp.Lt, 1450.0, 70),
     ]
     for mode, dv, metric, take_min, cmp, thr, b in cases:
         args = mode_inputs(mode, dv, queries[:b], chunk_mask, thr, metric, cmp)
@@ -365,8 +396,9 @@ def kernel_phase(torch, dev):
         f"tol={tol:.3e} err/tol={err / tol:.3f}")
     del ints, dvi, args
     # nothing alive: every block returns at once
-    for mode, dv in (("K1", dv8), ("K2", dv8), ("K3", dvf), ("K4", dvf), ("K1-bf16", dvb),
-                     ("K3-bf16", dvb), ("K4-bf16", dvb), ("K5", dvb)):
+    for mode, dv in (("K1", dv8), ("K2", dv8), ("K3", dvf), ("K4", dvf), ("K6", dvf),
+                     ("K1-bf16", dvb), ("K3-bf16", dvb), ("K4-bf16", dvb), ("K5", dvb),
+                     ("K6-bf16", dvb)):
         metric = Metric.DotProduct if mode == "K5" else Metric.Cosine
         args = mode_inputs(mode, dv, queries, torch.zeros_like(chunk_mask), metric=metric)
         out0 = launch(mode, args, metric)
@@ -381,8 +413,8 @@ def kernel_phase(torch, dev):
     log(f"K2 dots: {got.numel()} equal to the exact integer product bit for bit")
     acc = {}
     gamma = D * 2.0**-24
-    for mode, dv in (("K1", dv8), ("K3", dvf), ("K4", dvf), ("K1-bf16", dvb), ("K5", dvb),
-                     ("K3-bf16", dvb), ("K4-bf16", dvb)):
+    for mode, dv in (("K1", dv8), ("K3", dvf), ("K4", dvf), ("K6", dvf), ("K1-bf16", dvb),
+                     ("K5", dvb), ("K3-bf16", dvb), ("K4-bf16", dvb), ("K6-bf16", dvb)):
         args = mode_inputs(mode, dv, queries, chunk_mask)
         ref_err, true_err = accumulation_error(mode, args)
         acc[mode] = ref_err
@@ -394,20 +426,25 @@ def kernel_phase(torch, dev):
             assert ref_err <= lim, f"{mode} accumulation error exceeds the bound's share"
             assert true_err <= hpb, f"{mode} error exceeds high_precision_bound(d)"
         else:
-            log(f"{mode} accumulation error: max |dot - f64| / (|q||v|) = {ref_err:.3e} "
-                f"(d*2^-24 = {gamma:.3e})")
+            what = "f64(bf16-rounded operands)" if mode.startswith("K6") else "f64"
+            log(f"{mode} accumulation error: max |dot - {what}| / (|q||v|) = {ref_err:.3e} "
+                f"(d*2^-24 = {gamma:.3e}); vs the exact dot {true_err:.3e}")
             assert ref_err <= gamma, f"{mode} accumulation error exceeds d*2^-24"
     del dv8, dvf, dvb, args, ops
     torch.cuda.empty_cache()
     return ratio, acc
 
 
-def exact_topk(torch, vectors, n, queries, metric, k, *, take_min=False, row_ok=None):
+def exact_topk(torch, vectors, n, queries, metric, k, *, take_min=False, row_ok=None,
+               one_pass=False):
     """The exact global top-k over every (query, row) pair of ``vectors[:n]``,
     the port's score formulas in full f32 (TF32 off) with the row norms
     taken from the rows, slab by slab -> (rows, scores), best first.
     ``row_ok(rows)`` masks rows out (the filter); an int8 store's dots are
-    exact in f32 (|dot| < 2^24)."""
+    exact in f32 (|dot| < 2^24). ``one_pass``: the dots of the store
+    precisions "default" / "bf16", bf16-rounded queries x rows rounded to
+    bf16 (exact products, an f32 matmul), the norms still the unrounded
+    queries' and the stored rows'."""
     from otters_tpu_torch.ops import fused_topk as ft
     from otters_tpu_torch.ops import scoring as sc
 
@@ -418,7 +455,8 @@ def exact_topk(torch, vectors, n, queries, metric, k, *, take_min=False, row_ok=
         e = min(n, s + SLAB)
         v = vectors[s:e].float()
         nsq, inv = sc._query_norms(v)
-        sc_ = ft._scores(q @ v.T, q_inv[:, None], q_sq[:, None], inv[None, :], nsq[None, :],
+        dots = sc.one_pass_dots(q, vectors[s:e]) if one_pass else q @ v.T
+        sc_ = ft._scores(dots, q_inv[:, None], q_sq[:, None], inv[None, :], nsq[None, :],
                          metric)
         key = -sc_ if take_min else sc_
         if row_ok is not None:
@@ -641,7 +679,8 @@ def library_fn(torch, mode, q, v_live, n_live):
     yardstick; the port never calls it. K1 / K5: a bf16 matmul on rows cast
     beforehand (bf16 rows as they are); K2: ``torch._int_mm``; K3: an f32
     matmul, TF32 off, on rows upcast beforehand; K4: three bf16 matmuls on
-    planes split beforehand (two over bf16 rows, whose low plane is 0)."""
+    planes split beforehand (two over bf16 rows, whose low plane is 0); K6:
+    one bf16 matmul on rows cast beforehand."""
     from otters_tpu_torch.ops import fused_topk as ft
 
     b = q.shape[0]
@@ -649,7 +688,7 @@ def library_fn(torch, mode, q, v_live, n_live):
     def binmax(x):
         return x.reshape(b, n_live, ft.BIN).amax(dim=2)
 
-    if mode in CERT_MODES:
+    if mode in CERT_MODES or mode.startswith("K6"):
         vb = v_live.bfloat16()
         return lambda: binmax(torch.matmul(q, vb.T))
     if mode == "K2":
@@ -747,7 +786,7 @@ def profile_batches(torch, pending, batches):
         log(f"  {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
-def bf16_path(torch, dev, f32, batches, card=""):
+def bf16_path(torch, dev, f32, batches, truths, card=""):
     """bfloat16 storage at the bench's size: a 10M x 768 bf16 store made on
     the device from the main path's seeded f32 rows (its residuals computed
     slab by slab), the f32 rows as the rerank source, the same columns,
@@ -755,7 +794,10 @@ def bf16_path(torch, dev, f32, batches, card=""):
     (K1 over bf16 rows), Dot (K5) and Euclid take-min (K5): every query
     certified, every top-10 equal to the exact f32 filtered top-10. Then
     uncertified Cosine ``take(10)``: K4 over bf16 rows with every check
-    passing, equal to the exact top-10 of the stored values."""
+    passing, equal to the exact top-10 of the stored values; and the same
+    at the store precisions "default" (8 batches) and "bf16" (one): K6 over
+    bf16 rows, equal to the exact top-10 of the one-pass scores, recall@10
+    against the main path's f32 ``truths`` reported, not promised."""
     import numpy as np
 
     import otters_tpu_torch as tx
@@ -786,7 +828,7 @@ def bf16_path(torch, dev, f32, batches, card=""):
     on_card = dev.type == "cuda"
     out = {"build_s": build_s, "ingest_s": ingest_s}
 
-    def run(metric, mode, take, label, truth_rows):
+    def run(metric, mode, take, label, truth_rows, qs=batches, one_pass=False):
         def pending(q):
             plan = store.query_batch(q, metric).meta_filter(bench_filter())
             return plan.take(K, **take).collect_async()
@@ -795,36 +837,43 @@ def bf16_path(torch, dev, f32, batches, card=""):
         ft.reset_launches()
         sync(dev)
         t0 = time.perf_counter()
-        pend = [pending(q) for q in batches]
+        pend = [pending(q) for q in qs]
         results = tx.resolve(pend)
         sync(dev)
         elapsed = time.perf_counter() - t0
         launched = counts()
-        qps = len(batches) * B / elapsed
+        qps = len(qs) * B / elapsed
         certify = "rerank_from" in take
         for i, p in enumerate(pend):
             st = p.stats()
             assert st.certified is (True if certify else None), f"{label} batch {i}: {st}"
             assert st.pruned_chunks == (store.n_chunks() + 1) // 2, f"{label} batch {i}: {st}"
         if on_card:
-            assert launched[mode] >= len(batches), (label, launched)
+            assert launched[mode] >= len(qs), (label, launched)
             if mode == "K4-bf16":
                 assert launched["K3-bf16"] == 0, launched  # every check passed
+            if mode.startswith("K6"):  # no other scan ran
+                assert sum(launched.values()) == launched[mode], launched
         take_min = metric is tx.Metric.Euclidean
         ties, worst = 0, 0.0
-        for i, (q, res) in enumerate(zip(batches, results)):
+        for i, (q, res) in enumerate(zip(qs, results)):
             want = exact_topk(torch, truth_rows, n, q, metric, K, take_min=take_min,
-                              row_ok=odd_chunks)
+                              row_ok=odd_chunks, one_pass=one_pass)
             t, e = check_topk(f"{label} batch {i}", res.indices, res.scores, *want,
                               score_tol(metric, q, dvb))
             ties, worst = ties + t, max(worst, e)
-        log(f"{label}: {len(batches)} pipelined batches of {B} in {elapsed:.3f} s = "
+        recall = None  # against the main path's f32 truth, a Cosine one
+        if metric is tx.Metric.Cosine:
+            hits = [len(set(res.indices) & set(gt)) / K for res, gt in zip(results, truths)]
+            recall = sum(hits) / len(hits)
+        log(f"{label}: {len(qs)} pipelined batches of {B} in {elapsed:.3f} s = "
             f"{qps:.1f} q/s on {card}; scan_k_wide={pend[-1].stats().scan_k_wide}; "
-            f"top-{K} equal to the exact truth for all {len(batches) * B} queries "
-            f"(max score diff {worst:.2e}, boundary ties {ties}); launches {launched}")
+            f"top-{K} equal to the exact {'one-pass ' if one_pass else ''}truth for all "
+            f"{len(qs) * B} queries (max score diff {worst:.2e}, boundary ties {ties}); "
+            f"recall@{K} vs the f32 truth {recall}; launches {launched}")
         if on_card and metric is tx.Metric.DotProduct and certify:
             profile_batches(torch, pending, batches)
-        return {"qps": qps, "launches": launched[mode]}
+        return {"qps": qps, "launches": launched[mode], "recall": recall}
 
     for key, metric, mode in (("cosine", tx.Metric.Cosine, "K1-bf16"),
                               ("dot", tx.Metric.DotProduct, "K5"),
@@ -833,6 +882,12 @@ def bf16_path(torch, dev, f32, batches, card=""):
         out[key] = run(metric, mode, dict(rerank_from=K_WIDE), label, f32)
     out["uncert"] = run(tx.Metric.Cosine, "K4-bf16", {}, "bf16 uncertified Cosine take(10)",
                         dvb.vectors)
+    for prec, qs in (("default", batches), ("bf16", batches[:1])):
+        store.precision = prec
+        out[prec] = run(tx.Metric.Cosine, "K6-bf16", {},
+                        f'bf16 store at precision "{prec}", Cosine take(10)', dvb.vectors,
+                        qs=qs, one_pass=True)
+    store.precision = "highest"
     return store, dvb, out
 
 
@@ -1058,7 +1113,114 @@ def f32_path(torch, dev, card=""):
     if dev.type == "cuda":
         profile_batches(torch, pending, batches)
     stats = {"qps": qps, "launches": launched["K4"], "synth_s": synth_s, "build_s": build_s}
+    stats["default"] = one_pass_batches(torch, store, dv, pending, batches, card)
     return store, dv, batches[0], stats
+
+
+def one_pass_batches(torch, store, dv, pending, batches, card):
+    """The f32 path's batches at the store precision "default": K6 over f32
+    rows (rounded to bf16 in the kernel) and no other scan; each top-10
+    equal to the exact top-10 of the one-pass scores."""
+    import otters_tpu_torch as tx
+    from otters_tpu_torch.ops import fused_topk as ft
+
+    dev = batches[0].device
+    store.precision = "default"
+    tx.resolve([pending(batches[-1])])  # warm-up
+    ft.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    pend = [pending(q) for q in batches]
+    results = tx.resolve(pend)
+    sync(dev)
+    elapsed = time.perf_counter() - t0
+    launched = counts()
+    store.precision = "highest"
+    qps = len(batches) * B / elapsed
+    if dev.type == "cuda":
+        assert launched["K6"] >= len(batches), launched
+        assert sum(launched.values()) == launched["K6"], launched
+    tol = score_tol(tx.Metric.Cosine, batches[0], dv)
+    ties, worst = 0, 0.0
+    for i, (q, res) in enumerate(zip(batches, results)):
+        want = exact_topk(torch, dv.vectors, F32_ROWS, q, tx.Metric.Cosine, K,
+                          row_ok=odd_chunks, one_pass=True)
+        t, e = check_topk(f"f32 default batch {i}", res.indices, res.scores, *want, tol)
+        ties, worst = ties + t, max(worst, e)
+    log(f'f32 store at precision "default": {len(batches)} pipelined batches of {B} in '
+        f"{elapsed:.3f} s = {qps:.1f} q/s on {card}; top-{K} equal to the exact one-pass "
+        f"truth (max score diff {worst:.2e}, boundary ties {ties}); launches {launched}")
+    return {"qps": qps, "launches": launched["K6"]}
+
+
+def sorted_truth(torch, dv, queries, metric, k, row_ok=None):
+    """The take-all truth: the filtered f32 score matrix of every (query,
+    row) pair, its windows scored as the store scores them (one f32 matmul
+    of the queries with each ``_window_size`` block of rows, TF32 off),
+    then a stable descending sort of the flat keys on the device (ties
+    lower flat index first) -> (rows, scores) of the first k."""
+    from otters_tpu_torch.ops import fused_topk as ft
+    from otters_tpu_torch.ops import scoring as sc
+
+    n_pad = dv.vectors.shape[0]
+    b = queries.shape[0]
+    q = queries.float()
+    q_sq, q_inv = sc._query_norms(q)
+    w = sc._window_size(n_pad, b)
+    scores = torch.empty((b, n_pad), device=q.device)
+    for s in range(0, n_pad, w):
+        scores[:, s : s + w] = ft._scores(q @ dv.vectors[s : s + w].float().T, q_inv[:, None],
+                                          q_sq[:, None], dv.inv_norms[None, s : s + w],
+                                          dv.norms_sq[None, s : s + w], metric)
+    ok = dv.valid if row_ok is None else dv.valid & row_ok(torch.arange(n_pad, device=q.device))
+    key = torch.where(ok[None, :], scores, float("-inf")).reshape(-1)
+    order = torch.sort(key, descending=True, stable=True)[1][:k]
+    return (order % n_pad).cpu().numpy(), scores.reshape(-1)[order].cpu().numpy()
+
+
+def check_sorted(label, rows, scores, want_rows, want_scores, tol):
+    """A take-all result equals its sorted truth: the same rows in the same
+    order, scores within ``tol``."""
+    import numpy as np
+
+    rows, scores = np.asarray(rows), np.asarray(scores)
+    assert rows.shape == want_rows.shape, f"{label}: {rows.shape} results, truth {want_rows.shape}"
+    wrong = int((rows != want_rows).sum())
+    assert wrong == 0, f"{label}: {wrong} of {len(rows)} rows out of the truth's order"
+    err = float(np.abs(scores - want_scores).max())
+    assert err <= tol, f"{label}: scores differ from the truth by {err} > {tol}"
+    return err
+
+
+def take_all_phase(torch, store, dv, card):
+    """Take-all on the 4M x 768 f32 store: ``collect()`` with no ``take``
+    for 16 Cosine queries under the bench's filter. The default k is the
+    store's row count, far past any device top-k, so score windows stream
+    to the host, which sorts every live (query, row) pair; no kernel runs.
+    The result equals the sorted truth."""
+    import otters_tpu_torch as tx
+    from otters_tpu_torch.ops import fused_topk as ft
+    from otters_tpu_torch.ops import scoring as sc
+
+    dev = dv.vectors.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    q = torch.randn((TAKE_ALL_B, D), generator=g, device=dev)
+    assert sc.needs_windowed(dv.vectors.shape[0], TAKE_ALL_B, store.n_rows)
+    ft.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    res = store.query_batch(q, tx.Metric.Cosine).meta_filter(bench_filter()).collect()
+    secs = time.perf_counter() - t0
+    assert sum(counts().values()) == 0, counts()
+    st = store.last_query_stats()
+    assert st.pruned_chunks == (store.n_chunks() + 1) // 2, st
+    want = sorted_truth(torch, dv, q, tx.Metric.Cosine, store.n_rows, row_ok=odd_chunks)
+    err = check_sorted("take-all", res.indices, res.scores, *want,
+                       score_tol(tx.Metric.Cosine, q, dv))
+    log(f"take-all: {TAKE_ALL_B} Cosine queries x {store.n_rows} rows under the filter, "
+        f"collect() with no take: {len(res)} results in {secs:.3f} s on {card}, equal to the "
+        f"sorted truth in order (max score diff {err:.2e}); no kernel launched")
+    return {"seconds": secs, "results": len(res)}
 
 
 def near_tie_path(torch, dev):
@@ -1185,7 +1347,107 @@ def vecstore_path(torch, dev):
             f"in {query_s:.3f} s, equal to the exact truth of its storage (max score diff "
             f"{e:.2e}, boundary ties {t}); recall@{K} vs f32 {recall:.2f}; launches {launched}")
         out[mode] = launched[mode]
+        if dtype == "float32":
+            out["take_all_s"] = vec_take_all(torch, store, dv, q_np[:4])
         del store, dv
+        torch.cuda.empty_cache()
+    return out
+
+
+def vec_take_all(torch, store, dv, q_np):
+    """VecStore's windowed take-all: 4 queries, take(1.2 n) (past the direct
+    program's share of the 4n candidates), equal to the sorted truth."""
+    import otters_tpu_torch as tx
+    from otters_tpu_torch.ops import scoring as sc
+
+    k = len(store) * 6 // 5
+    assert sc.needs_windowed(dv.vectors.shape[0], len(q_np), k)
+    t0 = time.perf_counter()
+    res = store.query(q_np, tx.Metric.DotProduct).take(k).collect()
+    secs = time.perf_counter() - t0
+    q = torch.from_numpy(q_np).to(dv.vectors.device)
+    want = sorted_truth(torch, dv, q, tx.Metric.DotProduct, k)
+    err = check_sorted("VecStore take-all", [r.index for r in res], [r.score for r in res],
+                       *want, score_tol(tx.Metric.DotProduct, q, dv))
+    log(f"VecStore take-all: {len(q_np)} Dot queries take({k}) in {secs:.3f} s, equal to the "
+        f"sorted truth in order (max score diff {err:.2e})")
+    return secs
+
+
+def probe_bound(name, n_pad, d, b, t):
+    """-> (bound ms, "bytes" or "operations") of one probe call: each input
+    read once (v, or VH and VL; the queries), the output written once; the
+    tile product's operations, k_planes three of them in bf16."""
+    from otters_tpu_torch import profile_variants as pv
+
+    out_cols = 2 if name == "k_mm" else t // pv.BIN
+    bytes_moved = (n_pad * d * (4 if name != "k_planes" else 2 * 2) + b * d * 4
+                   + (n_pad // t) * b * out_cols * 4)
+    ops = 2.0 * b * d * n_pad * (3 if name == "k_planes" else 1)
+    peak = PEAK_BF16_FLOPS if name == "k_planes" else PEAK_F32_FLOPS
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def probes_phase(torch, dev):
+    """The three probes at scripts/kernel_profile_variants.py's shapes: the
+    module's timing run (the probes' path, its launches counted), then each
+    held against its plain version (k_mm / k_mm_bins within d 2^-24 |q| |v|,
+    two f32 sums in other orders; k_planes within high_precision_bound(d)
+    |q| |v|) and timed beside the plain version, a library yardstick (an
+    f32 matmul, TF32 off, or three bf16 matmuls on the planes, then a bin
+    max) and the bound. k_mm may not beat its FFMA bound: nvcc must not
+    have dropped the tile columns it never writes."""
+    from otters_tpu_torch import profile_variants as pv
+    from otters_tpu_torch.ops import scoring as sc
+
+    ops = pv.make_inputs(dev, seed=SEED + 10)
+    n_pad, d = ops["v"].shape
+    b, t = ops["q"].shape[0], pv.T
+    pv.reset_launches()
+    times = pv.run(ops)
+    launched = {name: fn.launches for name, fn in pv.PROBES.items()}
+    on_card = dev.type == "cuda"
+    if on_card:
+        assert all(c >= 1 for c in launched.values()), launched
+    scale = float(ops["q"].norm(dim=1).max()) * float(ops["v"].norm(dim=1).max())
+    nb = t // pv.BIN
+    out = {}
+    for name, fn in pv.PROBES.items():
+        args = pv.probe_args(name, ops)
+        got = fn(*args)
+        want = pv.PLAIN[name](*args)
+        sync(dev)
+        err = float((got - want).abs().max())
+        base = sc.high_precision_bound(d) if name == "k_planes" else d * 2.0**-24
+        tol = base * scale
+        assert err <= tol, f"{name}: max |kernel - plain| = {err} > {tol}"
+        plain_ms = time_ms(lambda: pv.PLAIN[name](*args), reps=3, warm=1)
+        q = ops["q"]
+        if name == "k_planes":
+            qh, ql = pv.split_planes(q)
+            vh, vl = ops["vh"], ops["vl"]
+
+            def library():
+                dots = torch.matmul(qh, vh.T) + torch.matmul(qh, vl.T) + torch.matmul(ql, vh.T)
+                return dots.reshape(b, n_pad // pv.BIN, pv.BIN).amax(dim=2)
+        else:
+            v = ops["v"]
+
+            def library():
+                return torch.matmul(q, v.T).reshape(b, n_pad // pv.BIN, pv.BIN).amax(dim=2)
+        library_ms = time_ms(library, reps=5, warm=1)
+        bound_ms, bound_by = probe_bound(name, n_pad, d, b, t)
+        if on_card and name == "k_mm":
+            assert times[name] >= bound_ms, f"k_mm {times[name]} ms beats its bound {bound_ms} ms"
+        log(f"{name} at the script's shapes ({n_pad} x {d}, b={b}, t={t}, {nb} bins a tile): "
+            f"kernel {times[name]:.3f} ms, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
+            f"bound {bound_ms:.3f} ms ({bound_by}), max_abs_err {err:.3e} (tol {tol:.3e}); "
+            f"launches {launched[name]}")
+        out[name] = dict(launches=launched[name], max_abs_err=err, tol=tol, ms=times[name],
+                         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, kernel_phase_err_over_tol=err / tol)
+        del got, want
         torch.cuda.empty_cache()
     return out
 
@@ -1241,7 +1503,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.2f} s")
         for name, text in kernels.build_logs.items():
             log(f"[{name}] {text.strip()}")
-    with phase("3 kernels vs plain (K1 - K5, int8 / f32 / bf16 rows), accumulation errors"):
+    with phase("3 kernels vs plain (K1 - K6, int8 / f32 / bf16 rows), accumulation errors"):
         err_ratio, acc = kernel_phase(torch, dev)
     with phase(f"4 main path ({ROWS} x {D})"):
         ft.reset_launches()
@@ -1252,13 +1514,14 @@ def main() -> int:
                   for m in ("K1", "K2")}
         del store
         torch.cuda.empty_cache()
-    with phase(f"4f bfloat16 storage ({ROWS} x {D}): K1 / K5 certified, K4 uncertified"):
-        store, dvb, bf16 = bf16_path(torch, dev, f32, batches, card)
+    with phase(f"4f bfloat16 storage ({ROWS} x {D}): K1 / K5 certified, K4 uncertified, "
+               "K6 at the one-pass precisions"):
+        store, dvb, bf16 = bf16_path(torch, dev, f32, batches, truths, card)
         del f32
         torch.cuda.empty_cache()
         n_chunks = store.n_chunks()
         del store
-        for m in ("K1-bf16", "K4-bf16", "K3-bf16"):
+        for m in ("K1-bf16", "K4-bf16", "K3-bf16", "K6-bf16"):
             timing[m] = time_mode(torch, m, dvb, batches[0], n_chunks)
         timing["K5"] = time_mode(torch, "K5", dvb, batches[0], n_chunks, Metric.DotProduct)
         k5_euclid = time_mode(torch, "K5", dvb, batches[0], n_chunks, Metric.Euclidean)
@@ -1272,17 +1535,21 @@ def main() -> int:
         torch.cuda.empty_cache()
     with phase("5 demo twin"):
         demo_phase()
-    with phase(f"6 exact f32 path ({F32_ROWS} x {D}, K4 fast-exact)"):
+    with phase(f"6 exact f32 path ({F32_ROWS} x {D}, K4 fast-exact; K6 at \"default\")"):
         store, dv, q0, f32_stats = f32_path(torch, dev, card)
-        for m in ("K4", "K3"):
+        for m in ("K4", "K3", "K6"):
             timing[m] = time_mode(torch, m, dv, q0, store.n_chunks())
+    with phase(f"6t take-all on the same store ({TAKE_ALL_B} queries, windowed)"):
+        take_all = take_all_phase(torch, store, dv, card)
         del store, dv
         torch.cuda.empty_cache()
     with phase(f"6b failed fast check, Eq and take(200) ({NEAR_ROWS} x {D}, K3)"):
         near = near_tie_path(torch, dev)
         torch.cuda.empty_cache()
-    with phase(f"7 VecStore ({VEC_ROWS} x {D}, f32 and bf16 K4, int8 K2)"):
+    with phase(f"7 VecStore ({VEC_ROWS} x {D}, f32 and bf16 K4, int8 K2, take-all)"):
         vec = vecstore_path(torch, dev)
+    with phase("8 profiling probes (k_mm, k_mm_bins, k_planes) at the script's shapes"):
+        probes = probes_phase(torch, dev)
 
     log(f"peak device memory allocated: {torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
     bf16_path_name = f"bf16 {ROWS} x {D}"
@@ -1320,6 +1587,16 @@ def main() -> int:
          ":168 (_kernel[prec=high, fast], bf16 rows)", bf16["uncert"]["launches"],
          {"path": f"uncertified Cosine {bf16_path_name}", "path_qps": bf16["uncert"]["qps"],
           "vecstore_launches": vec["K4-bf16"]}),
+        ("K6", "bf16_binmax", "bf16_binmax",
+         ":182 (_kernel[prec=default/bf16], Precision.DEFAULT)", f32_stats["default"]["launches"],
+         {"path": f'precision "default" exact-f32 store {F32_ROWS} x {D}',
+          "path_qps": f32_stats["default"]["qps"]}),
+        ("K6-bf16", "bf16_binmax_bf16", "bf16_binmax",
+         ":182 (_kernel[prec=default/bf16], Precision.DEFAULT, bf16 rows)",
+         bf16["default"]["launches"],
+         {"path": f'precision "default" Cosine {bf16_path_name}',
+          "path_qps": bf16["default"]["qps"], "recall_at_10": bf16["default"]["recall"],
+          "bf16_precision_qps": bf16["bf16"]["qps"]}),
     ]
     entries = []
     for mode, name, source, line, launches, extra in modes:
@@ -1334,6 +1611,16 @@ def main() -> int:
             **({"accumulation_rel_err": acc[mode]} if mode in acc else {}),
             **extra,
         })
+    probe_lines = {"k_mm": ":11 (k_mm)", "k_mm_bins": ":16 (k_mm_bins)",
+                   "k_planes": ":24 (k_planes)"}
+    for name, stats_ in probes.items():
+        entries.append({
+            "name": name, "route": "cuda", "source": "otters_tpu_torch/csrc/profile_probes.cu",
+            "replaces": f"scripts/kernel_profile_variants.py{probe_lines[name]}, "
+                        "launched by run :40",
+            **stats_, "path": "python -m otters_tpu_torch.profile_variants",
+        })
+    assert len(entries) == 13, len(entries)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
-// The scan shared by the certified kernels: K1 (csrc/cert_cos_binmax.cu,
-// int8 or bfloat16 rows) and K5 (csrc/cert_fold_binmax.cu, bfloat16 rows).
+// The scan shared by the certified kernels, K1 (csrc/cert_cos_binmax.cu,
+// int8 or bfloat16 rows) and K5 (csrc/cert_fold_binmax.cu, bfloat16 rows),
+// and by the one-pass K6 (csrc/bf16_binmax.cu, f32 or bfloat16 rows).
 //
 // One block takes one live 512-row bin and 64 queries (rounded to bf16 by
 // the caller). It keeps the queries in shared memory, streams its bin
 // through in 128-row x 64-deep tiles staged as bf16 in shared memory (int8
-// codes convert exactly; bf16 rows are copied as they are), runs WMMA
+// codes convert exactly; bf16 rows are copied as they are; f32 rows are
+// rounded to bf16, round-to-nearest-even), runs WMMA
 // 16x16x16 bf16 products with f32 accumulators, and hands every (query,
 // row) dot to the kernel's key function, keeping a running per-query max.
 // bf16 x bf16 products are exact in f32; the tensor cores' f32
@@ -47,6 +49,21 @@ __device__ __forceinline__ void stage16(const __nv_bfloat16* p, __nv_bfloat16* d
     reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(p)[1];
 }
 
+// f32 rows round to bf16, round-to-nearest-even (K6's one pass); p is
+// 16-byte aligned (d is a multiple of 16)
+__device__ __forceinline__ void stage16(const float* p, __nv_bfloat16* dst) {
+    const float4* f = reinterpret_cast<const float4*>(p);
+    __nv_bfloat162 h[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        const float4 x = f[e];
+        h[2 * e] = __floats2bfloat162_rn(x.x, x.y);
+        h[2 * e + 1] = __floats2bfloat162_rn(x.z, x.w);
+    }
+    reinterpret_cast<uint4*>(dst)[0] = *reinterpret_cast<const uint4*>(&h[0]);
+    reinterpret_cast<uint4*>(dst)[1] = *reinterpret_cast<const uint4*>(&h[4]);
+}
+
 // dynamic shared memory of the scan: queries [QB][d + 8] bf16, one row
 // tile [RN][VLD] bf16, one dot tile [QB][CLD] f32
 __host__ __device__ inline size_t cert_smem_bytes(int d) {
@@ -57,7 +74,7 @@ __host__ __device__ inline size_t cert_smem_bytes(int d) {
 
 // The bin max of key(dot, row) over the bin's 512 rows for this thread's
 // query (q0 + threadIdx.x / 4). q: [*, d] bf16, d a multiple of 16;
-// v: [n_pad, d] int8 or bf16 rows.
+// v: [n_pad, d] int8, bf16 or f32 rows.
 template <typename RowT, typename KeyFn>
 __device__ __forceinline__ float cert_bin_max(
     const __nv_bfloat16* __restrict__ q, const RowT* __restrict__ v, int bin,

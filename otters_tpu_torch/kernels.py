@@ -29,6 +29,7 @@ NVCC_FLAGS = [
 # every kernel source of the port, one library each
 SOURCES = (
     "cert_cos_binmax", "cert_fold_binmax", "int8_binmax", "f32_binmax", "bf16x3_binmax",
+    "bf16_binmax", "profile_probes",
 )
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas register / shared-memory report of each build, for the smoke log

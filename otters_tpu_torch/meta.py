@@ -20,9 +20,13 @@ Scoring at scale runs the fused kernels (``ops/fused_topk.py``): f32 and
 bfloat16 storage take the verified fast-exact K4 (bf16x3) by default, with a
 check that ``result()`` / ``resolve()`` read when they fetch; a failed check
 re-runs the scan strictly in exact f32 (K3), as do Eq score filters and
-k > 128. With the certificate (``take(k, rerank_from=...)``) int8 storage
+k > 128. The store precision "high" scans with K4, and the one-pass
+precisions "default" / "bf16" score one bf16 pass on every path (K6 at
+scale). With the certificate (``take(k, rerank_from=...)``) int8 storage
 takes K1 (Cosine), bfloat16 storage K1 for Cosine and K5 for Dot and
-Euclid; uncertified int8 takes K2.
+Euclid; uncertified int8 takes K2. A take(k) too wide for any device top-k
+(the take-all regime) streams score windows to the host
+(``scoring.collect_all``).
 
 Exactness: string equality evaluates by 64-bit hash on the device and the
 returned rows are re-verified host-side against the actual strings; a hash
@@ -30,9 +34,8 @@ collision that falsely includes a row re-runs the query with an exact
 host-computed row mask.
 
 Not ported yet (each raises where a query would need it): with_sort_by /
-with_z_order, delete / append, persistence, take-all windowing, the VPU
-metrics, extended string predicates and the one-pass bf16 store precisions
-("default" / "bf16").
+with_z_order, delete / append, persistence, the VPU metrics and extended
+string predicates.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from .expr import ColumnFilter, CompiledFilter, Expr
 from .ops import bloom as bloom_ops
 from .ops import fused_topk, hashing, predicate, scoring
 from .ops import zonemap as zm
+from .ops.scoring import HostCopy
 from .types import (
     STRING_EXTENDED_OPS,
     VPU_METRICS,
@@ -181,20 +185,14 @@ def _scalar(value, dtype, device) -> torch.Tensor:
     return torch.full((), value, dtype=dtype, device=device)
 
 
-class _HostCopy:
-    """Device tensors copied to pinned host memory behind a CUDA event."""
+class _Fetched:
+    """Host outputs that are already fetched (the take-all path)."""
 
-    def __init__(self, tensors):
-        self._host = [t.to("cpu", non_blocking=True) for t in tensors]
-        self._event = None
-        if any(t.is_cuda for t in tensors):
-            self._event = torch.cuda.Event()
-            self._event.record()
+    def __init__(self, outputs):
+        self._outputs = tuple(outputs)
 
     def wait(self) -> tuple:
-        if self._event is not None:
-            self._event.synchronize()
-        return tuple(h.numpy() for h in self._host)
+        return self._outputs
 
 
 # ---------------------------------------------------------------------------
@@ -316,7 +314,7 @@ def _meta_query_program(store: "MetaStore", cols, queries, plan_static,
             thr_core = thr + cert_slack
         q_core = qh32.to(torch.bfloat16)
     args = (dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, q_core, rmask, thr_core)
-    kwargs = dict(metric=metric, k=k, take_min=take_min, cmp=cmp)
+    kwargs = dict(metric=metric, k=k, take_min=take_min, cmp=cmp, prec=store.precision)
     if tile == "scan":
         rows, scores, ok = scoring.scan_topk_core(*args, tile=scoring.SCAN_TILE, **kwargs)
     else:
@@ -397,7 +395,7 @@ def _device_rerank_dispatch(store: "MetaStore", plist):
     sel = torch.sort(flat, dim=1, descending=True, stable=True)[1][:, : min(k_final, b * m)]
     out_s = torch.gather(s.reshape(n_p, b * m), 1, sel)
     out_ok = torch.gather(ok.reshape(n_p, b * m), 1, sel)
-    return plist, cands, _HostCopy([sel % m, out_s, out_ok])
+    return plist, cands, HostCopy([sel % m, out_s, out_ok])
 
 
 def _device_rerank_finish(plist, cands, fetched) -> None:
@@ -668,7 +666,8 @@ class MetaStore:
         self._build_stats: Optional[MetaBuildStats] = None
         self._last_stats: Optional[MetaQueryStats] = None
         # scan precision of f32 / bf16 storage: "highest" (exact; the
-        # verified fast-exact K4 with a strict K3 rerun) or "high" (bf16x3)
+        # verified fast-exact K4 with a strict K3 rerun), "high" (bf16x3 at
+        # scale) or "default" / "bf16" (one bf16 pass on every path)
         self.precision: str = "highest"
 
     # -- constructors ------------------------------------------------------
@@ -760,6 +759,7 @@ class MetaStore:
             raise OttersError("int8 quantized storage supports the Cosine metric only")
         if metric in VPU_METRICS:
             raise NotImplementedError(f"the {metric.value} metric (VPU metrics) is not ported yet")
+        scoring.check_precision(self.precision)
         tile = scoring.choose_mode(n_pad, b, k_eff)
         fast = False
         if tile == "panel":
@@ -812,6 +812,29 @@ class MetaStore:
         (False = the take-all regime, which returns no certificate bound.)"""
         n_pad = self._dv.vectors.shape[0]
         return not scoring.needs_windowed(n_pad, b, min(k, b * n_pad))
+
+    def _windowed_collect(self, cols_sub, queries, plan_params, plan_static, k_eff,
+                          metric, take_min, thr, cmp):
+        """The take-all regime: device pruning, then score windows streamed
+        to the host (``scoring.collect_all``) at the store precision. ->
+        host (rows, scores, valid, check, bound, evaluated, rows_eval), the
+        query program's layout."""
+        dv = self._dv
+        dev = dv.vectors.device
+        n_pad = dv.vectors.shape[0]
+        if plan_static:
+            cmask = predicate.chunk_mask(plan_static, plan_params, cols_sub,
+                                         self._chunk_lens.shape[0], dev)
+            rmask = predicate.row_mask(plan_static, plan_params, cols_sub, n_pad, dev)
+            ev = int(cmask.sum())
+            re_ = int((self._chunk_lens * cmask).sum())
+        else:
+            rmask, ev, re_ = None, self.n_chunks(), self.n_rows
+        rows, scores, valid = scoring.collect_all(
+            dv, queries, metric, k_eff, take_min=take_min, cmp=cmp, thr=thr,
+            row_mask=rmask, prec=self.precision,
+        )
+        return rows, scores, valid, np.bool_(True), np.float32(-np.inf), ev, re_
 
     def _run_exact_mask_query(self, queries, exact_mask, metric, k, take_min, cmp, thr):
         """Hash-collision fallback: re-run with an exact host-computed row
@@ -1113,20 +1136,28 @@ class MetaQueryPlan:
                 if self._certify is True:
                     raise OttersError(
                         "take(certify=True): this k falls into the windowed "
-                        "take-all regime, which returns no certificate bound"
+                        "take-all regime, whose streaming program returns "
+                        "no certificate bound; drop certify or use a "
+                        "device-top-k-sized take"
                     )
-                raise NotImplementedError("take-all windowing is not ported yet")
+                # take-all regime (reference meta.rs:638-640): no device
+                # top-k buffer fits, so score windows stream to the host
+                copy = _Fetched(store._windowed_collect(
+                    cols_sub, queries, plan_params, plan_static, min(k, b * n_pad),
+                    self._metric, take_min, thr, cmp,
+                ))
+            else:
 
-            def run(k_run=k, strict=False):
-                return store._run_query_program(
-                    cols_sub, queries, plan_params, 0.0 if thr is None else thr,
-                    plan_static, self._metric, k_run, take_min,
-                    None if thr is None else cmp, strict=strict, certify=certify,
-                )
+                def run(k_run=k, strict=False):
+                    return store._run_query_program(
+                        cols_sub, queries, plan_params, 0.0 if thr is None else thr,
+                        plan_static, self._metric, k_run, take_min,
+                        None if thr is None else cmp, strict=strict, certify=certify,
+                    )
 
-            copy = _HostCopy(run())
-            rerun_widened = run if certify else None
-            strict_redo = functools.partial(run, strict=True)
+                copy = HostCopy(run())
+                rerun_widened = run if certify else None
+                strict_redo = functools.partial(run, strict=True)
         return PendingMetaQuery(
             plan=self, copy=copy, queries=queries, k=k, take_type=take_type,
             has_filter=has_filter, total_start=total_start, prune_dur=prune_dur,
@@ -1171,7 +1202,7 @@ def _cert_ok(bound, scores, k_final, vec_filter, take_min=False) -> bool:
 class PendingMetaQuery:
     """In-flight meta query: device program enqueued, results not fetched."""
 
-    def __init__(self, plan: MetaQueryPlan, copy: Optional[_HostCopy], queries, k,
+    def __init__(self, plan: MetaQueryPlan, copy: Optional[HostCopy], queries, k,
                  take_type, has_filter, total_start, prune_dur, score_start,
                  rerun_widened=None, strict_redo=None):
         self._plan = plan
@@ -1205,7 +1236,7 @@ class PendingMetaQuery:
         if self._fetched is None:
             fetched = self._copy.wait()
             if not bool(fetched[3]) and self._strict_redo is not None:
-                fetched = _HostCopy(self._strict_redo()).wait()
+                fetched = HostCopy(self._strict_redo()).wait()
             self._fetched = fetched
         return self._fetched
 
@@ -1355,7 +1386,7 @@ class PendingMetaQuery:
                     break
                 nxt = cap = lo
             k_used = nxt
-            rows, _, valid, _, bound, ev, re_ = _HostCopy(
+            rows, _, valid, _, bound, ev, re_ = HostCopy(
                 self._rerun_widened(k_run=k_used)
             ).wait()
             evaluated, rows_eval = int(ev), int(re_)

@@ -22,13 +22,16 @@ only; each replaces one mode of the TPU kernel
   rows ("K4-bf16", whose low plane is zero, so two products);
 - K5 ``csrc/cert_fold_binmax.cu``: the general certified fold over bfloat16
   rows, Dot (take-max) and Euclid (take-min),
-  ``key + c0 + c1*lane_a + c2*||v|| + lane_b``.
+  ``key + c0 + c1*lane_a + c2*||v|| + lane_b``;
+- K6 ``csrc/bf16_binmax.cu``: the one-pass store precisions ("default" /
+  "bf16", ``Precision.DEFAULT`` on a TPU), bf16-rounded queries x rows
+  rounded to bf16 (f32 rows, "K6") or as stored ("K6-bf16"), f32 sums,
+  every metric and score filter.
 
 Phase 2 re-scores the winning bins and selects the k results in plain
-torch (it is XLA code in the JAX package). Every kernel has a plain torch
-version in this module, which serves CPU tensors; a CUDA tensor launches
-the kernel or raises. The one-pass bf16 store precisions ("default" /
-"bf16") are not ported and raise ``NotImplementedError``.
+torch (it is XLA code in the JAX package), at the phase-1 precision for
+K6. Every kernel has a plain torch version in this module, which serves CPU
+tensors; a CUDA tensor launches the kernel or raises.
 
 Exactness: the k winning bins by bin max are a superset of the best k keys.
 In the fast mode the check ``kth_key >= boundary + slack`` certifies that no
@@ -48,6 +51,7 @@ import torch
 from ..types import VPU_METRICS, Cmp, Metric
 from .scoring import (
     CERT_BIN,
+    ONE_PASS,
     _filter_ok,
     _quantize_rows_int8,
     _query_norms,
@@ -55,8 +59,10 @@ from .scoring import (
     cert_global_slack,
     cert_query_coeffs,
     cert_row_lanes,
+    check_precision,
     exact_topk_flat,
     high_precision_bound,
+    one_pass_dots,
     require_full_f32,
 )
 
@@ -88,9 +94,10 @@ def fast_ok(metric: Metric, take_min: bool, cmp, k: int, prec: str) -> bool:
 
 def kernel_mode(storage_dtype, metric: Metric, take_min: bool, certify: bool,
                 prec: str = "highest", fast: bool = False) -> str:
-    """Name the kernel a fused query needs (a key of :data:`KERNELS`);
-    raise ``NotImplementedError`` for the one-pass bf16 precisions, which
-    are not ported."""
+    """Name the kernel a fused query needs (a key of :data:`KERNELS`). The
+    store precision ``prec`` picks the uncertified f32 / bf16-row mode:
+    "highest" K3 (K4 when ``fast``), "high" K4, "default" / "bf16" the
+    one-pass K6."""
     if storage_dtype == torch.int8:
         if not certify:
             return "K2"
@@ -109,14 +116,11 @@ def kernel_mode(storage_dtype, metric: Metric, take_min: bool, certify: bool,
         if metric is Metric.Euclidean and take_min:
             return "K5"
         raise ValueError(f"no certificate for {metric} with take_min={take_min}")
-    if prec in ("default", "bf16"):
-        raise NotImplementedError(
-            f'store precision "{prec}" (one bf16 pass) is not ported yet; '
-            'use "highest" or "high"'
-        )
-    if prec not in ("highest", "high"):
-        raise ValueError(f"unknown store precision {prec!r}")
-    mode = "K4" if (fast or prec == "high") else "K3"
+    check_precision(prec)
+    if prec in ONE_PASS:
+        mode = "K6"
+    else:
+        mode = "K4" if (fast or prec == "high") else "K3"
     return mode if storage_dtype == torch.float32 else f"{mode}-bf16"
 
 
@@ -417,16 +421,19 @@ cert_fold_binmax.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K2 / K3 / K4: the uncertified modes
+# K2 / K3 / K4 / K6: the uncertified modes
 # ---------------------------------------------------------------------------
 
-# kernel name -> (csrc source, C entry, query dtype, row dtype)
+# kernel name -> (csrc source, C entry, query dtype, row dtype); K6 takes
+# its queries rounded to bf16, as K1 does
 _MODES = {
     "K2": ("int8_binmax", "int8_binmax", torch.int8, torch.int8),
     "K3": ("f32_binmax", "f32_binmax", torch.float32, torch.float32),
     "K3-bf16": ("f32_binmax", "f32_binmax_bf16", torch.float32, torch.bfloat16),
     "K4": ("bf16x3_binmax", "bf16x3_binmax", torch.float32, torch.float32),
     "K4-bf16": ("bf16x3_binmax", "bf16x3_binmax_bf16", torch.float32, torch.bfloat16),
+    "K6": ("bf16_binmax", "bf16_binmax", torch.bfloat16, torch.float32),
+    "K6-bf16": ("bf16_binmax", "bf16_binmax_bf16", torch.bfloat16, torch.bfloat16),
 }
 
 
@@ -473,16 +480,16 @@ def _masked_key(scores, ok, take_min: bool):
 def binmax_plain(mode: str, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
                  n_surv, *, metric: Metric, take_min: bool, cmp: Optional[Cmp],
                  slab_bins: int = 256):
-    """K2 / K3 / K4 (over f32 or bfloat16 rows) in plain torch: [n_bins, b]
-    per-bin maxima of
+    """K2 / K3 / K4 / K6 (over f32 or bfloat16 rows) in plain torch:
+    [n_bins, b] per-bin maxima of
 
         key = where(ok, score, -inf) (negated for take_min),
         ok  = rmask > 0 & q_ok > 0 & !isnan(score) & cmp(score, thr),
 
     over the live bins ``surv[:n_surv]`` only (dead bins stay -inf), with
     the dots of the mode: exact int32 for K2, full f32 for K3 (bf16 rows
-    upcast exactly), bf16x3 for K4. Slabs of ``slab_bins`` bins bound the
-    temporaries."""
+    upcast exactly), bf16x3 for K4, one bf16 pass for K6 (its queries
+    already bf16). Slabs of ``slab_bins`` bins bound the temporaries."""
     strict = mode.startswith("K3")
     if strict:
         require_full_f32(q)
@@ -498,6 +505,8 @@ def binmax_plain(mode: str, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
             dots = _exact_int8_dots(q, v[rows])
         elif strict:
             dots = q @ v[rows].float().T
+        elif mode.startswith("K6"):
+            dots = one_pass_dots(q.float(), v[rows])
         else:
             dots = bf16x3_dots(q, v[rows])
         score = _scores(dots, q_inv[:, None], q_sq[:, None], inv[rows][None, :],
@@ -542,6 +551,8 @@ def _binmax(mode, wrapper, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
         wrapper, source, entry, q, v,
         [q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv],
         [b, n_qb, _METRIC_CODE[metric], int(take_min), _CMP_CODE[cmp]],
+        # K6 stages its rows in the certified scan's 16-element steps
+        d_multiple=16 if mode.startswith("K6") else 1,
     )
 
 
@@ -569,11 +580,16 @@ f32_binmax_bf16 = _mode_wrapper(
 bf16x3_binmax = _mode_wrapper("K4", "K4 bin maxima: bf16x3 dots on the tensor cores")
 bf16x3_binmax_bf16 = _mode_wrapper(
     "K4-bf16", "K4 bin maxima over bfloat16 rows: qh.v + ql.v (the low plane of v is 0)")
+bf16_binmax = _mode_wrapper(
+    "K6", "K6 bin maxima: one bf16 pass, bf16 queries x f32 rows rounded to bf16")
+bf16_binmax_bf16 = _mode_wrapper(
+    "K6-bf16", "K6 bin maxima over bfloat16 rows: one bf16 pass, the rows as stored")
 
 KERNELS = {
     "K1": cert_cos_binmax, "K1-bf16": cert_cos_binmax_bf16, "K2": int8_binmax,
     "K3": f32_binmax, "K3-bf16": f32_binmax_bf16, "K4": bf16x3_binmax,
-    "K4-bf16": bf16x3_binmax_bf16, "K5": cert_fold_binmax,
+    "K4-bf16": bf16x3_binmax_bf16, "K5": cert_fold_binmax, "K6": bf16_binmax,
+    "K6-bf16": bf16_binmax_bf16,
 }
 
 
@@ -619,7 +635,9 @@ def fused_topk(
     scalar. ``fast`` (f32 / bf16 rows, see :func:`fast_ok`) runs K4 with
     the phase-1 filter loosened by the bf16x3 error bound and examines 4k
     bins. ``certify`` (int8 or bf16 rows, with their ``resid``) runs K1 /
-    K5 and returns the certificate's bound.
+    K5 and returns the certificate's bound. ``prec`` is the store
+    precision of uncertified f32 / bf16 rows ("default" / "bf16": K6, both
+    phases one bf16 pass).
 
     Returns (rows[k], scores[k], valid[k], check, bound): ``check`` is False
     only when the fast mode cannot certify its answer (re-run with
@@ -641,6 +659,11 @@ def fused_topk(
         # take exact int32 dots
         q_kern, _, _ = _quantize_rows_int8(queries.float())
         q32 = q_kern.float()  # for the query norms only
+    elif mode.startswith("K6"):
+        # one bf16 pass: the kernel takes the queries rounded to bf16, the
+        # epilogue their unrounded f32 norms
+        q32 = queries.float()
+        q_kern = q32.to(torch.bfloat16).contiguous()
     else:
         q32 = q_kern = queries.float().contiguous()
     q_sq, q_inv = _query_norms(q32)
@@ -691,6 +714,10 @@ def fused_topk(
     qc = q_kern[qsel][:, None, :]
     if mode == "K2":
         dots = _exact_int8_dots(qc, blk)[:, 0, :]
+    elif mode.startswith("K6"):
+        # the one-pass rescore: the same bf16 pass as phase 1 (the JAX
+        # package's DEFAULT on both phases)
+        dots = one_pass_dots(qc.float(), blk)[:, 0, :]
     else:
         # the exact f32 rescore of both K3 and K4 (the JAX package's HIGHEST
         # on its own backend's terms: full f32, no TF32); bf16 rows upcast

@@ -3,9 +3,16 @@
 Counterpart of the JAX package's ``ops/scoring.py``: device storage (f32,
 bfloat16 with its rounding residuals, int8 with its quantization), the
 certificate's per-query / per-row terms for Cosine, Dot and Euclid, the
-bf16x3 error bound, and the two plain scoring programs the query paths can
-fall into (``direct`` for small stores, ``scan`` for wide k). The ``panel``
-mode is served by the hand-written fused kernels (``ops/fused_topk.py``).
+bf16x3 error bound, the two plain scoring programs the query paths can
+fall into (``direct`` for small stores, ``scan`` for wide k) and the
+windowed take-all collection (``collect_all``). The ``panel`` mode is
+served by the hand-written fused kernels (``ops/fused_topk.py``).
+
+Store precisions of f32 and bfloat16 storage (``prec``): "highest" and
+"high" score in full f32 here (the fused path runs "high" as bf16x3);
+"default" and "bf16" are one bf16 pass (:func:`one_pass_dots`), what a TPU
+computes at ``Precision.DEFAULT``. int8 storage and the certified scans do
+not read it.
 
 Exactness: f32 matrix products run in full f32. On CUDA that needs TF32
 off, which :func:`require_full_f32` checks (it never changes the global
@@ -16,6 +23,7 @@ form keeps the JAX package's candidate order.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -40,6 +48,17 @@ HIER_BIN = 512
 CERT_BIN = 512
 
 _NEG_INF = float("-inf")
+
+
+# the store precisions; the one-pass ones score one bf16 pass
+PRECISIONS = ("highest", "high", "default", "bf16")
+ONE_PASS = ("default", "bf16")
+
+
+def check_precision(prec: str) -> None:
+    """Raise ``ValueError`` unless ``prec`` is a store precision."""
+    if prec not in PRECISIONS:
+        raise ValueError(f"unknown store precision {prec!r}; expected one of {PRECISIONS}")
 
 
 def require_full_f32(t: torch.Tensor) -> None:
@@ -421,13 +440,28 @@ def high_precision_bound(d: int) -> float:
     return 2.0**-14 + 4.0 * d * 2.0**-24
 
 
-def _score_block(queries, q_inv, q_sq, vecs, v_inv, v_sq, metric: Metric):
+def one_pass_dots(q32: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The dots of the one-pass store precisions "default" / "bf16", what a
+    TPU computes at ``Precision.DEFAULT`` for f32 operands: queries and
+    rows each rounded to bfloat16 (round-to-nearest-even), every product
+    exact in f32, the products summed in f32 (bfloat16 rows are their own
+    rounding). [..., B, D] x [..., T, D] -> [..., B, T]. The metric
+    epilogue keeps the unrounded f32 norms."""
+    qh = q32.float().to(torch.bfloat16).float()
+    require_full_f32(qh)
+    return qh @ v.to(torch.bfloat16).float().transpose(-1, -2)
+
+
+def _score_block(queries, q_inv, q_sq, vecs, v_inv, v_sq, metric: Metric,
+                 prec: str = "highest"):
     """[B, D] x [T, D] -> [B, T] scores.
 
     cosine   = (q . v) * inv||q|| * inv||v||
     euclid   = ||q||^2 + ||v||^2 - 2 q . v     (squared)
     dot      = q . v
-    """
+
+    f32 queries over f32 / bfloat16 rows take the store precision ``prec``
+    (one bf16 pass for "default" / "bf16", full f32 otherwise)."""
     if metric in VPU_METRICS:
         raise NotImplementedError(
             f"the {metric.value} metric (VPU metrics) is not ported yet"
@@ -457,10 +491,14 @@ def _score_block(queries, q_inv, q_sq, vecs, v_inv, v_sq, metric: Metric):
         q8, _, q_inv8 = _quantize_rows_int8(queries)
         dots = (q8.double() @ vecs.double().T).float()
         return dots * q_inv8[:, None] * v_inv[None, :]
-    # f32 (and bfloat16 rows, upcast exactly, as JAX's f32 x bf16 matmul
-    # promotes them) in full f32
-    require_full_f32(queries)
-    dots = queries.float() @ vecs.float().T
+    check_precision(prec)
+    if prec in ONE_PASS:
+        dots = one_pass_dots(queries, vecs)
+    else:
+        # f32 (and bfloat16 rows, upcast exactly, as JAX's f32 x bf16
+        # matmul promotes them) in full f32
+        require_full_f32(queries)
+        dots = queries.float() @ vecs.float().T
     if metric is Metric.DotProduct:
         return dots
     if metric is Metric.Cosine:
@@ -527,12 +565,13 @@ def _masked_key(scores, ok, take_min: bool):
 def direct_topk_core(
     vectors, norms_sq, inv_norms, valid, queries, row_mask, thr, *,
     metric: Metric, k: int, take_min: bool, cmp: Optional[Cmp], q_valid=None,
+    prec: str = "highest",
 ):
     """[B, N] scores -> merged global (rows, scores, valid)."""
     n_pad = vectors.shape[0]
     q_sq, q_inv = _query_norms(queries)
     scores = _score_block(
-        queries, q_inv, q_sq, vectors, inv_norms, norms_sq, metric
+        queries, q_inv, q_sq, vectors, inv_norms, norms_sq, metric, prec
     )
     ok = valid[None, :]
     if row_mask is not None:
@@ -548,7 +587,7 @@ def direct_topk_core(
 def scan_topk_core(
     vectors, norms_sq, inv_norms, valid, queries, row_mask, thr, *,
     metric: Metric, k: int, take_min: bool, cmp: Optional[Cmp], tile: int,
-    q_valid=None,
+    q_valid=None, prec: str = "highest",
 ):
     """Streaming top-k over row tiles with a carried k-sized buffer.
 
@@ -568,7 +607,7 @@ def scan_topk_core(
     for start in range(0, n_pad, tile):
         sl = slice(start, start + tile)
         scores = _score_block(
-            queries, q_inv, q_sq, vectors[sl], inv_norms[sl], norms_sq[sl], metric
+            queries, q_inv, q_sq, vectors[sl], inv_norms[sl], norms_sq[sl], metric, prec
         )
         ok = valid[sl][None, :]
         if row_mask is not None:
@@ -588,10 +627,22 @@ def scan_topk_core(
     return best_row, best_score, best_valid
 
 
+# Host ceiling of the windowed take-all path: b * n_pad candidate scores
+# (f32) and their validity (bool) are staged on the host, and the merge
+# holds about 17 bytes per candidate, so the default (2^29, about 9 GB)
+# suits a 32-64 GB host. OTTERS_TAKE_ALL_LIMIT raises it on larger hosts;
+# beyond it take(k) with a smaller k is required.
+TAKE_ALL_LIMIT = int(os.environ.get("OTTERS_TAKE_ALL_LIMIT", 1 << 29))
+
+
 def needs_windowed(n_pad: int, b: int, k_eff: int) -> bool:
     """True when no on-device top-k strategy fits this (b, n_pad, k): the
-    take-all regime, whose windowed host collection is not ported yet."""
+    take-all regime (the reference returns EVERY row), where a k-sized
+    device buffer would rival the store itself, so the windowed host
+    collection (:func:`collect_all`) takes over."""
     if b * n_pad <= DIRECT_LIMIT:
+        # direct handles most k at this size, but take-most/all of a big
+        # store would be a near-full-length device sort
         return (
             k_eff > PANEL_K_MAX
             and 4 * k_eff > b * n_pad
@@ -602,6 +653,109 @@ def needs_windowed(n_pad: int, b: int, k_eff: int) -> bool:
     if n_pad % SCAN_TILE == 0 and k_eff <= SCAN_K_MAX:
         return False
     return True
+
+
+def _window_block(dv: DeviceVecs, queries, q_sq, q_inv, row_mask, thr, start: int,
+                  w: int, *, metric: Metric, cmp: Optional[Cmp], prec: str):
+    """Score one w-row window -> ([B, w] scores, [B, w] candidate-ok)."""
+    sl = slice(start, start + w)
+    scores = _score_block(queries, q_inv, q_sq, dv.vectors[sl], dv.inv_norms[sl],
+                          dv.norms_sq[sl], metric, prec)
+    ok = dv.valid[sl][None, :]
+    if row_mask is not None:
+        ok = ok & row_mask[sl][None, :]
+    ok = ok & _filter_ok(scores, thr, cmp) & ~torch.isnan(scores)
+    return scores, ok
+
+
+def _window_size(n_pad: int, b: int) -> int:
+    """Largest 512-multiple window dividing n_pad with b*w <= DIRECT_LIMIT."""
+    w = max(512, min(n_pad, (DIRECT_LIMIT // max(b, 1)) // 512 * 512))
+    while w > 512 and n_pad % w != 0:
+        w -= 512
+    if n_pad % w != 0:  # tiny / unaligned stores: one window covers everything
+        w = n_pad
+    return w
+
+
+class HostCopy:
+    """Device tensors copied to pinned host memory behind a CUDA event:
+    the copies start at once, ``wait()`` returns them as numpy."""
+
+    def __init__(self, tensors):
+        self._host = [t.to("cpu", non_blocking=True) for t in tensors]
+        self._event = None
+        if any(t.is_cuda for t in tensors):
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def wait(self) -> tuple:
+        if self._event is not None:
+            self._event.synchronize()
+        return tuple(h.numpy() for h in self._host)
+
+
+def collect_all(
+    dv: DeviceVecs,
+    queries,
+    metric: Metric,
+    k: int,
+    take_min: bool,
+    cmp: Optional[Cmp],
+    thr: Optional[float],
+    row_mask=None,
+    prec: str = "highest",
+):
+    """Windowed full-score collection for the take-all regime.
+
+    Scores [B, w] windows on the device and streams them to the host,
+    double-buffered (window i+1 is enqueued before window i is waited
+    for), then runs the global top-k on the host: every (query, row) pair
+    sorted by the take direction and truncated to k, ties lower flat index
+    first, as ``lax.top_k``. Returns host (rows, scores, valid) like
+    :func:`run_vec_topk`. Windows are scored at the store precision."""
+    n_pad = dv.vectors.shape[0]
+    b = queries.shape[0]
+    total = b * n_pad
+    if total > TAKE_ALL_LIMIT:
+        raise OttersError(
+            f"take({k}) over {b} queries x {n_pad} rows stages "
+            f"{total} candidate scores (> {TAKE_ALL_LIMIT}); use a smaller "
+            "take(k) or fewer queries per batch"
+        )
+    check_precision(prec)
+    k_eff = min(k, total)
+    dev = dv.vectors.device
+    q = torch.as_tensor(queries, dtype=torch.float32).to(dev)
+    q_sq, q_inv = _query_norms(q)
+    thr_t = torch.tensor(0.0 if thr is None else thr, dtype=torch.float32, device=dev)
+    cmp_eff = None if thr is None else cmp
+    w = _window_size(n_pad, b)
+
+    scores_h = np.empty((b, n_pad), dtype=np.float32)
+    ok_h = np.empty((b, n_pad), dtype=bool)
+    pending = []  # (start, host copy): the double buffer
+    for start in list(range(0, n_pad, w)) + [None]:
+        if start is not None:
+            out = _window_block(dv, q, q_sq, q_inv, row_mask, thr_t, start, w,
+                                metric=metric, cmp=cmp_eff, prec=prec)
+            pending.append((start, HostCopy(out)))
+        if len(pending) > 1 or (start is None and pending):
+            s0, copy = pending.pop(0)
+            scores_h[:, s0 : s0 + w], ok_h[:, s0 : s0 + w] = copy.wait()
+
+    key = np.where(ok_h, scores_h, np.inf if take_min else -np.inf).reshape(-1)
+    if not take_min:
+        key = -key  # an ascending sort of negated keys is the take-max order
+    if k_eff * 4 < total:
+        part = np.argpartition(key, k_eff - 1)[:k_eff]
+        # argpartition breaks the flat-index tie order; sort the survivors
+        # by (key, flat index) so ties resolve lower index first
+        order = part[np.lexsort((part, key[part]))]
+    else:
+        order = np.argsort(key, kind="stable")[:k_eff]
+    rows = (order % n_pad).astype(np.int32)
+    return rows, scores_h.reshape(-1)[order], ok_h.reshape(-1)[order]
 
 
 def choose_mode(n_pad: int, b: int, k_eff: int) -> str:
@@ -642,7 +796,10 @@ def run_vec_topk(
     The ``panel`` shape goes to the fused kernels: K2 over int8 rows; over
     f32 and bfloat16 rows the verified fast-exact K4 where
     :func:`fused_topk.fast_ok` allows it, re-run strictly (K3) when its
-    check fails, else K3 (or K4 for the store precision "high")."""
+    check fails, else K3 (K4 for the store precision "high", K6 for the
+    one-pass "default" / "bf16"). The take-all regime streams windows to
+    the host (:func:`collect_all`)."""
+    check_precision(prec)
     n_pad = dv.vectors.shape[0]
     b = queries.shape[0]
     k_eff = min(k, b * n_pad)
@@ -655,12 +812,13 @@ def run_vec_topk(
             f"the {metric.value} metric (VPU metrics) is not ported yet"
         )
     if needs_windowed(n_pad, b, k_eff):
-        raise NotImplementedError("take-all windowing is not ported yet")
+        return collect_all(dv, queries, metric, k_eff, take_min, cmp, thr,
+                           row_mask=row_mask, prec=prec)
     mode = choose_mode(n_pad, b, k_eff)
     q = queries.float()
     thr_t = torch.tensor(0.0 if thr is None else thr, dtype=torch.float32, device=q.device)
     cmp_eff = None if thr is None else cmp
-    kwargs = dict(metric=metric, k=k_eff, take_min=take_min, cmp=cmp_eff)
+    kwargs = dict(metric=metric, k=k_eff, take_min=take_min, cmp=cmp_eff, prec=prec)
     args = (dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, q, row_mask, thr_t)
     if mode == "panel":
         from . import fused_topk as ft
@@ -669,15 +827,11 @@ def run_vec_topk(
         fast = dv.vectors.dtype != torch.int8 and ft.fast_ok(
             metric, take_min, cmp_eff, k_eff, prec
         )
-        rows, scores, valid, check, _ = ft.fused_topk(
-            *args, alive, prec=prec, fast=fast, **kwargs
-        )
+        rows, scores, valid, check, _ = ft.fused_topk(*args, alive, fast=fast, **kwargs)
         if fast and not bool(check):
             # the verified fast-exact check failed (ties near the boundary):
             # re-run strictly in exact f32
-            rows, scores, valid, _, _ = ft.fused_topk(
-                *args, alive, prec=prec, fast=False, **kwargs
-            )
+            rows, scores, valid, _, _ = ft.fused_topk(*args, alive, fast=False, **kwargs)
         out = (rows, scores, valid)
     elif mode == "direct":
         out = direct_topk_core(*args, **kwargs)

@@ -14,7 +14,9 @@ Counterpart of the JAX package's ``vec.py`` (reference ``src/vec.rs``):
   with fused masking, and one exact global top-k merged across the whole
   batch (single-collector semantics, vec.rs:217-219). At scale that is a
   fused kernel (``ops/fused_topk.py``): K4 with a strict K3 rerun over f32
-  and bfloat16 rows (exact over the stored values), K2 over int8 rows.
+  and bfloat16 rows (exact over the stored values), K2 over int8 rows; the
+  store precision "default" / "bf16" scores one bf16 pass (K6 at scale). A
+  take(k) too wide for any device top-k streams score windows to the host.
 
 Not ported yet: ``save`` / ``load`` (they wait for ``io.py``); both raise
 ``NotImplementedError``.
@@ -60,7 +62,8 @@ class VecStore:
         # see ops/scoring._materialize_int8)
         self._dtype = dtype
         self._where = None if device is None else torch.device(device)
-        # scan precision of f32 / bf16 storage (see MetaStore.precision)
+        # scan precision of f32 / bf16 storage: "highest", "high",
+        # "default" or "bf16" (see MetaStore.precision)
         self.precision: str = "highest"
 
     # ---- ingest ----------------------------------------------------------

@@ -211,13 +211,17 @@ def test_survivor_list_and_bin_liveness():
 
 
 def test_unported_kernel_modes_raise():
-    """Only the one-pass bf16 precisions raise; every other mode names its
-    kernel: K1 .. K4 over int8 / f32 rows, K1 / K3 / K4 over bfloat16 rows
-    and K5 (the general certified fold) for bf16 Dot and Euclid."""
+    """No mode raises any more: every one names its kernel, K1 .. K4 and K6
+    over int8 / f32 rows, K1 / K3 / K4 / K6 over bfloat16 rows and K5 (the
+    general certified fold) for bf16 Dot and Euclid; the one-pass
+    precisions ("default" / "bf16") take K6, an unknown precision raises
+    ValueError."""
     for prec in ("default", "bf16"):
-        for dtype in (torch.float32, torch.bfloat16):
-            with pytest.raises(NotImplementedError, match=prec):
-                ft.kernel_mode(dtype, Metric.Cosine, False, False, prec)
+        for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "-bf16")):
+            for metric in (Metric.Cosine, Metric.DotProduct, Metric.Euclidean):
+                assert ft.kernel_mode(dtype, metric, False, False, prec) == "K6" + sfx
+    with pytest.raises(ValueError, match="unknown store precision"):
+        ft.kernel_mode(torch.float32, Metric.Cosine, False, False, "half")
     with pytest.raises(ValueError, match="no certificate"):
         ft.kernel_mode(torch.float32, Metric.Cosine, False, True)
     with pytest.raises(ValueError, match="no certificate"):

@@ -1,7 +1,8 @@
 """The Hopper kernels against their plain torch versions, on the card.
 
-K2 / K3 / K4 over int8 / f32 rows; over bfloat16 rows K1 (certified
-Cosine), K3, K4 and K5 (the general certified fold, Dot and Euclid).
+K2 / K3 / K4 / K6 over int8 / f32 rows; over bfloat16 rows K1 (certified
+Cosine), K3, K4, K5 (the general certified fold, Dot and Euclid) and K6;
+the three profiling probes (``profile_variants``).
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
@@ -16,13 +17,17 @@ order than the plain f32 product, within d 2^-24 |q| |v|; K4 within
 orders, each within the bound of the exact dot); K3 and K4 over bf16 rows
 likewise. The certified scans sum exact bf16 products in f32 in another
 order than the plain product: K1 within ``mixed_cert_eps(d)``, K5 within
-``4 d 2^-24 |qh| max|v|`` (twice for Euclid) plus 4 ulps of the key.
+``4 d 2^-24 |qh| max|v|`` (twice for Euclid) plus 4 ulps of the key. K6
+sums the same exact bf16 products in another order than its plain
+version: within ``d 2^-24 |qh| |vh|`` (Cosine: of the unit scores), as K3.
+The probes: ``k_mm`` / ``k_mm_bins`` as K3, ``k_planes`` as K4.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from otters_tpu_torch import profile_variants as pv
 from otters_tpu_torch.ops import fused_topk as ft
 from otters_tpu_torch.ops import scoring as sc
 from otters_tpu_torch.types import Cmp, Metric
@@ -49,6 +54,8 @@ def _operands(mode, dev, *, n=40_000, d=128, b=70, seed=0, thr=0.0):
     if mode == "K2":
         q, _, _ = sc._quantize_rows_int8(q)
     q_sq, q_inv = sc._query_norms(q.float())
+    if mode == "K6":  # bf16-rounded queries, the f32 queries' norms
+        q = q.bfloat16()
     n_bins = n_pad // ft.BIN
     alive = torch.rand(n_bins, generator=g, device=dev) < 0.6
     surv, n_surv = ft.survivor_bins(alive)
@@ -80,6 +87,8 @@ def _bf16_operands(mode, dev, metric, *, n=40_000, d=128, b=70, seed=0, thr=0.0,
                             row_mask, thr_t, alive, metric=metric, cmp=cmp,
                             resid=dv.resid).ops
     q_sq, q_inv = sc._query_norms(q)
+    if mode == "K6-bf16":
+        q = q.bfloat16()
     surv, n_surv = ft.survivor_bins(alive)
     rmask = (dv.valid & row_mask).float()
     return [q, dv.vectors, dv.inv_norms, dv.norms_sq, rmask, q_inv, q_sq,
@@ -108,13 +117,15 @@ def _tol(mode, args, metric):
         return sc.mixed_cert_eps(d)
     if mode == "K5":
         base = 4 * d * 2.0**-24
-    elif mode.startswith("K3"):
+    elif mode.startswith(("K3", "K6")):
         base = d * 2.0**-24
     else:
         base = sc.high_precision_bound(d)
     if metric is Metric.Cosine:
         return base
-    scale = float(q.norm(dim=1).max()) * float(args[3].max().sqrt())  # args[3]: nsq
+    # args[3]: nsq of the stored rows; K6's rounded rows are up to 2^-8
+    # longer
+    scale = float(q.norm(dim=1).max()) * float(args[3].max().sqrt()) * (1 + 2.0**-7)
     return base * scale * (2.0 if metric is Metric.Euclidean else 1.0)
 
 
@@ -128,6 +139,9 @@ CASES = [
     ("K4", Metric.Cosine, False, None, 0.0),
     ("K4", Metric.DotProduct, False, Cmp.Gt, 2.0),
     ("K4", Metric.Euclidean, True, None, 0.0),
+    ("K6", Metric.Cosine, False, Cmp.Gt, 0.05),
+    ("K6", Metric.DotProduct, False, None, 0.0),
+    ("K6", Metric.Euclidean, True, Cmp.Lt, 250.0),
 ]
 
 
@@ -135,7 +149,10 @@ CASES = [
 @pytest.mark.parametrize("mode,metric,take_min,cmp,thr", CASES)
 @pytest.mark.parametrize("d", [128, 100])
 def test_kernel_matches_plain(mode, metric, take_min, cmp, thr, d):
+    """K6 stages 16-element steps, so d = 100 runs it at 112."""
     dev = _device()
+    if d % 16 and mode == "K6":
+        d = 112
     args = _operands(mode, dev, d=d, thr=thr)
     fn = ft.KERNELS[mode]
     before = fn.launches
@@ -190,6 +207,9 @@ BF16_CASES = [
     ("K4-bf16", Metric.Cosine, False, None, 0.0),
     ("K4-bf16", Metric.DotProduct, False, Cmp.Gt, 2.0),
     ("K4-bf16", Metric.Euclidean, True, None, 0.0),
+    ("K6-bf16", Metric.Cosine, False, None, 0.0),
+    ("K6-bf16", Metric.DotProduct, False, Cmp.Gt, 2.0),
+    ("K6-bf16", Metric.Euclidean, True, Cmp.Lt, 250.0),
 ]
 
 
@@ -197,10 +217,10 @@ BF16_CASES = [
 @pytest.mark.parametrize("mode,metric,take_min,cmp,thr", BF16_CASES)
 @pytest.mark.parametrize("d", [128, 100])
 def test_bf16_row_kernel_matches_plain(mode, metric, take_min, cmp, thr, d):
-    """The bf16-row modes; the certified ones (K1, K5) need d % 16 == 0, so
-    d = 100 runs only K3 / K4 there."""
+    """The bf16-row modes; the certified scan's (K1, K5, K6) need d % 16 ==
+    0, so d = 100 runs them at 112."""
     dev = _device()
-    if d % 16 and mode in ("K1-bf16", "K5"):
+    if d % 16 and mode in ("K1-bf16", "K5", "K6-bf16"):
         d = 112
     args = _bf16_operands(mode, dev, metric, d=d, thr=thr, cmp=cmp)
     fn = ft.KERNELS[mode]
@@ -220,11 +240,12 @@ def test_bf16_row_kernel_matches_plain(mode, metric, take_min, cmp, thr, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["K2", "K3", "K4", "K1-bf16", "K3-bf16", "K4-bf16", "K5"])
+@pytest.mark.parametrize(
+    "mode", ["K2", "K3", "K4", "K6", "K1-bf16", "K3-bf16", "K4-bf16", "K5", "K6-bf16"])
 def test_no_live_bin_leaves_every_bin_neg_inf(mode):
     dev = _device()
     metric = Metric.DotProduct if mode == "K5" else Metric.Cosine
-    if mode in ("K2", "K3", "K4"):
+    if mode in ("K2", "K3", "K4", "K6"):
         args = _operands(mode, dev, n=5000)
     else:
         args = _bf16_operands(mode, dev, metric, n=5000)
@@ -234,3 +255,53 @@ def test_no_live_bin_leaves_every_bin_neg_inf(mode):
     out = _call(mode, args, metric, False, None)
     torch.cuda.synchronize()
     assert bool(torch.isneginf(out).all())
+
+
+@pytest.mark.cuda
+def test_k6_dots_equal_float64_of_the_rounded_operands():
+    """Unit norms, Dot metric, one unmasked row per bin: each K6 bin max is
+    that row's accumulated one-pass dot, within d 2^-24 |qh| |vh| of the
+    float64 product of the bf16-rounded operands (the products are exact,
+    only the f32 sums round)."""
+    dev = _device()
+    d = 768
+    args = _operands("K6", dev, d=d, b=64, n=20_000)
+    qh, v = args[0], args[1]
+    n_pad = v.shape[0]
+    n_bins = n_pad // ft.BIN
+    rows = torch.arange(n_bins, device=dev) * ft.BIN + 7  # a valid row in every bin
+    rmask = torch.zeros(n_pad, device=dev)
+    rmask[rows] = 1.0
+    surv, n_surv = ft.survivor_bins(torch.ones(n_bins, dtype=torch.bool, device=dev))
+    ones = torch.ones(n_pad, device=dev)
+    out = ft.bf16_binmax(qh, v, ones, ones, rmask, torch.ones(64, device=dev),
+                         torch.zeros(64, device=dev), torch.ones(64, device=dev),
+                         torch.zeros(1, device=dev), surv, n_surv, Metric.DotProduct)
+    vh = v[rows].bfloat16().double()
+    ref = (qh.double() @ vh.T).T
+    scale = vh.norm(dim=1)[:, None] * qh.double().norm(dim=1)[None, :]
+    err = float(((out.double() - ref).abs() / scale).max())
+    assert err <= d * 2.0**-24, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(pv.PROBES))
+@pytest.mark.parametrize("d,b", [(768, 256), (100, 70)])
+def test_probe_matches_plain(name, d, b):
+    """Each probe against its plain version at 64 tiles of 1024 rows: the
+    f32 probes within d 2^-24 |q| |v| (two f32 sums in other orders), the
+    bf16x3 one within ``high_precision_bound(d)`` |q| |v|."""
+    dev = _device()
+    ops = pv.make_inputs(dev, n_pad=64 * pv.T, d=d, b=b, seed=3)
+    args = pv.probe_args(name, ops)
+    fn = pv.PROBES[name]
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = pv.PLAIN[name](*args)
+    assert got.shape == want.shape == (64, b, 2)
+    base = sc.high_precision_bound(d) if name == "k_planes" else d * 2.0**-24
+    scale = float(ops["q"].norm(dim=1).max()) * float(ops["v"].norm(dim=1).max())
+    err = float((got - want).abs().max())
+    assert err <= base * scale, (err, base * scale)

@@ -264,8 +264,10 @@ def test_string_filter_verify_and_collision_redo(monkeypatch):
 
 
 def test_unported_kernel_modes_raise_through_the_api(monkeypatch):
-    """Only the one-pass bf16 store precisions raise; f32, bfloat16 and int8
-    stores answer fused-size queries."""
+    """No store precision raises any more: f32, bfloat16 and int8 stores
+    answer fused-size queries, and the one-pass precisions "default" /
+    "bf16" run K6 over f32 and bfloat16 rows (their answers against JAX
+    and a float64 reference are in tests/test_torch_precision.py)."""
     use_fused_path(monkeypatch)
     vecs = np.random.default_rng(2).normal(size=(8192, 16)).astype(np.float32)
     cols = [tx.Column("id", tx.DataType.Int64).from_values(range(8192))]
@@ -276,11 +278,14 @@ def test_unported_kernel_modes_raise_through_the_api(monkeypatch):
     )
     for store in (f32_store, bf16_store, int8_store):
         assert len(store.query(vecs[0], tx.Metric.Cosine).take(5).collect()) == 5
-    for store in (f32_store, bf16_store):
+    calls = _count_modes(monkeypatch)
+    for store, mode in ((f32_store, "K6"), (bf16_store, "K6-bf16")):
         for prec in ("default", "bf16"):
             store.precision = prec
-            with pytest.raises(NotImplementedError, match=prec):
-                store.query(vecs[0], tx.Metric.Cosine).take(5).collect()
+            calls.clear()
+            res = store.query(vecs[0], tx.Metric.Cosine).take(5).collect()
+            assert len(res) == 5 and res.indices[0] == 0
+            assert calls == [mode]
 
 
 # ---------------------------------------------------------------------------
