@@ -9,7 +9,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 3. the kernel phase: K1 (csrc/cert_cos_binmax.cu), K2 (int8_binmax.cu), K3
    (f32_binmax.cu), K4 (bf16x3_binmax.cu), K5 (cert_fold_binmax.cu) and K6
    (bf16_binmax.cu) against their plain torch versions at d = 768, b = 256
-   and 70, 2M rows in 1024-row chunks with half of them pruned, every metric
+   and 70 (K1 also 1 and 600), 2M rows in 1024-row chunks with half of them
+   pruned, every metric
    and Gt / Lt / Eq filters, over int8 / f32 rows and (K1, K3, K4, K5, K6)
    bfloat16 rows; K2's int32 dots bit for bit; the others against float64
    dots (K4 within the ``4 d 2^-24`` accumulation share of
@@ -20,8 +21,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    filter ``price < 50 & version >= 2`` (prunes half the chunks), pipelined
    ``collect_async`` batches of 256 Cosine queries with
    ``take(10, rerank_from=100)`` and ``resolve``; every query certified and
-   equal to an exact f32 filtered top-10; then K1 timed at these shapes
-   against its plain version, a library yardstick and its bound;
+   equal to an exact f32 filtered top-10; one round traced (K1's time per
+   batch, the rest of the device time, the idle share); then K1 timed at
+   these shapes against its plain version, a library yardstick and its
+   bound, and again at b = 1, 64 and 512 (as K1 over bf16 rows in 4f); K1
+   and its library call timed in K1_ROUNDS interleaved rounds (median and
+   range);
    4u. bench.py's ``filtered_uncert`` on the same store
    (``certify=False``): K2, recall@10 against the f32 truth, K2 timed;
    4f. bfloat16 storage: a 10M x 768 bf16 store made on the device from
@@ -94,6 +99,9 @@ NEAR_ROWS = 1_000_000
 VEC_ROWS = 1_000_000  # bench.py's 1M f32 section, through VecStore
 N_DUP = 60  # bins holding copies of the tied row: more than 4k = 40
 TAKE_ALL_B = 16  # queries of the take-all batches
+K1_WIDE_B = 600  # K1's widest kernel-phase batch: ten query blocks, the last one partial
+K1_ROUNDS = 7  # interleaved timing rounds of K1 and its library call
+K1_SWEEP_B = (1, 64, 512)  # K1's other timed batch sizes, on the main path's stores
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
@@ -342,11 +350,14 @@ def kernel_phase(torch, dev):
     dvb = sc.materialize_from_device(f32, n_valid=n, dtype=torch.bfloat16)
     del f32
     chunk_mask = torch.arange(-(-n // CHUNK), device=dev) % 2 == 1
-    queries = torch.randn((B, D), generator=g, device=dev)
+    all_queries = torch.randn((K1_WIDE_B, D), generator=g, device=dev)
+    queries = all_queries[:B]
     ratio = dict.fromkeys(ft.KERNELS, 0.0)
     cases = [
         ("K1", dv8, Metric.Cosine, False, None, 0.0, B),
         ("K1", dv8, Metric.Cosine, False, Cmp.Gt, 0.05, 70),
+        ("K1", dv8, Metric.Cosine, False, None, 0.0, 1),
+        ("K1", dv8, Metric.Cosine, False, Cmp.Gte, 0.05, K1_WIDE_B),
         ("K2", dv8, Metric.Cosine, False, None, 0.0, B),
         ("K2", dv8, Metric.Cosine, False, Cmp.Gt, 0.05, 70),
         ("K2", dv8, Metric.Cosine, True, Cmp.Lte, -0.05, B),
@@ -358,6 +369,8 @@ def kernel_phase(torch, dev):
         ("K4", dvf, Metric.Euclidean, True, None, 0.0, B),
         ("K1-bf16", dvb, Metric.Cosine, False, None, 0.0, B),
         ("K1-bf16", dvb, Metric.Cosine, False, Cmp.Gt, 0.05, 70),
+        ("K1-bf16", dvb, Metric.Cosine, False, Cmp.Gt, 0.05, 1),
+        ("K1-bf16", dvb, Metric.Cosine, False, None, 0.0, K1_WIDE_B),
         ("K5", dvb, Metric.DotProduct, False, None, 0.0, B),
         ("K5", dvb, Metric.DotProduct, False, Cmp.Gt, 2.0, 70),
         ("K5", dvb, Metric.Euclidean, True, None, 0.0, B),
@@ -375,7 +388,7 @@ def kernel_phase(torch, dev):
         ("K6-bf16", dvb, Metric.Euclidean, True, Cmp.Lt, 1450.0, 70),
     ]
     for mode, dv, metric, take_min, cmp, thr, b in cases:
-        args = mode_inputs(mode, dv, queries[:b], chunk_mask, thr, metric, cmp)
+        args = mode_inputs(mode, dv, all_queries[:b], chunk_mask, thr, metric, cmp)
         err, tol = compare_mode(mode, args, metric, take_min, cmp)
         ratio[mode] = max(ratio[mode], err / tol)
         log(f"{mode} vs plain ({n} rows, b={b}, {metric.value}"
@@ -620,10 +633,10 @@ def main_path(torch, dev, n, card=""):
         checked += q.shape[0]
     log(f"exact f32 ground truth: top-{K} equal for {checked} queries "
         f"({BATCHES} batches of {B} + one of 32)")
-    if dev.type == "cuda":
-        profile_batches(torch, pending, batches)
+    prof = profile_batches(torch, pending, batches, "cert_cos_binmax_kernel")
     stats = {"qps": qps, "build_s": build_s, "synth_s": synth_s,
-             "launches": launches, "scan_k_wide": pend[-1].stats().scan_k_wide}
+             "launches": launches, "scan_k_wide": pend[-1].stats().scan_k_wide,
+             "profile": prof}
     return store, f32, batches, truths[:BATCHES], stats
 
 
@@ -745,30 +758,58 @@ def time_mode(torch, mode, dv, queries, n_chunks, metric=None):
     err, tol = compare_mode(mode, args, metric, take_min)
     n_live = int(args[-1][0])
     live_rows = n_live * ft.BIN
-    kernel_ms = time_ms(lambda: launch(mode, args, metric, take_min), reps=10)
+    kernel = lambda: launch(mode, args, metric, take_min)  # noqa: E731
     plain_ms = time_ms(lambda: plain(mode, args, metric, take_min), reps=3, warm=1)
     live = args[-2][:n_live].long()
     rows = (live[:, None] * ft.BIN + torch.arange(ft.BIN, device=live.device)).reshape(-1)
     v_live = dv.vectors[rows]
-    library_ms = time_ms(library_fn(torch, mode, args[0], v_live, n_live), reps=10)
-    del v_live
+    library = library_fn(torch, mode, args[0], v_live, n_live)
+    extra = {}
+    if mode in ("K1", "K1-bf16"):
+        # K1 is close to its library call: time both in interleaved rounds
+        # and keep each one's median and range
+        rounds = [(time_ms(kernel, reps=10), time_ms(library, reps=10))
+                  for _ in range(K1_ROUNDS)]
+        ks, ls = zip(*rounds)
+        kernel_ms, library_ms = statistics.median(ks), statistics.median(ls)
+        extra = {"ms_range": [min(ks), max(ks)], "library_ms_range": [min(ls), max(ls)],
+                 "rounds": K1_ROUNDS}
+        log(f"{mode} b={args[0].shape[0]}: {K1_ROUNDS} rounds, kernel median {kernel_ms:.3f} "
+            f"ms (range {min(ks):.3f}-{max(ks):.3f}), library median {library_ms:.3f} ms "
+            f"(range {min(ls):.3f}-{max(ls):.3f}), kernel faster in "
+            f"{sum(k < lb for k, lb in rounds)} of {K1_ROUNDS}")
+    else:
+        kernel_ms = time_ms(kernel, reps=10)
+        library_ms = time_ms(library, reps=10)
+    del v_live, library
     torch.cuda.empty_cache()
     bound_ms, bound_by, bytes_moved, ops = scan_bound(
         mode, n_live, args[0].shape[0], dv.vectors.element_size(), args[0].element_size()
     )
-    log(f"{mode} ({metric.value}) at the path's shapes: live rows {live_rows}, "
-        f"kernel {kernel_ms:.3f} ms, "
+    tflops = ops / (kernel_ms * 1e-3) / 1e12
+    log(f"{mode} ({metric.value}) at the path's shapes, b={args[0].shape[0]}: live rows "
+        f"{live_rows}, kernel {kernel_ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
         f"({bound_by}: {bytes_moved / 1e9:.3f} GB, {ops / 1e12:.3f} T ops), "
+        f"bound share {bound_ms / kernel_ms:.3f}, {tflops:.1f} TFLOP/s, "
         f"max_abs_err {err:.3e} (tol {tol:.3e})")
     return dict(max_abs_err=err, tol=tol, ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                live_rows=live_rows)
+                bound_share=bound_ms / kernel_ms, tflops=tflops, live_rows=live_rows, **extra)
 
 
-def profile_batches(torch, pending, batches):
+def k1_sweep(torch, mode, dv, queries, n_chunks):
+    """K1 (``mode`` "K1" or "K1-bf16") at the other batch sizes of
+    K1_SWEEP_B on a main path's store: each held against plain and timed
+    beside the library call and the bound -> {b: time_mode's numbers}."""
+    return {b: time_mode(torch, mode, dv, queries[:b], n_chunks) for b in K1_SWEEP_B}
+
+
+def profile_batches(torch, pending, batches, scan=None):
     """One pipelined round under torch.profiler: device time by kernel and
-    the device's busy share of the wall time."""
+    the device's busy share of the wall time; with ``scan`` (a substring of
+    the scan kernel's name) also its time per batch, the rest of the device
+    time per batch and the idle share -> those numbers."""
     import otters_tpu_torch as tx
     from torch.profiler import ProfilerActivity, profile
 
@@ -784,6 +825,17 @@ def profile_batches(torch, pending, batches):
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of wall)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    if scan is None:
+        return None
+    scan_ms = sum(e.self_device_time_total for e in events if scan in e.key) / 1e3
+    n = len(batches)
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+           "scan_ms_per_batch": scan_ms / n, "rest_ms_per_batch": (busy_ms - scan_ms) / n,
+           "idle_ms_per_batch": (wall_ms - busy_ms) / n}
+    log(f"profile per batch: {scan} {out['scan_ms_per_batch']:.3f} ms, other device work "
+        f"{out['rest_ms_per_batch']:.3f} ms, idle {out['idle_ms_per_batch']:.3f} ms "
+        f"(idle share {out['idle_share']:.3f})")
+    return out
 
 
 def bf16_path(torch, dev, f32, batches, truths, card=""):
@@ -1512,6 +1564,8 @@ def main() -> int:
         uncert = uncert_path(torch, store, batches, truths)
         timing = {m: time_mode(torch, m, store._dv, batches[0], store.n_chunks())
                   for m in ("K1", "K2")}
+        sweep = {"K1": k1_sweep(torch, "K1", store._dv, torch.cat(batches[:2]),
+                                store.n_chunks())}
         del store
         torch.cuda.empty_cache()
     with phase(f"4f bfloat16 storage ({ROWS} x {D}): K1 / K5 certified, K4 uncertified, "
@@ -1525,6 +1579,7 @@ def main() -> int:
             timing[m] = time_mode(torch, m, dvb, batches[0], n_chunks)
         timing["K5"] = time_mode(torch, "K5", dvb, batches[0], n_chunks, Metric.DotProduct)
         k5_euclid = time_mode(torch, "K5", dvb, batches[0], n_chunks, Metric.Euclidean)
+        sweep["K1-bf16"] = k1_sweep(torch, "K1-bf16", dvb, torch.cat(batches[:2]), n_chunks)
         del dvb, batches
         torch.cuda.empty_cache()
     with phase(f"4g bf16 stores ({NEAR_ROWS} x {D}): failed check (K3), near-ties (K5 widen)"):
@@ -1556,7 +1611,8 @@ def main() -> int:
     modes = [
         ("K1", "cert_cos_binmax", "cert_cos_binmax", ":123 (_kernel[certify,cert_cos])",
          stats["launches"],
-         {"path": f"certified main path {ROWS} x {D}", "path_qps": stats["qps"]}),
+         {"path": f"certified main path {ROWS} x {D}", "path_qps": stats["qps"],
+          "batch_sweep": sweep["K1"], "path_profile": stats["profile"]}),
         ("K2", "int8_binmax", "int8_binmax", ":149 (_kernel[int8, uncertified])",
          uncert["launches"],
          {"path": f"filtered_uncert {ROWS} x {D}", "path_qps": uncert["qps"],
@@ -1570,7 +1626,7 @@ def main() -> int:
         ("K1-bf16", "cert_cos_binmax_bf16", "cert_cos_binmax",
          ":234 (_kernel[certify,cert_cos], bf16 rows)", bf16["cosine"]["launches"],
          {"path": f"certified Cosine {bf16_path_name}",
-          "path_qps": bf16["cosine"]["qps"]}),
+          "path_qps": bf16["cosine"]["qps"], "batch_sweep": sweep["K1-bf16"]}),
         ("K5", "cert_fold_binmax", "cert_fold_binmax",
          ":244 (_kernel[certify, general fold])", bf16["dot"]["launches"],
          {"path": f"certified Dot {bf16_path_name}",

@@ -1,6 +1,6 @@
-// The scan shared by the certified kernels, K1 (csrc/cert_cos_binmax.cu,
-// int8 or bfloat16 rows) and K5 (csrc/cert_fold_binmax.cu, bfloat16 rows),
-// and by the one-pass K6 (csrc/bf16_binmax.cu, f32 or bfloat16 rows).
+// The scan shared by the certified K5 (csrc/cert_fold_binmax.cu, bfloat16
+// rows) and the one-pass K6 (csrc/bf16_binmax.cu, f32 or bfloat16 rows).
+// K1 runs the Hopper scan of csrc/cert_scan_sm90.cuh.
 //
 // One block takes one live 512-row bin and 64 queries (rounded to bf16 by
 // the caller). It keeps the queries in shared memory, streams its bin

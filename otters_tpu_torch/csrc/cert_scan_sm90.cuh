@@ -1,0 +1,654 @@
+// The certified scan for Hopper (sm_90a): a persistent grid over the
+// survivor list, the query block resident in shared memory, a TMA ring
+// with warp specialisation, and wgmma.
+//
+// What it computes: for every live 512-row bin (the survivor list
+// surv[0 : n_surv), read on the device) and every query of the CTA's
+// 64-query block, the max over the bin's rows of key(dot, row side data,
+// query), with dot = bf16 query . row (exact products, f32 sums). K1
+// (csrc/cert_cos_binmax.cu) supplies the key; the header is templated on
+// the row type (int8 or bf16), the stage shape and the key, so that the
+// other certified and one-pass scans can move onto it.
+//
+// Design.
+// - Persistent grid: about one CTA per SM (the shared memory admits no
+//   second). CTA c holds query block c % n_qb and takes survivor slots p,
+//   p + P, ... (p = c / n_qb, P = gridDim.x / n_qb), so the CTAs of a
+//   batch's query blocks walk the same bins side by side and share the
+//   rows through L2. No block exists for a pruned bin; no host round trip
+//   reads n_surv; n_surv = 0 launches safely.
+// - The query block is loaded once per CTA by TMA, 128-byte swizzled and
+//   K-major in 64-deep blocks of [64 queries x 128 B], the layout wgmma
+//   reads as its B operand, and stays resident across bins.
+// - One producer thread keeps an even number of ring stages of KS k-blocks
+//   of [TM rows x 64 deep] in flight with full / empty mbarrier pairs, one
+//   TMA box per k-block.
+// - Two consumer warpgroups in ping-pong: the stages alternate between
+//   them, and each takes a TM-row sub-tile of its own (TM / 64 m-blocks,
+//   f32 accumulators in registers, 32 a thread per m-block), so one
+//   warpgroup converts, waits and releases while the other's products run.
+//   Each stage is waited for, multiplied to completion (wgmma m64n64k16,
+//   rows as A, queries as B) and released. bf16 rows: A is read from the
+//   swizzled stage by descriptor. int8 rows: each thread loads its A
+//   fragment from the stage (16-byte loads; the caller permutes the depth
+//   of every 64-deep block of the queries so that a thread's fragment
+//   bytes of a row are contiguous), converts it exactly in registers and
+//   issues the register-A form; no converted copy of the tile is written.
+// - int8 rows, f16 products: int8 -> f16 takes 5 instructions per 4 codes
+//   (the bytes + 128 under an f16 exponent, one f16x2 subtract per pair),
+//   int8 -> bf16 11, and the conversion is most of the consumers' work
+//   beside wgmma. So once the query block is resident, each query is scaled
+//   by a power of two 2^s that puts its largest magnitude in [2^14, 2^15)
+//   and rewritten in place as f16, if every element of the block survives
+//   the round trip exactly; the products are then those of the bf16
+//   queries times 2^s, and each dot is multiplied by 2^-s (exact) before
+//   the key. A block with a query whose magnitudes span more than f16's
+//   range stays bf16 and converts the rows to bf16.
+// - The epilogue stays in registers: the rows' side data is read from
+//   global memory (__ldg) when a sub-tile starts and first used after its
+//   products; the key folds each accumulator into a running per-query max;
+//   a shuffle reduction inside the warp, then shared-memory atomicMax over
+//   the 8 consumer warps once per bin; out[bin][q0 : q0 + 64] is written
+//   once.
+// - setmaxnreg gives the producer warpgroup 40 registers and the consumers
+//   232.
+//
+// Where trouble lies, and what the code does about it.
+// - The certificate's headroom: wgmma's f32 accumulation order and
+//   rounding differ from WMMA's and from the plain product's. The
+//   certificate allows mixed_cert_eps(d) = 4 d 2^-24 + 4e-6; chip_smoke.py
+//   measures the accumulated dots against float64 and asserts d 2^-24.
+// - Tensor maps need the driver API (cuTensorMapEncodeTiled), taken
+//   through the runtime's driver entry point (no -lcuda); they are encoded
+//   per launch for that launch's pointers and passed as __grid_constant__.
+//   The rows' global stride (d bytes for int8) is a multiple of 16 because
+//   d is.
+// - Barrier phases: a waiter may never be a lap ahead of its barrier,
+//   whose parity would then read as an old phase. The ring is even, so
+//   each stage always serves the same consumer warpgroup. Every consumer
+//   walks every bin of its CTA to the end; padded query lanes (q_ok = 0)
+//   are computed and not written. A wait that spins for about 10 s traps
+//   instead of hanging the card.
+// - The f16 rewrite of the queries is a generic-proxy store into memory
+//   that wgmma reads through the async proxy: a proxy fence and a barrier
+//   stand between them.
+// - Register hazards of asynchronous wgmma: each stage's products complete
+//   (wgmma.wait_group 0) before its fragment and accumulator registers are
+//   touched again; the overlap comes from the other warpgroup.
+// - Roundings: the key's multiplies and add are __fmul_rn / __fadd_rn.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace sm90 {
+
+constexpr int BIN = 512;       // rows per bin
+constexpr int QB = 64;         // queries per CTA
+constexpr int TK = 64;         // depth per tile
+constexpr int CONSUMERS = 256; // two consumer warpgroups
+constexpr int THREADS = 384;   // + one producer warpgroup (one thread works)
+constexpr int MAX_STAGES = 12;
+constexpr size_t SMEM_LIMIT = 232448;
+constexpr int QBLOCK_BYTES = QB * TK * 2;  // one 64-deep query block, 8 KB
+// [64] per-query maxima as ordered ints, [64] per-query 2^-s, the f16 flag
+constexpr int RED_BYTES = 2 * QB * 4 + 8;
+
+// one [TM rows x 64 deep] k-block of a ring stage
+template <typename RowT, int TM>
+__host__ __device__ constexpr int tile_bytes() { return TM * TK * (int)sizeof(RowT); }
+
+// dynamic shared memory for `stages` stages at depth d: 1 KB of alignment
+// slack, the query blocks, the ring of row tiles, the reduction buffer and
+// the barriers
+template <typename RowT, int KS, int TM>
+__host__ __device__ inline size_t smem_bytes(int d, int stages) {
+    const int nk = (d + TK - 1) / TK;
+    return 1024 + (size_t)nk * QBLOCK_BYTES
+         + (size_t)stages * KS * tile_bytes<RowT, TM>()
+         + RED_BYTES + (size_t)(2 * stages + 1) * 8;
+}
+
+// the most stages (an even number up to MAX_STAGES) that fit, never
+// below 2: the two consumer warpgroups take alternate stages, so with an
+// even ring each stage always serves the same warpgroup and no waiter can
+// be a lap ahead of its barrier's phase
+template <typename RowT, int KS, int TM>
+__host__ __device__ inline int stages_for(int d) {
+    int s = MAX_STAGES;
+    while (s > 2 && smem_bytes<RowT, KS, TM>(d, s) > SMEM_LIMIT) s -= 2;
+    return s;
+}
+
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
+}
+
+// wait for the completion of the phase of parity `parity`; trap after
+// about 10 s rather than hang
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    long long start = 0;
+    while (true) {
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+        if (done) return;
+        const long long now = clock64();
+        if (start == 0) start = now;
+        else if (now - start > 20000000000LL) __trap();
+    }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4}], [%2];"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+        : "memory");
+}
+
+// wgmma descriptor of a K-major operand in 128-byte swizzled [rows][128 B]
+// atoms of 8 rows (1024 B apart)
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define SM90_ACC_OUT                                                                   \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),            \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),          \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),      \
+    "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),      \
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+    "+f"(d[30]), "+f"(d[31])
+#define SM90_ACC_REGS                                                                  \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// D[64 rows x 64 queries] += A[64 x 16] (shared, descriptor) . B[16 x 64]
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_ACC_REGS
+        ", %32, %33, p, 1, 1, 0, 0;\n}"
+        : SM90_ACC_OUT : "l"(da), "l"(db), "r"(1));
+}
+
+// the same with A from registers (the m16n8k16 fragment of each warp's 16
+// rows: a0 (row g, k 2t..2t+1), a1 (row g+8), a2 (row g, k 2t+8..),
+// a3 (row g+8, k 2t+8..), g = lane / 4, t = lane % 4), in f16 or bf16
+template <bool F16>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t db) {
+    if constexpr (F16)
+        asm volatile(
+            "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+            " wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " SM90_ACC_REGS
+            ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}"
+            : SM90_ACC_OUT : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+    else
+        asm volatile(
+            "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+            " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_ACC_REGS
+            ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}"
+            : SM90_ACC_OUT : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// a float as an int whose signed order is the float order (NaN excluded),
+// for shared-memory atomicMax, and back
+__device__ __forceinline__ int ordered(float f) {
+    const int i = __float_as_int(f);
+    return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float unordered(int i) {
+    return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
+}
+
+// two int8 codes (bytes i, j of w) -> two f16 or bf16 values, exactly. u =
+// the bytes + 128 as unsigned; f16: 0x64XX is 1024 + XX, so one f16x2
+// subtract of 1152 leaves the code; bf16: 0x4B0000XX is 2^23 + XX as f32.
+template <bool F16>
+__device__ __forceinline__ uint32_t s8x2_convert(uint32_t w, int i, int j) {
+    const uint32_t u = w ^ 0x80808080u;
+    if constexpr (F16) {
+        const uint32_t r = __byte_perm(u, 0x64646464u, (uint32_t)i | ((uint32_t)j << 8) | 0x4040u);
+        uint32_t o;
+        asm("sub.f16x2 %0, %1, %2;" : "=r"(o) : "r"(r), "r"(0x64806480u));
+        return o;
+    } else {
+        const float magic = 8388736.0f;  // 2^23 + 128
+        const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, (uint32_t)i | 0x7540u)) - magic;
+        const float hi = __uint_as_float(__byte_perm(u, 0x4B000000u, (uint32_t)j | 0x7540u)) - magic;
+        const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+        return *reinterpret_cast<const uint32_t*>(&h);
+    }
+}
+
+// Rewrite the resident bf16 query blocks (qg, nk 64-deep blocks of [64 x
+// 128 B]) in place as f16, each query scaled by 2^s (its largest magnitude
+// into [2^14, 2^15)), if every element comes back exactly; unscale[q] =
+// 2^-s. Run by the 256 consumer threads (4 per query; a query's row of a
+// block is its own 128 B whatever the swizzle); flag is 1 on entry.
+// Returns whether the block is f16 now.
+__device__ __forceinline__ bool queries_to_f16(unsigned char* qg, int nk, int tid,
+                                               int* flag, float* unscale) {
+    const int r = tid >> 2, part = tid & 3;
+    // this thread's 32 B of the query's row in each block: 2 uint4s
+    uint4* row = reinterpret_cast<uint4*>(qg + r * 128 + part * 32);
+    constexpr int STEP = QBLOCK_BYTES / 16;  // uint4s from one block to the next
+    uint32_t m = 0;  // largest magnitude as bf16 bits
+    for (int c = 0; c < nk; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const uint4 x = row[c * STEP + h];
+            const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k) m = max(m, max(w[k] & 0x7fffu, (w[k] >> 16) & 0x7fffu));
+        }
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    // magnitudes below 2^(e - 126) with e the biased exponent; s <= 126
+    // keeps 2^-s a normal float, m < inf excludes inf and NaN
+    const int s = m == 0 ? 0 : 141 - (int)(m >> 7);
+    bool ok = m < 0x7f80u && s <= 126;
+    const float up = ok ? __int_as_float((127 + s) << 23) : 1.f;
+    const float down = ok ? __int_as_float((127 - s) << 23) : 1.f;
+    // a pair of bf16 values -> a pair of f16 values; ok stays true while
+    // each is exactly 2^s times its bf16 value (the scaled f32 value, and
+    // the way back: an underflow fails one of the two)
+    const auto to_f16 = [&](uint32_t pair) -> uint32_t {
+        uint32_t o = 0;
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+            const float f = __uint_as_float((pair >> (16 * k)) << 16);
+            const __half h = __float2half_rn(f * up);
+            ok = ok && __half2float(h) == f * up && __half2float(h) * down == f;
+            o |= (uint32_t)__half_as_ushort(h) << (16 * k);
+        }
+        return o;
+    };
+    for (int c = 0; c < nk && ok; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const uint4 x = row[c * STEP + h];
+            to_f16(x.x); to_f16(x.y); to_f16(x.z); to_f16(x.w);
+        }
+    if (!ok) *flag = 0;
+    asm volatile("bar.sync 1, 256;" ::: "memory");
+    if (!*(volatile int*)flag) return false;
+    for (int c = 0; c < nk; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const uint4 x = row[c * STEP + h];
+            row[c * STEP + h] = make_uint4(to_f16(x.x), to_f16(x.y), to_f16(x.z), to_f16(x.w));
+        }
+    if (part == 0) unscale[r] = down;
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync 1, 256;" ::: "memory");
+    return true;
+}
+
+// ---------------------------------------------------------------------------
+// the scan
+// ---------------------------------------------------------------------------
+
+struct ScanArgs {
+    const int* surv;     // [n_bins] live bins, ascending
+    const int* n_surv;   // [1]
+    const float* side[4];  // per-row side arrays [n_pad] (NSIDE of them)
+    float* out;          // [n_bins, b]
+    int d, b, n_qb, stages;
+};
+
+// Key: a per-thread object made by make_key(q0, cols), cols the query
+// column (in the block) of each of the thread's 16 query slots, with
+//   void prep(float (&side)[NSIDE]) const    (once per row, on its side data)
+//   float operator()(float dot, const float (&side)[NSIDE], int slot) const
+// (slot 0..15 compile-time after unrolling). KS: 64-deep k-blocks per ring
+// stage, TM rows per stage (each warpgroup takes a TM-row sub-tile of its
+// own: TM / 64 m-blocks).
+template <typename RowT, int NSIDE, int KS, int TM, typename MakeKey>
+__device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap* vmap,
+                                     const ScanArgs& a, const MakeKey& make_key) {
+    constexpr bool INT8 = sizeof(RowT) == 1;
+    constexpr int TILE = tile_bytes<RowT, TM>();  // one [TM x 64] k-block
+    constexpr int MB = TM / 64;                   // m-blocks of a warpgroup
+    constexpr int STAGE = KS * TILE;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t base = (raw + 1023u) & ~1023u;
+    unsigned char* gbase = smem_raw + (base - raw);
+    const int nk = (a.d + TK - 1) / TK;   // 64-deep k-blocks
+    const int nks = (nk + KS - 1) / KS;   // ring stages per TM-row sub-tile
+    const int S = a.stages;
+    const uint32_t q_s = base;
+    const uint32_t tiles = q_s + nk * QBLOCK_BYTES;
+    const uint32_t red = tiles + S * STAGE;
+    const uint32_t bars = red + RED_BYTES;  // full[S], empty[S], qbar
+    int* red_g = reinterpret_cast<int*>(gbase + (red - base));
+    float* unscale_g = reinterpret_cast<float*>(red_g + QB);
+    int* f16_flag = reinterpret_cast<int*>(unscale_g + QB);
+    const unsigned char* tile_g = gbase + (tiles - base);
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int qblk = blockIdx.x % a.n_qb;
+    const int p0 = blockIdx.x / a.n_qb;
+    const int P = gridDim.x / a.n_qb;
+    const int n_surv = *a.n_surv;
+
+    if (tid < QB) red_g[tid] = ordered(-INFINITY);
+    if (tid == 0) {
+        *f16_flag = 1;
+        for (int s = 0; s < S; ++s) {
+            mbar_init(bars + 8 * s, 1);
+            mbar_init(bars + 8 * (S + s), 1);  // one warp of its warpgroup
+        }
+        mbar_init(bars + 16 * S, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp >= 8) {
+        // ---- producer warpgroup: one thread issues every copy ----
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+        if (tid == CONSUMERS) {
+            const uint32_t qbar = bars + 16 * S;
+            mbar_expect_tx(qbar, nk * QBLOCK_BYTES);
+            for (int c = 0; c < nk; ++c)
+                tma_load_2d(q_s + c * QBLOCK_BYTES, qmap, qbar, c * TK, qblk * QB);
+            int st = 0;
+            uint32_t ph = 0;  // ring position and the parity of its use
+            for (int slot = p0; slot < n_surv; slot += P) {
+                const int bin = a.surv[slot];
+                // stage order: for each pair of sub-tiles and depth step,
+                // warpgroup 0's sub-tile, then warpgroup 1's
+                for (int sp = 0; sp < BIN / TM / 2; ++sp)
+                for (int ks = 0; ks < nks; ++ks)
+                    for (int w = 0; w < 2; ++w) {
+                        const int row0 = bin * BIN + (2 * sp + w) * TM;
+                        const uint32_t full = bars + 8 * st;
+                        const int nkb = min(KS, nk - ks * KS);
+                        mbar_wait(bars + 8 * (S + st), ph ^ 1);
+                        mbar_expect_tx(full, nkb * TILE);
+                        for (int kb = 0; kb < nkb; ++kb)
+                            tma_load_2d(tiles + st * STAGE + kb * TILE, vmap, full,
+                                        (ks * KS + kb) * TK, row0);
+                        if (++st == S) { st = 0; ph ^= 1; }
+                    }
+            }
+        }
+        return;
+    }
+
+    // ---- two consumer warpgroups ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    // warpgroup w takes the TM-row sub-tiles w, w + 2, ... of every bin: in
+    // m-block mb (rows 64 mb ..) warp wq holds rows 64 mb + 16 wq + g and
+    // + 8. The two warpgroups work on different ring stages, so one
+    // converts, waits and releases while the other's products run.
+    const int wg = warp >> 2, wq = warp & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = wq * 16 + g;
+    // query slot j (0..15) of this thread: column 8 (j / 2) + 2 t + j % 2
+    int cols[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) cols[j] = 8 * (j >> 1) + 2 * t + (j & 1);
+    const auto key = make_key(qblk * QB, cols);
+    mbar_wait(bars + 16 * S, 0);
+    bool f16 = false;
+    if constexpr (INT8) f16 = queries_to_f16(gbase, nk, tid, f16_flag, unscale_g);
+
+    // the bin walk, with f16 (int8 rows only) or bf16 products
+    const auto walk = [&](auto f16_tag) {
+        constexpr bool F16 = decltype(f16_tag)::value;
+        float qmul[16];  // 2^-s of each query slot (f16 products)
+        if constexpr (F16) {
+#pragma unroll
+            for (int j = 0; j < 16; ++j) qmul[j] = unscale_g[cols[j]];
+        }
+        int st = 0;
+        uint32_t ph = 0;
+        const auto advance = [&]() { if (++st == S) { st = 0; ph ^= 1; } };
+        if (wg == 1) advance();  // the ring alternates between the warpgroups
+        for (int slot = p0; slot < n_surv; slot += P) {
+            const int bin = a.surv[slot];
+            float best[16];
+#pragma unroll
+            for (int j = 0; j < 16; ++j) best[j] = -INFINITY;
+            for (int sp = 0; sp < BIN / TM / 2; ++sp) {
+                // the rows' side data, read now and first used after the
+                // sub-tile's products
+                const size_t row = (size_t)bin * BIN + (2 * sp + wg) * TM + r0;
+                float sv[MB][2][NSIDE];
+#pragma unroll
+                for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+                    for (int j = 0; j < NSIDE; ++j) {
+                        sv[mb][0][j] = __ldg(a.side[j] + row + 64 * mb);
+                        sv[mb][1][j] = __ldg(a.side[j] + row + 64 * mb + 8);
+                    }
+                float d[MB][32];
+#pragma unroll
+                for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+                    for (int i = 0; i < 32; ++i) d[mb][i] = 0.f;
+                // the sub-tile's ring stages, each waited for, multiplied to
+                // completion and released: the other warpgroup's products
+                // keep the tensor cores busy meanwhile
+                for (int ks = 0; ks < nks; ++ks) {
+                    const int nkb = min(KS, nk - ks * KS);
+                    mbar_wait(bars + 8 * st, ph);
+                    if constexpr (INT8) {
+                        uint32_t af[KS][MB][4][4];
+#pragma unroll
+                        for (int kb = 0; kb < KS; ++kb) {
+                            if (kb < nkb) {
+#pragma unroll
+                                for (int mb = 0; mb < MB; ++mb) {
+                                    const unsigned char* tg =
+                                        tile_g + st * STAGE + kb * TILE + (64 * mb + r0) * TK + 16 * t;
+                                    const uint4 x0 = *reinterpret_cast<const uint4*>(tg);
+                                    const uint4 x1 = *reinterpret_cast<const uint4*>(tg + 8 * TK);
+                                    const uint32_t w0[4] = {x0.x, x0.y, x0.z, x0.w};
+                                    const uint32_t w1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+                                    for (int kk = 0; kk < 4; ++kk) {
+                                        af[kb][mb][kk][0] = s8x2_convert<F16>(w0[kk], 0, 1);
+                                        af[kb][mb][kk][1] = s8x2_convert<F16>(w1[kk], 0, 1);
+                                        af[kb][mb][kk][2] = s8x2_convert<F16>(w0[kk], 2, 3);
+                                        af[kb][mb][kk][3] = s8x2_convert<F16>(w1[kk], 2, 3);
+                                    }
+                                }
+                            }
+                        }
+#pragma unroll
+                        for (int mb = 0; mb < MB; ++mb) fence_acc(d[mb]);
+                        wgmma_fence();
+#pragma unroll
+                        for (int kb = 0; kb < KS; ++kb)
+                            if (kb < nkb)
+#pragma unroll
+                                for (int kk = 0; kk < 4; ++kk) {
+                                    const uint64_t db =
+                                        desc_sw128(q_s + (ks * KS + kb) * QBLOCK_BYTES + kk * 32);
+#pragma unroll
+                                    for (int mb = 0; mb < MB; ++mb)
+                                        wgmma_rs<F16>(d[mb], af[kb][mb][kk][0], af[kb][mb][kk][1],
+                                                      af[kb][mb][kk][2], af[kb][mb][kk][3], db);
+                                }
+                    } else {
+#pragma unroll
+                        for (int mb = 0; mb < MB; ++mb) fence_acc(d[mb]);
+                        wgmma_fence();
+#pragma unroll
+                        for (int kb = 0; kb < KS; ++kb)
+                            if (kb < nkb)
+#pragma unroll
+                                for (int kk = 0; kk < 4; ++kk) {
+                                    const uint64_t db =
+                                        desc_sw128(q_s + (ks * KS + kb) * QBLOCK_BYTES + kk * 32);
+#pragma unroll
+                                    for (int mb = 0; mb < MB; ++mb)
+                                        wgmma_ss(d[mb],
+                                                 desc_sw128(tiles + st * STAGE + kb * TILE
+                                                            + mb * 64 * 128 + kk * 32),
+                                                 db);
+                                }
+                    }
+                    wgmma_commit();
+                    wgmma_wait<0>();
+#pragma unroll
+                    for (int mb = 0; mb < MB; ++mb) fence_acc(d[mb]);
+                    // release the stage: the warpgroup's products on it are
+                    // complete (wgmma.wait_group is warpgroup-wide), so one
+                    // of its warps speaks for it
+                    if (wq == (st & 3) && lane == 0) mbar_arrive(bars + 8 * (S + st));
+                    advance();
+                    advance();
+                }
+                // accumulator element i of m-block mb: row 64 mb + r0 + 8
+                // ((i >> 1) & 1), query slot 2 (i >> 2) + (i & 1)
+#pragma unroll
+                for (int mb = 0; mb < MB; ++mb) {
+                    key.prep(sv[mb][0]);
+                    key.prep(sv[mb][1]);
+#pragma unroll
+                    for (int i = 0; i < 32; ++i) {
+                        const int h = (i >> 1) & 1, j = 2 * (i >> 2) + (i & 1);
+                        const float dot = F16 ? d[mb][i] * qmul[j] : d[mb][i];
+                        best[j] = fmaxf(best[j], key(dot, sv[mb][h], j));
+                    }
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+                best[j] = fmaxf(best[j], __shfl_xor_sync(0xffffffffu, best[j], 4));
+                best[j] = fmaxf(best[j], __shfl_xor_sync(0xffffffffu, best[j], 8));
+                best[j] = fmaxf(best[j], __shfl_xor_sync(0xffffffffu, best[j], 16));
+            }
+            if (lane < 4) {
+#pragma unroll
+                for (int j = 0; j < 16; ++j) atomicMax(red_g + cols[j], ordered(best[j]));
+            }
+            asm volatile("bar.sync 1, 256;" ::: "memory");
+            if (tid < QB) {
+                const int q = qblk * QB + tid;
+                if (q < a.b) a.out[(size_t)bin * a.b + q] = unordered(red_g[tid]);
+                red_g[tid] = ordered(-INFINITY);
+            }
+            asm volatile("bar.sync 1, 256;" ::: "memory");  // reset before the next bin's maxima
+        }
+    };
+    if (f16) walk(std::true_type{});
+    else walk(std::false_type{});
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+    static EncodeTiledFn fn = nullptr;
+    if (!fn) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+        if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                             cudaEnableDefault, &q) != cudaSuccess)
+            return nullptr;
+#else
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q)
+            != cudaSuccess)
+            return nullptr;
+#endif
+        if (q != cudaDriverEntryPointSuccess) return nullptr;
+        fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+    return fn;
+}
+
+// a 2-D map over a row-major [rows, cols] tensor (cols contiguous, row
+// stride `stride` bytes) with boxes of [box_rows, box_cols]; zero fill out
+// of bounds
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                     uint64_t rows, uint64_t cols, uint64_t stride, uint32_t box_rows,
+                     uint32_t box_cols, CUtensorMapSwizzle swz) {
+    EncodeTiledFn fn = encode_tiled();
+    if (!fn) return false;
+    const cuuint64_t dims[2] = {cols, rows};
+    const cuuint64_t strides[1] = {stride};
+    const cuuint32_t box[2] = {box_cols, box_rows};
+    const cuuint32_t estr[2] = {1, 1};
+    return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the maps of one launch: queries [bq, dq] bf16 (dq a multiple of 64, 128 B
+// swizzled boxes of 64 x 64) and rows [n_pad, d] (TM-row boxes of 64 deep;
+// bf16 swizzled for wgmma's descriptor, int8 plain for the fragment loads)
+template <typename RowT, int TM>
+inline bool make_maps(CUtensorMap* qmap, CUtensorMap* vmap, const void* q, int bq, int dq,
+                      const void* v, long long n_pad, int d) {
+    constexpr bool INT8 = sizeof(RowT) == 1;
+    return make_map(qmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, (uint64_t)bq, (uint64_t)dq,
+                    (uint64_t)dq * 2, QB, TK, CU_TENSOR_MAP_SWIZZLE_128B)
+        && make_map(vmap, INT8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    v, (uint64_t)n_pad, (uint64_t)d, (uint64_t)d * sizeof(RowT), TM, TK,
+                    INT8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+}  // namespace sm90

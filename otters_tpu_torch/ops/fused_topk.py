@@ -202,14 +202,15 @@ def _kernel_fns(source: str, entry: str, n_ptrs: int, n_ints: int):
     return smem, launch
 
 
-def _launch(wrapper, source, entry, q, v, ptrs, ints, *, d_multiple=1):
+def _launch(wrapper, source, entry, q, v, ptrs, ints, *, d_multiple=1, d=None):
     """Launch ``entry`` of ``source`` on q's stream with the pointers
     ``ptrs`` (q and v first) and the output [n_bins, b], pre-filled with
-    -inf, then n_bins, d and the ints ``ints`` (b and n_qb first).
-    ``q`` is already padded to whole query blocks; b is the real batch.
-    Raises if the kernel cannot build or launch; counts the launch on
-    ``wrapper.launches``."""
-    b, d = ints[0], q.shape[1]
+    -inf, then n_bins, d (the rows' depth, q's unless given) and the ints
+    ``ints`` (b first). ``q`` is already padded to whole query blocks; b is
+    the real batch. Raises if the kernel cannot build or launch; counts the
+    launch on ``wrapper.launches``."""
+    b = ints[0]
+    d = q.shape[1] if d is None else d
     if d % d_multiple:
         raise ValueError(f"{entry}: d={d} must be a multiple of {d_multiple}")
     if v.data_ptr() % 16 or q.data_ptr() % 16:
@@ -278,6 +279,109 @@ def cert_cos_binmax_plain(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_su
     return out
 
 
+# K1's launch geometry (csrc/cert_scan_sm90.cuh): CTAs of 64 queries, a
+# persistent grid, a ring of [rows x 64 deep] stages in shared memory. The
+# CTAs of a batch's query blocks sit side by side on the same bins and
+# share the rows through L2.
+K1_MAX_STAGES = 12
+_K1_TK = 64
+
+
+class K1Geometry(NamedTuple):
+    """How K1 covers a batch: ``n_qb`` 64-query blocks (the batch padded to
+    whole blocks), ``per_group`` persistent CTAs per block, the query depth
+    padded to ``dq``, and the ring: ``stages`` stages of ``ks`` k-blocks of
+    ``rows`` rows in ``smem`` bytes of shared memory."""
+
+    n_qb: int
+    per_group: int
+    dq: int
+    ks: int
+    rows: int
+    stages: int
+    smem: int
+
+    @property
+    def n_ctas(self) -> int:
+        return self.n_qb * self.per_group
+
+
+def k1_smem_bytes(d: int, row_bytes: int, stages: int, ks: int, rows: int) -> int:
+    """K1's dynamic shared memory (the C side's ``sm90::smem_bytes``): 1 KB
+    of alignment slack, the resident query blocks (8 KB per 64 deep), the
+    ring of ``stages`` x ``ks`` [rows x 64 deep] row tiles, the per-query
+    maxima and scales with the f16 flag, and the barriers."""
+    nk = -(-d // _K1_TK)
+    return (1024 + nk * QUERY_BLOCK * _K1_TK * 2 + stages * ks * rows * _K1_TK * row_bytes
+            + 2 * QUERY_BLOCK * 4 + 8 + (2 * stages + 1) * 8)
+
+
+def k1_stages(d: int, row_bytes: int, ks: int, rows: int) -> int:
+    """The most ring stages that fit: an even number up to K1_MAX_STAGES,
+    never below 2 (the two consumer warpgroups take alternate stages)."""
+    s = K1_MAX_STAGES
+    while s > 2 and k1_smem_bytes(d, row_bytes, s, ks, rows) > _SMEM_MAX:
+        s -= 2
+    return s
+
+
+def k1_plan(d: int, row_bytes: int):
+    """-> (ks, rows, stages): the stage shape of the C side's ``plan_for``.
+    int8 rows take 2 k-blocks of 128 rows a stage, bf16 rows one k-block of
+    256 rows; either falls back to one of 128 rows when fewer than 4 stages
+    would fit."""
+    ks, rows = (2, 128) if row_bytes == 1 else (1, 256)
+    if k1_stages(d, row_bytes, ks, rows) < 4:
+        ks, rows = 1, 128
+    return ks, rows, k1_stages(d, row_bytes, ks, rows)
+
+
+def k1_geometry(b: int, d: int, row_bytes: int, n_sms: int) -> K1Geometry:
+    """K1's launch for a batch of ``b`` queries of depth ``d`` over rows of
+    ``row_bytes`` bytes (1: int8, 2: bf16) on a card of ``n_sms`` SMs. The
+    shared memory admits one CTA per SM, so each query block gets an equal
+    share of the SMs, at least one CTA."""
+    n_qb = max(1, -(-b // QUERY_BLOCK))
+    ks, rows, stages = k1_plan(d, row_bytes)
+    return K1Geometry(n_qb, max(1, n_sms // n_qb), -(-d // _K1_TK) * _K1_TK,
+                      ks, rows, stages, k1_smem_bytes(d, row_bytes, stages, ks, rows))
+
+
+@functools.lru_cache(maxsize=None)
+def k1_query_perm(dq: int, device: torch.device = torch.device("cpu")) -> torch.Tensor:
+    """[dq] gather index of the int8-row K1's queries: within every 64-deep
+    block, stored row byte p = 16 t + 4 kk + e (t = lane % 4 of the thread
+    that loads it, kk its 16-deep step, e = 0..3) sits at wgmma depth
+    16 kk + 2 t + (0, 1, 8, 9)[e] of the thread's A fragment, so the query
+    element p goes there too: ``q_kernel[:, j] = q[:, perm[j]]``. Made once
+    per depth and device (callers read it, never write it)."""
+    p = torch.arange(_K1_TK)
+    t, kk, e = p // 16, (p % 16) // 4, p % 4
+    block = torch.empty(_K1_TK, dtype=torch.int64)
+    block[16 * kk + 2 * t + torch.tensor([0, 1, 8, 9])[e]] = p
+    return (torch.arange(0, dq, _K1_TK)[:, None] + block).reshape(-1).to(device)
+
+
+def k1_pad_queries(q, q_inv, q_ok, geom: K1Geometry, permute: bool):
+    """K1's query operands: the batch padded to ``geom.n_qb`` blocks
+    (padded lanes zero, so q_ok = 0 keeps them out of every bin max), the
+    depth to ``geom.dq`` with zeros, and over int8 rows the depth of each
+    64-deep block permuted by :func:`k1_query_perm`."""
+    b, d = q.shape
+    pad = geom.n_qb * QUERY_BLOCK - b
+    qk = q if (pad, geom.dq) == (0, d) else torch.nn.functional.pad(q, (0, geom.dq - d, 0, pad))
+    if permute:
+        qk = qk.index_select(1, k1_query_perm(geom.dq, q.device))
+    if pad:
+        q_inv, q_ok = (torch.nn.functional.pad(t, (0, pad)) for t in (q_inv, q_ok))
+    return qk, q_inv, q_ok
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _cert_cos(wrapper, entry, vdtype, q, v, inv, rmask, lane_a, q_inv, q_ok, thr,
               surv, n_surv, cmp):
     b, d = q.shape
@@ -299,11 +403,16 @@ def _cert_cos(wrapper, entry, vdtype, q, v, inv, rmask, lane_a, q_inv, q_ok, thr
     if not _on_card(entry, q):
         return cert_cos_binmax_plain(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv,
                                      n_surv, cmp)
-    n_qb, q, (q_inv, q_ok) = _pad_query_blocks(q, q_inv, q_ok)
+    if any(t.data_ptr() % 16 for t in (inv, rmask, lane_a)):
+        raise ValueError(f"{entry}: inv, rmask and lane_a must start on a 16-byte boundary")
+    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    geom = k1_geometry(b, d, v.element_size(), _n_sms(dev))
+    qk, q_inv, q_ok = k1_pad_queries(q, q_inv, q_ok, geom, vdtype == torch.int8)
     return _launch(
-        wrapper, "cert_cos_binmax", entry, q, v,
-        [q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv],
-        [b, n_qb, _CMP_CODE[cmp]], d_multiple=16,
+        wrapper, "cert_cos_binmax", entry, qk, v,
+        [qk, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv],
+        [b, geom.dq, geom.n_qb, geom.per_group, _CMP_CODE[cmp]],
+        d_multiple=16, d=d,
     )
 
 

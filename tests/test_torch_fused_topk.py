@@ -163,6 +163,26 @@ def test_k1_plain_matches_tpu_kernel_bins(cmp, thr):
     np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=ts.mixed_cert_eps(D))
 
 
+@pytest.mark.parametrize("b,cmp,thr", [(1, None, 0.0), (300, "Gt", 0.2)])
+def test_k1_plain_matches_tpu_kernel_bins_at_batch(b, cmp, thr):
+    """One query (one padded 64-query block) and 300 (five blocks, the
+    last one partial): the same agreement as above."""
+    dj = _store(seed=11)
+    dt = device_vecs_from_numpy(*_numpy_fields(dj), device="cpu")
+    q = _queries(seed=12, b=b)
+    n_pad = dj.vectors.shape[0]
+    alive = _tile_alive(n_pad // TILE, seed=13)
+    rm = _row_mask(n_pad, alive, TILE)
+    want = _jax_bins(dj, q, rm, alive, thr, None if cmp is None else getattr(JCmp, cmp))
+    args = _port_inputs(dt, q, rm, alive, thr, cmp, TILE)
+    got = ft.cert_cos_binmax(*args, None if cmp is None else getattr(Cmp, cmp)).numpy()
+    assert got.shape == want.shape == (n_pad // ft.BIN, b)
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    fin = np.isfinite(want)
+    assert fin.sum() > 10 and (~fin).sum() > 10
+    np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=ts.mixed_cert_eps(D))
+
+
 @pytest.mark.parametrize("cmp,thr,k", [(None, 0.0, 10), ("Gt", 0.25, 40), (None, 0.0, 300)])
 def test_fused_topk_matches_pallas_topk(cmp, thr, k):
     dj = _store(seed=4)

@@ -1,0 +1,93 @@
+"""K1's launch geometry, shared-memory plan and query layout, on the CPU.
+
+The Hopper kernel (``csrc/cert_cos_binmax.cu`` on ``csrc/cert_scan_sm90.cuh``)
+runs only on the card; what surrounds it is Python that these tests reach:
+``k1_geometry`` (query blocks and the persistent grid), ``k1_stages`` / ``k1_smem_bytes`` (the ring, mirroring the C side's
+``smem_bytes``; ``tests/test_torch_kernels_cuda.py`` checks the two agree on
+the card), ``k1_pad_queries`` and ``k1_query_perm`` (the int8-row fragment
+order). The kernel's CTA -> (query block, bin slots) mapping is replayed
+here from the geometry.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from otters_tpu_torch.ops import fused_topk as ft
+
+SMEM_MAX = 232448
+N_SMS = 132  # an H100 SXM
+
+
+def _walk(geom, n_surv):
+    """The (query block, survivor slot) pairs the kernel's CTAs visit: CTA
+    c takes query block c % n_qb and slots p, p + per_group, ... with p =
+    c // n_qb."""
+    seen = []
+    for cta in range(geom.n_ctas):
+        p, qblk = divmod(cta, geom.n_qb)
+        seen += [(qblk, slot) for slot in range(p, n_surv, geom.per_group)]
+    return seen
+
+
+@pytest.mark.parametrize("row_bytes", [1, 2], ids=["int8", "bf16"])
+@pytest.mark.parametrize("d", [16, 96, 768, 1392])
+@pytest.mark.parametrize("b", [1, 64, 70, 256, 300, 512, 600, 1024])
+def test_k1_geometry_covers_the_batch(b, d, row_bytes):
+    geom = ft.k1_geometry(b, d, row_bytes, N_SMS)
+    assert geom.smem == ft.k1_smem_bytes(d, row_bytes, geom.stages, geom.ks, geom.rows)
+    assert geom.smem <= SMEM_MAX
+    assert geom.stages >= 2 and geom.stages % 2 == 0
+    assert (geom.ks, geom.rows, geom.stages) == ft.k1_plan(d, row_bytes)
+    assert geom.n_qb == -(-b // ft.QUERY_BLOCK)
+    assert geom.dq % 64 == 0 and 0 <= geom.dq - d < 64
+    # the persistent grid: an equal share of the card per query block
+    assert geom.per_group == max(1, N_SMS // geom.n_qb)
+    assert geom.n_ctas <= max(N_SMS, geom.n_qb)
+    # every (query block, live bin) pair is computed exactly once
+    n_surv = 37
+    seen = _walk(geom, n_surv)
+    assert len(seen) == len(set(seen)) == geom.n_qb * n_surv
+    assert {q for q, _ in seen} == set(range(geom.n_qb))
+    # padded lanes carry q_ok = 0 and zero queries
+    rng = np.random.default_rng(b + d)
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).bfloat16()
+    qk, qi, qo = ft.k1_pad_queries(q, torch.ones(b), torch.ones(b), geom, row_bytes == 1)
+    assert qk.shape == (geom.n_qb * 64, geom.dq) and qk.is_contiguous()
+    assert qo[:b].eq(1).all() and qo[b:].eq(0).all() and qi[b:].eq(0).all()
+    assert qk[b:].eq(0).all()
+    perm = ft.k1_query_perm(geom.dq) if row_bytes == 1 else torch.arange(geom.dq)
+    assert torch.equal(qk[:b, torch.argsort(perm)][:, :d], q)
+
+
+@pytest.mark.parametrize("d,row_bytes,plan", [
+    (768, 1, (2, 128, 8)), (768, 2, (1, 256, 4)), (1392, 1, (1, 128, 6)),
+    (1392, 2, (1, 128, 2)), (96, 2, (1, 256, 6))])
+def test_k1_stage_plan(d, row_bytes, plan):
+    """int8 rows: two 64-deep k-blocks of 128 rows a stage; bf16 rows: one
+    of 256 rows; one of 128 rows when fewer than 4 stages would fit."""
+    assert ft.k1_plan(d, row_bytes) == plan
+
+
+@pytest.mark.parametrize("dq", [64, 128, 768, 1408])
+def test_k1_query_perm_matches_the_fragment_order(dq):
+    """Replays how a consumer thread builds its int8 A fragment: lane
+    t = lane % 4 loads row bytes 16 t .. 16 t + 15 of a 64-deep block; byte
+    e of word kk goes to register a0 (e = 0, 1: depth 16 kk + 2 t + e) or
+    a2 (e = 2, 3: depth 16 kk + 2 t + 8 + e - 2) of the m16n8k16 layout.
+    The query element multiplying stored byte p must sit at that depth."""
+    perm = ft.k1_query_perm(dq)
+    assert sorted(perm.tolist()) == list(range(dq))
+    for c in range(0, dq, 64):
+        for t in range(4):
+            for kk in range(4):
+                for e in range(4):
+                    p = 16 * t + 4 * kk + e
+                    depth = 16 * kk + 2 * t + (e if e < 2 else 8 + e - 2)
+                    assert perm[c + depth] == c + p
+    # the product the kernel forms equals the plain dot
+    rng = np.random.default_rng(dq)
+    v = rng.integers(-127, 128, size=(5, dq)).astype(np.float64)
+    q = rng.normal(size=(3, dq))
+    a = v[:, perm.numpy()]  # A as wgmma sees it: depth j holds row byte perm[j]
+    np.testing.assert_allclose(a @ q[:, perm.numpy()].T, v @ q.T, rtol=1e-12)

@@ -1,8 +1,10 @@
 """The Hopper kernels against their plain torch versions, on the card.
 
-K2 / K3 / K4 / K6 over int8 / f32 rows; over bfloat16 rows K1 (certified
-Cosine), K3, K4, K5 (the general certified fold, Dot and Euclid) and K6;
-the three profiling probes (``profile_variants``).
+K1 (certified Cosine) over int8 and bfloat16 rows at b = 1 to 600 and d =
+96 to 1392, with its live-bin edge cases and queries far from unit scale
+or too wide for f16; K2 / K3 / K4 / K6 over int8 / f32
+rows; over bfloat16 rows K3, K4, K5 (the general certified fold, Dot and
+Euclid) and K6; the three profiling probes (``profile_variants``).
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
@@ -22,6 +24,8 @@ sums the same exact bf16 products in another order than its plain
 version: within ``d 2^-24 |qh| |vh|`` (Cosine: of the unit scores), as K3.
 The probes: ``k_mm`` / ``k_mm_bins`` as K3, ``k_planes`` as K4.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -237,6 +241,122 @@ def test_bf16_row_kernel_matches_plain(mode, metric, take_min, cmp, thr, d):
     if metric is not Metric.Cosine or mode == "K5":
         tol += 4 * float(np.spacing(np.float32(float(want[fin_w].abs().max()))))
     assert err <= tol, (err, tol)
+
+
+def _k1_operands(mode, dev, *, b, d, cmp, thr=0.05, live="some", n=20_000, seed=0,
+                 q_scale=None):
+    """K1's operands as the fused path sets them up (``cert_scan``) over an
+    int8 ("K1") or bf16 ("K1-bf16") store; ``live``: "none", "one", "all"
+    or "some" (60% of the bins) alive; ``q_scale`` [b, d] multiplies the
+    queries."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pad = sc.pad_rows(n)
+    if mode == "K1":
+        f32 = torch.randn((n_pad, d), generator=g, device=dev)
+        f32[n:] = 0.0
+        dv = sc.materialize_int8_slabs(lambda s, r: f32[s : s + r], n, d, 1 << 14, device=dev)
+    else:
+        dv = _bf16_store(dev, g, n, d)
+    q = torch.randn((b, d), generator=g, device=dev)
+    if q_scale is not None:
+        q = q * q_scale.to(dev)
+    n_bins = n_pad // ft.BIN
+    alive = {
+        "none": torch.zeros(n_bins, dtype=torch.bool, device=dev),
+        "one": torch.arange(n_bins, device=dev) == n_bins // 2,
+        "all": torch.ones(n_bins, dtype=torch.bool, device=dev),
+        "some": torch.rand(n_bins, generator=g, device=dev) < 0.6,
+    }[live]
+    row_mask = torch.rand(n_pad, generator=g, device=dev) < 0.9
+    return ft.cert_scan(mode, dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, q, row_mask,
+                        torch.tensor(thr, device=dev), alive, metric=Metric.Cosine, cmp=cmp,
+                        resid=dv.resid).ops
+
+
+def _check_k1(mode, args, cmp, live):
+    fn = ft.KERNELS[mode]
+    before = fn.launches
+    got = fn(*args, cmp)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = ft.cert_cos_binmax_plain(*args, cmp)
+    fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
+    assert torch.equal(fin_g, fin_w)
+    if live == "none":
+        assert bool(torch.isneginf(got).all())
+        return
+    assert bool(fin_w.any())
+    err = float((got[fin_w] - want[fin_w]).abs().max())
+    assert err <= sc.mixed_cert_eps(args[0].shape[1]), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cmp", [None, Cmp.Gt, Cmp.Gte])
+@pytest.mark.parametrize("d", [96, 768, 1392])
+@pytest.mark.parametrize("b", [1, 70, 256, 600])
+@pytest.mark.parametrize("mode", ["K1", "K1-bf16"])
+def test_k1_matches_plain(mode, b, d, cmp):
+    """K1 over int8 and bf16 rows at batch sizes of one, two, four and ten
+    query blocks, depths of one and a
+    half, twelve and 21.75 64-deep blocks, each score filter; 60% of the
+    bins alive: within ``mixed_cert_eps(d)`` of the plain version."""
+    dev = _device()
+    _check_k1(mode, _k1_operands(mode, dev, b=b, d=d, cmp=cmp), cmp, "some")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 600])
+@pytest.mark.parametrize("live", ["none", "one", "all"])
+@pytest.mark.parametrize("mode", ["K1", "K1-bf16"])
+def test_k1_liveness(mode, live, b):
+    """n_surv = 0 (every bin stays -inf), one live bin, every bin live."""
+    dev = _device()
+    _check_k1(mode, _k1_operands(mode, dev, b=b, d=768, cmp=None, live=live), None, live)
+
+
+def _q_scale(kind, b, d):
+    """[b, d] query multipliers: every query scaled by 1e-15 or 1e15 (int8
+    rows: f16 products scaled by about 2^62 or 2^-37), or query 0's even
+    elements by 2^-40 (its magnitudes span more than f16's range, so its
+    block keeps bf16 products while the batch's other blocks take f16)."""
+    if kind in ("tiny", "huge"):
+        return torch.full((b, d), 1e-15 if kind == "tiny" else 1e15)
+    scale = torch.ones(b, d)
+    scale[0, ::2] = 2.0 ** -40
+    return scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tiny", "huge", "wide"])
+@pytest.mark.parametrize("b", [1, 70])
+@pytest.mark.parametrize("mode", ["K1", "K1-bf16"])
+def test_k1_query_scales(mode, b, kind):
+    """Queries far from unit scale, or spanning more than f16's range
+    within one query: within ``mixed_cert_eps(d)`` of the plain version
+    (over int8 rows the f16 products' scale is undone exactly, and a block
+    that f16 cannot hold exactly keeps bf16 products)."""
+    dev = _device()
+    args = _k1_operands(mode, dev, b=b, d=768, cmp=None, q_scale=_q_scale(kind, b, 768))
+    _check_k1(mode, args, None, "some")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,row_bytes", [("K1", 1), ("K1-bf16", 2)])
+@pytest.mark.parametrize("d", [16, 96, 768, 1392])
+def test_k1_smem_mirrors_the_kernel(mode, row_bytes, d):
+    """``k1_plan`` / ``k1_smem_bytes`` equal the C side's figures."""
+    _device()
+    from otters_tpu_torch import kernels
+
+    entry = {"K1": "cert_cos_binmax", "K1-bf16": "cert_cos_binmax_bf16"}[mode]
+    lib = kernels.load("cert_cos_binmax")
+    smem, stages = getattr(lib, f"{entry}_smem_bytes"), getattr(lib, f"{entry}_stages")
+    smem.argtypes = stages.argtypes = [ctypes.c_int]
+    smem.restype = ctypes.c_size_t
+    stages.restype = ctypes.c_int
+    ks, rows, s = ft.k1_plan(d, row_bytes)
+    assert stages(d) == s
+    assert smem(d) == ft.k1_smem_bytes(d, row_bytes, s, ks, rows)
 
 
 @pytest.mark.cuda
