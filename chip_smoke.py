@@ -9,8 +9,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 3. the kernel phase: K1 (csrc/cert_cos_binmax.cu), K2 (int8_binmax.cu), K3
    (f32_binmax.cu), K4 (bf16x3_binmax.cu), K5 (cert_fold_binmax.cu) and K6
    (bf16_binmax.cu) against their plain torch versions at d = 768, b = 256
-   and 70 (K1 also 1 and 600), 2M rows in 1024-row chunks with half of them
-   pruned, every metric
+   and 70 (K1, K5 and K6 also 1 and 600), 2M rows in 1024-row chunks with
+   half of them pruned, every metric
    and Gt / Lt / Eq filters, over int8 / f32 rows and (K1, K3, K4, K5, K6)
    bfloat16 rows; K2's int32 dots bit for bit; the others against float64
    dots (K4 within the ``4 d 2^-24`` accumulation share of
@@ -24,8 +24,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    equal to an exact f32 filtered top-10; one round traced (K1's time per
    batch, the rest of the device time, the idle share); then K1 timed at
    these shapes against its plain version, a library yardstick and its
-   bound, and again at b = 1, 64 and 512 (as K1 over bf16 rows in 4f); K1
-   and its library call timed in K1_ROUNDS interleaved rounds (median and
+   bound, and again at b = 1, 64 and 512 (as K1 over bf16 rows and K5 in
+   4f, K6 in 6); each kernel of csrc/cert_scan_sm90.cuh (K1, K5, K6) and
+   its library call timed in K1_ROUNDS interleaved rounds (median and
    range);
    4u. bench.py's ``filtered_uncert`` on the same store
    (``certify=False``): K2, recall@10 against the f32 truth, K2 timed;
@@ -44,6 +45,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    near-ties that make the certificate widen on K5;
    4b. adversarial near-ties (1M x 768) that make the certificate widen
    through the fused kernel and past it into the scan program;
+   4d. depths: 250,000-row stores at d = 100 (stored as 112) and d = 2,048
+   through MetaStore (certified int8 Cosine on K1, certified bf16 Dot on
+   K5, precision "default" over f32 rows on K6 and over bf16 rows, and
+   uncertified int8), each equal to its exact truth; at 2,048 K1, K5 and
+   K6 run their deep-row plan while K6 over bf16 rows is routed to the
+   scan program by shape, as K2 is at d = 3,072 (the routed queries are
+   counted); K1, K5 and K6 against their plain versions at both depths;
 5. the twin of examples/demo.py on the card;
 6. bench.py's exact-f32 section: a 4M x 768 f32 store built on the device,
    the same columns and filter, pipelined ``take(10)`` batches of 256
@@ -100,8 +108,12 @@ VEC_ROWS = 1_000_000  # bench.py's 1M f32 section, through VecStore
 N_DUP = 60  # bins holding copies of the tied row: more than 4k = 40
 TAKE_ALL_B = 16  # queries of the take-all batches
 K1_WIDE_B = 600  # K1's widest kernel-phase batch: ten query blocks, the last one partial
-K1_ROUNDS = 7  # interleaved timing rounds of K1 and its library call
-K1_SWEEP_B = (1, 64, 512)  # K1's other timed batch sizes, on the main path's stores
+K1_ROUNDS = 7  # interleaved timing rounds of an sm90 kernel and its library call
+ROUND_MODES = ("K1", "K1-bf16", "K5", "K6")  # the kernels on csrc/cert_scan_sm90.cuh
+SWEEP_B = (1, 64, 512)  # their other timed batch sizes, on their paths' stores
+DEPTH_ROWS = 250_000  # the depth phase's stores (with 256 queries, fused-size)
+DEPTHS = (100, 2048)  # stored as 112; past every resident query block
+DEPTH_K2 = 3072  # past K2's shared memory (d <= 2,976)
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
@@ -375,6 +387,8 @@ def kernel_phase(torch, dev):
         ("K5", dvb, Metric.DotProduct, False, Cmp.Gt, 2.0, 70),
         ("K5", dvb, Metric.Euclidean, True, None, 0.0, B),
         ("K5", dvb, Metric.Euclidean, True, Cmp.Lt, 1450.0, 70),
+        ("K5", dvb, Metric.DotProduct, False, Cmp.Gte, 2.0, 1),
+        ("K5", dvb, Metric.Euclidean, True, Cmp.Lte, 1450.0, K1_WIDE_B),
         ("K3-bf16", dvb, Metric.Cosine, False, Cmp.Gte, 0.05, B),
         ("K3-bf16", dvb, Metric.Euclidean, True, Cmp.Lt, 1450.0, 70),
         ("K4-bf16", dvb, Metric.Cosine, False, None, 0.0, B),
@@ -383,6 +397,8 @@ def kernel_phase(torch, dev):
         ("K6", dvf, Metric.Cosine, False, Cmp.Gt, 0.05, B),
         ("K6", dvf, Metric.DotProduct, False, None, 0.0, 70),
         ("K6", dvf, Metric.Euclidean, True, Cmp.Lt, 1450.0, B),
+        ("K6", dvf, Metric.Cosine, False, Cmp.Lte, 0.05, 1),
+        ("K6", dvf, Metric.DotProduct, False, Cmp.Gte, 2.0, K1_WIDE_B),
         ("K6-bf16", dvb, Metric.Cosine, False, None, 0.0, 70),
         ("K6-bf16", dvb, Metric.DotProduct, False, Cmp.Gt, 2.0, B),
         ("K6-bf16", dvb, Metric.Euclidean, True, Cmp.Lt, 1450.0, 70),
@@ -499,7 +515,7 @@ def score_tol(metric, queries, dv):
     if metric is not Metric.Cosine:
         scale = float(queries.float().norm(dim=1).max()) * float(dv.norms_sq.max().sqrt())
         scale *= 2.0 if metric is Metric.Euclidean else 1.0
-    return 2 * D * 2.0**-24 * scale
+    return 2 * queries.shape[1] * 2.0**-24 * scale
 
 
 def check_topk(label, rows, scores, want_rows, want_scores, tol):
@@ -765,9 +781,9 @@ def time_mode(torch, mode, dv, queries, n_chunks, metric=None):
     v_live = dv.vectors[rows]
     library = library_fn(torch, mode, args[0], v_live, n_live)
     extra = {}
-    if mode in ("K1", "K1-bf16"):
-        # K1 is close to its library call: time both in interleaved rounds
-        # and keep each one's median and range
+    if mode in ROUND_MODES:
+        # the sm90 kernels are close to their library calls: time both in
+        # interleaved rounds and keep each one's median and range
         rounds = [(time_ms(kernel, reps=10), time_ms(library, reps=10))
                   for _ in range(K1_ROUNDS)]
         ks, ls = zip(*rounds)
@@ -798,11 +814,11 @@ def time_mode(torch, mode, dv, queries, n_chunks, metric=None):
                 bound_share=bound_ms / kernel_ms, tflops=tflops, live_rows=live_rows, **extra)
 
 
-def k1_sweep(torch, mode, dv, queries, n_chunks):
-    """K1 (``mode`` "K1" or "K1-bf16") at the other batch sizes of
-    K1_SWEEP_B on a main path's store: each held against plain and timed
-    beside the library call and the bound -> {b: time_mode's numbers}."""
-    return {b: time_mode(torch, mode, dv, queries[:b], n_chunks) for b in K1_SWEEP_B}
+def b_sweep(torch, mode, dv, queries, n_chunks, metric=None):
+    """An sm90 kernel (K1, K1-bf16, K5, K6) at the other batch sizes of
+    SWEEP_B on a path's store: each held against plain and timed beside the
+    library call and the bound -> {b: time_mode's numbers}."""
+    return {b: time_mode(torch, mode, dv, queries[:b], n_chunks, metric) for b in SWEEP_B}
 
 
 def profile_batches(torch, pending, batches, scan=None):
@@ -1164,7 +1180,8 @@ def f32_path(torch, dev, card=""):
             f"boundary ties {t}); launches {launched_m}")
     if dev.type == "cuda":
         profile_batches(torch, pending, batches)
-    stats = {"qps": qps, "launches": launched["K4"], "synth_s": synth_s, "build_s": build_s}
+    stats = {"qps": qps, "launches": launched["K4"], "synth_s": synth_s, "build_s": build_s,
+             "queries": torch.cat(batches[:2])}
     stats["default"] = one_pass_batches(torch, store, dv, pending, batches, card)
     return store, dv, batches[0], stats
 
@@ -1504,6 +1521,101 @@ def probes_phase(torch, dev):
     return out
 
 
+def depth_phase(torch, dev):
+    """Fused-size stores (DEPTH_ROWS rows, 256 queries, the bench's columns
+    and filter) at d = 100 (stored as 112) and d = 2,048 (past the resident
+    query block of K1, K5 and K6: their deep-row plan) through MetaStore:
+    certified int8 Cosine (K1) and bf16 Dot (K5) ``take(10,
+    rerank_from=100)``, every query certified and equal to the exact f32
+    truth; precision "default" over f32 rows (K6) and over bf16 rows
+    (K6-bf16), and uncertified int8 (K2), each equal to the exact truth of
+    its scores. Launch counts and ``kernel_takes.routed`` show what served
+    each: K1, K5 and K6 launch at both depths; K6-bf16 launches at d = 100
+    and is routed to the scan program at 2,048; K2 launches at both and is
+    routed at DEPTH_K2. Then K1, K5 and K6 against their plain versions at
+    each depth -> {d: {label: launches or "routed"}}."""
+    import numpy as np
+
+    import otters_tpu_torch as tx
+    from otters_tpu_torch.ops import fused_topk as ft
+    from otters_tpu_torch.ops import scoring as sc
+
+    n = DEPTH_ROWS
+    n_pad = sc.pad_rows(n)
+    chunk_mask = torch.arange(-(-n // CHUNK), device=dev) % 2 == 1
+    out = {}
+    for d in DEPTHS + (DEPTH_K2,):
+        g = torch.Generator(device=dev).manual_seed(SEED + 10 + d)
+        f32 = torch.zeros((n_pad, d), device=dev)
+        f32[:n] = torch.randn((n, d), generator=g, device=dev)
+        q = torch.randn((B, d), generator=g, device=dev)
+
+        def fetch(ids, _f=f32):
+            return _f[torch.as_tensor(np.asarray(ids, dtype=np.int64), device=dev)]
+
+        def store_of(dv, rerank):
+            b = (tx.MetaStore.from_columns(price_version_columns(n)).with_vectors(dv, n_rows=n)
+                 .with_chunk_size(CHUNK).with_device(dev))
+            return (b.with_rerank_source(fetch_vectors=fetch) if rerank else b).build()
+
+        dv8 = sc.materialize_int8_slabs(lambda s, r: f32[s : s + r], n, d, SLAB, device=dev)
+        uncert = ("uncertified int8", dv8, tx.Metric.Cosine, False, "highest", "K2")
+        cases = [uncert]
+        if d != DEPTH_K2:
+            dvb = sc.materialize_from_device(f32, n_valid=n, dtype=torch.bfloat16)
+            dvf = sc.materialize_f32_slabs(lambda s, r: f32[s : s + r], n, d, SLAB, device=dev)
+            cases = [("certified int8 Cosine", dv8, tx.Metric.Cosine, True, "highest", "K1"),
+                     ("certified bf16 Dot", dvb, tx.Metric.DotProduct, True, "highest", "K5"),
+                     ('f32 "default"', dvf, tx.Metric.Cosine, False, "default", "K6"),
+                     ('bf16 "default"', dvb, tx.Metric.Cosine, False, "default", "K6-bf16"),
+                     uncert]
+        res_d = {}
+        for label, dv, metric, certify, prec, mode in cases:
+            store = store_of(dv, certify)
+            store.precision = prec
+            ft.reset_launches()
+            plan = store.query_batch(q, metric).meta_filter(bench_filter())
+            res = plan.take(K, **(dict(rerank_from=K_WIDE) if certify else {})).collect()
+            launched, routed = counts(), ft.kernel_takes.routed
+            st = store.last_query_stats()
+            assert st.certified is (True if certify else None), (d, label, st)
+            assert st.pruned_chunks == (store.n_chunks() + 1) // 2, (d, label, st)
+            q_truth = sc._quantize_rows_int8(q)[0].float() if mode == "K2" else q
+            rows = f32 if certify else dv.vectors
+            want = exact_topk(torch, rows, n, q_truth, metric, K, row_ok=odd_chunks,
+                              one_pass=prec == "default")
+            ties, err = check_topk(f"d={d} {label}", res.indices, res.scores, *want,
+                                   score_tol(metric, q_truth, dv))
+            takes = ft.kernel_takes(mode, d)
+            if takes:  # (the plain versions serve a CPU rehearsal, uncounted)
+                assert routed == 0 and (launched[mode] >= 1 or dev.type != "cuda"), (
+                    d, label, launched, routed)
+            else:
+                assert sum(launched.values()) == 0 and routed == B, (d, label, launched, routed)
+            res_d[label] = launched[mode] if takes else "routed"
+            log(f"d={d} (stored {sc.pad_depth(d)}) {label}: {n} rows, {B} queries, top-{K} "
+                f"equal to the exact {'f32 ' if certify else ''}truth (max score diff "
+                f"{err:.2e}, boundary ties {ties}); "
+                + (f"{mode} launched {launched[mode]} times" if takes else
+                   f"{mode} does not take d = {d}: {routed} queries routed to the scan program"))
+            del store
+        if d != DEPTH_K2:
+            for mode, dv, metric in (("K1", dv8, tx.Metric.Cosine),
+                                     ("K5", dvb, tx.Metric.DotProduct),
+                                     ("K6", dvf, tx.Metric.Cosine)):
+                for b in (1, B):
+                    args = mode_inputs(mode, dv, q[:b], chunk_mask, metric=metric)
+                    e, tol = compare_mode(mode, args, metric)
+                    log(f"d={d} {mode} vs plain ({n} rows, b={b}, plan "
+                        f"{tuple(ft.sm90_plan(mode, sc.pad_depth(d)))}): max_abs_err={e:.3e} "
+                        f"tol={tol:.3e}")
+            del dvb, dvf
+        out[d] = res_d
+        del f32, dv8, q, cases, uncert
+        torch.cuda.empty_cache()
+    return out
+
+
 def demo_phase():
     from otters_tpu_torch.demo import main as demo
 
@@ -1564,8 +1676,8 @@ def main() -> int:
         uncert = uncert_path(torch, store, batches, truths)
         timing = {m: time_mode(torch, m, store._dv, batches[0], store.n_chunks())
                   for m in ("K1", "K2")}
-        sweep = {"K1": k1_sweep(torch, "K1", store._dv, torch.cat(batches[:2]),
-                                store.n_chunks())}
+        sweep = {"K1": b_sweep(torch, "K1", store._dv, torch.cat(batches[:2]),
+                               store.n_chunks())}
         del store
         torch.cuda.empty_cache()
     with phase(f"4f bfloat16 storage ({ROWS} x {D}): K1 / K5 certified, K4 uncertified, "
@@ -1579,7 +1691,9 @@ def main() -> int:
             timing[m] = time_mode(torch, m, dvb, batches[0], n_chunks)
         timing["K5"] = time_mode(torch, "K5", dvb, batches[0], n_chunks, Metric.DotProduct)
         k5_euclid = time_mode(torch, "K5", dvb, batches[0], n_chunks, Metric.Euclidean)
-        sweep["K1-bf16"] = k1_sweep(torch, "K1-bf16", dvb, torch.cat(batches[:2]), n_chunks)
+        sweep["K1-bf16"] = b_sweep(torch, "K1-bf16", dvb, torch.cat(batches[:2]), n_chunks)
+        sweep["K5"] = b_sweep(torch, "K5", dvb, torch.cat(batches[:2]), n_chunks,
+                              Metric.DotProduct)
         del dvb, batches
         torch.cuda.empty_cache()
     with phase(f"4g bf16 stores ({NEAR_ROWS} x {D}): failed check (K3), near-ties (K5 widen)"):
@@ -1588,12 +1702,16 @@ def main() -> int:
     with phase("4b certificate widening on adversarial near-ties"):
         widen_phase(torch, dev)
         torch.cuda.empty_cache()
+    with phase(f"4d depths {DEPTHS} and {DEPTH_K2} ({DEPTH_ROWS} rows): any d on the kernels, "
+               "deep rows on the deep-row plan or the scan route"):
+        depth = depth_phase(torch, dev)
     with phase("5 demo twin"):
         demo_phase()
     with phase(f"6 exact f32 path ({F32_ROWS} x {D}, K4 fast-exact; K6 at \"default\")"):
         store, dv, q0, f32_stats = f32_path(torch, dev, card)
         for m in ("K4", "K3", "K6"):
             timing[m] = time_mode(torch, m, dv, q0, store.n_chunks())
+        sweep["K6"] = b_sweep(torch, "K6", dv, f32_stats["queries"], store.n_chunks())
     with phase(f"6t take-all on the same store ({TAKE_ALL_B} queries, windowed)"):
         take_all = take_all_phase(torch, store, dv, card)
         del store, dv
@@ -1612,11 +1730,13 @@ def main() -> int:
         ("K1", "cert_cos_binmax", "cert_cos_binmax", ":123 (_kernel[certify,cert_cos])",
          stats["launches"],
          {"path": f"certified main path {ROWS} x {D}", "path_qps": stats["qps"],
-          "batch_sweep": sweep["K1"], "path_profile": stats["profile"]}),
+          "batch_sweep": sweep["K1"], "path_profile": stats["profile"],
+          "depth_launches": {d: depth[d]["certified int8 Cosine"] for d in DEPTHS}}),
         ("K2", "int8_binmax", "int8_binmax", ":149 (_kernel[int8, uncertified])",
          uncert["launches"],
          {"path": f"filtered_uncert {ROWS} x {D}", "path_qps": uncert["qps"],
-          "recall_at_10": uncert["recall"], "vecstore_launches": vec["K2"]}),
+          "recall_at_10": uncert["recall"], "vecstore_launches": vec["K2"],
+          "depth_launches": {d: depth[d]["uncertified int8"] for d in depth}}),
         ("K3", "f32_binmax", "f32_binmax", ":182 (_kernel[prec=highest])", near["launches"],
          {"path": f"near-tie strict rerun {NEAR_ROWS} x {D}"}),
         ("K4", "bf16x3_binmax", "bf16x3_binmax", ":168 (_kernel[prec=high, fast])",
@@ -1635,7 +1755,8 @@ def main() -> int:
           "euclid_launches": bf16["euclid"]["launches"],
           "euclid_ms": k5_euclid["ms"], "euclid_plain_ms": k5_euclid["plain_ms"],
           "euclid_max_abs_err": k5_euclid["max_abs_err"],
-          "near_tie_scan_k_wide": bf16_small["widen"]}),
+          "near_tie_scan_k_wide": bf16_small["widen"], "batch_sweep": sweep["K5"],
+          "depth_launches": {d: depth[d]["certified bf16 Dot"] for d in DEPTHS}}),
         ("K3-bf16", "f32_binmax_bf16", "f32_binmax",
          ":182 (_kernel[prec=highest], bf16 rows)", bf16_small["launches"],
          {"path": f"bf16 near-tie strict rerun {NEAR_ROWS} x {D}"}),
@@ -1646,13 +1767,15 @@ def main() -> int:
         ("K6", "bf16_binmax", "bf16_binmax",
          ":182 (_kernel[prec=default/bf16], Precision.DEFAULT)", f32_stats["default"]["launches"],
          {"path": f'precision "default" exact-f32 store {F32_ROWS} x {D}',
-          "path_qps": f32_stats["default"]["qps"]}),
+          "path_qps": f32_stats["default"]["qps"], "batch_sweep": sweep["K6"],
+          "depth_launches": {d: depth[d]['f32 "default"'] for d in DEPTHS}}),
         ("K6-bf16", "bf16_binmax_bf16", "bf16_binmax",
          ":182 (_kernel[prec=default/bf16], Precision.DEFAULT, bf16 rows)",
          bf16["default"]["launches"],
          {"path": f'precision "default" Cosine {bf16_path_name}',
           "path_qps": bf16["default"]["qps"], "recall_at_10": bf16["default"]["recall"],
-          "bf16_precision_qps": bf16["bf16"]["qps"]}),
+          "bf16_precision_qps": bf16["bf16"]["qps"],
+          "depth_launches": {d: depth[d]['bf16 "default"'] for d in DEPTHS}}),
     ]
     entries = []
     for mode, name, source, line, launches, extra in modes:

@@ -13,8 +13,9 @@
 // would otherwise contract a*b + c into an FMA). cmp: 0 none, 1 Gt, 2 Gte,
 // 3 Lt, 4 Lte, 5 Eq; the kernels receive it as cmp_mask(cmp).
 //
-// Conventions of these kernels (K1 walks the survivor list with a
-// persistent grid instead, csrc/cert_scan_sm90.cuh): the grid covers
+// Conventions of these kernels (K1, K5 and K6 over f32 rows walk the
+// survivor list with a persistent grid instead, csrc/cert_scan_sm90.cuh):
+// the grid covers
 // every bin times every 64-query block; a block whose survivor slot is
 // >= n_surv returns at once (pruned bins cost no loads and no math); the
 // output [n_bins, b] is pre-filled with -inf by the caller; padded query

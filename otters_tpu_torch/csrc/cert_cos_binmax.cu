@@ -71,7 +71,7 @@ struct CosKey {
     }
 };
 
-template <typename RowT, int KS, int TM>
+template <typename RowT, int KS, int TM, bool STREAM>
 __global__ void __launch_bounds__(sm90::THREADS, 1) cert_cos_binmax_kernel(
     const __grid_constant__ CUtensorMap qmap,  // [bq, dq] bf16 queries
     const __grid_constant__ CUtensorMap vmap,  // [n_pad, d] int8 or bf16 rows
@@ -93,50 +93,32 @@ __global__ void __launch_bounds__(sm90::THREADS, 1) cert_cos_binmax_kernel(
         k.t = t;
         return k;
     };
-    sm90::scan<RowT, NSIDE, KS, TM>(&qmap, &vmap, a, make_key);
+    sm90::scan<RowT, NSIDE, KS, TM, STREAM>(&qmap, &vmap, a, make_key);
 }
 
-// The stage shape of a launch: int8 rows take 2 k-blocks of 128 rows a
-// stage (each warpgroup converts and multiplies 16 products between two
+// The stage shapes (sm90::with_plan): int8 rows take 2 k-blocks of 128 rows
+// a stage (each warpgroup converts and multiplies 16 products between two
 // barrier waits), bf16 rows one k-block of 256 rows (the 256-row box keeps
-// the same work per wait); either falls back to one k-block of 128 rows
-// when fewer than 4 stages would fit.
-enum Plan { P128 = 0, P128x2 = 1, P256 = 2 };
-
+// the same work per wait); either takes one k-block of 128 rows when fewer
+// than 4 stages would fit, and streams the query block beside it when
+// fewer than 2 would (deep rows).
 template <typename RowT>
-Plan plan_for(int d) {
-    if (sizeof(RowT) == 1)
-        return sm90::stages_for<RowT, 2, 128>(d) >= 4 ? P128x2 : P128;
-    return sm90::stages_for<RowT, 1, 256>(d) >= 4 ? P256 : P128;
-}
-
-// call F<KS, TM>() for the plan of d (only the plans the row type uses are
-// instantiated)
-template <typename RowT, typename F>
-auto with_plan(int d, const F& f) {
-    if constexpr (sizeof(RowT) == 1) {
-        if (plan_for<RowT>(d) == P128x2) return f(std::integral_constant<int, 2>{},
-                                                  std::integral_constant<int, 128>{});
-    } else {
-        if (plan_for<RowT>(d) == P256) return f(std::integral_constant<int, 1>{},
-                                                std::integral_constant<int, 256>{});
-    }
-    return f(std::integral_constant<int, 1>{}, std::integral_constant<int, 128>{});
-}
+struct Shape;
+template <>
+struct Shape<int8_t> { static constexpr int KS1 = 2, TM1 = 128, KS2 = 1, TM2 = 128; };
+template <>
+struct Shape<__nv_bfloat16> { static constexpr int KS1 = 1, TM1 = 256, KS2 = 1, TM2 = 128; };
 
 template <typename RowT>
 int stages_of(int d) {
-    return with_plan<RowT>(d, [&](auto ks, auto tm) {
-        return sm90::stages_for<RowT, decltype(ks)::value, decltype(tm)::value>(d);
-    });
+    using S = Shape<RowT>;
+    return sm90::plan_stages<RowT, S::KS1, S::TM1, S::KS2, S::TM2>(d);
 }
 
 template <typename RowT>
 size_t smem_for(int d) {
-    return with_plan<RowT>(d, [&](auto ks, auto tm) {
-        constexpr int KS = decltype(ks)::value, TM = decltype(tm)::value;
-        return sm90::smem_bytes<RowT, KS, TM>(d, sm90::stages_for<RowT, KS, TM>(d));
-    });
+    using S = Shape<RowT>;
+    return sm90::plan_smem<RowT, S::KS1, S::TM1, S::KS2, S::TM2>(d);
 }
 
 template <typename RowT>
@@ -145,35 +127,20 @@ int launch(const void* q, const void* v, const void* inv, const void* rmask,
            const void* surv, const void* n_surv, void* out, int n_bins, int d, int b,
            int dq, int n_qb, int per_group, int cmp, void* stream)
 {
-    if (n_qb < 1 || per_group < 1 || dq % 64) return (int)cudaErrorInvalidValue;
-    return with_plan<RowT>(d, [&](auto ks, auto tm) {
-        constexpr int KS = decltype(ks)::value, TM = decltype(tm)::value;
-        const auto kernel = cert_cos_binmax_kernel<RowT, KS, TM>;
-        const int stages = sm90::stages_for<RowT, KS, TM>(d);
-        const size_t smem = sm90::smem_bytes<RowT, KS, TM>(d, stages);
-        cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        CUtensorMap qmap, vmap;
-        if (!sm90::make_maps<RowT, TM>(&qmap, &vmap, q, n_qb * sm90::QB, dq, v,
-                                       (long long)n_bins * sm90::BIN, d))
-            return (int)cudaErrorInvalidValue;
-        sm90::ScanArgs a = {};
-        a.surv = (const int*)surv;
-        a.n_surv = (const int*)n_surv;
-        a.side[0] = (const float*)inv;
-        a.side[1] = (const float*)rmask;
-        a.side[2] = (const float*)lane_a;
-        a.out = (float*)out;
-        a.d = d;
-        a.b = b;
-        a.n_qb = n_qb;
-        a.stages = stages;
-        cert_cos_binmax_kernel<RowT, KS, TM>
-            <<<n_qb * per_group, sm90::THREADS, smem, (cudaStream_t)stream>>>(
-                qmap, vmap, a, (const float*)q_inv, (const float*)q_ok, (const float*)thr, cmp);
-        return (int)cudaGetLastError();
-    });
+    using S = Shape<RowT>;
+    const float* side[3] = {(const float*)inv, (const float*)rmask, (const float*)lane_a};
+    const auto get_kernel = [](auto ks, auto tm, auto st) {
+        return cert_cos_binmax_kernel<RowT, decltype(ks)::value, decltype(tm)::value,
+                                      decltype(st)::value>;
+    };
+    const auto launch_fn = [&](auto kernel, dim3 grid, size_t smem, const CUtensorMap& qmap,
+                               const CUtensorMap& vmap, const sm90::ScanArgs& a) {
+        kernel<<<grid, sm90::THREADS, smem, (cudaStream_t)stream>>>(
+            qmap, vmap, a, (const float*)q_inv, (const float*)q_ok, (const float*)thr, cmp);
+    };
+    return sm90::launch_plan<RowT, S::KS1, S::TM1, S::KS2, S::TM2>(
+        get_kernel, launch_fn, q, v, side, 3, surv, n_surv, out, n_bins, d, b, dq, n_qb,
+        per_group);
 }
 
 }  // namespace

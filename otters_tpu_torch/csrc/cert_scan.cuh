@@ -1,13 +1,11 @@
-// The scan shared by the certified K5 (csrc/cert_fold_binmax.cu, bfloat16
-// rows) and the one-pass K6 (csrc/bf16_binmax.cu, f32 or bfloat16 rows).
-// K1 runs the Hopper scan of csrc/cert_scan_sm90.cuh.
+// The simple scan of the one-pass K6 over bfloat16 rows
+// (csrc/bf16_binmax.cu, bf16_binmax_bf16). K1, K5 and K6 over f32 rows run
+// the Hopper scan of csrc/cert_scan_sm90.cuh.
 //
 // One block takes one live 512-row bin and 64 queries (rounded to bf16 by
 // the caller). It keeps the queries in shared memory, streams its bin
-// through in 128-row x 64-deep tiles staged as bf16 in shared memory (int8
-// codes convert exactly; bf16 rows are copied as they are; f32 rows are
-// rounded to bf16, round-to-nearest-even), runs WMMA
-// 16x16x16 bf16 products with f32 accumulators, and hands every (query,
+// through in 128-row x 64-deep bf16 tiles copied into shared memory, runs
+// WMMA 16x16x16 bf16 products with f32 accumulators, and hands every (query,
 // row) dot to the kernel's key function, keeping a running per-query max.
 // bf16 x bf16 products are exact in f32; the tensor cores' f32
 // accumulation is covered by the certificate's arithmetic headroom, and
@@ -32,36 +30,10 @@ constexpr int CERT_BK = 64;             // depth per staged tile
 constexpr int CERT_VLD = CERT_BK + 8;   // shared leading dimensions, in elements
 constexpr int CERT_CLD = CERT_RN + 4;
 
-// 16 row elements at p -> 16 bf16 values at dst (32 bytes, 16-byte aligned)
-__device__ __forceinline__ void stage16(const int8_t* p, __nv_bfloat16* dst) {
-    const int4 raw = *reinterpret_cast<const int4*>(p);
-    const int8_t* b8 = reinterpret_cast<const int8_t*>(&raw);
-    __nv_bfloat162 h[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-        h[e] = __floats2bfloat162_rn((float)b8[2 * e], (float)b8[2 * e + 1]);
-    reinterpret_cast<uint4*>(dst)[0] = *reinterpret_cast<const uint4*>(&h[0]);
-    reinterpret_cast<uint4*>(dst)[1] = *reinterpret_cast<const uint4*>(&h[4]);
-}
-
+// 16 bf16 row elements at p -> dst (32 bytes, both 16-byte aligned)
 __device__ __forceinline__ void stage16(const __nv_bfloat16* p, __nv_bfloat16* dst) {
     reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(p)[0];
     reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(p)[1];
-}
-
-// f32 rows round to bf16, round-to-nearest-even (K6's one pass); p is
-// 16-byte aligned (d is a multiple of 16)
-__device__ __forceinline__ void stage16(const float* p, __nv_bfloat16* dst) {
-    const float4* f = reinterpret_cast<const float4*>(p);
-    __nv_bfloat162 h[8];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-        const float4 x = f[e];
-        h[2 * e] = __floats2bfloat162_rn(x.x, x.y);
-        h[2 * e + 1] = __floats2bfloat162_rn(x.z, x.w);
-    }
-    reinterpret_cast<uint4*>(dst)[0] = *reinterpret_cast<const uint4*>(&h[0]);
-    reinterpret_cast<uint4*>(dst)[1] = *reinterpret_cast<const uint4*>(&h[4]);
 }
 
 // dynamic shared memory of the scan: queries [QB][d + 8] bf16, one row
@@ -74,10 +46,10 @@ __host__ __device__ inline size_t cert_smem_bytes(int d) {
 
 // The bin max of key(dot, row) over the bin's 512 rows for this thread's
 // query (q0 + threadIdx.x / 4). q: [*, d] bf16, d a multiple of 16;
-// v: [n_pad, d] int8, bf16 or f32 rows.
-template <typename RowT, typename KeyFn>
+// v: [n_pad, d] bf16 rows.
+template <typename KeyFn>
 __device__ __forceinline__ float cert_bin_max(
-    const __nv_bfloat16* __restrict__ q, const RowT* __restrict__ v, int bin,
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ v, int bin,
     int q0, int d, unsigned char* smem, const KeyFn& key)
 {
     using namespace nvcuda;

@@ -1,14 +1,17 @@
 // The certified scan for Hopper (sm_90a): a persistent grid over the
-// survivor list, the query block resident in shared memory, a TMA ring
-// with warp specialisation, and wgmma.
+// survivor list, the query block resident in shared memory (or streamed
+// beside the rows, for deep rows), a TMA ring with warp specialisation, and
+// wgmma.
 //
 // What it computes: for every live 512-row bin (the survivor list
 // surv[0 : n_surv), read on the device) and every query of the CTA's
 // 64-query block, the max over the bin's rows of key(dot, row side data,
-// query), with dot = bf16 query . row (exact products, f32 sums). K1
-// (csrc/cert_cos_binmax.cu) supplies the key; the header is templated on
-// the row type (int8 or bf16), the stage shape and the key, so that the
-// other certified and one-pass scans can move onto it.
+// query), with dot = bf16 query . row (exact products, f32 sums). The
+// kernels supply the key: K1 (csrc/cert_cos_binmax.cu, certified Cosine),
+// K5 (csrc/cert_fold_binmax.cu, the general certified fold) and K6 over f32
+// rows (csrc/bf16_binmax.cu, one bf16 pass). The header is templated on the
+// row type (int8, bf16 or f32), the number of side arrays, the stage shape,
+// whether the query block is streamed, and the key.
 //
 // Design.
 // - Persistent grid: about one CTA per SM (the shared memory admits no
@@ -20,20 +23,35 @@
 // - The query block is loaded once per CTA by TMA, 128-byte swizzled and
 //   K-major in 64-deep blocks of [64 queries x 128 B], the layout wgmma
 //   reads as its B operand, and stays resident across bins.
+// - Deep rows (the streamed plan): when the resident query block (8 KB per
+//   64 deep) would leave fewer than two ring stages, no query block is
+//   resident; each ring stage carries the query k-blocks of its depth step
+//   beside the row k-blocks, in the same layout, and the consumers read B
+//   from the stage. Any depth then fits; the query block is read again for
+//   every row sub-tile (from L2).
 // - One producer thread keeps an even number of ring stages of KS k-blocks
-//   of [TM rows x 64 deep] in flight with full / empty mbarrier pairs, one
-//   TMA box per k-block.
+//   of [TM rows x 64 deep] in flight with full / empty mbarrier pairs.
 // - Two consumer warpgroups in ping-pong: the stages alternate between
 //   them, and each takes a TM-row sub-tile of its own (TM / 64 m-blocks,
 //   f32 accumulators in registers, 32 a thread per m-block), so one
 //   warpgroup converts, waits and releases while the other's products run.
 //   Each stage is waited for, multiplied to completion (wgmma m64n64k16,
-//   rows as A, queries as B) and released. bf16 rows: A is read from the
-//   swizzled stage by descriptor. int8 rows: each thread loads its A
-//   fragment from the stage (16-byte loads; the caller permutes the depth
-//   of every 64-deep block of the queries so that a thread's fragment
-//   bytes of a row are contiguous), converts it exactly in registers and
-//   issues the register-A form; no converted copy of the tile is written.
+//   rows as A, queries as B) and released.
+//   - bf16 rows: A is read from the swizzled stage by descriptor.
+//   - int8 rows: each thread loads its A fragment from the stage (16-byte
+//     loads; the caller permutes the depth of every 64-deep block of the
+//     queries so that a thread's fragment bytes of a row are contiguous),
+//     converts it exactly in registers and issues the register-A form; no
+//     converted copy of the tile is written.
+//   - f32 rows: TMA cannot convert, so a k-block lands as f32 in two
+//     128-byte swizzled boxes of [TM rows x 32 deep]; each thread loads its
+//     A fragment (four 16-byte loads a row: chunks 2t, 2t + 1 of each half,
+//     t = lane % 4; the caller permutes the query depth to match, see
+//     ops/fused_topk.py::f32_query_perm), rounds it to bf16 in registers
+//     (one cvt.rn.bf16x2 per pair) and issues the register-A form. With
+//     that chunk order the 8 threads of a quarter-warp's load touch 8
+//     distinct bank groups under the swizzle, so the loads are free of
+//     bank conflicts.
 // - int8 rows, f16 products: int8 -> f16 takes 5 instructions per 4 codes
 //   (the bytes + 128 under an f16 exponent, one f16x2 subtract per pair),
 //   int8 -> bf16 11, and the conversion is most of the consumers' work
@@ -43,7 +61,8 @@
 //   the round trip exactly; the products are then those of the bf16
 //   queries times 2^s, and each dot is multiplied by 2^-s (exact) before
 //   the key. A block with a query whose magnitudes span more than f16's
-//   range stays bf16 and converts the rows to bf16.
+//   range stays bf16 and converts the rows to bf16; so does the streamed
+//   plan, which holds no whole query block to rewrite.
 // - The epilogue stays in registers: the rows' side data is read from
 //   global memory (__ldg) when a sub-tile starts and first used after its
 //   products; the key folds each accumulator into a running per-query max;
@@ -61,8 +80,10 @@
 // - Tensor maps need the driver API (cuTensorMapEncodeTiled), taken
 //   through the runtime's driver entry point (no -lcuda); they are encoded
 //   per launch for that launch's pointers and passed as __grid_constant__.
-//   The rows' global stride (d bytes for int8) is a multiple of 16 because
-//   d is.
+//   The rows' global stride (d bytes for int8) must be a multiple of 16:
+//   the store pads its rows' depth to a multiple of 16 (ops/scoring.py).
+//   Boxes past the depth (the last k-block, an f32 half box) are filled
+//   with zeros by TMA and count their full bytes.
 // - Barrier phases: a waiter may never be a lap ahead of its barrier,
 //   whose parity would then read as an old phase. The ring is even, so
 //   each stage always serves the same consumer warpgroup. Every consumer
@@ -75,7 +96,7 @@
 // - Register hazards of asynchronous wgmma: each stage's products complete
 //   (wgmma.wait_group 0) before its fragment and accumulator registers are
 //   touched again; the overlap comes from the other warpgroup.
-// - Roundings: the key's multiplies and add are __fmul_rn / __fadd_rn.
+// - Roundings: the keys' multiplies and adds are __fmul_rn / __fadd_rn.
 
 #pragma once
 
@@ -104,14 +125,21 @@ constexpr int RED_BYTES = 2 * QB * 4 + 8;
 template <typename RowT, int TM>
 __host__ __device__ constexpr int tile_bytes() { return TM * TK * (int)sizeof(RowT); }
 
+// one ring stage: KS row k-blocks, and with a streamed query block the KS
+// query k-blocks of the same depth step
+template <typename RowT, int KS, int TM, bool STREAM>
+__host__ __device__ constexpr int stage_bytes() {
+    return KS * (tile_bytes<RowT, TM>() + (STREAM ? QBLOCK_BYTES : 0));
+}
+
 // dynamic shared memory for `stages` stages at depth d: 1 KB of alignment
-// slack, the query blocks, the ring of row tiles, the reduction buffer and
-// the barriers
-template <typename RowT, int KS, int TM>
+// slack, the resident query blocks (none when streamed), the ring, the
+// reduction buffer and the barriers
+template <typename RowT, int KS, int TM, bool STREAM>
 __host__ __device__ inline size_t smem_bytes(int d, int stages) {
     const int nk = (d + TK - 1) / TK;
-    return 1024 + (size_t)nk * QBLOCK_BYTES
-         + (size_t)stages * KS * tile_bytes<RowT, TM>()
+    return 1024 + (STREAM ? 0 : (size_t)nk * QBLOCK_BYTES)
+         + (size_t)stages * stage_bytes<RowT, KS, TM, STREAM>()
          + RED_BYTES + (size_t)(2 * stages + 1) * 8;
 }
 
@@ -119,11 +147,58 @@ __host__ __device__ inline size_t smem_bytes(int d, int stages) {
 // below 2: the two consumer warpgroups take alternate stages, so with an
 // even ring each stage always serves the same warpgroup and no waiter can
 // be a lap ahead of its barrier's phase
-template <typename RowT, int KS, int TM>
+template <typename RowT, int KS, int TM, bool STREAM>
 __host__ __device__ inline int stages_for(int d) {
     int s = MAX_STAGES;
-    while (s > 2 && smem_bytes<RowT, KS, TM>(d, s) > SMEM_LIMIT) s -= 2;
+    while (s > 2 && smem_bytes<RowT, KS, TM, STREAM>(d, s) > SMEM_LIMIT) s -= 2;
     return s;
+}
+
+// The plan of a launch at depth d: the wide stage shape (KS1 k-blocks of
+// TM1 rows) when 4 stages of it fit beside the resident query block, else
+// the narrow one (KS2 of TM2) when 2 of it fit, else the narrow one with
+// the query block streamed. with_plan calls f(KS, TM, STREAM) with the
+// plan's values as integral constants; ops/fused_topk.py::sm90_plan mirrors
+// the choice.
+enum Plan { WIDE = 0, NARROW = 1, STREAMED = 2 };
+
+template <typename RowT, int KS1, int TM1, int KS2, int TM2>
+inline Plan plan_for(int d) {
+    if (smem_bytes<RowT, KS1, TM1, false>(d, 4) <= SMEM_LIMIT) return WIDE;
+    if (smem_bytes<RowT, KS2, TM2, false>(d, 2) <= SMEM_LIMIT) return NARROW;
+    return STREAMED;
+}
+
+template <typename RowT, int KS1, int TM1, int KS2, int TM2, typename F>
+auto with_plan(int d, const F& f) {
+    using std::integral_constant;
+    const Plan p = plan_for<RowT, KS1, TM1, KS2, TM2>(d);
+    if (p == WIDE)
+        return f(integral_constant<int, KS1>{}, integral_constant<int, TM1>{},
+                 std::false_type{});
+    if (p == NARROW)
+        return f(integral_constant<int, KS2>{}, integral_constant<int, TM2>{},
+                 std::false_type{});
+    return f(integral_constant<int, KS2>{}, integral_constant<int, TM2>{}, std::true_type{});
+}
+
+// the plan's ring stages and shared memory at depth d (exported by each
+// kernel source for ops/fused_topk.py's mirror and its test)
+template <typename RowT, int KS1, int TM1, int KS2, int TM2>
+int plan_stages(int d) {
+    return with_plan<RowT, KS1, TM1, KS2, TM2>(d, [&](auto ks, auto tm, auto st) {
+        return stages_for<RowT, decltype(ks)::value, decltype(tm)::value,
+                          decltype(st)::value>(d);
+    });
+}
+
+template <typename RowT, int KS1, int TM1, int KS2, int TM2>
+size_t plan_smem(int d) {
+    return with_plan<RowT, KS1, TM1, KS2, TM2>(d, [&](auto ks, auto tm, auto st) {
+        constexpr int KS = decltype(ks)::value, TM = decltype(tm)::value;
+        constexpr bool S = decltype(st)::value;
+        return smem_bytes<RowT, KS, TM, S>(d, stages_for<RowT, KS, TM, S>(d));
+    });
 }
 
 // ---------------------------------------------------------------------------
@@ -345,20 +420,27 @@ struct ScanArgs {
     int d, b, n_qb, stages;
 };
 
+// bf16 pair of two floats, round to nearest even, lo in the low half
+__device__ __forceinline__ uint32_t bf16x2_of(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+}
+
 // Key: a per-thread object made by make_key(q0, cols), cols the query
 // column (in the block) of each of the thread's 16 query slots, with
 //   void prep(float (&side)[NSIDE]) const    (once per row, on its side data)
 //   float operator()(float dot, const float (&side)[NSIDE], int slot) const
 // (slot 0..15 compile-time after unrolling). KS: 64-deep k-blocks per ring
 // stage, TM rows per stage (each warpgroup takes a TM-row sub-tile of its
-// own: TM / 64 m-blocks).
-template <typename RowT, int NSIDE, int KS, int TM, typename MakeKey>
+// own: TM / 64 m-blocks); STREAM: the query k-blocks ride in the stages.
+template <typename RowT, int NSIDE, int KS, int TM, bool STREAM, typename MakeKey>
 __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap* vmap,
                                      const ScanArgs& a, const MakeKey& make_key) {
     constexpr bool INT8 = sizeof(RowT) == 1;
+    constexpr bool F32 = sizeof(RowT) == 4;
     constexpr int TILE = tile_bytes<RowT, TM>();  // one [TM x 64] k-block
     constexpr int MB = TM / 64;                   // m-blocks of a warpgroup
-    constexpr int STAGE = KS * TILE;
+    constexpr int STAGE = stage_bytes<RowT, KS, TM, STREAM>();
     extern __shared__ unsigned char smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023u) & ~1023u;
@@ -366,8 +448,8 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
     const int nk = (a.d + TK - 1) / TK;   // 64-deep k-blocks
     const int nks = (nk + KS - 1) / KS;   // ring stages per TM-row sub-tile
     const int S = a.stages;
-    const uint32_t q_s = base;
-    const uint32_t tiles = q_s + nk * QBLOCK_BYTES;
+    const uint32_t q_s = base;            // the resident query blocks
+    const uint32_t tiles = q_s + (STREAM ? 0 : nk * QBLOCK_BYTES);
     const uint32_t red = tiles + S * STAGE;
     const uint32_t bars = red + RED_BYTES;  // full[S], empty[S], qbar
     int* red_g = reinterpret_cast<int*>(gbase + (red - base));
@@ -399,10 +481,12 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
         // ---- producer warpgroup: one thread issues every copy ----
         asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
         if (tid == CONSUMERS) {
-            const uint32_t qbar = bars + 16 * S;
-            mbar_expect_tx(qbar, nk * QBLOCK_BYTES);
-            for (int c = 0; c < nk; ++c)
-                tma_load_2d(q_s + c * QBLOCK_BYTES, qmap, qbar, c * TK, qblk * QB);
+            if constexpr (!STREAM) {
+                const uint32_t qbar = bars + 16 * S;
+                mbar_expect_tx(qbar, nk * QBLOCK_BYTES);
+                for (int c = 0; c < nk; ++c)
+                    tma_load_2d(q_s + c * QBLOCK_BYTES, qmap, qbar, c * TK, qblk * QB);
+            }
             int st = 0;
             uint32_t ph = 0;  // ring position and the parity of its use
             for (int slot = p0; slot < n_surv; slot += P) {
@@ -414,12 +498,23 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                     for (int w = 0; w < 2; ++w) {
                         const int row0 = bin * BIN + (2 * sp + w) * TM;
                         const uint32_t full = bars + 8 * st;
+                        const uint32_t dst = tiles + st * STAGE;
                         const int nkb = min(KS, nk - ks * KS);
                         mbar_wait(bars + 8 * (S + st), ph ^ 1);
-                        mbar_expect_tx(full, nkb * TILE);
-                        for (int kb = 0; kb < nkb; ++kb)
-                            tma_load_2d(tiles + st * STAGE + kb * TILE, vmap, full,
-                                        (ks * KS + kb) * TK, row0);
+                        mbar_expect_tx(full, nkb * (TILE + (STREAM ? QBLOCK_BYTES : 0)));
+                        for (int kb = 0; kb < nkb; ++kb) {
+                            const int k0 = (ks * KS + kb) * TK;
+                            if constexpr (F32) {
+                                // two swizzled half boxes of 32 deep
+                                tma_load_2d(dst + kb * TILE, vmap, full, k0, row0);
+                                tma_load_2d(dst + kb * TILE + TM * 128, vmap, full, k0 + 32, row0);
+                            } else {
+                                tma_load_2d(dst + kb * TILE, vmap, full, k0, row0);
+                            }
+                            if constexpr (STREAM)
+                                tma_load_2d(dst + KS * TILE + kb * QBLOCK_BYTES, qmap, full, k0,
+                                            qblk * QB);
+                        }
                         if (++st == S) { st = 0; ph ^= 1; }
                     }
             }
@@ -441,9 +536,11 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
 #pragma unroll
     for (int j = 0; j < 16; ++j) cols[j] = 8 * (j >> 1) + 2 * t + (j & 1);
     const auto key = make_key(qblk * QB, cols);
-    mbar_wait(bars + 16 * S, 0);
     bool f16 = false;
-    if constexpr (INT8) f16 = queries_to_f16(gbase, nk, tid, f16_flag, unscale_g);
+    if constexpr (!STREAM) {
+        mbar_wait(bars + 16 * S, 0);
+        if constexpr (INT8) f16 = queries_to_f16(gbase, nk, tid, f16_flag, unscale_g);
+    }
 
     // the bin walk, with f16 (int8 rows only) or bf16 products
     const auto walk = [&](auto f16_tag) {
@@ -457,6 +554,11 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
         uint32_t ph = 0;
         const auto advance = [&]() { if (++st == S) { st = 0; ph ^= 1; } };
         if (wg == 1) advance();  // the ring alternates between the warpgroups
+        // B of k-block kb of depth step ks: resident, or in the stage
+        const auto qdesc = [&](int ks, int kb, int kk) {
+            return desc_sw128(STREAM ? tiles + st * STAGE + KS * TILE + kb * QBLOCK_BYTES + kk * 32
+                                     : q_s + (ks * KS + kb) * QBLOCK_BYTES + kk * 32);
+        };
         for (int slot = p0; slot < n_surv; slot += P) {
             const int bin = a.surv[slot];
             float best[16];
@@ -485,25 +587,48 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                 for (int ks = 0; ks < nks; ++ks) {
                     const int nkb = min(KS, nk - ks * KS);
                     mbar_wait(bars + 8 * st, ph);
-                    if constexpr (INT8) {
+                    if constexpr (INT8 || F32) {
+                        // A from registers: a0 (row g, depth 2t..2t+1), a1
+                        // (row g + 8), a2 (row g, depth 2t + 8..), a3 (row
+                        // g + 8, depth 2t + 8..) of each 16-deep step kk
                         uint32_t af[KS][MB][4][4];
 #pragma unroll
                         for (int kb = 0; kb < KS; ++kb) {
                             if (kb < nkb) {
 #pragma unroll
                                 for (int mb = 0; mb < MB; ++mb) {
-                                    const unsigned char* tg =
-                                        tile_g + st * STAGE + kb * TILE + (64 * mb + r0) * TK + 16 * t;
-                                    const uint4 x0 = *reinterpret_cast<const uint4*>(tg);
-                                    const uint4 x1 = *reinterpret_cast<const uint4*>(tg + 8 * TK);
-                                    const uint32_t w0[4] = {x0.x, x0.y, x0.z, x0.w};
-                                    const uint32_t w1[4] = {x1.x, x1.y, x1.z, x1.w};
+                                    const unsigned char* tk = tile_g + st * STAGE + kb * TILE;
+                                    const int r = 64 * mb + r0;
+                                    if constexpr (INT8) {
+                                        const unsigned char* tg = tk + r * TK + 16 * t;
+                                        const uint4 x0 = *reinterpret_cast<const uint4*>(tg);
+                                        const uint4 x1 = *reinterpret_cast<const uint4*>(tg + 8 * TK);
+                                        const uint32_t w0[4] = {x0.x, x0.y, x0.z, x0.w};
+                                        const uint32_t w1[4] = {x1.x, x1.y, x1.z, x1.w};
 #pragma unroll
-                                    for (int kk = 0; kk < 4; ++kk) {
-                                        af[kb][mb][kk][0] = s8x2_convert<F16>(w0[kk], 0, 1);
-                                        af[kb][mb][kk][1] = s8x2_convert<F16>(w1[kk], 0, 1);
-                                        af[kb][mb][kk][2] = s8x2_convert<F16>(w0[kk], 2, 3);
-                                        af[kb][mb][kk][3] = s8x2_convert<F16>(w1[kk], 2, 3);
+                                        for (int kk = 0; kk < 4; ++kk) {
+                                            af[kb][mb][kk][0] = s8x2_convert<F16>(w0[kk], 0, 1);
+                                            af[kb][mb][kk][1] = s8x2_convert<F16>(w1[kk], 0, 1);
+                                            af[kb][mb][kk][2] = s8x2_convert<F16>(w0[kk], 2, 3);
+                                            af[kb][mb][kk][3] = s8x2_convert<F16>(w1[kk], 2, 3);
+                                        }
+                                    } else {
+                                        // step kk: chunk 2t + kk % 2 of half kk / 2, at
+                                        // physical chunk c ^ (row % 8) (rows r, r + 8
+                                        // share it); half h at h * TM * 128
+#pragma unroll
+                                        for (int kk = 0; kk < 4; ++kk) {
+                                            const int c = (2 * t + (kk & 1)) ^ (r & 7);
+                                            const unsigned char* tg =
+                                                tk + (kk >> 1) * TM * 128 + r * 128 + c * 16;
+                                            const float4 x0 = *reinterpret_cast<const float4*>(tg);
+                                            const float4 x1 =
+                                                *reinterpret_cast<const float4*>(tg + 8 * 128);
+                                            af[kb][mb][kk][0] = bf16x2_of(x0.x, x0.y);
+                                            af[kb][mb][kk][1] = bf16x2_of(x1.x, x1.y);
+                                            af[kb][mb][kk][2] = bf16x2_of(x0.z, x0.w);
+                                            af[kb][mb][kk][3] = bf16x2_of(x1.z, x1.w);
+                                        }
                                     }
                                 }
                             }
@@ -516,8 +641,7 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                             if (kb < nkb)
 #pragma unroll
                                 for (int kk = 0; kk < 4; ++kk) {
-                                    const uint64_t db =
-                                        desc_sw128(q_s + (ks * KS + kb) * QBLOCK_BYTES + kk * 32);
+                                    const uint64_t db = qdesc(ks, kb, kk);
 #pragma unroll
                                     for (int mb = 0; mb < MB; ++mb)
                                         wgmma_rs<F16>(d[mb], af[kb][mb][kk][0], af[kb][mb][kk][1],
@@ -532,8 +656,7 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                             if (kb < nkb)
 #pragma unroll
                                 for (int kk = 0; kk < 4; ++kk) {
-                                    const uint64_t db =
-                                        desc_sw128(q_s + (ks * KS + kb) * QBLOCK_BYTES + kk * 32);
+                                    const uint64_t db = qdesc(ks, kb, kk);
 #pragma unroll
                                     for (int mb = 0; mb < MB; ++mb)
                                         wgmma_ss(d[mb],
@@ -638,17 +761,59 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr
 }
 
 // the maps of one launch: queries [bq, dq] bf16 (dq a multiple of 64, 128 B
-// swizzled boxes of 64 x 64) and rows [n_pad, d] (TM-row boxes of 64 deep;
-// bf16 swizzled for wgmma's descriptor, int8 plain for the fragment loads)
+// swizzled boxes of 64 x 64) and rows [n_pad, d] (TM-row boxes of 64 deep:
+// bf16 swizzled for wgmma's descriptor, int8 plain for the fragment loads;
+// f32 two swizzled boxes of 32 deep a k-block)
 template <typename RowT, int TM>
 inline bool make_maps(CUtensorMap* qmap, CUtensorMap* vmap, const void* q, int bq, int dq,
                       const void* v, long long n_pad, int d) {
-    constexpr bool INT8 = sizeof(RowT) == 1;
+    constexpr int ELT = (int)sizeof(RowT);
+    const CUtensorMapDataType vt = ELT == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                 : ELT == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
     return make_map(qmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, (uint64_t)bq, (uint64_t)dq,
                     (uint64_t)dq * 2, QB, TK, CU_TENSOR_MAP_SWIZZLE_128B)
-        && make_map(vmap, INT8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                    v, (uint64_t)n_pad, (uint64_t)d, (uint64_t)d * sizeof(RowT), TM, TK,
-                    INT8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+        && make_map(vmap, vt, v, (uint64_t)n_pad, (uint64_t)d, (uint64_t)d * ELT, TM,
+                    ELT == 4 ? TK / 2 : TK,
+                    ELT == 1 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// Launch kernel<KS, TM, STREAM> of the plan of d on a persistent grid of
+// n_qb * per_group CTAs: set its shared memory, encode the maps, fill the
+// scan's arguments (side[0 : n_side)) and call launch_fn(kernel, grid,
+// smem, qmap, vmap, args), which passes the kernel's own arguments. Returns
+// a CUDA error code (cudaErrorInvalidValue when a map cannot be encoded).
+template <typename RowT, int KS1, int TM1, int KS2, int TM2, typename GetKernel,
+          typename LaunchFn>
+int launch_plan(const GetKernel& get_kernel, const LaunchFn& launch_fn, const void* q,
+                const void* v, const float* const* side, int n_side, const void* surv,
+                const void* n_surv, void* out, int n_bins, int d, int b, int dq, int n_qb,
+                int per_group) {
+    if (n_qb < 1 || per_group < 1 || dq % TK) return (int)cudaErrorInvalidValue;
+    return with_plan<RowT, KS1, TM1, KS2, TM2>(d, [&](auto ks, auto tm, auto st) {
+        constexpr int KS = decltype(ks)::value, TM = decltype(tm)::value;
+        constexpr bool STREAM = decltype(st)::value;
+        const auto kernel = get_kernel(ks, tm, st);
+        const int stages = stages_for<RowT, KS, TM, STREAM>(d);
+        const size_t smem = smem_bytes<RowT, KS, TM, STREAM>(d, stages);
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        CUtensorMap qmap, vmap;
+        if (!make_maps<RowT, TM>(&qmap, &vmap, q, n_qb * QB, dq, v, (long long)n_bins * BIN, d))
+            return (int)cudaErrorInvalidValue;
+        ScanArgs a = {};
+        a.surv = (const int*)surv;
+        a.n_surv = (const int*)n_surv;
+        for (int i = 0; i < n_side; ++i) a.side[i] = side[i];
+        a.out = (float*)out;
+        a.d = d;
+        a.b = b;
+        a.n_qb = n_qb;
+        a.stages = stages;
+        launch_fn(kernel, dim3(n_qb * per_group), smem, qmap, vmap, a);
+        return (int)cudaGetLastError();
+    });
 }
 
 }  // namespace sm90

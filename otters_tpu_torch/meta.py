@@ -24,8 +24,12 @@ k > 128. The store precision "high" scans with K4, and the one-pass
 precisions "default" / "bf16" score one bf16 pass on every path (K6 at
 scale). With the certificate (``take(k, rerank_from=...)``) int8 storage
 takes K1 (Cosine), bfloat16 storage K1 for Cosine and K5 for Dot and
-Euclid; uncertified int8 takes K2. A take(k) too wide for any device top-k
-(the take-all regime) streams score windows to the host
+Euclid; uncertified int8 takes K2. Any depth is taken: the store pads its
+rows' depth to a multiple of 16, K1 / K5 / K6 over f32 rows stream the
+query block for deep rows, and a depth K6 over bf16 rows or K2 cannot hold
+in shared memory goes to the scan program, decided from the shape
+(``fused_topk.kernel_takes``, JAX's ``pallas_ok``). A take(k) too wide for
+any device top-k (the take-all regime) streams score windows to the host
 (``scoring.collect_all``).
 
 Exactness: string equality evaluates by 64-bit hash on the device and the
@@ -33,9 +37,11 @@ returned rows are re-verified host-side against the actual strings; a hash
 collision that falsely includes a row re-runs the query with an exact
 host-computed row mask.
 
-Not ported yet (each raises where a query would need it): with_sort_by /
-with_z_order, delete / append, persistence, the VPU metrics and extended
-string predicates.
+Not ported yet (each raises ``NotImplementedError`` where a query would
+need it, and every public method of the JAX package's classes exists here):
+with_sort_by / with_z_order, build_sharded, delete_rows / append,
+save / load, precompile, cache_stats, to_pandas / to_arrow, the VPU metrics
+and extended string predicates.
 """
 
 from __future__ import annotations
@@ -120,6 +126,12 @@ class MetaQueryResults:
 
     def column(self, name: str) -> Optional[Column]:
         return self.data.get(name)
+
+    def to_pandas(self):
+        raise NotImplementedError("MetaQueryResults.to_pandas: adapters.py is not ported yet")
+
+    def to_arrow(self):
+        raise NotImplementedError("MetaQueryResults.to_arrow: adapters.py is not ported yet")
 
     def __str__(self) -> str:
         from .display import AsciiTable, format_cell
@@ -510,6 +522,17 @@ class MetaStoreBuilder:
             self.with_column(name, c)
         return self
 
+    def with_sort_by(self, column: str, descending: bool = False) -> "MetaStoreBuilder":
+        raise NotImplementedError("MetaStoreBuilder.with_sort_by is not ported yet")
+
+    def with_z_order(self, columns) -> "MetaStoreBuilder":
+        raise NotImplementedError("MetaStoreBuilder.with_z_order is not ported yet")
+
+    def build_sharded(self, mesh) -> "MetaStore":
+        raise NotImplementedError(
+            "MetaStoreBuilder.build_sharded: the multi-GPU store is not ported yet"
+        )
+
     def build(self) -> "MetaStore":
         if self._vectors is None:
             raise OttersError("vectors must be provided to build MetaStore")
@@ -721,6 +744,29 @@ class MetaStore:
         (filter, vec_filter, k)."""
         return dict(self._cert_kwide_hint)
 
+    def cache_stats(self) -> Dict[str, Dict[str, int]]:
+        raise NotImplementedError("MetaStore.cache_stats is not ported yet")
+
+    # -- mutation, persistence, warm-up (not ported yet) -----------------------
+    def delete_rows(self, indices) -> None:
+        raise NotImplementedError("MetaStore.delete_rows is not ported yet")
+
+    def append(self, vectors, column_values: Dict[str, list]) -> "MetaStore":
+        raise NotImplementedError("MetaStore.append is not ported yet")
+
+    def save(self, path: str) -> None:
+        raise NotImplementedError("MetaStore.save: io.py is not ported yet")
+
+    @staticmethod
+    def load(path: str, mesh=None) -> "MetaStore":
+        raise NotImplementedError("MetaStore.load: io.py is not ported yet")
+
+    def precompile(self, filters=None, batch_sizes=(1, 256), k: int = 10,
+                   metric: Metric = Metric.Cosine, with_vec_filter: bool = False,
+                   rerank_from: Optional[int] = None, pipeline_depths=(1,),
+                   cert_widths: bool = True) -> int:
+        raise NotImplementedError("MetaStore.precompile is not ported yet")
+
     # -- display -------------------------------------------------------------
     def head(self) -> None:
         self.head_n(5)
@@ -779,9 +825,14 @@ class MetaStore:
         # certify and fast are disjoint kernel modes; certify wins
         fast = fast and not certify
         if tile == "fused":
-            fused_topk.kernel_mode(
+            mode = fused_topk.kernel_mode(
                 dv.vectors.dtype, metric, take_min, certify, self.precision, fast
             )
+            if not fused_topk.kernel_takes(mode, self._dim):
+                # the kernel does not take this depth (the JAX package's
+                # pallas_ok): the scan program, chosen before any launch
+                tile, fast = "scan", False
+                fused_topk.kernel_takes.routed += b
         thr_t = _scalar(float(thr), torch.float32, self._device)
         return _meta_query_program(
             self, cols_sub, queries, plan_static, plan_params, thr_t,

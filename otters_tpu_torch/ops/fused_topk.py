@@ -28,6 +28,16 @@ only; each replaces one mode of the TPU kernel
   rounded to bf16 (f32 rows, "K6") or as stored ("K6-bf16"), f32 sums,
   every metric and score filter.
 
+K1, K5 and K6 over f32 rows run the Hopper scan of
+``csrc/cert_scan_sm90.cuh`` (:func:`sm90_plan` mirrors its ring plans, the
+deep-row plan included); the others are simpler scans. The stored rows'
+depth is padded to a multiple of 16 (``scoring.pad_depth``): the launch
+reads it from the rows' stride and pads the queries to it.
+:func:`kernel_takes`, the counterpart of the JAX package's ``pallas_ok``,
+tells from the shape whether a kernel fits (K6 over bf16 rows and K2 stop
+at d = 1,392 and 2,976); the callers send a shape it refuses to the scan
+program before any launch.
+
 Phase 2 re-scores the winning bins and selects the k results in plain
 torch (it is XLA code in the JAX package), at the phase-1 precision for
 K6. Every kernel has a plain torch version in this module, which serves CPU
@@ -51,6 +61,7 @@ import torch
 from ..types import VPU_METRICS, Cmp, Metric
 from .scoring import (
     CERT_BIN,
+    DEPTH_ALIGN,
     ONE_PASS,
     _filter_ok,
     _quantize_rows_int8,
@@ -63,6 +74,7 @@ from .scoring import (
     exact_topk_flat,
     high_precision_bound,
     one_pass_dots,
+    pad_depth,
     require_full_f32,
 )
 
@@ -158,7 +170,8 @@ def survivor_bins(bin_alive: torch.Tensor):
 
 def _check_operands(kernel: str, q, n_pad: int, operands) -> None:
     """Raise unless every (name, tensor, dtype, shape) operand matches, lies
-    on q's device and is contiguous, and the rows are whole bins."""
+    on q's device and is contiguous (the rows ``v``: each row contiguous,
+    as the store's depth-padded view is), and the rows are whole bins."""
     for name, t, dtype, shape in operands:
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(
@@ -166,21 +179,38 @@ def _check_operands(kernel: str, q, n_pad: int, operands) -> None:
             )
         if t.device != q.device:
             raise ValueError(f"{kernel}: {name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
+        if not (t.stride(-1) == 1 if name == "v" else t.is_contiguous()):
             raise ValueError(f"{kernel}: {name} must be contiguous")
     if n_pad % BIN:
         raise ValueError(f"{kernel}: n_pad={n_pad} is not a multiple of {BIN}")
 
 
-def _pad_query_blocks(q, *per_query):
-    """Pad the batch to whole QUERY_BLOCKs -> (n_qb, q, per_query): padded
-    lanes are zero, so their q_ok = 0 keeps them out of every bin max."""
+def stored_depth(v) -> int:
+    """The depth of the rows ``v`` as the kernels read them: their row
+    stride, the logical depth padded to a multiple of 16 by the store
+    (``scoring.pad_depth``). Raise for rows stored otherwise."""
+    n, d = v.shape
+    dp = v.stride(0) if n > 1 else pad_depth(d)
+    if v.stride(1) != 1 or dp % DEPTH_ALIGN or dp < d:
+        raise ValueError(
+            f"rows of depth {d} must be stored with their depth padded to a multiple of "
+            f"{DEPTH_ALIGN} (row stride {v.stride(0)}): build them through scoring.materialize*"
+        )
+    return dp
+
+
+def _pad_query_blocks(q, dp, *per_query):
+    """Pad the batch to whole QUERY_BLOCKs and the depth to the rows'
+    stored depth ``dp`` -> (n_qb, q, per_query): padded lanes and columns
+    are zero, so q_ok = 0 keeps the lanes out of every bin max and the
+    columns add nothing to a dot."""
     b, d = q.shape
     n_qb = -(-b // QUERY_BLOCK)
     pad = n_qb * QUERY_BLOCK - b
+    if pad or dp != d:
+        q = torch.nn.functional.pad(q, (0, dp - d, 0, pad))
     if pad:
-        q = torch.cat([q, q.new_zeros((pad, d))])
-        per_query = tuple(torch.cat([t, t.new_zeros(pad)]) for t in per_query)
+        per_query = tuple(torch.nn.functional.pad(t, (0, pad)) for t in per_query)
     return n_qb, q, per_query
 
 
@@ -202,22 +232,22 @@ def _kernel_fns(source: str, entry: str, n_ptrs: int, n_ints: int):
     return smem, launch
 
 
-def _launch(wrapper, source, entry, q, v, ptrs, ints, *, d_multiple=1, d=None):
+def _launch(wrapper, source, entry, q, v, ptrs, ints, d):
     """Launch ``entry`` of ``source`` on q's stream with the pointers
     ``ptrs`` (q and v first) and the output [n_bins, b], pre-filled with
-    -inf, then n_bins, d (the rows' depth, q's unless given) and the ints
-    ``ints`` (b first). ``q`` is already padded to whole query blocks; b is
-    the real batch. Raises if the kernel cannot build or launch; counts the
-    launch on ``wrapper.launches``."""
+    -inf, then n_bins, d (the rows' stored depth, :func:`stored_depth`) and
+    the ints ``ints`` (b first). ``q`` is already padded to whole query
+    blocks and at least to depth d; b is the real batch. Raises if the
+    kernel cannot build or launch; counts the launch on
+    ``wrapper.launches``."""
     b = ints[0]
-    d = q.shape[1] if d is None else d
-    if d % d_multiple:
-        raise ValueError(f"{entry}: d={d} must be a multiple of {d_multiple}")
+    assert d % DEPTH_ALIGN == 0, d
     if v.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError(f"{entry}: q and v must start on a 16-byte boundary")
     smem_bytes, launch = _kernel_fns(source, entry, len(ptrs) + 1, len(ints) + 2)
     smem = smem_bytes(d)
     if smem > _SMEM_MAX:
+        # kernel_takes routes such shapes away before any launch
         raise ValueError(f"{entry}: d={d} needs {smem} B of shared memory (> 227 KB)")
     n_bins = v.shape[0] // BIN
     out = torch.full((n_bins, b), _NEG_INF, device=q.device)
@@ -279,19 +309,46 @@ def cert_cos_binmax_plain(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_su
     return out
 
 
-# K1's launch geometry (csrc/cert_scan_sm90.cuh): CTAs of 64 queries, a
-# persistent grid, a ring of [rows x 64 deep] stages in shared memory. The
-# CTAs of a batch's query blocks sit side by side on the same bins and
-# share the rows through L2.
-K1_MAX_STAGES = 12
-_K1_TK = 64
+# ---------------------------------------------------------------------------
+# The Hopper scan's plans and launch geometry (csrc/cert_scan_sm90.cuh):
+# K1, K5 and K6 over f32 rows
+# ---------------------------------------------------------------------------
+
+# CTAs of 64 queries, a persistent grid, a ring of [rows x 64 deep] stages
+# in shared memory beside the resident query block (or, for deep rows, with
+# the query k-blocks in the stages). The CTAs of a batch's query blocks sit
+# side by side on the same bins and share the rows through L2.
+SM90_MAX_STAGES = 12
+_TK = 64
+_QBLOCK_BYTES = QUERY_BLOCK * _TK * 2  # one 64-deep bf16 query block
+
+# kernel -> (row bytes, wide stage shape, narrow stage shape), each (ks
+# k-blocks, rows): the C sides' shapes (cert_cos_binmax.cu Shape,
+# cert_fold_binmax.cu, bf16_binmax.cu)
+SM90_SHAPES = {
+    "K1": (1, (2, 128), (1, 128)),
+    "K1-bf16": (2, (1, 256), (1, 128)),
+    "K5": (2, (2, 128), (1, 128)),
+    "K6": (4, (1, 128), (1, 64)),
+}
 
 
-class K1Geometry(NamedTuple):
-    """How K1 covers a batch: ``n_qb`` 64-query blocks (the batch padded to
-    whole blocks), ``per_group`` persistent CTAs per block, the query depth
-    padded to ``dq``, and the ring: ``stages`` stages of ``ks`` k-blocks of
-    ``rows`` rows in ``smem`` bytes of shared memory."""
+class ScanPlan(NamedTuple):
+    """A launch's ring: ``stages`` stages of ``ks`` k-blocks of ``rows``
+    rows; ``streamed``: the query k-blocks ride in the stages (deep rows)
+    instead of the resident query block."""
+
+    ks: int
+    rows: int
+    stages: int
+    streamed: bool
+
+
+class ScanGeometry(NamedTuple):
+    """How an sm90 kernel covers a batch: ``n_qb`` 64-query blocks (the
+    batch padded to whole blocks), ``per_group`` persistent CTAs per block,
+    the query depth padded to ``dq``, its ring (:class:`ScanPlan`) in
+    ``smem`` bytes of shared memory."""
 
     n_qb: int
     per_group: int
@@ -299,6 +356,7 @@ class K1Geometry(NamedTuple):
     ks: int
     rows: int
     stages: int
+    streamed: bool
     smem: int
 
     @property
@@ -306,45 +364,60 @@ class K1Geometry(NamedTuple):
         return self.n_qb * self.per_group
 
 
-def k1_smem_bytes(d: int, row_bytes: int, stages: int, ks: int, rows: int) -> int:
-    """K1's dynamic shared memory (the C side's ``sm90::smem_bytes``): 1 KB
-    of alignment slack, the resident query blocks (8 KB per 64 deep), the
-    ring of ``stages`` x ``ks`` [rows x 64 deep] row tiles, the per-query
-    maxima and scales with the f16 flag, and the barriers."""
-    nk = -(-d // _K1_TK)
-    return (1024 + nk * QUERY_BLOCK * _K1_TK * 2 + stages * ks * rows * _K1_TK * row_bytes
+def sm90_smem_bytes(d: int, row_bytes: int, stages: int, ks: int, rows: int,
+                    streamed: bool = False) -> int:
+    """The scan's dynamic shared memory (the C side's ``sm90::smem_bytes``):
+    1 KB of alignment slack, the resident query blocks (8 KB per 64 deep;
+    none when streamed), the ring of ``stages`` stages of ``ks`` [rows x 64
+    deep] row tiles (each with its query k-block when streamed), the
+    per-query maxima and scales with the f16 flag, and the barriers."""
+    nk = -(-d // _TK)
+    stage = ks * (rows * _TK * row_bytes + (_QBLOCK_BYTES if streamed else 0))
+    return (1024 + (0 if streamed else nk * _QBLOCK_BYTES) + stages * stage
             + 2 * QUERY_BLOCK * 4 + 8 + (2 * stages + 1) * 8)
 
 
-def k1_stages(d: int, row_bytes: int, ks: int, rows: int) -> int:
-    """The most ring stages that fit: an even number up to K1_MAX_STAGES,
+def sm90_stages(d: int, row_bytes: int, ks: int, rows: int, streamed: bool = False) -> int:
+    """The most ring stages that fit: an even number up to SM90_MAX_STAGES,
     never below 2 (the two consumer warpgroups take alternate stages)."""
-    s = K1_MAX_STAGES
-    while s > 2 and k1_smem_bytes(d, row_bytes, s, ks, rows) > _SMEM_MAX:
+    s = SM90_MAX_STAGES
+    while s > 2 and sm90_smem_bytes(d, row_bytes, s, ks, rows, streamed) > _SMEM_MAX:
         s -= 2
     return s
 
 
-def k1_plan(d: int, row_bytes: int):
-    """-> (ks, rows, stages): the stage shape of the C side's ``plan_for``.
-    int8 rows take 2 k-blocks of 128 rows a stage, bf16 rows one k-block of
-    256 rows; either falls back to one of 128 rows when fewer than 4 stages
-    would fit."""
-    ks, rows = (2, 128) if row_bytes == 1 else (1, 256)
-    if k1_stages(d, row_bytes, ks, rows) < 4:
-        ks, rows = 1, 128
-    return ks, rows, k1_stages(d, row_bytes, ks, rows)
+def sm90_plan(mode: str, d: int) -> ScanPlan:
+    """The ring of ``mode`` (a key of :data:`SM90_SHAPES`) at stored depth
+    ``d``, the C side's ``sm90::plan_for``: the wide stage shape when 4
+    stages of it fit beside the resident query block, else the narrow one
+    when 2 fit, else the narrow one with the query block streamed (any d)."""
+    row_bytes, wide, narrow = SM90_SHAPES[mode]
+    if sm90_smem_bytes(d, row_bytes, 4, *wide) <= _SMEM_MAX:
+        return ScanPlan(*wide, sm90_stages(d, row_bytes, *wide), False)
+    if sm90_smem_bytes(d, row_bytes, 2, *narrow) <= _SMEM_MAX:
+        return ScanPlan(*narrow, sm90_stages(d, row_bytes, *narrow), False)
+    return ScanPlan(*narrow, sm90_stages(d, row_bytes, *narrow, True), True)
 
 
-def k1_geometry(b: int, d: int, row_bytes: int, n_sms: int) -> K1Geometry:
-    """K1's launch for a batch of ``b`` queries of depth ``d`` over rows of
-    ``row_bytes`` bytes (1: int8, 2: bf16) on a card of ``n_sms`` SMs. The
-    shared memory admits one CTA per SM, so each query block gets an equal
-    share of the SMs, at least one CTA."""
+def sm90_geometry(mode: str, b: int, d: int, n_sms: int) -> ScanGeometry:
+    """The launch of ``mode`` for a batch of ``b`` queries over rows of
+    stored depth ``d`` on a card of ``n_sms`` SMs. The shared memory admits
+    one CTA per SM, so each query block gets an equal share of the SMs, at
+    least one CTA."""
     n_qb = max(1, -(-b // QUERY_BLOCK))
-    ks, rows, stages = k1_plan(d, row_bytes)
-    return K1Geometry(n_qb, max(1, n_sms // n_qb), -(-d // _K1_TK) * _K1_TK,
-                      ks, rows, stages, k1_smem_bytes(d, row_bytes, stages, ks, rows))
+    return ScanGeometry(n_qb, max(1, n_sms // n_qb), -(-d // _TK) * _TK, *sm90_plan(mode, d),
+                        kernel_smem_bytes(mode, d))
+
+
+def _fragment_perm(dq: int, t, kk, e) -> torch.Tensor:
+    """[dq] gather index putting stored row element p = 0..63 of every
+    64-deep block, loaded by lane t = lane % 4 into register e of its A
+    fragment's 16-deep step kk, at wgmma depth 16 kk + 2 t + (0, 1, 8, 9)[e]
+    (the m16n8k16 layout): ``q_kernel[:, j] = q[:, perm[j]]``."""
+    p = torch.arange(_TK)
+    block = torch.empty(_TK, dtype=torch.int64)
+    block[16 * kk + 2 * t + torch.tensor([0, 1, 8, 9])[e]] = p
+    return (torch.arange(0, dq, _TK)[:, None] + block).reshape(-1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -353,33 +426,61 @@ def k1_query_perm(dq: int, device: torch.device = torch.device("cpu")) -> torch.
     block, stored row byte p = 16 t + 4 kk + e (t = lane % 4 of the thread
     that loads it, kk its 16-deep step, e = 0..3) sits at wgmma depth
     16 kk + 2 t + (0, 1, 8, 9)[e] of the thread's A fragment, so the query
-    element p goes there too: ``q_kernel[:, j] = q[:, perm[j]]``. Made once
-    per depth and device (callers read it, never write it)."""
-    p = torch.arange(_K1_TK)
-    t, kk, e = p // 16, (p % 16) // 4, p % 4
-    block = torch.empty(_K1_TK, dtype=torch.int64)
-    block[16 * kk + 2 * t + torch.tensor([0, 1, 8, 9])[e]] = p
-    return (torch.arange(0, dq, _K1_TK)[:, None] + block).reshape(-1).to(device)
+    element p goes there too. Made once per depth and device (callers read
+    it, never write it)."""
+    p = torch.arange(_TK)
+    return _fragment_perm(dq, p // 16, (p % 16) // 4, p % 4).to(device)
 
 
-def k1_pad_queries(q, q_inv, q_ok, geom: K1Geometry, permute: bool):
-    """K1's query operands: the batch padded to ``geom.n_qb`` blocks
-    (padded lanes zero, so q_ok = 0 keeps them out of every bin max), the
-    depth to ``geom.dq`` with zeros, and over int8 rows the depth of each
-    64-deep block permuted by :func:`k1_query_perm`."""
+@functools.lru_cache(maxsize=None)
+def f32_query_perm(dq: int, device: torch.device = torch.device("cpu")) -> torch.Tensor:
+    """[dq] gather index of K6's queries over f32 rows: a 64-deep f32
+    k-block lands as two halves of 32 (eight 16-byte chunks c each), and
+    lane t loads, for its step kk, chunk 2 t + kk % 2 of half kk // 2, so
+    stored element p = 32 h + 4 c + e (t = c // 2, kk = 2 h + c % 2) sits at
+    wgmma depth 16 kk + 2 t + (0, 1, 8, 9)[e]."""
+    p = torch.arange(_TK)
+    h, c, e = p // 32, (p % 32) // 4, p % 4
+    return _fragment_perm(dq, c // 2, 2 * h + c % 2, e).to(device)
+
+
+def sm90_pad_queries(q, per_query, geom: ScanGeometry, perm=None):
+    """An sm90 kernel's query operands: the batch padded to ``geom.n_qb``
+    blocks (padded lanes zero, so q_ok = 0 keeps them out of every bin
+    max), the depth to ``geom.dq`` with zeros, and the depth of each 64-deep
+    block gathered by ``perm`` (:func:`k1_query_perm` over int8 rows,
+    :func:`f32_query_perm` over f32 rows) -> (q, per_query)."""
     b, d = q.shape
     pad = geom.n_qb * QUERY_BLOCK - b
     qk = q if (pad, geom.dq) == (0, d) else torch.nn.functional.pad(q, (0, geom.dq - d, 0, pad))
-    if permute:
-        qk = qk.index_select(1, k1_query_perm(geom.dq, q.device))
+    if perm is not None:
+        qk = qk.index_select(1, perm)
     if pad:
-        q_inv, q_ok = (torch.nn.functional.pad(t, (0, pad)) for t in (q_inv, q_ok))
-    return qk, q_inv, q_ok
+        per_query = tuple(torch.nn.functional.pad(t, (0, pad)) for t in per_query)
+    return qk.contiguous(), tuple(per_query)
 
 
 @functools.lru_cache(maxsize=None)
 def _n_sms(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _sm90_launch(wrapper, mode, source, entry, q, v, per_query, ptrs, ints, perm=None):
+    """Launch the sm90 kernel of ``mode``: its geometry at the rows' stored
+    depth, the queries padded (and gathered by ``perm(dq, device)``), then
+    ``_launch`` with the pointers q, v, ``ptrs[0]``, the padded
+    ``per_query`` operands, ``ptrs[1]`` and the ints b, dq, n_qb,
+    per_group, ``ints``."""
+    dp = stored_depth(v)
+    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    geom = sm90_geometry(mode, q.shape[0], dp, _n_sms(dev))
+    qk, pq = sm90_pad_queries(q, per_query, geom,
+                              None if perm is None else perm(geom.dq, q.device))
+    head, tail = ptrs
+    return _launch(
+        wrapper, source, entry, qk, v, [qk, v, *head, *pq, *tail],
+        [q.shape[0], geom.dq, geom.n_qb, geom.per_group, *ints], dp,
+    )
 
 
 def _cert_cos(wrapper, entry, vdtype, q, v, inv, rmask, lane_a, q_inv, q_ok, thr,
@@ -405,14 +506,11 @@ def _cert_cos(wrapper, entry, vdtype, q, v, inv, rmask, lane_a, q_inv, q_ok, thr
                                      n_surv, cmp)
     if any(t.data_ptr() % 16 for t in (inv, rmask, lane_a)):
         raise ValueError(f"{entry}: inv, rmask and lane_a must start on a 16-byte boundary")
-    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    geom = k1_geometry(b, d, v.element_size(), _n_sms(dev))
-    qk, q_inv, q_ok = k1_pad_queries(q, q_inv, q_ok, geom, vdtype == torch.int8)
-    return _launch(
-        wrapper, "cert_cos_binmax", entry, qk, v,
-        [qk, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv],
-        [b, geom.dq, geom.n_qb, geom.per_group, _CMP_CODE[cmp]],
-        d_multiple=16, d=d,
+    mode = "K1" if vdtype == torch.int8 else "K1-bf16"
+    return _sm90_launch(
+        wrapper, mode, "cert_cos_binmax", entry, q, v, (q_inv, q_ok),
+        ([inv, rmask, lane_a], [thr, surv, n_surv]), [_CMP_CODE[cmp]],
+        perm=k1_query_perm if vdtype == torch.int8 else None,
     )
 
 
@@ -516,11 +614,11 @@ def cert_fold_binmax(q, v, inv, nsq, rmask, lane_a, lane_b, q_inv, q_sq, q_ok, c
             q, v, inv, nsq, rmask, lane_a, lane_b, q_inv, q_sq, q_ok, c0, c1, c2, thr,
             surv, n_surv, metric=metric, take_min=take_min, cmp=cmp,
         )
-    n_qb, q, pq = _pad_query_blocks(q, *(t for _, t in per_query))
-    return _launch(
-        cert_fold_binmax, "cert_fold_binmax", "cert_fold_binmax", q, v,
-        [q, v, inv, nsq, rmask, lane_a, lane_b, *pq, thr, surv, n_surv],
-        [b, n_qb, _METRIC_CODE[metric], int(take_min), _CMP_CODE[cmp]], d_multiple=16,
+    # Dot and Euclid read neither inv nor q_inv
+    return _sm90_launch(
+        cert_fold_binmax, "K5", "cert_fold_binmax", "cert_fold_binmax", q, v,
+        (q_sq, q_ok, c0, c1, c2), ([nsq, rmask, lane_a, lane_b], [thr, surv, n_surv]),
+        [_METRIC_CODE[metric], _CMP_CODE[cmp]],
     )
 
 
@@ -655,13 +753,18 @@ def _binmax(mode, wrapper, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
         )
     if mode == "K2" and 127 * 127 * d >= (1 << 31):
         raise ValueError(f"{entry}: d={d} could overflow the int32 dots")
-    n_qb, q, (q_inv, q_sq, q_ok) = _pad_query_blocks(q, q_inv, q_sq, q_ok)
+    ints = [_METRIC_CODE[metric], int(take_min), _CMP_CODE[cmp]]
+    if mode == "K6":  # the sm90 scan over f32 rows
+        return _sm90_launch(
+            wrapper, "K6", source, entry, q, v, (q_inv, q_sq, q_ok),
+            ([inv, nsq, rmask], [thr, surv, n_surv]), ints, perm=f32_query_perm,
+        )
+    dp = stored_depth(v)
+    n_qb, q, (q_inv, q_sq, q_ok) = _pad_query_blocks(q, dp, q_inv, q_sq, q_ok)
     return _launch(
         wrapper, source, entry, q, v,
         [q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv],
-        [b, n_qb, _METRIC_CODE[metric], int(take_min), _CMP_CODE[cmp]],
-        # K6 stages its rows in the certified scan's 16-element steps
-        d_multiple=16 if mode.startswith("K6") else 1,
+        [b, n_qb, *ints], dp,
     )
 
 
@@ -702,10 +805,48 @@ KERNELS = {
 }
 
 
+def kernel_smem_bytes(mode: str, d: int) -> int:
+    """The dynamic shared memory the kernel of ``mode`` asks for at stored
+    depth ``d`` (a multiple of 16), mirroring its source's ``*_smem_bytes``:
+    the sm90 scans (K1, K5, K6) their plan's, which always fits; K2 1 KB
+    per 16 deep of queries beside 41 KB of tiles (int8_binmax.cu); K6 over
+    bf16 rows the simple scan's query block, row tile and dot tile
+    (cert_scan.cuh ``cert_smem_bytes``); K4 a fixed 87 KB; K3 none."""
+    if mode in SM90_SHAPES:
+        plan = sm90_plan(mode, d)
+        return sm90_smem_bytes(d, SM90_SHAPES[mode][0], plan.stages, plan.ks, plan.rows,
+                               plan.streamed)
+    if mode == "K2":
+        return -(-d // 16) * QUERY_BLOCK * 16 + (64 // 16) * 128 * 16 + QUERY_BLOCK * 132 * 4
+    if mode == "K6-bf16":
+        return QUERY_BLOCK * (d + 8) * 2 + 128 * 72 * 2 + QUERY_BLOCK * 132 * 4
+    if mode.startswith("K4"):
+        return 2 * (QUERY_BLOCK + 128) * 72 * 2 + QUERY_BLOCK * 132 * 4
+    return 0
+
+
+def kernel_takes(mode: str, d: int) -> bool:
+    """Does the kernel of ``mode`` take rows of logical depth ``d``? The
+    port's counterpart of the JAX package's ``pallas_ok``, decided from the
+    shape before any launch: the kernel's shared memory at the stored depth
+    must fit a block (232,448 B); unlike a TPU's VMEM budget it does not
+    grow with the batch. K1, K5 and K6 over f32 rows take any d (their
+    deep-row plan streams the query block); K6 over bf16 rows stops at d =
+    1,392 and K2 at d = 2,976. A shape it refuses goes to the scan program
+    (``scoring.scan_topk_core``), and the caller adds the batch's queries
+    to ``kernel_takes.routed``."""
+    return kernel_smem_bytes(mode, pad_depth(d)) <= _SMEM_MAX
+
+
+kernel_takes.routed = 0  # queries sent to the scan program by shape
+
+
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and the count of queries routed
+    away from the kernels by shape, to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
+    kernel_takes.routed = 0
 
 
 def _winner_rows(top_slots, b: int, dev):

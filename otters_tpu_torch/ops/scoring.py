@@ -78,10 +78,43 @@ def require_full_f32(t: torch.Tensor) -> None:
         )
 
 
+# the rows' depth in memory is padded to a multiple of this (the Hopper
+# kernels' TMA strides and 16-element steps)
+DEPTH_ALIGN = 16
+
+
+def pad_depth(d: int) -> int:
+    """The stored depth of rows of logical depth ``d``."""
+    return -(-d // DEPTH_ALIGN) * DEPTH_ALIGN
+
+
+def _depth_padded(rows: torch.Tensor) -> torch.Tensor:
+    """``rows`` [n, d] as the store keeps them: a [n, d] view of a
+    contiguous [n, pad_depth(d)] buffer whose extra columns are zero. The
+    shape stays the logical one; the row stride is the stored depth. A
+    contiguous ``rows`` with d already aligned is returned as it is."""
+    n, d = rows.shape
+    dp = pad_depth(d)
+    if dp == d and rows.is_contiguous():
+        return rows
+    buf = rows.new_zeros((n, dp))
+    buf[:, :d] = rows
+    return buf[:, :d]
+
+
+def _padded_empty(n: int, d: int, dtype, device) -> torch.Tensor:
+    """An all-zero [n, d] store buffer with its depth padded (see
+    :func:`_depth_padded`), for ingest that writes rows in place."""
+    return torch.zeros((n, pad_depth(d)), dtype=dtype, device=device)[:, :d]
+
+
 class DeviceVecs(NamedTuple):
     """Device-resident vector store.
 
-    vectors  : [N_pad, D] float32, bfloat16 or int8
+    vectors  : [N_pad, D] float32, bfloat16 or int8; a view whose row
+               stride is D padded to a multiple of DEPTH_ALIGN (the padding
+               columns are zero, so they change no dot, norm, int8 scale or
+               residual; the kernels read the padded rows)
     norms_sq : [N_pad]    float32, squared L2 norms of the stored rows (0
                for padding)
     inv_norms: [N_pad]    float32, 1/||v|| with 0 for zero-norm rows
@@ -137,7 +170,7 @@ def materialize(vectors_np: np.ndarray, dtype=torch.float32, *, device) -> Devic
         raise OttersError(f"unsupported storage dtype {dtype}")
     valid = _valid_mask(n_pad, n, device)
     norms_sq, inv_norms = _device_norms(vecs)
-    return DeviceVecs(vecs, norms_sq, inv_norms, valid)
+    return DeviceVecs(_depth_padded(vecs), norms_sq, inv_norms, valid)
 
 
 # rows per slab of the bfloat16 ingest: its f32 temporaries stay near 1 GB
@@ -153,7 +186,7 @@ def _materialize_bf16(vecs_f32: torch.Tensor, n_valid: int,
     slab and written in place (rows are independent)."""
     n_pad, d = vecs_f32.shape
     dev = vecs_f32.device
-    vecs = torch.empty((n_pad, d), dtype=torch.bfloat16, device=dev)
+    vecs = _padded_empty(n_pad, d, torch.bfloat16, dev)
     norms_sq = torch.empty((n_pad,), dtype=torch.float32, device=dev)
     inv = torch.empty_like(norms_sq)
     resid = torch.empty_like(norms_sq)
@@ -177,7 +210,7 @@ def _materialize_int8(vecs_f32: torch.Tensor, n_valid: int) -> DeviceVecs:
     valid = _valid_mask(n_pad, n_valid, vecs_f32.device)
     resid = torch.where(valid, resid, 0.0)
     rbin, rmax = finalize_resid(resid)
-    return DeviceVecs(v8, norms_sq, inv, valid, resid, rbin, rmax)
+    return DeviceVecs(_depth_padded(v8), norms_sq, inv, valid, resid, rbin, rmax)
 
 
 def _inv_or_zero(x: torch.Tensor) -> torch.Tensor:
@@ -380,7 +413,8 @@ def materialize_from_device(vecs: torch.Tensor, n_valid: Optional[int] = None,
         raise OttersError(f"unsupported storage dtype {dtype}")
     vecs = vecs.to(dtype)
     norms_sq, inv_norms = _device_norms(vecs)
-    return DeviceVecs(vecs, norms_sq, inv_norms, _valid_mask(n_pad, n_valid, vecs.device))
+    return DeviceVecs(_depth_padded(vecs), norms_sq, inv_norms,
+                      _valid_mask(n_pad, n_valid, vecs.device))
 
 
 def materialize_int8_slabs(slab_fn, n: int, d: int, slab_rows: int, *, device) -> DeviceVecs:
@@ -393,7 +427,7 @@ def materialize_int8_slabs(slab_fn, n: int, d: int, slab_rows: int, *, device) -
     is the int8 store plus one slab and its temporaries."""
     device = torch.device(device)
     n_pad = pad_rows(n)
-    buf8 = torch.zeros((n_pad, d), dtype=torch.int8, device=device)
+    buf8 = _padded_empty(n_pad, d, torch.int8, device)
     norms_sq = torch.zeros((n_pad,), dtype=torch.float32, device=device)
     inv = torch.zeros((n_pad,), dtype=torch.float32, device=device)
     resid = torch.zeros((n_pad,), dtype=torch.float32, device=device)
@@ -421,7 +455,7 @@ def materialize_f32_slabs(slab_fn, n: int, d: int, slab_rows: int, *, device) ->
     memory is the store plus one slab (a concatenation would double it)."""
     device = torch.device(device)
     n_pad = pad_rows(n)
-    buf = torch.zeros((n_pad, d), dtype=torch.float32, device=device)
+    buf = _padded_empty(n_pad, d, torch.float32, device)
     slab_rows = max(1, min(slab_rows, n_pad))
     for start in range(0, n_pad, slab_rows):
         rows = min(slab_rows, n_pad - start)
@@ -618,8 +652,9 @@ def scan_topk_core(
         t_key, t_flat = exact_topk_flat(
             _masked_key(scores, ok, take_min).reshape(-1), kk
         )
+        w = scores.shape[1]  # the last tile may be shorter
         m_key = torch.cat([best_key, t_key])
-        m_row = torch.cat([best_row, (start + t_flat % tile).to(torch.int32)])
+        m_row = torch.cat([best_row, (start + t_flat % w).to(torch.int32)])
         m_score = torch.cat([best_score, scores.reshape(-1)[t_flat]])
         m_valid = torch.cat([best_valid, ok.reshape(-1)[t_flat]])
         best_key, sel = _stable_topk(m_key, k)
@@ -797,8 +832,9 @@ def run_vec_topk(
     f32 and bfloat16 rows the verified fast-exact K4 where
     :func:`fused_topk.fast_ok` allows it, re-run strictly (K3) when its
     check fails, else K3 (K4 for the store precision "high", K6 for the
-    one-pass "default" / "bf16"). The take-all regime streams windows to
-    the host (:func:`collect_all`)."""
+    one-pass "default" / "bf16"); a depth the kernel does not take
+    (:func:`fused_topk.kernel_takes`) goes to the scan program. The
+    take-all regime streams windows to the host (:func:`collect_all`)."""
     check_precision(prec)
     n_pad = dv.vectors.shape[0]
     b = queries.shape[0]
@@ -823,10 +859,17 @@ def run_vec_topk(
     if mode == "panel":
         from . import fused_topk as ft
 
-        alive = torch.ones(n_pad // ft.BIN, dtype=torch.bool, device=q.device)
         fast = dv.vectors.dtype != torch.int8 and ft.fast_ok(
             metric, take_min, cmp_eff, k_eff, prec
         )
+        kernel = ft.kernel_mode(dv.vectors.dtype, metric, take_min, False, prec, fast)
+        if not ft.kernel_takes(kernel, dv.vectors.shape[1]):
+            # the kernel does not take this depth (the JAX package's
+            # pallas_ok): the scan program, chosen before any launch
+            ft.kernel_takes.routed += b
+            mode = "scan"
+    if mode == "panel":
+        alive = torch.ones(n_pad // ft.BIN, dtype=torch.bool, device=q.device)
         rows, scores, valid, check, _ = ft.fused_topk(*args, alive, fast=fast, **kwargs)
         if fast and not bool(check):
             # the verified fast-exact check failed (ties near the boundary):

@@ -113,7 +113,7 @@ def _launch(wrapper, entry, q, rows, out_cols, ptrs_after, t):
             raise ValueError(f"{entry}: rows must start on a 16-byte boundary")
     if q.dtype != torch.float32:
         raise ValueError(f"{entry}: q must be float32, got {q.dtype}")
-    n_qb, qp, _ = ft._pad_query_blocks(q.contiguous())
+    n_qb, qp, _ = ft._pad_query_blocks(q.contiguous(), d)
     out = torch.empty((n_tiles, b, out_cols), device=q.device)
     _, launch = ft._kernel_fns(_SOURCE, entry, 2 + len(rows) + len(ptrs_after), 5)
     err = launch(

@@ -1,0 +1,177 @@
+"""The sm90 scan kernels' times at their paths' shapes, compared between
+source trees.
+
+    python otters_tpu_torch/scan_ab.py [ROOT:LABEL ...] [--rounds N]
+        [--modes K1,K1-bf16,K5,K6] [--b 64,256]
+
+Each ROOT is a checkout (or a copy of ``otters_tpu_torch/`` under ROOT);
+the default is this checkout. The trees are measured in interleaved rounds
+(A, B, A, B, ...), each in a process of its own that imports the package
+from its ROOT and builds its kernels there. Per tree and round it prints
+one JSON line with, per kernel and batch size: the per-call median of 10
+CUDA-event timings, three back-to-back means of 10 calls, the max error
+against the plain version on 40 bins, and the library call (one bf16
+matmul on rows cast beforehand, then the bin max). The shapes are the
+paths' of ``chip_smoke.py`` at d = 768, half the 1024-row chunks pruned:
+K1 over 10,000,384 int8 rows (``wide``: queries whose magnitudes span more
+than f16's range, so the scan multiplies in bf16) and K1-bf16 / K5 (Dot)
+over as many bf16 rows; K6 over 4,000,256 f32 rows. The rows and their
+side data are random, made on the device from a seed. Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+D, BIN = 768, 512
+N_BINS = {"K1": 19532, "K1-bf16": 19532, "K5": 19532, "K6": 7813}
+
+
+def _timers(torch):
+    def per_call(fn, reps=10, warm=3):
+        for _ in range(warm):
+            fn()
+        ts = []
+        for _ in range(reps):
+            a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            e.record()
+            e.synchronize()
+            ts.append(a.elapsed_time(e))
+        return round(statistics.median(ts), 3)
+
+    def back_to_back(fn, reps=10):
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fn()
+            e.record()
+            e.synchronize()
+            out.append(round(a.elapsed_time(e) / reps, 3))
+        return out
+
+    return per_call, back_to_back
+
+
+def _operands(torch, ft, mode, g, dev):
+    """(rows, per-row side operands, a function of the bf16 queries giving
+    the wrapper's args, kernel, plain) of ``mode``."""
+    n = N_BINS[mode] * BIN
+    if mode == "K1":
+        v = torch.randint(-127, 128, (n, D), generator=g, device=dev, dtype=torch.int8)
+    elif mode == "K6":
+        v = torch.randn((n, D), generator=g, device=dev)
+    else:
+        v = torch.randn((n, D), generator=g, device=dev).bfloat16()
+    inv = torch.rand(n, generator=g, device=dev) * 0.01 + 0.001
+    rmask = (torch.rand(n, generator=g, device=dev) < 0.9).float()
+    lane = torch.rand(n, generator=g, device=dev) * 1e-5
+    nsq = v[:, :64].float().square().sum(1) * (D / 64)
+    thr = torch.zeros(1, device=dev)
+
+    def args(qk, surv, n_surv):
+        b = qk.shape[0]
+        q_inv = 1.0 / qk.float().norm(dim=1)
+        ones = torch.ones(b, device=dev)
+        if mode in ("K1", "K1-bf16"):
+            return (qk, v, inv, rmask, lane, q_inv, ones, thr, surv, n_surv)
+        q_sq = qk.float().square().sum(1)
+        if mode == "K5":
+            c = torch.full((b,), 1e-4, device=dev)
+            return (qk, v, inv, nsq, rmask, lane, lane * 0.5, q_inv, q_sq, ones, c, c, c, thr,
+                    surv, n_surv)
+        return (qk, v, inv, nsq, rmask, q_inv, q_sq, ones, thr, surv, n_surv)
+
+    if mode in ("K1", "K1-bf16"):
+        return v, args, lambda a: ft.KERNELS[mode](*a), lambda a: ft.cert_cos_binmax_plain(*a)
+    if mode == "K5":
+        return (v, args, lambda a: ft.cert_fold_binmax(*a, ft.Metric.DotProduct, False, None),
+                lambda a: ft.cert_fold_binmax_plain(*a, metric=ft.Metric.DotProduct,
+                                                    take_min=False, cmp=None))
+    return (v, args, lambda a: ft.bf16_binmax(*a, ft.Metric.Cosine, False, None),
+            lambda a: ft.binmax_plain("K6", *a, metric=ft.Metric.Cosine, take_min=False,
+                                      cmp=None))
+
+
+def _measure(root: str, label: str, modes, bs) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from otters_tpu_torch import kernels
+    from otters_tpu_torch.ops import fused_topk as ft
+
+    assert ft.__file__.startswith(os.path.abspath(root)), ft.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda")
+    per_call, back_to_back = _timers(torch)
+    res = {"label": label}
+    for mode in modes:
+        g = torch.Generator(device=dev).manual_seed(0)
+        v, args, kernel, plain = _operands(torch, ft, mode, g, dev)
+        n_bins = N_BINS[mode]
+        surv, n_surv = ft.survivor_bins((torch.arange(n_bins, device=dev) // 2) % 2 == 1)
+        live = surv[: int(n_surv[0])].long()
+        rows = (live[:, None] * BIN + torch.arange(BIN, device=dev)).reshape(-1)
+        v_live = v[rows].bfloat16()
+        sl = torch.tensor([40], dtype=torch.int32, device=dev)
+        for b in bs:
+            q = torch.randn((b, D), generator=g, device=dev)
+            for kind in ("normal", "wide") if mode == "K1" else ("normal",):
+                qk = q.clone()
+                if kind == "wide":  # every query: half its elements 2^-40 of the rest
+                    qk[:, ::2] *= 2.0 ** -40
+                qk = qk.bfloat16()
+                a = args(qk, surv, n_surv)
+                got = kernel(a)
+                want = plain(a[:-2] + (surv[:40].contiguous(), sl))
+                err = float((got[live[:40]] - want[live[:40]]).abs().max())
+                res[f"{mode} b={b} {kind}"] = {"per_call": per_call(lambda: kernel(a)),
+                                              "b2b": back_to_back(lambda: kernel(a)),
+                                              "err": err}
+            res[f"{mode} b={b} library"] = per_call(
+                lambda: torch.matmul(q.bfloat16(), v_live.T).reshape(b, -1, BIN).amax(dim=2))
+        del v, v_live
+        torch.cuda.empty_cache()
+    res["ptxas"] = {name: [ln.strip() for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln]
+                    for name, log in kernels.build_logs.items()}
+    return res
+
+
+def main(argv) -> int:
+    opts = {"--rounds": "2", "--modes": "K1,K1-bf16,K5,K6", "--b": "64,256"}
+    for key in list(opts):
+        if key in argv:
+            i = argv.index(key)
+            opts[key] = argv[i + 1]
+            argv = argv[:i] + argv[i + 2:]
+    if argv and argv[0] == "--child":
+        modes, bs = opts["--modes"].split(","), [int(x) for x in opts["--b"].split(",")]
+        print(json.dumps(_measure(argv[1], argv[2], modes, bs)), flush=True)
+        return 0
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    trees = [a.split(":", 1) for a in argv] or [[here, "this"]]
+    rc = 0
+    for _ in range(int(opts["--rounds"])):
+        for root, label in trees:
+            p = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root, label,
+                                "--modes", opts["--modes"], "--b", opts["--b"]],
+                               capture_output=True, text=True)
+            lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+            print(lines[-1] if lines else json.dumps({"label": label, "rc": p.returncode,
+                                                      "stderr": p.stderr[-2000:]}), flush=True)
+            rc = rc or p.returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

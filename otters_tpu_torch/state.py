@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.scoring import DeviceVecs
+from .ops.scoring import DeviceVecs, _depth_padded
 
 
 def device_vecs_from_numpy(
@@ -24,8 +24,9 @@ def device_vecs_from_numpy(
     resid_max=None, *, device,
 ) -> DeviceVecs:
     """Adopt a JAX ``DeviceVecs``'s arrays (as numpy) into the port's
-    ``DeviceVecs`` on ``device``. The residual fields may be absent (an f32
-    store has none); bfloat16 vectors keep their codes."""
+    ``DeviceVecs`` on ``device``, the rows' depth padded as every ingest of
+    the port pads it. The residual fields may be absent (an f32 store has
+    none); bfloat16 vectors keep their codes."""
 
     def t(x):
         if x is None:
@@ -36,7 +37,7 @@ def device_vecs_from_numpy(
         return torch.from_numpy(x).to(device)
 
     return DeviceVecs(
-        t(vectors), t(norms_sq), t(inv_norms), t(valid), t(resid),
+        _depth_padded(t(vectors)), t(norms_sq), t(inv_norms), t(valid), t(resid),
         t(resid_bin), t(resid_max),
     )
 

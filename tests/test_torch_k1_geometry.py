@@ -2,11 +2,13 @@
 
 The Hopper kernel (``csrc/cert_cos_binmax.cu`` on ``csrc/cert_scan_sm90.cuh``)
 runs only on the card; what surrounds it is Python that these tests reach:
-``k1_geometry`` (query blocks and the persistent grid), ``k1_stages`` / ``k1_smem_bytes`` (the ring, mirroring the C side's
-``smem_bytes``; ``tests/test_torch_kernels_cuda.py`` checks the two agree on
-the card), ``k1_pad_queries`` and ``k1_query_perm`` (the int8-row fragment
-order). The kernel's CTA -> (query block, bin slots) mapping is replayed
-here from the geometry.
+``sm90_geometry`` (query blocks and the persistent grid), ``sm90_plan`` /
+``sm90_smem_bytes`` (the ring, mirroring the C side's ``smem_bytes``;
+``tests/test_torch_kernels_cuda.py`` checks the two agree on the card),
+``sm90_pad_queries`` and ``k1_query_perm`` (the int8-row fragment order).
+The kernel's CTA -> (query block, bin slots) mapping is replayed here from
+the geometry. The other sm90 kernels' plans (K5, K6 over f32 rows) and the
+deep-row plan: ``tests/test_torch_depth.py``.
 """
 
 import numpy as np
@@ -34,11 +36,13 @@ def _walk(geom, n_surv):
 @pytest.mark.parametrize("d", [16, 96, 768, 1392])
 @pytest.mark.parametrize("b", [1, 64, 70, 256, 300, 512, 600, 1024])
 def test_k1_geometry_covers_the_batch(b, d, row_bytes):
-    geom = ft.k1_geometry(b, d, row_bytes, N_SMS)
-    assert geom.smem == ft.k1_smem_bytes(d, row_bytes, geom.stages, geom.ks, geom.rows)
+    mode = "K1" if row_bytes == 1 else "K1-bf16"
+    geom = ft.sm90_geometry(mode, b, d, N_SMS)
+    assert geom.smem == ft.sm90_smem_bytes(d, row_bytes, geom.stages, geom.ks, geom.rows)
     assert geom.smem <= SMEM_MAX
     assert geom.stages >= 2 and geom.stages % 2 == 0
-    assert (geom.ks, geom.rows, geom.stages) == ft.k1_plan(d, row_bytes)
+    assert (geom.ks, geom.rows, geom.stages, geom.streamed) == ft.sm90_plan(mode, d)
+    assert not geom.streamed  # the query block stays resident up to d = 1,392
     assert geom.n_qb == -(-b // ft.QUERY_BLOCK)
     assert geom.dq % 64 == 0 and 0 <= geom.dq - d < 64
     # the persistent grid: an equal share of the card per query block
@@ -52,7 +56,8 @@ def test_k1_geometry_covers_the_batch(b, d, row_bytes):
     # padded lanes carry q_ok = 0 and zero queries
     rng = np.random.default_rng(b + d)
     q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).bfloat16()
-    qk, qi, qo = ft.k1_pad_queries(q, torch.ones(b), torch.ones(b), geom, row_bytes == 1)
+    perm = ft.k1_query_perm(geom.dq) if row_bytes == 1 else None
+    qk, (qi, qo) = ft.sm90_pad_queries(q, (torch.ones(b), torch.ones(b)), geom, perm)
     assert qk.shape == (geom.n_qb * 64, geom.dq) and qk.is_contiguous()
     assert qo[:b].eq(1).all() and qo[b:].eq(0).all() and qi[b:].eq(0).all()
     assert qk[b:].eq(0).all()
@@ -66,7 +71,8 @@ def test_k1_geometry_covers_the_batch(b, d, row_bytes):
 def test_k1_stage_plan(d, row_bytes, plan):
     """int8 rows: two 64-deep k-blocks of 128 rows a stage; bf16 rows: one
     of 256 rows; one of 128 rows when fewer than 4 stages would fit."""
-    assert ft.k1_plan(d, row_bytes) == plan
+    mode = "K1" if row_bytes == 1 else "K1-bf16"
+    assert ft.sm90_plan(mode, d) == (*plan, False)
 
 
 @pytest.mark.parametrize("dq", [64, 128, 768, 1408])

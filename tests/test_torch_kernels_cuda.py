@@ -1,10 +1,14 @@
 """The Hopper kernels against their plain torch versions, on the card.
 
 K1 (certified Cosine) over int8 and bfloat16 rows at b = 1 to 600 and d =
-96 to 1392, with its live-bin edge cases and queries far from unit scale
-or too wide for f16; K2 / K3 / K4 / K6 over int8 / f32
-rows; over bfloat16 rows K3, K4, K5 (the general certified fold, Dot and
-Euclid) and K6; the three profiling probes (``profile_variants``).
+96 to 2048 (the deep-row plan), with its live-bin edge cases and queries
+far from unit scale or too wide for f16; K2 / K3 / K4 / K6 over int8 / f32
+rows (K6 at b = 1 to 600, d = 100 to 2048, every metric and filter); over
+bfloat16 rows K3, K4, K5 (the general certified fold, Dot and Euclid, at b
+= 1 to 600, d = 100 to 2048, with masked bins and NaN rows) and K6; the
+shared-memory figures of the depth route and the sm90 plans against the C
+side; the three profiling probes (``profile_variants``). A depth that is
+not a multiple of 16 (d = 100) runs as the store pads it.
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
@@ -153,10 +157,9 @@ CASES = [
 @pytest.mark.parametrize("mode,metric,take_min,cmp,thr", CASES)
 @pytest.mark.parametrize("d", [128, 100])
 def test_kernel_matches_plain(mode, metric, take_min, cmp, thr, d):
-    """K6 stages 16-element steps, so d = 100 runs it at 112."""
+    """At d = 100 the store pads its rows to 112 and the wrapper the
+    queries."""
     dev = _device()
-    if d % 16 and mode == "K6":
-        d = 112
     args = _operands(mode, dev, d=d, thr=thr)
     fn = ft.KERNELS[mode]
     before = fn.launches
@@ -221,11 +224,9 @@ BF16_CASES = [
 @pytest.mark.parametrize("mode,metric,take_min,cmp,thr", BF16_CASES)
 @pytest.mark.parametrize("d", [128, 100])
 def test_bf16_row_kernel_matches_plain(mode, metric, take_min, cmp, thr, d):
-    """The bf16-row modes; the certified scan's (K1, K5, K6) need d % 16 ==
-    0, so d = 100 runs them at 112."""
+    """The bf16-row modes; at d = 100 the store pads its rows to 112 and the
+    wrapper the queries."""
     dev = _device()
-    if d % 16 and mode in ("K1-bf16", "K5", "K6-bf16"):
-        d = 112
     args = _bf16_operands(mode, dev, metric, d=d, thr=thr, cmp=cmp)
     fn = ft.KERNELS[mode]
     before = fn.launches
@@ -292,14 +293,15 @@ def _check_k1(mode, args, cmp, live):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cmp", [None, Cmp.Gt, Cmp.Gte])
-@pytest.mark.parametrize("d", [96, 768, 1392])
+@pytest.mark.parametrize("d", [96, 768, 1392, 2048])
 @pytest.mark.parametrize("b", [1, 70, 256, 600])
 @pytest.mark.parametrize("mode", ["K1", "K1-bf16"])
 def test_k1_matches_plain(mode, b, d, cmp):
     """K1 over int8 and bf16 rows at batch sizes of one, two, four and ten
-    query blocks, depths of one and a
-    half, twelve and 21.75 64-deep blocks, each score filter; 60% of the
-    bins alive: within ``mixed_cert_eps(d)`` of the plain version."""
+    query blocks, depths of one and a half, twelve, 21.75 and (the deep-row
+    plan, the query block streamed through the ring) 32 64-deep blocks, each
+    score filter; 60% of the bins alive: within ``mixed_cert_eps(d)`` of
+    the plain version."""
     dev = _device()
     _check_k1(mode, _k1_operands(mode, dev, b=b, d=d, cmp=cmp), cmp, "some")
 
@@ -344,7 +346,7 @@ def test_k1_query_scales(mode, b, kind):
 @pytest.mark.parametrize("mode,row_bytes", [("K1", 1), ("K1-bf16", 2)])
 @pytest.mark.parametrize("d", [16, 96, 768, 1392])
 def test_k1_smem_mirrors_the_kernel(mode, row_bytes, d):
-    """``k1_plan`` / ``k1_smem_bytes`` equal the C side's figures."""
+    """``sm90_plan`` / ``sm90_smem_bytes`` equal the C side's figures."""
     _device()
     from otters_tpu_torch import kernels
 
@@ -354,9 +356,9 @@ def test_k1_smem_mirrors_the_kernel(mode, row_bytes, d):
     smem.argtypes = stages.argtypes = [ctypes.c_int]
     smem.restype = ctypes.c_size_t
     stages.restype = ctypes.c_int
-    ks, rows, s = ft.k1_plan(d, row_bytes)
+    ks, rows, s, streamed = ft.sm90_plan(mode, d)
     assert stages(d) == s
-    assert smem(d) == ft.k1_smem_bytes(d, row_bytes, s, ks, rows)
+    assert smem(d) == ft.sm90_smem_bytes(d, row_bytes, s, ks, rows, streamed)
 
 
 @pytest.mark.cuda
@@ -378,13 +380,14 @@ def test_no_live_bin_leaves_every_bin_neg_inf(mode):
 
 
 @pytest.mark.cuda
-def test_k6_dots_equal_float64_of_the_rounded_operands():
+@pytest.mark.parametrize("d", [100, 768, 2048])
+def test_k6_dots_equal_float64_of_the_rounded_operands(d):
     """Unit norms, Dot metric, one unmasked row per bin: each K6 bin max is
     that row's accumulated one-pass dot, within d 2^-24 |qh| |vh| of the
     float64 product of the bf16-rounded operands (the products are exact,
-    only the f32 sums round)."""
+    only the f32 sums round); at a padded depth, the main path's and a
+    streamed one."""
     dev = _device()
-    d = 768
     args = _operands("K6", dev, d=d, b=64, n=20_000)
     qh, v = args[0], args[1]
     n_pad = v.shape[0]
@@ -425,3 +428,182 @@ def test_probe_matches_plain(name, d, b):
     scale = float(ops["q"].norm(dim=1).max()) * float(ops["v"].norm(dim=1).max())
     err = float((got - want).abs().max())
     assert err <= base * scale, (err, base * scale)
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6 over f32 rows on the sm90 scan; the depth plans against C
+# ---------------------------------------------------------------------------
+
+
+def _check_plain(mode, args, metric, take_min, cmp, nan_ok=False):
+    """Launch once, hold against the plain version: the same finite / -inf
+    pattern, within ``_tol`` plus 4 ulps of the largest key."""
+    fn = ft.KERNELS[mode]
+    before = fn.launches
+    got = _call(mode, args, metric, take_min, cmp)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = _call(mode, args, metric, take_min, cmp, plain=True)
+    fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
+    assert torch.equal(fin_g, fin_w)
+    assert bool(fin_w.any()) and not bool(fin_w.all())
+    err = float((got[fin_w] - want[fin_w]).abs().max())
+    tol = _tol(mode, args, metric)
+    tol += 4 * float(np.spacing(np.float32(float(want[fin_w].abs().max()))))
+    assert err <= tol, (err, tol)
+
+
+K5_FILTERS = [(Metric.DotProduct, False, None, 0.0), (Metric.DotProduct, False, Cmp.Gt, 2.0),
+              (Metric.DotProduct, False, Cmp.Gte, 2.0),
+              (Metric.Euclidean, True, None, 0.0), (Metric.Euclidean, True, Cmp.Lt, 250.0),
+              (Metric.Euclidean, True, Cmp.Lte, 250.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,take_min,cmp,thr", K5_FILTERS)
+def test_k5_filters(metric, take_min, cmp, thr):
+    """K5 with each score filter of Dot (take-max) and Euclid (take-min)."""
+    dev = _device()
+    args = _bf16_operands("K5", dev, metric, d=100, thr=thr, cmp=cmp)
+    _check_plain("K5", args, metric, take_min, cmp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [100, 768, 2048])
+@pytest.mark.parametrize("b", [1, 64, 256, 600])
+@pytest.mark.parametrize("metric", [Metric.DotProduct, Metric.Euclidean])
+def test_k5_matches_plain(metric, b, d):
+    """K5 at one, one full, four and ten (the last partial) query blocks,
+    at a padded depth, the main path's and a depth past the resident query
+    block (streamed)."""
+    dev = _device()
+    args = _bf16_operands("K5", dev, metric, d=d, b=b, n=20_000)
+    _check_plain("K5", args, metric, metric is Metric.Euclidean, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.DotProduct, Metric.Euclidean])
+def test_k5_masked_bins_and_nan_rows(metric):
+    """Whole bins masked (every row's rmask 0) beside dead bins, and rows
+    whose values are NaN (their side data finite, so their dots and scores
+    are NaN): a NaN score fails the filter like a masked row, the bins stay
+    equal to the plain version's."""
+    dev = _device()
+    take_min = metric is Metric.Euclidean
+    args = _bf16_operands("K5", dev, metric, d=768, b=70, n=20_000)
+    v, rmask, surv, n_surv = args[1], args[4], args[-2], args[-1]
+    live = surv[: int(n_surv[0])].long()
+    masked = live[::3]
+    rmask.view(-1, ft.BIN)[masked] = 0.0
+    nan_rows = live[1::3] * ft.BIN + 5
+    v[nan_rows] = float("nan")
+    _check_plain("K5", args, metric, take_min, None)
+    out = ft.cert_fold_binmax(*args, metric, take_min, None)
+    assert bool(torch.isneginf(out[masked]).all())
+
+
+K6_FILTERS = [(m, tm, c, t) for m, tm, t in ((Metric.Cosine, False, 0.05),
+                                             (Metric.DotProduct, False, 2.0),
+                                             (Metric.Euclidean, True, 250.0))
+              for c in (None, Cmp.Gt, Cmp.Gte, Cmp.Lt, Cmp.Lte)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,take_min,cmp,thr", K6_FILTERS)
+def test_k6_filters(metric, take_min, cmp, thr):
+    """K6 over f32 rows with every metric and score filter (Eq:
+    ``test_k6_eq_filter``)."""
+    dev = _device()
+    args = _operands("K6", dev, d=100, thr=thr)
+    _check_plain("K6", args, metric, take_min, cmp)
+
+
+@pytest.mark.cuda
+def test_k6_eq_filter():
+    """Eq needs scores both versions compute exactly: small-integer rows
+    and queries (exact in bf16, exact sums), the Dot metric."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(4)
+    n, d = 20_000, 100
+    ints = torch.randint(-2, 3, (sc.pad_rows(n), d), generator=g, device=dev).float()
+    ints[n:] = 0.0
+    dv = sc.materialize_f32_slabs(lambda s_, r: ints[s_ : s_ + r], n, d, 1 << 14, device=dev)
+    q = torch.randint(-2, 3, (70, d), generator=g, device=dev).float()
+    thr = float(q[0] @ ints[777])
+    q_sq, q_inv = sc._query_norms(q)
+    alive = torch.ones(dv.vectors.shape[0] // ft.BIN, dtype=torch.bool, device=dev)
+    surv, n_surv = ft.survivor_bins(alive)
+    args = [q.bfloat16(), dv.vectors, dv.inv_norms, dv.norms_sq, dv.valid.float(), q_inv, q_sq,
+            torch.ones(70, device=dev), torch.full((1,), thr, device=dev), surv, n_surv]
+    _check_plain("K6", args, Metric.DotProduct, False, Cmp.Eq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [100, 768, 2048])
+@pytest.mark.parametrize("b", [1, 64, 256, 600])
+@pytest.mark.parametrize("metric", [Metric.Cosine, Metric.DotProduct, Metric.Euclidean])
+def test_k6_matches_plain(metric, b, d):
+    """K6 over f32 rows at one, one full, four and ten query blocks, a
+    padded depth, the main path's and a depth past the resident query
+    block (streamed)."""
+    dev = _device()
+    args = _operands("K6", dev, d=d, b=b, n=20_000)
+    _check_plain("K6", args, metric, metric is Metric.Euclidean, None)
+
+
+def _one_row_per_bin(args, dev, n_pad):
+    n_bins = n_pad // ft.BIN
+    rows = torch.arange(n_bins, device=dev) * ft.BIN + 7  # a valid row in every bin
+    rmask = torch.zeros(n_pad, device=dev)
+    rmask[rows] = 1.0
+    surv, n_surv = ft.survivor_bins(torch.ones(n_bins, dtype=torch.bool, device=dev))
+    return rows, rmask, surv, n_surv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [100, 768, 2048])
+def test_k5_dots_equal_float64(d):
+    """Dot metric, one unmasked row per bin, every certificate term 0: each
+    K5 bin max is that row's accumulated dot, within d 2^-24 |qh| |v| of the
+    float64 product of the bf16 operands (the products are exact)."""
+    dev = _device()
+    args = _bf16_operands("K5", dev, Metric.DotProduct, d=d, b=64, n=20_000)
+    qh, v = args[0], args[1]
+    n_pad = v.shape[0]
+    rows, rmask, surv, n_surv = _one_row_per_bin(args, dev, n_pad)
+    ones_n, zero_n = torch.ones(n_pad, device=dev), torch.zeros(n_pad, device=dev)
+    ones_b, zero_b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    out = ft.cert_fold_binmax(qh, v, ones_n, ones_n, rmask, zero_n, zero_n, ones_b, zero_b,
+                              ones_b, zero_b, zero_b, zero_b, torch.zeros(1, device=dev),
+                              surv, n_surv, Metric.DotProduct, False, None)
+    vh = v[rows].double()
+    ref = (qh.double() @ vh.T).T
+    scale = vh.norm(dim=1)[:, None] * qh.double().norm(dim=1)[None, :]
+    err = float(((out.double() - ref).abs() / scale).max())
+    assert err <= d * 2.0**-24, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,entry", [
+    ("K1", "cert_cos_binmax"), ("K1-bf16", "cert_cos_binmax_bf16"), ("K5", "cert_fold_binmax"),
+    ("K6", "bf16_binmax"), ("K6-bf16", "bf16_binmax_bf16"), ("K2", "int8_binmax"),
+    ("K4", "bf16x3_binmax")])
+@pytest.mark.parametrize("d", [16, 112, 768, 1392, 1408, 1536, 2048, 2976, 2992, 4096])
+def test_smem_mirrors_the_kernel(mode, entry, d):
+    """``kernel_smem_bytes`` (and the sm90 plans' stage counts) equal the C
+    side's figures at every depth the shape check and the plans turn on."""
+    _device()
+    from otters_tpu_torch import kernels
+
+    source = ft._MODES[mode][0] if mode in ft._MODES else {
+        "K1": "cert_cos_binmax", "K1-bf16": "cert_cos_binmax", "K5": "cert_fold_binmax"}[mode]
+    lib = kernels.load(source)
+    smem = getattr(lib, f"{entry}_smem_bytes")
+    smem.argtypes = [ctypes.c_int]
+    smem.restype = ctypes.c_size_t
+    assert smem(d) == ft.kernel_smem_bytes(mode, d)
+    if mode in ft.SM90_SHAPES:
+        stages = getattr(lib, f"{entry}_stages")
+        stages.argtypes = [ctypes.c_int]
+        stages.restype = ctypes.c_int
+        assert stages(d) == ft.sm90_plan(mode, d).stages
