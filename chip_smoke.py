@@ -9,7 +9,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 3. the kernel phase: K1 (csrc/cert_cos_binmax.cu), K2 (int8_binmax.cu), K3
    (f32_binmax.cu), K4 (bf16x3_binmax.cu), K5 (cert_fold_binmax.cu) and K6
    (bf16_binmax.cu) against their plain torch versions at d = 768, b = 256
-   and 70 (K1, K5 and K6 also 1 and 600), 2M rows in 1024-row chunks with
+   and 70 (the sm90 kernels also 1 and 600), 2M rows in 1024-row chunks with
    half of them pruned, every metric
    and Gt / Lt / Eq filters, over int8 / f32 rows and (K1, K3, K4, K5, K6)
    bfloat16 rows; K2's int32 dots bit for bit; the others against float64
@@ -20,14 +20,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    the device from seeded f32 rows, bench.py's price/version columns, the
    filter ``price < 50 & version >= 2`` (prunes half the chunks), pipelined
    ``collect_async`` batches of 256 Cosine queries with
-   ``take(10, rerank_from=100)`` and ``resolve``; every query certified and
+   ``take(10, rerank_from=100)`` and ``resolve``, timed in PATH_ROUNDS
+   rounds (median q/s, as are the bf16 paths of 4f); every query certified and
    equal to an exact f32 filtered top-10; one round traced (K1's time per
    batch, the rest of the device time, the idle share); then K1 timed at
    these shapes against its plain version, a library yardstick and its
-   bound, and again at b = 1, 64 and 512 (as K1 over bf16 rows and K5 in
-   4f, K6 in 6); each kernel of csrc/cert_scan_sm90.cuh (K1, K5, K6) and
-   its library call timed in K1_ROUNDS interleaved rounds (median and
-   range);
+   bound, and again at b = 1, 64 and 512 (as K1, K6 and K4 over bf16 rows
+   and K5 in 4f, K6 in 6); each kernel of csrc/cert_scan_sm90.cuh (K1, K5,
+   K6 over f32 and bf16 rows, K4 over bf16 rows) and its library call
+   timed in K1_ROUNDS interleaved rounds (median and range);
    4u. bench.py's ``filtered_uncert`` on the same store
    (``certify=False``): K2, recall@10 against the f32 truth, K2 timed;
    4f. bfloat16 storage: a 10M x 768 bf16 store made on the device from
@@ -39,7 +40,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    the exact top-10 of the stored values; the same at the store precisions
    "default" (8 batches) and "bf16" (one): K6 over bf16 rows, equal to the
    exact top-10 of the one-pass scores, recall@10 against the f32 truth
-   reported; the five bf16-row modes timed;
+   reported; the uncertified Cosine and "default" rounds traced (scan ms
+   per batch, the rest, the idle share); the five bf16-row modes timed
+   (K1, K5, K6 and K4 over bf16 rows also at b = 1, 64 and 512);
    4g. 1M x 768 bf16 stores: exact ties in more bins than the fast mode
    examines (its check fails, K3 over bf16 rows reruns) and Dot / Euclid
    near-ties that make the certificate widen on K5;
@@ -47,11 +50,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    through the fused kernel and past it into the scan program;
    4d. depths: 250,000-row stores at d = 100 (stored as 112) and d = 2,048
    through MetaStore (certified int8 Cosine on K1, certified bf16 Dot on
-   K5, precision "default" over f32 rows on K6 and over bf16 rows, and
-   uncertified int8), each equal to its exact truth; at 2,048 K1, K5 and
-   K6 run their deep-row plan while K6 over bf16 rows is routed to the
-   scan program by shape, as K2 is at d = 3,072 (the routed queries are
-   counted); K1, K5 and K6 against their plain versions at both depths;
+   K5, precision "default" over f32 rows on K6 and over bf16 rows on
+   K6-bf16, uncertified bf16 Cosine on K4-bf16, and uncertified int8),
+   each equal to its exact truth; at 2,048 K1, K5, K6, K6-bf16 and K4-bf16
+   run their deep-row plan (nothing routed), while K2 is routed to the
+   scan program by shape at d = 3,072 (the routed queries are counted);
+   the five sm90 modes against their plain versions at both depths;
 5. the twin of examples/demo.py on the card;
 6. bench.py's exact-f32 section: a 4M x 768 f32 store built on the device,
    the same columns and filter, pipelined ``take(10)`` batches of 256
@@ -109,7 +113,12 @@ N_DUP = 60  # bins holding copies of the tied row: more than 4k = 40
 TAKE_ALL_B = 16  # queries of the take-all batches
 K1_WIDE_B = 600  # K1's widest kernel-phase batch: ten query blocks, the last one partial
 K1_ROUNDS = 7  # interleaved timing rounds of an sm90 kernel and its library call
-ROUND_MODES = ("K1", "K1-bf16", "K5", "K6")  # the kernels on csrc/cert_scan_sm90.cuh
+# timed rounds of the main path and the bf16 paths (one round is ~50 ms of
+# wall, so a host stall can halve one round's q/s): the median, every
+# round logged
+PATH_ROUNDS = 3
+# the kernels on csrc/cert_scan_sm90.cuh
+ROUND_MODES = ("K1", "K1-bf16", "K5", "K6", "K6-bf16", "K4-bf16")
 SWEEP_B = (1, 64, 512)  # their other timed batch sizes, on their paths' stores
 DEPTH_ROWS = 250_000  # the depth phase's stores (with 256 queries, fused-size)
 DEPTHS = (100, 2048)  # stored as 112; past every resident query block
@@ -176,6 +185,8 @@ def rows_alive(chunk_mask, n_pad):
 
 
 CERT_MODES = ("K1", "K1-bf16", "K5")  # the certified scans
+# the kernel names of the uncertified bf16-row scans, for the profiler
+SCAN_NAMES = {"K4-bf16": "bf16x3_binmax_sm90_kernel", "K6-bf16": "bf16_binmax_sm90_kernel"}
 
 
 def mode_inputs(mode, dv, queries, chunk_mask, thr=0.0, metric=None, cmp=None):
@@ -394,6 +405,8 @@ def kernel_phase(torch, dev):
         ("K4-bf16", dvb, Metric.Cosine, False, None, 0.0, B),
         ("K4-bf16", dvb, Metric.DotProduct, False, Cmp.Gt, 2.0, 70),
         ("K4-bf16", dvb, Metric.Euclidean, True, None, 0.0, B),
+        ("K4-bf16", dvb, Metric.Cosine, False, Cmp.Gte, 0.05, 1),
+        ("K4-bf16", dvb, Metric.Euclidean, True, Cmp.Lte, 1450.0, K1_WIDE_B),
         ("K6", dvf, Metric.Cosine, False, Cmp.Gt, 0.05, B),
         ("K6", dvf, Metric.DotProduct, False, None, 0.0, 70),
         ("K6", dvf, Metric.Euclidean, True, Cmp.Lt, 1450.0, B),
@@ -402,6 +415,8 @@ def kernel_phase(torch, dev):
         ("K6-bf16", dvb, Metric.Cosine, False, None, 0.0, 70),
         ("K6-bf16", dvb, Metric.DotProduct, False, Cmp.Gt, 2.0, B),
         ("K6-bf16", dvb, Metric.Euclidean, True, Cmp.Lt, 1450.0, 70),
+        ("K6-bf16", dvb, Metric.Cosine, False, Cmp.Lte, 0.05, 1),
+        ("K6-bf16", dvb, Metric.DotProduct, False, Cmp.Gte, 2.0, K1_WIDE_B),
     ]
     for mode, dv, metric, take_min, cmp, thr, b in cases:
         args = mode_inputs(mode, dv, all_queries[:b], chunk_mask, thr, metric, cmp)
@@ -540,6 +555,27 @@ def check_topk(label, rows, scores, want_rows, want_scores, tol):
     return len(diff), err
 
 
+def timed_rounds(torch, dev, submit, read_launches):
+    """PATH_ROUNDS timed rounds of a path: each sets every launch count to
+    0, submits its pipelined batches (``submit()`` -> pendings), resolves
+    them and synchronises -> (the last round's pendings, results and
+    launch counts, the median q/s, every round's q/s)."""
+    import otters_tpu_torch as tx
+    from otters_tpu_torch.ops import fused_topk as ft
+
+    rounds = []
+    for _ in range(PATH_ROUNDS):
+        ft.reset_launches()
+        sync(dev)
+        t0 = time.perf_counter()
+        pend = submit()
+        results = tx.resolve(pend)
+        sync(dev)
+        elapsed = time.perf_counter() - t0
+        rounds.append(len(pend) * B / elapsed)
+    return pend, results, read_launches(), statistics.median(rounds), rounds
+
+
 def counts():
     from otters_tpu_torch.ops import fused_topk as ft
 
@@ -617,17 +653,12 @@ def main_path(torch, dev, n, card=""):
     log(f"warm-up batch: {time.perf_counter() - t0:.2f} s, "
         f"scan_k_wide={warm_p.stats().scan_k_wide}")
 
-    ft.cert_cos_binmax.launches = 0
-    sync(dev)
-    t0 = time.perf_counter()
-    pend = [pending(q) for q in batches]
-    results = tx.resolve(pend)
-    sync(dev)
-    elapsed = time.perf_counter() - t0
-    launches = ft.cert_cos_binmax.launches
-    qps = BATCHES * B / elapsed
-    log(f"main path: {BATCHES} pipelined batches of {B} in {elapsed:.3f} s = "
-        f"{qps:.1f} q/s (build {build_s:.2f} s) on {card}; K1 launches {launches}")
+    pend, results, launches, qps, rounds = timed_rounds(
+        torch, dev, lambda: [pending(q) for q in batches],
+        lambda: ft.cert_cos_binmax.launches)
+    log(f"main path: {BATCHES} pipelined batches of {B}, {PATH_ROUNDS} rounds: "
+        f"{', '.join(f'{r:.1f}' for r in rounds)} q/s, "
+        f"median {qps:.1f} q/s (build {build_s:.2f} s) on {card}; K1 launches {launches}")
     if dev.type == "cuda":
         assert launches >= BATCHES, f"K1 launched {launches} times for {BATCHES} scans"
     for i, p in enumerate(pend):
@@ -650,7 +681,7 @@ def main_path(torch, dev, n, card=""):
     log(f"exact f32 ground truth: top-{K} equal for {checked} queries "
         f"({BATCHES} batches of {B} + one of 32)")
     prof = profile_batches(torch, pending, batches, "cert_cos_binmax_kernel")
-    stats = {"qps": qps, "build_s": build_s, "synth_s": synth_s,
+    stats = {"qps": qps, "qps_rounds": rounds, "build_s": build_s, "synth_s": synth_s,
              "launches": launches, "scan_k_wide": pend[-1].stats().scan_k_wide,
              "profile": prof}
     return store, f32, batches, truths[:BATCHES], stats
@@ -815,7 +846,7 @@ def time_mode(torch, mode, dv, queries, n_chunks, metric=None):
 
 
 def b_sweep(torch, mode, dv, queries, n_chunks, metric=None):
-    """An sm90 kernel (K1, K1-bf16, K5, K6) at the other batch sizes of
+    """An sm90 kernel (a mode of ROUND_MODES) at the other batch sizes of
     SWEEP_B on a path's store: each held against plain and timed beside the
     library call and the bound -> {b: time_mode's numbers}."""
     return {b: time_mode(torch, mode, dv, queries[:b], n_chunks, metric) for b in SWEEP_B}
@@ -902,15 +933,8 @@ def bf16_path(torch, dev, f32, batches, truths, card=""):
             return plan.take(K, **take).collect_async()
 
         tx.resolve([pending(torch.randn((B, D), generator=g, device=dev))])  # warm-up
-        ft.reset_launches()
-        sync(dev)
-        t0 = time.perf_counter()
-        pend = [pending(q) for q in qs]
-        results = tx.resolve(pend)
-        sync(dev)
-        elapsed = time.perf_counter() - t0
-        launched = counts()
-        qps = len(qs) * B / elapsed
+        pend, results, launched, qps, rounds = timed_rounds(
+            torch, dev, lambda: [pending(q) for q in qs], counts)
         certify = "rerank_from" in take
         for i, p in enumerate(pend):
             st = p.stats()
@@ -934,14 +958,20 @@ def bf16_path(torch, dev, f32, batches, truths, card=""):
         if metric is tx.Metric.Cosine:
             hits = [len(set(res.indices) & set(gt)) / K for res, gt in zip(results, truths)]
             recall = sum(hits) / len(hits)
-        log(f"{label}: {len(qs)} pipelined batches of {B} in {elapsed:.3f} s = "
-            f"{qps:.1f} q/s on {card}; scan_k_wide={pend[-1].stats().scan_k_wide}; "
+        log(f"{label}: {len(qs)} pipelined batches of {B}, {PATH_ROUNDS} rounds: "
+            f"{', '.join(f'{r:.1f}' for r in rounds)} q/s, "
+            f"median {qps:.1f} q/s on {card}; scan_k_wide={pend[-1].stats().scan_k_wide}; "
             f"top-{K} equal to the exact {'one-pass ' if one_pass else ''}truth for all "
             f"{len(qs) * B} queries (max score diff {worst:.2e}, boundary ties {ties}); "
             f"recall@{K} vs the f32 truth {recall}; launches {launched}")
+        prof = None
         if on_card and metric is tx.Metric.DotProduct and certify:
             profile_batches(torch, pending, batches)
-        return {"qps": qps, "launches": launched[mode], "recall": recall}
+        elif on_card and mode in SCAN_NAMES and qs is batches:
+            # the paths of this store's redesigned uncertified scans
+            prof = profile_batches(torch, pending, batches, SCAN_NAMES[mode])
+        return {"qps": qps, "qps_rounds": rounds, "launches": launched[mode], "recall": recall,
+                "profile": prof}
 
     for key, metric, mode in (("cosine", tx.Metric.Cosine, "K1-bf16"),
                               ("dot", tx.Metric.DotProduct, "K5"),
@@ -1524,16 +1554,17 @@ def probes_phase(torch, dev):
 def depth_phase(torch, dev):
     """Fused-size stores (DEPTH_ROWS rows, 256 queries, the bench's columns
     and filter) at d = 100 (stored as 112) and d = 2,048 (past the resident
-    query block of K1, K5 and K6: their deep-row plan) through MetaStore:
-    certified int8 Cosine (K1) and bf16 Dot (K5) ``take(10,
+    query block of every sm90 kernel: their deep-row plan) through
+    MetaStore: certified int8 Cosine (K1) and bf16 Dot (K5) ``take(10,
     rerank_from=100)``, every query certified and equal to the exact f32
     truth; precision "default" over f32 rows (K6) and over bf16 rows
-    (K6-bf16), and uncertified int8 (K2), each equal to the exact truth of
-    its scores. Launch counts and ``kernel_takes.routed`` show what served
-    each: K1, K5 and K6 launch at both depths; K6-bf16 launches at d = 100
-    and is routed to the scan program at 2,048; K2 launches at both and is
-    routed at DEPTH_K2. Then K1, K5 and K6 against their plain versions at
-    each depth -> {d: {label: launches or "routed"}}."""
+    (K6-bf16), uncertified bf16 Cosine (K4-bf16, the fast mode with its
+    check) and uncertified int8 (K2), each equal to the exact truth of its
+    scores. Launch counts and ``kernel_takes.routed`` show what served
+    each: K1, K5, K6, K6-bf16 and K4-bf16 launch at both depths with
+    nothing routed; K2 launches at both and is routed at DEPTH_K2. Then the
+    five sm90 kernels against their plain versions at each depth -> {d:
+    {label: launches or "routed"}}."""
     import numpy as np
 
     import otters_tpu_torch as tx
@@ -1568,6 +1599,8 @@ def depth_phase(torch, dev):
                      ("certified bf16 Dot", dvb, tx.Metric.DotProduct, True, "highest", "K5"),
                      ('f32 "default"', dvf, tx.Metric.Cosine, False, "default", "K6"),
                      ('bf16 "default"', dvb, tx.Metric.Cosine, False, "default", "K6-bf16"),
+                     ("uncertified bf16 Cosine", dvb, tx.Metric.Cosine, False, "highest",
+                      "K4-bf16"),
                      uncert]
         res_d = {}
         for label, dv, metric, certify, prec, mode in cases:
@@ -1587,6 +1620,7 @@ def depth_phase(torch, dev):
             ties, err = check_topk(f"d={d} {label}", res.indices, res.scores, *want,
                                    score_tol(metric, q_truth, dv))
             takes = ft.kernel_takes(mode, d)
+            assert takes or mode == "K2", (d, label)  # the sm90 kernels take any d
             if takes:  # (the plain versions serve a CPU rehearsal, uncounted)
                 assert routed == 0 and (launched[mode] >= 1 or dev.type != "cuda"), (
                     d, label, launched, routed)
@@ -1602,7 +1636,9 @@ def depth_phase(torch, dev):
         if d != DEPTH_K2:
             for mode, dv, metric in (("K1", dv8, tx.Metric.Cosine),
                                      ("K5", dvb, tx.Metric.DotProduct),
-                                     ("K6", dvf, tx.Metric.Cosine)):
+                                     ("K6", dvf, tx.Metric.Cosine),
+                                     ("K6-bf16", dvb, tx.Metric.Cosine),
+                                     ("K4-bf16", dvb, tx.Metric.Cosine)):
                 for b in (1, B):
                     args = mode_inputs(mode, dv, q[:b], chunk_mask, metric=metric)
                     e, tol = compare_mode(mode, args, metric)
@@ -1694,6 +1730,8 @@ def main() -> int:
         sweep["K1-bf16"] = b_sweep(torch, "K1-bf16", dvb, torch.cat(batches[:2]), n_chunks)
         sweep["K5"] = b_sweep(torch, "K5", dvb, torch.cat(batches[:2]), n_chunks,
                               Metric.DotProduct)
+        for m in ("K6-bf16", "K4-bf16"):
+            sweep[m] = b_sweep(torch, m, dvb, torch.cat(batches[:2]), n_chunks)
         del dvb, batches
         torch.cuda.empty_cache()
     with phase(f"4g bf16 stores ({NEAR_ROWS} x {D}): failed check (K3), near-ties (K5 widen)"):
@@ -1703,7 +1741,7 @@ def main() -> int:
         widen_phase(torch, dev)
         torch.cuda.empty_cache()
     with phase(f"4d depths {DEPTHS} and {DEPTH_K2} ({DEPTH_ROWS} rows): any d on the kernels, "
-               "deep rows on the deep-row plan or the scan route"):
+               "deep rows on the deep-row plan (K2: the scan route)"):
         depth = depth_phase(torch, dev)
     with phase("5 demo twin"):
         demo_phase()
@@ -1763,7 +1801,9 @@ def main() -> int:
         ("K4-bf16", "bf16x3_binmax_bf16", "bf16x3_binmax",
          ":168 (_kernel[prec=high, fast], bf16 rows)", bf16["uncert"]["launches"],
          {"path": f"uncertified Cosine {bf16_path_name}", "path_qps": bf16["uncert"]["qps"],
-          "vecstore_launches": vec["K4-bf16"]}),
+          "path_profile": bf16["uncert"]["profile"],
+          "vecstore_launches": vec["K4-bf16"], "batch_sweep": sweep["K4-bf16"],
+          "depth_launches": {d: depth[d]["uncertified bf16 Cosine"] for d in DEPTHS}}),
         ("K6", "bf16_binmax", "bf16_binmax",
          ":182 (_kernel[prec=default/bf16], Precision.DEFAULT)", f32_stats["default"]["launches"],
          {"path": f'precision "default" exact-f32 store {F32_ROWS} x {D}',
@@ -1774,7 +1814,8 @@ def main() -> int:
          bf16["default"]["launches"],
          {"path": f'precision "default" Cosine {bf16_path_name}',
           "path_qps": bf16["default"]["qps"], "recall_at_10": bf16["default"]["recall"],
-          "bf16_precision_qps": bf16["bf16"]["qps"],
+          "path_profile": bf16["default"]["profile"],
+          "bf16_precision_qps": bf16["bf16"]["qps"], "batch_sweep": sweep["K6-bf16"],
           "depth_launches": {d: depth[d]['bf16 "default"'] for d in DEPTHS}}),
     ]
     entries = []

@@ -17,43 +17,67 @@
 // |dot_bf16x3 - dot| / (|q| |v|); phase 2 re-scores in exact f32 and the
 // check kth_key >= boundary + slack decides whether the answer stands.
 //
-// Design. As K1: a block takes one live bin and 64 queries, the survivor
-// list lives on the device, dead slots return at once. The f32 rows stay
-// the store (K3 needs them), so the planes are not stored: each 64-deep
-// step loads the block's f32 query tile (64 x 64) and row tile (128 x 64)
-// and splits them into bf16 high / low planes in shared memory with JAX's
-// roundings. WMMA 16x16x16 bf16 products accumulate each step's three
-// partial products (at most 192 terms) in a fresh f32 fragment, which is
-// then added to the running f32 sum with a rounded add: the tensor cores'
-// own accumulation (not promised round-to-nearest) never spans more than
-// one step, and the steps combine in IEEE f32. chip_smoke.py measures the
-// accumulation error against float64 on the split products at d = 768 and
-// asserts it stays within the bound's 4 d 2^-24 share.
+// Each 64-deep step's products accumulate in a fresh f32 accumulator,
+// which is then added to the running f32 sum with a rounded add: the
+// tensor cores' own accumulation (not promised round-to-nearest) never
+// spans more than one step, and the steps combine in IEEE f32. chip_smoke.py
+// measures the accumulation error against float64 on the split products
+// at d = 768 and asserts it stays within the bound's 4 d 2^-24 share.
+//
+// The two entries run on two scans.
+// - bf16x3_binmax (f32 rows) is the simple scan: a block takes one live bin
+//   and 64 queries, the survivor list lives on the device, dead slots
+//   return at once. The f32 rows stay the store (K3 needs them), so the
+//   planes are not stored: each 64-deep step loads the block's f32 query
+//   tile (64 x 64) and row tile (128 x 64) and splits them into bf16 high /
+//   low planes in shared memory with JAX's roundings; WMMA 16x16x16 bf16
+//   products accumulate the step's three partial products (at most 192
+//   terms).
+// - bf16x3_binmax_bf16 (bf16 rows) runs the scan of csrc/cert_scan_sm90.cuh
+//   with two query planes: a persistent grid over the survivor list, a TMA
+//   ring of stages that each carry a [128 rows x 64 deep] bf16 k-block and
+//   the qh and ql k-blocks of the CTA's 64 queries at the same depth
+//   (streamed at every depth, 32 KB a stage, 6 stages), feeding two
+//   ping-pong consumer warpgroups; per k-block the two planes' wgmma
+//   m64n64k16 products (rows as A by descriptor, a plane as B) go to a
+//   partial accumulator that is then added with __fadd_rn; the key of
+//   binmax_common.cuh (SlotKey) in registers. The wrapper
+//   (ops/fused_topk.py) splits the f32 queries into the planes on the
+//   device with JAX's roundings, pads them to whole query blocks and a
+//   depth multiple of 64, and stacks them.
 //
 // Bound at the f32 path's shapes (4M x 768 f32 store, 256 queries, half of
 // the 1024-row chunks pruned: about 2.0M live rows): 3 x 2 x 256 x 768 x
 // 2.0M = 2.36 T bf16 operations, 2.4 ms at 989 TFLOP/s, against 6.1 GB of
 // rows, 1.8 ms at 3.35 TB/s. So the tensor cores bound it. Over bf16 rows
 // (10M x 768 store, about 5.0M live rows) the two products are 3.93 T
-// operations, 4.0 ms, against 7.7 GB of rows: operations again. This first
-// version is simple (synchronous loads, the split redone per query block,
-// WMMA); wgmma, TMA and a stored plane pair are later work.
+// operations, 4.0 ms, against 7.7 GB of rows: operations again. The f32-row
+// entry is still its first simple version (synchronous loads, the split
+// redone per query block, WMMA).
 //
 // Hazards handled:
 // - Splits: __float2bfloat16_rn both times and an exact f32 difference,
 //   as JAX's astype; inf / nan rows give nan low planes, as there.
+// - Shared memory: both planes of a resident query block would take 192
+//   KB at d = 768 and leave 32 KB of ring (4 stages of 64 rows or 2 of
+//   128), and the rows in flight set the pace at b = 256 (PERF.md, the
+//   halved ring); streamed, the planes are read again from L2 for every
+//   row k-block, and 96 KB of rows are in flight (PERF.md, the K6 / K4
+//   variants, times each).
+// - Registers: the running and the partial accumulators both live across a
+//   k-block (64 floats a thread per m-block of 64 rows, two m-blocks).
 // - Epilogue rounding: rounded intrinsics keep JAX's order of ops.
 // - Padded query rows (q_ok = 0) come out -inf; out is written only for
 //   query lanes < b; n_surv = 0 launches safely; d need not be a multiple
-//   of 4 or 16 (zero-padded in shared memory).
-// - Launch errors: the launcher returns cudaGetLastError().
+//   of 4 or 16 (f32 rows: zero-padded in shared memory; bf16 rows: the
+//   store pads it to 16).
+// - Launch errors: the launchers return a CUDA error code.
 
 #include <cuda_bf16.h>
 #include <mma.h>
 
-#include <type_traits>
-
 #include "binmax_common.cuh"
+#include "cert_scan_sm90.cuh"
 
 using namespace nvcuda;
 using namespace binmax;
@@ -65,8 +89,8 @@ constexpr int BK = 64;        // depth per staged step
 constexpr int PLD = BK + 8;   // bf16 plane leading dimension, in elements
 constexpr int CLD = RN + 4;   // f32 dot tile leading dimension
 
-// dynamic shared memory: the query and row planes, one f32 dot tile (a
-// bf16-row launch leaves the row low plane unused)
+// dynamic shared memory of the simple scan: the query and row planes, one
+// f32 dot tile
 constexpr size_t smem_bytes() {
     return (size_t)2 * (QB + RN) * PLD * sizeof(__nv_bfloat16)
          + (size_t)QB * CLD * sizeof(float);
@@ -105,33 +129,9 @@ __device__ __forceinline__ void split_tile(
     }
 }
 
-// rows [r0, r0 + rows) x [k0, k0 + BK) of a bf16 [*, d] matrix copied as
-// they are into the plane [rows][PLD] (zeros past d); vec: d % 4 == 0, so
-// 4 elements are one aligned 8-byte load
-__device__ __forceinline__ void copy_tile(
-    const __nv_bfloat16* __restrict__ src, size_t r0, int rows, int d, int k0,
-    bool vec, __nv_bfloat16* dst, int tid)
-{
-    constexpr int C4 = BK / 4;
-    for (int i = tid; i < rows * C4; i += THREADS) {
-        const int r = i / C4, c = i - r * C4;
-        const int kk = k0 + c * 4;
-        const __nv_bfloat16* p = src + (r0 + r) * (size_t)d + kk;
-        __nv_bfloat16* o = dst + r * PLD + c * 4;
-        if (vec && kk + 4 <= d) {
-            *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(p);
-        } else {
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-                o[e] = kk + e < d ? p[e] : __float2bfloat16_rn(0.f);
-        }
-    }
-}
-
-template <typename RowT>
 __global__ void __launch_bounds__(THREADS) bf16x3_binmax_kernel(
     const float* __restrict__ q,       // [bq, d]
-    const RowT* __restrict__ v,        // [n_pad, d] f32 or bf16
+    const float* __restrict__ v,       // [n_pad, d]
     const float* __restrict__ inv,     // [n_pad]
     const float* __restrict__ nsq,     // [n_pad]
     const float* __restrict__ rmask,   // [n_pad] 0/1
@@ -150,7 +150,6 @@ __global__ void __launch_bounds__(THREADS) bf16x3_binmax_kernel(
     const int bin = surv[slot];
     const int q0 = qblk * QB;
     const bool vec = (d % 4) == 0;
-    constexpr bool ROW_BF16 = std::is_same<RowT, __nv_bfloat16>::value;
 
     extern __shared__ __align__(128) unsigned char smem[];
     __nv_bfloat16* qh = reinterpret_cast<__nv_bfloat16*>(smem);   // [QB][PLD]
@@ -184,8 +183,7 @@ __global__ void __launch_bounds__(THREADS) bf16x3_binmax_kernel(
 
         for (int k0 = 0; k0 < d; k0 += BK) {
             split_tile(q, (size_t)q0, QB, d, k0, vec, qh, ql, tid);
-            if constexpr (ROW_BF16) copy_tile(v, row0, RN, d, k0, vec, vh, tid);
-            else split_tile(v, row0, RN, d, k0, vec, vh, vl, tid);
+            split_tile(v, row0, RN, d, k0, vec, vh, vl, tid);
             __syncthreads();
             wmma::fragment<wmma::accumulator, 16, 16, 16, float> part[2][2];
 #pragma unroll
@@ -208,16 +206,14 @@ __global__ void __launch_bounds__(THREADS) bf16x3_binmax_kernel(
                 for (int j = 0; j < 2; ++j) {
                     const int off = (wn * 32 + j * 16) * PLD + kk;
                     wmma::load_matrix_sync(bh[j], vh + off, PLD);
-                    if constexpr (!ROW_BF16) wmma::load_matrix_sync(bl[j], vl + off, PLD);
+                    wmma::load_matrix_sync(bl[j], vl + off, PLD);
                 }
 #pragma unroll
                 for (int i = 0; i < 2; ++i)
 #pragma unroll
                     for (int j = 0; j < 2; ++j) {
                         wmma::mma_sync(part[i][j], ah[i], bh[j], part[i][j]);
-                        // bf16 rows: vl = 0, so qh.vl adds nothing
-                        if constexpr (!ROW_BF16)
-                            wmma::mma_sync(part[i][j], ah[i], bl[j], part[i][j]);
+                        wmma::mma_sync(part[i][j], ah[i], bl[j], part[i][j]);
                         wmma::mma_sync(part[i][j], al[i], bh[j], part[i][j]);
                     }
             }
@@ -253,31 +249,59 @@ __global__ void __launch_bounds__(THREADS) bf16x3_binmax_kernel(
     if (esub == 0 && q0 + eq < b) out[(size_t)bin * b + q0 + eq] = best;
 }
 
-template <typename RowT>
-int launch(const void* q, const void* v, const void* inv, const void* nsq,
-           const void* rmask, const void* q_inv, const void* q_sq, const void* q_ok,
-           const void* thr, const void* surv, const void* n_surv, void* out,
-           int n_bins, int d, int b, int n_qblocks, int metric, int take_min, int cmp,
-           void* stream)
+int launch_f32_rows(const void* q, const void* v, const void* inv, const void* nsq,
+                   const void* rmask, const void* q_inv, const void* q_sq, const void* q_ok,
+                   const void* thr, const void* surv, const void* n_surv, void* out,
+                   int n_bins, int d, int b, int n_qblocks, int metric, int take_min, int cmp,
+                   void* stream)
 {
     const size_t smem = smem_bytes();
     cudaError_t err = cudaFuncSetAttribute(
-        bf16x3_binmax_kernel<RowT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        bf16x3_binmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)n_bins * (unsigned)n_qblocks);
-    bf16x3_binmax_kernel<RowT><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        (const float*)q, (const RowT*)v, (const float*)inv, (const float*)nsq,
+    bf16x3_binmax_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)v, (const float*)inv, (const float*)nsq,
         (const float*)rmask, (const float*)q_inv, (const float*)q_sq,
         (const float*)q_ok, (const float*)thr, (const int*)surv,
         (const int*)n_surv, (float*)out, d, b, n_qblocks, metric, take_min, cmp);
     return (int)cudaGetLastError();
 }
 
+// ---- over bfloat16 rows, on the sm90 scan with two query planes ----
+
+template <int KS, int TM, bool STREAM>
+__global__ void __launch_bounds__(sm90::THREADS, 1) bf16x3_binmax_sm90_kernel(
+    const __grid_constant__ CUtensorMap qmap,  // [2 bq, dq] bf16: qh of every block, then ql
+    const __grid_constant__ CUtensorMap vmap,  // [n_pad, d] bf16 rows
+    const sm90::ScanArgs a,                    // side = {inv, nsq, rmask}
+    const float* __restrict__ q_inv,           // [bq] of the f32 queries
+    const float* __restrict__ q_sq,            // [bq] of the f32 queries
+    const float* __restrict__ q_ok,            // [bq] 0/1
+    const float* __restrict__ thr,             // [1]
+    int metric, int take_min, int cmp)
+{
+    const float t = *thr;
+    const auto make_key = [&](int q0, const int (&cols)[16]) {
+        return make_slot_key(q0, cols, q_inv, q_sq, q_ok, t, metric, take_min, cmp);
+    };
+    sm90::scan<__nv_bfloat16, SlotKey::NSIDE, KS, TM, STREAM, 2>(&qmap, &vmap, a, make_key);
+}
+
+// the stage shape (sm90::with_plan): no resident plan (KS1 = 0); one
+// k-block of 128 rows with both query planes' k-blocks, at every depth
+constexpr int KS1 = 0, TM1 = 0, KS2 = 1, TM2 = 128;
+using Bf16 = __nv_bfloat16;
+
 }  // namespace
 
 extern "C" size_t bf16x3_binmax_smem_bytes(int) { return smem_bytes(); }
-extern "C" size_t bf16x3_binmax_bf16_smem_bytes(int) { return smem_bytes(); }
+extern "C" size_t bf16x3_binmax_bf16_smem_bytes(int d) {
+    return sm90::plan_smem<Bf16, KS1, TM1, KS2, TM2, 2>(d);
+}
+extern "C" int bf16x3_binmax_bf16_stages(int d) {
+    return sm90::plan_stages<Bf16, KS1, TM1, KS2, TM2, 2>(d);
+}
 
 extern "C" int bf16x3_binmax_launch(
     const void* q, const void* v, const void* inv, const void* nsq,
@@ -286,18 +310,32 @@ extern "C" int bf16x3_binmax_launch(
     int n_bins, int d, int b, int n_qblocks, int metric, int take_min, int cmp,
     void* stream)
 {
-    return launch<float>(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv,
-                         out, n_bins, d, b, n_qblocks, metric, take_min, cmp, stream);
+    return launch_f32_rows(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv, out,
+                           n_bins, d, b, n_qblocks, metric, take_min, cmp, stream);
 }
 
+// q: the query planes [2 * n_qb * 64, dq] bf16 (qh of every query block,
+// then ql)
 extern "C" int bf16x3_binmax_bf16_launch(
     const void* q, const void* v, const void* inv, const void* nsq,
     const void* rmask, const void* q_inv, const void* q_sq, const void* q_ok,
     const void* thr, const void* surv, const void* n_surv, void* out,
-    int n_bins, int d, int b, int n_qblocks, int metric, int take_min, int cmp,
-    void* stream)
+    int n_bins, int d, int b, int dq, int n_qb, int per_group, int metric, int take_min,
+    int cmp, void* stream)
 {
-    return launch<__nv_bfloat16>(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
-                                 n_surv, out, n_bins, d, b, n_qblocks, metric, take_min,
-                                 cmp, stream);
+    const float* side[SlotKey::NSIDE] = {(const float*)inv, (const float*)nsq,
+                                         (const float*)rmask};
+    const auto get_kernel = [](auto ks, auto tm, auto st) {
+        return bf16x3_binmax_sm90_kernel<decltype(ks)::value, decltype(tm)::value,
+                                         decltype(st)::value>;
+    };
+    const auto launch_fn = [&](auto kernel, dim3 grid, size_t smem, const CUtensorMap& qmap,
+                               const CUtensorMap& vmap, const sm90::ScanArgs& a) {
+        kernel<<<grid, sm90::THREADS, smem, (cudaStream_t)stream>>>(
+            qmap, vmap, a, (const float*)q_inv, (const float*)q_sq, (const float*)q_ok,
+            (const float*)thr, metric, take_min, cmp);
+    };
+    return sm90::launch_plan<Bf16, KS1, TM1, KS2, TM2, 2>(
+        get_kernel, launch_fn, q, v, side, SlotKey::NSIDE, surv, n_surv, out, n_bins, d, b,
+        dq, n_qb, per_group);
 }

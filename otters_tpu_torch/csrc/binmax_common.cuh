@@ -13,13 +13,13 @@
 // would otherwise contract a*b + c into an FMA). cmp: 0 none, 1 Gt, 2 Gte,
 // 3 Lt, 4 Lte, 5 Eq; the kernels receive it as cmp_mask(cmp).
 //
-// Conventions of these kernels (K1, K5 and K6 over f32 rows walk the
-// survivor list with a persistent grid instead, csrc/cert_scan_sm90.cuh):
-// the grid covers
-// every bin times every 64-query block; a block whose survivor slot is
-// >= n_surv returns at once (pruned bins cost no loads and no math); the
-// output [n_bins, b] is pre-filled with -inf by the caller; padded query
-// rows carry q_ok = 0.
+// Conventions of the simple kernels (K2, K3, K4 over f32 rows; K1, K5, K6
+// and K4 over bf16 rows walk the survivor list with a persistent grid
+// instead, csrc/cert_scan_sm90.cuh, with the key of SlotKey below): the
+// grid covers every bin times every 64-query block; a block whose survivor
+// slot is >= n_surv returns at once (pruned bins cost no loads and no
+// math); the output [n_bins, b] is pre-filled with -inf by the caller;
+// padded query rows carry q_ok = 0.
 
 #pragma once
 
@@ -65,6 +65,47 @@ __device__ __forceinline__ float key_of(float dot, float qi, float qsq, bool qok
     const int order = (s > thr ? 1 : 0) | (s == thr ? 2 : 0) | (s < thr ? 4 : 0);
     const bool ok = qok & (rm > 0.f) & !isnan(s) & ((order & cmask) != 0);
     return ok ? __fmul_rn(sgn, s) : -INFINITY;
+}
+
+// key_of for the 16 query slots of a thread of the Hopper scan
+// (csrc/cert_scan_sm90.cuh's Key; row side data {inv, nsq, rmask}), for K6
+// and K4 over bf16 rows. Only one per-query norm enters a metric (Cosine
+// q_inv, Euclid q_sq, Dot none), so a slot keeps that one in qn and hands
+// it to key_of in both places: the metric's form reads the right one.
+struct SlotKey {
+    static constexpr int NSIDE = 3;
+    float qn[16];   // the slot's f32 query's q_inv (Cosine) or q_sq
+    uint32_t ok;    // bit j: q_ok of slot j
+    float t, sgn;
+    int metric, cmask;
+
+    __device__ __forceinline__ void prep(float (&)[NSIDE]) const {}
+    __device__ __forceinline__ float operator()(float dot, const float (&s)[NSIDE],
+                                                int j) const {
+        return key_of(dot, qn[j], qn[j], (ok >> j) & 1u, s[0], s[1], s[2], t, metric, sgn,
+                      cmask);
+    }
+};
+
+// the SlotKey of query columns cols (of the block at q0), from the f32
+// queries' norms q_inv / q_sq, q_ok (0/1), thr[0] and the codes
+__device__ __forceinline__ SlotKey make_slot_key(int q0, const int (&cols)[16],
+                                                 const float* q_inv, const float* q_sq,
+                                                 const float* q_ok, float thr, int metric,
+                                                 int take_min, int cmp) {
+    SlotKey k;
+    k.ok = 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        const int q = q0 + cols[j];
+        k.qn[j] = metric == 0 ? q_inv[q] : q_sq[q];
+        k.ok |= (q_ok[q] > 0.f ? 1u : 0u) << j;
+    }
+    k.t = thr;
+    k.sgn = take_min ? -1.f : 1.f;
+    k.metric = metric;
+    k.cmask = cmp_mask(cmp);
+    return k;
 }
 
 // 16 bytes from p, of which the first n are real (the rest read as 0);

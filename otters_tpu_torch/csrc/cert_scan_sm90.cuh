@@ -6,12 +6,15 @@
 // What it computes: for every live 512-row bin (the survivor list
 // surv[0 : n_surv), read on the device) and every query of the CTA's
 // 64-query block, the max over the bin's rows of key(dot, row side data,
-// query), with dot = bf16 query . row (exact products, f32 sums). The
-// kernels supply the key: K1 (csrc/cert_cos_binmax.cu, certified Cosine),
-// K5 (csrc/cert_fold_binmax.cu, the general certified fold) and K6 over f32
-// rows (csrc/bf16_binmax.cu, one bf16 pass). The header is templated on the
-// row type (int8, bf16 or f32), the number of side arrays, the stage shape,
-// whether the query block is streamed, and the key.
+// query), with dot = bf16 query . row (exact products, f32 sums), or with
+// two query planes dot = qh . row + ql . row. The kernels supply the key:
+// K1 over int8 and bf16 rows (csrc/cert_cos_binmax.cu, certified Cosine),
+// K5 (csrc/cert_fold_binmax.cu, the general certified fold), K6 over f32
+// and bf16 rows (csrc/bf16_binmax.cu, one bf16 pass) and K4 over bf16 rows
+// (csrc/bf16x3_binmax.cu, bf16x3 with the rows' low plane 0: two query
+// planes). The header is templated on the row type (int8, bf16 or f32),
+// the number of side arrays, the stage shape, whether the query block is
+// streamed, the number of query planes (1 or 2), and the key.
 //
 // Design.
 // - Persistent grid: about one CTA per SM (the shared memory admits no
@@ -23,12 +26,25 @@
 // - The query block is loaded once per CTA by TMA, 128-byte swizzled and
 //   K-major in 64-deep blocks of [64 queries x 128 B], the layout wgmma
 //   reads as its B operand, and stays resident across bins.
+// - Two query planes (NQ = 2, K4 over bf16 rows): the caller splits each
+//   query into qh = bf16(q) and ql = bf16(q - qh) and stacks the planes
+//   (plane p of query block c at rows p * n_qb * 64 + 64 c of the query
+//   map); both sit side by side in every 64-deep block, 16 KB per 64 deep
+//   (K4 streams them with the rows at every depth: resident at d = 768
+//   they would leave 32 KB of ring, and the 96 KB of rows in flight of the
+//   streamed plan measured faster, PERF.md). Each 64-deep k-block
+//   is multiplied by both planes into a partial accumulator, which the
+//   consumers wait for and add to the running sum element by element with
+//   __fadd_rn: the tensor cores' own accumulation never spans more than
+//   one 64-deep step, so scoring.high_precision_bound holds as it does for
+//   the simple K4.
 // - Deep rows (the streamed plan): when the resident query block (8 KB per
-//   64 deep) would leave fewer than two ring stages, no query block is
-//   resident; each ring stage carries the query k-blocks of its depth step
-//   beside the row k-blocks, in the same layout, and the consumers read B
-//   from the stage. Any depth then fits; the query block is read again for
-//   every row sub-tile (from L2).
+//   64 deep and plane) would leave fewer than two ring stages, or always
+//   for a kernel with no resident plan (K4 over bf16 rows), no query block
+//   is resident; each ring stage carries the query k-blocks of its depth
+//   step beside the row k-blocks, in the same layout, and the consumers
+//   read B from the stage. Any depth then fits; the query block is read
+//   again for every row sub-tile (from L2).
 // - One producer thread keeps an even number of ring stages of KS k-blocks
 //   of [TM rows x 64 deep] in flight with full / empty mbarrier pairs.
 // - Two consumer warpgroups in ping-pong: the stages alternate between
@@ -117,7 +133,7 @@ constexpr int CONSUMERS = 256; // two consumer warpgroups
 constexpr int THREADS = 384;   // + one producer warpgroup (one thread works)
 constexpr int MAX_STAGES = 12;
 constexpr size_t SMEM_LIMIT = 232448;
-constexpr int QBLOCK_BYTES = QB * TK * 2;  // one 64-deep query block, 8 KB
+constexpr int QBLOCK_BYTES = QB * TK * 2;  // one 64-deep block of one query plane, 8 KB
 // [64] per-query maxima as ordered ints, [64] per-query 2^-s, the f16 flag
 constexpr int RED_BYTES = 2 * QB * 4 + 8;
 
@@ -126,20 +142,20 @@ template <typename RowT, int TM>
 __host__ __device__ constexpr int tile_bytes() { return TM * TK * (int)sizeof(RowT); }
 
 // one ring stage: KS row k-blocks, and with a streamed query block the KS
-// query k-blocks of the same depth step
-template <typename RowT, int KS, int TM, bool STREAM>
+// query k-blocks (NQ planes each) of the same depth step
+template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1>
 __host__ __device__ constexpr int stage_bytes() {
-    return KS * (tile_bytes<RowT, TM>() + (STREAM ? QBLOCK_BYTES : 0));
+    return KS * (tile_bytes<RowT, TM>() + (STREAM ? NQ * QBLOCK_BYTES : 0));
 }
 
 // dynamic shared memory for `stages` stages at depth d: 1 KB of alignment
-// slack, the resident query blocks (none when streamed), the ring, the
-// reduction buffer and the barriers
-template <typename RowT, int KS, int TM, bool STREAM>
+// slack, the resident query blocks of NQ planes (none when streamed), the
+// ring, the reduction buffer and the barriers
+template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1>
 __host__ __device__ inline size_t smem_bytes(int d, int stages) {
     const int nk = (d + TK - 1) / TK;
-    return 1024 + (STREAM ? 0 : (size_t)nk * QBLOCK_BYTES)
-         + (size_t)stages * stage_bytes<RowT, KS, TM, STREAM>()
+    return 1024 + (STREAM ? 0 : (size_t)nk * NQ * QBLOCK_BYTES)
+         + (size_t)stages * stage_bytes<RowT, KS, TM, STREAM, NQ>()
          + RED_BYTES + (size_t)(2 * stages + 1) * 8;
 }
 
@@ -147,57 +163,62 @@ __host__ __device__ inline size_t smem_bytes(int d, int stages) {
 // below 2: the two consumer warpgroups take alternate stages, so with an
 // even ring each stage always serves the same warpgroup and no waiter can
 // be a lap ahead of its barrier's phase
-template <typename RowT, int KS, int TM, bool STREAM>
+template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1>
 __host__ __device__ inline int stages_for(int d) {
     int s = MAX_STAGES;
-    while (s > 2 && smem_bytes<RowT, KS, TM, STREAM>(d, s) > SMEM_LIMIT) s -= 2;
+    while (s > 2 && smem_bytes<RowT, KS, TM, STREAM, NQ>(d, s) > SMEM_LIMIT) s -= 2;
     return s;
 }
 
 // The plan of a launch at depth d: the wide stage shape (KS1 k-blocks of
 // TM1 rows) when 4 stages of it fit beside the resident query block, else
 // the narrow one (KS2 of TM2) when 2 of it fit, else the narrow one with
-// the query block streamed. with_plan calls f(KS, TM, STREAM) with the
+// the query block streamed; KS1 = 0: no resident plan, the narrow shape
+// streamed at every depth. with_plan calls f(KS, TM, STREAM) with the
 // plan's values as integral constants; ops/fused_topk.py::sm90_plan mirrors
 // the choice.
 enum Plan { WIDE = 0, NARROW = 1, STREAMED = 2 };
 
-template <typename RowT, int KS1, int TM1, int KS2, int TM2>
+template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1>
 inline Plan plan_for(int d) {
-    if (smem_bytes<RowT, KS1, TM1, false>(d, 4) <= SMEM_LIMIT) return WIDE;
-    if (smem_bytes<RowT, KS2, TM2, false>(d, 2) <= SMEM_LIMIT) return NARROW;
+    if constexpr (KS1 > 0) {
+        if (smem_bytes<RowT, KS1, TM1, false, NQ>(d, 4) <= SMEM_LIMIT) return WIDE;
+        if (smem_bytes<RowT, KS2, TM2, false, NQ>(d, 2) <= SMEM_LIMIT) return NARROW;
+    }
     return STREAMED;
 }
 
-template <typename RowT, int KS1, int TM1, int KS2, int TM2, typename F>
+template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, typename F>
 auto with_plan(int d, const F& f) {
     using std::integral_constant;
-    const Plan p = plan_for<RowT, KS1, TM1, KS2, TM2>(d);
-    if (p == WIDE)
-        return f(integral_constant<int, KS1>{}, integral_constant<int, TM1>{},
-                 std::false_type{});
-    if (p == NARROW)
-        return f(integral_constant<int, KS2>{}, integral_constant<int, TM2>{},
-                 std::false_type{});
+    if constexpr (KS1 > 0) {
+        const Plan p = plan_for<RowT, KS1, TM1, KS2, TM2, NQ>(d);
+        if (p == WIDE)
+            return f(integral_constant<int, KS1>{}, integral_constant<int, TM1>{},
+                     std::false_type{});
+        if (p == NARROW)
+            return f(integral_constant<int, KS2>{}, integral_constant<int, TM2>{},
+                     std::false_type{});
+    }
     return f(integral_constant<int, KS2>{}, integral_constant<int, TM2>{}, std::true_type{});
 }
 
 // the plan's ring stages and shared memory at depth d (exported by each
 // kernel source for ops/fused_topk.py's mirror and its test)
-template <typename RowT, int KS1, int TM1, int KS2, int TM2>
+template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1>
 int plan_stages(int d) {
-    return with_plan<RowT, KS1, TM1, KS2, TM2>(d, [&](auto ks, auto tm, auto st) {
+    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ>(d, [&](auto ks, auto tm, auto st) {
         return stages_for<RowT, decltype(ks)::value, decltype(tm)::value,
-                          decltype(st)::value>(d);
+                          decltype(st)::value, NQ>(d);
     });
 }
 
-template <typename RowT, int KS1, int TM1, int KS2, int TM2>
+template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1>
 size_t plan_smem(int d) {
-    return with_plan<RowT, KS1, TM1, KS2, TM2>(d, [&](auto ks, auto tm, auto st) {
+    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ>(d, [&](auto ks, auto tm, auto st) {
         constexpr int KS = decltype(ks)::value, TM = decltype(tm)::value;
         constexpr bool S = decltype(st)::value;
-        return smem_bytes<RowT, KS, TM, S>(d, stages_for<RowT, KS, TM, S>(d));
+        return smem_bytes<RowT, KS, TM, S, NQ>(d, stages_for<RowT, KS, TM, S, NQ>(d));
     });
 }
 
@@ -285,13 +306,15 @@ __device__ __forceinline__ void fence_acc(float (&d)[32]) {
     "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
     "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
-// D[64 rows x 64 queries] += A[64 x 16] (shared, descriptor) . B[16 x 64]
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
+// D[64 rows x 64 queries] += A[64 x 16] (shared, descriptor) . B[16 x 64];
+// with accumulate = 0, D = A . B
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate = 1) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_ACC_REGS
         ", %32, %33, p, 1, 1, 0, 0;\n}"
-        : SM90_ACC_OUT : "l"(da), "l"(db), "r"(1));
+        : SM90_ACC_OUT : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // the same with A from registers (the m16n8k16 fragment of each warp's 16
@@ -432,15 +455,19 @@ __device__ __forceinline__ uint32_t bf16x2_of(float lo, float hi) {
 //   float operator()(float dot, const float (&side)[NSIDE], int slot) const
 // (slot 0..15 compile-time after unrolling). KS: 64-deep k-blocks per ring
 // stage, TM rows per stage (each warpgroup takes a TM-row sub-tile of its
-// own: TM / 64 m-blocks); STREAM: the query k-blocks ride in the stages.
-template <typename RowT, int NSIDE, int KS, int TM, bool STREAM, typename MakeKey>
+// own: TM / 64 m-blocks); STREAM: the query k-blocks ride in the stages;
+// NQ: query planes (2: qh and ql, bf16 rows only), each k-block's products
+// summed apart and added to the running sum with __fadd_rn.
+template <typename RowT, int NSIDE, int KS, int TM, bool STREAM, int NQ = 1, typename MakeKey>
 __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap* vmap,
                                      const ScanArgs& a, const MakeKey& make_key) {
     constexpr bool INT8 = sizeof(RowT) == 1;
     constexpr bool F32 = sizeof(RowT) == 4;
+    static_assert(NQ == 1 || (NQ == 2 && sizeof(RowT) == 2), "two query planes: bf16 rows");
     constexpr int TILE = tile_bytes<RowT, TM>();  // one [TM x 64] k-block
     constexpr int MB = TM / 64;                   // m-blocks of a warpgroup
-    constexpr int STAGE = stage_bytes<RowT, KS, TM, STREAM>();
+    constexpr int STAGE = stage_bytes<RowT, KS, TM, STREAM, NQ>();
+    constexpr int QSTEP = NQ * QBLOCK_BYTES;      // one 64-deep block of every plane
     extern __shared__ unsigned char smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023u) & ~1023u;
@@ -449,7 +476,7 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
     const int nks = (nk + KS - 1) / KS;   // ring stages per TM-row sub-tile
     const int S = a.stages;
     const uint32_t q_s = base;            // the resident query blocks
-    const uint32_t tiles = q_s + (STREAM ? 0 : nk * QBLOCK_BYTES);
+    const uint32_t tiles = q_s + (STREAM ? 0 : nk * QSTEP);
     const uint32_t red = tiles + S * STAGE;
     const uint32_t bars = red + RED_BYTES;  // full[S], empty[S], qbar
     int* red_g = reinterpret_cast<int*>(gbase + (red - base));
@@ -481,11 +508,15 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
         // ---- producer warpgroup: one thread issues every copy ----
         asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
         if (tid == CONSUMERS) {
+            // plane p of query block qblk: rows p * n_qb * 64 + 64 qblk
+            const int qrow = qblk * QB, qplane = a.n_qb * QB;
             if constexpr (!STREAM) {
                 const uint32_t qbar = bars + 16 * S;
-                mbar_expect_tx(qbar, nk * QBLOCK_BYTES);
+                mbar_expect_tx(qbar, nk * QSTEP);
                 for (int c = 0; c < nk; ++c)
-                    tma_load_2d(q_s + c * QBLOCK_BYTES, qmap, qbar, c * TK, qblk * QB);
+                    for (int pl = 0; pl < NQ; ++pl)
+                        tma_load_2d(q_s + c * QSTEP + pl * QBLOCK_BYTES, qmap, qbar, c * TK,
+                                    qrow + pl * qplane);
             }
             int st = 0;
             uint32_t ph = 0;  // ring position and the parity of its use
@@ -501,7 +532,7 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                         const uint32_t dst = tiles + st * STAGE;
                         const int nkb = min(KS, nk - ks * KS);
                         mbar_wait(bars + 8 * (S + st), ph ^ 1);
-                        mbar_expect_tx(full, nkb * (TILE + (STREAM ? QBLOCK_BYTES : 0)));
+                        mbar_expect_tx(full, nkb * (TILE + (STREAM ? QSTEP : 0)));
                         for (int kb = 0; kb < nkb; ++kb) {
                             const int k0 = (ks * KS + kb) * TK;
                             if constexpr (F32) {
@@ -512,8 +543,9 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                                 tma_load_2d(dst + kb * TILE, vmap, full, k0, row0);
                             }
                             if constexpr (STREAM)
-                                tma_load_2d(dst + KS * TILE + kb * QBLOCK_BYTES, qmap, full, k0,
-                                            qblk * QB);
+                                for (int pl = 0; pl < NQ; ++pl)
+                                    tma_load_2d(dst + KS * TILE + kb * QSTEP + pl * QBLOCK_BYTES,
+                                                qmap, full, k0, qrow + pl * qplane);
                         }
                         if (++st == S) { st = 0; ph ^= 1; }
                     }
@@ -554,10 +586,12 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
         uint32_t ph = 0;
         const auto advance = [&]() { if (++st == S) { st = 0; ph ^= 1; } };
         if (wg == 1) advance();  // the ring alternates between the warpgroups
-        // B of k-block kb of depth step ks: resident, or in the stage
-        const auto qdesc = [&](int ks, int kb, int kk) {
-            return desc_sw128(STREAM ? tiles + st * STAGE + KS * TILE + kb * QBLOCK_BYTES + kk * 32
-                                     : q_s + (ks * KS + kb) * QBLOCK_BYTES + kk * 32);
+        // B of plane pl of k-block kb of depth step ks: resident, or in the
+        // stage
+        const auto qdesc = [&](int ks, int kb, int kk, int pl = 0) {
+            const uint32_t off = pl * QBLOCK_BYTES + kk * 32;
+            return desc_sw128(STREAM ? tiles + st * STAGE + KS * TILE + kb * QSTEP + off
+                                     : q_s + (ks * KS + kb) * QSTEP + off);
         };
         for (int slot = p0; slot < n_surv; slot += P) {
             const int bin = a.surv[slot];
@@ -577,10 +611,17 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                         sv[mb][1][j] = __ldg(a.side[j] + row + 64 * mb + 8);
                     }
                 float d[MB][32];
+                [[maybe_unused]] float pd[NQ == 2 ? MB : 1][32];  // a k-block's partial (NQ = 2)
 #pragma unroll
                 for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
                     for (int i = 0; i < 32; ++i) d[mb][i] = 0.f;
+                if constexpr (NQ == 2) {
+#pragma unroll
+                    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+                        for (int i = 0; i < 32; ++i) pd[mb][i] = 0.f;
+                }
                 // the sub-tile's ring stages, each waited for, multiplied to
                 // completion and released: the other warpgroup's products
                 // keep the tensor cores busy meanwhile
@@ -647,7 +688,7 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                                         wgmma_rs<F16>(d[mb], af[kb][mb][kk][0], af[kb][mb][kk][1],
                                                       af[kb][mb][kk][2], af[kb][mb][kk][3], db);
                                 }
-                    } else {
+                    } else if constexpr (NQ == 1) {
 #pragma unroll
                         for (int mb = 0; mb < MB; ++mb) fence_acc(d[mb]);
                         wgmma_fence();
@@ -664,11 +705,46 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                                                             + mb * 64 * 128 + kk * 32),
                                                  db);
                                 }
-                    }
-                    wgmma_commit();
-                    wgmma_wait<0>();
+                    } else {
+                        // two planes: each k-block's qh and ql products into
+                        // the partial (its first product overwrites it),
+                        // completed, then added to the running sum in IEEE
+                        // f32
 #pragma unroll
-                    for (int mb = 0; mb < MB; ++mb) fence_acc(d[mb]);
+                        for (int kb = 0; kb < KS; ++kb)
+                            if (kb < nkb) {
+#pragma unroll
+                                for (int mb = 0; mb < MB; ++mb) fence_acc(pd[mb]);
+                                wgmma_fence();
+#pragma unroll
+                                for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                                    for (int pl = 0; pl < 2; ++pl) {
+                                        const uint64_t db = qdesc(ks, kb, kk, pl);
+#pragma unroll
+                                        for (int mb = 0; mb < MB; ++mb)
+                                            wgmma_ss(pd[mb],
+                                                     desc_sw128(tiles + st * STAGE + kb * TILE
+                                                                + mb * 64 * 128 + kk * 32),
+                                                     db, kk + pl > 0);
+                                    }
+                                wgmma_commit();
+                                wgmma_wait<0>();
+#pragma unroll
+                                for (int mb = 0; mb < MB; ++mb) {
+                                    fence_acc(pd[mb]);
+#pragma unroll
+                                    for (int i = 0; i < 32; ++i)
+                                        d[mb][i] = __fadd_rn(d[mb][i], pd[mb][i]);
+                                }
+                            }
+                    }
+                    if constexpr (NQ == 1) {
+                        wgmma_commit();
+                        wgmma_wait<0>();
+#pragma unroll
+                        for (int mb = 0; mb < MB; ++mb) fence_acc(d[mb]);
+                    }
                     // release the stage: the warpgroup's products on it are
                     // complete (wgmma.wait_group is warpgroup-wide), so one
                     // of its warps speaks for it
@@ -761,7 +837,8 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr
 }
 
 // the maps of one launch: queries [bq, dq] bf16 (dq a multiple of 64, 128 B
-// swizzled boxes of 64 x 64) and rows [n_pad, d] (TM-row boxes of 64 deep:
+// swizzled boxes of 64 x 64; with two planes bq is twice the padded batch)
+// and rows [n_pad, d] (TM-row boxes of 64 deep:
 // bf16 swizzled for wgmma's descriptor, int8 plain for the fragment loads;
 // f32 two swizzled boxes of 32 deep a k-block)
 template <typename RowT, int TM>
@@ -779,28 +856,30 @@ inline bool make_maps(CUtensorMap* qmap, CUtensorMap* vmap, const void* q, int b
 }
 
 // Launch kernel<KS, TM, STREAM> of the plan of d on a persistent grid of
-// n_qb * per_group CTAs: set its shared memory, encode the maps, fill the
+// n_qb * per_group CTAs: set its shared memory, encode the maps (q holds
+// NQ planes of n_qb * 64 queries each, one after the other), fill the
 // scan's arguments (side[0 : n_side)) and call launch_fn(kernel, grid,
 // smem, qmap, vmap, args), which passes the kernel's own arguments. Returns
 // a CUDA error code (cudaErrorInvalidValue when a map cannot be encoded).
-template <typename RowT, int KS1, int TM1, int KS2, int TM2, typename GetKernel,
+template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, typename GetKernel,
           typename LaunchFn>
 int launch_plan(const GetKernel& get_kernel, const LaunchFn& launch_fn, const void* q,
                 const void* v, const float* const* side, int n_side, const void* surv,
                 const void* n_surv, void* out, int n_bins, int d, int b, int dq, int n_qb,
                 int per_group) {
     if (n_qb < 1 || per_group < 1 || dq % TK) return (int)cudaErrorInvalidValue;
-    return with_plan<RowT, KS1, TM1, KS2, TM2>(d, [&](auto ks, auto tm, auto st) {
+    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ>(d, [&](auto ks, auto tm, auto st) {
         constexpr int KS = decltype(ks)::value, TM = decltype(tm)::value;
         constexpr bool STREAM = decltype(st)::value;
         const auto kernel = get_kernel(ks, tm, st);
-        const int stages = stages_for<RowT, KS, TM, STREAM>(d);
-        const size_t smem = smem_bytes<RowT, KS, TM, STREAM>(d, stages);
+        const int stages = stages_for<RowT, KS, TM, STREAM, NQ>(d);
+        const size_t smem = smem_bytes<RowT, KS, TM, STREAM, NQ>(d, stages);
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
         CUtensorMap qmap, vmap;
-        if (!make_maps<RowT, TM>(&qmap, &vmap, q, n_qb * QB, dq, v, (long long)n_bins * BIN, d))
+        if (!make_maps<RowT, TM>(&qmap, &vmap, q, NQ * n_qb * QB, dq, v, (long long)n_bins * BIN,
+                                 d))
             return (int)cudaErrorInvalidValue;
         ScanArgs a = {};
         a.surv = (const int*)surv;

@@ -28,15 +28,16 @@ only; each replaces one mode of the TPU kernel
   rounded to bf16 (f32 rows, "K6") or as stored ("K6-bf16"), f32 sums,
   every metric and score filter.
 
-K1, K5 and K6 over f32 rows run the Hopper scan of
-``csrc/cert_scan_sm90.cuh`` (:func:`sm90_plan` mirrors its ring plans, the
-deep-row plan included); the others are simpler scans. The stored rows'
-depth is padded to a multiple of 16 (``scoring.pad_depth``): the launch
-reads it from the rows' stride and pads the queries to it.
-:func:`kernel_takes`, the counterpart of the JAX package's ``pallas_ok``,
-tells from the shape whether a kernel fits (K6 over bf16 rows and K2 stop
-at d = 1,392 and 2,976); the callers send a shape it refuses to the scan
-program before any launch.
+K1, K5, K6 (over f32 and bf16 rows) and K4 over bf16 rows run the Hopper
+scan of ``csrc/cert_scan_sm90.cuh`` (:func:`sm90_plan` mirrors its ring
+plans, the deep-row plan included; K4 over bf16 rows with two query
+planes, :func:`query_planes`); the others (K2, K3, K4 over f32 rows) are
+simpler scans. The stored rows' depth is padded to a multiple of 16
+(``scoring.pad_depth``): the launch reads it from the rows' stride and pads
+the queries to it. :func:`kernel_takes`, the counterpart of the JAX
+package's ``pallas_ok``, tells from the shape whether a kernel fits (every
+kernel on the Hopper scan takes any d; K2 stops at d = 2,976); the callers
+send a shape it refuses to the scan program before any launch.
 
 Phase 2 re-scores the winning bins and selects the k results in plain
 torch (it is XLA code in the JAX package), at the phase-1 precision for
@@ -311,7 +312,7 @@ def cert_cos_binmax_plain(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_su
 
 # ---------------------------------------------------------------------------
 # The Hopper scan's plans and launch geometry (csrc/cert_scan_sm90.cuh):
-# K1, K5 and K6 over f32 rows
+# K1, K5, K6 and K4 over bf16 rows
 # ---------------------------------------------------------------------------
 
 # CTAs of 64 queries, a persistent grid, a ring of [rows x 64 deep] stages
@@ -320,16 +321,20 @@ def cert_cos_binmax_plain(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_su
 # side by side on the same bins and share the rows through L2.
 SM90_MAX_STAGES = 12
 _TK = 64
-_QBLOCK_BYTES = QUERY_BLOCK * _TK * 2  # one 64-deep bf16 query block
+_QBLOCK_BYTES = QUERY_BLOCK * _TK * 2  # one 64-deep block of one bf16 query plane
 
-# kernel -> (row bytes, wide stage shape, narrow stage shape), each (ks
-# k-blocks, rows): the C sides' shapes (cert_cos_binmax.cu Shape,
-# cert_fold_binmax.cu, bf16_binmax.cu)
+# kernel -> (row bytes, query planes, wide stage shape, narrow stage
+# shape), each shape (ks k-blocks, rows): the C sides' shapes
+# (cert_cos_binmax.cu Shape, cert_fold_binmax.cu, bf16_binmax.cu Shape,
+# bf16x3_binmax.cu); no wide shape (None, the C side's KS1 = 0): no
+# resident plan, the narrow shape streamed at every depth
 SM90_SHAPES = {
-    "K1": (1, (2, 128), (1, 128)),
-    "K1-bf16": (2, (1, 256), (1, 128)),
-    "K5": (2, (2, 128), (1, 128)),
-    "K6": (4, (1, 128), (1, 64)),
+    "K1": (1, 1, (2, 128), (1, 128)),
+    "K1-bf16": (2, 1, (1, 256), (1, 128)),
+    "K5": (2, 1, (2, 128), (1, 128)),
+    "K6": (4, 1, (1, 128), (1, 64)),
+    "K6-bf16": (2, 1, (1, 256), (1, 128)),
+    "K4-bf16": (2, 2, None, (1, 128)),
 }
 
 
@@ -348,7 +353,8 @@ class ScanGeometry(NamedTuple):
     """How an sm90 kernel covers a batch: ``n_qb`` 64-query blocks (the
     batch padded to whole blocks), ``per_group`` persistent CTAs per block,
     the query depth padded to ``dq``, its ring (:class:`ScanPlan`) in
-    ``smem`` bytes of shared memory."""
+    ``smem`` bytes of shared memory, and its query ``planes`` (2:
+    :func:`query_planes`)."""
 
     n_qb: int
     per_group: int
@@ -358,6 +364,7 @@ class ScanGeometry(NamedTuple):
     stages: int
     streamed: bool
     smem: int
+    planes: int = 1
 
     @property
     def n_ctas(self) -> int:
@@ -365,23 +372,26 @@ class ScanGeometry(NamedTuple):
 
 
 def sm90_smem_bytes(d: int, row_bytes: int, stages: int, ks: int, rows: int,
-                    streamed: bool = False) -> int:
+                    streamed: bool = False, planes: int = 1) -> int:
     """The scan's dynamic shared memory (the C side's ``sm90::smem_bytes``):
-    1 KB of alignment slack, the resident query blocks (8 KB per 64 deep;
-    none when streamed), the ring of ``stages`` stages of ``ks`` [rows x 64
-    deep] row tiles (each with its query k-block when streamed), the
-    per-query maxima and scales with the f16 flag, and the barriers."""
+    1 KB of alignment slack, the resident query blocks (8 KB per 64 deep
+    and query plane; none when streamed), the ring of ``stages`` stages of
+    ``ks`` [rows x 64 deep] row tiles (each with its query k-blocks when
+    streamed), the per-query maxima and scales with the f16 flag, and the
+    barriers."""
     nk = -(-d // _TK)
-    stage = ks * (rows * _TK * row_bytes + (_QBLOCK_BYTES if streamed else 0))
-    return (1024 + (0 if streamed else nk * _QBLOCK_BYTES) + stages * stage
+    qblock = planes * _QBLOCK_BYTES
+    stage = ks * (rows * _TK * row_bytes + (qblock if streamed else 0))
+    return (1024 + (0 if streamed else nk * qblock) + stages * stage
             + 2 * QUERY_BLOCK * 4 + 8 + (2 * stages + 1) * 8)
 
 
-def sm90_stages(d: int, row_bytes: int, ks: int, rows: int, streamed: bool = False) -> int:
+def sm90_stages(d: int, row_bytes: int, ks: int, rows: int, streamed: bool = False,
+                planes: int = 1) -> int:
     """The most ring stages that fit: an even number up to SM90_MAX_STAGES,
     never below 2 (the two consumer warpgroups take alternate stages)."""
     s = SM90_MAX_STAGES
-    while s > 2 and sm90_smem_bytes(d, row_bytes, s, ks, rows, streamed) > _SMEM_MAX:
+    while s > 2 and sm90_smem_bytes(d, row_bytes, s, ks, rows, streamed, planes) > _SMEM_MAX:
         s -= 2
     return s
 
@@ -389,24 +399,26 @@ def sm90_stages(d: int, row_bytes: int, ks: int, rows: int, streamed: bool = Fal
 def sm90_plan(mode: str, d: int) -> ScanPlan:
     """The ring of ``mode`` (a key of :data:`SM90_SHAPES`) at stored depth
     ``d``, the C side's ``sm90::plan_for``: the wide stage shape when 4
-    stages of it fit beside the resident query block, else the narrow one
-    when 2 fit, else the narrow one with the query block streamed (any d)."""
-    row_bytes, wide, narrow = SM90_SHAPES[mode]
-    if sm90_smem_bytes(d, row_bytes, 4, *wide) <= _SMEM_MAX:
-        return ScanPlan(*wide, sm90_stages(d, row_bytes, *wide), False)
-    if sm90_smem_bytes(d, row_bytes, 2, *narrow) <= _SMEM_MAX:
-        return ScanPlan(*narrow, sm90_stages(d, row_bytes, *narrow), False)
-    return ScanPlan(*narrow, sm90_stages(d, row_bytes, *narrow, True), True)
+    stages of it fit beside the resident query block (of every query
+    plane), else the narrow one when 2 fit, else the narrow one with the
+    query block streamed (any d); a mode with no wide shape always streams."""
+    row_bytes, planes, wide, narrow = SM90_SHAPES[mode]
+    if wide is not None:
+        if sm90_smem_bytes(d, row_bytes, 4, *wide, planes=planes) <= _SMEM_MAX:
+            return ScanPlan(*wide, sm90_stages(d, row_bytes, *wide, planes=planes), False)
+        if sm90_smem_bytes(d, row_bytes, 2, *narrow, planes=planes) <= _SMEM_MAX:
+            return ScanPlan(*narrow, sm90_stages(d, row_bytes, *narrow, planes=planes), False)
+    return ScanPlan(*narrow, sm90_stages(d, row_bytes, *narrow, True, planes), True)
 
 
 def sm90_geometry(mode: str, b: int, d: int, n_sms: int) -> ScanGeometry:
     """The launch of ``mode`` for a batch of ``b`` queries over rows of
     stored depth ``d`` on a card of ``n_sms`` SMs. The shared memory admits
     one CTA per SM, so each query block gets an equal share of the SMs, at
-    least one CTA."""
+    least one CTA (a query block's planes share its CTAs)."""
     n_qb = max(1, -(-b // QUERY_BLOCK))
     return ScanGeometry(n_qb, max(1, n_sms // n_qb), -(-d // _TK) * _TK, *sm90_plan(mode, d),
-                        kernel_smem_bytes(mode, d))
+                        kernel_smem_bytes(mode, d), SM90_SHAPES[mode][1])
 
 
 def _fragment_perm(dq: int, t, kk, e) -> torch.Tensor:
@@ -444,17 +456,32 @@ def f32_query_perm(dq: int, device: torch.device = torch.device("cpu")) -> torch
     return _fragment_perm(dq, c // 2, 2 * h + c % 2, e).to(device)
 
 
+def query_planes(q):
+    """The two bf16 query planes of K4 over bf16 rows, stacked: [2 b, d]
+    with qh = bf16(q) in rows [0, b) and ql = bf16(q - qh) in [b, 2 b),
+    each rounded to nearest even (JAX's ``astype``; the f32 difference is
+    exact). Zero queries and columns give zero planes, so padding commutes
+    with the split."""
+    qh = q.to(torch.bfloat16)
+    ql = (q - qh.float()).to(torch.bfloat16)
+    return torch.cat([qh, ql])
+
+
 def sm90_pad_queries(q, per_query, geom: ScanGeometry, perm=None):
     """An sm90 kernel's query operands: the batch padded to ``geom.n_qb``
     blocks (padded lanes zero, so q_ok = 0 keeps them out of every bin
-    max), the depth to ``geom.dq`` with zeros, and the depth of each 64-deep
+    max), the depth to ``geom.dq`` with zeros, the depth of each 64-deep
     block gathered by ``perm`` (:func:`k1_query_perm` over int8 rows,
-    :func:`f32_query_perm` over f32 rows) -> (q, per_query)."""
+    :func:`f32_query_perm` over f32 rows), and with two ``geom.planes``
+    the padded f32 queries split into them (:func:`query_planes`) ->
+    (q, per_query)."""
     b, d = q.shape
     pad = geom.n_qb * QUERY_BLOCK - b
     qk = q if (pad, geom.dq) == (0, d) else torch.nn.functional.pad(q, (0, geom.dq - d, 0, pad))
     if perm is not None:
         qk = qk.index_select(1, perm)
+    if geom.planes == 2:
+        qk = query_planes(qk)
     if pad:
         per_query = tuple(torch.nn.functional.pad(t, (0, pad)) for t in per_query)
     return qk.contiguous(), tuple(per_query)
@@ -467,10 +494,10 @@ def _n_sms(device: int) -> int:
 
 def _sm90_launch(wrapper, mode, source, entry, q, v, per_query, ptrs, ints, perm=None):
     """Launch the sm90 kernel of ``mode``: its geometry at the rows' stored
-    depth, the queries padded (and gathered by ``perm(dq, device)``), then
-    ``_launch`` with the pointers q, v, ``ptrs[0]``, the padded
-    ``per_query`` operands, ``ptrs[1]`` and the ints b, dq, n_qb,
-    per_group, ``ints``."""
+    depth, the queries padded (gathered by ``perm(dq, device)``, split into
+    the geometry's planes), then ``_launch`` with the pointers q, v,
+    ``ptrs[0]``, the padded ``per_query`` operands, ``ptrs[1]`` and the ints
+    b, dq, n_qb, per_group, ``ints``."""
     dp = stored_depth(v)
     dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
     geom = sm90_geometry(mode, q.shape[0], dp, _n_sms(dev))
@@ -754,10 +781,11 @@ def _binmax(mode, wrapper, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
     if mode == "K2" and 127 * 127 * d >= (1 << 31):
         raise ValueError(f"{entry}: d={d} could overflow the int32 dots")
     ints = [_METRIC_CODE[metric], int(take_min), _CMP_CODE[cmp]]
-    if mode == "K6":  # the sm90 scan over f32 rows
+    if mode in SM90_SHAPES:  # the sm90 scan: K6 over f32 / bf16 rows, K4 over bf16 rows
         return _sm90_launch(
-            wrapper, "K6", source, entry, q, v, (q_inv, q_sq, q_ok),
-            ([inv, nsq, rmask], [thr, surv, n_surv]), ints, perm=f32_query_perm,
+            wrapper, mode, source, entry, q, v, (q_inv, q_sq, q_ok),
+            ([inv, nsq, rmask], [thr, surv, n_surv]), ints,
+            perm=f32_query_perm if mode == "K6" else None,
         )
     dp = stored_depth(v)
     n_qb, q, (q_inv, q_sq, q_ok) = _pad_query_blocks(q, dp, q_inv, q_sq, q_ok)
@@ -791,7 +819,8 @@ f32_binmax_bf16 = _mode_wrapper(
     "K3-bf16", "K3 bin maxima over bfloat16 rows, upcast exactly: exact f32 dots")
 bf16x3_binmax = _mode_wrapper("K4", "K4 bin maxima: bf16x3 dots on the tensor cores")
 bf16x3_binmax_bf16 = _mode_wrapper(
-    "K4-bf16", "K4 bin maxima over bfloat16 rows: qh.v + ql.v (the low plane of v is 0)")
+    "K4-bf16", "K4 bin maxima over bfloat16 rows: qh.v + ql.v (the low plane of v is 0; "
+    "the wrapper splits the f32 queries into the planes, :func:`query_planes`)")
 bf16_binmax = _mode_wrapper(
     "K6", "K6 bin maxima: one bf16 pass, bf16 queries x f32 rows rounded to bf16")
 bf16_binmax_bf16 = _mode_wrapper(
@@ -808,19 +837,18 @@ KERNELS = {
 def kernel_smem_bytes(mode: str, d: int) -> int:
     """The dynamic shared memory the kernel of ``mode`` asks for at stored
     depth ``d`` (a multiple of 16), mirroring its source's ``*_smem_bytes``:
-    the sm90 scans (K1, K5, K6) their plan's, which always fits; K2 1 KB
-    per 16 deep of queries beside 41 KB of tiles (int8_binmax.cu); K6 over
-    bf16 rows the simple scan's query block, row tile and dot tile
-    (cert_scan.cuh ``cert_smem_bytes``); K4 a fixed 87 KB; K3 none."""
+    the sm90 scans (K1, K5, K6 over f32 and bf16 rows, K4 over bf16 rows)
+    their plan's, which always fits; K2 1 KB per 16 deep of queries beside
+    41 KB of tiles (int8_binmax.cu); K4 over f32 rows a fixed 87 KB; K3
+    none."""
     if mode in SM90_SHAPES:
         plan = sm90_plan(mode, d)
-        return sm90_smem_bytes(d, SM90_SHAPES[mode][0], plan.stages, plan.ks, plan.rows,
-                               plan.streamed)
+        row_bytes, planes = SM90_SHAPES[mode][:2]
+        return sm90_smem_bytes(d, row_bytes, plan.stages, plan.ks, plan.rows, plan.streamed,
+                               planes)
     if mode == "K2":
         return -(-d // 16) * QUERY_BLOCK * 16 + (64 // 16) * 128 * 16 + QUERY_BLOCK * 132 * 4
-    if mode == "K6-bf16":
-        return QUERY_BLOCK * (d + 8) * 2 + 128 * 72 * 2 + QUERY_BLOCK * 132 * 4
-    if mode.startswith("K4"):
+    if mode == "K4":
         return 2 * (QUERY_BLOCK + 128) * 72 * 2 + QUERY_BLOCK * 132 * 4
     return 0
 
@@ -830,11 +858,12 @@ def kernel_takes(mode: str, d: int) -> bool:
     port's counterpart of the JAX package's ``pallas_ok``, decided from the
     shape before any launch: the kernel's shared memory at the stored depth
     must fit a block (232,448 B); unlike a TPU's VMEM budget it does not
-    grow with the batch. K1, K5 and K6 over f32 rows take any d (their
-    deep-row plan streams the query block); K6 over bf16 rows stops at d =
-    1,392 and K2 at d = 2,976. A shape it refuses goes to the scan program
-    (``scoring.scan_topk_core``), and the caller adds the batch's queries
-    to ``kernel_takes.routed``."""
+    grow with the batch. The kernels on the Hopper scan (K1, K5, K6 over f32
+    and bf16 rows, K4 over bf16 rows) take any d (their deep-row plan
+    streams the query block); K2 stops at d = 2,976; K3 and K4 over f32
+    rows need no depth-sized shared memory. A shape it refuses goes to the
+    scan program (``scoring.scan_topk_core``), and the caller adds the
+    batch's queries to ``kernel_takes.routed``."""
     return kernel_smem_bytes(mode, pad_depth(d)) <= _SMEM_MAX
 
 

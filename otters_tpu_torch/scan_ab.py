@@ -2,7 +2,7 @@
 source trees.
 
     python otters_tpu_torch/scan_ab.py [ROOT:LABEL ...] [--rounds N]
-        [--modes K1,K1-bf16,K5,K6] [--b 64,256]
+        [--modes K1,K1-bf16,K5,K6,K6-bf16,K4-bf16] [--b 64,256]
 
 Each ROOT is a checkout (or a copy of ``otters_tpu_torch/`` under ROOT);
 the default is this checkout. The trees are measured in interleaved rounds
@@ -11,10 +11,11 @@ from its ROOT and builds its kernels there. Per tree and round it prints
 one JSON line with, per kernel and batch size: the per-call median of 10
 CUDA-event timings, three back-to-back means of 10 calls, the max error
 against the plain version on 40 bins, and the library call (one bf16
-matmul on rows cast beforehand, then the bin max). The shapes are the
-paths' of ``chip_smoke.py`` at d = 768, half the 1024-row chunks pruned:
-K1 over 10,000,384 int8 rows (``wide``: queries whose magnitudes span more
-than f16's range, so the scan multiplies in bf16) and K1-bf16 / K5 (Dot)
+matmul on rows cast beforehand, then the bin max; K4-bf16: two, one per
+query plane). The shapes are the paths' of ``chip_smoke.py`` at d = 768,
+half the 1024-row chunks pruned: K1 over 10,000,384 int8 rows (``wide``:
+queries whose magnitudes span more than f16's range, so the scan
+multiplies in bf16) and K1-bf16 / K5 (Dot) / K6-bf16 / K4-bf16 (Cosine)
 over as many bf16 rows; K6 over 4,000,256 f32 rows. The rows and their
 side data are random, made on the device from a seed. Needs one CUDA card.
 """
@@ -28,7 +29,8 @@ import subprocess
 import sys
 
 D, BIN = 768, 512
-N_BINS = {"K1": 19532, "K1-bf16": 19532, "K5": 19532, "K6": 7813}
+N_BINS = {"K1": 19532, "K1-bf16": 19532, "K5": 19532, "K6": 7813, "K6-bf16": 19532,
+          "K4-bf16": 19532}
 
 
 def _timers(torch):
@@ -62,7 +64,7 @@ def _timers(torch):
 
 
 def _operands(torch, ft, mode, g, dev):
-    """(rows, per-row side operands, a function of the bf16 queries giving
+    """(rows, a function of the kernel's queries (bf16; K4-bf16 f32) giving
     the wrapper's args, kernel, plain) of ``mode``."""
     n = N_BINS[mode] * BIN
     if mode == "K1":
@@ -96,9 +98,21 @@ def _operands(torch, ft, mode, g, dev):
         return (v, args, lambda a: ft.cert_fold_binmax(*a, ft.Metric.DotProduct, False, None),
                 lambda a: ft.cert_fold_binmax_plain(*a, metric=ft.Metric.DotProduct,
                                                     take_min=False, cmp=None))
-    return (v, args, lambda a: ft.bf16_binmax(*a, ft.Metric.Cosine, False, None),
-            lambda a: ft.binmax_plain("K6", *a, metric=ft.Metric.Cosine, take_min=False,
+    return (v, args, lambda a: ft.KERNELS[mode](*a, ft.Metric.Cosine, False, None),
+            lambda a: ft.binmax_plain(mode, *a, metric=ft.Metric.Cosine, take_min=False,
                                       cmp=None))
+
+
+def _library(torch, mode, q, v_live, b):
+    """One PyTorch call (per query plane) for the same dots, then the bin
+    max: the yardstick."""
+    if mode == "K4-bf16":
+        qh = q.bfloat16()
+        ql = (q - qh.float()).bfloat16()
+        return lambda: (torch.matmul(qh, v_live.T) + torch.matmul(ql, v_live.T)).reshape(
+            b, -1, BIN).amax(dim=2)
+    qb = q.bfloat16()
+    return lambda: torch.matmul(qb, v_live.T).reshape(b, -1, BIN).amax(dim=2)
 
 
 def _measure(root: str, label: str, modes, bs) -> dict:
@@ -129,7 +143,7 @@ def _measure(root: str, label: str, modes, bs) -> dict:
                 qk = q.clone()
                 if kind == "wide":  # every query: half its elements 2^-40 of the rest
                     qk[:, ::2] *= 2.0 ** -40
-                qk = qk.bfloat16()
+                qk = qk if mode == "K4-bf16" else qk.bfloat16()
                 a = args(qk, surv, n_surv)
                 got = kernel(a)
                 want = plain(a[:-2] + (surv[:40].contiguous(), sl))
@@ -137,8 +151,7 @@ def _measure(root: str, label: str, modes, bs) -> dict:
                 res[f"{mode} b={b} {kind}"] = {"per_call": per_call(lambda: kernel(a)),
                                               "b2b": back_to_back(lambda: kernel(a)),
                                               "err": err}
-            res[f"{mode} b={b} library"] = per_call(
-                lambda: torch.matmul(q.bfloat16(), v_live.T).reshape(b, -1, BIN).amax(dim=2))
+            res[f"{mode} b={b} library"] = per_call(_library(torch, mode, q, v_live, b))
         del v, v_live
         torch.cuda.empty_cache()
     res["ptxas"] = {name: [ln.strip() for ln in log.splitlines()
@@ -148,7 +161,7 @@ def _measure(root: str, label: str, modes, bs) -> dict:
 
 
 def main(argv) -> int:
-    opts = {"--rounds": "2", "--modes": "K1,K1-bf16,K5,K6", "--b": "64,256"}
+    opts = {"--rounds": "2", "--modes": "K1,K1-bf16,K5,K6,K6-bf16,K4-bf16", "--b": "64,256"}
     for key in list(opts):
         if key in argv:
             i = argv.index(key)

@@ -12,11 +12,13 @@
   within 1e-6 (Euclid: 4 ulps of q^2 + v^2, which its formula cancels).
 - Deep rows: ``fused_topk.kernel_takes`` (the counterpart of JAX's
   ``pallas_ok``) sends a shape whose kernel would not fit a block's shared
-  memory to the scan program before any launch, and counts it; K1, K5 and
-  K6 over f32 rows take any depth through the deep-row plan of
-  ``csrc/cert_scan_sm90.cuh``, mirrored by ``sm90_plan`` (the card tests
-  hold the mirror against the C side).
-- The f32-row fragment order of K6 (``f32_query_perm``), replayed.
+  memory (K2 past d = 2,976) to the scan program before any launch, and
+  counts it; K1, K5, K6 over f32 and bf16 rows and K4 over bf16 rows take
+  any depth through the deep-row plan of ``csrc/cert_scan_sm90.cuh``,
+  mirrored by ``sm90_plan`` (the card tests hold the mirror against the C
+  side); K4 over bf16 rows streams its two query planes at every depth.
+- The f32-row fragment order of K6 (``f32_query_perm``), replayed; the
+  query planes of K4 over bf16 rows (``query_planes``) against JAX's split.
 """
 
 import numpy as np
@@ -192,27 +194,29 @@ def test_metastore_at_d100_matches_jax(storage, metric, certify, prec, represent
 
 
 @pytest.mark.parametrize("mode,d,takes", [
-    ("K6-bf16", 1392, True), ("K6-bf16", 1408, False), ("K6-bf16", 2048, False),
+    ("K6-bf16", 1392, True), ("K6-bf16", 1408, True), ("K6-bf16", 2048, True),
     ("K2", 2976, True), ("K2", 2992, False), ("K2", 3072, False),
     ("K1", 2048, True), ("K1-bf16", 2048, True), ("K5", 2048, True), ("K6", 2048, True),
     ("K1", 8192, True), ("K5", 4096, True), ("K6", 4096, True),
     ("K3", 4096, True), ("K4", 4096, True), ("K4-bf16", 4096, True), ("K3-bf16", 4096, True),
     ("K6-bf16", 100, True), ("K2", 100, True)])
 def test_shape_check_routes_only_what_cannot_fit(mode, d, takes):
-    """K6 over bf16 rows stops at d = 1,392 and K2 at d = 2,976 (their
-    shared memory); K1, K5 and K6 over f32 rows take any depth (their
-    deep-row plan), K3 and K4 need no depth-sized shared memory."""
+    """K2 stops at d = 2,976 (its shared memory); K1, K5, K6 over f32 and
+    bf16 rows and K4 over bf16 rows take any depth (their deep-row plan),
+    K3 and K4 over f32 rows need no depth-sized shared memory."""
     assert ft.kernel_takes(mode, d) is takes
     assert (ft.kernel_smem_bytes(mode, ts.pad_depth(d)) <= SMEM_MAX) is takes
 
 
 @pytest.mark.parametrize("case", ["K6-bf16", "K2"])
 def test_meta_routes_deep_rows_to_the_scan_program(case, monkeypatch):
-    """A 2,048-deep bf16 store at precision "default" (K6 over bf16 rows)
-    and a 3,072-deep int8 store queried uncertified (K2) take the scan
-    program on the fused path's shape, counted, with no kernel call; the
-    answer equals what the kernel's path returns for the same query
-    (forced here through the plain version)."""
+    """A 3,072-deep int8 store queried uncertified (K2) takes the scan
+    program on the fused path's shape, counted, with no kernel call; a
+    2,048-deep bf16 store at precision "default" (K6 over bf16 rows, on the
+    Hopper scan's deep-row plan) takes the kernel's wrapper with nothing
+    routed. Either answer equals what the other path returns for the same
+    query (forced here: the kernel through its plain version, or the
+    route)."""
     use_fused_path(monkeypatch, direct_limit=1 << 12)
     rng = np.random.default_rng(3)
     n, d = 1024, (2048 if case == "K6-bf16" else 3072)
@@ -230,31 +234,46 @@ def test_meta_routes_deep_rows_to_the_scan_program(case, monkeypatch):
 
     calls = _route("direct", monkeypatch)
     ft.reset_launches()
-    routed = run()
-    assert ft.kernel_takes.routed == 5 and calls == []
-    monkeypatch.setattr(ft, "kernel_takes", lambda mode, d: True)
-    kernel = run()
-    assert calls == ["binmax_plain"]
+    if case == "K2":
+        routed = run()
+        assert ft.kernel_takes.routed == 5 and calls == []
+        monkeypatch.setattr(ft, "kernel_takes", lambda mode, d: True)
+        kernel = run()
+        assert calls == ["binmax_plain"]
+    else:
+        kernel = run()
+        assert ft.kernel_takes.routed == 0 and calls == ["binmax_plain"]
+        refuse = lambda mode, d: False  # noqa: E731
+        refuse.routed = 0
+        monkeypatch.setattr(ft, "kernel_takes", refuse)
+        routed = run()
+        assert refuse.routed == 5 and calls == ["binmax_plain"]
     assert routed.indices == kernel.indices
     np.testing.assert_allclose(routed.scores, kernel.scores, rtol=1e-6, atol=1e-6)
 
 
 def test_vecstore_routes_deep_rows_to_the_scan_program(monkeypatch):
-    """The VecStore path (``run_vec_topk``) consults the same check."""
+    """The VecStore path (``run_vec_topk``) consults the same check: a
+    3,072-deep int8 VecStore (K2, past its shared memory) takes the scan
+    program, counted, and answers as the kernel's path does (forced here
+    through the plain version)."""
     use_fused_path(monkeypatch, direct_limit=1 << 12)
     rng = np.random.default_rng(4)
-    n, d = 1024, 2048
-    v = _bf16(rng.normal(size=(n, d)).astype(np.float32))
-    q = _bf16(rng.normal(size=(5, d)).astype(np.float32))
-    store = tx.VecStore(d, dtype="bfloat16", device="cpu")
+    n, d = 1024, 3072
+    v = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(5, d)).astype(np.float32)
+    store = tx.VecStore(d, dtype="int8", device="cpu")
     store.add_vectors(v)
-    store.precision = "default"
+    calls = _route("direct", monkeypatch)
     ft.reset_launches()
-    res = store.query(q, tx.Metric.DotProduct).take(10).collect()
-    assert ft.kernel_takes.routed == 5
-    s = (q.astype(np.float64) @ v.astype(np.float64).T).reshape(-1)
-    want = np.argsort(-s, kind="stable")[:10] % n
-    assert [r.index for r in res] == want.tolist()
+    res = store.query(q, tx.Metric.Cosine).take(10).collect()
+    assert ft.kernel_takes.routed == 5 and calls == []
+    monkeypatch.setattr(ft, "kernel_takes", lambda mode, d: True)
+    kernel = store.query(q, tx.Metric.Cosine).take(10).collect()
+    assert calls == ["binmax_plain"]
+    assert [r.index for r in res] == [r.index for r in kernel]
+    np.testing.assert_allclose([r.score for r in res], [r.score for r in kernel],
+                               rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -264,27 +283,31 @@ def test_vecstore_routes_deep_rows_to_the_scan_program(monkeypatch):
 DEPTHS = [16, 100, 768, 1392, 1536, 2048, 4096]
 
 
-@pytest.mark.parametrize("mode", ["K1", "K1-bf16", "K5", "K6"])
+@pytest.mark.parametrize("mode", ["K1", "K1-bf16", "K5", "K6", "K6-bf16", "K4-bf16"])
 @pytest.mark.parametrize("d", DEPTHS)
 def test_sm90_plan_fits_every_depth(mode, d):
     """An even ring of at least 2 stages within 232,448 B at every depth;
-    the query block is streamed exactly when the resident block would leave
-    fewer than 2 stages of the narrow shape; at d = 768 K1 keeps its plans
-    and K5 / K6 take their wide shapes."""
+    the query block (of every query plane) is streamed exactly when the
+    resident block would leave fewer than 2 stages of the narrow shape, or
+    always for a mode with no resident plan (K4-bf16); at d = 768 K1 keeps
+    its plans, K5 / K6 / K6-bf16 take their wide shapes and K4-bf16 its 6
+    streamed stages of 128 rows with both planes."""
     dp = ts.pad_depth(d)
-    row_bytes, wide, narrow = ft.SM90_SHAPES[mode]
+    row_bytes, planes, wide, narrow = ft.SM90_SHAPES[mode]
     plan = ft.sm90_plan(mode, dp)
     assert plan.stages >= 2 and plan.stages % 2 == 0 and plan.stages <= ft.SM90_MAX_STAGES
-    smem = ft.sm90_smem_bytes(dp, row_bytes, plan.stages, plan.ks, plan.rows, plan.streamed)
+    smem = ft.sm90_smem_bytes(dp, row_bytes, plan.stages, plan.ks, plan.rows, plan.streamed,
+                              planes)
     assert smem == ft.kernel_smem_bytes(mode, dp) <= SMEM_MAX
-    resident_fits = ft.sm90_smem_bytes(dp, row_bytes, 2, *narrow) <= SMEM_MAX
+    resident_fits = wide is not None and ft.sm90_smem_bytes(
+        dp, row_bytes, 2, *narrow, planes=planes) <= SMEM_MAX
     assert plan.streamed is (not resident_fits)
     if plan.streamed:
         # every stage carries its query k-blocks; one more stage would not fit
         assert (plan.ks, plan.rows) == narrow
         assert plan.stages == ft.SM90_MAX_STAGES or ft.sm90_smem_bytes(
-            dp, row_bytes, plan.stages + 2, *narrow, True) > SMEM_MAX
-    elif ft.sm90_smem_bytes(dp, row_bytes, 4, *wide) <= SMEM_MAX:
+            dp, row_bytes, plan.stages + 2, *narrow, True, planes) > SMEM_MAX
+    elif ft.sm90_smem_bytes(dp, row_bytes, 4, *wide, planes=planes) <= SMEM_MAX:
         assert (plan.ks, plan.rows) == wide and plan.stages >= 4
     else:
         assert (plan.ks, plan.rows) == narrow
@@ -294,9 +317,67 @@ def test_sm90_plan_fits_every_depth(mode, d):
     assert geom.n_qb == 10 and geom.per_group == 13
     if d == 768:
         assert plan == {"K1": (2, 128, 8, False), "K1-bf16": (1, 256, 4, False),
-                        "K5": (2, 128, 4, False), "K6": (1, 128, 4, False)}[mode]
+                        "K5": (2, 128, 4, False), "K6": (1, 128, 4, False),
+                        "K6-bf16": (1, 256, 4, False), "K4-bf16": (1, 128, 6, True)}[mode]
     if d >= 2048:
         assert plan.streamed
+
+
+@pytest.mark.parametrize("d", [16, 768, 832, 848, 896, 2048, 4096])
+def test_k4_bf16_streams_its_planes_at_every_depth(d):
+    """K4 over bf16 rows has no resident plan: resident, its two query
+    planes (16 KB per 64 deep) would leave at d = 768 room for 4 ring
+    stages of [64 rows x 64 deep] bf16 or 2 of 128 rows (32 KB of rows in
+    flight), and would not fit beside 2 stages of 64 rows past d = 832 (13
+    blocks; 14 from d = 833, which the store pads to 848). Streamed, a
+    stage carries a 128-row k-block (16 KB) and both planes' k-blocks (16
+    KB), so 6 stages fit at every depth: 96 KB of rows in flight. The
+    arithmetic: 1 KB slack + planes + ring + 520 B of maxima, scales and
+    flag + 8 B a barrier."""
+    plan = ft.sm90_plan("K4-bf16", d)
+    assert plan == (1, 128, 6, True)
+    assert ft.kernel_smem_bytes("K4-bf16", d) == 1024 + 6 * 32768 + 520 + 13 * 8 <= SMEM_MAX
+    assert 1024 + 8 * 32768 + 520 + 17 * 8 > SMEM_MAX
+    nk = -(-d // 64)
+    resident_64 = 1024 + nk * 2 * 8192 + 2 * 8192 + 520 + 5 * 8
+    assert (resident_64 <= SMEM_MAX) is (d <= 832)
+    if d == 768:
+        assert 1024 + 12 * 2 * 8192 + 4 * 8192 + 520 + 9 * 8 <= SMEM_MAX
+        assert 1024 + 12 * 2 * 8192 + 2 * 16384 + 520 + 5 * 8 <= SMEM_MAX
+        assert 1024 + 12 * 2 * 8192 + 6 * 8192 + 520 + 13 * 8 > SMEM_MAX
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_query_planes_equal_jax_split(seed):
+    """The K4 wrapper's query split over bf16 rows (``query_planes``) is
+    JAX's (``otters_tpu/ops/pallas_topk.py`` at prec="high": qh =
+    q.astype(bf16), ql = (q - qh.astype(f32)).astype(bf16)) bit for bit,
+    on normal values, values a bf16 ulp apart, exact bf16 ties (half-way
+    between two bf16 values: round to even, both ways), their neighbours
+    one f32 ulp away, tiny, huge and zero values."""
+    rng = np.random.default_rng(seed)
+    b, d = 7, 100
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    base = rng.normal(size=d).astype(np.float32)
+    bits = base.view(np.uint32) & np.uint32(0xFFFF0000)  # exact bf16 values
+    tie = (bits | np.uint32(0x8000)).view(np.float32)    # half-way to the next bf16
+    q[1] = tie
+    q[2] = np.nextafter(tie, np.float32(np.inf))
+    q[3] = np.nextafter(tie, np.float32(-np.inf))
+    q[4] = bits.view(np.float32)
+    q[5] = q[0] * np.float32(1e-30)
+    q[6, : d // 2] = q[0, : d // 2] * np.float32(1e30)
+    q[6, d // 2 :] = 0.0
+    planes = ft.query_planes(torch.from_numpy(q))
+    qh = jnp.asarray(q).astype(jnp.bfloat16)
+    ql = (jnp.asarray(q) - qh.astype(jnp.float32)).astype(jnp.bfloat16)
+    want = np.concatenate([np.asarray(qh.astype(jnp.float32)),
+                           np.asarray(ql.astype(jnp.float32))])
+    got = planes.float().numpy()
+    assert planes.dtype == torch.bfloat16 and planes.shape == (2 * b, d)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    # a tie rounds to even: both directions occur
+    assert {bool(x) for x in (got[1] > q[1])} == {True, False}
 
 
 @pytest.mark.parametrize("dq", [64, 128, 768, 2048])

@@ -7,8 +7,9 @@ runs only on the card; what surrounds it is Python that these tests reach:
 ``tests/test_torch_kernels_cuda.py`` checks the two agree on the card),
 ``sm90_pad_queries`` and ``k1_query_perm`` (the int8-row fragment order).
 The kernel's CTA -> (query block, bin slots) mapping is replayed here from
-the geometry. The other sm90 kernels' plans (K5, K6 over f32 rows) and the
-deep-row plan: ``tests/test_torch_depth.py``.
+the geometry; so is the two-plane query layout of K4 over bf16 rows
+(``query_planes``). The other sm90 kernels' plans (K5, K6, K4 over bf16
+rows) and the deep-row plan: ``tests/test_torch_depth.py``.
 """
 
 import numpy as np
@@ -97,3 +98,33 @@ def test_k1_query_perm_matches_the_fragment_order(dq):
     q = rng.normal(size=(3, dq))
     a = v[:, perm.numpy()]  # A as wgmma sees it: depth j holds row byte perm[j]
     np.testing.assert_allclose(a @ q[:, perm.numpy()].T, v @ q.T, rtol=1e-12)
+
+
+@pytest.mark.parametrize("d", [16, 112, 768, 832, 896])
+@pytest.mark.parametrize("b", [1, 64, 70, 600])
+def test_k4_bf16_planes_cover_the_batch(b, d):
+    """K4 over bf16 rows: the f32 queries padded to whole query blocks and
+    a depth multiple of 64, then split and stacked: rows [0, n_qb 64) hold
+    qh, rows [n_qb 64, 2 n_qb 64) ql (the C side's plane p of query block c
+    at rows p n_qb 64 + 64 c); padded lanes and columns are zero in both
+    planes and carry q_ok = 0; qh + ql recovers each query to within a
+    bf16 ulp of ql. The query blocks' planes share their CTAs (and ride in
+    the ring stages at every depth)."""
+    geom = ft.sm90_geometry("K4-bf16", b, d, N_SMS)
+    assert geom.per_group == max(1, N_SMS // geom.n_qb)
+    assert geom.streamed
+    rng = np.random.default_rng(b * 1000 + d)
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    assert geom.planes == 2
+    qk, (qo,) = ft.sm90_pad_queries(q, (torch.ones(b),), geom)
+    rows = geom.n_qb * ft.QUERY_BLOCK
+    assert qk.dtype == torch.bfloat16 and qk.is_contiguous()
+    assert qk.shape == (2 * rows, geom.dq)
+    qh, ql = qk[:rows].float(), qk[rows:].float()
+    assert qh[b:].eq(0).all() and ql[b:].eq(0).all()
+    assert qh[:, d:].eq(0).all() and ql[:, d:].eq(0).all()
+    assert qo[:b].eq(1).all() and qo[b:].eq(0).all()
+    assert torch.equal(qh[:b, :d], q.bfloat16().float())
+    assert torch.equal(ql[:b, :d], (q - q.bfloat16().float()).bfloat16().float())
+    err = (qh[:b, :d] + ql[:b, :d] - q).abs()
+    assert bool((err <= ql[:b, :d].abs() * 2.0**-8 + 1e-45).all())

@@ -4,11 +4,14 @@ K1 (certified Cosine) over int8 and bfloat16 rows at b = 1 to 600 and d =
 96 to 2048 (the deep-row plan), with its live-bin edge cases and queries
 far from unit scale or too wide for f16; K2 / K3 / K4 / K6 over int8 / f32
 rows (K6 at b = 1 to 600, d = 100 to 2048, every metric and filter); over
-bfloat16 rows K3, K4, K5 (the general certified fold, Dot and Euclid, at b
-= 1 to 600, d = 100 to 2048, with masked bins and NaN rows) and K6; the
-shared-memory figures of the depth route and the sm90 plans against the C
-side; the three profiling probes (``profile_variants``). A depth that is
-not a multiple of 16 (d = 100) runs as the store pads it.
+bfloat16 rows K3, K5 (the general certified fold, Dot and Euclid, at b
+= 1 to 600, d = 100 to 2048, with masked bins and NaN rows), and K4 and K6
+on the Hopper scan (b = 1 to 600, d = 16 to 2048; K4 streams its two
+query planes with the rows); the shared-memory figures of
+the depth route and the sm90 plans against the C side, with K6 and K4 over
+bf16 rows launched at every depth there; the three profiling probes
+(``profile_variants``). A depth that is not a multiple of 16 (d = 100)
+runs as the store pads it.
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
@@ -361,6 +364,28 @@ def test_k1_smem_mirrors_the_kernel(mode, row_bytes, d):
     assert smem(d) == ft.sm90_smem_bytes(d, row_bytes, s, ks, rows, streamed)
 
 
+# K6 and K4 over bf16 rows, on the Hopper scan
+BF16_SM90_CASES = [c for c in BF16_CASES if c[0] in ("K4-bf16", "K6-bf16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,metric,take_min,cmp,thr", BF16_SM90_CASES)
+@pytest.mark.parametrize("d", [16, 112, 768, 832, 896, 2048])
+@pytest.mark.parametrize("b", [1, 64, 256, 600])
+def test_bf16_sm90_kernel_matches_plain(mode, metric, take_min, cmp, thr, b, d):
+    """K6 and K4 over bf16 rows at one, one full, four and ten query
+    blocks, every metric and filter of BF16_CASES, at a depth of one
+    16-deep step, a stored 112, the main path's 768, 832 and 896 (where
+    resident query planes of K4 would stop fitting) and deep rows (2,048,
+    K6's streamed plan); a Euclid filter keeps about half the distances at
+    every depth."""
+    dev = _device()
+    if metric is Metric.Euclidean and cmp is not None:
+        thr = 2.0 * d  # about the median squared distance of the random rows
+    args = _bf16_operands(mode, dev, metric, n=20_000, d=d, b=b, thr=thr, cmp=cmp)
+    _check_plain(mode, args, metric, take_min, cmp)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "mode", ["K2", "K3", "K4", "K6", "K1-bf16", "K3-bf16", "K4-bf16", "K5", "K6-bf16"])
@@ -587,12 +612,16 @@ def test_k5_dots_equal_float64(d):
 @pytest.mark.parametrize("mode,entry", [
     ("K1", "cert_cos_binmax"), ("K1-bf16", "cert_cos_binmax_bf16"), ("K5", "cert_fold_binmax"),
     ("K6", "bf16_binmax"), ("K6-bf16", "bf16_binmax_bf16"), ("K2", "int8_binmax"),
-    ("K4", "bf16x3_binmax")])
-@pytest.mark.parametrize("d", [16, 112, 768, 1392, 1408, 1536, 2048, 2976, 2992, 4096])
+    ("K4", "bf16x3_binmax"), ("K4-bf16", "bf16x3_binmax_bf16")])
+@pytest.mark.parametrize(
+    "d", [16, 112, 768, 832, 896, 1392, 1408, 1536, 2048, 2976, 2992, 4096])
 def test_smem_mirrors_the_kernel(mode, entry, d):
     """``kernel_smem_bytes`` (and the sm90 plans' stage counts) equal the C
-    side's figures at every depth the shape check and the plans turn on."""
-    _device()
+    side's figures at every depth the shape check and the plans turn on;
+    K6 and K4 over bf16 rows take every one of these depths and launch
+    there (against the plain version at 70 queries, and with no live
+    bin)."""
+    dev = _device()
     from otters_tpu_torch import kernels
 
     source = ft._MODES[mode][0] if mode in ft._MODES else {
@@ -607,3 +636,12 @@ def test_smem_mirrors_the_kernel(mode, entry, d):
         stages.argtypes = [ctypes.c_int]
         stages.restype = ctypes.c_int
         assert stages(d) == ft.sm90_plan(mode, d).stages
+    if mode in ("K6-bf16", "K4-bf16"):
+        assert ft.kernel_takes(mode, d)
+        args = _bf16_operands(mode, dev, Metric.Cosine, n=20_000, d=d)
+        _check_plain(mode, args, Metric.Cosine, False, None)
+        args[-2], args[-1] = ft.survivor_bins(
+            torch.zeros(args[1].shape[0] // ft.BIN, dtype=torch.bool, device=dev))
+        out = _call(mode, args, Metric.Cosine, False, None)
+        torch.cuda.synchronize()
+        assert bool(torch.isneginf(out).all())
