@@ -21,14 +21,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    filter ``price < 50 & version >= 2`` (prunes half the chunks), pipelined
    ``collect_async`` batches of 256 Cosine queries with
    ``take(10, rerank_from=100)`` and ``resolve``, timed in PATH_ROUNDS
-   rounds (median q/s, as are the bf16 paths of 4f); every query certified and
-   equal to an exact f32 filtered top-10; one round traced (K1's time per
+   rounds (median q/s, as are the bf16 paths of 4f and the f32 path of 6);
+   every query certified and equal to an exact f32 filtered top-10; one
+   round traced (K1's time per
    batch, the rest of the device time, the idle share); then K1 timed at
    these shapes against its plain version, a library yardstick and its
    bound, and again at b = 1, 64 and 512 (as K1, K6 and K4 over bf16 rows
-   and K5 in 4f, K6 in 6); each kernel of csrc/cert_scan_sm90.cuh (K1, K5,
-   K6 over f32 and bf16 rows, K4 over bf16 rows) and its library call
-   timed in K1_ROUNDS interleaved rounds (median and range);
+   and K5 in 4f, K6 and K4 in 6); each kernel of csrc/cert_scan_sm90.cuh
+   (K1, K5, K6 and K4 over f32 and bf16 rows) and its library call timed
+   in K1_ROUNDS interleaved rounds (median and range);
    4u. bench.py's ``filtered_uncert`` on the same store
    (``certify=False``): K2, recall@10 against the f32 truth, K2 timed;
    4f. bfloat16 storage: a 10M x 768 bf16 store made on the device from
@@ -51,19 +52,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    4d. depths: 250,000-row stores at d = 100 (stored as 112) and d = 2,048
    through MetaStore (certified int8 Cosine on K1, certified bf16 Dot on
    K5, precision "default" over f32 rows on K6 and over bf16 rows on
-   K6-bf16, uncertified bf16 Cosine on K4-bf16, and uncertified int8),
-   each equal to its exact truth; at 2,048 K1, K5, K6, K6-bf16 and K4-bf16
-   run their deep-row plan (nothing routed), while K2 is routed to the
-   scan program by shape at d = 3,072 (the routed queries are counted);
-   the five sm90 modes against their plain versions at both depths;
+   K6-bf16, uncertified f32 Cosine on K4, uncertified bf16 Cosine on
+   K4-bf16, and uncertified int8), each equal to its exact truth; at 2,048
+   K1, K5, K6, K6-bf16 and K4-bf16 run their deep-row plan and K4 its
+   streamed one (nothing routed), while K2 is routed to the scan program
+   by shape at d = 3,072 (the routed queries are counted); the six sm90
+   modes against their plain versions at both depths;
 5. the twin of examples/demo.py on the card;
 6. bench.py's exact-f32 section: a 4M x 768 f32 store built on the device,
    the same columns and filter, pipelined ``take(10)`` batches of 256
-   Cosine queries through the verified fast-exact K4 (every check passes),
-   one Dot and one Euclid batch, each equal to the exact f32 truth; the
-   same 8 batches at the store precision "default" through K6 over f32
-   rows, equal to the exact top-10 of the one-pass scores; K4, K3 and K6
-   timed at these shapes;
+   Cosine queries through the verified fast-exact K4 (every check passes)
+   in PATH_ROUNDS timed rounds and one traced round (K4's ms per batch,
+   the rest, the idle share), one Dot and one Euclid batch, each equal to
+   the exact f32 truth; the same 8 batches at the store precision
+   "default" through K6 over f32 rows, equal to the exact top-10 of the
+   one-pass scores; K4, K3 and K6 timed at these shapes;
    6t. take-all on the same store: ``collect()`` with no ``take`` for 16
    Cosine queries under the bench's filter (the windowed host collection),
    equal to a stable sort of the filtered f32 score matrix;
@@ -77,7 +80,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    csrc/profile_probes.cu) at the shapes of
    scripts/kernel_profile_variants.py: each run by the module's timing
    entry, held against its plain version and timed beside a library
-   yardstick and its bound; ``k_mm`` may not beat its FFMA bound.
+   yardstick and its bound (``k_planes``, on the Hopper scan, in K1_ROUNDS
+   interleaved rounds); ``k_mm`` may not beat its FFMA bound.
 
 Phases 4 and 6 also trace one pipelined round with torch.profiler (device
 time by kernel, the device's busy share). Every path sets the launch
@@ -118,7 +122,7 @@ K1_ROUNDS = 7  # interleaved timing rounds of an sm90 kernel and its library cal
 # round logged
 PATH_ROUNDS = 3
 # the kernels on csrc/cert_scan_sm90.cuh
-ROUND_MODES = ("K1", "K1-bf16", "K5", "K6", "K6-bf16", "K4-bf16")
+ROUND_MODES = ("K1", "K1-bf16", "K5", "K6", "K6-bf16", "K4", "K4-bf16")
 SWEEP_B = (1, 64, 512)  # their other timed batch sizes, on their paths' stores
 DEPTH_ROWS = 250_000  # the depth phase's stores (with 256 queries, fused-size)
 DEPTHS = (100, 2048)  # stored as 112; past every resident query block
@@ -185,8 +189,11 @@ def rows_alive(chunk_mask, n_pad):
 
 
 CERT_MODES = ("K1", "K1-bf16", "K5")  # the certified scans
-# the kernel names of the uncertified bf16-row scans, for the profiler
-SCAN_NAMES = {"K4-bf16": "bf16x3_binmax_sm90_kernel", "K6-bf16": "bf16_binmax_sm90_kernel"}
+# the kernel names of the uncertified scans on the Hopper scan, for the
+# profiler (K4 over f32 rows on the exact f32 path, the others on the bf16
+# store's paths)
+SCAN_NAMES = {"K4": "bf16x3_binmax_sm90_kernel", "K4-bf16": "bf16x3_binmax_sm90_kernel",
+              "K6-bf16": "bf16_binmax_sm90_kernel"}
 
 
 def mode_inputs(mode, dv, queries, chunk_mask, thr=0.0, metric=None, cmp=None):
@@ -390,6 +397,8 @@ def kernel_phase(torch, dev):
         ("K4", dvf, Metric.Cosine, False, None, 0.0, B),
         ("K4", dvf, Metric.DotProduct, False, Cmp.Gt, 2.0, 70),
         ("K4", dvf, Metric.Euclidean, True, None, 0.0, B),
+        ("K4", dvf, Metric.Cosine, False, Cmp.Gte, 0.05, 1),
+        ("K4", dvf, Metric.Euclidean, True, Cmp.Lte, 1450.0, K1_WIDE_B),
         ("K1-bf16", dvb, Metric.Cosine, False, None, 0.0, B),
         ("K1-bf16", dvb, Metric.Cosine, False, Cmp.Gt, 0.05, 70),
         ("K1-bf16", dvb, Metric.Cosine, False, Cmp.Gt, 0.05, 1),
@@ -1137,10 +1146,12 @@ def widen_phase(torch, dev):
 def f32_path(torch, dev, card=""):
     """bench.py's exact-f32 section (4M x 768, bench.py:678-737) on the port:
     a store built on the device slab by slab, the bench's columns and
-    filter, pipelined ``take(10)`` batches of 256 Cosine queries. The scan
-    is the verified fast-exact K4 and every check must pass (no K3 rerun);
-    every top-10 equals the exact f32 truth. Then one batch each of Dot and
-    Euclid (take-min), and a profiled round."""
+    filter, pipelined ``take(10)`` batches of 256 Cosine queries timed in
+    PATH_ROUNDS rounds (median q/s). The scan is the verified fast-exact K4
+    and every check must pass (no K3 rerun); every top-10 equals the exact
+    f32 truth. Then one batch each of Dot and Euclid (take-min), and a
+    traced round (K4's ms per batch, the rest of the device time, the idle
+    share)."""
     import otters_tpu_torch as tx
     from otters_tpu_torch.ops import fused_topk as ft
     from otters_tpu_torch.ops import scoring as sc
@@ -1170,17 +1181,11 @@ def f32_path(torch, dev, card=""):
     t0 = time.perf_counter()
     tx.resolve([pending(torch.randn((B, D), generator=g, device=dev))])
     log(f"warm-up batch: {time.perf_counter() - t0:.2f} s")
-    ft.reset_launches()
-    sync(dev)
-    t0 = time.perf_counter()
-    pend = [pending(q) for q in batches]
-    results = tx.resolve(pend)
-    sync(dev)
-    elapsed = time.perf_counter() - t0
-    launched = counts()
-    qps = BATCHES * B / elapsed
-    log(f"f32 path: {BATCHES} pipelined batches of {B} in {elapsed:.3f} s = {qps:.1f} q/s "
-        f"on {card}; launches {launched}")
+    pend, results, launched, qps, rounds = timed_rounds(
+        torch, dev, lambda: [pending(q) for q in batches], counts)
+    log(f"f32 path: {BATCHES} pipelined batches of {B}, {PATH_ROUNDS} rounds: "
+        f"{', '.join(f'{r:.1f}' for r in rounds)} q/s, median {qps:.1f} q/s on {card}; "
+        f"launches {launched}")
     if dev.type == "cuda":
         # K4 scanned every batch and no check failed (a failure reruns K3)
         assert launched["K4"] >= BATCHES and launched["K3"] == 0, launched
@@ -1208,10 +1213,11 @@ def f32_path(torch, dev, card=""):
         log(f"f32 {metric.value}{' (take-min)' if metric is tx.Metric.Euclidean else ''}: "
             f"top-{K} equal to the exact truth (max score diff {e:.2e}, tol {tol_m:.2e}, "
             f"boundary ties {t}); launches {launched_m}")
+    prof = None
     if dev.type == "cuda":
-        profile_batches(torch, pending, batches)
-    stats = {"qps": qps, "launches": launched["K4"], "synth_s": synth_s, "build_s": build_s,
-             "queries": torch.cat(batches[:2])}
+        prof = profile_batches(torch, pending, batches, SCAN_NAMES["K4"])
+    stats = {"qps": qps, "qps_rounds": rounds, "launches": launched["K4"], "profile": prof,
+             "synth_s": synth_s, "build_s": build_s, "queries": torch.cat(batches[:2])}
     stats["default"] = one_pass_batches(torch, store, dv, pending, batches, card)
     return store, dv, batches[0], stats
 
@@ -1495,8 +1501,10 @@ def probes_phase(torch, dev):
     two f32 sums in other orders; k_planes within high_precision_bound(d)
     |q| |v|) and timed beside the plain version, a library yardstick (an
     f32 matmul, TF32 off, or three bf16 matmuls on the planes, then a bin
-    max) and the bound. k_mm may not beat its FFMA bound: nvcc must not
-    have dropped the tile columns it never writes."""
+    max) and the bound; k_planes (on the Hopper scan) and its library call
+    in K1_ROUNDS interleaved rounds (median and range). k_mm may not beat
+    its FFMA bound: nvcc must not have dropped the tile columns it never
+    writes."""
     from otters_tpu_torch import profile_variants as pv
     from otters_tpu_torch.ops import scoring as sc
 
@@ -1514,6 +1522,7 @@ def probes_phase(torch, dev):
     out = {}
     for name, fn in pv.PROBES.items():
         args = pv.probe_args(name, ops)
+        pv_ms = times[name]  # the timing run's median of 10 calls
         got = fn(*args)
         want = pv.PLAIN[name](*args)
         sync(dev)
@@ -1535,7 +1544,22 @@ def probes_phase(torch, dev):
 
             def library():
                 return torch.matmul(q, v.T).reshape(b, n_pad // pv.BIN, pv.BIN).amax(dim=2)
-        library_ms = time_ms(library, reps=5, warm=1)
+        extra = {}
+        if name == "k_planes":
+            # on the Hopper scan, close to its library call: both in
+            # interleaved rounds, each one's median and range
+            rounds = [(time_ms(lambda: fn(*args), reps=10), time_ms(library, reps=10))
+                      for _ in range(K1_ROUNDS)]
+            ks, ls = zip(*rounds)
+            times[name], library_ms = statistics.median(ks), statistics.median(ls)
+            extra = {"ms_range": [min(ks), max(ks)], "library_ms_range": [min(ls), max(ls)],
+                     "rounds": K1_ROUNDS, "run_ms": pv_ms}
+            log(f"{name}: {K1_ROUNDS} rounds, kernel median {times[name]:.3f} ms (range "
+                f"{min(ks):.3f}-{max(ks):.3f}), library median {library_ms:.3f} ms (range "
+                f"{min(ls):.3f}-{max(ls):.3f}), kernel faster in "
+                f"{sum(k < lb for k, lb in rounds)} of {K1_ROUNDS}")
+        else:
+            library_ms = time_ms(library, reps=5, warm=1)
         bound_ms, bound_by = probe_bound(name, n_pad, d, b, t)
         if on_card and name == "k_mm":
             assert times[name] >= bound_ms, f"k_mm {times[name]} ms beats its bound {bound_ms} ms"
@@ -1545,7 +1569,7 @@ def probes_phase(torch, dev):
             f"launches {launched[name]}")
         out[name] = dict(launches=launched[name], max_abs_err=err, tol=tol, ms=times[name],
                          plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, kernel_phase_err_over_tol=err / tol)
+                         bound_by=bound_by, kernel_phase_err_over_tol=err / tol, **extra)
         del got, want
         torch.cuda.empty_cache()
     return out
@@ -1558,13 +1582,13 @@ def depth_phase(torch, dev):
     MetaStore: certified int8 Cosine (K1) and bf16 Dot (K5) ``take(10,
     rerank_from=100)``, every query certified and equal to the exact f32
     truth; precision "default" over f32 rows (K6) and over bf16 rows
-    (K6-bf16), uncertified bf16 Cosine (K4-bf16, the fast mode with its
-    check) and uncertified int8 (K2), each equal to the exact truth of its
-    scores. Launch counts and ``kernel_takes.routed`` show what served
-    each: K1, K5, K6, K6-bf16 and K4-bf16 launch at both depths with
-    nothing routed; K2 launches at both and is routed at DEPTH_K2. Then the
-    five sm90 kernels against their plain versions at each depth -> {d:
-    {label: launches or "routed"}}."""
+    (K6-bf16), uncertified f32 and bf16 Cosine (K4 and K4-bf16, the fast
+    mode with its check) and uncertified int8 (K2), each equal to the exact
+    truth of its scores. Launch counts and ``kernel_takes.routed`` show
+    what served each: K1, K5, K6, K4, K6-bf16 and K4-bf16 launch at both
+    depths with nothing routed; K2 launches at both and is routed at
+    DEPTH_K2. Then the six sm90 kernels against their plain versions at
+    each depth -> {d: {label: launches or "routed"}}."""
     import numpy as np
 
     import otters_tpu_torch as tx
@@ -1598,6 +1622,7 @@ def depth_phase(torch, dev):
             cases = [("certified int8 Cosine", dv8, tx.Metric.Cosine, True, "highest", "K1"),
                      ("certified bf16 Dot", dvb, tx.Metric.DotProduct, True, "highest", "K5"),
                      ('f32 "default"', dvf, tx.Metric.Cosine, False, "default", "K6"),
+                     ("uncertified f32 Cosine", dvf, tx.Metric.Cosine, False, "highest", "K4"),
                      ('bf16 "default"', dvb, tx.Metric.Cosine, False, "default", "K6-bf16"),
                      ("uncertified bf16 Cosine", dvb, tx.Metric.Cosine, False, "highest",
                       "K4-bf16"),
@@ -1637,6 +1662,7 @@ def depth_phase(torch, dev):
             for mode, dv, metric in (("K1", dv8, tx.Metric.Cosine),
                                      ("K5", dvb, tx.Metric.DotProduct),
                                      ("K6", dvf, tx.Metric.Cosine),
+                                     ("K4", dvf, tx.Metric.Cosine),
                                      ("K6-bf16", dvb, tx.Metric.Cosine),
                                      ("K4-bf16", dvb, tx.Metric.Cosine)):
                 for b in (1, B):
@@ -1749,7 +1775,8 @@ def main() -> int:
         store, dv, q0, f32_stats = f32_path(torch, dev, card)
         for m in ("K4", "K3", "K6"):
             timing[m] = time_mode(torch, m, dv, q0, store.n_chunks())
-        sweep["K6"] = b_sweep(torch, "K6", dv, f32_stats["queries"], store.n_chunks())
+        for m in ("K6", "K4"):
+            sweep[m] = b_sweep(torch, m, dv, f32_stats["queries"], store.n_chunks())
     with phase(f"6t take-all on the same store ({TAKE_ALL_B} queries, windowed)"):
         take_all = take_all_phase(torch, store, dv, card)
         del store, dv
@@ -1780,7 +1807,9 @@ def main() -> int:
         ("K4", "bf16x3_binmax", "bf16x3_binmax", ":168 (_kernel[prec=high, fast])",
          f32_stats["launches"],
          {"path": f"exact f32 {F32_ROWS} x {D}", "path_qps": f32_stats["qps"],
-          "vecstore_launches": vec["K4"]}),
+          "path_qps_rounds": f32_stats["qps_rounds"], "path_profile": f32_stats["profile"],
+          "vecstore_launches": vec["K4"], "batch_sweep": sweep["K4"],
+          "depth_launches": {d: depth[d]["uncertified f32 Cosine"] for d in DEPTHS}}),
         ("K1-bf16", "cert_cos_binmax_bf16", "cert_cos_binmax",
          ":234 (_kernel[certify,cert_cos], bf16 rows)", bf16["cosine"]["launches"],
          {"path": f"certified Cosine {bf16_path_name}",

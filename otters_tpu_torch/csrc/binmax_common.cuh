@@ -1,4 +1,4 @@
-// Shared pieces of the uncertified bin-max kernels (K2, K3, K4).
+// Shared pieces of the uncertified bin-max kernels (K2, K3, K4, K6).
 //
 // Each kernel computes, for every live 512-row bin and every query, the
 // bin maximum of the masked key of otters_tpu/ops/pallas_topk.py::_kernel:
@@ -13,9 +13,9 @@
 // would otherwise contract a*b + c into an FMA). cmp: 0 none, 1 Gt, 2 Gte,
 // 3 Lt, 4 Lte, 5 Eq; the kernels receive it as cmp_mask(cmp).
 //
-// Conventions of the simple kernels (K2, K3, K4 over f32 rows; K1, K5, K6
-// and K4 over bf16 rows walk the survivor list with a persistent grid
-// instead, csrc/cert_scan_sm90.cuh, with the key of SlotKey below): the
+// Conventions of the simple kernels (K2, K3; K1, K5, and K6 and K4 over
+// f32 and bf16 rows walk the survivor list with a persistent grid instead,
+// csrc/cert_scan_sm90.cuh, K6 and K4 with the key of SlotKey below): the
 // grid covers every bin times every 64-query block; a block whose survivor
 // slot is >= n_surv returns at once (pruned bins cost no loads and no
 // math); the output [n_bins, b] is pre-filled with -inf by the caller;
@@ -69,7 +69,7 @@ __device__ __forceinline__ float key_of(float dot, float qi, float qsq, bool qok
 
 // key_of for the 16 query slots of a thread of the Hopper scan
 // (csrc/cert_scan_sm90.cuh's Key; row side data {inv, nsq, rmask}), for K6
-// and K4 over bf16 rows. Only one per-query norm enters a metric (Cosine
+// and K4 over f32 and bf16 rows. Only one per-query norm enters a metric (Cosine
 // q_inv, Euclid q_sq, Dot none), so a slot keeps that one in qn and hands
 // it to key_of in both places: the metric's form reads the right one.
 struct SlotKey {

@@ -6,15 +6,20 @@
 // What it computes: for every live 512-row bin (the survivor list
 // surv[0 : n_surv), read on the device) and every query of the CTA's
 // 64-query block, the max over the bin's rows of key(dot, row side data,
-// query), with dot = bf16 query . row (exact products, f32 sums), or with
-// two query planes dot = qh . row + ql . row. The kernels supply the key:
-// K1 over int8 and bf16 rows (csrc/cert_cos_binmax.cu, certified Cosine),
-// K5 (csrc/cert_fold_binmax.cu, the general certified fold), K6 over f32
-// and bf16 rows (csrc/bf16_binmax.cu, one bf16 pass) and K4 over bf16 rows
-// (csrc/bf16x3_binmax.cu, bf16x3 with the rows' low plane 0: two query
-// planes). The header is templated on the row type (int8, bf16 or f32),
-// the number of side arrays, the stage shape, whether the query block is
-// streamed, the number of query planes (1 or 2), and the key.
+// query), with dot = bf16 query . row (exact products, f32 sums); with two
+// query planes dot = qh . row + ql . row; with two query planes and two row
+// planes dot = qh . vh + qh . vl + ql . vh (bf16x3). The kernels supply the
+// key: K1 over int8 and bf16 rows (csrc/cert_cos_binmax.cu, certified
+// Cosine), K5 (csrc/cert_fold_binmax.cu, the general certified fold), K6
+// over f32 and bf16 rows (csrc/bf16_binmax.cu, one bf16 pass), K4
+// (csrc/bf16x3_binmax.cu, bf16x3) over bf16 rows (the rows' low plane is
+// 0: two query planes) and over f32 rows (two row planes split in
+// registers), and the profiling probe k_planes (csrc/profile_probes.cu,
+// bf16x3 over two bf16 row arrays, the raw dot as the key, no side data).
+// The header is templated on the row type (int8, bf16 or f32), the number
+// of side arrays (0 to 4), the stage shape, whether the query block is
+// streamed, the number of query planes (1 or 2) and of row planes (1 or
+// 2), and the key.
 //
 // Design.
 // - Persistent grid: about one CTA per SM (the shared memory admits no
@@ -36,11 +41,23 @@
 //   is multiplied by both planes into a partial accumulator, which the
 //   consumers wait for and add to the running sum element by element with
 //   __fadd_rn: the tensor cores' own accumulation never spans more than
-//   one 64-deep step, so scoring.high_precision_bound holds as it does for
-//   the simple K4.
+//   one 64-deep step, so scoring.high_precision_bound holds.
+// - Two row planes (NV = 2, with NQ = 2: bf16x3, K4 over f32 rows and
+//   k_planes): each 64-deep k-block's partial is the three products vh.qh
+//   + vl.qh + vh.ql of every 16-deep step (the first overwrites it), then
+//   added with __fadd_rn as above. Over f32 rows the k-block lands once (as
+//   for K6) and each thread splits its A fragment in registers, vh =
+//   bf16_rn(x), vl = bf16_rn(x - vh) with the difference exact (JAX's
+//   astype roundings; an inf row gives a NaN low plane, as there), and
+//   issues the register-A form three times a step. Over two bf16 row
+//   arrays (VH, VL split beforehand) a second row map loads the low
+//   plane's k-block beside the high one in every stage, and A is read by
+//   descriptor. Either way a k-block holds 4 bytes a row element, and the
+//   stages stream both query planes (resident they would take 192 KB at d
+//   = 768).
 // - Deep rows (the streamed plan): when the resident query block (8 KB per
 //   64 deep and plane) would leave fewer than two ring stages, or always
-//   for a kernel with no resident plan (K4 over bf16 rows), no query block
+//   for a kernel with no resident plan (K4, k_planes), no query block
 //   is resident; each ring stage carries the query k-blocks of its depth
 //   step beside the row k-blocks, in the same layout, and the consumers
 //   read B from the stage. Any depth then fits; the query block is read
@@ -64,7 +81,8 @@
 //     A fragment (four 16-byte loads a row: chunks 2t, 2t + 1 of each half,
 //     t = lane % 4; the caller permutes the query depth to match, see
 //     ops/fused_topk.py::f32_query_perm), rounds it to bf16 in registers
-//     (one cvt.rn.bf16x2 per pair) and issues the register-A form. With
+//     (one cvt.rn.bf16x2 per pair; with two row planes it splits it into
+//     vh and vl) and issues the register-A form. With
 //     that chunk order the 8 threads of a quarter-warp's load touch 8
 //     distinct bank groups under the swizzle, so the loads are free of
 //     bank conflicts.
@@ -112,6 +130,10 @@
 // - Register hazards of asynchronous wgmma: each stage's products complete
 //   (wgmma.wait_group 0) before its fragment and accumulator registers are
 //   touched again; the overlap comes from the other warpgroup.
+// - Register pressure with two row planes over f32 rows: the running and
+//   partial accumulators and both A planes of every m-block live across a
+//   k-block (192 registers a thread with two m-blocks, of setmaxnreg's
+//   232); ptxas spills a few hundred bytes there (PERF.md).
 // - Roundings: the keys' multiplies and adds are __fmul_rn / __fadd_rn.
 
 #pragma once
@@ -141,21 +163,29 @@ constexpr int RED_BYTES = 2 * QB * 4 + 8;
 template <typename RowT, int TM>
 __host__ __device__ constexpr int tile_bytes() { return TM * TK * (int)sizeof(RowT); }
 
-// one ring stage: KS row k-blocks, and with a streamed query block the KS
-// query k-blocks (NQ planes each) of the same depth step
-template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1>
+// row planes of a k-block in shared memory: NV bf16 arrays (two row
+// planes read from two arrays); f32 rows land once and are split into
+// their NV planes in registers
+template <typename RowT, int NV>
+__host__ __device__ constexpr int row_planes() { return sizeof(RowT) == 4 ? 1 : NV; }
+
+// one ring stage: KS row k-blocks (of every row plane), and with a
+// streamed query block the KS query k-blocks (NQ planes each) of the same
+// depth step
+template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1>
 __host__ __device__ constexpr int stage_bytes() {
-    return KS * (tile_bytes<RowT, TM>() + (STREAM ? NQ * QBLOCK_BYTES : 0));
+    return KS * (row_planes<RowT, NV>() * tile_bytes<RowT, TM>()
+                 + (STREAM ? NQ * QBLOCK_BYTES : 0));
 }
 
 // dynamic shared memory for `stages` stages at depth d: 1 KB of alignment
 // slack, the resident query blocks of NQ planes (none when streamed), the
 // ring, the reduction buffer and the barriers
-template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1>
+template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1>
 __host__ __device__ inline size_t smem_bytes(int d, int stages) {
     const int nk = (d + TK - 1) / TK;
     return 1024 + (STREAM ? 0 : (size_t)nk * NQ * QBLOCK_BYTES)
-         + (size_t)stages * stage_bytes<RowT, KS, TM, STREAM, NQ>()
+         + (size_t)stages * stage_bytes<RowT, KS, TM, STREAM, NQ, NV>()
          + RED_BYTES + (size_t)(2 * stages + 1) * 8;
 }
 
@@ -163,10 +193,10 @@ __host__ __device__ inline size_t smem_bytes(int d, int stages) {
 // below 2: the two consumer warpgroups take alternate stages, so with an
 // even ring each stage always serves the same warpgroup and no waiter can
 // be a lap ahead of its barrier's phase
-template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1>
+template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1>
 __host__ __device__ inline int stages_for(int d) {
     int s = MAX_STAGES;
-    while (s > 2 && smem_bytes<RowT, KS, TM, STREAM, NQ>(d, s) > SMEM_LIMIT) s -= 2;
+    while (s > 2 && smem_bytes<RowT, KS, TM, STREAM, NQ, NV>(d, s) > SMEM_LIMIT) s -= 2;
     return s;
 }
 
@@ -179,20 +209,21 @@ __host__ __device__ inline int stages_for(int d) {
 // the choice.
 enum Plan { WIDE = 0, NARROW = 1, STREAMED = 2 };
 
-template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1>
+template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1>
 inline Plan plan_for(int d) {
     if constexpr (KS1 > 0) {
-        if (smem_bytes<RowT, KS1, TM1, false, NQ>(d, 4) <= SMEM_LIMIT) return WIDE;
-        if (smem_bytes<RowT, KS2, TM2, false, NQ>(d, 2) <= SMEM_LIMIT) return NARROW;
+        if (smem_bytes<RowT, KS1, TM1, false, NQ, NV>(d, 4) <= SMEM_LIMIT) return WIDE;
+        if (smem_bytes<RowT, KS2, TM2, false, NQ, NV>(d, 2) <= SMEM_LIMIT) return NARROW;
     }
     return STREAMED;
 }
 
-template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, typename F>
+template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1,
+          typename F>
 auto with_plan(int d, const F& f) {
     using std::integral_constant;
     if constexpr (KS1 > 0) {
-        const Plan p = plan_for<RowT, KS1, TM1, KS2, TM2, NQ>(d);
+        const Plan p = plan_for<RowT, KS1, TM1, KS2, TM2, NQ, NV>(d);
         if (p == WIDE)
             return f(integral_constant<int, KS1>{}, integral_constant<int, TM1>{},
                      std::false_type{});
@@ -205,20 +236,20 @@ auto with_plan(int d, const F& f) {
 
 // the plan's ring stages and shared memory at depth d (exported by each
 // kernel source for ops/fused_topk.py's mirror and its test)
-template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1>
+template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1>
 int plan_stages(int d) {
-    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ>(d, [&](auto ks, auto tm, auto st) {
+    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV>(d, [&](auto ks, auto tm, auto st) {
         return stages_for<RowT, decltype(ks)::value, decltype(tm)::value,
-                          decltype(st)::value, NQ>(d);
+                          decltype(st)::value, NQ, NV>(d);
     });
 }
 
-template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1>
+template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1>
 size_t plan_smem(int d) {
-    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ>(d, [&](auto ks, auto tm, auto st) {
+    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV>(d, [&](auto ks, auto tm, auto st) {
         constexpr int KS = decltype(ks)::value, TM = decltype(tm)::value;
         constexpr bool S = decltype(st)::value;
-        return smem_bytes<RowT, KS, TM, S, NQ>(d, stages_for<RowT, KS, TM, S, NQ>(d));
+        return smem_bytes<RowT, KS, TM, S, NQ, NV>(d, stages_for<RowT, KS, TM, S, NQ, NV>(d));
     });
 }
 
@@ -322,19 +353,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
 // a3 (row g+8, k 2t+8..), g = lane / 4, t = lane % 4), in f16 or bf16
 template <bool F16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint64_t db) {
+                                         uint32_t a2, uint32_t a3, uint64_t db,
+                                         int accumulate = 1) {
     if constexpr (F16)
         asm volatile(
             "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
             " wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " SM90_ACC_REGS
             ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}"
-            : SM90_ACC_OUT : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+            : SM90_ACC_OUT : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
     else
         asm volatile(
             "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
             " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_ACC_REGS
             ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}"
-            : SM90_ACC_OUT : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+            : SM90_ACC_OUT : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 
 // a float as an int whose signed order is the float order (NaN excluded),
@@ -449,24 +481,44 @@ __device__ __forceinline__ uint32_t bf16x2_of(float lo, float hi) {
     return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// the high and low bf16 planes of a pair of floats, JAX's astype
+// roundings: hi = bf16_rn(x), lo = bf16_rn(x - hi), the difference exact
+// in f32 (__fsub_rn, never contracted; no flush of a subnormal lo); an inf
+// or NaN x gives a NaN lo, as there
+__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uint32_t& lo) {
+    hi = bf16x2_of(x, y);
+    lo = bf16x2_of(__fsub_rn(x, __uint_as_float(hi << 16)),
+                   __fsub_rn(y, __uint_as_float(hi & 0xffff0000u)));
+}
+
 // Key: a per-thread object made by make_key(q0, cols), cols the query
 // column (in the block) of each of the thread's 16 query slots, with
 //   void prep(float (&side)[NSIDE]) const    (once per row, on its side data)
 //   float operator()(float dot, const float (&side)[NSIDE], int slot) const
-// (slot 0..15 compile-time after unrolling). KS: 64-deep k-blocks per ring
-// stage, TM rows per stage (each warpgroup takes a TM-row sub-tile of its
-// own: TM / 64 m-blocks); STREAM: the query k-blocks ride in the stages;
-// NQ: query planes (2: qh and ql, bf16 rows only), each k-block's products
-// summed apart and added to the running sum with __fadd_rn.
-template <typename RowT, int NSIDE, int KS, int TM, bool STREAM, int NQ = 1, typename MakeKey>
+// (slot 0..15 compile-time after unrolling), or with no side data (NSIDE =
+// 0) only float operator()(float dot, int slot) const. KS: 64-deep
+// k-blocks per ring stage, TM rows per stage (each warpgroup takes a TM-row
+// sub-tile of its own: TM / 64 m-blocks); STREAM: the query k-blocks ride
+// in the stages; NQ: query planes (2: qh and ql), each k-block's products
+// summed apart and added to the running sum with __fadd_rn; NV: row planes
+// (2: vh and vl, with NQ = 2: the three products vh.qh + vl.qh + vh.ql of
+// bf16x3), over f32 rows split in registers or over bf16 rows read from
+// two arrays (vmap2 the map of the low plane).
+template <typename RowT, int NSIDE, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1,
+          typename MakeKey>
 __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap* vmap,
-                                     const ScanArgs& a, const MakeKey& make_key) {
+                                     const ScanArgs& a, const MakeKey& make_key,
+                                     const CUtensorMap* vmap2 = nullptr) {
     constexpr bool INT8 = sizeof(RowT) == 1;
     constexpr bool F32 = sizeof(RowT) == 4;
-    static_assert(NQ == 1 || (NQ == 2 && sizeof(RowT) == 2), "two query planes: bf16 rows");
-    constexpr int TILE = tile_bytes<RowT, TM>();  // one [TM x 64] k-block
+    static_assert(NV == 1 || (NV == 2 && NQ == 2 && !INT8),
+                  "two row planes: bf16x3 over f32 or bf16 rows, with two query planes");
+    static_assert(NQ == 1 || (NQ == 2 && (sizeof(RowT) == 2 || NV == 2)),
+                  "two query planes: bf16 rows, or f32 rows split into two planes");
+    constexpr int TILE = tile_bytes<RowT, TM>();  // one [TM x 64] k-block of one array
+    constexpr int RTILE = row_planes<RowT, NV>() * TILE;  // of every row plane
     constexpr int MB = TM / 64;                   // m-blocks of a warpgroup
-    constexpr int STAGE = stage_bytes<RowT, KS, TM, STREAM, NQ>();
+    constexpr int STAGE = stage_bytes<RowT, KS, TM, STREAM, NQ, NV>();
     constexpr int QSTEP = NQ * QBLOCK_BYTES;      // one 64-deep block of every plane
     extern __shared__ unsigned char smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
@@ -532,19 +584,22 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                         const uint32_t dst = tiles + st * STAGE;
                         const int nkb = min(KS, nk - ks * KS);
                         mbar_wait(bars + 8 * (S + st), ph ^ 1);
-                        mbar_expect_tx(full, nkb * (TILE + (STREAM ? QSTEP : 0)));
+                        mbar_expect_tx(full, nkb * (RTILE + (STREAM ? QSTEP : 0)));
                         for (int kb = 0; kb < nkb; ++kb) {
                             const int k0 = (ks * KS + kb) * TK;
                             if constexpr (F32) {
                                 // two swizzled half boxes of 32 deep
-                                tma_load_2d(dst + kb * TILE, vmap, full, k0, row0);
-                                tma_load_2d(dst + kb * TILE + TM * 128, vmap, full, k0 + 32, row0);
+                                tma_load_2d(dst + kb * RTILE, vmap, full, k0, row0);
+                                tma_load_2d(dst + kb * RTILE + TM * 128, vmap, full, k0 + 32,
+                                            row0);
                             } else {
-                                tma_load_2d(dst + kb * TILE, vmap, full, k0, row0);
+                                tma_load_2d(dst + kb * RTILE, vmap, full, k0, row0);
+                                if constexpr (RTILE == 2 * TILE)  // the low row plane
+                                    tma_load_2d(dst + kb * RTILE + TILE, vmap2, full, k0, row0);
                             }
                             if constexpr (STREAM)
                                 for (int pl = 0; pl < NQ; ++pl)
-                                    tma_load_2d(dst + KS * TILE + kb * QSTEP + pl * QBLOCK_BYTES,
+                                    tma_load_2d(dst + KS * RTILE + kb * QSTEP + pl * QBLOCK_BYTES,
                                                 qmap, full, k0, qrow + pl * qplane);
                         }
                         if (++st == S) { st = 0; ph ^= 1; }
@@ -590,7 +645,7 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
         // stage
         const auto qdesc = [&](int ks, int kb, int kk, int pl = 0) {
             const uint32_t off = pl * QBLOCK_BYTES + kk * 32;
-            return desc_sw128(STREAM ? tiles + st * STAGE + KS * TILE + kb * QSTEP + off
+            return desc_sw128(STREAM ? tiles + st * STAGE + KS * RTILE + kb * QSTEP + off
                                      : q_s + (ks * KS + kb) * QSTEP + off);
         };
         for (int slot = p0; slot < n_surv; slot += P) {
@@ -602,7 +657,7 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                 // the rows' side data, read now and first used after the
                 // sub-tile's products
                 const size_t row = (size_t)bin * BIN + (2 * sp + wg) * TM + r0;
-                float sv[MB][2][NSIDE];
+                float sv[MB][2][NSIDE > 0 ? NSIDE : 1];
 #pragma unroll
                 for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
@@ -628,17 +683,19 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                 for (int ks = 0; ks < nks; ++ks) {
                     const int nkb = min(KS, nk - ks * KS);
                     mbar_wait(bars + 8 * st, ph);
+                    // A from registers (int8 and f32 rows): a0 (row g, depth
+                    // 2t..2t+1), a1 (row g + 8), a2 (row g, depth 2t + 8..),
+                    // a3 (row g + 8, depth 2t + 8..) of each 16-deep step kk;
+                    // al the low plane of split f32 rows (NV = 2)
+                    [[maybe_unused]] uint32_t af[KS][MB][4][4];
+                    [[maybe_unused]] uint32_t al[NV == 2 && F32 ? KS : 1][MB][4][4];
                     if constexpr (INT8 || F32) {
-                        // A from registers: a0 (row g, depth 2t..2t+1), a1
-                        // (row g + 8), a2 (row g, depth 2t + 8..), a3 (row
-                        // g + 8, depth 2t + 8..) of each 16-deep step kk
-                        uint32_t af[KS][MB][4][4];
 #pragma unroll
                         for (int kb = 0; kb < KS; ++kb) {
                             if (kb < nkb) {
 #pragma unroll
                                 for (int mb = 0; mb < MB; ++mb) {
-                                    const unsigned char* tk = tile_g + st * STAGE + kb * TILE;
+                                    const unsigned char* tk = tile_g + st * STAGE + kb * RTILE;
                                     const int r = 64 * mb + r0;
                                     if constexpr (INT8) {
                                         const unsigned char* tg = tk + r * TK + 16 * t;
@@ -665,15 +722,71 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                                             const float4 x0 = *reinterpret_cast<const float4*>(tg);
                                             const float4 x1 =
                                                 *reinterpret_cast<const float4*>(tg + 8 * 128);
-                                            af[kb][mb][kk][0] = bf16x2_of(x0.x, x0.y);
-                                            af[kb][mb][kk][1] = bf16x2_of(x1.x, x1.y);
-                                            af[kb][mb][kk][2] = bf16x2_of(x0.z, x0.w);
-                                            af[kb][mb][kk][3] = bf16x2_of(x1.z, x1.w);
+                                            if constexpr (NV == 2) {
+                                                split_bf16x2(x0.x, x0.y, af[kb][mb][kk][0],
+                                                             al[kb][mb][kk][0]);
+                                                split_bf16x2(x1.x, x1.y, af[kb][mb][kk][1],
+                                                             al[kb][mb][kk][1]);
+                                                split_bf16x2(x0.z, x0.w, af[kb][mb][kk][2],
+                                                             al[kb][mb][kk][2]);
+                                                split_bf16x2(x1.z, x1.w, af[kb][mb][kk][3],
+                                                             al[kb][mb][kk][3]);
+                                            } else {
+                                                af[kb][mb][kk][0] = bf16x2_of(x0.x, x0.y);
+                                                af[kb][mb][kk][1] = bf16x2_of(x1.x, x1.y);
+                                                af[kb][mb][kk][2] = bf16x2_of(x0.z, x0.w);
+                                                af[kb][mb][kk][3] = bf16x2_of(x1.z, x1.w);
+                                            }
                                         }
                                     }
                                 }
                             }
                         }
+                    }
+                    if constexpr (NV == 2) {
+                        // bf16x3: each k-block's three products vh.qh,
+                        // vl.qh, vh.ql per 16-deep step into the partial
+                        // (its first product overwrites it), completed,
+                        // then added to the running sum in IEEE f32
+#pragma unroll
+                        for (int kb = 0; kb < KS; ++kb)
+                            if (kb < nkb) {
+#pragma unroll
+                                for (int mb = 0; mb < MB; ++mb) fence_acc(pd[mb]);
+                                wgmma_fence();
+#pragma unroll
+                                for (int kk = 0; kk < 4; ++kk) {
+                                    const uint64_t qh = qdesc(ks, kb, kk, 0);
+                                    const uint64_t ql = qdesc(ks, kb, kk, 1);
+#pragma unroll
+                                    for (int mb = 0; mb < MB; ++mb) {
+                                        if constexpr (F32) {
+                                            const uint32_t(&h)[4] = af[kb][mb][kk];
+                                            const uint32_t(&l)[4] = al[kb][mb][kk];
+                                            wgmma_rs<false>(pd[mb], h[0], h[1], h[2], h[3], qh,
+                                                            kk > 0);
+                                            wgmma_rs<false>(pd[mb], l[0], l[1], l[2], l[3], qh);
+                                            wgmma_rs<false>(pd[mb], h[0], h[1], h[2], h[3], ql);
+                                        } else {
+                                            const uint32_t ah = tiles + st * STAGE + kb * RTILE
+                                                              + mb * 64 * 128 + kk * 32;
+                                            wgmma_ss(pd[mb], desc_sw128(ah), qh, kk > 0);
+                                            wgmma_ss(pd[mb], desc_sw128(ah + TILE), qh);
+                                            wgmma_ss(pd[mb], desc_sw128(ah), ql);
+                                        }
+                                    }
+                                }
+                                wgmma_commit();
+                                wgmma_wait<0>();
+#pragma unroll
+                                for (int mb = 0; mb < MB; ++mb) {
+                                    fence_acc(pd[mb]);
+#pragma unroll
+                                    for (int i = 0; i < 32; ++i)
+                                        d[mb][i] = __fadd_rn(d[mb][i], pd[mb][i]);
+                                }
+                            }
+                    } else if constexpr (INT8 || F32) {
 #pragma unroll
                         for (int mb = 0; mb < MB; ++mb) fence_acc(d[mb]);
                         wgmma_fence();
@@ -706,10 +819,10 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                                                  db);
                                 }
                     } else {
-                        // two planes: each k-block's qh and ql products into
-                        // the partial (its first product overwrites it),
-                        // completed, then added to the running sum in IEEE
-                        // f32
+                        // two query planes over bf16 rows (vl = 0): each
+                        // k-block's qh and ql products into the partial (its
+                        // first product overwrites it), completed, then added
+                        // to the running sum in IEEE f32
 #pragma unroll
                         for (int kb = 0; kb < KS; ++kb)
                             if (kb < nkb) {
@@ -756,13 +869,18 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                 // ((i >> 1) & 1), query slot 2 (i >> 2) + (i & 1)
 #pragma unroll
                 for (int mb = 0; mb < MB; ++mb) {
-                    key.prep(sv[mb][0]);
-                    key.prep(sv[mb][1]);
+                    if constexpr (NSIDE > 0) {
+                        key.prep(sv[mb][0]);
+                        key.prep(sv[mb][1]);
+                    }
 #pragma unroll
                     for (int i = 0; i < 32; ++i) {
-                        const int h = (i >> 1) & 1, j = 2 * (i >> 2) + (i & 1);
+                        const int j = 2 * (i >> 2) + (i & 1);
                         const float dot = F16 ? d[mb][i] * qmul[j] : d[mb][i];
-                        best[j] = fmaxf(best[j], key(dot, sv[mb][h], j));
+                        if constexpr (NSIDE > 0)
+                            best[j] = fmaxf(best[j], key(dot, sv[mb][(i >> 1) & 1], j));
+                        else
+                            best[j] = fmaxf(best[j], key(dot, j));
                     }
                 }
             }
@@ -838,48 +956,56 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr
 
 // the maps of one launch: queries [bq, dq] bf16 (dq a multiple of 64, 128 B
 // swizzled boxes of 64 x 64; with two planes bq is twice the padded batch)
-// and rows [n_pad, d] (TM-row boxes of 64 deep:
-// bf16 swizzled for wgmma's descriptor, int8 plain for the fragment loads;
-// f32 two swizzled boxes of 32 deep a k-block)
+// and rows [n_pad, d] (TM-row boxes of 64 deep: bf16 swizzled for wgmma's
+// descriptor, int8 plain for the fragment loads; f32 two swizzled boxes of
+// 32 deep a k-block); with v2 (two bf16 row arrays) the second row map
 template <typename RowT, int TM>
 inline bool make_maps(CUtensorMap* qmap, CUtensorMap* vmap, const void* q, int bq, int dq,
-                      const void* v, long long n_pad, int d) {
+                      const void* v, long long n_pad, int d, CUtensorMap* vmap2 = nullptr,
+                      const void* v2 = nullptr) {
     constexpr int ELT = (int)sizeof(RowT);
     const CUtensorMapDataType vt = ELT == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                  : ELT == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                             : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    const auto row_map = [&](CUtensorMap* map, const void* rows) {
+        return make_map(map, vt, rows, (uint64_t)n_pad, (uint64_t)d, (uint64_t)d * ELT, TM,
+                        ELT == 4 ? TK / 2 : TK,
+                        ELT == 1 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+    };
     return make_map(qmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, (uint64_t)bq, (uint64_t)dq,
                     (uint64_t)dq * 2, QB, TK, CU_TENSOR_MAP_SWIZZLE_128B)
-        && make_map(vmap, vt, v, (uint64_t)n_pad, (uint64_t)d, (uint64_t)d * ELT, TM,
-                    ELT == 4 ? TK / 2 : TK,
-                    ELT == 1 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+        && row_map(vmap, v) && (vmap2 == nullptr || row_map(vmap2, v2));
 }
 
 // Launch kernel<KS, TM, STREAM> of the plan of d on a persistent grid of
 // n_qb * per_group CTAs: set its shared memory, encode the maps (q holds
-// NQ planes of n_qb * 64 queries each, one after the other), fill the
-// scan's arguments (side[0 : n_side)) and call launch_fn(kernel, grid,
-// smem, qmap, vmap, args), which passes the kernel's own arguments. Returns
-// a CUDA error code (cudaErrorInvalidValue when a map cannot be encoded).
-template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, typename GetKernel,
-          typename LaunchFn>
+// NQ planes of n_qb * 64 queries each, one after the other; over two bf16
+// row arrays, NV = 2, v2 is the low plane's), fill the scan's arguments
+// (side[0 : n_side)) and call launch_fn(kernel, grid, smem, qmap, vmap,
+// args), or launch_fn(kernel, grid, smem, qmap, vmap, vmap2, args) with
+// two row maps, which passes the kernel's own arguments. Returns a CUDA
+// error code (cudaErrorInvalidValue when a map cannot be encoded).
+template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1,
+          typename GetKernel, typename LaunchFn>
 int launch_plan(const GetKernel& get_kernel, const LaunchFn& launch_fn, const void* q,
                 const void* v, const float* const* side, int n_side, const void* surv,
                 const void* n_surv, void* out, int n_bins, int d, int b, int dq, int n_qb,
-                int per_group) {
-    if (n_qb < 1 || per_group < 1 || dq % TK) return (int)cudaErrorInvalidValue;
-    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ>(d, [&](auto ks, auto tm, auto st) {
+                int per_group, const void* v2 = nullptr) {
+    constexpr bool TWO_MAPS = row_planes<RowT, NV>() == 2;
+    if (n_qb < 1 || per_group < 1 || dq % TK || TWO_MAPS != (v2 != nullptr))
+        return (int)cudaErrorInvalidValue;
+    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV>(d, [&](auto ks, auto tm, auto st) {
         constexpr int KS = decltype(ks)::value, TM = decltype(tm)::value;
         constexpr bool STREAM = decltype(st)::value;
         const auto kernel = get_kernel(ks, tm, st);
-        const int stages = stages_for<RowT, KS, TM, STREAM, NQ>(d);
-        const size_t smem = smem_bytes<RowT, KS, TM, STREAM, NQ>(d, stages);
+        const int stages = stages_for<RowT, KS, TM, STREAM, NQ, NV>(d);
+        const size_t smem = smem_bytes<RowT, KS, TM, STREAM, NQ, NV>(d, stages);
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
-        CUtensorMap qmap, vmap;
+        CUtensorMap qmap, vmap, vmap2;
         if (!make_maps<RowT, TM>(&qmap, &vmap, q, NQ * n_qb * QB, dq, v, (long long)n_bins * BIN,
-                                 d))
+                                 d, TWO_MAPS ? &vmap2 : nullptr, v2))
             return (int)cudaErrorInvalidValue;
         ScanArgs a = {};
         a.surv = (const int*)surv;
@@ -890,7 +1016,10 @@ int launch_plan(const GetKernel& get_kernel, const LaunchFn& launch_fn, const vo
         a.b = b;
         a.n_qb = n_qb;
         a.stages = stages;
-        launch_fn(kernel, dim3(n_qb * per_group), smem, qmap, vmap, a);
+        if constexpr (TWO_MAPS)
+            launch_fn(kernel, dim3(n_qb * per_group), smem, qmap, vmap, vmap2, a);
+        else
+            launch_fn(kernel, dim3(n_qb * per_group), smem, qmap, vmap, a);
         return (int)cudaGetLastError();
     });
 }

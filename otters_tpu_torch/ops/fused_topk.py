@@ -28,11 +28,11 @@ only; each replaces one mode of the TPU kernel
   rounded to bf16 (f32 rows, "K6") or as stored ("K6-bf16"), f32 sums,
   every metric and score filter.
 
-K1, K5, K6 (over f32 and bf16 rows) and K4 over bf16 rows run the Hopper
-scan of ``csrc/cert_scan_sm90.cuh`` (:func:`sm90_plan` mirrors its ring
-plans, the deep-row plan included; K4 over bf16 rows with two query
-planes, :func:`query_planes`); the others (K2, K3, K4 over f32 rows) are
-simpler scans. The stored rows' depth is padded to a multiple of 16
+K1, K5, K6 and K4 (each over its row types) run the Hopper scan of
+``csrc/cert_scan_sm90.cuh`` (:func:`sm90_plan` mirrors its ring plans, the
+deep-row plan included; K4 with two query planes, :func:`query_planes`,
+and over f32 rows two row planes split in the kernel); the others (K2, K3)
+are simpler scans. The stored rows' depth is padded to a multiple of 16
 (``scoring.pad_depth``): the launch reads it from the rows' stride and pads
 the queries to it. :func:`kernel_takes`, the counterpart of the JAX
 package's ``pallas_ok``, tells from the shape whether a kernel fits (every
@@ -312,7 +312,7 @@ def cert_cos_binmax_plain(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_su
 
 # ---------------------------------------------------------------------------
 # The Hopper scan's plans and launch geometry (csrc/cert_scan_sm90.cuh):
-# K1, K5, K6 and K4 over bf16 rows
+# K1, K5, K6, K4 and the probe k_planes
 # ---------------------------------------------------------------------------
 
 # CTAs of 64 queries, a persistent grid, a ring of [rows x 64 deep] stages
@@ -323,18 +323,23 @@ SM90_MAX_STAGES = 12
 _TK = 64
 _QBLOCK_BYTES = QUERY_BLOCK * _TK * 2  # one 64-deep block of one bf16 query plane
 
-# kernel -> (row bytes, query planes, wide stage shape, narrow stage
-# shape), each shape (ks k-blocks, rows): the C sides' shapes
+# kernel -> (row bytes in a stage, query planes, wide stage shape, narrow
+# stage shape), each shape (ks k-blocks, rows): the C sides' shapes
 # (cert_cos_binmax.cu Shape, cert_fold_binmax.cu, bf16_binmax.cu Shape,
-# bf16x3_binmax.cu); no wide shape (None, the C side's KS1 = 0): no
-# resident plan, the narrow shape streamed at every depth
+# bf16x3_binmax.cu Shape, profile_probes.cu); no wide shape (None, the C
+# side's KS1 = 0): no resident plan, the narrow shape streamed at every
+# depth. Row bytes: an element of the row planes a stage holds, 4 for both
+# bf16x3 kernels (K4's f32 rows, split in registers; k_planes' VH and VL,
+# the profiling probe of ``profile_variants``).
 SM90_SHAPES = {
     "K1": (1, 1, (2, 128), (1, 128)),
     "K1-bf16": (2, 1, (1, 256), (1, 128)),
     "K5": (2, 1, (2, 128), (1, 128)),
     "K6": (4, 1, (1, 128), (1, 64)),
     "K6-bf16": (2, 1, (1, 256), (1, 128)),
+    "K4": (4, 2, None, (1, 128)),
     "K4-bf16": (2, 2, None, (1, 128)),
+    "k_planes": (4, 2, None, (1, 128)),
 }
 
 
@@ -457,11 +462,11 @@ def f32_query_perm(dq: int, device: torch.device = torch.device("cpu")) -> torch
 
 
 def query_planes(q):
-    """The two bf16 query planes of K4 over bf16 rows, stacked: [2 b, d]
-    with qh = bf16(q) in rows [0, b) and ql = bf16(q - qh) in [b, 2 b),
-    each rounded to nearest even (JAX's ``astype``; the f32 difference is
-    exact). Zero queries and columns give zero planes, so padding commutes
-    with the split."""
+    """The two bf16 query planes of K4 (and of the probe k_planes),
+    stacked: [2 b, d] with qh = bf16(q) in rows [0, b) and ql = bf16(q -
+    qh) in [b, 2 b), each rounded to nearest even (JAX's ``astype``; the
+    f32 difference is exact). Zero queries and columns give zero planes,
+    so padding commutes with the split."""
     qh = q.to(torch.bfloat16)
     ql = (q - qh.float()).to(torch.bfloat16)
     return torch.cat([qh, ql])
@@ -781,11 +786,11 @@ def _binmax(mode, wrapper, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
     if mode == "K2" and 127 * 127 * d >= (1 << 31):
         raise ValueError(f"{entry}: d={d} could overflow the int32 dots")
     ints = [_METRIC_CODE[metric], int(take_min), _CMP_CODE[cmp]]
-    if mode in SM90_SHAPES:  # the sm90 scan: K6 over f32 / bf16 rows, K4 over bf16 rows
+    if mode in SM90_SHAPES:  # the sm90 scan: K6 and K4 over f32 / bf16 rows
         return _sm90_launch(
             wrapper, mode, source, entry, q, v, (q_inv, q_sq, q_ok),
             ([inv, nsq, rmask], [thr, surv, n_surv]), ints,
-            perm=f32_query_perm if mode == "K6" else None,
+            perm=f32_query_perm if mode in ("K6", "K4") else None,
         )
     dp = stored_depth(v)
     n_qb, q, (q_inv, q_sq, q_ok) = _pad_query_blocks(q, dp, q_inv, q_sq, q_ok)
@@ -837,10 +842,9 @@ KERNELS = {
 def kernel_smem_bytes(mode: str, d: int) -> int:
     """The dynamic shared memory the kernel of ``mode`` asks for at stored
     depth ``d`` (a multiple of 16), mirroring its source's ``*_smem_bytes``:
-    the sm90 scans (K1, K5, K6 over f32 and bf16 rows, K4 over bf16 rows)
-    their plan's, which always fits; K2 1 KB per 16 deep of queries beside
-    41 KB of tiles (int8_binmax.cu); K4 over f32 rows a fixed 87 KB; K3
-    none."""
+    the sm90 scans (K1, K5, K6 and K4 over f32 and bf16 rows, the probe
+    k_planes) their plan's, which always fits; K2 1 KB per 16 deep of
+    queries beside 41 KB of tiles (int8_binmax.cu); K3 none."""
     if mode in SM90_SHAPES:
         plan = sm90_plan(mode, d)
         row_bytes, planes = SM90_SHAPES[mode][:2]
@@ -848,8 +852,6 @@ def kernel_smem_bytes(mode: str, d: int) -> int:
                                planes)
     if mode == "K2":
         return -(-d // 16) * QUERY_BLOCK * 16 + (64 // 16) * 128 * 16 + QUERY_BLOCK * 132 * 4
-    if mode == "K4":
-        return 2 * (QUERY_BLOCK + 128) * 72 * 2 + QUERY_BLOCK * 132 * 4
     return 0
 
 
@@ -858,12 +860,12 @@ def kernel_takes(mode: str, d: int) -> bool:
     port's counterpart of the JAX package's ``pallas_ok``, decided from the
     shape before any launch: the kernel's shared memory at the stored depth
     must fit a block (232,448 B); unlike a TPU's VMEM budget it does not
-    grow with the batch. The kernels on the Hopper scan (K1, K5, K6 over f32
-    and bf16 rows, K4 over bf16 rows) take any d (their deep-row plan
-    streams the query block); K2 stops at d = 2,976; K3 and K4 over f32
-    rows need no depth-sized shared memory. A shape it refuses goes to the
-    scan program (``scoring.scan_topk_core``), and the caller adds the
-    batch's queries to ``kernel_takes.routed``."""
+    grow with the batch. The kernels on the Hopper scan (K1, K5, K6 and K4
+    over f32 and bf16 rows) take any d (their deep-row plan streams the
+    query block; K4 streams its query planes at every depth); K2 stops at
+    d = 2,976; K3 needs no depth-sized shared memory. A shape it refuses
+    goes to the scan program (``scoring.scan_topk_core``), and the caller
+    adds the batch's queries to ``kernel_takes.routed``."""
     return kernel_smem_bytes(mode, pad_depth(d)) <= _SMEM_MAX
 
 

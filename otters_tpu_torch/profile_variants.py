@@ -11,8 +11,10 @@ block. Here each body is a kernel written by hand for Hopper
 - :func:`k_mm_bins`: the same product, then the max over each 512-row bin
   -> [n_tiles, b, t / 512];
 - :func:`k_planes`: ``qh.vh + qh.vl + ql.vh`` (the query split into bf16
-  planes in the kernel, ``vh`` / ``vl`` pre-split bf16 arrays), summed in
-  that order in f32, then the bin maxima -> [n_tiles, b, t / 512].
+  planes, ``vh`` / ``vl`` pre-split bf16 arrays), then the bin maxima ->
+  [n_tiles, b, t / 512]; on the Hopper scan of ``csrc/cert_scan_sm90.cuh``
+  (K4's bf16x3 core over f32 rows, with the row planes read from the two
+  arrays).
 
 CPU tensors take the plain versions; CUDA tensors launch the kernel or
 raise, and each wrapper's ``.launches`` counts its launches.
@@ -100,6 +102,22 @@ def k_planes_plain(q, vh, vl, t: int = T, tile_slab: int = 64):
     return out
 
 
+def bins_to_tiles(bins, nb: int):
+    """The scan's [n_bins, b] bin maxima (bin = tile * nb + j) in the
+    script's layout [n_tiles, b, nb]: one permute, copied."""
+    n_bins, b = bins.shape
+    return bins.reshape(n_bins // nb, nb, b).permute(0, 2, 1).contiguous()
+
+
+def pad_depth8(x):
+    """A bf16 [n, d] array as the scan's row maps read it: its row stride,
+    d * 2 bytes, must be a multiple of 16, so at a depth that is not a
+    multiple of 8 a copy zero-padded to the next one (zero columns add
+    nothing to a dot); else ``x`` itself."""
+    d = x.shape[1]
+    return x if d % 8 == 0 else torch.nn.functional.pad(x, (0, 8 - d % 8))
+
+
 def _launch(wrapper, entry, q, rows, out_cols, ptrs_after, t):
     """Launch ``entry`` over the row arrays ``rows`` (f32 or bf16, [n, d],
     contiguous, on q's device): q padded to whole query blocks, the output
@@ -149,12 +167,39 @@ def k_mm_bins(q, v, t: int = T):
 
 def k_planes(q, vh, vl, t: int = T):
     """The k_planes probe (see :func:`k_planes_plain`); CUDA tensors launch
-    ``probe_planes``."""
+    ``probe_planes`` on the sm90 scan: the queries split into their planes
+    and padded as K4's wrapper does (``fused_topk.sm90_pad_queries``), every
+    bin live, the scan's [n_bins, b] permuted to [n_tiles, b, t / 512]
+    (:func:`bins_to_tiles`); VH / VL at a depth that is not a multiple of 8
+    are copied with zero padding (:func:`pad_depth8`)."""
     if not ft._on_card("probe_planes", q):
         return k_planes_plain(q, vh, vl, t)
     if vh.dtype != torch.bfloat16 or vl.dtype != torch.bfloat16 or vh.shape != vl.shape:
         raise ValueError("probe_planes: vh and vl must be bfloat16 arrays of one shape")
-    return _launch(k_planes, "probe_planes", q, [vh, vl], t // BIN, [], t)
+    if q.dtype != torch.float32 or q.shape[1] != vh.shape[1]:
+        raise ValueError(f"probe_planes: q must be float32 [b, {vh.shape[1]}]")
+    for r in (vh, vl):
+        if r.device != q.device or not r.is_contiguous() or r.data_ptr() % 16:
+            raise ValueError(f"probe_planes: vh and vl must be contiguous on {q.device}, "
+                             "16-byte aligned")
+    b = q.shape[0]
+    n_bins = _tiles(vh.shape[0], t) * (t // BIN)
+    vh, vl = pad_depth8(vh), pad_depth8(vl)
+    d = vh.shape[1]
+    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    geom = ft.sm90_geometry("k_planes", b, d, ft._n_sms(dev))
+    qk, _ = ft.sm90_pad_queries(q, (), geom)
+    surv = torch.arange(n_bins, dtype=torch.int32, device=q.device)
+    n_surv = torch.full((1,), n_bins, dtype=torch.int32, device=q.device)
+    out = torch.empty((n_bins, b), device=q.device)  # every bin is live: all written
+    _, launch = ft._kernel_fns(_SOURCE, "probe_planes", 6, 6)
+    err = launch(qk.data_ptr(), vh.data_ptr(), vl.data_ptr(), surv.data_ptr(),
+                 n_surv.data_ptr(), out.data_ptr(), n_bins, d, b, geom.dq, geom.n_qb,
+                 geom.per_group, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"probe_planes kernel launch failed: CUDA error {err}")
+    k_planes.launches += 1
+    return bins_to_tiles(out, t // BIN)
 
 
 PROBES = {"k_mm": k_mm, "k_mm_bins": k_mm_bins, "k_planes": k_planes}

@@ -2,7 +2,7 @@
 source trees.
 
     python otters_tpu_torch/scan_ab.py [ROOT:LABEL ...] [--rounds N]
-        [--modes K1,K1-bf16,K5,K6,K6-bf16,K4-bf16] [--b 64,256]
+        [--modes K1,K1-bf16,K5,K6,K6-bf16,K4,K4-bf16,k_planes] [--b 64,256]
 
 Each ROOT is a checkout (or a copy of ``otters_tpu_torch/`` under ROOT);
 the default is this checkout. The trees are measured in interleaved rounds
@@ -10,14 +10,17 @@ the default is this checkout. The trees are measured in interleaved rounds
 from its ROOT and builds its kernels there. Per tree and round it prints
 one JSON line with, per kernel and batch size: the per-call median of 10
 CUDA-event timings, three back-to-back means of 10 calls, the max error
-against the plain version on 40 bins, and the library call (one bf16
-matmul on rows cast beforehand, then the bin max; K4-bf16: two, one per
-query plane). The shapes are the paths' of ``chip_smoke.py`` at d = 768,
+against the plain version on 40 bins (k_planes: on every bin), and the
+library call (one bf16 matmul on rows cast beforehand, then the bin max;
+K4-bf16: two, one per query plane; K4 and k_planes: three, on planes split
+beforehand). The shapes are the paths' of ``chip_smoke.py`` at d = 768,
 half the 1024-row chunks pruned: K1 over 10,000,384 int8 rows (``wide``:
 queries whose magnitudes span more than f16's range, so the scan
 multiplies in bf16) and K1-bf16 / K5 (Dot) / K6-bf16 / K4-bf16 (Cosine)
-over as many bf16 rows; K6 over 4,000,256 f32 rows. The rows and their
-side data are random, made on the device from a seed. Needs one CUDA card.
+over as many bf16 rows; K6 and K4 (Cosine) over 4,000,256 f32 rows; the
+probe k_planes at the shapes of scripts/kernel_profile_variants.py (VH /
+VL of 1,007,616 rows, every bin). The rows and their side data are
+random, made on the device from a seed. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import sys
 
 D, BIN = 768, 512
 N_BINS = {"K1": 19532, "K1-bf16": 19532, "K5": 19532, "K6": 7813, "K6-bf16": 19532,
-          "K4-bf16": 19532}
+          "K4": 7813, "K4-bf16": 19532}
 
 
 def _timers(torch):
@@ -64,12 +67,12 @@ def _timers(torch):
 
 
 def _operands(torch, ft, mode, g, dev):
-    """(rows, a function of the kernel's queries (bf16; K4-bf16 f32) giving
-    the wrapper's args, kernel, plain) of ``mode``."""
+    """(rows, a function of the kernel's queries (bf16; K4 f32) giving the
+    wrapper's args, kernel, plain) of ``mode``."""
     n = N_BINS[mode] * BIN
     if mode == "K1":
         v = torch.randint(-127, 128, (n, D), generator=g, device=dev, dtype=torch.int8)
-    elif mode == "K6":
+    elif mode in ("K6", "K4"):
         v = torch.randn((n, D), generator=g, device=dev)
     else:
         v = torch.randn((n, D), generator=g, device=dev).bfloat16()
@@ -103,16 +106,37 @@ def _operands(torch, ft, mode, g, dev):
                                       cmp=None))
 
 
-def _library(torch, mode, q, v_live, b):
-    """One PyTorch call (per query plane) for the same dots, then the bin
-    max: the yardstick."""
-    if mode == "K4-bf16":
-        qh = q.bfloat16()
-        ql = (q - qh.float()).bfloat16()
-        return lambda: (torch.matmul(qh, v_live.T) + torch.matmul(ql, v_live.T)).reshape(
-            b, -1, BIN).amax(dim=2)
+def _library(torch, mode, q, v_live, b, vl_live=None):
+    """One PyTorch call (per product) for the same dots, then the bin max:
+    the yardstick. K4 / k_planes: the rows' low plane ``vl_live`` beside
+    their high plane ``v_live``."""
     qb = q.bfloat16()
+    if mode.startswith("K4") or mode == "k_planes":
+        ql = (q - qb.float()).bfloat16()
+        if vl_live is None:  # K4-bf16: the rows' low plane is 0
+            return lambda: (torch.matmul(qb, v_live.T) + torch.matmul(ql, v_live.T)).reshape(
+                b, -1, BIN).amax(dim=2)
+        return lambda: (torch.matmul(qb, v_live.T) + torch.matmul(qb, vl_live.T)
+                        + torch.matmul(ql, v_live.T)).reshape(b, -1, BIN).amax(dim=2)
     return lambda: torch.matmul(qb, v_live.T).reshape(b, -1, BIN).amax(dim=2)
+
+
+def _measure_planes(torch, dev, bs, per_call, back_to_back, res):
+    """The probe k_planes at the script's shapes, every bin, for each b."""
+    from otters_tpu_torch import profile_variants as pv
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    v = torch.randn((pv.N_PAD, D), generator=g, device=dev)
+    vh, vl = pv.split_planes(v)
+    del v
+    for b in bs:
+        q = torch.randn((b, D), generator=g, device=dev)
+        got = pv.k_planes(q, vh, vl)
+        err = float((got - pv.k_planes_plain(q, vh, vl)).abs().max())
+        res[f"k_planes b={b} normal"] = {"per_call": per_call(lambda: pv.k_planes(q, vh, vl)),
+                                         "b2b": back_to_back(lambda: pv.k_planes(q, vh, vl)),
+                                         "err": err}
+        res[f"k_planes b={b} library"] = per_call(_library(torch, "k_planes", q, vh, b, vl))
 
 
 def _measure(root: str, label: str, modes, bs) -> dict:
@@ -129,6 +153,9 @@ def _measure(root: str, label: str, modes, bs) -> dict:
     per_call, back_to_back = _timers(torch)
     res = {"label": label}
     for mode in modes:
+        if mode == "k_planes":
+            _measure_planes(torch, dev, bs, per_call, back_to_back, res)
+            continue
         g = torch.Generator(device=dev).manual_seed(0)
         v, args, kernel, plain = _operands(torch, ft, mode, g, dev)
         n_bins = N_BINS[mode]
@@ -136,6 +163,7 @@ def _measure(root: str, label: str, modes, bs) -> dict:
         live = surv[: int(n_surv[0])].long()
         rows = (live[:, None] * BIN + torch.arange(BIN, device=dev)).reshape(-1)
         v_live = v[rows].bfloat16()
+        vl_live = (v[rows] - v_live.float()).bfloat16() if mode == "K4" else None
         sl = torch.tensor([40], dtype=torch.int32, device=dev)
         for b in bs:
             q = torch.randn((b, D), generator=g, device=dev)
@@ -143,7 +171,7 @@ def _measure(root: str, label: str, modes, bs) -> dict:
                 qk = q.clone()
                 if kind == "wide":  # every query: half its elements 2^-40 of the rest
                     qk[:, ::2] *= 2.0 ** -40
-                qk = qk if mode == "K4-bf16" else qk.bfloat16()
+                qk = qk if mode.startswith("K4") else qk.bfloat16()
                 a = args(qk, surv, n_surv)
                 got = kernel(a)
                 want = plain(a[:-2] + (surv[:40].contiguous(), sl))
@@ -151,8 +179,9 @@ def _measure(root: str, label: str, modes, bs) -> dict:
                 res[f"{mode} b={b} {kind}"] = {"per_call": per_call(lambda: kernel(a)),
                                               "b2b": back_to_back(lambda: kernel(a)),
                                               "err": err}
-            res[f"{mode} b={b} library"] = per_call(_library(torch, mode, q, v_live, b))
-        del v, v_live
+            res[f"{mode} b={b} library"] = per_call(
+                _library(torch, mode, q, v_live, b, vl_live))
+        del v, v_live, vl_live
         torch.cuda.empty_cache()
     res["ptxas"] = {name: [ln.strip() for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln]
@@ -161,7 +190,8 @@ def _measure(root: str, label: str, modes, bs) -> dict:
 
 
 def main(argv) -> int:
-    opts = {"--rounds": "2", "--modes": "K1,K1-bf16,K5,K6,K6-bf16,K4-bf16", "--b": "64,256"}
+    opts = {"--rounds": "2", "--modes": "K1,K1-bf16,K5,K6,K6-bf16,K4,K4-bf16,k_planes",
+            "--b": "64,256"}
     for key in list(opts):
         if key in argv:
             i = argv.index(key)

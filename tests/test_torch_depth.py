@@ -13,12 +13,13 @@
 - Deep rows: ``fused_topk.kernel_takes`` (the counterpart of JAX's
   ``pallas_ok``) sends a shape whose kernel would not fit a block's shared
   memory (K2 past d = 2,976) to the scan program before any launch, and
-  counts it; K1, K5, K6 over f32 and bf16 rows and K4 over bf16 rows take
-  any depth through the deep-row plan of ``csrc/cert_scan_sm90.cuh``,
-  mirrored by ``sm90_plan`` (the card tests hold the mirror against the C
-  side); K4 over bf16 rows streams its two query planes at every depth.
-- The f32-row fragment order of K6 (``f32_query_perm``), replayed; the
-  query planes of K4 over bf16 rows (``query_planes``) against JAX's split.
+  counts it; K1, K5, K6 and K4 over f32 and bf16 rows take any depth
+  through the deep-row plan of ``csrc/cert_scan_sm90.cuh``, mirrored by
+  ``sm90_plan`` (the card tests hold the mirror against the C side); K4
+  streams its two query planes at every depth.
+- The f32-row fragment order of K6 and K4 (``f32_query_perm``), replayed;
+  the query planes of K4 (``query_planes``; over f32 rows after the
+  fragment permutation) against JAX's split.
 """
 
 import numpy as np
@@ -199,11 +200,12 @@ def test_metastore_at_d100_matches_jax(storage, metric, certify, prec, represent
     ("K1", 2048, True), ("K1-bf16", 2048, True), ("K5", 2048, True), ("K6", 2048, True),
     ("K1", 8192, True), ("K5", 4096, True), ("K6", 4096, True),
     ("K3", 4096, True), ("K4", 4096, True), ("K4-bf16", 4096, True), ("K3-bf16", 4096, True),
-    ("K6-bf16", 100, True), ("K2", 100, True)])
+    ("K6-bf16", 100, True), ("K2", 100, True),
+    ("K4", 100, True), ("K4", 2048, True), ("K4", 8192, True)])
 def test_shape_check_routes_only_what_cannot_fit(mode, d, takes):
-    """K2 stops at d = 2,976 (its shared memory); K1, K5, K6 over f32 and
-    bf16 rows and K4 over bf16 rows take any depth (their deep-row plan),
-    K3 and K4 over f32 rows need no depth-sized shared memory."""
+    """K2 stops at d = 2,976 (its shared memory); K1, K5, K6 and K4 over
+    f32 and bf16 rows take any depth (their deep-row plan; K4 streams its
+    query planes at every depth), K3 needs no depth-sized shared memory."""
     assert ft.kernel_takes(mode, d) is takes
     assert (ft.kernel_smem_bytes(mode, ts.pad_depth(d)) <= SMEM_MAX) is takes
 
@@ -283,15 +285,16 @@ def test_vecstore_routes_deep_rows_to_the_scan_program(monkeypatch):
 DEPTHS = [16, 100, 768, 1392, 1536, 2048, 4096]
 
 
-@pytest.mark.parametrize("mode", ["K1", "K1-bf16", "K5", "K6", "K6-bf16", "K4-bf16"])
+@pytest.mark.parametrize("mode", ["K1", "K1-bf16", "K5", "K6", "K6-bf16", "K4", "K4-bf16"])
 @pytest.mark.parametrize("d", DEPTHS)
 def test_sm90_plan_fits_every_depth(mode, d):
     """An even ring of at least 2 stages within 232,448 B at every depth;
     the query block (of every query plane) is streamed exactly when the
     resident block would leave fewer than 2 stages of the narrow shape, or
-    always for a mode with no resident plan (K4-bf16); at d = 768 K1 keeps
-    its plans, K5 / K6 / K6-bf16 take their wide shapes and K4-bf16 its 6
-    streamed stages of 128 rows with both planes."""
+    always for a mode with no resident plan (K4, K4-bf16); at d = 768 K1
+    keeps its plans, K5 / K6 / K6-bf16 take their wide shapes, K4 its 4
+    streamed stages of 128 f32 rows and K4-bf16 its 6 of 128 bf16 rows,
+    both with both planes."""
     dp = ts.pad_depth(d)
     row_bytes, planes, wide, narrow = ft.SM90_SHAPES[mode]
     plan = ft.sm90_plan(mode, dp)
@@ -318,7 +321,8 @@ def test_sm90_plan_fits_every_depth(mode, d):
     if d == 768:
         assert plan == {"K1": (2, 128, 8, False), "K1-bf16": (1, 256, 4, False),
                         "K5": (2, 128, 4, False), "K6": (1, 128, 4, False),
-                        "K6-bf16": (1, 256, 4, False), "K4-bf16": (1, 128, 6, True)}[mode]
+                        "K6-bf16": (1, 256, 4, False), "K4": (1, 128, 4, True),
+                        "K4-bf16": (1, 128, 6, True)}[mode]
     if d >= 2048:
         assert plan.streamed
 
@@ -345,6 +349,65 @@ def test_k4_bf16_streams_its_planes_at_every_depth(d):
         assert 1024 + 12 * 2 * 8192 + 4 * 8192 + 520 + 9 * 8 <= SMEM_MAX
         assert 1024 + 12 * 2 * 8192 + 2 * 16384 + 520 + 5 * 8 <= SMEM_MAX
         assert 1024 + 12 * 2 * 8192 + 6 * 8192 + 520 + 13 * 8 > SMEM_MAX
+
+
+@pytest.mark.parametrize("d", [16, 768, 832, 848, 896, 2048, 4096])
+def test_k4_streams_its_planes_at_every_depth(d):
+    """K4 over f32 rows has no resident plan either. Its rows land as f32
+    and are split in the kernel, so a k-block holds 4 bytes a row element,
+    as the probe k_planes' two bf16 row planes do (the same plan). Resident,
+    the two query planes (16 KB per 64 deep) would take 192 KB at d = 768
+    and leave room for 2 ring stages of [64 rows x 64 deep] f32 (32 KB of
+    rows in flight) and none of 128 rows. Streamed, a stage carries a
+    128-row k-block (32 KB) and both planes' k-blocks (16 KB), so 4 stages
+    fit at every depth: 128 KB of rows in flight (6 stages of 64 rows, 32
+    KB each, would hold 96 KB). The arithmetic: 1 KB slack + planes + ring
+    + 520 B of maxima, scales and flag + 8 B a barrier."""
+    plan = ft.sm90_plan("K4", d)
+    assert plan == (1, 128, 4, True) == ft.sm90_plan("k_planes", d)
+    stage = 128 * 64 * 4 + 2 * 8192
+    assert stage == 49152
+    assert ft.kernel_smem_bytes("K4", d) == 1024 + 4 * stage + 520 + 9 * 8 <= SMEM_MAX
+    assert ft.kernel_smem_bytes("k_planes", d) == ft.kernel_smem_bytes("K4", d)
+    assert 1024 + 6 * stage + 520 + 13 * 8 > SMEM_MAX
+    narrow = 64 * 64 * 4 + 2 * 8192
+    assert ft.sm90_smem_bytes(d, 4, 6, 1, 64, True, 2) == 1024 + 6 * narrow + 520 + 13 * 8 \
+        <= SMEM_MAX < 1024 + 8 * narrow + 520 + 17 * 8
+    nk = -(-d // 64)
+    if d == 768:
+        assert 1024 + nk * 2 * 8192 + 2 * 16384 + 520 + 5 * 8 <= SMEM_MAX
+        assert 1024 + nk * 2 * 8192 + 2 * 32768 + 520 + 5 * 8 > SMEM_MAX
+    geom = ft.sm90_geometry("K4", 256, d, 132)
+    assert (geom.planes, geom.n_qb, geom.per_group) == (2, 4, 33)
+
+
+@pytest.mark.parametrize("b,d", [(70, 100), (64, 768), (1, 16), (130, 2048)])
+def test_k4_pad_queries_equal_jax_split(b, d):
+    """K4's query operands over f32 rows (``sm90_pad_queries`` with
+    ``f32_query_perm``): the batch padded to whole 64-query blocks, the
+    depth to a multiple of 64 with zeros, each 64-deep block permuted to
+    the fragment order, then split into qh and ql stacked, bit for bit
+    JAX's split (``jnp.astype``, as ``otters_tpu/ops/pallas_topk.py`` at
+    prec="high") of the permuted, padded queries; the per-query operands
+    padded with zeros (q_ok = 0 keeps padded lanes out of every bin max)."""
+    rng = np.random.default_rng(d + b)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    q[0, : d // 2] *= np.float32(1e-30)  # subnormal low planes
+    q_ok = np.ones(b, np.float32)
+    geom = ft.sm90_geometry("K4", b, ts.pad_depth(d), 132)
+    perm = ft.f32_query_perm(geom.dq)
+    qk, (ok,) = ft.sm90_pad_queries(torch.from_numpy(q), (torch.from_numpy(q_ok),), geom, perm)
+    n = geom.n_qb * 64
+    padded = np.zeros((n, geom.dq), np.float32)
+    padded[:b, :d] = q
+    padded = padded[:, perm.numpy()]
+    qh = jnp.asarray(padded).astype(jnp.bfloat16)
+    ql = (jnp.asarray(padded) - qh.astype(jnp.float32)).astype(jnp.bfloat16)
+    want = np.concatenate([np.asarray(qh.astype(jnp.float32)),
+                           np.asarray(ql.astype(jnp.float32))])
+    assert qk.dtype == torch.bfloat16 and qk.shape == (2 * n, geom.dq) and qk.is_contiguous()
+    np.testing.assert_array_equal(qk.float().numpy().view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(ok.numpy(), np.r_[q_ok, np.zeros(n - b, np.float32)])
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -3,15 +3,17 @@
 K1 (certified Cosine) over int8 and bfloat16 rows at b = 1 to 600 and d =
 96 to 2048 (the deep-row plan), with its live-bin edge cases and queries
 far from unit scale or too wide for f16; K2 / K3 / K4 / K6 over int8 / f32
-rows (K6 at b = 1 to 600, d = 100 to 2048, every metric and filter); over
-bfloat16 rows K3, K5 (the general certified fold, Dot and Euclid, at b
-= 1 to 600, d = 100 to 2048, with masked bins and NaN rows), and K4 and K6
-on the Hopper scan (b = 1 to 600, d = 16 to 2048; K4 streams its two
-query planes with the rows); the shared-memory figures of
-the depth route and the sm90 plans against the C side, with K6 and K4 over
-bf16 rows launched at every depth there; the three profiling probes
-(``profile_variants``). A depth that is not a multiple of 16 (d = 100)
-runs as the store pads it.
+rows (K6 and K4 at b = 1 to 600, d = 100 to 2048 (K4 from d = 16), every
+metric and filter; K4 with masked bins, NaN and inf rows, and rows small
+enough that their low bf16 planes are subnormal); over bfloat16 rows K3,
+K5 (the general certified fold, Dot and Euclid, at b = 1 to 600, d = 100
+to 2048, with masked bins and NaN rows), and K4 and K6 on the Hopper scan
+(b = 1 to 600, d = 16 to 2048; K4 streams its two query planes with the
+rows); the shared-memory figures of the depth route and the sm90 plans
+(the probe k_planes' too) against the C side, with K6 and K4 over f32 and
+bf16 rows and k_planes launched at every depth there; the three profiling
+probes (``profile_variants``). A depth that is not a multiple of 16 (d =
+100) runs as the store pads it.
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
@@ -585,6 +587,113 @@ def _one_row_per_bin(args, dev, n_pad):
     return rows, rmask, surv, n_surv
 
 
+# ---------------------------------------------------------------------------
+# K4 over f32 rows on the sm90 scan (two row planes split in the kernel)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 100, 768, 2048])
+@pytest.mark.parametrize("b", [1, 64, 256, 600])
+@pytest.mark.parametrize("metric", [Metric.Cosine, Metric.DotProduct, Metric.Euclidean])
+def test_k4_matches_plain(metric, b, d):
+    """K4 over f32 rows at one, one full, four and ten (the last partial)
+    query blocks, at one 16-deep step, a padded depth, the main path's and
+    deep rows."""
+    dev = _device()
+    args = _operands("K4", dev, d=d, b=b, n=20_000)
+    _check_plain("K4", args, metric, metric is Metric.Euclidean, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,take_min,cmp,thr", K6_FILTERS)
+def test_k4_filters(metric, take_min, cmp, thr):
+    """K4 over f32 rows with every metric and score filter (Eq:
+    ``test_k4_eq_filter``)."""
+    dev = _device()
+    args = _operands("K4", dev, d=100, thr=thr)
+    _check_plain("K4", args, metric, take_min, cmp)
+
+
+@pytest.mark.cuda
+def test_k4_eq_filter():
+    """Eq needs scores both versions compute exactly: small-integer rows
+    and queries (their low planes 0, the sums exact), the Dot metric."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(5)
+    n, d = 20_000, 100
+    ints = torch.randint(-2, 3, (sc.pad_rows(n), d), generator=g, device=dev).float()
+    ints[n:] = 0.0
+    dv = sc.materialize_f32_slabs(lambda s_, r: ints[s_ : s_ + r], n, d, 1 << 14, device=dev)
+    q = torch.randint(-2, 3, (70, d), generator=g, device=dev).float()
+    thr = float(q[0] @ ints[777])
+    q_sq, q_inv = sc._query_norms(q)
+    alive = torch.ones(dv.vectors.shape[0] // ft.BIN, dtype=torch.bool, device=dev)
+    surv, n_surv = ft.survivor_bins(alive)
+    args = [q, dv.vectors, dv.inv_norms, dv.norms_sq, dv.valid.float(), q_inv, q_sq,
+            torch.ones(70, device=dev), torch.full((1,), thr, device=dev), surv, n_surv]
+    _check_plain("K4", args, Metric.DotProduct, False, Cmp.Eq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.Cosine, Metric.DotProduct, Metric.Euclidean])
+def test_k4_masked_bins_nan_and_inf_rows(metric):
+    """Whole bins masked beside dead bins, NaN rows and rows with one inf
+    element (their side data finite): an inf splits into an inf high plane
+    and a NaN low plane, as JAX's split does, so the dot and score are NaN
+    and the row fails the filter like a masked one; the bins stay equal to
+    the plain version's."""
+    dev = _device()
+    take_min = metric is Metric.Euclidean
+    args = _operands("K4", dev, d=768, b=70, n=20_000)
+    v, rmask, surv, n_surv = args[1], args[4], args[-2], args[-1]
+    live = surv[: int(n_surv[0])].long()
+    masked = live[::3]
+    rmask.view(-1, ft.BIN)[masked] = 0.0
+    v[live[1::3] * ft.BIN + 5] = float("nan")
+    v[live[2::3] * ft.BIN + 9, 7] = float("inf")
+    _check_plain("K4", args, metric, take_min, None)
+    out = ft.bf16x3_binmax(*args, metric, take_min, None)
+    assert bool(torch.isneginf(out[masked]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1e-30, 1e-36])
+def test_k4_keeps_subnormal_low_planes(scale):
+    """Rows scaled to 1e-30 and to 1e-36, where the low planes x - bf16(x)
+    (about 2^-9 |x|) fall below 2^-126 and are subnormal: Dot metric, one
+    unmasked row per bin, so each bin max is that row's bf16x3 dot, within
+    the bound's 4 d 2^-24 |q| |v| share of the float64 sum of the split
+    products (torch's casts keep subnormals). A flushed low plane would
+    lose qh.vl, about 2^-9 |q| |v|."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(6)
+    n, d, b = 20_000, 768, 64
+    n_pad = sc.pad_rows(n)
+    f32 = torch.randn((n_pad, d), generator=g, device=dev) * scale
+    f32[n:] = 0.0
+    dv = sc.materialize_f32_slabs(lambda s_, r: f32[s_ : s_ + r], n, d, 1 << 14, device=dev)
+    q = torch.randn((b, d), generator=g, device=dev)
+    rows, rmask, surv, n_surv = _one_row_per_bin(None, dev, n_pad)
+    ones_n, ones_b = torch.ones(n_pad, device=dev), torch.ones(b, device=dev)
+    out = ft.bf16x3_binmax(q, dv.vectors, ones_n, ones_n, rmask, ones_b,
+                           torch.zeros(b, device=dev), ones_b, torch.zeros(1, device=dev),
+                           surv, n_surv, Metric.DotProduct)
+    v = dv.vectors[rows]
+    vh = v.bfloat16()
+    vl = (v - vh.float()).bfloat16()
+    qh = q.bfloat16()
+    ql = (q - qh.float()).bfloat16()
+    if scale < 1e-35:
+        low = vl.float().abs()
+        assert float(((low > 0) & (low < 2.0**-126)).float().mean()) > 0.5
+    vh, vl, qh, ql = (x.double() for x in (vh, vl, qh, ql))
+    ref = vh @ qh.T + vl @ qh.T + vh @ ql.T
+    norms = v.double().norm(dim=1)[:, None] * q.double().norm(dim=1)[None, :]
+    err = float(((out.double() - ref).abs() / norms).max())
+    assert err <= 4 * d * 2.0**-24, err
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [100, 768, 2048])
 def test_k5_dots_equal_float64(d):
@@ -612,20 +721,22 @@ def test_k5_dots_equal_float64(d):
 @pytest.mark.parametrize("mode,entry", [
     ("K1", "cert_cos_binmax"), ("K1-bf16", "cert_cos_binmax_bf16"), ("K5", "cert_fold_binmax"),
     ("K6", "bf16_binmax"), ("K6-bf16", "bf16_binmax_bf16"), ("K2", "int8_binmax"),
-    ("K4", "bf16x3_binmax"), ("K4-bf16", "bf16x3_binmax_bf16")])
+    ("K4", "bf16x3_binmax"), ("K4-bf16", "bf16x3_binmax_bf16"), ("k_planes", "probe_planes")])
 @pytest.mark.parametrize(
     "d", [16, 112, 768, 832, 896, 1392, 1408, 1536, 2048, 2976, 2992, 4096])
 def test_smem_mirrors_the_kernel(mode, entry, d):
     """``kernel_smem_bytes`` (and the sm90 plans' stage counts) equal the C
     side's figures at every depth the shape check and the plans turn on;
-    K6 and K4 over bf16 rows take every one of these depths and launch
-    there (against the plain version at 70 queries, and with no live
-    bin)."""
+    K6 over bf16 rows and K4 over f32 and bf16 rows take every one of these
+    depths and launch there (against the plain version at 70 queries, and
+    with no live bin), and so does the probe k_planes (against its plain
+    version)."""
     dev = _device()
     from otters_tpu_torch import kernels
 
     source = ft._MODES[mode][0] if mode in ft._MODES else {
-        "K1": "cert_cos_binmax", "K1-bf16": "cert_cos_binmax", "K5": "cert_fold_binmax"}[mode]
+        "K1": "cert_cos_binmax", "K1-bf16": "cert_cos_binmax", "K5": "cert_fold_binmax",
+        "k_planes": "profile_probes"}[mode]
     lib = kernels.load(source)
     smem = getattr(lib, f"{entry}_smem_bytes")
     smem.argtypes = [ctypes.c_int]
@@ -636,9 +747,16 @@ def test_smem_mirrors_the_kernel(mode, entry, d):
         stages.argtypes = [ctypes.c_int]
         stages.restype = ctypes.c_int
         assert stages(d) == ft.sm90_plan(mode, d).stages
-    if mode in ("K6-bf16", "K4-bf16"):
+    if mode == "k_planes":
+        ops = pv.make_inputs(dev, n_pad=4 * pv.T, d=d, b=70, seed=d)
+        got = pv.k_planes(ops["q"], ops["vh"], ops["vl"])
+        want = pv.k_planes_plain(ops["q"], ops["vh"], ops["vl"])
+        scale = float(ops["q"].norm(dim=1).max()) * float(ops["v"].norm(dim=1).max())
+        assert float((got - want).abs().max()) <= sc.high_precision_bound(d) * scale
+    if mode in ("K6-bf16", "K4-bf16", "K4"):
         assert ft.kernel_takes(mode, d)
-        args = _bf16_operands(mode, dev, Metric.Cosine, n=20_000, d=d)
+        args = (_operands(mode, dev, n=20_000, d=d) if mode == "K4" else
+                _bf16_operands(mode, dev, Metric.Cosine, n=20_000, d=d))
         _check_plain(mode, args, Metric.Cosine, False, None)
         args[-2], args[-1] = ft.survivor_bins(
             torch.zeros(args[1].shape[0] // ft.BIN, dtype=torch.bool, device=dev))

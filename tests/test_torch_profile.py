@@ -10,6 +10,11 @@
   times the kernels). ``k_mm`` / ``k_mm_bins`` hold full-f32 sums in another
   order, within d 2^-24 |q| |v|; ``k_planes`` three sums of the same exact
   bf16 products, within 3 d 2^-24 |q| |v|.
+- What the card path of ``k_planes`` does around its kernel, on the CPU:
+  the scan's [n_bins, b] bin maxima mapped to the script's [n_tiles, b,
+  t / 512] (``bins_to_tiles``), and VH / VL at a depth that is not a
+  multiple of 8 copied with zero padding (``pad_depth8``), which leaves the
+  result unchanged.
 """
 
 import ast
@@ -114,3 +119,49 @@ def test_probes_refuse_what_they_cannot_take(monkeypatch):
         pv.k_mm_bins(ops["q"].to(meta), ops["v"].to(meta))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert pv.main() == 1  # the timing entry point needs the card
+
+
+@pytest.mark.parametrize("t", [512, 1024, 2048])
+def test_k_planes_bins_to_tiles_layout(t):
+    """The card path's output mapping: bin = tile * nb + j of the scan's
+    [n_bins, b] lands at [tile, q, j]; applied to the per-bin maxima of the
+    bf16x3 dots (the scan's order) it gives the plain version's layout."""
+    rng = np.random.default_rng(t)
+    n_pad, d, b = 4096, 32, 5
+    nb = t // pv.BIN
+    n_bins = n_pad // pv.BIN
+    code = torch.arange(n_bins)[:, None] * 1000.0 + torch.arange(b)[None, :]
+    tiles = pv.bins_to_tiles(code, nb)
+    assert tiles.shape == (n_pad // t, b, nb) and tiles.is_contiguous()
+    for tile in range(n_pad // t):
+        for q in range(b):
+            for j in range(nb):
+                assert tiles[tile, q, j] == (tile * nb + j) * 1000 + q
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    vh, vl = pv.split_planes(torch.from_numpy(rng.normal(size=(n_pad, d)).astype(np.float32)))
+    qh, ql = (x.float() for x in pv.split_planes(q))
+    dots = qh @ vh.float().T + qh @ vl.float().T + ql @ vh.float().T  # [b, n_pad]
+    bins = dots.reshape(b, n_bins, pv.BIN).amax(dim=2).T  # the scan's [n_bins, b]
+    want = pv.k_planes_plain(q, vh, vl, t=t)
+    scale = float(q.norm(dim=1).max()) * float((vh.float() + vl.float()).norm(dim=1).max())
+    np.testing.assert_allclose(pv.bins_to_tiles(bins, nb).numpy(), want.numpy(), rtol=0,
+                               atol=3 * d * 2.0**-24 * scale)
+
+
+def test_k_planes_depth8_padding_leaves_the_result_unchanged():
+    """TMA reads VH / VL rows whose stride is a multiple of 16 bytes: at d
+    = 100 the wrapper copies them zero-padded to 104 (the queries are padded
+    with the query block); the plain result on the padded operands equals
+    the unpadded one. At d = 768 nothing is copied."""
+    ops = pv.make_inputs("cpu", n_pad=2048, d=100, b=6, seed=2)
+    vh8, vl8 = pv.pad_depth8(ops["vh"]), pv.pad_depth8(ops["vl"])
+    assert vh8.shape == vl8.shape == (2048, 104)
+    assert not vh8[:, 100:].float().any() and not vl8[:, 100:].float().any()
+    assert torch.equal(vh8[:, :100], ops["vh"]) and torch.equal(vl8[:, :100], ops["vl"])
+    q8 = torch.nn.functional.pad(ops["q"], (0, 4))
+    want = pv.k_planes_plain(ops["q"], ops["vh"], ops["vl"])
+    got = pv.k_planes_plain(q8, vh8, vl8)
+    scale = float(ops["q"].norm(dim=1).max()) * float(ops["v"].norm(dim=1).max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=100 * 2.0**-24 * scale)
+    deep = torch.zeros((8, 768), dtype=torch.bfloat16)
+    assert pv.pad_depth8(deep) is deep
