@@ -26,12 +26,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    round traced (K1's time per
    batch, the rest of the device time, the idle share); then K1 timed at
    these shapes against its plain version, a library yardstick and its
-   bound, and again at b = 1, 64 and 512 (as K1, K6 and K4 over bf16 rows
-   and K5 in 4f, K6 and K4 in 6); each kernel of csrc/cert_scan_sm90.cuh
-   (K1, K5, K6 and K4 over f32 and bf16 rows) and its library call timed
-   in K1_ROUNDS interleaved rounds (median and range);
+   bound, and again at b = 1, 64 and 512 (as K2 in 4u, K1, K6 and K4 over
+   bf16 rows and K5 in 4f, K6 and K4 in 6); each kernel (all of them run on
+   csrc/cert_scan_sm90.cuh: K1, K2, K3, K5, K6 and K4 over their row types)
+   and its library call timed in K1_ROUNDS interleaved rounds (median and
+   range);
    4u. bench.py's ``filtered_uncert`` on the same store
-   (``certify=False``): K2, recall@10 against the f32 truth, K2 timed;
+   (``certify=False``): K2 (s8 wgmma), recall@10 against the f32 truth,
+   PATH_ROUNDS timed rounds (median q/s) and one traced round (K2's ms per
+   batch, the rest of the device time, the idle share), K2 timed;
    4f. bfloat16 storage: a 10M x 768 bf16 store made on the device from
    the same f32 rows (which stay the rerank source), the same columns,
    filter and batches; certified ``take(10, rerank_from=100)`` for Cosine
@@ -53,11 +56,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    through MetaStore (certified int8 Cosine on K1, certified bf16 Dot on
    K5, precision "default" over f32 rows on K6 and over bf16 rows on
    K6-bf16, uncertified f32 Cosine on K4, uncertified bf16 Cosine on
-   K4-bf16, and uncertified int8), each equal to its exact truth; at 2,048
-   K1, K5, K6, K6-bf16 and K4-bf16 run their deep-row plan and K4 its
-   streamed one (nothing routed), while K2 is routed to the scan program
-   by shape at d = 3,072 (the routed queries are counted); the six sm90
-   modes against their plain versions at both depths;
+   K4-bf16, and uncertified int8 on K2), each equal to its exact truth; at
+   2,048 K1, K5, K6, K6-bf16 and K4-bf16 run their deep-row plan and K4 its
+   streamed one, and K2 runs its kernel at d = 3,072 too (its resident
+   int8 query block with two ring stages), each with nothing routed
+   (``kernel_takes.routed``); the seven modes against their plain versions
+   at each depth;
 5. the twin of examples/demo.py on the card;
 6. bench.py's exact-f32 section: a 4M x 768 f32 store built on the device,
    the same columns and filter, pipelined ``take(10)`` batches of 256
@@ -122,11 +126,13 @@ K1_ROUNDS = 7  # interleaved timing rounds of an sm90 kernel and its library cal
 # round logged
 PATH_ROUNDS = 3
 # the kernels on csrc/cert_scan_sm90.cuh
-ROUND_MODES = ("K1", "K1-bf16", "K5", "K6", "K6-bf16", "K4", "K4-bf16")
+ROUND_MODES = ("K1", "K1-bf16", "K2", "K3", "K3-bf16", "K5", "K6", "K6-bf16", "K4", "K4-bf16")
 SWEEP_B = (1, 64, 512)  # their other timed batch sizes, on their paths' stores
 DEPTH_ROWS = 250_000  # the depth phase's stores (with 256 queries, fused-size)
 DEPTHS = (100, 2048)  # stored as 112; past every resident query block
-DEPTH_K2 = 3072  # past K2's shared memory (d <= 2,976)
+# K2 only: the deepest rows its resident int8 query block holds beside two
+# ring stages
+DEPTH_K2 = 3072
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
@@ -193,7 +199,7 @@ CERT_MODES = ("K1", "K1-bf16", "K5")  # the certified scans
 # profiler (K4 over f32 rows on the exact f32 path, the others on the bf16
 # store's paths)
 SCAN_NAMES = {"K4": "bf16x3_binmax_sm90_kernel", "K4-bf16": "bf16x3_binmax_sm90_kernel",
-              "K6-bf16": "bf16_binmax_sm90_kernel"}
+              "K6-bf16": "bf16_binmax_sm90_kernel", "K2": "int8_binmax_sm90_kernel"}
 
 
 def mode_inputs(mode, dv, queries, chunk_mask, thr=0.0, metric=None, cmp=None):
@@ -391,9 +397,13 @@ def kernel_phase(torch, dev):
         ("K2", dv8, Metric.Cosine, False, None, 0.0, B),
         ("K2", dv8, Metric.Cosine, False, Cmp.Gt, 0.05, 70),
         ("K2", dv8, Metric.Cosine, True, Cmp.Lte, -0.05, B),
+        ("K2", dv8, Metric.DotProduct, False, None, 0.0, 1),
+        ("K2", dv8, Metric.Euclidean, True, None, 0.0, K1_WIDE_B),
         ("K3", dvf, Metric.Cosine, False, Cmp.Gte, 0.05, B),
         ("K3", dvf, Metric.DotProduct, False, None, 0.0, 70),
         ("K3", dvf, Metric.Euclidean, True, Cmp.Lt, 1450.0, B),
+        ("K3", dvf, Metric.Cosine, False, None, 0.0, 1),
+        ("K3", dvf, Metric.DotProduct, False, Cmp.Gt, 2.0, K1_WIDE_B),
         ("K4", dvf, Metric.Cosine, False, None, 0.0, B),
         ("K4", dvf, Metric.DotProduct, False, Cmp.Gt, 2.0, 70),
         ("K4", dvf, Metric.Euclidean, True, None, 0.0, B),
@@ -411,6 +421,8 @@ def kernel_phase(torch, dev):
         ("K5", dvb, Metric.Euclidean, True, Cmp.Lte, 1450.0, K1_WIDE_B),
         ("K3-bf16", dvb, Metric.Cosine, False, Cmp.Gte, 0.05, B),
         ("K3-bf16", dvb, Metric.Euclidean, True, Cmp.Lt, 1450.0, 70),
+        ("K3-bf16", dvb, Metric.DotProduct, False, None, 0.0, 1),
+        ("K3-bf16", dvb, Metric.Cosine, False, Cmp.Gt, 0.05, K1_WIDE_B),
         ("K4-bf16", dvb, Metric.Cosine, False, None, 0.0, B),
         ("K4-bf16", dvb, Metric.DotProduct, False, Cmp.Gt, 2.0, 70),
         ("K4-bf16", dvb, Metric.Euclidean, True, None, 0.0, B),
@@ -702,11 +714,13 @@ def bench_filter():
     return tx.col("price").lt(50.0) & tx.col("version").gte(2)
 
 
-def uncert_path(torch, store, batches, truths):
+def uncert_path(torch, store, batches, truths, card=""):
     """bench.py's ``filtered_uncert`` on the 10M int8 store: the same filter
     and batches, ``take(10, rerank_from=100, certify=False)``, so the scan
     is K2 (int8 queries x int8 rows, exact int32 dots) and the rerank exact
-    f32. Recall@10 against the f32 truth is reported, not promised."""
+    f32; PATH_ROUNDS timed rounds (median q/s) and one traced round (K2's
+    ms per batch, the rest of the device time, the idle share). Recall@10
+    against the f32 truth is reported, not promised."""
     import otters_tpu_torch as tx
 
     def pending(q):
@@ -715,38 +729,34 @@ def uncert_path(torch, store, batches, truths):
             .take(K, rerank_from=K_WIDE, certify=False).collect_async()
         )
 
+    dev = batches[0].device
     tx.resolve([pending(batches[-1])])  # warm-up
-    from otters_tpu_torch.ops import fused_topk as ft
-
-    ft.reset_launches()
-    sync(batches[0].device)
-    t0 = time.perf_counter()
-    pend = [pending(q) for q in batches]
-    results = tx.resolve(pend)
-    sync(batches[0].device)
-    elapsed = time.perf_counter() - t0
-    launched = counts()
-    qps = len(batches) * B / elapsed
+    pend, results, launched, qps, rounds = timed_rounds(
+        torch, dev, lambda: [pending(q) for q in batches], counts)
     hits = [len(set(res.indices) & set(gt)) / K for res, gt in zip(results, truths)]
     recall = sum(hits) / len(hits)
-    log(f"filtered_uncert: {len(batches)} pipelined batches of {B} in {elapsed:.3f} s = "
-        f"{qps:.1f} q/s; launches {launched}; recall@{K} vs the f32 truth {recall:.4f} "
-        f"(per batch {hits})")
+    log(f"filtered_uncert: {len(batches)} pipelined batches of {B}, {PATH_ROUNDS} rounds: "
+        f"{', '.join(f'{r:.1f}' for r in rounds)} q/s, median {qps:.1f} q/s on {card}; "
+        f"launches {launched}; recall@{K} vs the f32 truth {recall:.4f} (per batch {hits})")
     for i, p in enumerate(pend):
         st = p.stats()
         assert st.certified is None, f"batch {i}: an uncertified query reports {st.certified}"
         assert st.pruned_chunks == (store.n_chunks() + 1) // 2, f"batch {i}: {st}"
         assert len(results[i]) == K
-    if batches[0].device.type == "cuda":
+    prof = None
+    if dev.type == "cuda":
         assert launched["K2"] >= len(batches) and launched["K1"] == 0, launched
+        prof = profile_batches(torch, pending, batches, SCAN_NAMES["K2"])
     assert recall > 0.5, f"filtered_uncert recall@{K} = {recall}"
-    return {"qps": qps, "launches": launched["K2"], "recall": recall}
+    return {"qps": qps, "qps_rounds": rounds, "launches": launched["K2"], "recall": recall,
+            "profile": prof}
 
 
 def library_fn(torch, mode, q, v_live, n_live):
     """One PyTorch call (plus a bin max) for the same function: the
     yardstick; the port never calls it. K1 / K5: a bf16 matmul on rows cast
-    beforehand (bf16 rows as they are); K2: ``torch._int_mm``; K3: an f32
+    beforehand (bf16 rows as they are); K2: ``torch._int_mm`` (which takes
+    more than 16 queries: a smaller batch padded with zero queries); K3: an f32
     matmul, TF32 off, on rows upcast beforehand; K4: three bf16 matmuls on
     planes split beforehand (two over bf16 rows, whose low plane is 0); K6:
     one bf16 matmul on rows cast beforehand."""
@@ -761,7 +771,8 @@ def library_fn(torch, mode, q, v_live, n_live):
         vb = v_live.bfloat16()
         return lambda: binmax(torch.matmul(q, vb.T))
     if mode == "K2":
-        return lambda: binmax(torch._int_mm(q, v_live.T))
+        qm = q if b > 16 else torch.nn.functional.pad(q, (0, 0, 0, 32 - b))
+        return lambda: binmax(torch._int_mm(qm, v_live.T)[:b])
     if mode.startswith("K3"):
         v32 = v_live.float()
         return lambda: binmax(torch.matmul(q, v32.T))
@@ -1586,9 +1597,9 @@ def depth_phase(torch, dev):
     mode with its check) and uncertified int8 (K2), each equal to the exact
     truth of its scores. Launch counts and ``kernel_takes.routed`` show
     what served each: K1, K5, K6, K4, K6-bf16 and K4-bf16 launch at both
-    depths with nothing routed; K2 launches at both and is routed at
-    DEPTH_K2. Then the six sm90 kernels against their plain versions at
-    each depth -> {d: {label: launches or "routed"}}."""
+    depths and K2 at DEPTH_K2 too, with nothing routed. Then the seven
+    modes against their plain versions at each depth (K2 alone at
+    DEPTH_K2) -> {d: {label: launches}}."""
     import numpy as np
 
     import otters_tpu_torch as tx
@@ -1644,33 +1655,31 @@ def depth_phase(torch, dev):
                               one_pass=prec == "default")
             ties, err = check_topk(f"d={d} {label}", res.indices, res.scores, *want,
                                    score_tol(metric, q_truth, dv))
-            takes = ft.kernel_takes(mode, d)
-            assert takes or mode == "K2", (d, label)  # the sm90 kernels take any d
-            if takes:  # (the plain versions serve a CPU rehearsal, uncounted)
-                assert routed == 0 and (launched[mode] >= 1 or dev.type != "cuda"), (
-                    d, label, launched, routed)
-            else:
-                assert sum(launched.values()) == 0 and routed == B, (d, label, launched, routed)
-            res_d[label] = launched[mode] if takes else "routed"
+            # every kernel takes any d (the plain versions serve a CPU
+            # rehearsal, uncounted)
+            assert ft.kernel_takes(mode, d), (d, label)
+            assert routed == 0 and (launched[mode] >= 1 or dev.type != "cuda"), (
+                d, label, launched, routed)
+            res_d[label] = launched[mode]
             log(f"d={d} (stored {sc.pad_depth(d)}) {label}: {n} rows, {B} queries, top-{K} "
                 f"equal to the exact {'f32 ' if certify else ''}truth (max score diff "
-                f"{err:.2e}, boundary ties {ties}); "
-                + (f"{mode} launched {launched[mode]} times" if takes else
-                   f"{mode} does not take d = {d}: {routed} queries routed to the scan program"))
+                f"{err:.2e}, boundary ties {ties}); {mode} launched {launched[mode]} times, "
+                f"{routed} queries routed")
             del store
+        compared = [("K2", dv8, tx.Metric.Cosine)]
         if d != DEPTH_K2:
-            for mode, dv, metric in (("K1", dv8, tx.Metric.Cosine),
-                                     ("K5", dvb, tx.Metric.DotProduct),
-                                     ("K6", dvf, tx.Metric.Cosine),
-                                     ("K4", dvf, tx.Metric.Cosine),
-                                     ("K6-bf16", dvb, tx.Metric.Cosine),
-                                     ("K4-bf16", dvb, tx.Metric.Cosine)):
-                for b in (1, B):
-                    args = mode_inputs(mode, dv, q[:b], chunk_mask, metric=metric)
-                    e, tol = compare_mode(mode, args, metric)
-                    log(f"d={d} {mode} vs plain ({n} rows, b={b}, plan "
-                        f"{tuple(ft.sm90_plan(mode, sc.pad_depth(d)))}): max_abs_err={e:.3e} "
-                        f"tol={tol:.3e}")
+            compared = [("K1", dv8, tx.Metric.Cosine), ("K5", dvb, tx.Metric.DotProduct),
+                        ("K6", dvf, tx.Metric.Cosine), ("K4", dvf, tx.Metric.Cosine),
+                        ("K6-bf16", dvb, tx.Metric.Cosine),
+                        ("K4-bf16", dvb, tx.Metric.Cosine), *compared]
+        for mode, dv, metric in compared:
+            for b in (1, B):
+                args = mode_inputs(mode, dv, q[:b], chunk_mask, metric=metric)
+                e, tol = compare_mode(mode, args, metric)
+                log(f"d={d} {mode} vs plain ({n} rows, b={b}, plan "
+                    f"{tuple(ft.sm90_plan(mode, sc.pad_depth(d)))}): max_abs_err={e:.3e} "
+                    f"tol={tol:.3e}")
+        if d != DEPTH_K2:
             del dvb, dvf
         out[d] = res_d
         del f32, dv8, q, cases, uncert
@@ -1735,11 +1744,11 @@ def main() -> int:
         ft.reset_launches()
         store, f32, batches, truths, stats = main_path(torch, dev, ROWS, card)
     with phase("4u filtered_uncert on the same store (K2)"):
-        uncert = uncert_path(torch, store, batches, truths)
+        uncert = uncert_path(torch, store, batches, truths, card)
         timing = {m: time_mode(torch, m, store._dv, batches[0], store.n_chunks())
                   for m in ("K1", "K2")}
-        sweep = {"K1": b_sweep(torch, "K1", store._dv, torch.cat(batches[:2]),
-                               store.n_chunks())}
+        sweep = {m: b_sweep(torch, m, store._dv, torch.cat(batches[:2]), store.n_chunks())
+                 for m in ("K1", "K2")}
         del store
         torch.cuda.empty_cache()
     with phase(f"4f bfloat16 storage ({ROWS} x {D}): K1 / K5 certified, K4 uncertified, "
@@ -1767,7 +1776,7 @@ def main() -> int:
         widen_phase(torch, dev)
         torch.cuda.empty_cache()
     with phase(f"4d depths {DEPTHS} and {DEPTH_K2} ({DEPTH_ROWS} rows): any d on the kernels, "
-               "deep rows on the deep-row plan (K2: the scan route)"):
+               "deep rows on the deep-row plan, nothing routed"):
         depth = depth_phase(torch, dev)
     with phase("5 demo twin"):
         demo_phase()
@@ -1800,7 +1809,9 @@ def main() -> int:
         ("K2", "int8_binmax", "int8_binmax", ":149 (_kernel[int8, uncertified])",
          uncert["launches"],
          {"path": f"filtered_uncert {ROWS} x {D}", "path_qps": uncert["qps"],
+          "path_qps_rounds": uncert["qps_rounds"], "path_profile": uncert["profile"],
           "recall_at_10": uncert["recall"], "vecstore_launches": vec["K2"],
+          "batch_sweep": sweep["K2"],
           "depth_launches": {d: depth[d]["uncertified int8"] for d in depth}}),
         ("K3", "f32_binmax", "f32_binmax", ":182 (_kernel[prec=highest])", near["launches"],
          {"path": f"near-tie strict rerun {NEAR_ROWS} x {D}"}),

@@ -1,25 +1,29 @@
-// The certified scan for Hopper (sm_90a): a persistent grid over the
-// survivor list, the query block resident in shared memory (or streamed
-// beside the rows, for deep rows), a TMA ring with warp specialisation, and
-// wgmma.
+// The scan of every bin-max kernel for Hopper (sm_90a): a persistent grid
+// over the survivor list, the query block resident in shared memory (or
+// streamed beside the rows, for deep rows), a TMA ring with warp
+// specialisation, and wgmma (or FFMA, for exact f32).
 //
 // What it computes: for every live 512-row bin (the survivor list
 // surv[0 : n_surv), read on the device) and every query of the CTA's
 // 64-query block, the max over the bin's rows of key(dot, row side data,
 // query), with dot = bf16 query . row (exact products, f32 sums); with two
 // query planes dot = qh . row + ql . row; with two query planes and two row
-// planes dot = qh . vh + qh . vl + ql . vh (bf16x3). The kernels supply the
-// key: K1 over int8 and bf16 rows (csrc/cert_cos_binmax.cu, certified
-// Cosine), K5 (csrc/cert_fold_binmax.cu, the general certified fold), K6
-// over f32 and bf16 rows (csrc/bf16_binmax.cu, one bf16 pass), K4
-// (csrc/bf16x3_binmax.cu, bf16x3) over bf16 rows (the rows' low plane is
-// 0: two query planes) and over f32 rows (two row planes split in
-// registers), and the profiling probe k_planes (csrc/profile_probes.cu,
-// bf16x3 over two bf16 row arrays, the raw dot as the key, no side data).
-// The header is templated on the row type (int8, bf16 or f32), the number
-// of side arrays (0 to 4), the stage shape, whether the query block is
-// streamed, the number of query planes (1 or 2) and of row planes (1 or
-// 2), and the key.
+// planes dot = qh . vh + qh . vl + ql . vh (bf16x3); with int8 queries the
+// exact int32 dot of int8 queries and rows, converted to f32; with f32
+// queries the f32 dot, one IEEE FMA per term. The kernels supply the key:
+// K1 over int8 and bf16 rows (csrc/cert_cos_binmax.cu, certified Cosine),
+// K2 (csrc/int8_binmax.cu, uncertified int8), K3 over f32 and bf16 rows
+// (csrc/f32_binmax.cu, exact f32), K5 (csrc/cert_fold_binmax.cu, the
+// general certified fold), K6 over f32 and bf16 rows (csrc/bf16_binmax.cu,
+// one bf16 pass), K4 (csrc/bf16x3_binmax.cu, bf16x3) over bf16 rows (the
+// rows' low plane is 0: two query planes) and over f32 rows (two row
+// planes split in registers), and the profiling probe k_planes
+// (csrc/profile_probes.cu, bf16x3 over two bf16 row arrays, the raw dot as
+// the key, no side data). The header is templated on the row type (int8,
+// bf16 or f32), the number of side arrays (0 to 4), the stage shape,
+// whether the query block is streamed, the number of query planes (1 or 2)
+// and of row planes (1 or 2), the query element type (bf16, int8 or f32)
+// and the key.
 //
 // Design.
 // - Persistent grid: about one CTA per SM (the shared memory admits no
@@ -56,14 +60,15 @@
 //   stages stream both query planes (resident they would take 192 KB at d
 //   = 768).
 // - Deep rows (the streamed plan): when the resident query block (8 KB per
-//   64 deep and plane) would leave fewer than two ring stages, or always
-//   for a kernel with no resident plan (K4, k_planes), no query block
+//   k-block and plane) would leave fewer than two ring stages, or always
+//   for a kernel with no resident plan (K3, K4, k_planes), no query block
 //   is resident; each ring stage carries the query k-blocks of its depth
 //   step beside the row k-blocks, in the same layout, and the consumers
 //   read B from the stage. Any depth then fits; the query block is read
 //   again for every row sub-tile (from L2).
 // - One producer thread keeps an even number of ring stages of KS k-blocks
-//   of [TM rows x 64 deep] in flight with full / empty mbarrier pairs.
+//   of [TM rows x KD deep] in flight with full / empty mbarrier pairs (KD =
+//   64, or 128 for int8 queries).
 // - Two consumer warpgroups in ping-pong: the stages alternate between
 //   them, and each takes a TM-row sub-tile of its own (TM / 64 m-blocks,
 //   f32 accumulators in registers, 32 a thread per m-block), so one
@@ -71,7 +76,12 @@
 //   Each stage is waited for, multiplied to completion (wgmma m64n64k16,
 //   rows as A, queries as B) and released.
 //   - bf16 rows: A is read from the swizzled stage by descriptor.
-//   - int8 rows: each thread loads its A fragment from the stage (16-byte
+//   - int8 rows with int8 queries (K2): A and B are read by descriptor
+//     from 128-byte swizzled k-blocks of 128 codes (the layout of a bf16
+//     k-block of 64), wgmma m64n64k32.s32.s8.s8 into int32 accumulators
+//     (exact), each converted with __int2float_rn before the key.
+//   - int8 rows with bf16 queries (K1): each thread loads its A fragment
+//     from the stage (16-byte
 //     loads; the caller permutes the depth of every 64-deep block of the
 //     queries so that a thread's fragment bytes of a row are contiguous),
 //     converts it exactly in registers and issues the register-A form; no
@@ -86,6 +96,15 @@
 //     that chunk order the 8 threads of a quarter-warp's load touch 8
 //     distinct bank groups under the swizzle, so the loads are free of
 //     bank conflicts.
+// - f32 queries (K3): the consumers are FFMA warpgroups on the same ring
+//   (the stages carry the f32 query k-blocks, two 128-byte swizzled boxes
+//   of 32 deep, beside one k-block of 128 f32 or bf16 rows): each thread
+//   keeps an 8-row x 8-query tile of f32 accumulators, fed by 16-byte
+//   shared loads of both operands as they landed (4 FFMAs per float read;
+//   a quarter-warp's row loads on 8 distinct bank groups under the
+//   swizzle, its query load a broadcast), one __fmaf_rn per term in depth
+//   order; every consumer thread releases the stage (the empty barrier
+//   counts 128).
 // - int8 rows, f16 products: int8 -> f16 takes 5 instructions per 4 codes
 //   (the bytes + 128 under an f16 exponent, one f16x2 subtract per pair),
 //   int8 -> bf16 11, and the conversion is most of the consumers' work
@@ -150,18 +169,33 @@ namespace sm90 {
 
 constexpr int BIN = 512;       // rows per bin
 constexpr int QB = 64;         // queries per CTA
-constexpr int TK = 64;         // depth per tile
+constexpr int TK = 64;         // depth of a k-block of bf16 or f32 queries
 constexpr int CONSUMERS = 256; // two consumer warpgroups
 constexpr int THREADS = 384;   // + one producer warpgroup (one thread works)
 constexpr int MAX_STAGES = 12;
 constexpr size_t SMEM_LIMIT = 232448;
-constexpr int QBLOCK_BYTES = QB * TK * 2;  // one 64-deep block of one query plane, 8 KB
 // [64] per-query maxima as ordered ints, [64] per-query 2^-s, the f16 flag
 constexpr int RED_BYTES = 2 * QB * 4 + 8;
 
-// one [TM rows x 64 deep] k-block of a ring stage
-template <typename RowT, int TM>
-__host__ __device__ constexpr int tile_bytes() { return TM * TK * (int)sizeof(RowT); }
+// The query element type QT: bf16 (K1, K4, K5, K6, k_planes), int8 (K2) or
+// f32 (K3). A k-block is KD deep: 64 elements, or 128 for int8 queries, so
+// that a k-block of int8 rows and queries is 128 B a row and takes the same
+// 128-byte swizzled layout and descriptor as a bf16 one (wgmma's k32 steps
+// of int8 then advance 32 B, as its k16 steps of bf16 do); a 64-byte
+// swizzle of 64-deep int8 k-blocks would need a second descriptor layout
+// for no gain. f32 queries land as two 128-byte boxes of 32 deep.
+template <typename QT>
+__host__ __device__ constexpr int kdepth() { return sizeof(QT) == 1 ? 128 : 64; }
+// one KD-deep block of one query plane: 8 KB (bf16, int8), 16 KB (f32)
+template <typename QT>
+__host__ __device__ constexpr int qblock_bytes() { return QB * kdepth<QT>() * (int)sizeof(QT); }
+constexpr int QBLOCK_BYTES = qblock_bytes<__nv_bfloat16>();
+
+// one [TM rows x KD deep] k-block of a ring stage
+template <typename RowT, int TM, typename QT = __nv_bfloat16>
+__host__ __device__ constexpr int tile_bytes() {
+    return TM * kdepth<QT>() * (int)sizeof(RowT);
+}
 
 // row planes of a k-block in shared memory: NV bf16 arrays (two row
 // planes read from two arrays); f32 rows land once and are split into
@@ -172,20 +206,22 @@ __host__ __device__ constexpr int row_planes() { return sizeof(RowT) == 4 ? 1 : 
 // one ring stage: KS row k-blocks (of every row plane), and with a
 // streamed query block the KS query k-blocks (NQ planes each) of the same
 // depth step
-template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1>
+template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1,
+          typename QT = __nv_bfloat16>
 __host__ __device__ constexpr int stage_bytes() {
-    return KS * (row_planes<RowT, NV>() * tile_bytes<RowT, TM>()
-                 + (STREAM ? NQ * QBLOCK_BYTES : 0));
+    return KS * (row_planes<RowT, NV>() * tile_bytes<RowT, TM, QT>()
+                 + (STREAM ? NQ * qblock_bytes<QT>() : 0));
 }
 
 // dynamic shared memory for `stages` stages at depth d: 1 KB of alignment
 // slack, the resident query blocks of NQ planes (none when streamed), the
 // ring, the reduction buffer and the barriers
-template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1>
+template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1,
+          typename QT = __nv_bfloat16>
 __host__ __device__ inline size_t smem_bytes(int d, int stages) {
-    const int nk = (d + TK - 1) / TK;
-    return 1024 + (STREAM ? 0 : (size_t)nk * NQ * QBLOCK_BYTES)
-         + (size_t)stages * stage_bytes<RowT, KS, TM, STREAM, NQ, NV>()
+    const int nk = (d + kdepth<QT>() - 1) / kdepth<QT>();
+    return 1024 + (STREAM ? 0 : (size_t)nk * NQ * qblock_bytes<QT>())
+         + (size_t)stages * stage_bytes<RowT, KS, TM, STREAM, NQ, NV, QT>()
          + RED_BYTES + (size_t)(2 * stages + 1) * 8;
 }
 
@@ -193,10 +229,11 @@ __host__ __device__ inline size_t smem_bytes(int d, int stages) {
 // below 2: the two consumer warpgroups take alternate stages, so with an
 // even ring each stage always serves the same warpgroup and no waiter can
 // be a lap ahead of its barrier's phase
-template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1>
+template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1,
+          typename QT = __nv_bfloat16>
 __host__ __device__ inline int stages_for(int d) {
     int s = MAX_STAGES;
-    while (s > 2 && smem_bytes<RowT, KS, TM, STREAM, NQ, NV>(d, s) > SMEM_LIMIT) s -= 2;
+    while (s > 2 && smem_bytes<RowT, KS, TM, STREAM, NQ, NV, QT>(d, s) > SMEM_LIMIT) s -= 2;
     return s;
 }
 
@@ -209,21 +246,22 @@ __host__ __device__ inline int stages_for(int d) {
 // the choice.
 enum Plan { WIDE = 0, NARROW = 1, STREAMED = 2 };
 
-template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1>
+template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1,
+          typename QT = __nv_bfloat16>
 inline Plan plan_for(int d) {
     if constexpr (KS1 > 0) {
-        if (smem_bytes<RowT, KS1, TM1, false, NQ, NV>(d, 4) <= SMEM_LIMIT) return WIDE;
-        if (smem_bytes<RowT, KS2, TM2, false, NQ, NV>(d, 2) <= SMEM_LIMIT) return NARROW;
+        if (smem_bytes<RowT, KS1, TM1, false, NQ, NV, QT>(d, 4) <= SMEM_LIMIT) return WIDE;
+        if (smem_bytes<RowT, KS2, TM2, false, NQ, NV, QT>(d, 2) <= SMEM_LIMIT) return NARROW;
     }
     return STREAMED;
 }
 
 template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1,
-          typename F>
+          typename QT = __nv_bfloat16, typename F>
 auto with_plan(int d, const F& f) {
     using std::integral_constant;
     if constexpr (KS1 > 0) {
-        const Plan p = plan_for<RowT, KS1, TM1, KS2, TM2, NQ, NV>(d);
+        const Plan p = plan_for<RowT, KS1, TM1, KS2, TM2, NQ, NV, QT>(d);
         if (p == WIDE)
             return f(integral_constant<int, KS1>{}, integral_constant<int, TM1>{},
                      std::false_type{});
@@ -236,20 +274,23 @@ auto with_plan(int d, const F& f) {
 
 // the plan's ring stages and shared memory at depth d (exported by each
 // kernel source for ops/fused_topk.py's mirror and its test)
-template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1>
+template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1,
+          typename QT = __nv_bfloat16>
 int plan_stages(int d) {
-    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV>(d, [&](auto ks, auto tm, auto st) {
+    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV, QT>(d, [&](auto ks, auto tm, auto st) {
         return stages_for<RowT, decltype(ks)::value, decltype(tm)::value,
-                          decltype(st)::value, NQ, NV>(d);
+                          decltype(st)::value, NQ, NV, QT>(d);
     });
 }
 
-template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1>
+template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1,
+          typename QT = __nv_bfloat16>
 size_t plan_smem(int d) {
-    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV>(d, [&](auto ks, auto tm, auto st) {
+    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV, QT>(d, [&](auto ks, auto tm, auto st) {
         constexpr int KS = decltype(ks)::value, TM = decltype(tm)::value;
         constexpr bool S = decltype(st)::value;
-        return smem_bytes<RowT, KS, TM, S, NQ, NV>(d, stages_for<RowT, KS, TM, S, NQ, NV>(d));
+        return smem_bytes<RowT, KS, TM, S, NQ, NV, QT>(
+            d, stages_for<RowT, KS, TM, S, NQ, NV, QT>(d));
     });
 }
 
@@ -320,10 +361,14 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma
+// asynchronous wgmma (f32 or s32 accumulators)
 __device__ __forceinline__ void fence_acc(float (&d)[32]) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+__device__ __forceinline__ void fence_acc(int (&d)[32]) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 #define SM90_ACC_OUT                                                                   \
@@ -333,6 +378,13 @@ __device__ __forceinline__ void fence_acc(float (&d)[32]) {
     "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),      \
     "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
     "+f"(d[30]), "+f"(d[31])
+#define SM90_ACC_OUT_S32                                                               \
+    "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),            \
+    "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),          \
+    "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),      \
+    "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),      \
+    "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),      \
+    "+r"(d[30]), "+r"(d[31])
 #define SM90_ACC_REGS                                                                  \
     "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
     "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -346,6 +398,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
         " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_ACC_REGS
         ", %32, %33, p, 1, 1, 0, 0;\n}"
         : SM90_ACC_OUT : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 rows x 64 queries] += A[64 x 32] . B[32 x 64] in int8 with exact
+// s32 accumulation (both operands K-major by descriptor: the integer form
+// has no transpose or negate immediates); with accumulate = 0, D = A . B
+__device__ __forceinline__ void wgmma_ss(int (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate = 1) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " SM90_ACC_REGS
+        ", %32, %33, p;\n}"
+        : SM90_ACC_OUT_S32 : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // the same with A from registers (the m16n8k16 fragment of each warp's 16
@@ -503,28 +567,39 @@ __device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uin
 // summed apart and added to the running sum with __fadd_rn; NV: row planes
 // (2: vh and vl, with NQ = 2: the three products vh.qh + vl.qh + vh.ql of
 // bf16x3), over f32 rows split in registers or over bf16 rows read from
-// two arrays (vmap2 the map of the low plane).
+// two arrays (vmap2 the map of the low plane); QT: the query element type
+// (bf16; int8, K2: int8 rows, A by descriptor, wgmma m64n64k32 s8 x s8 into
+// exact s32 sums, each converted to f32 with __int2float_rn before the key;
+// f32, K3: the FFMA consumers, exact f32 dots on the CUDA cores).
 template <typename RowT, int NSIDE, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1,
-          typename MakeKey>
+          typename QT = __nv_bfloat16, typename MakeKey>
 __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap* vmap,
                                      const ScanArgs& a, const MakeKey& make_key,
                                      const CUtensorMap* vmap2 = nullptr) {
     constexpr bool INT8 = sizeof(RowT) == 1;
     constexpr bool F32 = sizeof(RowT) == 4;
+    constexpr bool S8 = sizeof(QT) == 1;    // K2: int8 x int8 into s32
+    constexpr bool FFMA = sizeof(QT) == 4;  // K3: f32 queries, FFMA consumers
+    static_assert(!S8 || (INT8 && NQ == 1), "int8 queries: int8 rows, one query plane");
+    static_assert(!FFMA || (STREAM && NQ == 1 && NV == 1 && TM == 128 && !INT8),
+                  "f32 queries: f32 or bf16 rows, streamed, one plane, 128-row sub-tiles");
     static_assert(NV == 1 || (NV == 2 && NQ == 2 && !INT8),
                   "two row planes: bf16x3 over f32 or bf16 rows, with two query planes");
     static_assert(NQ == 1 || (NQ == 2 && (sizeof(RowT) == 2 || NV == 2)),
                   "two query planes: bf16 rows, or f32 rows split into two planes");
-    constexpr int TILE = tile_bytes<RowT, TM>();  // one [TM x 64] k-block of one array
+    constexpr int KD = kdepth<QT>();              // depth of a k-block
+    constexpr int QBLK = qblock_bytes<QT>();      // one query k-block of one plane
+    constexpr int QH = sizeof(QT) == 4 ? 2 : 1;   // its 128-byte boxes (f32: 32 deep each)
+    constexpr int TILE = tile_bytes<RowT, TM, QT>();  // one [TM x KD] k-block of one array
     constexpr int RTILE = row_planes<RowT, NV>() * TILE;  // of every row plane
     constexpr int MB = TM / 64;                   // m-blocks of a warpgroup
-    constexpr int STAGE = stage_bytes<RowT, KS, TM, STREAM, NQ, NV>();
-    constexpr int QSTEP = NQ * QBLOCK_BYTES;      // one 64-deep block of every plane
+    constexpr int STAGE = stage_bytes<RowT, KS, TM, STREAM, NQ, NV, QT>();
+    constexpr int QSTEP = NQ * QBLK;              // one k-block of every query plane
     extern __shared__ unsigned char smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023u) & ~1023u;
     unsigned char* gbase = smem_raw + (base - raw);
-    const int nk = (a.d + TK - 1) / TK;   // 64-deep k-blocks
+    const int nk = (a.d + KD - 1) / KD;   // KD-deep k-blocks
     const int nks = (nk + KS - 1) / KS;   // ring stages per TM-row sub-tile
     const int S = a.stages;
     const uint32_t q_s = base;            // the resident query blocks
@@ -549,7 +624,9 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
         *f16_flag = 1;
         for (int s = 0; s < S; ++s) {
             mbar_init(bars + 8 * s, 1);
-            mbar_init(bars + 8 * (S + s), 1);  // one warp of its warpgroup
+            // one warp of its warpgroup (wgmma), or each of its 128 threads
+            // (FFMA: every thread reads the stage on its own)
+            mbar_init(bars + 8 * (S + s), FFMA ? 128 : 1);
         }
         mbar_init(bars + 16 * S, 1);
         asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -567,7 +644,7 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                 mbar_expect_tx(qbar, nk * QSTEP);
                 for (int c = 0; c < nk; ++c)
                     for (int pl = 0; pl < NQ; ++pl)
-                        tma_load_2d(q_s + c * QSTEP + pl * QBLOCK_BYTES, qmap, qbar, c * TK,
+                        tma_load_2d(q_s + c * QSTEP + pl * QBLK, qmap, qbar, c * KD,
                                     qrow + pl * qplane);
             }
             int st = 0;
@@ -586,7 +663,7 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                         mbar_wait(bars + 8 * (S + st), ph ^ 1);
                         mbar_expect_tx(full, nkb * (RTILE + (STREAM ? QSTEP : 0)));
                         for (int kb = 0; kb < nkb; ++kb) {
-                            const int k0 = (ks * KS + kb) * TK;
+                            const int k0 = (ks * KS + kb) * KD;
                             if constexpr (F32) {
                                 // two swizzled half boxes of 32 deep
                                 tma_load_2d(dst + kb * RTILE, vmap, full, k0, row0);
@@ -599,8 +676,10 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                             }
                             if constexpr (STREAM)
                                 for (int pl = 0; pl < NQ; ++pl)
-                                    tma_load_2d(dst + KS * RTILE + kb * QSTEP + pl * QBLOCK_BYTES,
-                                                qmap, full, k0, qrow + pl * qplane);
+                                    for (int h = 0; h < QH; ++h)
+                                        tma_load_2d(dst + KS * RTILE + kb * QSTEP + pl * QBLK
+                                                        + h * QB * 128,
+                                                    qmap, full, k0 + h * 32, qrow + pl * qplane);
                         }
                         if (++st == S) { st = 0; ph ^= 1; }
                     }
@@ -611,288 +690,150 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
 
     // ---- two consumer warpgroups ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-    // warpgroup w takes the TM-row sub-tiles w, w + 2, ... of every bin: in
-    // m-block mb (rows 64 mb ..) warp wq holds rows 64 mb + 16 wq + g and
-    // + 8. The two warpgroups work on different ring stages, so one
-    // converts, waits and releases while the other's products run.
     const int wg = warp >> 2, wq = warp & 3;
-    const int g = lane >> 2, t = lane & 3;
-    const int r0 = wq * 16 + g;
-    // query slot j (0..15) of this thread: column 8 (j / 2) + 2 t + j % 2
-    int cols[16];
+    if constexpr (FFMA) {
+        // K3: exact f32 dots, one IEEE FMA per term in depth order. Warpgroup
+        // wg takes the 128-row sub-tiles wg, wg + 2, ... of every bin, as
+        // below; its thread (rg, qg) keeps an 8-row x 8-query register tile,
+        // rows rg + 16 i and queries qg + 8 j (rg = lane % 8 + 8 (wq % 2), qg
+        // = lane / 8 + 4 (wq / 2)), fed by 16-byte loads of 4 f32 (or 8 bf16)
+        // of one depth chunk: 4 FFMAs per float read. A quarter-warp's 8
+        // lanes read 8 rows whose (row % 8) differ, so under the 128-byte
+        // swizzle (chunk c of row r at c ^ (r % 8)) they touch 8 distinct
+        // 16-byte bank groups, and one query (a broadcast); no transposed
+        // staging, both operands stay K-contiguous as TMA lands them. The
+        // chunk loops stay rolled: unrolled 2 or 4 times they measured
+        // slower (PERF.md, the K3 variants).
+        const int rg = (lane & 7) + 8 * (wq & 1);
+        const int qg = (lane >> 3) + 4 * (wq >> 1);
+        const int sr = rg & 7;  // the swizzle of each of the thread's rows
+        int cols[16];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) cols[j] = 8 * (j >> 1) + 2 * t + (j & 1);
-    const auto key = make_key(qblk * QB, cols);
-    bool f16 = false;
-    if constexpr (!STREAM) {
-        mbar_wait(bars + 16 * S, 0);
-        if constexpr (INT8) f16 = queries_to_f16(gbase, nk, tid, f16_flag, unscale_g);
-    }
-
-    // the bin walk, with f16 (int8 rows only) or bf16 products
-    const auto walk = [&](auto f16_tag) {
-        constexpr bool F16 = decltype(f16_tag)::value;
-        float qmul[16];  // 2^-s of each query slot (f16 products)
-        if constexpr (F16) {
-#pragma unroll
-            for (int j = 0; j < 16; ++j) qmul[j] = unscale_g[cols[j]];
-        }
+        for (int j = 0; j < 16; ++j) cols[j] = qg + 8 * (j & 7);  // slots 8..15 unused
+        const auto key = make_key(qblk * QB, cols);
         int st = 0;
         uint32_t ph = 0;
         const auto advance = [&]() { if (++st == S) { st = 0; ph ^= 1; } };
         if (wg == 1) advance();  // the ring alternates between the warpgroups
-        // B of plane pl of k-block kb of depth step ks: resident, or in the
-        // stage
-        const auto qdesc = [&](int ks, int kb, int kk, int pl = 0) {
-            const uint32_t off = pl * QBLOCK_BYTES + kk * 32;
-            return desc_sw128(STREAM ? tiles + st * STAGE + KS * RTILE + kb * QSTEP + off
-                                     : q_s + (ks * KS + kb) * QSTEP + off);
-        };
         for (int slot = p0; slot < n_surv; slot += P) {
             const int bin = a.surv[slot];
-            float best[16];
+            float best[8];
 #pragma unroll
-            for (int j = 0; j < 16; ++j) best[j] = -INFINITY;
+            for (int j = 0; j < 8; ++j) best[j] = -INFINITY;
             for (int sp = 0; sp < BIN / TM / 2; ++sp) {
-                // the rows' side data, read now and first used after the
-                // sub-tile's products
-                const size_t row = (size_t)bin * BIN + (2 * sp + wg) * TM + r0;
-                float sv[MB][2][NSIDE > 0 ? NSIDE : 1];
+                const size_t row = (size_t)bin * BIN + (2 * sp + wg) * TM + rg;
+                float sv[8][NSIDE > 0 ? NSIDE : 1];
 #pragma unroll
-                for (int mb = 0; mb < MB; ++mb)
+                for (int i = 0; i < 8; ++i)
 #pragma unroll
-                    for (int j = 0; j < NSIDE; ++j) {
-                        sv[mb][0][j] = __ldg(a.side[j] + row + 64 * mb);
-                        sv[mb][1][j] = __ldg(a.side[j] + row + 64 * mb + 8);
-                    }
-                float d[MB][32];
-                [[maybe_unused]] float pd[NQ == 2 ? MB : 1][32];  // a k-block's partial (NQ = 2)
+                    for (int j = 0; j < NSIDE; ++j) sv[i][j] = __ldg(a.side[j] + row + 16 * i);
+                float acc[8][8];
 #pragma unroll
-                for (int mb = 0; mb < MB; ++mb)
+                for (int i = 0; i < 8; ++i)
 #pragma unroll
-                    for (int i = 0; i < 32; ++i) d[mb][i] = 0.f;
-                if constexpr (NQ == 2) {
-#pragma unroll
-                    for (int mb = 0; mb < MB; ++mb)
-#pragma unroll
-                        for (int i = 0; i < 32; ++i) pd[mb][i] = 0.f;
-                }
-                // the sub-tile's ring stages, each waited for, multiplied to
-                // completion and released: the other warpgroup's products
-                // keep the tensor cores busy meanwhile
+                    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
                 for (int ks = 0; ks < nks; ++ks) {
                     const int nkb = min(KS, nk - ks * KS);
                     mbar_wait(bars + 8 * st, ph);
-                    // A from registers (int8 and f32 rows): a0 (row g, depth
-                    // 2t..2t+1), a1 (row g + 8), a2 (row g, depth 2t + 8..),
-                    // a3 (row g + 8, depth 2t + 8..) of each 16-deep step kk;
-                    // al the low plane of split f32 rows (NV = 2)
-                    [[maybe_unused]] uint32_t af[KS][MB][4][4];
-                    [[maybe_unused]] uint32_t al[NV == 2 && F32 ? KS : 1][MB][4][4];
-                    if constexpr (INT8 || F32) {
+                    for (int kb = 0; kb < nkb; ++kb) {
+                        const unsigned char* rt = tile_g + st * STAGE + kb * RTILE + rg * 128;
+                        const unsigned char* qt =
+                            tile_g + st * STAGE + KS * RTILE + kb * QSTEP + qg * 128;
+                        if constexpr (F32) {
+                            // 16 chunks of 4 deep: chunk c of half h (rows'
+                            // half at h TM 128, the queries' at h QB 128)
+#pragma unroll 1
+                            for (int cc = 0; cc < 16; ++cc) {
+                                const int h = cc >> 3, c = cc & 7;
+                                const unsigned char* rp = rt + h * (TM * 128) + ((c ^ sr) << 4);
+                                const unsigned char* qp = qt + h * (QB * 128) + ((c ^ qg) << 4);
+                                float4 v[8];
 #pragma unroll
-                        for (int kb = 0; kb < KS; ++kb) {
-                            if (kb < nkb) {
+                                for (int i = 0; i < 8; ++i)
+                                    v[i] = *reinterpret_cast<const float4*>(rp + i * 16 * 128);
 #pragma unroll
-                                for (int mb = 0; mb < MB; ++mb) {
-                                    const unsigned char* tk = tile_g + st * STAGE + kb * RTILE;
-                                    const int r = 64 * mb + r0;
-                                    if constexpr (INT8) {
-                                        const unsigned char* tg = tk + r * TK + 16 * t;
-                                        const uint4 x0 = *reinterpret_cast<const uint4*>(tg);
-                                        const uint4 x1 = *reinterpret_cast<const uint4*>(tg + 8 * TK);
-                                        const uint32_t w0[4] = {x0.x, x0.y, x0.z, x0.w};
-                                        const uint32_t w1[4] = {x1.x, x1.y, x1.z, x1.w};
+                                for (int j = 0; j < 8; ++j) {
+                                    const float4 q =
+                                        *reinterpret_cast<const float4*>(qp + j * 8 * 128);
 #pragma unroll
-                                        for (int kk = 0; kk < 4; ++kk) {
-                                            af[kb][mb][kk][0] = s8x2_convert<F16>(w0[kk], 0, 1);
-                                            af[kb][mb][kk][1] = s8x2_convert<F16>(w1[kk], 0, 1);
-                                            af[kb][mb][kk][2] = s8x2_convert<F16>(w0[kk], 2, 3);
-                                            af[kb][mb][kk][3] = s8x2_convert<F16>(w1[kk], 2, 3);
-                                        }
-                                    } else {
-                                        // step kk: chunk 2t + kk % 2 of half kk / 2, at
-                                        // physical chunk c ^ (row % 8) (rows r, r + 8
-                                        // share it); half h at h * TM * 128
+                                    for (int i = 0; i < 8; ++i) {
+                                        acc[i][j] = __fmaf_rn(v[i].x, q.x, acc[i][j]);
+                                        acc[i][j] = __fmaf_rn(v[i].y, q.y, acc[i][j]);
+                                        acc[i][j] = __fmaf_rn(v[i].z, q.z, acc[i][j]);
+                                        acc[i][j] = __fmaf_rn(v[i].w, q.w, acc[i][j]);
+                                    }
+                                }
+                            }
+                        } else {
+                            // 8 chunks of 8 bf16, each loaded once and widened
+                            // exactly in two halves of 4 deep; depths 8c + 4e
+                            // .. 8c + 4e + 3 are the queries' f32 chunk
+                            // (2c + e) % 8 of half c / 4
+#pragma unroll 1
+                            for (int c = 0; c < 8; ++c) {
+                                const unsigned char* rp = rt + ((c ^ sr) << 4);
+                                const unsigned char* qh = qt + (c >> 2) * (QB * 128);
+                                uint4 w[8];
 #pragma unroll
-                                        for (int kk = 0; kk < 4; ++kk) {
-                                            const int c = (2 * t + (kk & 1)) ^ (r & 7);
-                                            const unsigned char* tg =
-                                                tk + (kk >> 1) * TM * 128 + r * 128 + c * 16;
-                                            const float4 x0 = *reinterpret_cast<const float4*>(tg);
-                                            const float4 x1 =
-                                                *reinterpret_cast<const float4*>(tg + 8 * 128);
-                                            if constexpr (NV == 2) {
-                                                split_bf16x2(x0.x, x0.y, af[kb][mb][kk][0],
-                                                             al[kb][mb][kk][0]);
-                                                split_bf16x2(x1.x, x1.y, af[kb][mb][kk][1],
-                                                             al[kb][mb][kk][1]);
-                                                split_bf16x2(x0.z, x0.w, af[kb][mb][kk][2],
-                                                             al[kb][mb][kk][2]);
-                                                split_bf16x2(x1.z, x1.w, af[kb][mb][kk][3],
-                                                             al[kb][mb][kk][3]);
-                                            } else {
-                                                af[kb][mb][kk][0] = bf16x2_of(x0.x, x0.y);
-                                                af[kb][mb][kk][1] = bf16x2_of(x1.x, x1.y);
-                                                af[kb][mb][kk][2] = bf16x2_of(x0.z, x0.w);
-                                                af[kb][mb][kk][3] = bf16x2_of(x1.z, x1.w);
-                                            }
+                                for (int i = 0; i < 8; ++i)
+                                    w[i] = *reinterpret_cast<const uint4*>(rp + i * 16 * 128);
+#pragma unroll
+                                for (int e = 0; e < 2; ++e) {
+                                    float v[8][4];
+#pragma unroll
+                                    for (int i = 0; i < 8; ++i) {
+                                        const uint32_t lo = e ? w[i].z : w[i].x;
+                                        const uint32_t hi = e ? w[i].w : w[i].y;
+                                        v[i][0] = __uint_as_float(lo << 16);
+                                        v[i][1] = __uint_as_float(lo & 0xffff0000u);
+                                        v[i][2] = __uint_as_float(hi << 16);
+                                        v[i][3] = __uint_as_float(hi & 0xffff0000u);
+                                    }
+                                    const int cq = ((2 * c + e) & 7) ^ qg;
+#pragma unroll
+                                    for (int j = 0; j < 8; ++j) {
+                                        const float4 q = *reinterpret_cast<const float4*>(
+                                            qh + j * 8 * 128 + (cq << 4));
+#pragma unroll
+                                        for (int i = 0; i < 8; ++i) {
+                                            acc[i][j] = __fmaf_rn(v[i][0], q.x, acc[i][j]);
+                                            acc[i][j] = __fmaf_rn(v[i][1], q.y, acc[i][j]);
+                                            acc[i][j] = __fmaf_rn(v[i][2], q.z, acc[i][j]);
+                                            acc[i][j] = __fmaf_rn(v[i][3], q.w, acc[i][j]);
                                         }
                                     }
                                 }
                             }
                         }
                     }
-                    if constexpr (NV == 2) {
-                        // bf16x3: each k-block's three products vh.qh,
-                        // vl.qh, vh.ql per 16-deep step into the partial
-                        // (its first product overwrites it), completed,
-                        // then added to the running sum in IEEE f32
-#pragma unroll
-                        for (int kb = 0; kb < KS; ++kb)
-                            if (kb < nkb) {
-#pragma unroll
-                                for (int mb = 0; mb < MB; ++mb) fence_acc(pd[mb]);
-                                wgmma_fence();
-#pragma unroll
-                                for (int kk = 0; kk < 4; ++kk) {
-                                    const uint64_t qh = qdesc(ks, kb, kk, 0);
-                                    const uint64_t ql = qdesc(ks, kb, kk, 1);
-#pragma unroll
-                                    for (int mb = 0; mb < MB; ++mb) {
-                                        if constexpr (F32) {
-                                            const uint32_t(&h)[4] = af[kb][mb][kk];
-                                            const uint32_t(&l)[4] = al[kb][mb][kk];
-                                            wgmma_rs<false>(pd[mb], h[0], h[1], h[2], h[3], qh,
-                                                            kk > 0);
-                                            wgmma_rs<false>(pd[mb], l[0], l[1], l[2], l[3], qh);
-                                            wgmma_rs<false>(pd[mb], h[0], h[1], h[2], h[3], ql);
-                                        } else {
-                                            const uint32_t ah = tiles + st * STAGE + kb * RTILE
-                                                              + mb * 64 * 128 + kk * 32;
-                                            wgmma_ss(pd[mb], desc_sw128(ah), qh, kk > 0);
-                                            wgmma_ss(pd[mb], desc_sw128(ah + TILE), qh);
-                                            wgmma_ss(pd[mb], desc_sw128(ah), ql);
-                                        }
-                                    }
-                                }
-                                wgmma_commit();
-                                wgmma_wait<0>();
-#pragma unroll
-                                for (int mb = 0; mb < MB; ++mb) {
-                                    fence_acc(pd[mb]);
-#pragma unroll
-                                    for (int i = 0; i < 32; ++i)
-                                        d[mb][i] = __fadd_rn(d[mb][i], pd[mb][i]);
-                                }
-                            }
-                    } else if constexpr (INT8 || F32) {
-#pragma unroll
-                        for (int mb = 0; mb < MB; ++mb) fence_acc(d[mb]);
-                        wgmma_fence();
-#pragma unroll
-                        for (int kb = 0; kb < KS; ++kb)
-                            if (kb < nkb)
-#pragma unroll
-                                for (int kk = 0; kk < 4; ++kk) {
-                                    const uint64_t db = qdesc(ks, kb, kk);
-#pragma unroll
-                                    for (int mb = 0; mb < MB; ++mb)
-                                        wgmma_rs<F16>(d[mb], af[kb][mb][kk][0], af[kb][mb][kk][1],
-                                                      af[kb][mb][kk][2], af[kb][mb][kk][3], db);
-                                }
-                    } else if constexpr (NQ == 1) {
-#pragma unroll
-                        for (int mb = 0; mb < MB; ++mb) fence_acc(d[mb]);
-                        wgmma_fence();
-#pragma unroll
-                        for (int kb = 0; kb < KS; ++kb)
-                            if (kb < nkb)
-#pragma unroll
-                                for (int kk = 0; kk < 4; ++kk) {
-                                    const uint64_t db = qdesc(ks, kb, kk);
-#pragma unroll
-                                    for (int mb = 0; mb < MB; ++mb)
-                                        wgmma_ss(d[mb],
-                                                 desc_sw128(tiles + st * STAGE + kb * TILE
-                                                            + mb * 64 * 128 + kk * 32),
-                                                 db);
-                                }
-                    } else {
-                        // two query planes over bf16 rows (vl = 0): each
-                        // k-block's qh and ql products into the partial (its
-                        // first product overwrites it), completed, then added
-                        // to the running sum in IEEE f32
-#pragma unroll
-                        for (int kb = 0; kb < KS; ++kb)
-                            if (kb < nkb) {
-#pragma unroll
-                                for (int mb = 0; mb < MB; ++mb) fence_acc(pd[mb]);
-                                wgmma_fence();
-#pragma unroll
-                                for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-                                    for (int pl = 0; pl < 2; ++pl) {
-                                        const uint64_t db = qdesc(ks, kb, kk, pl);
-#pragma unroll
-                                        for (int mb = 0; mb < MB; ++mb)
-                                            wgmma_ss(pd[mb],
-                                                     desc_sw128(tiles + st * STAGE + kb * TILE
-                                                                + mb * 64 * 128 + kk * 32),
-                                                     db, kk + pl > 0);
-                                    }
-                                wgmma_commit();
-                                wgmma_wait<0>();
-#pragma unroll
-                                for (int mb = 0; mb < MB; ++mb) {
-                                    fence_acc(pd[mb]);
-#pragma unroll
-                                    for (int i = 0; i < 32; ++i)
-                                        d[mb][i] = __fadd_rn(d[mb][i], pd[mb][i]);
-                                }
-                            }
-                    }
-                    if constexpr (NQ == 1) {
-                        wgmma_commit();
-                        wgmma_wait<0>();
-#pragma unroll
-                        for (int mb = 0; mb < MB; ++mb) fence_acc(d[mb]);
-                    }
-                    // release the stage: the warpgroup's products on it are
-                    // complete (wgmma.wait_group is warpgroup-wide), so one
-                    // of its warps speaks for it
-                    if (wq == (st & 3) && lane == 0) mbar_arrive(bars + 8 * (S + st));
+                    // release the stage: each thread's reads of it are done
+                    // (the arrive orders them before the producer's reuse)
+                    mbar_arrive(bars + 8 * (S + st));
                     advance();
                     advance();
                 }
-                // accumulator element i of m-block mb: row 64 mb + r0 + 8
-                // ((i >> 1) & 1), query slot 2 (i >> 2) + (i & 1)
 #pragma unroll
-                for (int mb = 0; mb < MB; ++mb) {
-                    if constexpr (NSIDE > 0) {
-                        key.prep(sv[mb][0]);
-                        key.prep(sv[mb][1]);
-                    }
+                for (int i = 0; i < 8; ++i) {
+                    if constexpr (NSIDE > 0) key.prep(sv[i]);
 #pragma unroll
-                    for (int i = 0; i < 32; ++i) {
-                        const int j = 2 * (i >> 2) + (i & 1);
-                        const float dot = F16 ? d[mb][i] * qmul[j] : d[mb][i];
+                    for (int j = 0; j < 8; ++j) {
                         if constexpr (NSIDE > 0)
-                            best[j] = fmaxf(best[j], key(dot, sv[mb][(i >> 1) & 1], j));
+                            best[j] = fmaxf(best[j], key(acc[i][j], sv[i], j));
                         else
-                            best[j] = fmaxf(best[j], key(dot, j));
+                            best[j] = fmaxf(best[j], key(acc[i][j], j));
                     }
                 }
             }
+            // the 8 lanes of a quarter-warp hold the same queries
 #pragma unroll
-            for (int j = 0; j < 16; ++j) {
+            for (int j = 0; j < 8; ++j) {
+                best[j] = fmaxf(best[j], __shfl_xor_sync(0xffffffffu, best[j], 1));
+                best[j] = fmaxf(best[j], __shfl_xor_sync(0xffffffffu, best[j], 2));
                 best[j] = fmaxf(best[j], __shfl_xor_sync(0xffffffffu, best[j], 4));
-                best[j] = fmaxf(best[j], __shfl_xor_sync(0xffffffffu, best[j], 8));
-                best[j] = fmaxf(best[j], __shfl_xor_sync(0xffffffffu, best[j], 16));
             }
-            if (lane < 4) {
+            if ((lane & 7) == 0) {
 #pragma unroll
-                for (int j = 0; j < 16; ++j) atomicMax(red_g + cols[j], ordered(best[j]));
+                for (int j = 0; j < 8; ++j) atomicMax(red_g + cols[j], ordered(best[j]));
             }
             asm volatile("bar.sync 1, 256;" ::: "memory");
             if (tid < QB) {
@@ -902,9 +843,310 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
             }
             asm volatile("bar.sync 1, 256;" ::: "memory");  // reset before the next bin's maxima
         }
-    };
-    if (f16) walk(std::true_type{});
-    else walk(std::false_type{});
+    } else {
+        // warpgroup w takes the TM-row sub-tiles w, w + 2, ... of every bin: in
+        // m-block mb (rows 64 mb ..) warp wq holds rows 64 mb + 16 wq + g and
+        // + 8. The two warpgroups work on different ring stages, so one
+        // converts, waits and releases while the other's products run.
+        const int g = lane >> 2, t = lane & 3;
+        const int r0 = wq * 16 + g;
+        // query slot j (0..15) of this thread: column 8 (j / 2) + 2 t + j % 2
+        int cols[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) cols[j] = 8 * (j >> 1) + 2 * t + (j & 1);
+        const auto key = make_key(qblk * QB, cols);
+        bool f16 = false;
+        if constexpr (!STREAM) {
+            mbar_wait(bars + 16 * S, 0);
+            if constexpr (INT8 && !S8) f16 = queries_to_f16(gbase, nk, tid, f16_flag, unscale_g);
+        }
+
+        // the bin walk, with f16 (int8 rows only) or bf16 products
+        const auto walk = [&](auto f16_tag) {
+            constexpr bool F16 = decltype(f16_tag)::value;
+            float qmul[16];  // 2^-s of each query slot (f16 products)
+            if constexpr (F16) {
+#pragma unroll
+                for (int j = 0; j < 16; ++j) qmul[j] = unscale_g[cols[j]];
+            }
+            int st = 0;
+            uint32_t ph = 0;
+            const auto advance = [&]() { if (++st == S) { st = 0; ph ^= 1; } };
+            if (wg == 1) advance();  // the ring alternates between the warpgroups
+            // B of plane pl of k-block kb of depth step ks: resident, or in the
+            // stage
+            const auto qdesc = [&](int ks, int kb, int kk, int pl = 0) {
+                const uint32_t off = pl * QBLK + kk * 32;
+                return desc_sw128(STREAM ? tiles + st * STAGE + KS * RTILE + kb * QSTEP + off
+                                         : q_s + (ks * KS + kb) * QSTEP + off);
+            };
+            for (int slot = p0; slot < n_surv; slot += P) {
+                const int bin = a.surv[slot];
+                float best[16];
+#pragma unroll
+                for (int j = 0; j < 16; ++j) best[j] = -INFINITY;
+                for (int sp = 0; sp < BIN / TM / 2; ++sp) {
+                    // the rows' side data, read now and first used after the
+                    // sub-tile's products
+                    const size_t row = (size_t)bin * BIN + (2 * sp + wg) * TM + r0;
+                    float sv[MB][2][NSIDE > 0 ? NSIDE : 1];
+#pragma unroll
+                    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+                        for (int j = 0; j < NSIDE; ++j) {
+                            sv[mb][0][j] = __ldg(a.side[j] + row + 64 * mb);
+                            sv[mb][1][j] = __ldg(a.side[j] + row + 64 * mb + 8);
+                        }
+                    // exact s32 sums of int8 products (K2), else f32
+                    std::conditional_t<S8, int, float> d[MB][32];
+                    [[maybe_unused]] float pd[NQ == 2 ? MB : 1][32];  // a k-block's partial (NQ = 2)
+#pragma unroll
+                    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+                        for (int i = 0; i < 32; ++i) d[mb][i] = 0;
+                    if constexpr (NQ == 2) {
+#pragma unroll
+                        for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+                            for (int i = 0; i < 32; ++i) pd[mb][i] = 0.f;
+                    }
+                    // the sub-tile's ring stages, each waited for, multiplied to
+                    // completion and released: the other warpgroup's products
+                    // keep the tensor cores busy meanwhile
+                    for (int ks = 0; ks < nks; ++ks) {
+                        const int nkb = min(KS, nk - ks * KS);
+                        mbar_wait(bars + 8 * st, ph);
+                        // A from registers (int8 rows with bf16 queries, f32
+                        // rows): a0 (row g, depth
+                        // 2t..2t+1), a1 (row g + 8), a2 (row g, depth 2t + 8..),
+                        // a3 (row g + 8, depth 2t + 8..) of each 16-deep step kk;
+                        // al the low plane of split f32 rows (NV = 2)
+                        [[maybe_unused]] uint32_t af[KS][MB][4][4];
+                        [[maybe_unused]] uint32_t al[NV == 2 && F32 ? KS : 1][MB][4][4];
+                        if constexpr ((INT8 && !S8) || F32) {
+#pragma unroll
+                            for (int kb = 0; kb < KS; ++kb) {
+                                if (kb < nkb) {
+#pragma unroll
+                                    for (int mb = 0; mb < MB; ++mb) {
+                                        const unsigned char* tk = tile_g + st * STAGE + kb * RTILE;
+                                        const int r = 64 * mb + r0;
+                                        if constexpr (INT8) {
+                                            const unsigned char* tg = tk + r * TK + 16 * t;
+                                            const uint4 x0 = *reinterpret_cast<const uint4*>(tg);
+                                            const uint4 x1 = *reinterpret_cast<const uint4*>(tg + 8 * TK);
+                                            const uint32_t w0[4] = {x0.x, x0.y, x0.z, x0.w};
+                                            const uint32_t w1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+                                            for (int kk = 0; kk < 4; ++kk) {
+                                                af[kb][mb][kk][0] = s8x2_convert<F16>(w0[kk], 0, 1);
+                                                af[kb][mb][kk][1] = s8x2_convert<F16>(w1[kk], 0, 1);
+                                                af[kb][mb][kk][2] = s8x2_convert<F16>(w0[kk], 2, 3);
+                                                af[kb][mb][kk][3] = s8x2_convert<F16>(w1[kk], 2, 3);
+                                            }
+                                        } else {
+                                            // step kk: chunk 2t + kk % 2 of half kk / 2, at
+                                            // physical chunk c ^ (row % 8) (rows r, r + 8
+                                            // share it); half h at h * TM * 128
+#pragma unroll
+                                            for (int kk = 0; kk < 4; ++kk) {
+                                                const int c = (2 * t + (kk & 1)) ^ (r & 7);
+                                                const unsigned char* tg =
+                                                    tk + (kk >> 1) * TM * 128 + r * 128 + c * 16;
+                                                const float4 x0 = *reinterpret_cast<const float4*>(tg);
+                                                const float4 x1 =
+                                                    *reinterpret_cast<const float4*>(tg + 8 * 128);
+                                                if constexpr (NV == 2) {
+                                                    split_bf16x2(x0.x, x0.y, af[kb][mb][kk][0],
+                                                                 al[kb][mb][kk][0]);
+                                                    split_bf16x2(x1.x, x1.y, af[kb][mb][kk][1],
+                                                                 al[kb][mb][kk][1]);
+                                                    split_bf16x2(x0.z, x0.w, af[kb][mb][kk][2],
+                                                                 al[kb][mb][kk][2]);
+                                                    split_bf16x2(x1.z, x1.w, af[kb][mb][kk][3],
+                                                                 al[kb][mb][kk][3]);
+                                                } else {
+                                                    af[kb][mb][kk][0] = bf16x2_of(x0.x, x0.y);
+                                                    af[kb][mb][kk][1] = bf16x2_of(x1.x, x1.y);
+                                                    af[kb][mb][kk][2] = bf16x2_of(x0.z, x0.w);
+                                                    af[kb][mb][kk][3] = bf16x2_of(x1.z, x1.w);
+                                                }
+                                            }
+                                        }
+                                    }
+                                }
+                            }
+                        }
+                        if constexpr (NV == 2) {
+                            // bf16x3: each k-block's three products vh.qh,
+                            // vl.qh, vh.ql per 16-deep step into the partial
+                            // (its first product overwrites it), completed,
+                            // then added to the running sum in IEEE f32
+#pragma unroll
+                            for (int kb = 0; kb < KS; ++kb)
+                                if (kb < nkb) {
+#pragma unroll
+                                    for (int mb = 0; mb < MB; ++mb) fence_acc(pd[mb]);
+                                    wgmma_fence();
+#pragma unroll
+                                    for (int kk = 0; kk < 4; ++kk) {
+                                        const uint64_t qh = qdesc(ks, kb, kk, 0);
+                                        const uint64_t ql = qdesc(ks, kb, kk, 1);
+#pragma unroll
+                                        for (int mb = 0; mb < MB; ++mb) {
+                                            if constexpr (F32) {
+                                                const uint32_t(&h)[4] = af[kb][mb][kk];
+                                                const uint32_t(&l)[4] = al[kb][mb][kk];
+                                                wgmma_rs<false>(pd[mb], h[0], h[1], h[2], h[3], qh,
+                                                                kk > 0);
+                                                wgmma_rs<false>(pd[mb], l[0], l[1], l[2], l[3], qh);
+                                                wgmma_rs<false>(pd[mb], h[0], h[1], h[2], h[3], ql);
+                                            } else {
+                                                const uint32_t ah = tiles + st * STAGE + kb * RTILE
+                                                                  + mb * 64 * 128 + kk * 32;
+                                                wgmma_ss(pd[mb], desc_sw128(ah), qh, kk > 0);
+                                                wgmma_ss(pd[mb], desc_sw128(ah + TILE), qh);
+                                                wgmma_ss(pd[mb], desc_sw128(ah), ql);
+                                            }
+                                        }
+                                    }
+                                    wgmma_commit();
+                                    wgmma_wait<0>();
+#pragma unroll
+                                    for (int mb = 0; mb < MB; ++mb) {
+                                        fence_acc(pd[mb]);
+#pragma unroll
+                                        for (int i = 0; i < 32; ++i)
+                                            d[mb][i] = __fadd_rn(d[mb][i], pd[mb][i]);
+                                    }
+                                }
+                        } else if constexpr ((INT8 && !S8) || F32) {
+#pragma unroll
+                            for (int mb = 0; mb < MB; ++mb) fence_acc(d[mb]);
+                            wgmma_fence();
+#pragma unroll
+                            for (int kb = 0; kb < KS; ++kb)
+                                if (kb < nkb)
+#pragma unroll
+                                    for (int kk = 0; kk < 4; ++kk) {
+                                        const uint64_t db = qdesc(ks, kb, kk);
+#pragma unroll
+                                        for (int mb = 0; mb < MB; ++mb)
+                                            wgmma_rs<F16>(d[mb], af[kb][mb][kk][0], af[kb][mb][kk][1],
+                                                          af[kb][mb][kk][2], af[kb][mb][kk][3], db);
+                                    }
+                        } else if constexpr (NQ == 1) {
+                            // A by descriptor: bf16 rows (k16 steps) or int8
+                            // rows with int8 queries (k32 steps, s32 sums); 4
+                            // steps of 32 B a k-block either way
+#pragma unroll
+                            for (int mb = 0; mb < MB; ++mb) fence_acc(d[mb]);
+                            wgmma_fence();
+#pragma unroll
+                            for (int kb = 0; kb < KS; ++kb)
+                                if (kb < nkb)
+#pragma unroll
+                                    for (int kk = 0; kk < 4; ++kk) {
+                                        const uint64_t db = qdesc(ks, kb, kk);
+#pragma unroll
+                                        for (int mb = 0; mb < MB; ++mb)
+                                            wgmma_ss(d[mb],
+                                                     desc_sw128(tiles + st * STAGE + kb * TILE
+                                                                + mb * 64 * 128 + kk * 32),
+                                                     db);
+                                    }
+                        } else {
+                            // two query planes over bf16 rows (vl = 0): each
+                            // k-block's qh and ql products into the partial (its
+                            // first product overwrites it), completed, then added
+                            // to the running sum in IEEE f32
+#pragma unroll
+                            for (int kb = 0; kb < KS; ++kb)
+                                if (kb < nkb) {
+#pragma unroll
+                                    for (int mb = 0; mb < MB; ++mb) fence_acc(pd[mb]);
+                                    wgmma_fence();
+#pragma unroll
+                                    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                                        for (int pl = 0; pl < 2; ++pl) {
+                                            const uint64_t db = qdesc(ks, kb, kk, pl);
+#pragma unroll
+                                            for (int mb = 0; mb < MB; ++mb)
+                                                wgmma_ss(pd[mb],
+                                                         desc_sw128(tiles + st * STAGE + kb * TILE
+                                                                    + mb * 64 * 128 + kk * 32),
+                                                         db, kk + pl > 0);
+                                        }
+                                    wgmma_commit();
+                                    wgmma_wait<0>();
+#pragma unroll
+                                    for (int mb = 0; mb < MB; ++mb) {
+                                        fence_acc(pd[mb]);
+#pragma unroll
+                                        for (int i = 0; i < 32; ++i)
+                                            d[mb][i] = __fadd_rn(d[mb][i], pd[mb][i]);
+                                    }
+                                }
+                        }
+                        if constexpr (NQ == 1) {
+                            wgmma_commit();
+                            wgmma_wait<0>();
+#pragma unroll
+                            for (int mb = 0; mb < MB; ++mb) fence_acc(d[mb]);
+                        }
+                        // release the stage: the warpgroup's products on it are
+                        // complete (wgmma.wait_group is warpgroup-wide), so one
+                        // of its warps speaks for it
+                        if (wq == (st & 3) && lane == 0) mbar_arrive(bars + 8 * (S + st));
+                        advance();
+                        advance();
+                    }
+                    // accumulator element i of m-block mb: row 64 mb + r0 + 8
+                    // ((i >> 1) & 1), query slot 2 (i >> 2) + (i & 1)
+#pragma unroll
+                    for (int mb = 0; mb < MB; ++mb) {
+                        if constexpr (NSIDE > 0) {
+                            key.prep(sv[mb][0]);
+                            key.prep(sv[mb][1]);
+                        }
+#pragma unroll
+                        for (int i = 0; i < 32; ++i) {
+                            const int j = 2 * (i >> 2) + (i & 1);
+                            float dot;
+                            if constexpr (S8)
+                                dot = __int2float_rn(d[mb][i]);  // JAX's astype: nearest even
+                            else
+                                dot = F16 ? d[mb][i] * qmul[j] : d[mb][i];
+                            if constexpr (NSIDE > 0)
+                                best[j] = fmaxf(best[j], key(dot, sv[mb][(i >> 1) & 1], j));
+                            else
+                                best[j] = fmaxf(best[j], key(dot, j));
+                        }
+                    }
+                }
+#pragma unroll
+                for (int j = 0; j < 16; ++j) {
+                    best[j] = fmaxf(best[j], __shfl_xor_sync(0xffffffffu, best[j], 4));
+                    best[j] = fmaxf(best[j], __shfl_xor_sync(0xffffffffu, best[j], 8));
+                    best[j] = fmaxf(best[j], __shfl_xor_sync(0xffffffffu, best[j], 16));
+                }
+                if (lane < 4) {
+#pragma unroll
+                    for (int j = 0; j < 16; ++j) atomicMax(red_g + cols[j], ordered(best[j]));
+                }
+                asm volatile("bar.sync 1, 256;" ::: "memory");
+                if (tid < QB) {
+                    const int q = qblk * QB + tid;
+                    if (q < a.b) a.out[(size_t)bin * a.b + q] = unordered(red_g[tid]);
+                    red_g[tid] = ordered(-INFINITY);
+                }
+                asm volatile("bar.sync 1, 256;" ::: "memory");  // reset before the next bin's maxima
+            }
+        };
+        if (f16) walk(std::true_type{});
+        else walk(std::false_type{});
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -954,26 +1196,34 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// the maps of one launch: queries [bq, dq] bf16 (dq a multiple of 64, 128 B
-// swizzled boxes of 64 x 64; with two planes bq is twice the padded batch)
-// and rows [n_pad, d] (TM-row boxes of 64 deep: bf16 swizzled for wgmma's
-// descriptor, int8 plain for the fragment loads; f32 two swizzled boxes of
-// 32 deep a k-block); with v2 (two bf16 row arrays) the second row map
-template <typename RowT, int TM>
+// the data type of a map over elements of type T
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+    return sizeof(T) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+         : sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+}
+
+// the maps of one launch: queries [bq, dq] of QT (dq a multiple of the
+// k-block depth; 128 B swizzled boxes of 64 queries x 128 B: 64 bf16, 128
+// int8, 32 f32; with two planes bq is twice the padded batch) and rows
+// [n_pad, d] (TM-row boxes of one k-block, 128 B swizzled for wgmma's
+// descriptor and the FFMA loads; int8 rows under bf16 queries 64 deep and
+// plain, for the fragment loads; f32 rows two boxes of 32 deep a k-block);
+// with v2 (two bf16 row arrays) the second row map
+template <typename RowT, int TM, typename QT = __nv_bfloat16>
 inline bool make_maps(CUtensorMap* qmap, CUtensorMap* vmap, const void* q, int bq, int dq,
                       const void* v, long long n_pad, int d, CUtensorMap* vmap2 = nullptr,
                       const void* v2 = nullptr) {
     constexpr int ELT = (int)sizeof(RowT);
-    const CUtensorMapDataType vt = ELT == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                                 : ELT == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    constexpr bool PLAIN = ELT == 1 && sizeof(QT) != 1;  // K1's int8 rows
     const auto row_map = [&](CUtensorMap* map, const void* rows) {
-        return make_map(map, vt, rows, (uint64_t)n_pad, (uint64_t)d, (uint64_t)d * ELT, TM,
-                        ELT == 4 ? TK / 2 : TK,
-                        ELT == 1 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+        return make_map(map, map_type<RowT>(), rows, (uint64_t)n_pad, (uint64_t)d,
+                        (uint64_t)d * ELT, TM, PLAIN ? TK : 128 / ELT,
+                        PLAIN ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
     };
-    return make_map(qmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, (uint64_t)bq, (uint64_t)dq,
-                    (uint64_t)dq * 2, QB, TK, CU_TENSOR_MAP_SWIZZLE_128B)
+    return make_map(qmap, map_type<QT>(), q, (uint64_t)bq, (uint64_t)dq,
+                    (uint64_t)dq * sizeof(QT), QB, 128 / sizeof(QT), CU_TENSOR_MAP_SWIZZLE_128B)
         && row_map(vmap, v) && (vmap2 == nullptr || row_map(vmap2, v2));
 }
 
@@ -986,26 +1236,27 @@ inline bool make_maps(CUtensorMap* qmap, CUtensorMap* vmap, const void* q, int b
 // two row maps, which passes the kernel's own arguments. Returns a CUDA
 // error code (cudaErrorInvalidValue when a map cannot be encoded).
 template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1,
-          typename GetKernel, typename LaunchFn>
+          typename QT = __nv_bfloat16, typename GetKernel, typename LaunchFn>
 int launch_plan(const GetKernel& get_kernel, const LaunchFn& launch_fn, const void* q,
                 const void* v, const float* const* side, int n_side, const void* surv,
                 const void* n_surv, void* out, int n_bins, int d, int b, int dq, int n_qb,
                 int per_group, const void* v2 = nullptr) {
     constexpr bool TWO_MAPS = row_planes<RowT, NV>() == 2;
-    if (n_qb < 1 || per_group < 1 || dq % TK || TWO_MAPS != (v2 != nullptr))
+    if (n_qb < 1 || per_group < 1 || dq % kdepth<QT>() || TWO_MAPS != (v2 != nullptr))
         return (int)cudaErrorInvalidValue;
-    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV>(d, [&](auto ks, auto tm, auto st) {
+    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV, QT>(d, [&](auto ks, auto tm, auto st) {
         constexpr int KS = decltype(ks)::value, TM = decltype(tm)::value;
         constexpr bool STREAM = decltype(st)::value;
         const auto kernel = get_kernel(ks, tm, st);
-        const int stages = stages_for<RowT, KS, TM, STREAM, NQ, NV>(d);
-        const size_t smem = smem_bytes<RowT, KS, TM, STREAM, NQ, NV>(d, stages);
+        const int stages = stages_for<RowT, KS, TM, STREAM, NQ, NV, QT>(d);
+        const size_t smem = smem_bytes<RowT, KS, TM, STREAM, NQ, NV, QT>(d, stages);
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
         CUtensorMap qmap, vmap, vmap2;
-        if (!make_maps<RowT, TM>(&qmap, &vmap, q, NQ * n_qb * QB, dq, v, (long long)n_bins * BIN,
-                                 d, TWO_MAPS ? &vmap2 : nullptr, v2))
+        if (!make_maps<RowT, TM, QT>(&qmap, &vmap, q, NQ * n_qb * QB, dq, v,
+                                     (long long)n_bins * BIN, d, TWO_MAPS ? &vmap2 : nullptr,
+                                     v2))
             return (int)cudaErrorInvalidValue;
         ScanArgs a = {};
         a.surv = (const int*)surv;

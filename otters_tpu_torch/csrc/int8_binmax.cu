@@ -1,190 +1,107 @@
 // K2: uncertified int8 bin maxima, for Hopper (sm_90a).
 //
 // Replaces otters_tpu/ops/pallas_topk.py::_kernel in its int8 mode
-// (certify=False, q_ref.dtype == int8): symmetric int8 queries times int8
-// rows with int32 accumulation, which is exact at any dimension, then the
-// masked key of binmax_common.cuh and its maximum over each live 512-row
-// bin. The int32 dots are bit for bit those of an exact integer product.
+// (certify=False, q_ref.dtype == int8, :149-155): symmetric int8 queries
+// times int8 rows with int32 accumulation, which is exact at any dimension
+// below the wrapper's limit, the int32 dot converted to f32 (JAX's astype),
+// then the masked key of binmax_common.cuh and its maximum over each live
+// 512-row bin. The int32 dots are bit for bit those of an exact integer
+// product.
 //
-// Design. As K1: the survivor list (live bins, ascending, and their count)
-// is built on the device; a block takes one live bin and 64 queries. The
-// block's int8 queries sit in shared memory for the whole bin; the bin's
-// rows stream through in 128-row x 64-deep int8 tiles. Tensor-core WMMA
-// 16x16x16 products of signed char with int accumulators (the s8 x s8 ->
-// s32 mma); each 128-row sub-tile's int32 dots go through shared memory to
-// the epilogue, which folds them into a running per-query max. WMMA wants
-// 32-byte aligned fragments, so both operands are stored slab-major: a
-// 16-byte k-slab of every row is contiguous ([k/16][rows][16]). Rows
-// whose d is not a multiple of 16 are zero-padded in shared memory.
+// Design: the scan of csrc/cert_scan_sm90.cuh with int8 queries (QT =
+// int8): a persistent grid over the survivor list, the query block resident
+// in shared memory (streamed through the ring for deep rows: any d), a TMA
+// ring feeding two ping-pong consumer warpgroups, and wgmma
+// m64n64k32.s32.s8.s8 with rows as A and the queries as B, both read by
+// descriptor from 128-byte swizzled k-blocks of 128 int8 codes (128 B a
+// row): no register loads, no conversion, no query permutation, no f16
+// rewrite, int32 accumulators in registers (32 a thread per m-block). Each
+// accumulator is converted with __int2float_rn and handed to the key of
+// K6 and K4 (binmax_common.cuh SlotKey, side data {inv, nsq, rmask}), so
+// every metric, take-min and score filter is the one of the other
+// uncertified kernels. A stage holds one k-block of 256 rows (32 KB; of
+// 128 rows when fewer than 4 stages fit beside the resident query block,
+// whose 48 KB at d = 768 leave 4 stages of 256 rows), K1-bf16's shapes,
+// whose k-blocks are 128 B a row too.
 //
 // Bound at the main path's shapes (10M x 768 int8 store, 256 queries, half
 // of the 1024-row chunks pruned: 5,000,192 live rows): 3.84 GB of rows,
 // 1.15 ms at 3.35 TB/s; 1.97 T int8 operations, 0.99 ms at 1,979 TOP/s. So
-// bytes bound it. This first version is simple (synchronous loads, WMMA,
-// the query block re-read per bin); wgmma and TMA are later work.
+// bytes bound it, as they bound K1-bf16 and K6-bf16, whose stages move the
+// same bytes a row tile.
 //
 // Hazards handled:
 // - Exactness: int32 accumulation cannot overflow for 127^2 d < 2^31 (the
-//   wrapper checks d); the int -> float conversion rounds to nearest like
-//   JAX's astype (exact below 2^24, i.e. d <= 1040).
+//   wrapper checks d); __int2float_rn rounds to nearest even like JAX's
+//   astype (exact below 2^24, i.e. d <= 1040).
+// - The rows' depth is a multiple of 16 (the store pads it), so their TMA
+//   stride is a multiple of 16 bytes; the last k-block past the depth is
+//   filled with zeros by TMA, and the wrapper pads the queries' depth to a
+//   multiple of 128 with zeros.
 // - Padded query rows (q_ok = 0) come out -inf; out is written only for
-//   query lanes < b. n_surv = 0 launches safely (every block returns).
-// - Launch errors: the launcher returns cudaGetLastError(); the Python
+//   query lanes < b; n_surv = 0 launches safely.
+// - Launch errors: the launcher returns a CUDA error code; the Python
 //   wrapper raises when it is not 0.
 
-#include <mma.h>
-
 #include "binmax_common.cuh"
+#include "cert_scan_sm90.cuh"
 
-using namespace nvcuda;
 using namespace binmax;
 
 namespace {
 
-constexpr int RN = 128;       // rows per sub-tile
-constexpr int BK = 64;        // depth per staged tile, bytes
-constexpr int CLD = RN + 4;   // int32 dot tile leading dimension
-
-__global__ void __launch_bounds__(THREADS) int8_binmax_kernel(
-    const int8_t* __restrict__ q,      // [bq, d]
-    const int8_t* __restrict__ v,      // [n_pad, d]
-    const float* __restrict__ inv,     // [n_pad]
-    const float* __restrict__ nsq,     // [n_pad]
-    const float* __restrict__ rmask,   // [n_pad] 0/1
-    const float* __restrict__ q_inv,   // [bq]
-    const float* __restrict__ q_sq,    // [bq]
-    const float* __restrict__ q_ok,    // [bq] 0/1
-    const float* __restrict__ thr,     // [1]
-    const int* __restrict__ surv,      // [n_bins] live bins, ascending
-    const int* __restrict__ n_surv,    // [1]
-    float* __restrict__ out,           // [n_bins, b], pre-filled -inf
-    int d, int b, int n_qblocks, int metric, int take_min, int cmp)
+template <int KS, int TM, bool STREAM>
+__global__ void __launch_bounds__(sm90::THREADS, 1) int8_binmax_sm90_kernel(
+    const __grid_constant__ CUtensorMap qmap,  // [bq, dq] int8 queries
+    const __grid_constant__ CUtensorMap vmap,  // [n_pad, d] int8 rows
+    const sm90::ScanArgs a,                    // side = {inv, nsq, rmask}
+    const float* __restrict__ q_inv,           // [bq] of the int8 queries
+    const float* __restrict__ q_sq,            // [bq] of the int8 queries
+    const float* __restrict__ q_ok,            // [bq] 0/1
+    const float* __restrict__ thr,             // [1]
+    int metric, int take_min, int cmp)
 {
-    const int slot = blockIdx.x / n_qblocks;
-    if (slot >= *n_surv) return;
-    const int qblk = blockIdx.x - slot * n_qblocks;
-    const int bin = surv[slot];
-    const int q0 = qblk * QB;
-    const int dk = (d + 15) / 16;  // 16-byte k-slabs
-    const bool vec = (d % 16) == 0;
-
-    extern __shared__ __align__(128) unsigned char smem[];
-    signed char* qs = reinterpret_cast<signed char*>(smem);        // [dk][QB][16]
-    signed char* vs = qs + (size_t)dk * QB * 16;                    // [BK/16][RN][16]
-    int* cs = reinterpret_cast<int*>(vs + (BK / 16) * RN * 16);     // [QB][CLD]
-
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5;
-    const int wm = warp >> 2;  // 32-query half
-    const int wn = warp & 3;   // 32-row quarter
-
-    for (int i = tid; i < QB * dk; i += THREADS) {
-        const int r = i / dk, s = i - r * dk;
-        const int kk = s * 16;
-        *reinterpret_cast<int4*>(qs + ((size_t)s * QB + r) * 16) =
-            load16(q + (size_t)(q0 + r) * d + kk, d - kk, vec);
-    }
-
-    // epilogue ownership: 4 adjacent threads per query, 32 rows each
-    const int eq = tid >> 2;
-    const int esub = tid & 3;
-    const float qi = q_inv[q0 + eq];
-    const float qsq = q_sq[q0 + eq];
-    const bool qok = q_ok[q0 + eq] > 0.f;
     const float t = *thr;
-    const float sgn = take_min ? -1.f : 1.f;
-    const int cmask = cmp_mask(cmp);
-    float best = -INFINITY;
-    __syncthreads();
-
-    for (int rs = 0; rs < BIN / RN; ++rs) {
-        const size_t row0 = (size_t)bin * BIN + (size_t)rs * RN;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-        for (int k0 = 0; k0 < dk * 16; k0 += BK) {
-            for (int i = tid; i < RN * (BK / 16); i += THREADS) {
-                const int r = i / (BK / 16), c = i - r * (BK / 16);
-                const int kk = k0 + c * 16;
-                const int4 val = kk < d
-                    ? load16(v + (row0 + r) * (size_t)d + kk, d - kk, vec)
-                    : make_int4(0, 0, 0, 0);
-                *reinterpret_cast<int4*>(vs + ((size_t)c * RN + r) * 16) = val;
-            }
-            __syncthreads();
-            const int kmax = min(BK, dk * 16 - k0);
-            for (int kk = 0; kk < kmax; kk += 16) {
-                const int s = (k0 + kk) / 16;
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                               wmma::row_major> a[2];
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                               wmma::col_major> bm[2];
-#pragma unroll
-                for (int i = 0; i < 2; ++i)
-                    wmma::load_matrix_sync(
-                        a[i], qs + ((size_t)s * QB + wm * 32 + i * 16) * 16, 16);
-#pragma unroll
-                for (int j = 0; j < 2; ++j)
-                    wmma::load_matrix_sync(
-                        bm[j], vs + ((size_t)(kk / 16) * RN + wn * 32 + j * 16) * 16, 16);
-#pragma unroll
-                for (int i = 0; i < 2; ++i)
-#pragma unroll
-                    for (int j = 0; j < 2; ++j)
-                        wmma::mma_sync(acc[i][j], a[i], bm[j], acc[i][j]);
-            }
-            __syncthreads();
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-                wmma::store_matrix_sync(
-                    cs + (wm * 32 + i * 16) * CLD + wn * 32 + j * 16,
-                    acc[i][j], CLD, wmma::mem_row_major);
-        __syncthreads();
-
-        for (int r = esub * 32; r < esub * 32 + 32; ++r) {
-            const size_t row = row0 + r;
-            const float dot = __int2float_rn(cs[eq * CLD + r]);
-            best = fmaxf(best, key_of(dot, qi, qsq, qok, inv[row], nsq[row],
-                                      rmask[row], t, metric, sgn, cmask));
-        }
-        __syncthreads();  // cs is rewritten by the next sub-tile
-    }
-
-    best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, 1));
-    best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, 2));
-    if (esub == 0 && q0 + eq < b) out[(size_t)bin * b + q0 + eq] = best;
+    const auto make_key = [&](int q0, const int (&cols)[16]) {
+        return make_slot_key(q0, cols, q_inv, q_sq, q_ok, t, metric, take_min, cmp);
+    };
+    sm90::scan<int8_t, SlotKey::NSIDE, KS, TM, STREAM, 1, 1, int8_t>(&qmap, &vmap, a,
+                                                                     make_key);
 }
+
+// the stage shapes (sm90::with_plan): one k-block of 256 rows, of 128
+// when fewer than 4 stages fit; streamed past 2
+constexpr int KS1 = 1, TM1 = 256, KS2 = 1, TM2 = 128;
 
 }  // namespace
 
 extern "C" size_t int8_binmax_smem_bytes(int d) {
-    const int dk = (d + 15) / 16;
-    return (size_t)dk * QB * 16 + (size_t)(BK / 16) * RN * 16
-         + (size_t)QB * CLD * sizeof(int);
+    return sm90::plan_smem<int8_t, KS1, TM1, KS2, TM2, 1, 1, int8_t>(d);
+}
+extern "C" int int8_binmax_stages(int d) {
+    return sm90::plan_stages<int8_t, KS1, TM1, KS2, TM2, 1, 1, int8_t>(d);
 }
 
 extern "C" int int8_binmax_launch(
     const void* q, const void* v, const void* inv, const void* nsq,
     const void* rmask, const void* q_inv, const void* q_sq, const void* q_ok,
     const void* thr, const void* surv, const void* n_surv, void* out,
-    int n_bins, int d, int b, int n_qblocks, int metric, int take_min, int cmp,
-    void* stream)
+    int n_bins, int d, int b, int dq, int n_qb, int per_group, int metric, int take_min,
+    int cmp, void* stream)
 {
-    const size_t smem = int8_binmax_smem_bytes(d);
-    cudaError_t err = cudaFuncSetAttribute(
-        int8_binmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)n_bins * (unsigned)n_qblocks);
-    int8_binmax_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        (const int8_t*)q, (const int8_t*)v, (const float*)inv, (const float*)nsq,
-        (const float*)rmask, (const float*)q_inv, (const float*)q_sq,
-        (const float*)q_ok, (const float*)thr, (const int*)surv,
-        (const int*)n_surv, (float*)out, d, b, n_qblocks, metric, take_min, cmp);
-    return (int)cudaGetLastError();
+    const float* side[SlotKey::NSIDE] = {(const float*)inv, (const float*)nsq,
+                                         (const float*)rmask};
+    const auto get_kernel = [](auto ks, auto tm, auto st) {
+        return int8_binmax_sm90_kernel<decltype(ks)::value, decltype(tm)::value,
+                                       decltype(st)::value>;
+    };
+    const auto launch_fn = [&](auto kernel, dim3 grid, size_t smem, const CUtensorMap& qmap,
+                               const CUtensorMap& vmap, const sm90::ScanArgs& a) {
+        kernel<<<grid, sm90::THREADS, smem, (cudaStream_t)stream>>>(
+            qmap, vmap, a, (const float*)q_inv, (const float*)q_sq, (const float*)q_ok,
+            (const float*)thr, metric, take_min, cmp);
+    };
+    return sm90::launch_plan<int8_t, KS1, TM1, KS2, TM2, 1, 1, int8_t>(
+        get_kernel, launch_fn, q, v, side, SlotKey::NSIDE, surv, n_surv, out, n_bins, d, b,
+        dq, n_qb, per_group);
 }

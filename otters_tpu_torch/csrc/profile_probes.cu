@@ -16,10 +16,11 @@
 //
 // They exist to time the whole tile product, so they keep no pruning, no
 // mask and no metric. Designs:
-// - probe_mm / probe_mm_bins: K3's exact-f32 core (csrc/f32_binmax.cu): a
-//   block takes one 512-row bin and 64 queries, stages 32-deep tiles
-//   transposed in shared memory, and each thread keeps a 4-query x 8-row
-//   register tile of FFMA accumulators (no TF32, no tensor cores).
+// - probe_mm / probe_mm_bins: a simple exact-f32 FFMA core: a block takes
+//   one 512-row bin and 64 queries, stages 32-deep tiles transposed in
+//   shared memory, and each thread keeps a 4-query x 8-row register tile
+//   of FFMA accumulators (no TF32, no tensor cores). K3's FFMA scan
+//   (csrc/f32_binmax.cu on csrc/cert_scan_sm90.cuh) is the faster design.
 //   probe_mm writes only two columns of each tile, so nvcc would delete
 //   the other 1022 and their products; it also stores every dot to
 //   `all_dots` when that pointer is not null, a runtime condition the
@@ -60,7 +61,7 @@ using namespace binmax;
 namespace {
 
 constexpr int RN = 128;         // rows per sub-tile
-// the FFMA core (K3's)
+// the FFMA core
 constexpr int FBK = 32;         // depth per staged step
 constexpr int QLD = QB + 4;     // transposed tile leading dimensions
 constexpr int VLD = RN + 4;

@@ -12,11 +12,11 @@ only; each replaces one mode of the TPU kernel
 - K1 ``csrc/cert_cos_binmax.cu``: certified Cosine (bf16-rounded queries,
   the per-row certificate lane folded in), over int8 rows ("K1") and over
   bfloat16 rows ("K1-bf16");
-- K2 ``csrc/int8_binmax.cu``: uncertified int8 cosine, int8 queries x int8
-  rows into exact int32 dots;
+- K2 ``csrc/int8_binmax.cu``: the uncertified int8 modes, int8 queries x
+  int8 rows into exact int32 dots (s8 wgmma);
 - K3 ``csrc/f32_binmax.cu``: exact f32 (``prec="highest"``), the strict
   mode, for Cosine / Dot / Euclid and every score filter, over f32 rows
-  ("K3") and bfloat16 rows upcast exactly ("K3-bf16");
+  ("K3") and bfloat16 rows upcast exactly ("K3-bf16"), one FFMA per term;
 - K4 ``csrc/bf16x3_binmax.cu``: the bf16x3 fast-exact mode (``prec="high"``
   or the default verified fast path), over f32 rows ("K4") and bfloat16
   rows ("K4-bf16", whose low plane is zero, so two products);
@@ -28,16 +28,16 @@ only; each replaces one mode of the TPU kernel
   rounded to bf16 (f32 rows, "K6") or as stored ("K6-bf16"), f32 sums,
   every metric and score filter.
 
-K1, K5, K6 and K4 (each over its row types) run the Hopper scan of
-``csrc/cert_scan_sm90.cuh`` (:func:`sm90_plan` mirrors its ring plans, the
-deep-row plan included; K4 with two query planes, :func:`query_planes`,
-and over f32 rows two row planes split in the kernel); the others (K2, K3)
-are simpler scans. The stored rows' depth is padded to a multiple of 16
+Every kernel runs the Hopper scan of ``csrc/cert_scan_sm90.cuh``
+(:func:`sm90_plan` mirrors its ring plans, the deep-row plan included; K4
+with two query planes, :func:`query_planes`, and over f32 rows two row
+planes split in the kernel; K2 with int8 queries, K3 with f32 queries and
+FFMA consumers). The stored rows' depth is padded to a multiple of 16
 (``scoring.pad_depth``): the launch reads it from the rows' stride and pads
 the queries to it. :func:`kernel_takes`, the counterpart of the JAX
 package's ``pallas_ok``, tells from the shape whether a kernel fits (every
-kernel on the Hopper scan takes any d; K2 stops at d = 2,976); the callers
-send a shape it refuses to the scan program before any launch.
+kernel takes any d: the deep-row plan streams the query block); the
+callers send a shape it refuses to the scan program before any launch.
 
 Phase 2 re-scores the winning bins and selects the k results in plain
 torch (it is XLA code in the JAX package), at the phase-1 precision for
@@ -312,34 +312,54 @@ def cert_cos_binmax_plain(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_su
 
 # ---------------------------------------------------------------------------
 # The Hopper scan's plans and launch geometry (csrc/cert_scan_sm90.cuh):
-# K1, K5, K6, K4 and the probe k_planes
+# every kernel of KERNELS and the probe k_planes
 # ---------------------------------------------------------------------------
 
-# CTAs of 64 queries, a persistent grid, a ring of [rows x 64 deep] stages
+# CTAs of 64 queries, a persistent grid, a ring of [rows x k-block] stages
 # in shared memory beside the resident query block (or, for deep rows, with
 # the query k-blocks in the stages). The CTAs of a batch's query blocks sit
 # side by side on the same bins and share the rows through L2.
 SM90_MAX_STAGES = 12
-_TK = 64
-_QBLOCK_BYTES = QUERY_BLOCK * _TK * 2  # one 64-deep block of one bf16 query plane
+_TK = 64  # the depth of a k-block of bf16 (and f32) queries, the fragment orders'
 
-# kernel -> (row bytes in a stage, query planes, wide stage shape, narrow
-# stage shape), each shape (ks k-blocks, rows): the C sides' shapes
-# (cert_cos_binmax.cu Shape, cert_fold_binmax.cu, bf16_binmax.cu Shape,
-# bf16x3_binmax.cu Shape, profile_probes.cu); no wide shape (None, the C
-# side's KS1 = 0): no resident plan, the narrow shape streamed at every
-# depth. Row bytes: an element of the row planes a stage holds, 4 for both
-# bf16x3 kernels (K4's f32 rows, split in registers; k_planes' VH and VL,
-# the profiling probe of ``profile_variants``).
+
+def kblock_depth(q_bytes: int) -> int:
+    """The depth of a k-block (the C side's ``sm90::kdepth``): 64, or 128
+    for int8 queries, whose k-blocks are then 128 B a row as bf16 ones."""
+    return 128 if q_bytes == 1 else 64
+
+
+class ScanShape(NamedTuple):
+    """An sm90 kernel's stages: ``row_bytes`` of an element of the row
+    planes a stage holds (4 for both bf16x3 kernels: K4's f32 rows, split
+    in registers; k_planes' VH and VL), its query ``planes``, the ``wide``
+    and ``narrow`` stage shapes (ks k-blocks, rows) (no wide shape, None,
+    the C side's KS1 = 0: no resident plan, the narrow shape streamed at
+    every depth) and ``q_bytes`` of a query element (1: K2's int8, 4: K3's
+    f32, else bf16)."""
+
+    row_bytes: int
+    planes: int
+    wide: Optional[tuple]
+    narrow: tuple
+    q_bytes: int = 2
+
+
+# kernel -> its stages: the C sides' shapes (cert_cos_binmax.cu Shape,
+# cert_fold_binmax.cu, bf16_binmax.cu Shape, bf16x3_binmax.cu Shape,
+# int8_binmax.cu, f32_binmax.cu, profile_probes.cu)
 SM90_SHAPES = {
-    "K1": (1, 1, (2, 128), (1, 128)),
-    "K1-bf16": (2, 1, (1, 256), (1, 128)),
-    "K5": (2, 1, (2, 128), (1, 128)),
-    "K6": (4, 1, (1, 128), (1, 64)),
-    "K6-bf16": (2, 1, (1, 256), (1, 128)),
-    "K4": (4, 2, None, (1, 128)),
-    "K4-bf16": (2, 2, None, (1, 128)),
-    "k_planes": (4, 2, None, (1, 128)),
+    "K1": ScanShape(1, 1, (2, 128), (1, 128)),
+    "K1-bf16": ScanShape(2, 1, (1, 256), (1, 128)),
+    "K2": ScanShape(1, 1, (1, 256), (1, 128), q_bytes=1),
+    "K3": ScanShape(4, 1, None, (1, 128), q_bytes=4),
+    "K3-bf16": ScanShape(2, 1, None, (1, 128), q_bytes=4),
+    "K5": ScanShape(2, 1, (2, 128), (1, 128)),
+    "K6": ScanShape(4, 1, (1, 128), (1, 64)),
+    "K6-bf16": ScanShape(2, 1, (1, 256), (1, 128)),
+    "K4": ScanShape(4, 2, None, (1, 128)),
+    "K4-bf16": ScanShape(2, 2, None, (1, 128)),
+    "k_planes": ScanShape(4, 2, None, (1, 128)),
 }
 
 
@@ -377,26 +397,29 @@ class ScanGeometry(NamedTuple):
 
 
 def sm90_smem_bytes(d: int, row_bytes: int, stages: int, ks: int, rows: int,
-                    streamed: bool = False, planes: int = 1) -> int:
+                    streamed: bool = False, planes: int = 1, q_bytes: int = 2) -> int:
     """The scan's dynamic shared memory (the C side's ``sm90::smem_bytes``):
-    1 KB of alignment slack, the resident query blocks (8 KB per 64 deep
-    and query plane; none when streamed), the ring of ``stages`` stages of
-    ``ks`` [rows x 64 deep] row tiles (each with its query k-blocks when
-    streamed), the per-query maxima and scales with the f16 flag, and the
-    barriers."""
-    nk = -(-d // _TK)
-    qblock = planes * _QBLOCK_BYTES
-    stage = ks * (rows * _TK * row_bytes + (qblock if streamed else 0))
+    1 KB of alignment slack, the resident query blocks (64 queries of one
+    k-block of ``q_bytes`` elements per k-block and query plane: 8 KB for
+    bf16 and int8, 16 KB for f32; none when streamed), the ring of
+    ``stages`` stages of ``ks`` [rows x k-block] row tiles (each with its
+    query k-blocks when streamed), the per-query maxima and scales with the
+    f16 flag, and the barriers."""
+    kd = kblock_depth(q_bytes)
+    nk = -(-d // kd)
+    qblock = planes * QUERY_BLOCK * kd * q_bytes
+    stage = ks * (rows * kd * row_bytes + (qblock if streamed else 0))
     return (1024 + (0 if streamed else nk * qblock) + stages * stage
             + 2 * QUERY_BLOCK * 4 + 8 + (2 * stages + 1) * 8)
 
 
 def sm90_stages(d: int, row_bytes: int, ks: int, rows: int, streamed: bool = False,
-                planes: int = 1) -> int:
+                planes: int = 1, q_bytes: int = 2) -> int:
     """The most ring stages that fit: an even number up to SM90_MAX_STAGES,
     never below 2 (the two consumer warpgroups take alternate stages)."""
     s = SM90_MAX_STAGES
-    while s > 2 and sm90_smem_bytes(d, row_bytes, s, ks, rows, streamed, planes) > _SMEM_MAX:
+    while s > 2 and sm90_smem_bytes(d, row_bytes, s, ks, rows, streamed, planes,
+                                    q_bytes) > _SMEM_MAX:
         s -= 2
     return s
 
@@ -407,13 +430,15 @@ def sm90_plan(mode: str, d: int) -> ScanPlan:
     stages of it fit beside the resident query block (of every query
     plane), else the narrow one when 2 fit, else the narrow one with the
     query block streamed (any d); a mode with no wide shape always streams."""
-    row_bytes, planes, wide, narrow = SM90_SHAPES[mode]
+    row_bytes, planes, wide, narrow, qb = SM90_SHAPES[mode]
     if wide is not None:
-        if sm90_smem_bytes(d, row_bytes, 4, *wide, planes=planes) <= _SMEM_MAX:
-            return ScanPlan(*wide, sm90_stages(d, row_bytes, *wide, planes=planes), False)
-        if sm90_smem_bytes(d, row_bytes, 2, *narrow, planes=planes) <= _SMEM_MAX:
-            return ScanPlan(*narrow, sm90_stages(d, row_bytes, *narrow, planes=planes), False)
-    return ScanPlan(*narrow, sm90_stages(d, row_bytes, *narrow, True, planes), True)
+        if sm90_smem_bytes(d, row_bytes, 4, *wide, planes=planes, q_bytes=qb) <= _SMEM_MAX:
+            return ScanPlan(*wide, sm90_stages(d, row_bytes, *wide, planes=planes, q_bytes=qb),
+                            False)
+        if sm90_smem_bytes(d, row_bytes, 2, *narrow, planes=planes, q_bytes=qb) <= _SMEM_MAX:
+            return ScanPlan(*narrow,
+                            sm90_stages(d, row_bytes, *narrow, planes=planes, q_bytes=qb), False)
+    return ScanPlan(*narrow, sm90_stages(d, row_bytes, *narrow, True, planes, qb), True)
 
 
 def sm90_geometry(mode: str, b: int, d: int, n_sms: int) -> ScanGeometry:
@@ -422,8 +447,10 @@ def sm90_geometry(mode: str, b: int, d: int, n_sms: int) -> ScanGeometry:
     one CTA per SM, so each query block gets an equal share of the SMs, at
     least one CTA (a query block's planes share its CTAs)."""
     n_qb = max(1, -(-b // QUERY_BLOCK))
-    return ScanGeometry(n_qb, max(1, n_sms // n_qb), -(-d // _TK) * _TK, *sm90_plan(mode, d),
-                        kernel_smem_bytes(mode, d), SM90_SHAPES[mode][1])
+    shape = SM90_SHAPES[mode]
+    kd = kblock_depth(shape.q_bytes)
+    return ScanGeometry(n_qb, max(1, n_sms // n_qb), -(-d // kd) * kd, *sm90_plan(mode, d),
+                        kernel_smem_bytes(mode, d), shape.planes)
 
 
 def _fragment_perm(dq: int, t, kk, e) -> torch.Tensor:
@@ -785,19 +812,11 @@ def _binmax(mode, wrapper, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
         )
     if mode == "K2" and 127 * 127 * d >= (1 << 31):
         raise ValueError(f"{entry}: d={d} could overflow the int32 dots")
-    ints = [_METRIC_CODE[metric], int(take_min), _CMP_CODE[cmp]]
-    if mode in SM90_SHAPES:  # the sm90 scan: K6 and K4 over f32 / bf16 rows
-        return _sm90_launch(
-            wrapper, mode, source, entry, q, v, (q_inv, q_sq, q_ok),
-            ([inv, nsq, rmask], [thr, surv, n_surv]), ints,
-            perm=f32_query_perm if mode in ("K6", "K4") else None,
-        )
-    dp = stored_depth(v)
-    n_qb, q, (q_inv, q_sq, q_ok) = _pad_query_blocks(q, dp, q_inv, q_sq, q_ok)
-    return _launch(
-        wrapper, source, entry, q, v,
-        [q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv],
-        [b, n_qb, *ints], dp,
+    return _sm90_launch(
+        wrapper, mode, source, entry, q, v, (q_inv, q_sq, q_ok),
+        ([inv, nsq, rmask], [thr, surv, n_surv]),
+        [_METRIC_CODE[metric], int(take_min), _CMP_CODE[cmp]],
+        perm=f32_query_perm if mode in ("K6", "K4") else None,
     )
 
 
@@ -840,19 +859,14 @@ KERNELS = {
 
 
 def kernel_smem_bytes(mode: str, d: int) -> int:
-    """The dynamic shared memory the kernel of ``mode`` asks for at stored
-    depth ``d`` (a multiple of 16), mirroring its source's ``*_smem_bytes``:
-    the sm90 scans (K1, K5, K6 and K4 over f32 and bf16 rows, the probe
-    k_planes) their plan's, which always fits; K2 1 KB per 16 deep of
-    queries beside 41 KB of tiles (int8_binmax.cu); K3 none."""
-    if mode in SM90_SHAPES:
-        plan = sm90_plan(mode, d)
-        row_bytes, planes = SM90_SHAPES[mode][:2]
-        return sm90_smem_bytes(d, row_bytes, plan.stages, plan.ks, plan.rows, plan.streamed,
-                               planes)
-    if mode == "K2":
-        return -(-d // 16) * QUERY_BLOCK * 16 + (64 // 16) * 128 * 16 + QUERY_BLOCK * 132 * 4
-    return 0
+    """The dynamic shared memory the kernel of ``mode`` (a key of
+    :data:`SM90_SHAPES`) asks for at stored depth ``d`` (a multiple of 16),
+    mirroring its source's ``*_smem_bytes``: its plan's, which always
+    fits."""
+    plan = sm90_plan(mode, d)
+    shape = SM90_SHAPES[mode]
+    return sm90_smem_bytes(d, shape.row_bytes, plan.stages, plan.ks, plan.rows, plan.streamed,
+                           shape.planes, shape.q_bytes)
 
 
 def kernel_takes(mode: str, d: int) -> bool:
@@ -860,12 +874,12 @@ def kernel_takes(mode: str, d: int) -> bool:
     port's counterpart of the JAX package's ``pallas_ok``, decided from the
     shape before any launch: the kernel's shared memory at the stored depth
     must fit a block (232,448 B); unlike a TPU's VMEM budget it does not
-    grow with the batch. The kernels on the Hopper scan (K1, K5, K6 and K4
-    over f32 and bf16 rows) take any d (their deep-row plan streams the
-    query block; K4 streams its query planes at every depth); K2 stops at
-    d = 2,976; K3 needs no depth-sized shared memory. A shape it refuses
-    goes to the scan program (``scoring.scan_topk_core``), and the caller
-    adds the batch's queries to ``kernel_takes.routed``."""
+    grow with the batch. Every kernel runs on the Hopper scan and takes any
+    d (the deep-row plan streams the query block; K3 and K4 stream theirs
+    at every depth), so only a caller that swaps this check refuses a
+    shape. A shape it refuses goes to the scan program
+    (``scoring.scan_topk_core``), and the caller adds the batch's queries
+    to ``kernel_takes.routed``."""
     return kernel_smem_bytes(mode, pad_depth(d)) <= _SMEM_MAX
 
 

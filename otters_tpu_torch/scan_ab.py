@@ -2,7 +2,8 @@
 source trees.
 
     python otters_tpu_torch/scan_ab.py [ROOT:LABEL ...] [--rounds N]
-        [--modes K1,K1-bf16,K5,K6,K6-bf16,K4,K4-bf16,k_planes] [--b 64,256]
+        [--modes K1,K1-bf16,K2,K3,K3-bf16,K5,K6,K6-bf16,K4,K4-bf16,k_planes]
+        [--b 64,256]
 
 Each ROOT is a checkout (or a copy of ``otters_tpu_torch/`` under ROOT);
 the default is this checkout. The trees are measured in interleaved rounds
@@ -13,14 +14,16 @@ CUDA-event timings, three back-to-back means of 10 calls, the max error
 against the plain version on 40 bins (k_planes: on every bin), and the
 library call (one bf16 matmul on rows cast beforehand, then the bin max;
 K4-bf16: two, one per query plane; K4 and k_planes: three, on planes split
-beforehand). The shapes are the paths' of ``chip_smoke.py`` at d = 768,
-half the 1024-row chunks pruned: K1 over 10,000,384 int8 rows (``wide``:
-queries whose magnitudes span more than f16's range, so the scan
-multiplies in bf16) and K1-bf16 / K5 (Dot) / K6-bf16 / K4-bf16 (Cosine)
-over as many bf16 rows; K6 and K4 (Cosine) over 4,000,256 f32 rows; the
-probe k_planes at the shapes of scripts/kernel_profile_variants.py (VH /
-VL of 1,007,616 rows, every bin). The rows and their side data are
-random, made on the device from a seed. Needs one CUDA card.
+beforehand; K2 ``torch._int_mm``; K3 and K3-bf16 one f32 matmul, TF32 off,
+on rows upcast beforehand). The shapes are the paths' of
+``chip_smoke.py`` at d = 768, half the 1024-row chunks pruned: K1 and K2
+over 10,000,384 int8 rows (K1 ``wide``: queries whose magnitudes span more
+than f16's range, so the scan multiplies in bf16; K2 with int8 queries)
+and K1-bf16 / K5 (Dot) / K6-bf16 / K4-bf16 / K3-bf16 (Cosine) over as many
+bf16 rows; K6, K4 and K3 (Cosine) over 4,000,256 f32 rows; the probe
+k_planes at the shapes of scripts/kernel_profile_variants.py (VH / VL of
+1,007,616 rows, every bin). The rows and their side data are random, made
+on the device from a seed. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ import subprocess
 import sys
 
 D, BIN = 768, 512
-N_BINS = {"K1": 19532, "K1-bf16": 19532, "K5": 19532, "K6": 7813, "K6-bf16": 19532,
-          "K4": 7813, "K4-bf16": 19532}
+N_BINS = {"K1": 19532, "K1-bf16": 19532, "K2": 19532, "K3": 7813, "K3-bf16": 19532,
+          "K5": 19532, "K6": 7813, "K6-bf16": 19532, "K4": 7813, "K4-bf16": 19532}
+F32_ROWS = ("K6", "K4", "K3")  # the modes over f32 rows
 
 
 def _timers(torch):
@@ -67,12 +71,12 @@ def _timers(torch):
 
 
 def _operands(torch, ft, mode, g, dev):
-    """(rows, a function of the kernel's queries (bf16; K4 f32) giving the
-    wrapper's args, kernel, plain) of ``mode``."""
+    """(rows, a function of the kernel's queries (bf16; K4 and K3 f32, K2
+    int8) giving the wrapper's args, kernel, plain) of ``mode``."""
     n = N_BINS[mode] * BIN
-    if mode == "K1":
+    if mode in ("K1", "K2"):
         v = torch.randint(-127, 128, (n, D), generator=g, device=dev, dtype=torch.int8)
-    elif mode in ("K6", "K4"):
+    elif mode in F32_ROWS:
         v = torch.randn((n, D), generator=g, device=dev)
     else:
         v = torch.randn((n, D), generator=g, device=dev).bfloat16()
@@ -109,7 +113,12 @@ def _operands(torch, ft, mode, g, dev):
 def _library(torch, mode, q, v_live, b, vl_live=None):
     """One PyTorch call (per product) for the same dots, then the bin max:
     the yardstick. K4 / k_planes: the rows' low plane ``vl_live`` beside
-    their high plane ``v_live``."""
+    their high plane ``v_live``; K2 the int8 queries and rows, K3 the f32
+    queries and rows (upcast beforehand)."""
+    if mode == "K2":
+        return lambda: torch._int_mm(q, v_live.T).reshape(b, -1, BIN).amax(dim=2)
+    if mode.startswith("K3"):
+        return lambda: torch.matmul(q, v_live.T).reshape(b, -1, BIN).amax(dim=2)
     qb = q.bfloat16()
     if mode.startswith("K4") or mode == "k_planes":
         ql = (q - qb.float()).bfloat16()
@@ -145,6 +154,7 @@ def _measure(root: str, label: str, modes, bs) -> dict:
 
     from otters_tpu_torch import kernels
     from otters_tpu_torch.ops import fused_topk as ft
+    from otters_tpu_torch.ops import scoring as sc
 
     assert ft.__file__.startswith(os.path.abspath(root)), ft.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -162,7 +172,9 @@ def _measure(root: str, label: str, modes, bs) -> dict:
         surv, n_surv = ft.survivor_bins((torch.arange(n_bins, device=dev) // 2) % 2 == 1)
         live = surv[: int(n_surv[0])].long()
         rows = (live[:, None] * BIN + torch.arange(BIN, device=dev)).reshape(-1)
-        v_live = v[rows].bfloat16()
+        # the library call's operands, cast beforehand
+        v_live = (v[rows] if mode == "K2" else v[rows].float() if mode.startswith("K3")
+                  else v[rows].bfloat16())
         vl_live = (v[rows] - v_live.float()).bfloat16() if mode == "K4" else None
         sl = torch.tensor([40], dtype=torch.int32, device=dev)
         for b in bs:
@@ -171,7 +183,10 @@ def _measure(root: str, label: str, modes, bs) -> dict:
                 qk = q.clone()
                 if kind == "wide":  # every query: half its elements 2^-40 of the rest
                     qk[:, ::2] *= 2.0 ** -40
-                qk = qk if mode.startswith("K4") else qk.bfloat16()
+                if mode == "K2":
+                    qk = sc._quantize_rows_int8(qk)[0]
+                elif not mode.startswith(("K3", "K4")):
+                    qk = qk.bfloat16()
                 a = args(qk, surv, n_surv)
                 got = kernel(a)
                 want = plain(a[:-2] + (surv[:40].contiguous(), sl))
@@ -179,8 +194,9 @@ def _measure(root: str, label: str, modes, bs) -> dict:
                 res[f"{mode} b={b} {kind}"] = {"per_call": per_call(lambda: kernel(a)),
                                               "b2b": back_to_back(lambda: kernel(a)),
                                               "err": err}
+            qlib = a[0] if mode == "K2" else q
             res[f"{mode} b={b} library"] = per_call(
-                _library(torch, mode, q, v_live, b, vl_live))
+                _library(torch, mode, qlib, v_live, b, vl_live))
         del v, v_live, vl_live
         torch.cuda.empty_cache()
     res["ptxas"] = {name: [ln.strip() for ln in log.splitlines()

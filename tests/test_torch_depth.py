@@ -11,12 +11,13 @@
   rows in order, the same ``certified`` flag and chunk counts, and scores
   within 1e-6 (Euclid: 4 ulps of q^2 + v^2, which its formula cancels).
 - Deep rows: ``fused_topk.kernel_takes`` (the counterpart of JAX's
-  ``pallas_ok``) sends a shape whose kernel would not fit a block's shared
-  memory (K2 past d = 2,976) to the scan program before any launch, and
-  counts it; K1, K5, K6 and K4 over f32 and bf16 rows take any depth
+  ``pallas_ok``) would send a shape whose kernel does not fit a block's
+  shared memory to the scan program before any launch, and count it; every
+  kernel (K1, K2, K5, K6, K4 and K3 over their row types) takes any depth
   through the deep-row plan of ``csrc/cert_scan_sm90.cuh``, mirrored by
-  ``sm90_plan`` (the card tests hold the mirror against the C side); K4
-  streams its two query planes at every depth.
+  ``sm90_plan`` (the card tests hold the mirror against the C side), so
+  the route is held here by a refusing check; K4 streams its two query
+  planes and K3 its f32 query block at every depth.
 - The f32-row fragment order of K6 and K4 (``f32_query_perm``), replayed;
   the query planes of K4 (``query_planes``; over f32 rows after the
   fragment permutation) against JAX's split.
@@ -196,29 +197,28 @@ def test_metastore_at_d100_matches_jax(storage, metric, certify, prec, represent
 
 @pytest.mark.parametrize("mode,d,takes", [
     ("K6-bf16", 1392, True), ("K6-bf16", 1408, True), ("K6-bf16", 2048, True),
-    ("K2", 2976, True), ("K2", 2992, False), ("K2", 3072, False),
+    ("K2", 2976, True), ("K2", 2992, True), ("K2", 3072, True), ("K2", 8192, True),
     ("K1", 2048, True), ("K1-bf16", 2048, True), ("K5", 2048, True), ("K6", 2048, True),
     ("K1", 8192, True), ("K5", 4096, True), ("K6", 4096, True),
     ("K3", 4096, True), ("K4", 4096, True), ("K4-bf16", 4096, True), ("K3-bf16", 4096, True),
     ("K6-bf16", 100, True), ("K2", 100, True),
     ("K4", 100, True), ("K4", 2048, True), ("K4", 8192, True)])
 def test_shape_check_routes_only_what_cannot_fit(mode, d, takes):
-    """K2 stops at d = 2,976 (its shared memory); K1, K5, K6 and K4 over
-    f32 and bf16 rows take any depth (their deep-row plan; K4 streams its
-    query planes at every depth), K3 needs no depth-sized shared memory."""
+    """Every kernel runs on the Hopper scan and takes any depth: K1, K2,
+    K5 and K6 over f32 and bf16 rows through their resident or deep-row
+    plans, K4 and K3 stream their query blocks at every depth."""
     assert ft.kernel_takes(mode, d) is takes
     assert (ft.kernel_smem_bytes(mode, ts.pad_depth(d)) <= SMEM_MAX) is takes
 
 
 @pytest.mark.parametrize("case", ["K6-bf16", "K2"])
 def test_meta_routes_deep_rows_to_the_scan_program(case, monkeypatch):
-    """A 3,072-deep int8 store queried uncertified (K2) takes the scan
-    program on the fused path's shape, counted, with no kernel call; a
-    2,048-deep bf16 store at precision "default" (K6 over bf16 rows, on the
-    Hopper scan's deep-row plan) takes the kernel's wrapper with nothing
-    routed. Either answer equals what the other path returns for the same
-    query (forced here: the kernel through its plain version, or the
-    route)."""
+    """A 3,072-deep int8 store queried uncertified (K2, on the Hopper
+    scan's resident plan with two ring stages) and a 2,048-deep bf16 store at precision "default" (K6 over
+    bf16 rows, on the deep-row plan) take the kernel's wrapper with nothing
+    routed; a check that refuses the shape sends the same query to the scan
+    program, counted, with no kernel call. Both answers are equal (the
+    kernel here through its plain version)."""
     use_fused_path(monkeypatch, direct_limit=1 << 12)
     rng = np.random.default_rng(3)
     n, d = 1024, (2048 if case == "K6-bf16" else 3072)
@@ -236,29 +236,23 @@ def test_meta_routes_deep_rows_to_the_scan_program(case, monkeypatch):
 
     calls = _route("direct", monkeypatch)
     ft.reset_launches()
-    if case == "K2":
-        routed = run()
-        assert ft.kernel_takes.routed == 5 and calls == []
-        monkeypatch.setattr(ft, "kernel_takes", lambda mode, d: True)
-        kernel = run()
-        assert calls == ["binmax_plain"]
-    else:
-        kernel = run()
-        assert ft.kernel_takes.routed == 0 and calls == ["binmax_plain"]
-        refuse = lambda mode, d: False  # noqa: E731
-        refuse.routed = 0
-        monkeypatch.setattr(ft, "kernel_takes", refuse)
-        routed = run()
-        assert refuse.routed == 5 and calls == ["binmax_plain"]
+    assert ft.kernel_takes(case, d)
+    kernel = run()
+    assert ft.kernel_takes.routed == 0 and calls == ["binmax_plain"]
+    refuse = lambda mode, d: False  # noqa: E731
+    refuse.routed = 0
+    monkeypatch.setattr(ft, "kernel_takes", refuse)
+    routed = run()
+    assert refuse.routed == 5 and calls == ["binmax_plain"]
     assert routed.indices == kernel.indices
     np.testing.assert_allclose(routed.scores, kernel.scores, rtol=1e-6, atol=1e-6)
 
 
 def test_vecstore_routes_deep_rows_to_the_scan_program(monkeypatch):
     """The VecStore path (``run_vec_topk``) consults the same check: a
-    3,072-deep int8 VecStore (K2, past its shared memory) takes the scan
-    program, counted, and answers as the kernel's path does (forced here
-    through the plain version)."""
+    3,072-deep int8 VecStore (K2) takes the kernel's wrapper with nothing
+    routed, and a refusing check sends it to the scan program, counted,
+    with the same answer."""
     use_fused_path(monkeypatch, direct_limit=1 << 12)
     rng = np.random.default_rng(4)
     n, d = 1024, 3072
@@ -268,11 +262,13 @@ def test_vecstore_routes_deep_rows_to_the_scan_program(monkeypatch):
     store.add_vectors(v)
     calls = _route("direct", monkeypatch)
     ft.reset_launches()
-    res = store.query(q, tx.Metric.Cosine).take(10).collect()
-    assert ft.kernel_takes.routed == 5 and calls == []
-    monkeypatch.setattr(ft, "kernel_takes", lambda mode, d: True)
     kernel = store.query(q, tx.Metric.Cosine).take(10).collect()
-    assert calls == ["binmax_plain"]
+    assert ft.kernel_takes.routed == 0 and calls == ["binmax_plain"]
+    refuse = lambda mode, d: False  # noqa: E731
+    refuse.routed = 0
+    monkeypatch.setattr(ft, "kernel_takes", refuse)
+    res = store.query(q, tx.Metric.Cosine).take(10).collect()
+    assert refuse.routed == 5 and calls == ["binmax_plain"]
     assert [r.index for r in res] == [r.index for r in kernel]
     np.testing.assert_allclose([r.score for r in res], [r.score for r in kernel],
                                rtol=1e-6, atol=1e-6)
@@ -282,49 +278,102 @@ def test_vecstore_routes_deep_rows_to_the_scan_program(monkeypatch):
 # the sm90 plans (the C side's sm90::plan_for, cert_scan_sm90.cuh)
 # ---------------------------------------------------------------------------
 
-DEPTHS = [16, 100, 768, 1392, 1536, 2048, 4096]
+DEPTHS = [16, 100, 768, 1392, 1536, 2048, 3072, 4096, 8192]
+SM90_MODES = ["K1", "K1-bf16", "K2", "K3", "K3-bf16", "K5", "K6", "K6-bf16", "K4", "K4-bf16"]
 
 
-@pytest.mark.parametrize("mode", ["K1", "K1-bf16", "K5", "K6", "K6-bf16", "K4", "K4-bf16"])
+@pytest.mark.parametrize("mode", SM90_MODES)
 @pytest.mark.parametrize("d", DEPTHS)
 def test_sm90_plan_fits_every_depth(mode, d):
     """An even ring of at least 2 stages within 232,448 B at every depth;
     the query block (of every query plane) is streamed exactly when the
     resident block would leave fewer than 2 stages of the narrow shape, or
-    always for a mode with no resident plan (K4, K4-bf16); at d = 768 K1
-    keeps its plans, K5 / K6 / K6-bf16 take their wide shapes, K4 its 4
+    always for a mode with no resident plan (K3, K4); at d = 768 K1 keeps
+    its plans, K2 / K5 / K6 / K6-bf16 take their wide shapes, K4 its 4
     streamed stages of 128 f32 rows and K4-bf16 its 6 of 128 bf16 rows,
-    both with both planes."""
+    both with both planes, K3 4 and K3-bf16 6 streamed stages of 128 rows
+    with the f32 queries. K2's 128-deep int8 query k-blocks (8 KB) stay
+    resident up to d = 3,072 (two stages of the narrow shape there) and are
+    streamed at 8,192; the other resident plans stream from d = 2,048."""
     dp = ts.pad_depth(d)
-    row_bytes, planes, wide, narrow = ft.SM90_SHAPES[mode]
+    row_bytes, planes, wide, narrow, q_bytes = ft.SM90_SHAPES[mode]
     plan = ft.sm90_plan(mode, dp)
     assert plan.stages >= 2 and plan.stages % 2 == 0 and plan.stages <= ft.SM90_MAX_STAGES
     smem = ft.sm90_smem_bytes(dp, row_bytes, plan.stages, plan.ks, plan.rows, plan.streamed,
-                              planes)
+                              planes, q_bytes)
     assert smem == ft.kernel_smem_bytes(mode, dp) <= SMEM_MAX
     resident_fits = wide is not None and ft.sm90_smem_bytes(
-        dp, row_bytes, 2, *narrow, planes=planes) <= SMEM_MAX
+        dp, row_bytes, 2, *narrow, planes=planes, q_bytes=q_bytes) <= SMEM_MAX
     assert plan.streamed is (not resident_fits)
     if plan.streamed:
         # every stage carries its query k-blocks; one more stage would not fit
         assert (plan.ks, plan.rows) == narrow
         assert plan.stages == ft.SM90_MAX_STAGES or ft.sm90_smem_bytes(
-            dp, row_bytes, plan.stages + 2, *narrow, True, planes) > SMEM_MAX
-    elif ft.sm90_smem_bytes(dp, row_bytes, 4, *wide, planes=planes) <= SMEM_MAX:
+            dp, row_bytes, plan.stages + 2, *narrow, True, planes, q_bytes) > SMEM_MAX
+    elif ft.sm90_smem_bytes(dp, row_bytes, 4, *wide, planes=planes, q_bytes=q_bytes) <= SMEM_MAX:
         assert (plan.ks, plan.rows) == wide and plan.stages >= 4
     else:
         assert (plan.ks, plan.rows) == narrow
+    kd = ft.kblock_depth(q_bytes)
+    assert kd == (128 if mode == "K2" else 64)
     geom = ft.sm90_geometry(mode, 600, dp, 132)
-    assert geom.dq % 64 == 0 and 0 <= geom.dq - dp < 64
+    assert geom.dq % kd == 0 and 0 <= geom.dq - dp < kd
     assert (geom.ks, geom.rows, geom.stages, geom.streamed) == plan
     assert geom.n_qb == 10 and geom.per_group == 13
     if d == 768:
         assert plan == {"K1": (2, 128, 8, False), "K1-bf16": (1, 256, 4, False),
+                        "K2": (1, 256, 4, False), "K3": (1, 128, 4, True),
+                        "K3-bf16": (1, 128, 6, True),
                         "K5": (2, 128, 4, False), "K6": (1, 128, 4, False),
                         "K6-bf16": (1, 256, 4, False), "K4": (1, 128, 4, True),
                         "K4-bf16": (1, 128, 6, True)}[mode]
-    if d >= 2048:
+    if mode == "K2":
+        assert plan.streamed is (d > 3072)
+        if d == 3072:
+            assert plan == (1, 128, 2, False)
+    elif d >= 2048:
         assert plan.streamed
+
+
+@pytest.mark.parametrize("d", [16, 768, 2048, 3072, 8192])
+def test_k3_streams_its_queries_at_every_depth(d):
+    """K3 has no resident plan: its f32 query block (16 KB per 64 deep)
+    would take 192 KB at d = 768. A stage carries one k-block of 128 rows
+    (32 KB of f32 rows, 16 KB of bf16) and the 64 queries' k-block (16 KB,
+    two 128-byte boxes of 32 deep), so 4 stages fit over f32 rows and 6
+    over bf16 rows at every depth (128 and 96 KB of rows in flight); the
+    C side's f32_binmax_smem_bytes / f32_binmax_bf16_smem_bytes, mirrored
+    (the card test holds them equal). The arithmetic: 1 KB slack + ring +
+    520 B of maxima, scales and flag + 8 B a barrier."""
+    for mode, rows_bytes, stages in (("K3", 128 * 64 * 4, 4), ("K3-bf16", 128 * 64 * 2, 6)):
+        stage = rows_bytes + 64 * 64 * 4
+        assert ft.sm90_plan(mode, d) == (1, 128, stages, True)
+        assert ft.kernel_smem_bytes(mode, d) == 1024 + stages * stage + 520 \
+            + (2 * stages + 1) * 8 <= SMEM_MAX
+        assert 1024 + (stages + 2) * stage + 520 + (2 * stages + 5) * 8 > SMEM_MAX
+        geom = ft.sm90_geometry(mode, 256, d, 132)
+        assert (geom.planes, geom.n_qb, geom.per_group, geom.dq) == (1, 4, 33, -(-d // 64) * 64)
+
+
+@pytest.mark.parametrize("d", [16, 768, 2048, 3072, 8192])
+def test_k2_plan_mirrors_the_kernel(d):
+    """K2's k-blocks are 128 int8 codes deep, 128 B a row as a bf16 k-block
+    of 64: 8 KB per resident query k-block and 128 B a row of a stage. At
+    d = 768 the resident block (48 KB) leaves 4 stages of 256 rows (32 KB
+    each); at 3,072 (192 KB) 2 stages of 128 rows; at 8,192 the query
+    k-blocks ride in the stages. The arithmetic: 1 KB slack + resident
+    block + ring + 520 B of maxima, scales and flag + 8 B a barrier."""
+    nk = -(-d // 128)
+    plan = ft.sm90_plan("K2", d)
+    if plan.streamed:
+        want = 1024 + plan.stages * (plan.rows * 128 + 8192) + 520 + (2 * plan.stages + 1) * 8
+    else:
+        want = 1024 + nk * 8192 + plan.stages * plan.ks * plan.rows * 128 + 520 \
+            + (2 * plan.stages + 1) * 8
+    assert ft.kernel_smem_bytes("K2", d) == want <= SMEM_MAX
+    assert plan == {16: (1, 256, 6, False), 768: (1, 256, 4, False),
+                    2048: (1, 128, 6, False), 3072: (1, 128, 2, False),
+                    8192: (1, 128, 8, True)}[d]
 
 
 @pytest.mark.parametrize("d", [16, 768, 832, 848, 896, 2048, 4096])

@@ -7,9 +7,10 @@ runs only on the card; what surrounds it is Python that these tests reach:
 ``tests/test_torch_kernels_cuda.py`` checks the two agree on the card),
 ``sm90_pad_queries`` and ``k1_query_perm`` (the int8-row fragment order).
 The kernel's CTA -> (query block, bin slots) mapping is replayed here from
-the geometry; so is the two-plane query layout of K4 over bf16 rows
-(``query_planes``). The other sm90 kernels' plans (K5, K6, K4 over bf16
-rows) and the deep-row plan: ``tests/test_torch_depth.py``.
+the geometry; so are the two-plane query layout of K4 over bf16 rows
+(``query_planes``) and K2's int8 query blocks (128-deep k-blocks, no
+permutation). The other sm90 kernels' plans (K2, K3, K5, K6, K4) and the
+deep-row plan: ``tests/test_torch_depth.py``.
 """
 
 import numpy as np
@@ -128,3 +129,34 @@ def test_k4_bf16_planes_cover_the_batch(b, d):
     assert torch.equal(ql[:b, :d], (q - q.bfloat16().float()).bfloat16().float())
     err = (qh[:b, :d] + ql[:b, :d] - q).abs()
     assert bool((err <= ql[:b, :d].abs() * 2.0**-8 + 1e-45).all())
+
+
+@pytest.mark.parametrize("d", [112, 768, 3072, 8192])
+@pytest.mark.parametrize("b", [1, 70, 256, 600])
+def test_k2_geometry_covers_the_batch(b, d):
+    """K2 on the Hopper scan: the query blocks and the persistent grid of
+    K1, each (query block, live bin) pair computed once; the int8 queries
+    padded to whole blocks and to a depth multiple of 128 (its k-block of
+    128 int8 codes, 128 B a row) with zeros and no permutation (A and B are
+    both read by descriptor from the same swizzled layout); the plan's
+    shared memory within 232,448 B, resident up to d = 3,072 and streamed
+    at 8,192."""
+    geom = ft.sm90_geometry("K2", b, d, N_SMS)
+    assert geom.smem == ft.sm90_smem_bytes(d, 1, geom.stages, geom.ks, geom.rows,
+                                           geom.streamed, 1, 1) <= SMEM_MAX
+    assert geom.stages >= 2 and geom.stages % 2 == 0
+    assert geom.streamed is (d > 3072) and geom.planes == 1
+    assert geom.n_qb == -(-b // ft.QUERY_BLOCK)
+    assert geom.per_group == max(1, N_SMS // geom.n_qb)
+    assert geom.dq % 128 == 0 and 0 <= geom.dq - d < 128
+    n_surv = 29
+    seen = _walk(geom, n_surv)
+    assert len(seen) == len(set(seen)) == geom.n_qb * n_surv
+    rng = np.random.default_rng(b * 7 + d)
+    q = torch.from_numpy(rng.integers(-127, 128, size=(b, d)).astype(np.int8))
+    qk, (qo,) = ft.sm90_pad_queries(q, (torch.ones(b),), geom)
+    assert qk.dtype == torch.int8 and qk.is_contiguous()
+    assert qk.shape == (geom.n_qb * 64, geom.dq)
+    assert torch.equal(qk[:b, :d], q)
+    assert qk[b:].eq(0).all() and qk[:, d:].eq(0).all()
+    assert qo[:b].eq(1).all() and qo[b:].eq(0).all()

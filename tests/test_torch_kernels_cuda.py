@@ -5,7 +5,10 @@ K1 (certified Cosine) over int8 and bfloat16 rows at b = 1 to 600 and d =
 far from unit scale or too wide for f16; K2 / K3 / K4 / K6 over int8 / f32
 rows (K6 and K4 at b = 1 to 600, d = 100 to 2048 (K4 from d = 16), every
 metric and filter; K4 with masked bins, NaN and inf rows, and rows small
-enough that their low bf16 planes are subnormal); over bfloat16 rows K3,
+enough that their low bf16 planes are subnormal; K2 at b = 1 to 600 and d
+= 100 to 3072, every metric, Gt / Lte filters, its dots bit for bit past
+2^24; K3 over f32 and bf16 rows at the same shapes against float64 and
+with Eq filters); over bfloat16 rows K3,
 K5 (the general certified fold, Dot and Euclid, at b = 1 to 600, d = 100
 to 2048, with masked bins and NaN rows), and K4 and K6 on the Hopper scan
 (b = 1 to 600, d = 16 to 2048; K4 streams its two query planes with the
@@ -565,6 +568,139 @@ def test_k6_eq_filter():
     _check_plain("K6", args, Metric.DotProduct, False, Cmp.Eq)
 
 
+# ---------------------------------------------------------------------------
+# K2 (s8 wgmma) and K3 (FFMA) on the sm90 scan
+# ---------------------------------------------------------------------------
+
+K2_FILTERS = [(Metric.Cosine, False, None), (Metric.Cosine, False, Cmp.Gt),
+              (Metric.Cosine, True, Cmp.Lte), (Metric.DotProduct, False, None),
+              (Metric.DotProduct, False, Cmp.Gt), (Metric.Euclidean, True, None),
+              (Metric.Euclidean, True, Cmp.Lte)]
+
+
+def _median_threshold(mode, args, metric, take_min):
+    """A score threshold inside the bins' range: the median unfiltered bin
+    key of the plain version (a score; negated back for take-min)."""
+    keys = _call(mode, args, metric, take_min, None, plain=True)
+    med = float(keys[torch.isfinite(keys)].median())
+    return torch.full((1,), -med if take_min else med, device=keys.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,take_min,cmp", K2_FILTERS)
+@pytest.mark.parametrize("d", [100, 768, 3072])
+@pytest.mark.parametrize("b", [1, 70, 256, 600])
+def test_k2_matches_plain(metric, take_min, cmp, b, d):
+    """K2 at one query, one partial, four and ten (the last partial) query
+    blocks; at a padded depth (112 stored, one 128-deep k-block), the main
+    path's and 3,072 (two ring stages beside the resident block); every
+    metric, Gt and take-min Lte filters at the median bin key. The int32
+    dots are exact in both versions, so the keys agree within 4 ulps."""
+    dev = _device()
+    args = _operands("K2", dev, d=d, b=b, n=20_000)
+    if cmp is not None:
+        args[8] = _median_threshold("K2", args, metric, take_min)
+    _check_plain("K2", args, metric, take_min, cmp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [100, 768, 3072])
+def test_k2_dots_round_like_astype_past_2_24(d):
+    """One unmasked row per bin, each a copy of a query's codes (magnitudes
+    100 - 127) with a tenth of its signs flipped, so its dot with that
+    query passes 2^24 at d = 3,072; Dot metric, unit norms: each bin max
+    is the row's int32 dot converted to f32, equal bit for bit to the exact
+    int64 product rounded to nearest even (JAX's astype)."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(d)
+    n, b = 20_000, 70
+    n_pad = sc.pad_rows(n)
+    dp = sc.pad_depth(d)
+    mag = torch.randint(100, 128, (b, d), generator=g, device=dev)
+    sign = torch.randint(0, 2, (b, d), generator=g, device=dev) * 2 - 1
+    q8 = (mag * sign).to(torch.int8)
+    buf = torch.randint(-127, 128, (n_pad, dp), generator=g, device=dev, dtype=torch.int8)
+    buf[:, d:] = 0
+    rows, rmask, surv, n_surv = _one_row_per_bin(None, dev, n_pad)
+    flip = torch.where(torch.rand((rows.shape[0], d), generator=g, device=dev) < 0.1, -1, 1)
+    buf[rows, :d] = (q8[torch.arange(rows.shape[0], device=dev) % b].long() * flip).to(
+        torch.int8)
+    v8 = buf[:, :d]
+    ones_n, ones_b = torch.ones(n_pad, device=dev), torch.ones(b, device=dev)
+    out = ft.int8_binmax(q8, v8, ones_n, ones_n, rmask, ones_b, torch.zeros(b, device=dev),
+                         ones_b, torch.zeros(1, device=dev), surv, n_surv, Metric.DotProduct)
+    exact = (q8.cpu().long() @ v8[rows].cpu().long().T).T  # [bins, b], exact
+    if d == 3072:
+        assert int(exact.abs().max()) > 1 << 24
+    assert torch.equal(out.cpu(), exact.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [100, 768, 3072])
+@pytest.mark.parametrize("b", [1, 70, 256, 600])
+@pytest.mark.parametrize("metric", [Metric.Cosine, Metric.DotProduct, Metric.Euclidean])
+@pytest.mark.parametrize("mode", ["K3", "K3-bf16"])
+def test_k3_matches_plain(mode, metric, b, d):
+    """K3 over f32 and bf16 rows at one, one partial, four and ten query
+    blocks, a padded depth, the main path's and deep rows (the f32 query
+    block streams at every depth)."""
+    dev = _device()
+    args = (_operands("K3", dev, d=d, b=b, n=20_000) if mode == "K3" else
+            _bf16_operands("K3-bf16", dev, metric, n=20_000, d=d, b=b))
+    _check_plain(mode, args, metric, metric is Metric.Euclidean, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [100, 768, 3072])
+@pytest.mark.parametrize("b", [1, 70, 256, 600])
+@pytest.mark.parametrize("mode", ["K3", "K3-bf16"])
+def test_k3_dots_equal_float64(mode, b, d):
+    """Unit norms, Dot metric, one unmasked row per bin: each bin max is
+    that row's f32 dot (one FMA per term), within d 2^-24 |q| |v| of the
+    float64 product of the stored values (bf16 rows upcast exactly)."""
+    dev = _device()
+    args = (_operands("K3", dev, d=d, b=b, n=20_000) if mode == "K3" else
+            _bf16_operands("K3-bf16", dev, Metric.DotProduct, n=20_000, d=d, b=b))
+    q, v = args[0], args[1]
+    n_pad = v.shape[0]
+    rows, rmask, surv, n_surv = _one_row_per_bin(args, dev, n_pad)
+    ones_n, ones_b = torch.ones(n_pad, device=dev), torch.ones(b, device=dev)
+    out = ft.KERNELS[mode](q, v, ones_n, ones_n, rmask, ones_b, torch.zeros(b, device=dev),
+                           ones_b, torch.zeros(1, device=dev), surv, n_surv,
+                           Metric.DotProduct)
+    vr = v[rows].double()
+    ref = (q.double() @ vr.T).T
+    scale = vr.norm(dim=1)[:, None] * q.double().norm(dim=1)[None, :]
+    err = float(((out.double() - ref).abs() / scale).max())
+    assert err <= d * 2.0**-24, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["K3", "K3-bf16"])
+@pytest.mark.parametrize("b", [1, 70, 256])
+def test_k3_eq_filter(mode, b):
+    """Eq needs scores both versions compute exactly: small-integer rows
+    and queries (exact in bf16 too, the sums exact), the Dot metric."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(7)
+    n, d = 20_000, 100
+    ints = torch.randint(-2, 3, (sc.pad_rows(n), d), generator=g, device=dev).float()
+    ints[n:] = 0.0
+    if mode == "K3":
+        dv = sc.materialize_f32_slabs(lambda s_, r: ints[s_ : s_ + r], n, d, 1 << 14,
+                                      device=dev)
+    else:
+        dv = sc.materialize_from_device(ints, n_valid=n, dtype=torch.bfloat16)
+    q = torch.randint(-2, 3, (b, d), generator=g, device=dev).float()
+    thr = float(q[0] @ ints[777])
+    q_sq, q_inv = sc._query_norms(q)
+    alive = torch.ones(dv.vectors.shape[0] // ft.BIN, dtype=torch.bool, device=dev)
+    surv, n_surv = ft.survivor_bins(alive)
+    args = [q, dv.vectors, dv.inv_norms, dv.norms_sq, dv.valid.float(), q_inv, q_sq,
+            torch.ones(b, device=dev), torch.full((1,), thr, device=dev), surv, n_surv]
+    _check_plain(mode, args, Metric.DotProduct, False, Cmp.Eq)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [100, 768, 2048])
 @pytest.mark.parametrize("b", [1, 64, 256, 600])
@@ -721,16 +857,17 @@ def test_k5_dots_equal_float64(d):
 @pytest.mark.parametrize("mode,entry", [
     ("K1", "cert_cos_binmax"), ("K1-bf16", "cert_cos_binmax_bf16"), ("K5", "cert_fold_binmax"),
     ("K6", "bf16_binmax"), ("K6-bf16", "bf16_binmax_bf16"), ("K2", "int8_binmax"),
+    ("K3", "f32_binmax"), ("K3-bf16", "f32_binmax_bf16"),
     ("K4", "bf16x3_binmax"), ("K4-bf16", "bf16x3_binmax_bf16"), ("k_planes", "probe_planes")])
 @pytest.mark.parametrize(
-    "d", [16, 112, 768, 832, 896, 1392, 1408, 1536, 2048, 2976, 2992, 4096])
+    "d", [16, 112, 768, 832, 896, 1392, 1408, 1536, 2048, 2976, 2992, 3072, 4096, 8192])
 def test_smem_mirrors_the_kernel(mode, entry, d):
     """``kernel_smem_bytes`` (and the sm90 plans' stage counts) equal the C
     side's figures at every depth the shape check and the plans turn on;
-    K6 over bf16 rows and K4 over f32 and bf16 rows take every one of these
-    depths and launch there (against the plain version at 70 queries, and
-    with no live bin), and so does the probe k_planes (against its plain
-    version)."""
+    K2, K3 and K6 over bf16 rows and K4 over f32 and bf16 rows take every
+    one of these depths and launch there (against the plain version at 70
+    queries, and with no live bin), and so does the probe k_planes
+    (against its plain version)."""
     dev = _device()
     from otters_tpu_torch import kernels
 
@@ -753,9 +890,9 @@ def test_smem_mirrors_the_kernel(mode, entry, d):
         want = pv.k_planes_plain(ops["q"], ops["vh"], ops["vl"])
         scale = float(ops["q"].norm(dim=1).max()) * float(ops["v"].norm(dim=1).max())
         assert float((got - want).abs().max()) <= sc.high_precision_bound(d) * scale
-    if mode in ("K6-bf16", "K4-bf16", "K4"):
+    if mode in ("K6-bf16", "K4-bf16", "K4", "K2", "K3", "K3-bf16"):
         assert ft.kernel_takes(mode, d)
-        args = (_operands(mode, dev, n=20_000, d=d) if mode == "K4" else
+        args = (_operands(mode, dev, n=20_000, d=d) if mode in ("K4", "K2", "K3") else
                 _bf16_operands(mode, dev, Metric.Cosine, n=20_000, d=d))
         _check_plain(mode, args, Metric.Cosine, False, None)
         args[-2], args[-1] = ft.survivor_bins(
