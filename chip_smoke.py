@@ -84,8 +84,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    csrc/profile_probes.cu) at the shapes of
    scripts/kernel_profile_variants.py: each run by the module's timing
    entry, held against its plain version and timed beside a library
-   yardstick and its bound (``k_planes``, on the Hopper scan, in K1_ROUNDS
-   interleaved rounds); ``k_mm`` may not beat its FFMA bound.
+   yardstick and its bound (all three on the Hopper scan, each in K1_ROUNDS
+   rounds interleaved with its library call); ``k_mm`` may not beat its
+   FFMA bound.
 
 Phases 4 and 6 also trace one pipelined round with torch.profiler (device
 time by kernel, the device's busy share). Every path sets the launch
@@ -1512,10 +1513,10 @@ def probes_phase(torch, dev):
     two f32 sums in other orders; k_planes within high_precision_bound(d)
     |q| |v|) and timed beside the plain version, a library yardstick (an
     f32 matmul, TF32 off, or three bf16 matmuls on the planes, then a bin
-    max) and the bound; k_planes (on the Hopper scan) and its library call
-    in K1_ROUNDS interleaved rounds (median and range). k_mm may not beat
-    its FFMA bound: nvcc must not have dropped the tile columns it never
-    writes."""
+    max) and the bound; each probe (all on the Hopper scan) and its library
+    call in K1_ROUNDS interleaved rounds (median, range and rounds won).
+    k_mm may not beat its FFMA bound: nvcc must not have dropped the tile
+    columns it never writes."""
     from otters_tpu_torch import profile_variants as pv
     from otters_tpu_torch.ops import scoring as sc
 
@@ -1555,22 +1556,18 @@ def probes_phase(torch, dev):
 
             def library():
                 return torch.matmul(q, v.T).reshape(b, n_pad // pv.BIN, pv.BIN).amax(dim=2)
-        extra = {}
-        if name == "k_planes":
-            # on the Hopper scan, close to its library call: both in
-            # interleaved rounds, each one's median and range
-            rounds = [(time_ms(lambda: fn(*args), reps=10), time_ms(library, reps=10))
-                      for _ in range(K1_ROUNDS)]
-            ks, ls = zip(*rounds)
-            times[name], library_ms = statistics.median(ks), statistics.median(ls)
-            extra = {"ms_range": [min(ks), max(ks)], "library_ms_range": [min(ls), max(ls)],
-                     "rounds": K1_ROUNDS, "run_ms": pv_ms}
-            log(f"{name}: {K1_ROUNDS} rounds, kernel median {times[name]:.3f} ms (range "
-                f"{min(ks):.3f}-{max(ks):.3f}), library median {library_ms:.3f} ms (range "
-                f"{min(ls):.3f}-{max(ls):.3f}), kernel faster in "
-                f"{sum(k < lb for k, lb in rounds)} of {K1_ROUNDS}")
-        else:
-            library_ms = time_ms(library, reps=5, warm=1)
+        # close to its library call: both in interleaved rounds, each one's
+        # median and range
+        rounds = [(time_ms(lambda: fn(*args), reps=10), time_ms(library, reps=10))
+                  for _ in range(K1_ROUNDS)]
+        ks, ls = zip(*rounds)
+        times[name], library_ms = statistics.median(ks), statistics.median(ls)
+        won = sum(k < lb for k, lb in rounds)
+        extra = {"ms_range": [min(ks), max(ks)], "library_ms_range": [min(ls), max(ls)],
+                 "rounds": K1_ROUNDS, "rounds_won": won, "run_ms": pv_ms}
+        log(f"{name}: {K1_ROUNDS} rounds, kernel median {times[name]:.3f} ms (range "
+            f"{min(ks):.3f}-{max(ks):.3f}), library median {library_ms:.3f} ms (range "
+            f"{min(ls):.3f}-{max(ls):.3f}), kernel faster in {won} of {K1_ROUNDS}")
         bound_ms, bound_by = probe_bound(name, n_pad, d, b, t)
         if on_card and name == "k_mm":
             assert times[name] >= bound_ms, f"k_mm {times[name]} ms beats its bound {bound_ms} ms"

@@ -1,5 +1,4 @@
-// Shared pieces of the uncertified bin-max kernels (K2, K3, K4, K6) and the
-// FFMA probes.
+// Shared pieces of the uncertified bin-max kernels (K2, K3, K4, K6).
 //
 // Each kernel computes, for every live 512-row bin and every query, the
 // bin maximum of the masked key of otters_tpu/ops/pallas_topk.py::_kernel:
@@ -17,9 +16,7 @@
 // Every bin-max kernel walks the survivor list with a persistent grid
 // (csrc/cert_scan_sm90.cuh), K2, K3, K4 and K6 with the key of SlotKey
 // below; the output [n_bins, b] is pre-filled with -inf by the caller and
-// padded query rows carry q_ok = 0. THREADS, QB and load16 serve the
-// simple FFMA probes of csrc/profile_probes.cu, whose grid covers every
-// bin times every 64-query block.
+// padded query rows carry q_ok = 0.
 
 #pragma once
 
@@ -28,10 +25,6 @@
 #include <stdint.h>
 
 namespace binmax {
-
-constexpr int BIN = 512;      // rows per bin (= scoring.CERT_BIN)
-constexpr int QB = 64;        // queries per block
-constexpr int THREADS = 256;  // threads per block
 
 // The epilogue is branch-free: every metric form is computed and one is
 // selected, and the filter is a mask of the accepted orderings. (Branches
@@ -107,17 +100,6 @@ __device__ __forceinline__ SlotKey make_slot_key(int q0, const int (&cols)[16],
     k.metric = metric;
     k.cmask = cmp_mask(cmp);
     return k;
-}
-
-// 16 bytes from p, of which the first n are real (the rest read as 0);
-// vec: p is 16-byte aligned, so a whole vector load is safe when n >= 16
-__device__ __forceinline__ int4 load16(const void* p, int n, bool vec) {
-    if (vec && n >= 16) return *reinterpret_cast<const int4*>(p);
-    int4 out = make_int4(0, 0, 0, 0);
-    const unsigned char* src = reinterpret_cast<const unsigned char*>(p);
-    unsigned char* dst = reinterpret_cast<unsigned char*>(&out);
-    for (int e = 0; e < 16 && e < n; ++e) dst[e] = src[e];
-    return out;
 }
 
 }  // namespace binmax

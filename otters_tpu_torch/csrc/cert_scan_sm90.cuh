@@ -17,9 +17,10 @@
 // general certified fold), K6 over f32 and bf16 rows (csrc/bf16_binmax.cu,
 // one bf16 pass), K4 (csrc/bf16x3_binmax.cu, bf16x3) over bf16 rows (the
 // rows' low plane is 0: two query planes) and over f32 rows (two row
-// planes split in registers), and the profiling probe k_planes
-// (csrc/profile_probes.cu, bf16x3 over two bf16 row arrays, the raw dot as
-// the key, no side data). The header is templated on the row type (int8,
+// planes split in registers), and the profiling probes of
+// csrc/profile_probes.cu (k_planes: bf16x3 over two bf16 row arrays;
+// k_mm and k_mm_bins: exact f32 over f32 rows; the raw dot as the key, no
+// side data). The header is templated on the row type (int8,
 // bf16 or f32), the number of side arrays (0 to 4), the stage shape,
 // whether the query block is streamed, the number of query planes (1 or 2)
 // and of row planes (1 or 2), the query element type (bf16, int8 or f32)
@@ -61,14 +62,15 @@
 //   = 768).
 // - Deep rows (the streamed plan): when the resident query block (8 KB per
 //   k-block and plane) would leave fewer than two ring stages, or always
-//   for a kernel with no resident plan (K3, K4, k_planes), no query block
+//   for a kernel with no resident plan (K3, K4, the probes), no query block
 //   is resident; each ring stage carries the query k-blocks of its depth
 //   step beside the row k-blocks, in the same layout, and the consumers
 //   read B from the stage. Any depth then fits; the query block is read
 //   again for every row sub-tile (from L2).
 // - One producer thread keeps an even number of ring stages of KS k-blocks
 //   of [TM rows x KD deep] in flight with full / empty mbarrier pairs (KD =
-//   64, or 128 for int8 queries).
+//   64, 128 for int8 queries, one 128-byte row box for f32 queries:
+//   sm90::stage_depth).
 // - Two consumer warpgroups in ping-pong: the stages alternate between
 //   them, and each takes a TM-row sub-tile of its own (TM / 64 m-blocks,
 //   f32 accumulators in registers, 32 a thread per m-block), so one
@@ -96,15 +98,20 @@
 //     that chunk order the 8 threads of a quarter-warp's load touch 8
 //     distinct bank groups under the swizzle, so the loads are free of
 //     bank conflicts.
-// - f32 queries (K3): the consumers are FFMA warpgroups on the same ring
-//   (the stages carry the f32 query k-blocks, two 128-byte swizzled boxes
-//   of 32 deep, beside one k-block of 128 f32 or bf16 rows): each thread
-//   keeps an 8-row x 8-query tile of f32 accumulators, fed by 16-byte
-//   shared loads of both operands as they landed (4 FFMAs per float read;
-//   a quarter-warp's row loads on 8 distinct bank groups under the
-//   swizzle, its query load a broadcast), one __fmaf_rn per term in depth
-//   order; every consumer thread releases the stage (the empty barrier
-//   counts 128).
+// - f32 queries (K3, and the probes k_mm / k_mm_bins): the consumers are
+//   FFMA warpgroups on the same ring. A stage's k-block is one 128-byte
+//   swizzled box of rows with the 64 queries' f32 of the same depth (one or
+//   two boxes of 32 deep): 256 f32 rows 32 deep (32 KB, 4 stages) or 128
+//   bf16 rows 64 deep (16 KB, 6 stages). Each thread keeps a 16-row (f32
+//   rows) or 8-row (bf16 rows) x 8-query tile of f32 accumulators, one
+//   __fmaf_rn per term in depth order. Over f32 rows, per 4-deep chunk it
+//   loads its 8 queries once and streams its 16 rows: 24 shared loads per
+//   512 FFMAs (an 8 x 8 tile takes 16 per 256), with 128 accumulators of
+//   setmaxnreg's 232 registers. Over bf16 rows each row's 16 bytes (8
+//   deep) are loaded once and widened in registers, and the larger tile
+//   measured slower (PERF.md). A quarter-warp's row loads sit on 8 distinct
+//   bank groups under the swizzle, its query load is a broadcast. Every
+//   consumer thread releases the stage (the empty barrier counts 128).
 // - int8 rows, f16 products: int8 -> f16 takes 5 instructions per 4 codes
 //   (the bytes + 128 under an f16 exponent, one f16x2 subtract per pair),
 //   int8 -> bf16 11, and the conversion is most of the consumers' work
@@ -191,10 +198,25 @@ template <typename QT>
 __host__ __device__ constexpr int qblock_bytes() { return QB * kdepth<QT>() * (int)sizeof(QT); }
 constexpr int QBLOCK_BYTES = qblock_bytes<__nv_bfloat16>();
 
-// one [TM rows x KD deep] k-block of a ring stage
+// The depth of a ring stage's k-block: the queries' KD, except under f32
+// queries (the FFMA consumers), whose k-block is one 128-byte box of rows,
+// 32 f32 or 64 bf16 deep, with the queries of the same depth (one or two
+// 128-byte boxes of 32 f32)
+template <typename RowT, typename QT>
+__host__ __device__ constexpr int stage_depth() {
+    return sizeof(QT) == 4 ? 128 / (int)sizeof(RowT) : kdepth<QT>();
+}
+// rows of the FFMA consumers' stages and sub-tiles: over f32 rows half a
+// bin (a 16-row register tile a thread; each of the two warpgroups takes
+// one sub-tile of every bin), over bf16 rows 128 (an 8-row tile, which
+// measured faster there: the rows are widened in registers, PERF.md)
+template <typename RowT>
+__host__ __device__ constexpr int ffma_rows() { return sizeof(RowT) == 4 ? 256 : 128; }
+
+// one [TM rows x stage depth] k-block of a ring stage
 template <typename RowT, int TM, typename QT = __nv_bfloat16>
 __host__ __device__ constexpr int tile_bytes() {
-    return TM * kdepth<QT>() * (int)sizeof(RowT);
+    return TM * stage_depth<RowT, QT>() * (int)sizeof(RowT);
 }
 
 // row planes of a k-block in shared memory: NV bf16 arrays (two row
@@ -210,7 +232,7 @@ template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1,
           typename QT = __nv_bfloat16>
 __host__ __device__ constexpr int stage_bytes() {
     return KS * (row_planes<RowT, NV>() * tile_bytes<RowT, TM, QT>()
-                 + (STREAM ? NQ * qblock_bytes<QT>() : 0));
+                 + (STREAM ? NQ * QB * stage_depth<RowT, QT>() * (int)sizeof(QT) : 0));
 }
 
 // dynamic shared memory for `stages` stages at depth d: 1 KB of alignment
@@ -570,7 +592,16 @@ __device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uin
 // two arrays (vmap2 the map of the low plane); QT: the query element type
 // (bf16; int8, K2: int8 rows, A by descriptor, wgmma m64n64k32 s8 x s8 into
 // exact s32 sums, each converted to f32 with __int2float_rn before the key;
-// f32, K3: the FFMA consumers, exact f32 dots on the CUDA cores).
+// f32, K3: the FFMA consumers, exact f32 dots on the CUDA cores). Under
+// the FFMA consumers a key may also have
+//   void store(size_t row, int q, const float (&dots)[8]) const
+// which receives each row's raw dots with queries q + 8 j before the key
+// (the probe k_mm); the other keys have none and pay nothing.
+template <typename K, typename = void>
+struct stores_dots : std::false_type {};
+template <typename K>
+struct stores_dots<K, std::void_t<decltype(&K::store)>> : std::true_type {};
+
 template <typename RowT, int NSIDE, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1,
           typename QT = __nv_bfloat16, typename MakeKey>
 __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap* vmap,
@@ -581,15 +612,16 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
     constexpr bool S8 = sizeof(QT) == 1;    // K2: int8 x int8 into s32
     constexpr bool FFMA = sizeof(QT) == 4;  // K3: f32 queries, FFMA consumers
     static_assert(!S8 || (INT8 && NQ == 1), "int8 queries: int8 rows, one query plane");
-    static_assert(!FFMA || (STREAM && NQ == 1 && NV == 1 && TM == 128 && !INT8),
-                  "f32 queries: f32 or bf16 rows, streamed, one plane, 128-row sub-tiles");
+    static_assert(!FFMA || (STREAM && NQ == 1 && NV == 1 && TM == ffma_rows<RowT>() && KS == 1
+                            && !INT8),
+                  "f32 queries: f32 or bf16 rows, streamed, one plane, ffma_rows-row stages");
     static_assert(NV == 1 || (NV == 2 && NQ == 2 && !INT8),
                   "two row planes: bf16x3 over f32 or bf16 rows, with two query planes");
     static_assert(NQ == 1 || (NQ == 2 && (sizeof(RowT) == 2 || NV == 2)),
                   "two query planes: bf16 rows, or f32 rows split into two planes");
-    constexpr int KD = kdepth<QT>();              // depth of a k-block
-    constexpr int QBLK = qblock_bytes<QT>();      // one query k-block of one plane
-    constexpr int QH = sizeof(QT) == 4 ? 2 : 1;   // its 128-byte boxes (f32: 32 deep each)
+    constexpr int KD = stage_depth<RowT, QT>();   // depth of a k-block
+    constexpr int QBLK = QB * KD * (int)sizeof(QT);  // one query k-block of one plane
+    constexpr int QH = QBLK / (QB * 128);         // its 128-byte boxes (f32: 32 deep each)
     constexpr int TILE = tile_bytes<RowT, TM, QT>();  // one [TM x KD] k-block of one array
     constexpr int RTILE = row_planes<RowT, NV>() * TILE;  // of every row plane
     constexpr int MB = TM / 64;                   // m-blocks of a warpgroup
@@ -664,7 +696,7 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                         mbar_expect_tx(full, nkb * (RTILE + (STREAM ? QSTEP : 0)));
                         for (int kb = 0; kb < nkb; ++kb) {
                             const int k0 = (ks * KS + kb) * KD;
-                            if constexpr (F32) {
+                            if constexpr (F32 && !FFMA) {
                                 // two swizzled half boxes of 32 deep
                                 tma_load_2d(dst + kb * RTILE, vmap, full, k0, row0);
                                 tma_load_2d(dst + kb * RTILE + TM * 128, vmap, full, k0 + 32,
@@ -679,7 +711,8 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                                     for (int h = 0; h < QH; ++h)
                                         tma_load_2d(dst + KS * RTILE + kb * QSTEP + pl * QBLK
                                                         + h * QB * 128,
-                                                    qmap, full, k0 + h * 32, qrow + pl * qplane);
+                                                    qmap, full, k0 + h * (128 / (int)sizeof(QT)),
+                                                    qrow + pl * qplane);
                         }
                         if (++st == S) { st = 0; ph ^= 1; }
                     }
@@ -692,18 +725,18 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
     const int wg = warp >> 2, wq = warp & 3;
     if constexpr (FFMA) {
-        // K3: exact f32 dots, one IEEE FMA per term in depth order. Warpgroup
-        // wg takes the 128-row sub-tiles wg, wg + 2, ... of every bin, as
-        // below; its thread (rg, qg) keeps an 8-row x 8-query register tile,
-        // rows rg + 16 i and queries qg + 8 j (rg = lane % 8 + 8 (wq % 2), qg
-        // = lane / 8 + 4 (wq / 2)), fed by 16-byte loads of 4 f32 (or 8 bf16)
-        // of one depth chunk: 4 FFMAs per float read. A quarter-warp's 8
-        // lanes read 8 rows whose (row % 8) differ, so under the 128-byte
-        // swizzle (chunk c of row r at c ^ (r % 8)) they touch 8 distinct
-        // 16-byte bank groups, and one query (a broadcast); no transposed
-        // staging, both operands stay K-contiguous as TMA lands them. The
-        // chunk loops stay rolled: unrolled 2 or 4 times they measured
-        // slower (PERF.md, the K3 variants).
+        // K3 and the probes k_mm / k_mm_bins: exact f32 dots, one IEEE FMA
+        // per term in depth order. Warpgroup wg takes the TM-row sub-tiles
+        // wg, wg + 2, ... of every bin; its thread (rg, qg) keeps an RI-row x
+        // 8-query register tile, rows rg + 16 i and queries qg + 8 j (rg =
+        // lane % 8 + 8 (wq % 2), qg = lane / 8 + 4 (wq / 2); RI = TM / 16:
+        // 16 over f32 rows, 8 over bf16 rows). A quarter-warp's 8 lanes read
+        // 8 rows whose (row % 8) differ, so under the 128-byte swizzle (chunk
+        // c of row r at c ^ (r % 8)) they touch 8 distinct 16-byte bank
+        // groups, and one query (a broadcast); both operands stay
+        // K-contiguous as TMA lands them. The chunk loops stay rolled (K3's
+        // unrolled ones measured slower, PERF.md).
+        constexpr int RI = TM / 16;  // rows of a thread's tile
         const int rg = (lane & 7) + 8 * (wq & 1);
         const int qg = (lane >> 3) + 4 * (wq >> 1);
         const int sr = rg & 7;  // the swizzle of each of the thread's rows
@@ -722,85 +755,73 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
             for (int j = 0; j < 8; ++j) best[j] = -INFINITY;
             for (int sp = 0; sp < BIN / TM / 2; ++sp) {
                 const size_t row = (size_t)bin * BIN + (2 * sp + wg) * TM + rg;
-                float sv[8][NSIDE > 0 ? NSIDE : 1];
+                float acc[RI][8];
 #pragma unroll
-                for (int i = 0; i < 8; ++i)
-#pragma unroll
-                    for (int j = 0; j < NSIDE; ++j) sv[i][j] = __ldg(a.side[j] + row + 16 * i);
-                float acc[8][8];
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
+                for (int i = 0; i < RI; ++i)
 #pragma unroll
                     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
                 for (int ks = 0; ks < nks; ++ks) {
-                    const int nkb = min(KS, nk - ks * KS);
                     mbar_wait(bars + 8 * st, ph);
-                    for (int kb = 0; kb < nkb; ++kb) {
-                        const unsigned char* rt = tile_g + st * STAGE + kb * RTILE + rg * 128;
-                        const unsigned char* qt =
-                            tile_g + st * STAGE + KS * RTILE + kb * QSTEP + qg * 128;
-                        if constexpr (F32) {
-                            // 16 chunks of 4 deep: chunk c of half h (rows'
-                            // half at h TM 128, the queries' at h QB 128)
+                    const unsigned char* rt = tile_g + st * STAGE + rg * 128;
+                    const unsigned char* qt = tile_g + st * STAGE + RTILE + qg * 128;
+                    if constexpr (F32) {
+                        // 8 chunks of 4 deep: the queries' chunk c, then the
+                        // rows' chunk c streamed, one 16-byte load a row
 #pragma unroll 1
-                            for (int cc = 0; cc < 16; ++cc) {
-                                const int h = cc >> 3, c = cc & 7;
-                                const unsigned char* rp = rt + h * (TM * 128) + ((c ^ sr) << 4);
-                                const unsigned char* qp = qt + h * (QB * 128) + ((c ^ qg) << 4);
-                                float4 v[8];
+                        for (int c = 0; c < 8; ++c) {
+                            const unsigned char* rp = rt + ((c ^ sr) << 4);
+                            const unsigned char* qp = qt + ((c ^ qg) << 4);
+                            float4 q[8];
 #pragma unroll
-                                for (int i = 0; i < 8; ++i)
-                                    v[i] = *reinterpret_cast<const float4*>(rp + i * 16 * 128);
+                            for (int j = 0; j < 8; ++j)
+                                q[j] = *reinterpret_cast<const float4*>(qp + j * 8 * 128);
+#pragma unroll
+                            for (int i = 0; i < RI; ++i) {
+                                const float4 v = *reinterpret_cast<const float4*>(rp + i * 16 * 128);
+#pragma unroll
+                                for (int j = 0; j < 8; ++j) {
+                                    acc[i][j] = __fmaf_rn(v.x, q[j].x, acc[i][j]);
+                                    acc[i][j] = __fmaf_rn(v.y, q[j].y, acc[i][j]);
+                                    acc[i][j] = __fmaf_rn(v.z, q[j].z, acc[i][j]);
+                                    acc[i][j] = __fmaf_rn(v.w, q[j].w, acc[i][j]);
+                                }
+                            }
+                        }
+                    } else {
+                        // 8 chunks of 8 bf16, each loaded once and widened
+                        // exactly in two halves of 4 deep; depths 8c + 4e
+                        // .. 8c + 4e + 3 are the queries' f32 chunk 2c + e
+#pragma unroll 1
+                        for (int c = 0; c < 8; ++c) {
+                            const unsigned char* rp = rt + ((c ^ sr) << 4);
+                            uint4 w[RI];
+#pragma unroll
+                            for (int i = 0; i < RI; ++i)
+                                w[i] = *reinterpret_cast<const uint4*>(rp + i * 16 * 128);
+#pragma unroll
+                            for (int e = 0; e < 2; ++e) {
+                                float v[RI][4];
+#pragma unroll
+                                for (int i = 0; i < RI; ++i) {
+                                    const uint32_t lo = e ? w[i].z : w[i].x;
+                                    const uint32_t hi = e ? w[i].w : w[i].y;
+                                    v[i][0] = __uint_as_float(lo << 16);
+                                    v[i][1] = __uint_as_float(lo & 0xffff0000u);
+                                    v[i][2] = __uint_as_float(hi << 16);
+                                    v[i][3] = __uint_as_float(hi & 0xffff0000u);
+                                }
+                                const unsigned char* qp = qt + (c >> 2) * (QB * 128)
+                                                        + ((((2 * c + e) & 7) ^ qg) << 4);
 #pragma unroll
                                 for (int j = 0; j < 8; ++j) {
                                     const float4 q =
                                         *reinterpret_cast<const float4*>(qp + j * 8 * 128);
 #pragma unroll
-                                    for (int i = 0; i < 8; ++i) {
-                                        acc[i][j] = __fmaf_rn(v[i].x, q.x, acc[i][j]);
-                                        acc[i][j] = __fmaf_rn(v[i].y, q.y, acc[i][j]);
-                                        acc[i][j] = __fmaf_rn(v[i].z, q.z, acc[i][j]);
-                                        acc[i][j] = __fmaf_rn(v[i].w, q.w, acc[i][j]);
-                                    }
-                                }
-                            }
-                        } else {
-                            // 8 chunks of 8 bf16, each loaded once and widened
-                            // exactly in two halves of 4 deep; depths 8c + 4e
-                            // .. 8c + 4e + 3 are the queries' f32 chunk
-                            // (2c + e) % 8 of half c / 4
-#pragma unroll 1
-                            for (int c = 0; c < 8; ++c) {
-                                const unsigned char* rp = rt + ((c ^ sr) << 4);
-                                const unsigned char* qh = qt + (c >> 2) * (QB * 128);
-                                uint4 w[8];
-#pragma unroll
-                                for (int i = 0; i < 8; ++i)
-                                    w[i] = *reinterpret_cast<const uint4*>(rp + i * 16 * 128);
-#pragma unroll
-                                for (int e = 0; e < 2; ++e) {
-                                    float v[8][4];
-#pragma unroll
-                                    for (int i = 0; i < 8; ++i) {
-                                        const uint32_t lo = e ? w[i].z : w[i].x;
-                                        const uint32_t hi = e ? w[i].w : w[i].y;
-                                        v[i][0] = __uint_as_float(lo << 16);
-                                        v[i][1] = __uint_as_float(lo & 0xffff0000u);
-                                        v[i][2] = __uint_as_float(hi << 16);
-                                        v[i][3] = __uint_as_float(hi & 0xffff0000u);
-                                    }
-                                    const int cq = ((2 * c + e) & 7) ^ qg;
-#pragma unroll
-                                    for (int j = 0; j < 8; ++j) {
-                                        const float4 q = *reinterpret_cast<const float4*>(
-                                            qh + j * 8 * 128 + (cq << 4));
-#pragma unroll
-                                        for (int i = 0; i < 8; ++i) {
-                                            acc[i][j] = __fmaf_rn(v[i][0], q.x, acc[i][j]);
-                                            acc[i][j] = __fmaf_rn(v[i][1], q.y, acc[i][j]);
-                                            acc[i][j] = __fmaf_rn(v[i][2], q.z, acc[i][j]);
-                                            acc[i][j] = __fmaf_rn(v[i][3], q.w, acc[i][j]);
-                                        }
+                                    for (int i = 0; i < RI; ++i) {
+                                        acc[i][j] = __fmaf_rn(v[i][0], q.x, acc[i][j]);
+                                        acc[i][j] = __fmaf_rn(v[i][1], q.y, acc[i][j]);
+                                        acc[i][j] = __fmaf_rn(v[i][2], q.z, acc[i][j]);
+                                        acc[i][j] = __fmaf_rn(v[i][3], q.w, acc[i][j]);
                                     }
                                 }
                             }
@@ -812,13 +833,20 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                     advance();
                     advance();
                 }
+                // the rows' side data, read once the products are done (it
+                // would hold RI NSIDE registers across them)
 #pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    if constexpr (NSIDE > 0) key.prep(sv[i]);
+                for (int i = 0; i < RI; ++i) {
+                    float sv[NSIDE > 0 ? NSIDE : 1];
+#pragma unroll
+                    for (int s = 0; s < NSIDE; ++s) sv[s] = __ldg(a.side[s] + row + 16 * i);
+                    if constexpr (stores_dots<std::decay_t<decltype(key)>>::value)
+                        key.store(row + 16 * i, qblk * QB + qg, acc[i]);
+                    if constexpr (NSIDE > 0) key.prep(sv);
 #pragma unroll
                     for (int j = 0; j < 8; ++j) {
                         if constexpr (NSIDE > 0)
-                            best[j] = fmaxf(best[j], key(acc[i][j], sv[i], j));
+                            best[j] = fmaxf(best[j], key(acc[i][j], sv, j));
                         else
                             best[j] = fmaxf(best[j], key(acc[i][j], j));
                     }

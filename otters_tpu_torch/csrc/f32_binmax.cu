@@ -21,17 +21,18 @@
 // survivor list (CTA c holds query block c % n_qb and walks slots p, p + P,
 // ...), a TMA ring fed by one producer thread with full / empty mbarriers,
 // two consumer warpgroups on alternate stages. The f32 query block is 192
-// KB at d = 768, so it never stays resident: every stage carries its 64
-// queries' k-block (two 128-byte swizzled boxes of 32 deep) beside one
-// k-block of 128 rows: f32 rows as two such boxes (K6's layout), bf16 rows
-// as one box of 64 deep, widened exactly in registers (a shift or a mask
-// per element, once per 16-byte chunk). Each consumer thread keeps an
-// 8-row x 8-query register tile and reads both operands with 16-byte
-// loads, K-contiguous as they landed: 4 FFMAs per f32 read from shared
-// memory; the swizzle keeps a quarter-warp's row loads on 8 distinct bank
+// KB at d = 768, so it never stays resident: every stage carries one
+// 128-byte swizzled box of rows beside the 64 queries' f32 of the same
+// depth (one or two boxes of 32 deep): 256 f32 rows 32 deep, or 128 bf16
+// rows 64 deep, widened exactly in registers (a shift or a mask per
+// element, once per 16-byte chunk). Each consumer thread keeps a 16-row
+// (f32 rows) or 8-row (bf16 rows) x 8-query register tile and reads both
+// operands as they landed, K-contiguous: over f32 rows per 4-deep chunk
+// its 8 queries once and its 16 rows streamed, 24 shared loads per 512
+// FFMAs; the swizzle keeps a quarter-warp's row loads on 8 distinct bank
 // groups and its query load a broadcast. The key, a running per-query max,
 // shuffles and one shared reduction per bin stay in registers, and
-// out[bin][q0 : q0 + 64] is written once. Stages: 4 of 48 KB (f32 rows) or
+// out[bin][q0 : q0 + 64] is written once. Stages: 4 of 40 KB (f32 rows) or
 // 6 of 32 KB (bf16 rows), at every depth.
 //
 // Bound at the f32 path's shapes (4M x 768 f32 store, 256 queries, half of
@@ -40,8 +41,10 @@
 // against 6.1 GB of rows, 1.8 ms at 3.35 TB/s. So operations bound it.
 // Over bf16 rows (10M x 768 store, about 5.0M live rows) the same count is
 // 1.97 T operations, 29 ms, against 7.7 GB of rows: operations again. The
-// rows and the streamed queries reach each SM from L2, (1 / 64 + 1 / 128)
-// b d 4 bytes a row, about 24 bytes per 1,000 FFMAs.
+// rows and the streamed queries reach each SM from L2, (1 / 64 + 1 / 256)
+// b d 4 bytes an f32 row (one read per query block, the queries once per
+// 256 rows), about 78 bytes per 1,000 FFMAs; over bf16 rows (1 / 128 + 1 /
+// 128) b d 4.
 //
 // Hazards handled:
 // - Zero padding past d: TMA fills a k-block past the rows' depth (a
@@ -81,16 +84,19 @@ __global__ void __launch_bounds__(sm90::THREADS, 1) f32_binmax_sm90_kernel(
 }
 
 // the stage shape (sm90::with_plan): no resident plan (KS1 = 0); one
-// k-block of 128 rows with the queries' k-block, at every depth
-constexpr int KS1 = 0, TM1 = 0, KS2 = 1, TM2 = 128;
+// k-block of ffma_rows rows (256 f32, 128 bf16) with the queries' k-block,
+// at every depth
+constexpr int KS1 = 0, TM1 = 0, KS2 = 1;
+template <typename RowT>
+constexpr int TM2 = sm90::ffma_rows<RowT>();
 
 template <typename RowT>
 size_t smem_of(int d) {
-    return sm90::plan_smem<RowT, KS1, TM1, KS2, TM2, 1, 1, float>(d);
+    return sm90::plan_smem<RowT, KS1, TM1, KS2, TM2<RowT>, 1, 1, float>(d);
 }
 template <typename RowT>
 int stages_of(int d) {
-    return sm90::plan_stages<RowT, KS1, TM1, KS2, TM2, 1, 1, float>(d);
+    return sm90::plan_stages<RowT, KS1, TM1, KS2, TM2<RowT>, 1, 1, float>(d);
 }
 
 template <typename RowT>
@@ -111,7 +117,7 @@ int launch(const void* q, const void* v, const void* inv, const void* nsq, const
             qmap, vmap, a, (const float*)q_inv, (const float*)q_sq, (const float*)q_ok,
             (const float*)thr, metric, take_min, cmp);
     };
-    return sm90::launch_plan<RowT, KS1, TM1, KS2, TM2, 1, 1, float>(
+    return sm90::launch_plan<RowT, KS1, TM1, KS2, TM2<RowT>, 1, 1, float>(
         get_kernel, launch_fn, q, v, side, SlotKey::NSIDE, surv, n_surv, out, n_bins, d, b,
         dq, n_qb, per_group);
 }

@@ -200,21 +200,6 @@ def stored_depth(v) -> int:
     return dp
 
 
-def _pad_query_blocks(q, dp, *per_query):
-    """Pad the batch to whole QUERY_BLOCKs and the depth to the rows'
-    stored depth ``dp`` -> (n_qb, q, per_query): padded lanes and columns
-    are zero, so q_ok = 0 keeps the lanes out of every bin max and the
-    columns add nothing to a dot."""
-    b, d = q.shape
-    n_qb = -(-b // QUERY_BLOCK)
-    pad = n_qb * QUERY_BLOCK - b
-    if pad or dp != d:
-        q = torch.nn.functional.pad(q, (0, dp - d, 0, pad))
-    if pad:
-        per_query = tuple(torch.nn.functional.pad(t, (0, pad)) for t in per_query)
-    return n_qb, q, per_query
-
-
 @functools.lru_cache(maxsize=None)
 def _kernel_fns(source: str, entry: str, n_ptrs: int, n_ints: int):
     """The (smem_bytes, launch) C functions ``{entry}_smem_bytes`` and
@@ -312,7 +297,7 @@ def cert_cos_binmax_plain(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_su
 
 # ---------------------------------------------------------------------------
 # The Hopper scan's plans and launch geometry (csrc/cert_scan_sm90.cuh):
-# every kernel of KERNELS and the probe k_planes
+# every kernel of KERNELS and the probes
 # ---------------------------------------------------------------------------
 
 # CTAs of 64 queries, a persistent grid, a ring of [rows x k-block] stages
@@ -327,6 +312,14 @@ def kblock_depth(q_bytes: int) -> int:
     """The depth of a k-block (the C side's ``sm90::kdepth``): 64, or 128
     for int8 queries, whose k-blocks are then 128 B a row as bf16 ones."""
     return 128 if q_bytes == 1 else 64
+
+
+def stage_depth(row_bytes: int, q_bytes: int) -> int:
+    """The depth of a ring stage's k-block (the C side's
+    ``sm90::stage_depth``): the queries' k-block, except under f32 queries
+    (K3's FFMA consumers), whose stages carry one 128-byte box of rows, 32
+    f32 or 64 bf16 deep, with the queries of the same depth."""
+    return 128 // row_bytes if q_bytes == 4 else kblock_depth(q_bytes)
 
 
 class ScanShape(NamedTuple):
@@ -352,7 +345,8 @@ SM90_SHAPES = {
     "K1": ScanShape(1, 1, (2, 128), (1, 128)),
     "K1-bf16": ScanShape(2, 1, (1, 256), (1, 128)),
     "K2": ScanShape(1, 1, (1, 256), (1, 128), q_bytes=1),
-    "K3": ScanShape(4, 1, None, (1, 128), q_bytes=4),
+    # the FFMA consumers' stages: sm90::ffma_rows, 256 f32 or 128 bf16 rows
+    "K3": ScanShape(4, 1, None, (1, 256), q_bytes=4),
     "K3-bf16": ScanShape(2, 1, None, (1, 128), q_bytes=4),
     "K5": ScanShape(2, 1, (2, 128), (1, 128)),
     "K6": ScanShape(4, 1, (1, 128), (1, 64)),
@@ -360,6 +354,8 @@ SM90_SHAPES = {
     "K4": ScanShape(4, 2, None, (1, 128)),
     "K4-bf16": ScanShape(2, 2, None, (1, 128)),
     "k_planes": ScanShape(4, 2, None, (1, 128)),
+    "k_mm": ScanShape(4, 1, None, (1, 256), q_bytes=4),
+    "k_mm_bins": ScanShape(4, 1, None, (1, 256), q_bytes=4),
 }
 
 
@@ -401,14 +397,15 @@ def sm90_smem_bytes(d: int, row_bytes: int, stages: int, ks: int, rows: int,
     """The scan's dynamic shared memory (the C side's ``sm90::smem_bytes``):
     1 KB of alignment slack, the resident query blocks (64 queries of one
     k-block of ``q_bytes`` elements per k-block and query plane: 8 KB for
-    bf16 and int8, 16 KB for f32; none when streamed), the ring of
-    ``stages`` stages of ``ks`` [rows x k-block] row tiles (each with its
-    query k-blocks when streamed), the per-query maxima and scales with the
+    bf16 and int8; none when streamed), the ring of ``stages`` stages of
+    ``ks`` [rows x :func:`stage_depth`] row tiles (each with its queries of
+    that depth when streamed), the per-query maxima and scales with the
     f16 flag, and the barriers."""
     kd = kblock_depth(q_bytes)
     nk = -(-d // kd)
     qblock = planes * QUERY_BLOCK * kd * q_bytes
-    stage = ks * (rows * kd * row_bytes + (qblock if streamed else 0))
+    sd = stage_depth(row_bytes, q_bytes)
+    stage = ks * (rows * sd * row_bytes + (planes * QUERY_BLOCK * sd * q_bytes if streamed else 0))
     return (1024 + (0 if streamed else nk * qblock) + stages * stage
             + 2 * QUERY_BLOCK * 4 + 8 + (2 * stages + 1) * 8)
 

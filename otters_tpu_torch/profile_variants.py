@@ -12,9 +12,12 @@ block. Here each body is a kernel written by hand for Hopper
   -> [n_tiles, b, t / 512];
 - :func:`k_planes`: ``qh.vh + qh.vl + ql.vh`` (the query split into bf16
   planes, ``vh`` / ``vl`` pre-split bf16 arrays), then the bin maxima ->
-  [n_tiles, b, t / 512]; on the Hopper scan of ``csrc/cert_scan_sm90.cuh``
-  (K4's bf16x3 core over f32 rows, with the row planes read from the two
-  arrays).
+  [n_tiles, b, t / 512].
+
+All three run on the Hopper scan of ``csrc/cert_scan_sm90.cuh`` over every
+bin: ``k_mm`` and ``k_mm_bins`` on K3's FFMA consumers over f32 rows,
+``k_planes`` on K4's bf16x3 core over f32 rows with the row planes read
+from the two arrays.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernel or
 raise, and each wrapper's ``.launches`` counts its launches.
@@ -109,60 +112,89 @@ def bins_to_tiles(bins, nb: int):
     return bins.reshape(n_bins // nb, nb, b).permute(0, 2, 1).contiguous()
 
 
-def pad_depth8(x):
-    """A bf16 [n, d] array as the scan's row maps read it: its row stride,
-    d * 2 bytes, must be a multiple of 16, so at a depth that is not a
-    multiple of 8 a copy zero-padded to the next one (zero columns add
-    nothing to a dot); else ``x`` itself."""
+def pad_row_stride(x):
+    """A row array [n, d] as the scan's row maps read it: TMA needs a row
+    stride (d times the element size) that is a multiple of 16 bytes, so at
+    a depth that is not a multiple of 16 / element size (4 for f32, 8 for
+    bf16) a copy zero-padded to the next one (zero columns add nothing to a
+    dot); else ``x`` itself."""
+    m = 16 // x.element_size()
     d = x.shape[1]
-    return x if d % 8 == 0 else torch.nn.functional.pad(x, (0, 8 - d % 8))
+    return x if d % m == 0 else torch.nn.functional.pad(x, (0, m - d % m))
 
 
-def _launch(wrapper, entry, q, rows, out_cols, ptrs_after, t):
-    """Launch ``entry`` over the row arrays ``rows`` (f32 or bf16, [n, d],
-    contiguous, on q's device): q padded to whole query blocks, the output
-    [n_tiles, b, out_cols] allocated here. Counts the launch."""
+def _scan(wrapper, entry, mode, q, rows, t, extra=(), ints=()):
+    """Launch the probe ``entry`` on the sm90 scan over every bin of the
+    row arrays ``rows`` ([n, d], contiguous, on q's device; padded by
+    :func:`pad_row_stride`), with the f32 queries padded as the geometry
+    of ``mode`` asks (``fused_topk.sm90_pad_queries``, which splits them
+    into planes for k_planes): the pointers q, rows, surv, n_surv, out,
+    ``extra``, then n_bins, d, b, dq, n_qb, per_group, ``ints`` -> the bin
+    maxima [n_bins, b] (every bin is live: all written). Counts the
+    launch."""
     b, d = q.shape
-    n_tiles = _tiles(rows[0].shape[0], t)
+    if q.dtype != torch.float32:
+        raise ValueError(f"{entry}: q must be float32, got {q.dtype}")
     for r in rows:
         if r.device != q.device or not r.is_contiguous() or r.shape[1] != d:
             raise ValueError(f"{entry}: rows must be contiguous [n, {d}] on {q.device}")
         if r.data_ptr() % 16:
             raise ValueError(f"{entry}: rows must start on a 16-byte boundary")
-    if q.dtype != torch.float32:
-        raise ValueError(f"{entry}: q must be float32, got {q.dtype}")
-    n_qb, qp, _ = ft._pad_query_blocks(q.contiguous(), d)
-    out = torch.empty((n_tiles, b, out_cols), device=q.device)
-    _, launch = ft._kernel_fns(_SOURCE, entry, 2 + len(rows) + len(ptrs_after), 5)
-    err = launch(
-        qp.data_ptr(), *(r.data_ptr() for r in rows), out.data_ptr(), *ptrs_after,
-        n_tiles, t // BIN, d, b, n_qb, torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    n_bins = _tiles(rows[0].shape[0], t) * (t // BIN)
+    rows = [pad_row_stride(r) for r in rows]
+    dp = rows[0].shape[1]
+    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    geom = ft.sm90_geometry(mode, b, dp, ft._n_sms(dev))
+    qk, _ = ft.sm90_pad_queries(q, (), geom)
+    surv = torch.arange(n_bins, dtype=torch.int32, device=q.device)
+    n_surv = torch.full((1,), n_bins, dtype=torch.int32, device=q.device)
+    out = torch.empty((n_bins, b), device=q.device)
+    _, launch = ft._kernel_fns(_SOURCE, entry, len(rows) + 4 + len(extra), 6 + len(ints))
+    err = launch(qk.data_ptr(), *(r.data_ptr() for r in rows), surv.data_ptr(),
+                 n_surv.data_ptr(), out.data_ptr(), *extra, n_bins, dp, b, geom.dq, geom.n_qb,
+                 geom.per_group, *ints, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     wrapper.launches += 1
     return out
 
 
-def k_mm(q, v, t: int = T):
+def k_mm(q, v, t: int = T, all_dots=None):
     """The k_mm probe (see :func:`k_mm_plain`): CPU tensors take the plain
-    version, CUDA tensors launch ``probe_mm`` of csrc/profile_probes.cu."""
+    version, CUDA tensors launch ``probe_mm`` on K3's FFMA scan, which
+    computes the whole tile product and writes the dots of each tile's rows
+    0 and 1, and every dot to ``all_dots`` ([n_qb * 64, n_rows] f32, the
+    batch padded to whole query blocks) when it is given (tests; else null,
+    and the kernel still computes every dot: it keeps their bin maxima in a
+    scratch output)."""
     if not ft._on_card("probe_mm", q):
         return k_mm_plain(q, v, t)
     if v.dtype != torch.float32:
         raise ValueError(f"probe_mm: v must be float32, got {v.dtype}")
-    # null all_dots: the kernel still computes every dot of the tile
-    return _launch(k_mm, "probe_mm", q, [v], 2, [None], t)
+    first2 = torch.empty((_tiles(v.shape[0], t), q.shape[0], 2), device=q.device)
+    if all_dots is not None:
+        n_qb = -(-q.shape[0] // ft.QUERY_BLOCK)
+        if (all_dots.shape != (n_qb * ft.QUERY_BLOCK, v.shape[0]) or not all_dots.is_contiguous()
+                or all_dots.dtype != torch.float32 or all_dots.device != q.device):
+            raise ValueError("probe_mm: all_dots must be a contiguous f32 "
+                             f"[{n_qb * ft.QUERY_BLOCK}, {v.shape[0]}] on {q.device}")
+    _scan(k_mm, "probe_mm", "k_mm", q, [v], t,
+          extra=(first2.data_ptr(), None if all_dots is None else all_dots.data_ptr()),
+          ints=(t,))
+    return first2
 
 
 def k_mm_bins(q, v, t: int = T):
     """The k_mm_bins probe (see :func:`k_mm_bins_plain`); CUDA tensors
-    launch ``probe_mm_bins``."""
+    launch ``probe_mm_bins`` on K3's FFMA scan, every bin live, its [n_bins,
+    b] bin maxima permuted to [n_tiles, b, t / 512] (:func:`bins_to_tiles`);
+    rows at a depth that is not a multiple of 4 are copied with zero padding
+    (:func:`pad_row_stride`)."""
     if not ft._on_card("probe_mm_bins", q):
         return k_mm_bins_plain(q, v, t)
     if v.dtype != torch.float32:
         raise ValueError(f"probe_mm_bins: v must be float32, got {v.dtype}")
-    return _launch(k_mm_bins, "probe_mm_bins", q, [v], t // BIN, [], t)
+    return bins_to_tiles(_scan(k_mm_bins, "probe_mm_bins", "k_mm_bins", q, [v], t), t // BIN)
 
 
 def k_planes(q, vh, vl, t: int = T):
@@ -171,35 +203,13 @@ def k_planes(q, vh, vl, t: int = T):
     and padded as K4's wrapper does (``fused_topk.sm90_pad_queries``), every
     bin live, the scan's [n_bins, b] permuted to [n_tiles, b, t / 512]
     (:func:`bins_to_tiles`); VH / VL at a depth that is not a multiple of 8
-    are copied with zero padding (:func:`pad_depth8`)."""
+    are copied with zero padding (:func:`pad_row_stride`)."""
     if not ft._on_card("probe_planes", q):
         return k_planes_plain(q, vh, vl, t)
     if vh.dtype != torch.bfloat16 or vl.dtype != torch.bfloat16 or vh.shape != vl.shape:
         raise ValueError("probe_planes: vh and vl must be bfloat16 arrays of one shape")
-    if q.dtype != torch.float32 or q.shape[1] != vh.shape[1]:
-        raise ValueError(f"probe_planes: q must be float32 [b, {vh.shape[1]}]")
-    for r in (vh, vl):
-        if r.device != q.device or not r.is_contiguous() or r.data_ptr() % 16:
-            raise ValueError(f"probe_planes: vh and vl must be contiguous on {q.device}, "
-                             "16-byte aligned")
-    b = q.shape[0]
-    n_bins = _tiles(vh.shape[0], t) * (t // BIN)
-    vh, vl = pad_depth8(vh), pad_depth8(vl)
-    d = vh.shape[1]
-    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    geom = ft.sm90_geometry("k_planes", b, d, ft._n_sms(dev))
-    qk, _ = ft.sm90_pad_queries(q, (), geom)
-    surv = torch.arange(n_bins, dtype=torch.int32, device=q.device)
-    n_surv = torch.full((1,), n_bins, dtype=torch.int32, device=q.device)
-    out = torch.empty((n_bins, b), device=q.device)  # every bin is live: all written
-    _, launch = ft._kernel_fns(_SOURCE, "probe_planes", 6, 6)
-    err = launch(qk.data_ptr(), vh.data_ptr(), vl.data_ptr(), surv.data_ptr(),
-                 n_surv.data_ptr(), out.data_ptr(), n_bins, d, b, geom.dq, geom.n_qb,
-                 geom.per_group, torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"probe_planes kernel launch failed: CUDA error {err}")
-    k_planes.launches += 1
-    return bins_to_tiles(out, t // BIN)
+    return bins_to_tiles(_scan(k_planes, "probe_planes", "k_planes", q, [vh, vl], t),
+                         t // BIN)
 
 
 PROBES = {"k_mm": k_mm, "k_mm_bins": k_mm_bins, "k_planes": k_planes}

@@ -2,7 +2,8 @@
 source trees.
 
     python otters_tpu_torch/scan_ab.py [ROOT:LABEL ...] [--rounds N]
-        [--modes K1,K1-bf16,K2,K3,K3-bf16,K5,K6,K6-bf16,K4,K4-bf16,k_planes]
+        [--modes K1,K1-bf16,K2,K3,K3-bf16,K5,K6,K6-bf16,K4,K4-bf16,k_planes,k_mm,
+                 k_mm_bins]
         [--b 64,256]
 
 Each ROOT is a checkout (or a copy of ``otters_tpu_torch/`` under ROOT);
@@ -11,18 +12,21 @@ the default is this checkout. The trees are measured in interleaved rounds
 from its ROOT and builds its kernels there. Per tree and round it prints
 one JSON line with, per kernel and batch size: the per-call median of 10
 CUDA-event timings, three back-to-back means of 10 calls, the max error
-against the plain version on 40 bins (k_planes: on every bin), and the
+against the plain version on 40 bins (the probes: on every bin), the
+SASS statistics of each FFMA kernel (registers, spills, its loop's
+instruction mix), and the
 library call (one bf16 matmul on rows cast beforehand, then the bin max;
 K4-bf16: two, one per query plane; K4 and k_planes: three, on planes split
-beforehand; K2 ``torch._int_mm``; K3 and K3-bf16 one f32 matmul, TF32 off,
-on rows upcast beforehand). The shapes are the paths' of
+beforehand; K2 ``torch._int_mm``; K3, K3-bf16, k_mm and k_mm_bins one f32
+matmul, TF32 off, on rows upcast beforehand). The shapes are the paths' of
 ``chip_smoke.py`` at d = 768, half the 1024-row chunks pruned: K1 and K2
 over 10,000,384 int8 rows (K1 ``wide``: queries whose magnitudes span more
 than f16's range, so the scan multiplies in bf16; K2 with int8 queries)
 and K1-bf16 / K5 (Dot) / K6-bf16 / K4-bf16 / K3-bf16 (Cosine) over as many
-bf16 rows; K6, K4 and K3 (Cosine) over 4,000,256 f32 rows; the probe
-k_planes at the shapes of scripts/kernel_profile_variants.py (VH / VL of
-1,007,616 rows, every bin). The rows and their side data are random, made
+bf16 rows; K6, K4 and K3 (Cosine) over 4,000,256 f32 rows; the probes
+k_planes, k_mm and k_mm_bins at the shapes of
+scripts/kernel_profile_variants.py (1,007,616 f32 rows or their VH / VL,
+every bin). The rows and their side data are random, made
 on the device from a seed. Needs one CUDA card.
 """
 
@@ -130,22 +134,68 @@ def _library(torch, mode, q, v_live, b, vl_live=None):
     return lambda: torch.matmul(qb, v_live.T).reshape(b, -1, BIN).amax(dim=2)
 
 
-def _measure_planes(torch, dev, bs, per_call, back_to_back, res):
-    """The probe k_planes at the script's shapes, every bin, for each b."""
+def _measure_probe(torch, name, dev, bs, per_call, back_to_back, res):
+    """The probe ``name`` (k_planes, k_mm or k_mm_bins) at the script's
+    shapes, every bin, for each b; the library call one f32 matmul (k_mm,
+    k_mm_bins: TF32 off) or three bf16 ones on the planes, then the bin
+    max."""
     from otters_tpu_torch import profile_variants as pv
 
     g = torch.Generator(device=dev).manual_seed(0)
     v = torch.randn((pv.N_PAD, D), generator=g, device=dev)
-    vh, vl = pv.split_planes(v)
-    del v
+    if name == "k_planes":
+        rows = pv.split_planes(v)
+        del v
+    else:
+        rows = (v,)
+    fn, plain = pv.PROBES[name], pv.PLAIN[name]
     for b in bs:
         q = torch.randn((b, D), generator=g, device=dev)
-        got = pv.k_planes(q, vh, vl)
-        err = float((got - pv.k_planes_plain(q, vh, vl)).abs().max())
-        res[f"k_planes b={b} normal"] = {"per_call": per_call(lambda: pv.k_planes(q, vh, vl)),
-                                         "b2b": back_to_back(lambda: pv.k_planes(q, vh, vl)),
-                                         "err": err}
-        res[f"k_planes b={b} library"] = per_call(_library(torch, "k_planes", q, vh, b, vl))
+        err = float((fn(q, *rows) - plain(q, *rows)).abs().max())
+        res[f"{name} b={b} normal"] = {"per_call": per_call(lambda: fn(q, *rows)),
+                                       "b2b": back_to_back(lambda: fn(q, *rows)), "err": err}
+        lib = "k_planes" if name == "k_planes" else "K3"
+        res[f"{name} b={b} library"] = per_call(_library(torch, lib, q, rows[0], b, *rows[1:]))
+
+
+def _sass_stats(kernels) -> dict:
+    """Per FFMA kernel of the loaded libraries (``cuobjdump -sass``; ptxas
+    -v reports only the launch's register count): the highest register
+    the code uses, its local stores (spills), and over its FFMA loop the
+    instructions, FFMAs, shared loads and FFMAs that read two sources
+    without a reuse flag from one register bank (register number mod 4)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    ffma = re.compile(r"\bFFMA R\d+, R(\d+)(\.reuse)?, R(\d+)(\.reuse)?, R(\d+)")
+    out = {}
+    for name in sorted(kernels._libs):
+        sass = subprocess.run([tool, "-sass", kernels._lib_path(name)], capture_output=True,
+                              text=True).stdout
+        for fn in sass.split("Function : ")[1:]:
+            code = [ln for ln in fn.splitlines() if re.match(r"\s+/\*[0-9a-f]{4}\*/", ln)]
+            at = [i for i, ln in enumerate(code) if " FFMA " in ln]
+            if len(at) < 256:
+                continue
+            # the chunk loop: after the last branch, sync or barrier wait
+            # before the first FFMA, to the backward branch after the last
+            mark = re.compile(r" BRA |BSSY|SYNCS")
+            head = max(i for i in range(at[0]) if mark.search(code[i])) + 1
+            tail = next(i for i in range(at[-1], len(code)) if " BRA " in code[i])
+            loop = code[head : tail + 1]
+            same_bank = 0
+            for ln in loop:
+                m = ffma.search(ln)
+                if m:
+                    srcs = [int(m[1])] * (not m[2]) + [int(m[3])] * (not m[4]) + [int(m[5])]
+                    same_bank += len({r % 4 for r in srcs}) < len(srcs)
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", "\n".join(code))]
+            out[fn.split()[0]] = {
+                "max_reg": max(regs), "local_stores": sum("STL" in ln for ln in code),
+                "loop": len(loop), "ffma": len(at), "lds": sum(" LDS" in ln for ln in loop),
+                "same_bank_ffma": same_bank}
+    return out
 
 
 def _measure(root: str, label: str, modes, bs) -> dict:
@@ -163,8 +213,8 @@ def _measure(root: str, label: str, modes, bs) -> dict:
     per_call, back_to_back = _timers(torch)
     res = {"label": label}
     for mode in modes:
-        if mode == "k_planes":
-            _measure_planes(torch, dev, bs, per_call, back_to_back, res)
+        if mode in ("k_planes", "k_mm", "k_mm_bins"):
+            _measure_probe(torch, mode, dev, bs, per_call, back_to_back, res)
             continue
         g = torch.Generator(device=dev).manual_seed(0)
         v, args, kernel, plain = _operands(torch, ft, mode, g, dev)
@@ -202,6 +252,7 @@ def _measure(root: str, label: str, modes, bs) -> dict:
     res["ptxas"] = {name: [ln.strip() for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln]
                     for name, log in kernels.build_logs.items()}
+    res["sass"] = _sass_stats(kernels)
     return res
 
 

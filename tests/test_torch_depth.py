@@ -279,7 +279,8 @@ def test_vecstore_routes_deep_rows_to_the_scan_program(monkeypatch):
 # ---------------------------------------------------------------------------
 
 DEPTHS = [16, 100, 768, 1392, 1536, 2048, 3072, 4096, 8192]
-SM90_MODES = ["K1", "K1-bf16", "K2", "K3", "K3-bf16", "K5", "K6", "K6-bf16", "K4", "K4-bf16"]
+SM90_MODES = ["K1", "K1-bf16", "K2", "K3", "K3-bf16", "K5", "K6", "K6-bf16", "K4", "K4-bf16",
+              "k_mm", "k_mm_bins"]
 
 
 @pytest.mark.parametrize("mode", SM90_MODES)
@@ -288,11 +289,12 @@ def test_sm90_plan_fits_every_depth(mode, d):
     """An even ring of at least 2 stages within 232,448 B at every depth;
     the query block (of every query plane) is streamed exactly when the
     resident block would leave fewer than 2 stages of the narrow shape, or
-    always for a mode with no resident plan (K3, K4); at d = 768 K1 keeps
-    its plans, K2 / K5 / K6 / K6-bf16 take their wide shapes, K4 its 4
-    streamed stages of 128 f32 rows and K4-bf16 its 6 of 128 bf16 rows,
-    both with both planes, K3 4 and K3-bf16 6 streamed stages of 128 rows
-    with the f32 queries. K2's 128-deep int8 query k-blocks (8 KB) stay
+    always for a mode with no resident plan (K3, K4, the probes k_mm /
+    k_mm_bins on K3's); at d = 768 K1 keeps its plans, K2 / K5 / K6 /
+    K6-bf16 take their wide shapes, K4 its 4 streamed stages of 128 f32
+    rows and K4-bf16 its 6 of 128 bf16 rows, both with both planes, K3
+    and the FFMA probes 4 streamed stages of 256 f32 rows and K3-bf16 6 of
+    128 bf16 rows, with the f32 queries. K2's 128-deep int8 query k-blocks (8 KB) stay
     resident up to d = 3,072 (two stages of the narrow shape there) and are
     streamed at 8,192; the other resident plans stream from d = 2,048."""
     dp = ts.pad_depth(d)
@@ -322,8 +324,9 @@ def test_sm90_plan_fits_every_depth(mode, d):
     assert geom.n_qb == 10 and geom.per_group == 13
     if d == 768:
         assert plan == {"K1": (2, 128, 8, False), "K1-bf16": (1, 256, 4, False),
-                        "K2": (1, 256, 4, False), "K3": (1, 128, 4, True),
-                        "K3-bf16": (1, 128, 6, True),
+                        "K2": (1, 256, 4, False), "K3": (1, 256, 4, True),
+                        "K3-bf16": (1, 128, 6, True), "k_mm": (1, 256, 4, True),
+                        "k_mm_bins": (1, 256, 4, True),
                         "K5": (2, 128, 4, False), "K6": (1, 128, 4, False),
                         "K6-bf16": (1, 256, 4, False), "K4": (1, 128, 4, True),
                         "K4-bf16": (1, 128, 6, True)}[mode]
@@ -335,24 +338,33 @@ def test_sm90_plan_fits_every_depth(mode, d):
         assert plan.streamed
 
 
-@pytest.mark.parametrize("d", [16, 768, 2048, 3072, 8192])
+@pytest.mark.parametrize("d", [16, 100, 768, 2048, 3072, 8192])
 def test_k3_streams_its_queries_at_every_depth(d):
     """K3 has no resident plan: its f32 query block (16 KB per 64 deep)
-    would take 192 KB at d = 768. A stage carries one k-block of 128 rows
-    (32 KB of f32 rows, 16 KB of bf16) and the 64 queries' k-block (16 KB,
-    two 128-byte boxes of 32 deep), so 4 stages fit over f32 rows and 6
-    over bf16 rows at every depth (128 and 96 KB of rows in flight); the
-    C side's f32_binmax_smem_bytes / f32_binmax_bf16_smem_bytes, mirrored
-    (the card test holds them equal). The arithmetic: 1 KB slack + ring +
-    520 B of maxima, scales and flag + 8 B a barrier."""
-    for mode, rows_bytes, stages in (("K3", 128 * 64 * 4, 4), ("K3-bf16", 128 * 64 * 2, 6)):
-        stage = rows_bytes + 64 * 64 * 4
-        assert ft.sm90_plan(mode, d) == (1, 128, stages, True)
-        assert ft.kernel_smem_bytes(mode, d) == 1024 + stages * stage + 520 \
+    would take 192 KB at d = 768. A stage carries one 128-byte box of rows
+    and the 64 queries' f32 of the same depth (one or two 128-byte boxes
+    of 32 deep): over f32 rows 256 rows (32 KB, 32 deep) and 8 KB of
+    queries, 4 stages; over bf16 rows 128 rows (16 KB, 64 deep) and 16 KB
+    of queries, 6 stages; 128 and 96 KB of rows in flight at every depth.
+    The probes k_mm / k_mm_bins take K3's plan over f32 rows. The C side's
+    f32_binmax_smem_bytes / f32_binmax_bf16_smem_bytes /
+    probe_mm*_smem_bytes, mirrored (the card test holds them equal). The
+    arithmetic: 1 KB slack + ring + 520 B of maxima, scales and flag + 8 B
+    a barrier. The queries stream at every depth (the stored depth of 100
+    is 112)."""
+    dp = ts.pad_depth(d)
+    for mode, row_bytes, rows, stages in (("K3", 4, 256, 4), ("K3-bf16", 2, 128, 6),
+                                          ("k_mm", 4, 256, 4), ("k_mm_bins", 4, 256, 4)):
+        assert ft.stage_depth(row_bytes, 4) == 128 // row_bytes
+        stage = rows * 128 + 64 * (128 // row_bytes) * 4
+        assert stage == {4: 40960, 2: 32768}[row_bytes]
+        assert ft.sm90_plan(mode, dp) == (1, rows, stages, True)
+        assert ft.kernel_smem_bytes(mode, dp) == 1024 + stages * stage + 520 \
             + (2 * stages + 1) * 8 <= SMEM_MAX
         assert 1024 + (stages + 2) * stage + 520 + (2 * stages + 5) * 8 > SMEM_MAX
-        geom = ft.sm90_geometry(mode, 256, d, 132)
-        assert (geom.planes, geom.n_qb, geom.per_group, geom.dq) == (1, 4, 33, -(-d // 64) * 64)
+        geom = ft.sm90_geometry(mode, 256, dp, 132)
+        assert (geom.planes, geom.n_qb, geom.per_group, geom.dq) == (1, 4, 33, -(-dp // 64) * 64)
+        assert geom.streamed and geom.smem == ft.kernel_smem_bytes(mode, dp)
 
 
 @pytest.mark.parametrize("d", [16, 768, 2048, 3072, 8192])

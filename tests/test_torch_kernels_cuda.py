@@ -13,9 +13,10 @@ K5 (the general certified fold, Dot and Euclid, at b = 1 to 600, d = 100
 to 2048, with masked bins and NaN rows), and K4 and K6 on the Hopper scan
 (b = 1 to 600, d = 16 to 2048; K4 streams its two query planes with the
 rows); the shared-memory figures of the depth route and the sm90 plans
-(the probe k_planes' too) against the C side, with K6 and K4 over f32 and
-bf16 rows and k_planes launched at every depth there; the three profiling
-probes (``profile_variants``). A depth that is not a multiple of 16 (d =
+(the probes' too) against the C side, with K6 and K4 over f32 and bf16
+rows and the probes launched at every depth there; the three profiling
+probes (``profile_variants``) at b = 1 to 600 and d = 98 to 768, and every
+dot of ``k_mm`` against float64. A depth that is not a multiple of 16 (d =
 100) runs as the store pads it.
 
 These tests need a CUDA device and skip without one. The file imports
@@ -439,11 +440,15 @@ def test_k6_dots_equal_float64_of_the_rounded_operands(d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(pv.PROBES))
-@pytest.mark.parametrize("d,b", [(768, 256), (100, 70)])
+@pytest.mark.parametrize("d,b", [(768, 256), (100, 70), (98, 1), (98, 600), (768, 1),
+                                 (768, 600)])
 def test_probe_matches_plain(name, d, b):
     """Each probe against its plain version at 64 tiles of 1024 rows: the
     f32 probes within d 2^-24 |q| |v| (two f32 sums in other orders), the
-    bf16x3 one within ``high_precision_bound(d)`` |q| |v|."""
+    bf16x3 one within ``high_precision_bound(d)`` |q| |v|; at one, a
+    partial and ten query blocks (600 queries: several blocks share the
+    SMs), and at d = 98, whose rows the wrappers copy zero-padded to a
+    16-byte stride."""
     dev = _device()
     ops = pv.make_inputs(dev, n_pad=64 * pv.T, d=d, b=b, seed=3)
     args = pv.probe_args(name, ops)
@@ -458,6 +463,33 @@ def test_probe_matches_plain(name, d, b):
     scale = float(ops["q"].norm(dim=1).max()) * float(ops["v"].norm(dim=1).max())
     err = float((got - want).abs().max())
     assert err <= base * scale, (err, base * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,b", [(768, 256), (98, 70)])
+def test_k_mm_all_dots_equal_float64(d, b):
+    """probe_mm with a non-null ``all_dots`` at 64 tiles: every dot of the
+    tile product (the FFMA scan's, one FMA per term) within d 2^-24 |q| |v|
+    of the float64 product, padded query lanes included (zero queries, zero
+    dots); the two columns it returns are those dots of each tile's rows 0
+    and 1, bit for bit."""
+    dev = _device()
+    ops = pv.make_inputs(dev, n_pad=64 * pv.T, d=d, b=b, seed=11)
+    q, v = ops["q"], ops["v"]
+    bq = -(-b // ft.QUERY_BLOCK) * ft.QUERY_BLOCK
+    all_dots = torch.full((bq, v.shape[0]), float("nan"), device=dev)
+    before = pv.k_mm.launches
+    first2 = pv.k_mm(q, v, all_dots=all_dots)
+    torch.cuda.synchronize()
+    assert pv.k_mm.launches == before + 1
+    assert not bool(all_dots.isnan().any())
+    assert not bool(all_dots[b:].any())
+    ref = q.double() @ v.double().T
+    scale = q.double().norm(dim=1)[:, None] * v.double().norm(dim=1)[None, :]
+    err = float(((all_dots[:b].double() - ref).abs() / scale).max())
+    assert err <= d * 2.0**-24, err
+    cols = all_dots[:b].reshape(b, 64, pv.T)[:, :, :2].permute(1, 0, 2)
+    assert torch.equal(first2, cols)
 
 
 # ---------------------------------------------------------------------------
@@ -858,7 +890,8 @@ def test_k5_dots_equal_float64(d):
     ("K1", "cert_cos_binmax"), ("K1-bf16", "cert_cos_binmax_bf16"), ("K5", "cert_fold_binmax"),
     ("K6", "bf16_binmax"), ("K6-bf16", "bf16_binmax_bf16"), ("K2", "int8_binmax"),
     ("K3", "f32_binmax"), ("K3-bf16", "f32_binmax_bf16"),
-    ("K4", "bf16x3_binmax"), ("K4-bf16", "bf16x3_binmax_bf16"), ("k_planes", "probe_planes")])
+    ("K4", "bf16x3_binmax"), ("K4-bf16", "bf16x3_binmax_bf16"), ("k_planes", "probe_planes"),
+    ("k_mm", "probe_mm"), ("k_mm_bins", "probe_mm_bins")])
 @pytest.mark.parametrize(
     "d", [16, 112, 768, 832, 896, 1392, 1408, 1536, 2048, 2976, 2992, 3072, 4096, 8192])
 def test_smem_mirrors_the_kernel(mode, entry, d):
@@ -866,14 +899,15 @@ def test_smem_mirrors_the_kernel(mode, entry, d):
     side's figures at every depth the shape check and the plans turn on;
     K2, K3 and K6 over bf16 rows and K4 over f32 and bf16 rows take every
     one of these depths and launch there (against the plain version at 70
-    queries, and with no live bin), and so does the probe k_planes
-    (against its plain version)."""
+    queries, and with no live bin), and so do the probes k_planes, k_mm
+    and k_mm_bins (against their plain versions)."""
     dev = _device()
     from otters_tpu_torch import kernels
 
     source = ft._MODES[mode][0] if mode in ft._MODES else {
         "K1": "cert_cos_binmax", "K1-bf16": "cert_cos_binmax", "K5": "cert_fold_binmax",
-        "k_planes": "profile_probes"}[mode]
+        "k_planes": "profile_probes", "k_mm": "profile_probes",
+        "k_mm_bins": "profile_probes"}[mode]
     lib = kernels.load(source)
     smem = getattr(lib, f"{entry}_smem_bytes")
     smem.argtypes = [ctypes.c_int]
@@ -884,12 +918,14 @@ def test_smem_mirrors_the_kernel(mode, entry, d):
         stages.argtypes = [ctypes.c_int]
         stages.restype = ctypes.c_int
         assert stages(d) == ft.sm90_plan(mode, d).stages
-    if mode == "k_planes":
+    if mode in pv.PROBES:
         ops = pv.make_inputs(dev, n_pad=4 * pv.T, d=d, b=70, seed=d)
-        got = pv.k_planes(ops["q"], ops["vh"], ops["vl"])
-        want = pv.k_planes_plain(ops["q"], ops["vh"], ops["vl"])
+        args = pv.probe_args(mode, ops)
+        got = pv.PROBES[mode](*args)
+        want = pv.PLAIN[mode](*args)
+        base = sc.high_precision_bound(d) if mode == "k_planes" else d * 2.0**-24
         scale = float(ops["q"].norm(dim=1).max()) * float(ops["v"].norm(dim=1).max())
-        assert float((got - want).abs().max()) <= sc.high_precision_bound(d) * scale
+        assert float((got - want).abs().max()) <= base * scale
     if mode in ("K6-bf16", "K4-bf16", "K4", "K2", "K3", "K3-bf16"):
         assert ft.kernel_takes(mode, d)
         args = (_operands(mode, dev, n=20_000, d=d) if mode in ("K4", "K2", "K3") else
