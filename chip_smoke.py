@@ -35,6 +35,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    (``certify=False``): K2 (s8 wgmma), recall@10 against the f32 truth,
    PATH_ROUNDS timed rounds (median q/s) and one traced round (K2's ms per
    batch, the rest of the device time, the idle share), K2 timed;
+   4s. bench.py's full column mix (price / version, String ``category``,
+   DateTime ``listed``): a second 10M x 768 int8 store ingested from the
+   same f32 CUDA tensor (``with_vectors(tensor, n_rows=n)``, quantized slab
+   by slab; its codes, norms and residuals equal phase 4's
+   ``materialize_int8_slabs`` ingest bit for bit) with the device Bloom
+   build (``OTTERS_BLOOM_DEVICE=1``, equal to the host build bit for bit);
+   the ingest and both Bloom builds timed; ``precompile`` of the bench's
+   two filters (count and seconds); then PATH_ROUNDS rounds of 8 pipelined
+   batches of 256 certified Cosine ``string_eq`` queries (K1, median q/s)
+   with no nvcc build and no plan / aot_key cache miss, every query
+   certified and equal to the exact f32 top-10 of the rows it keeps, and
+   one round traced;
    4f. bfloat16 storage: a 10M x 768 bf16 store made on the device from
    the same f32 rows (which stay the rerank source), the same columns,
    filter and batches; certified ``take(10, rerank_from=100)`` for Cosine
@@ -77,6 +89,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    6b. exact ties copied into more bins than the fast mode examines: its
    check fails and K3 reruns, equal to the truth; a Dot ``vec_filter(Eq)``
    and a ``take(200)`` reach K3 directly;
+   6v. the VPU metrics (Manhattan, Hamming, Jaccard; plain torch programs,
+   no kernel of their own): a 4M x 768 store of integer rows 0..3 made on
+   the card, f32 (the tensor adopted with no copy) and bf16, the phase 4s
+   columns, filtered by ``category`` so that every odd 8192-row tile is
+   dead: the pruned scan evaluates exactly half the tiles; one batch of 64
+   per metric and storage, ``take(10)`` and ``take(10, rerank_from=100)``,
+   equal to the exact float64 truth; 4 pipelined batches of 256 Manhattan
+   queries timed pruned and unfiltered (q/s); a VecStore Manhattan query
+   over 1M rows;
 7. VecStore at 1M x 768: f32 and bf16 storage (K4) and int8 storage
    (K2), each equal to the exact top-10 of its storage; a windowed
    take-all of 1.2M results equal to a stable sort of the score matrix;
@@ -88,9 +109,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    rounds interleaved with its library call); ``k_mm`` may not beat its
    FFMA bound.
 
-Phases 4 and 6 also trace one pipelined round with torch.profiler (device
+Phases 4, 4s and 6 also trace one pipelined round with torch.profiler (device
 time by kernel, the device's busy share). Every path sets the launch
-counts to 0 before it runs and asserts that its kernel launched. The script
+counts to 0 before it runs and asserts that its kernel launched (the VPU
+metrics of 6v run no kernel of their own). The script
 prints the kernels JSON line and the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
 that line; so does a machine without a CUDA device.
@@ -751,6 +773,177 @@ def uncert_path(torch, store, batches, truths, card=""):
     assert recall > 0.5, f"filtered_uncert recall@{K} = {recall}"
     return {"qps": qps, "qps_rounds": rounds, "launches": launched["K2"], "recall": recall,
             "profile": prof}
+
+
+CAT_VOCAB = [f"cat_{v:02d}" for v in range(16)]  # bench.py:233
+
+
+def bench_columns(n):
+    """bench.py's full column mix (bench.py:236-262): price / version, a
+    String ``category`` clustered 16 ways per chunk (CAT_VOCAB) and a
+    DateTime ``listed`` (epoch millis over 2023-2024, clustered by chunk)."""
+    import numpy as np
+
+    from otters_tpu_torch import Column, DataType
+
+    chunk_id = np.arange(n) // CHUNK
+    base = 1_672_531_200_000  # 2023-01-01
+    return price_version_columns(n) + [
+        Column("category", DataType.String).from_values([CAT_VOCAB[c] for c in chunk_id % 16]),
+        Column("listed", DataType.DateTime).from_values(
+            (base + (chunk_id % 730) * 86_400_000).astype(np.int64)),
+    ]
+
+
+def cat3_rows(rows):
+    """The rows ``category == CAT_VOCAB[3]`` keeps: chunk id = 3 (mod 16)."""
+    return (rows // CHUNK) % 16 == 3
+
+
+def string_phase(torch, dev, f32, dv8, card=""):
+    """Phase 4s: the bench's full column mix over a 10M x 768 int8 store
+    ingested from phase 4's f32 CUDA tensor (``with_vectors(tensor,
+    n_rows=n)``, quantized slab by slab on the card), with the device Bloom
+    build (OTTERS_BLOOM_DEVICE=1). Checks: the int8 codes, norms, inverse
+    norms and residuals equal phase 4's ``materialize_int8_slabs`` ingest of
+    the same rows bit for bit; the device Bloom matrix equals the host build
+    bit for bit. Then ``precompile`` (the bench's two filters, batches of 1
+    and 256, rerank_from=100, pipeline depths 1 and 8) and PATH_ROUNDS timed
+    rounds of 8 pipelined batches of 256 certified Cosine ``string_eq``
+    queries: no nvcc build and no new miss of the plan / aot_key caches,
+    every query certified, each top-10 equal to the exact f32 top-10 of the
+    rows the filter keeps, the chunks it prunes pruned, K1 launched every
+    batch; one round traced (K1's ms per batch, the rest, the idle
+    share)."""
+    import os
+
+    import numpy as np
+
+    import otters_tpu_torch as tx
+    from otters_tpu_torch import kernels
+    from otters_tpu_torch.ops import bloom as bloom_ops
+    from otters_tpu_torch.ops import fused_topk as ft
+    from otters_tpu_torch.ops import hashing
+    from otters_tpu_torch.ops import scoring as sc
+
+    n = ROWS
+    t0 = time.perf_counter()
+    cols = bench_columns(n)
+    cols_s = time.perf_counter() - t0
+
+    def fetch(ids):
+        return f32[torch.as_tensor(np.asarray(ids, dtype=np.int64), device=dev)]
+
+    os.environ["OTTERS_BLOOM_DEVICE"] = "1"
+    try:
+        t0 = time.perf_counter()
+        store = (
+            tx.MetaStore.from_columns(cols).with_vectors(f32, n_rows=n)
+            .with_storage_dtype("int8").with_chunk_size(CHUNK)
+            .with_rerank_source(fetch_vectors=fetch).with_device(dev).build()
+        )
+        sync(dev)
+        build_s = time.perf_counter() - t0
+    finally:
+        del os.environ["OTTERS_BLOOM_DEVICE"]
+    bs = store.build_stats()
+    dv = store._dv
+    for name in ("vectors", "norms_sq", "inv_norms", "valid", "resid", "resid_bin", "resid_max"):
+        a, b = getattr(dv, name), getattr(dv8, name)
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), (
+            f"tensor ingest {name} differs from the materialize_int8_slabs ingest")
+    assert dv.vectors.stride() == dv8.vectors.stride()
+    if dev.type == "cuda":
+        log(f"4s memory after the ingest: {torch.cuda.memory_allocated(dev) / 1e9:.1f} GB "
+            f"allocated (the f32 rows {f32.nbytes / 1e9:.1f} GB, phase 4's int8 rows and this "
+            f"store's {dv.vectors.nbytes / 1e9:.1f} GB each), peak so far "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB of 80")
+    log(f"4s ingest: with_vectors(f32 CUDA tensor, n_rows={n}) -> int8 in "
+        f"{bs.vectors_ingest_duration:.3f} s (slabs of {sc.INGEST_SLAB_ROWS} rows); "
+        f"codes, norms, inverse norms and resid equal the materialize_int8_slabs ingest bit "
+        f"for bit; zonemaps + Bloom {bs.zonemap_build_duration:.3f} s; build {build_s:.2f} s; "
+        f"columns {cols_s:.2f} s; on {card}")
+
+    # the Bloom matrix: the store's (device-built) against the host build of
+    # the same hashes, each build timed on its own
+    category = store.columns()["category"]
+    strings = list(category.values())[:n]
+    nulls = np.asarray(category.null_mask(), dtype=bool)[:n]
+    t0 = time.perf_counter()
+    g1, g2 = hashing.hash_strings(strings)
+    hash_s = time.perf_counter() - t0
+    params = store._bloom_params["category"]
+    n_chunks = store.n_chunks()
+    t0 = time.perf_counter()
+    host = bloom_ops.build_matrix(g1, g2, nulls, np.arange(n, dtype=np.int64) // CHUNK,
+                                  n_chunks, params, chunk_size=CHUNK)
+    host_s = time.perf_counter() - t0
+    dev_times = []
+    for _ in range(3):
+        sync(dev)
+        t0 = time.perf_counter()
+        built = bloom_ops.build_matrix_device(g1, g2, nulls, CHUNK, n_chunks, params, dev)
+        sync(dev)
+        dev_times.append(time.perf_counter() - t0)
+    stored = store._device_cols["category"]["bloom"]
+    assert torch.equal(stored, built)
+    assert np.array_equal(stored.cpu().numpy().view(np.uint32), host), (
+        "the device Bloom matrix differs from the host build")
+    log(f"4s Bloom ({n_chunks} chunks x {params.words} words, {params.k_hashes} hashes): "
+        f"device build equal to the host build bit for bit; host build {host_s:.3f} s, "
+        f"device build {statistics.median(dev_times):.3f} s (median of 3: "
+        f"{', '.join(f'{t:.3f}' for t in dev_times)}), shared host hashing {hash_s:.3f} s; "
+        f"on {card}")
+
+    string_eq = tx.col("category").eq(CAT_VOCAB[3])
+    t0 = time.perf_counter()
+    readied = store.precompile(filters=[bench_filter(), string_eq], batch_sizes=(1, B), k=K,
+                               rerank_from=K_WIDE, pipeline_depths=(1, 8))
+    sync(dev)
+    precompile_s = time.perf_counter() - t0
+    log(f"4s precompile: {readied} programs readied in {precompile_s:.2f} s on {card}; "
+        f"cache_stats {store.cache_stats()}")
+
+    def pending(q):
+        return (store.query_batch(q, tx.Metric.Cosine).meta_filter(string_eq)
+                .take(K, rerank_from=K_WIDE).collect_async())
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    batches = [torch.randn((B, D), generator=g, device=dev) for _ in range(BATCHES)]
+    before, nvcc_before = store.cache_stats(), kernels.nvcc_runs
+    pend, results, launches, qps, rounds = timed_rounds(
+        torch, dev, lambda: [pending(q) for q in batches], lambda: ft.cert_cos_binmax.launches)
+    after = store.cache_stats()
+    assert kernels.nvcc_runs == nvcc_before, "a string_eq batch built a kernel"
+    for name in ("plan", "aot_key"):
+        assert after[name]["misses"] == before[name]["misses"], (name, before, after)
+    log(f"4s string_eq: {BATCHES} pipelined batches of {B}, {PATH_ROUNDS} rounds: "
+        f"{', '.join(f'{r:.1f}' for r in rounds)} q/s, median {qps:.1f} q/s on {card}; "
+        f"K1 launches {launches}; no nvcc build, no plan / aot_key miss")
+    if dev.type == "cuda":
+        assert launches >= BATCHES, f"K1 launched {launches} times for {BATCHES} batches"
+    live_chunks = len(range(3, n_chunks, 16))
+    for i, p in enumerate(pend):
+        st = p.stats()
+        assert st.certified is True, f"string_eq batch {i} not certified: {st}"
+        assert st.pruned_chunks == n_chunks - live_chunks, f"string_eq batch {i}: {st}"
+    for q, res in zip(batches, results):
+        gt_rows, gt_scores = exact_topk(torch, f32, n, q, tx.Metric.Cosine, K, row_ok=cat3_rows)
+        assert sorted(res.indices) == sorted(gt_rows), (res.indices, gt_rows)
+        want = dict(zip(gt_rows, gt_scores))
+        err = max(abs(s - want[r]) for r, s in zip(res.indices, res.scores))
+        assert err <= 1e-5, f"string_eq rerank score differs from the f32 truth by {err}"
+    log(f"4s exact f32 ground truth: top-{K} equal for {BATCHES} batches of {B}; "
+        f"pruned {n_chunks - live_chunks} of {n_chunks} chunks")
+    prof = None
+    if dev.type == "cuda":
+        prof = profile_batches(torch, pending, batches, "cert_cos_binmax_kernel")
+    del store, dv
+    torch.cuda.empty_cache()
+    return {"ingest_s": bs.vectors_ingest_duration, "build_s": build_s, "bloom_host_s": host_s,
+            "bloom_device_s": statistics.median(dev_times), "hash_s": hash_s,
+            "precompile_s": precompile_s, "precompiled": readied, "string_eq_qps": qps,
+            "string_eq_qps_rounds": rounds, "k1_launches": launches, "profile": prof}
 
 
 def library_fn(torch, mode, q, v_live, n_live):
@@ -1417,6 +1610,199 @@ def near_tie_path(torch, dev):
     return {"launches": near["K3"]}
 
 
+VPU_B = 64  # queries of each checked VPU batch
+VPU_TIMED_BATCHES = 4
+
+
+def vpu_scores64(torch, q, v, metric):
+    """Exact float64 VPU scores [B, M] of queries [B, D] against rows [M, D]:
+    Manhattan by ``torch.cdist(p=1)``, Hamming and Jaccard by broadcasts
+    over blocks of rows (every sum of these integer rows is exact)."""
+    from otters_tpu_torch.types import Metric
+
+    q = q.double()
+    out = torch.empty((q.shape[0], v.shape[0]), dtype=torch.float64, device=q.device)
+    blk = max(1, (1 << 25) // (q.shape[0] * q.shape[1]))
+    if metric is Metric.Manhattan:
+        blk *= 64
+    for s in range(0, v.shape[0], blk):
+        vb = v[s : s + blk].double()
+        if metric is Metric.Manhattan:
+            out[:, s : s + blk] = torch.cdist(q, vb, p=1)
+            continue
+        qb, vb = q[:, None, :], vb[None, :, :]
+        if metric is Metric.Hamming:
+            out[:, s : s + blk] = (qb != vb).sum(-1).double()
+        else:
+            num = torch.minimum(qb, vb).sum(-1)
+            den = torch.maximum(qb, vb).sum(-1)
+            out[:, s : s + blk] = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
+    return out
+
+
+def check_vpu(torch, label, res_rows, res_scores, truth, rows_of, k, take_min):
+    """A VPU top-k against the float64 truth ``truth`` [B, M] over the rows
+    ``rows_of`` [M] the query may return. The scores (rounded to f32, the
+    port's type) equal the truth's best k, in take order; every pair better
+    than the k-th is returned (the same multiset of rows); each returned row
+    has its score for some query; a row tied with the k-th may be any of the
+    tied ones (the tie order is held against the JAX package on the CPU)."""
+    from collections import Counter
+
+    t32 = truth.float()
+    key = -t32 if take_min else t32
+    best = torch.topk(key.reshape(-1), k).values
+    want = (-best if take_min else best).tolist()
+    assert list(res_scores) == want, f"{label}: scores {res_scores} != truth {want}"
+    kth = float(best[-1])
+    better = (key > kth).nonzero()
+    want_better = Counter(rows_of[better[:, 1]].tolist())
+    got_better = Counter(r for r, s in zip(res_rows, res_scores)
+                         if (-s if take_min else s) > kth)
+    assert got_better == want_better, f"{label}: rows better than the k-th differ"
+    for r, s in zip(res_rows, res_scores):
+        j = min(int(torch.searchsorted(rows_of, r)), rows_of.shape[0] - 1)  # rows_of ascends
+        assert int(rows_of[j]) == r and bool((t32[:, j] == s).any()), (
+            f"{label}: row {r} does not score {s} for any query")
+
+
+def vpu_phase(torch, dev, card=""):
+    """Phase 6v: the VPU metrics (Manhattan, Hamming, Jaccard) at 4M x 768
+    over rows of small non-negative integers (0..3, seeded, made on the
+    card: exact in bf16, where all three metrics mean something), with the
+    phase 4s columns, stored as f32 (the tensor adopted with no copy) and
+    as bf16. The filter ``category == CAT_VOCAB[3]`` keeps chunk ids = 3
+    (mod 16): every odd 8192-row tile is dead, so the pruned scan
+    (``scoring.scan_pruned_topk_core``) evaluates exactly half the tiles.
+    Each metric over each storage runs one batch of 64 queries, ``take(10)``
+    and ``take(10, rerank_from=100)``, each equal to the exact float64
+    truth (:func:`check_vpu`). Timed: 4 pipelined batches of 256 filtered
+    Manhattan queries over the f32 rows, and the same batches unfiltered
+    (the panel program over every tile), each checked likewise. Last, a
+    VecStore Manhattan query of 4 over 1M rows against its truth."""
+    import numpy as np
+
+    import otters_tpu_torch as tx
+    from otters_tpu_torch.ops import scoring as sc
+    from otters_tpu_torch.types import Metric
+
+    n = F32_ROWS
+    n_pad = sc.pad_rows(n)
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    t0 = time.perf_counter()
+    rows = torch.zeros((n_pad, D), device=dev)
+    for s in range(0, n, SLAB):
+        r = min(SLAB, n - s)
+        rows[s : s + r] = torch.randint(0, 4, (r, D), generator=g, device=dev).float()
+    cols = bench_columns(n)
+    sync(dev)
+    synth_s = time.perf_counter() - t0
+
+    def fetch(ids):
+        return rows[torch.as_tensor(np.asarray(ids, dtype=np.int64), device=dev)]
+
+    stores = {}
+    for storage in ("float32", "bfloat16"):
+        stores[storage] = (
+            tx.MetaStore.from_columns(cols).with_vectors(rows, n_rows=n)
+            .with_storage_dtype(storage).with_chunk_size(CHUNK)
+            .with_rerank_source(fetch_vectors=fetch).with_device(dev).build()
+        )
+        log(f"6v {storage} store: ingest "
+            f"{stores[storage].build_stats().vectors_ingest_duration:.3f} s")
+    assert stores["float32"]._dv.vectors.data_ptr() == rows.data_ptr()
+    n_chunks = stores["float32"].n_chunks()
+    n_tiles = n_pad // sc.SCAN_TILE
+    string_eq = tx.col("category").eq(CAT_VOCAB[3])
+    all_rows = torch.arange(n, device=dev)
+    live = all_rows[cat3_rows(all_rows)]
+    live_chunks = len(range(3, n_chunks, 16))
+    scanned = []
+    orig = sc.scan_pruned_topk_core
+
+    def counting(*a, **kw):  # the tiles the pruned scan evaluates
+        scanned.append(int(a[7].sum()))
+        return orig(*a, **kw)
+
+    sc.scan_pruned_topk_core = counting
+    checked = 0
+    try:
+        for metric in (Metric.Manhattan, Metric.Hamming, Metric.Jaccard):
+            q = torch.randint(0, 4, (VPU_B, D), generator=g, device=dev).float()
+            take_min = metric is not Metric.Jaccard
+            truth = vpu_scores64(torch, q, rows[live], metric)
+            for storage, store in stores.items():
+                for rerank in (None, K_WIDE):
+                    scanned.clear()
+                    t0 = time.perf_counter()
+                    res = (store.query_batch(q, metric).meta_filter(string_eq)
+                           .take(K, rerank_from=rerank).collect())
+                    dt = time.perf_counter() - t0
+                    st = store.last_query_stats()
+                    assert scanned == [n_tiles // 2], (scanned, n_tiles)
+                    assert st.pruned_chunks == n_chunks - live_chunks, st
+                    assert st.certified is None, st
+                    label = f"6v {metric.value} {storage} take({K}" + (
+                        f", rerank_from={rerank})" if rerank else ")")
+                    check_vpu(torch, label, res.indices, res.scores, truth, live, K, take_min)
+                    checked += 1
+                    log(f"{label}: equal to the float64 truth; {scanned[0]} of {n_tiles} "
+                        f"tiles evaluated; {dt * 1e3:.1f} ms on {card}")
+    finally:
+        sc.scan_pruned_topk_core = orig
+
+    # timed: 4 pipelined batches of 256 Manhattan queries over the f32 rows,
+    # pruned and over every tile
+    store = stores["float32"]
+    del stores
+    batches = [torch.randint(0, 4, (B, D), generator=g, device=dev).float()
+               for _ in range(VPU_TIMED_BATCHES)]
+    timing = {}
+    for label, expr, rows_of in (("pruned", string_eq, live), ("unfiltered", None, all_rows)):
+        def pending(q, expr=expr):
+            plan = store.query_batch(q, Metric.Manhattan)
+            if expr is not None:
+                plan = plan.meta_filter(expr)
+            return plan.take(K).collect_async()
+
+        tx.resolve([pending(batches[0])])  # warm-up
+        sync(dev)
+        t0 = time.perf_counter()
+        results = tx.resolve([pending(q) for q in batches])
+        sync(dev)
+        el = time.perf_counter() - t0
+        timing[label] = VPU_TIMED_BATCHES * B / el
+        # every batch of the pruned run, the first of the unfiltered one
+        for i, (q, res) in enumerate(zip(batches, results)):
+            if expr is None and i:
+                break
+            truth = vpu_scores64(torch, q, rows[rows_of], Metric.Manhattan)
+            check_vpu(torch, f"6v Manhattan {label} batch {i}", res.indices, res.scores,
+                      truth, rows_of, K, True)
+            del truth
+        log(f"6v Manhattan {label}: {VPU_TIMED_BATCHES} pipelined batches of {B} over "
+            f"{n} x {D} f32 rows in {el:.3f} s: {timing[label]:.2f} q/s on {card}")
+    log(f"6v unfiltered / pruned time: {timing['pruned'] / timing['unfiltered']:.3f} "
+        f"(the pruned scan reads {n_tiles // 2} of {n_tiles} tiles)")
+    del store
+    torch.cuda.empty_cache()
+
+    # VecStore: one Manhattan batch of 4 queries over 1M of these rows
+    v_rows = rows[:VEC_ROWS].cpu().numpy()
+    del rows
+    torch.cuda.empty_cache()
+    vs = tx.VecStore(D, device=dev)
+    vs.add_vectors(v_rows)
+    q = torch.randint(0, 4, (4, D), generator=g, device=dev).float()
+    res = vs.query(q.cpu().numpy(), Metric.Manhattan).take(K).collect()
+    truth = vpu_scores64(torch, q, torch.as_tensor(v_rows, device=dev), Metric.Manhattan)
+    check_vpu(torch, "6v VecStore Manhattan", [r.index for r in res], [r.score for r in res],
+              truth, torch.arange(VEC_ROWS, device=dev), K, True)
+    log(f"6v VecStore Manhattan ({VEC_ROWS} x {D}, 4 queries): equal to the float64 truth")
+    return {"synth_s": synth_s, "checked": checked, "pruned_qps": timing["pruned"],
+            "unfiltered_qps": timing["unfiltered"]}
+
+
 def vecstore_path(torch, dev):
     """VecStore at 1M x 768: 256 Cosine queries, ``take(10)``. f32 and bf16
     storage run K4 with its check (no K3 rerun) and equal the exact truth
@@ -1746,7 +2132,13 @@ def main() -> int:
                   for m in ("K1", "K2")}
         sweep = {m: b_sweep(torch, m, store._dv, torch.cat(batches[:2]), store.n_chunks())
                  for m in ("K1", "K2")}
+        dv8 = store._dv
         del store
+        torch.cuda.empty_cache()
+    with phase(f"4s the bench's full column mix ({ROWS} x {D}): tensor ingest, device Bloom "
+               "build, precompile, string_eq (K1)"):
+        strings = string_phase(torch, dev, f32, dv8, card)
+        del dv8
         torch.cuda.empty_cache()
     with phase(f"4f bfloat16 storage ({ROWS} x {D}): K1 / K5 certified, K4 uncertified, "
                "K6 at the one-pass precisions"):
@@ -1789,6 +2181,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     with phase(f"6b failed fast check, Eq and take(200) ({NEAR_ROWS} x {D}, K3)"):
         near = near_tie_path(torch, dev)
+        torch.cuda.empty_cache()
+    with phase(f"6v VPU metrics ({F32_ROWS} x {D}, f32 and bf16 rows): the pruned scan, "
+               "the rerank, VecStore"):
+        vpu = vpu_phase(torch, dev, card)
         torch.cuda.empty_cache()
     with phase(f"7 VecStore ({VEC_ROWS} x {D}, f32 and bf16 K4, int8 K2, take-all)"):
         vec = vecstore_path(torch, dev)
@@ -1878,6 +2274,7 @@ def main() -> int:
             **stats_, "path": "python -m otters_tpu_torch.profile_variants",
         })
     assert len(entries) == 13, len(entries)
+    log("phases 4s / 6v: " + json.dumps({"card": card, "4s": strings, "6v": vpu}))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,10 @@ strict exact-f32 rerun); bfloat16 storage, searched the same way over its
 stored values or certified exact through the f32 rerank for Cosine, Dot
 and Euclid; and int8 storage, certified through the exact f32 rerank or
 uncertified. Each TPU kernel mode on these paths is a kernel written by
-hand for Hopper (``csrc/``, see ``ops/fused_topk.py``).
+hand for Hopper (``csrc/``, see ``ops/fused_topk.py``). Also: ingest from a
+CUDA tensor (``with_vectors(tensor)``) with the device Bloom build
+(``OTTERS_BLOOM_DEVICE``), ``MetaStore.precompile`` and ``cache_stats``,
+and the VPU metrics (Manhattan, Hamming, Jaccard) with their pruned scan.
 """
 
 from .column import Column

@@ -3,7 +3,8 @@
 ``exact_rerank`` is the exact-f32 step of ``take(k, rerank_from=...)``: the
 quantized scan hands over a widened candidate set, and the final top-k is
 re-scored against the true f32 rows (the reference's exactness contract,
-vec_compute.rs:77-294, over int8 storage).
+vec_compute.rs:77-294, over int8 storage). The VPU metrics rerank here
+too, one pending at a time, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,7 +27,10 @@ def exact_rerank(
 
     ``fetch_vectors(indices) -> [m, d] f32`` (numpy or a torch tensor)
     supplies the true rows; the scores are computed on the device of
-    ``queries`` when it is a tensor. Batch queries merge into ONE global
+    ``queries`` when it is a tensor, with the JAX package's formulas:
+    Cosine, Dot and squared Euclid in full f32, and the VPU metrics
+    elementwise in f32 (Manhattan sum |q - v|, Hamming the count of unequal
+    components, Jaccard sum min / sum max, 0 where both rows are all zero). Batch queries merge into ONE global
     top-k (vec.rs:217-219), ties toward the lower (query, candidate) flat
     index like ``lax.top_k``. Returns (indices[k], scores[k]) in take order.
 

@@ -34,6 +34,8 @@ SOURCES = (
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas register / shared-memory report of each build, for the smoke log
 build_logs: Dict[str, str] = {}
+# nvcc processes started by this process (a warmed server starts none)
+nvcc_runs = 0
 
 
 def _nvcc() -> str:
@@ -57,6 +59,7 @@ def build(names: Iterable[str]) -> None:
     """Compile every named kernel that is not built yet, in parallel.
 
     Raises with nvcc's output if any build fails."""
+    global nvcc_runs
     procs = []
     for name in names:
         out = _lib_path(name)
@@ -67,6 +70,7 @@ def build(names: Iterable[str]) -> None:
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
+        nvcc_runs += 1
     failed = []
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()

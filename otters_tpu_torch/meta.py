@@ -37,20 +37,26 @@ returned rows are re-verified host-side against the actual strings; a hash
 collision that falsely includes a row re-runs the query with an exact
 host-computed row mask.
 
+The VPU metrics (Manhattan, Hamming, Jaccard) score on the plain programs
+(``scoring._vpu_scores``); a filtered one at scale skips dead tiles
+(``scoring.scan_pruned_topk_core``), and its rerank runs
+``evaluate.exact_rerank``. ``precompile`` readies what a deployment serves
+and ``cache_stats`` reports the per-store caches.
+
 Not ported yet (each raises ``NotImplementedError`` where a query would
 need it, and every public method of the JAX package's classes exists here):
 with_sort_by / with_z_order, build_sharded, delete_rows / append,
-save / load, precompile, cache_stats, to_pandas / to_arrow, the VPU metrics
-and extended string predicates.
+save / load, to_pandas / to_arrow and extended string predicates.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 import time
 import warnings
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -152,17 +158,23 @@ class MetaQueryResults:
 
 class _LruCache(dict):
     """Tiny LRU dict: ``get`` refreshes recency; inserting beyond capacity
-    evicts the least-recently-used entry."""
+    evicts the least-recently-used entry. Hit / miss / eviction counters
+    make a thrashing workload visible (``MetaStore.cache_stats()``)."""
 
     def __init__(self, cap: int):
         super().__init__()
         self.cap = cap
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
 
     def get(self, key, default=None):
         if key in self:
+            self.hits += 1
             val = super().pop(key)
             super().__setitem__(key, val)
             return val
+        self.misses += 1
         return default
 
     def __setitem__(self, key, val):
@@ -170,6 +182,7 @@ class _LruCache(dict):
             super().pop(key)
         elif len(self) >= self.cap:
             super().pop(next(iter(self)))
+            self.evictions += 1
         super().__setitem__(key, val)
 
 
@@ -250,11 +263,24 @@ def _build_device_column(col: Column, n: int, n_pad: int, chunk_size: int,
         params = bloom_ops.BloomParams.from_fpr(val, chunk_size)
     else:
         params = bloom_ops.BloomParams.from_bits(val, chunk_size)
-    chunk_ids = np.arange(n, dtype=np.int64) // chunk_size
-    matrix = bloom_ops.build_matrix(
-        g1, g2, nulls_np, chunk_ids, n_chunks, params, chunk_size=chunk_size
-    )
-    dev["bloom"] = bloom_ops.to_device(matrix, device)
+    # OTTERS_BLOOM_DEVICE (the JAX package's switch): unset / "0" /
+    # "false" / "" = the host build; any other value = the device build
+    # where its geometry allows. Both give the same bits.
+    env = os.environ.get("OTTERS_BLOOM_DEVICE")
+    if (
+        env is not None
+        and env.lower() not in ("0", "false", "")
+        and bloom_ops.device_build_ok(params, n_chunks)
+    ):
+        dev["bloom"] = bloom_ops.build_matrix_device(
+            g1, g2, nulls_np, chunk_size, n_chunks, params, device
+        )
+    else:
+        chunk_ids = np.arange(n, dtype=np.int64) // chunk_size
+        matrix = bloom_ops.build_matrix(
+            g1, g2, nulls_np, chunk_ids, n_chunks, params, chunk_size=chunk_size
+        )
+        dev["bloom"] = bloom_ops.to_device(matrix, device)
     return "str", dev, params
 
 
@@ -307,7 +333,7 @@ def _meta_query_program(store: "MetaStore", cols, queries, plan_static,
         )
         return rows, scores, ok, check, bound, evaluated, rows_eval
 
-    # direct / scan: one global certificate term; the certified scan runs
+    # direct / scan / panel / scan_pruned: one global certificate term; the certified scan runs
     # MIXED (bf16-rounded queries x stored rows), signaled to _score_block
     # by the bf16 query dtype
     cert_slack = None
@@ -327,7 +353,23 @@ def _meta_query_program(store: "MetaStore", cols, queries, plan_static,
         q_core = qh32.to(torch.bfloat16)
     args = (dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, q_core, rmask, thr_core)
     kwargs = dict(metric=metric, k=k, take_min=take_min, cmp=cmp, prec=store.precision)
-    if tile == "scan":
+    if tile == "scan_pruned":
+        # the pruning path of the VPU metrics: dead tiles are never read
+        if plan_static:
+            alive = scoring.tiles_alive_from_chunk_mask(
+                cmask, store._chunk_size, n_pad, scoring.SCAN_TILE
+            )
+        else:
+            alive = torch.ones(n_pad // scoring.SCAN_TILE, dtype=torch.bool, device=dev)
+        rows, scores, ok = scoring.scan_pruned_topk_core(
+            *args, alive, tile=scoring.SCAN_TILE, **kwargs
+        )
+        check = torch.ones((), dtype=torch.bool, device=dev)
+        bound = torch.full((), float("-inf"), device=dev)
+        return rows, scores, ok, check, bound, evaluated, rows_eval
+    if tile == "panel":
+        rows, scores, ok = scoring.panel_topk_core(*args, **kwargs)
+    elif tile == "scan":
         rows, scores, ok = scoring.scan_topk_core(*args, tile=scoring.SCAN_TILE, **kwargs)
     else:
         rows, scores, ok = scoring.direct_topk_core(*args, **kwargs)
@@ -345,9 +387,11 @@ def _meta_query_program(store: "MetaStore", cols, queries, plan_static,
 
 def _rerank_scores(q: torch.Tensor, v: torch.Tensor, metric: Metric) -> torch.Tensor:
     """Exact f32 scores [..., B, M] of queries [..., B, D] vs rows [..., M, D]
-    (the formulas of evaluate.exact_rerank; full f32, like HIGHEST)."""
+    (the formulas of evaluate.exact_rerank; full f32, like HIGHEST). The
+    VPU metrics take 2-D operands only (:func:`scoring._vpu_scores` over f32
+    rows)."""
     if metric in VPU_METRICS:
-        raise NotImplementedError(f"the {metric.value} rerank is not ported yet")
+        return scoring._vpu_scores(q, v, metric)
     scoring.require_full_f32(q)
     dots = q @ v.transpose(-1, -2)
     if metric is Metric.Cosine:
@@ -368,6 +412,10 @@ def _device_rerank_dispatch(store: "MetaStore", plist):
     when a member has no candidates (each then reranks on its own)."""
     plan0 = plist[0]._plan
     metric = plan0._metric
+    if metric in VPU_METRICS:
+        # a [P, B, M, D] broadcast would blow memory: each pending reranks
+        # on its own (evaluate.exact_rerank), as in the JAX package
+        return None
     dev = store._device
     k_final = plan0._take_count
     take_min = plist[0]._take_type is TakeType.Min
@@ -430,6 +478,31 @@ def _device_rerank_finish(plist, cands, fetched) -> None:
 _STORAGE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.int8: "int8"}
 
 
+def _same_device(have: torch.device, want: torch.device) -> bool:
+    """Is ``have`` (a tensor's device) the device ``want`` names? A CUDA
+    device named without an index is the current one."""
+    if have.type != want.type:
+        return False
+    if want.type == "cuda" and want.index is None:
+        return have.index == torch.cuda.current_device()
+    return want.index is None or have.index == want.index
+
+
+class _Launch(NamedTuple):
+    """A shape's launch decision (the ``aot_key`` memo's value): the tile
+    program ("fused", "direct", "scan", "panel" or "scan_pruned"), the
+    fast-exact and certified modes, and for the fused tile its kernel
+    (``fused_topk.KERNELS`` key), its ring at the stored depth and the
+    ``csrc/`` sources it needs (a fast launch's strict rerun included)."""
+
+    tile: str
+    fast: bool
+    certify: bool
+    mode: Optional[str] = None
+    plan: Optional[fused_topk.ScanPlan] = None
+    sources: Tuple[str, ...] = ()
+
+
 class MetaStoreBuilder:
     """Builder (reference meta.rs:62-110, 113-148)."""
 
@@ -471,11 +544,19 @@ class MetaStoreBuilder:
         return self
 
     def with_vectors(self, vectors, n_rows=None) -> "MetaStoreBuilder":
-        """Supply vectors: a [n, d] numpy array / list of rows, or a
-        pre-built ``scoring.DeviceVecs`` (e.g. from
+        """Supply vectors: a [n, d] numpy array / list of rows; a [n, d]
+        ``torch.Tensor`` on the store's device (ingested there, no host
+        round trip); or a pre-built ``scoring.DeviceVecs`` (e.g. from
         ``scoring.materialize_int8_slabs`` for stores too large to exist in
-        f32), adopted as-is with its storage dtype; ``n_rows`` is required
-        then."""
+        f32), adopted as-is with its storage dtype (``n_rows`` is required
+        then).
+
+        For a large tensor, pad its rows to ``scoring.pad_rows(n)`` and pass
+        the logical row count as ``n_rows``: float32 storage then adopts the
+        tensor itself (zero-copy, the store's rows have its ``data_ptr()``)
+        when its depth is a multiple of 16; another depth is copied once
+        into rows padded to one. int8 and bfloat16 storage are written slab
+        by slab (``scoring.materialize_from_device``)."""
         self._vectors = vectors
         self._vectors_n = n_rows
         return self
@@ -545,7 +626,7 @@ class MetaStoreBuilder:
                     "with_vectors(DeviceVecs) requires n_rows (the logical "
                     "row count; the buffers are padded)"
                 )
-            if vectors.vectors.device != device:
+            if not _same_device(vectors.vectors.device, device):
                 raise OttersError(
                     f"the pre-built DeviceVecs live on {vectors.vectors.device}, "
                     f"the store on {device}"
@@ -553,11 +634,18 @@ class MetaStoreBuilder:
             n_rows = int(self._vectors_n)
             dim = int(vectors.vectors.shape[1])
             self._storage_dtype = _STORAGE_NAMES[vectors.vectors.dtype]
-        elif isinstance(vectors, torch.Tensor):
-            raise NotImplementedError(
-                "with_vectors(torch.Tensor) is not ported yet; pass numpy "
-                "rows or a pre-built scoring.DeviceVecs"
-            )
+        from_device = (not pre_built) and isinstance(vectors, torch.Tensor)
+        if from_device:
+            if not _same_device(vectors.device, device):
+                raise OttersError(
+                    f"the vectors tensor lives on {vectors.device}, "
+                    f"the store on {device}"
+                )
+            n_rows, dim = int(vectors.shape[0]), int(vectors.shape[1])
+            if self._vectors_n is not None:
+                n_rows = int(self._vectors_n)  # pre-padded zero-copy ingest
+        elif pre_built:
+            pass
         elif not isinstance(vectors, np.ndarray):
             vecs_list = [np.asarray(v, dtype=np.float32) for v in vectors]
             n_rows = len(vecs_list)
@@ -594,7 +682,11 @@ class MetaStoreBuilder:
                         "DeviceVecs (their f32 form never existed); pass "
                         "fetch_vectors instead"
                     )
-                host_f32 = np.asarray(vectors, dtype=np.float32)[:n_rows]
+                if from_device:
+                    # one copy to the host, as the JAX package's np.asarray
+                    host_f32 = vectors[:n_rows].float().cpu().numpy()
+                else:
+                    host_f32 = np.asarray(vectors, dtype=np.float32)[:n_rows]
 
                 def rerank_fetch(ids, _hf=host_f32):
                     return _hf[np.asarray(ids, dtype=np.int64)]
@@ -606,6 +698,10 @@ class MetaStoreBuilder:
         ingest_start = time.perf_counter()
         if pre_built:
             dv = vectors
+        elif from_device:
+            dv = scoring.materialize_from_device(
+                vectors, n_valid=n_rows, dtype=getattr(torch, self._storage_dtype)
+            )
         else:
             dtype = getattr(torch, self._storage_dtype)
             dv = scoring.materialize(vectors, dtype=dtype, device=device)
@@ -685,7 +781,14 @@ class MetaStore:
         self._rerank_fetch = None
         # per-(filter, vec_filter, k) scan widths that recently certified
         self._cert_kwide_hint = _LruCache(64)
+        # the per-store LRU caches under the JAX package's names and caps
+        # (cache_stats): lowered plans; the per-shape launch decision (the
+        # JAX package's AOT signature memo, keyed alike); the host masks of
+        # extended string predicates, which stays empty until those are
+        # ported
         self._plan_cache = _LruCache(256)
+        self._aot_key_cache = _LruCache(512)
+        self._hostmask_cache = _LruCache(128)
         self._build_stats: Optional[MetaBuildStats] = None
         self._last_stats: Optional[MetaQueryStats] = None
         # scan precision of f32 / bf16 storage: "highest" (exact; the
@@ -745,9 +848,27 @@ class MetaStore:
         return dict(self._cert_kwide_hint)
 
     def cache_stats(self) -> Dict[str, Dict[str, int]]:
-        raise NotImplementedError("MetaStore.cache_stats is not ported yet")
+        """Size / hit / miss / eviction counters of the per-store LRU caches
+        (plan lowering, the launch-decision memo ``aot_key``, the host masks
+        ``hostmask``, which stays empty until the extended string predicates
+        are ported). A growing ``evictions`` count on a steady workload
+        means the working set exceeds the cap."""
+        return {
+            name: {
+                "size": len(c),
+                "capacity": c.cap,
+                "hits": c.hits,
+                "misses": c.misses,
+                "evictions": c.evictions,
+            }
+            for name, c in (
+                ("plan", self._plan_cache),
+                ("aot_key", self._aot_key_cache),
+                ("hostmask", self._hostmask_cache),
+            )
+        }
 
-    # -- mutation, persistence, warm-up (not ported yet) -----------------------
+    # -- mutation, persistence (not ported yet) ---------------------------------
     def delete_rows(self, indices) -> None:
         raise NotImplementedError("MetaStore.delete_rows is not ported yet")
 
@@ -761,11 +882,123 @@ class MetaStore:
     def load(path: str, mesh=None) -> "MetaStore":
         raise NotImplementedError("MetaStore.load: io.py is not ported yet")
 
+    # -- warm-up ---------------------------------------------------------------
     def precompile(self, filters=None, batch_sizes=(1, 256), k: int = 10,
                    metric: Metric = Metric.Cosine, with_vec_filter: bool = False,
                    rerank_from: Optional[int] = None, pipeline_depths=(1,),
                    cert_widths: bool = True) -> int:
-        raise NotImplementedError("MetaStore.precompile is not ported yet")
+        """Ready the programs a deployment serves, off the query path, and
+        return how many were readied (the JAX package's count for the same
+        store and arguments). ``filters`` is a list of expressions (None =
+        unfiltered), each combined with every batch size.
+
+        Readying a program: nvcc builds every kernel source its launch needs
+        (``kernels.build``, into the git-ignored ``build/``; on a CUDA store
+        only), the plan and launch-decision memos are filled, and the
+        program runs once. ``rerank_from`` also warms the exact-rerank flow
+        once per (filter, batch size, pipeline depth in ``pipeline_depths``)
+        with seeded random queries; ``cert_widths`` (where the certificate
+        applies) readies the certificate's widen ladder, 4x steps from
+        ``rerank_from`` clamped like the widen loop, without running it."""
+        count = self._precompile_rerank(
+            filters, batch_sizes, k, metric, rerank_from, pipeline_depths
+        )
+        for expr in filters if filters is not None else [None]:
+            for b in batch_sizes:
+                plan = MetaQueryPlan(self, np.zeros((int(b), self._dim), np.float32), metric)
+                if expr is not None:
+                    plan.meta_filter(expr)
+                    if plan._meta_error is not None:
+                        raise OttersError(plan._meta_error)
+                has_filter = plan._meta_filter is not None and len(plan._meta_filter.clauses) > 0
+                if has_filter and self.n_chunks() > 0:
+                    plan_static, plan_params, used = plan._lower_plan()
+                    cols_sub = {nm: self._device_cols[nm] for nm in used}
+                else:
+                    plan_static, plan_params, cols_sub = (), (), {}
+                queries = plan._device_queries()
+                take_min = default_take_type(metric) is TakeType.Min
+                variants = [(0.0, None)]
+                if with_vec_filter:
+                    variants.append((0.0, Cmp.Lt if take_min else Cmp.Gt))
+                for thr, cmp in variants:
+                    launch, k_eff = self._prepare_program(
+                        queries, plan_static, metric, k, take_min, cmp
+                    )
+                    self._ready(launch)
+                    # run once: validates the readied launch
+                    HostCopy(self._run_prepared(
+                        launch, k_eff, cols_sub, queries, plan_params, thr, plan_static,
+                        metric, take_min, cmp,
+                    )).wait()
+                    count += 1
+                if (
+                    cert_widths
+                    and rerank_from is not None
+                    and self._certify_supported(metric, take_min, None)
+                ):
+                    # the widen ladder (readied, not run): the width sequence
+                    # result() dispatches on a failed certificate, clamped
+                    # like the widen loop
+                    w = int(rerank_from)
+                    cap = min(self._dv.vectors.shape[0], _cert_kwide_cap())
+                    while w < cap:
+                        nxt = min(max(w * 4, w + 1), cap)
+                        if w < fused_topk.FUSED_K_MAX < nxt:
+                            nxt = fused_topk.FUSED_K_MAX
+                        if not self._direct_k_ok(nxt, int(b)):
+                            break
+                        launch, _ = self._prepare_program(
+                            queries, plan_static, metric, nxt, take_min, None, certify=True
+                        )
+                        self._ready(launch)
+                        count += 1
+                        w = nxt
+        return count
+
+    def _precompile_rerank(self, filters, batch_sizes, k, metric, rerank_from,
+                           pipeline_depths) -> int:
+        """Warm the rerank flow: one resolve() per (filter, batch size,
+        depth), each pending with distinct seeded random queries (zero
+        queries all tie and collapse every candidate set)."""
+        if rerank_from is None:
+            return 0
+        if self._rerank_fetch is None:
+            raise OttersError(
+                "precompile(rerank_from=...) requires with_rerank_source on "
+                "the builder"
+            )
+        count = 0
+        qrng = np.random.default_rng(0)
+        for expr in filters if filters is not None else [None]:
+            for b in batch_sizes:
+                for depth in pipeline_depths:
+                    pend = []
+                    for _ in range(int(depth)):
+                        plan = self.query_batch(
+                            qrng.normal(size=(int(b), self._dim)).astype(np.float32), metric
+                        ).take(k, rerank_from=rerank_from)
+                        if expr is not None:
+                            plan.meta_filter(expr)
+                            if plan._meta_error is not None:
+                                raise OttersError(plan._meta_error)
+                        pend.append(plan.collect_async())
+                    with warnings.catch_warnings():
+                        # a warm batch that fails its certificate is noise
+                        # here, and the widening it triggers warms the ladder
+                        warnings.filterwarnings(
+                            "ignore", message=".*certificate did not pass.*"
+                        )
+                        resolve(pend)
+                    count += int(depth)
+        return count
+
+    def _ready(self, launch: "_Launch") -> None:
+        """Build the kernel sources a launch needs (a CUDA store's)."""
+        if launch.sources and self._device.type == "cuda":
+            from . import kernels
+
+            kernels.build(launch.sources)
 
     # -- display -------------------------------------------------------------
     def head(self) -> None:
@@ -791,24 +1024,34 @@ class MetaStore:
         self.print_last_query_stats()
 
     # -- the device program ----------------------------------------------------
-    def _run_query_program(self, cols_sub, queries, plan_params, thr, plan_static,
-                           metric, k, take_min, cmp, strict=False, certify=False):
-        """Pick the mode as the JAX package's ``_prepare_program`` does and
-        enqueue the program. ``strict`` turns the fast-exact mode off (the
-        redo after a failed check). -> device tensors (see
-        _meta_query_program)."""
+    def _prepare_program(self, queries, plan_static, metric, k, take_min, cmp,
+                         strict=False, certify=False):
+        """Pick the mode as the JAX package's ``_prepare_program`` does ->
+        (the launch decision, the effective k). ``strict`` turns the
+        fast-exact mode off (the redo after a failed check). The decision
+        per shape is memoized in the ``aot_key`` cache under the JAX
+        package's key (plan, batch, dtype, k, metric, direction, filter,
+        precision, tile, fast, certify), so a query sequence hits and misses
+        it as the JAX package's AOT signature memo."""
         dv = self._dv
         n_pad = dv.vectors.shape[0]
         b = queries.shape[0]
         k_eff = min(k, b * n_pad)
         if dv.vectors.dtype == torch.int8 and metric is not Metric.Cosine:
             raise OttersError("int8 quantized storage supports the Cosine metric only")
-        if metric in VPU_METRICS:
-            raise NotImplementedError(f"the {metric.value} metric (VPU metrics) is not ported yet")
         scoring.check_precision(self.precision)
         tile = scoring.choose_mode(n_pad, b, k_eff)
         fast = False
-        if tile == "panel":
+        if (
+            metric in VPU_METRICS
+            and plan_static
+            and n_pad % scoring.SCAN_TILE == 0
+            and n_pad >= 4 * scoring.SCAN_TILE
+            and k_eff <= scoring.SCAN_K_MAX
+        ):
+            # a filtered VPU-metric query at scale: skip the dead tiles
+            tile = "scan_pruned"
+        if tile == "panel" and metric not in VPU_METRICS:
             # panel's shape (k <= 1024, 512-aligned rows) is the fused path's
             tile = "fused"
             fast = (
@@ -820,25 +1063,64 @@ class MetaStore:
             certify
             and not strict
             and self._certify_supported(metric, take_min, cmp)
+            and tile != "scan_pruned"  # its program returns no bound
             and (tile != "fused" or dv.resid_bin is not None)
         )
         # certify and fast are disjoint kernel modes; certify wins
         fast = fast and not certify
-        if tile == "fused":
-            mode = fused_topk.kernel_mode(
-                dv.vectors.dtype, metric, take_min, certify, self.precision, fast
-            )
-            if not fused_topk.kernel_takes(mode, self._dim):
-                # the kernel does not take this depth (the JAX package's
-                # pallas_ok): the scan program, chosen before any launch
-                tile, fast = "scan", False
-                fused_topk.kernel_takes.routed += b
+        dtype = dv.vectors.dtype
+        if tile == "fused" and not fused_topk.kernel_takes(
+            fused_topk.kernel_mode(dtype, metric, take_min, certify, self.precision, fast),
+            self._dim,
+        ):
+            # the kernel does not take this depth (the JAX package's
+            # pallas_ok): the scan program, chosen before any launch
+            tile, fast = "scan", False
+            fused_topk.kernel_takes.routed += b
+        memo = (plan_static, b, str(queries.dtype), k_eff, metric, take_min, cmp,
+                self.precision, tile, fast, certify)
+        launch = self._aot_key_cache.get(memo)
+        if launch is None:
+            launch = self._launch_decision(tile, fast, certify, metric, take_min)
+            self._aot_key_cache[memo] = launch
+        return launch, k_eff
+
+    def _launch_decision(self, tile, fast, certify, metric, take_min) -> "_Launch":
+        """The fused kernel a shape launches, its ring and the sources it
+        needs."""
+        if tile != "fused":
+            return _Launch(tile, fast, certify)
+        dtype = self._dv.vectors.dtype
+        mode = fused_topk.kernel_mode(dtype, metric, take_min, certify, self.precision, fast)
+        sources = {fused_topk.kernel_source(mode)}
+        if fast:  # a failed check reruns strictly
+            sources.add(fused_topk.kernel_source(
+                fused_topk.kernel_mode(dtype, metric, take_min, False, self.precision)
+            ))
+        return _Launch(tile, fast, certify, mode,
+                       fused_topk.sm90_plan(mode, scoring.pad_depth(self._dim)),
+                       sources=tuple(sorted(sources)))
+
+    def _run_prepared(self, launch, k_eff, cols_sub, queries, plan_params, thr, plan_static,
+                      metric, take_min, cmp):
+        """Enqueue a prepared launch -> device tensors (see
+        _meta_query_program)."""
         thr_t = _scalar(float(thr), torch.float32, self._device)
         return _meta_query_program(
             self, cols_sub, queries, plan_static, plan_params, thr_t,
-            metric=metric, k=k_eff, take_min=take_min, cmp=cmp, tile=tile,
-            certify=certify, fast=fast,
+            metric=metric, k=k_eff, take_min=take_min, cmp=cmp, tile=launch.tile,
+            certify=launch.certify, fast=launch.fast,
         )
+
+    def _run_query_program(self, cols_sub, queries, plan_params, thr, plan_static,
+                           metric, k, take_min, cmp, strict=False, certify=False):
+        """Prepare (:meth:`_prepare_program`) and enqueue the program ->
+        device tensors (see _meta_query_program)."""
+        launch, k_eff = self._prepare_program(
+            queries, plan_static, metric, k, take_min, cmp, strict=strict, certify=certify
+        )
+        return self._run_prepared(launch, k_eff, cols_sub, queries, plan_params, thr,
+                                  plan_static, metric, take_min, cmp)
 
     def _certify_supported(self, metric, take_min, cmp) -> bool:
         """Can the exactness certificate cover this plan shape? int8 storage:
@@ -1113,7 +1395,8 @@ class MetaQueryPlan:
     def collect_async(self) -> "PendingMetaQuery":
         """Enqueue the device program without waiting on the device, so
         callers can pipeline batches; ``.result()`` (or ``resolve``)
-        finalizes."""
+        finalizes. One case waits: a filtered VPU-metric query at scale
+        (the pruned scan) reads its list of live tiles to the host once."""
         if self._meta_error is not None:
             raise OttersError(self._meta_error)
         store = self._store

@@ -77,6 +77,7 @@ from .scoring import (
     one_pass_dots,
     pad_depth,
     require_full_f32,
+    tiles_alive_from_chunk_mask,
 )
 
 BIN = 512
@@ -138,20 +139,9 @@ def kernel_mode(storage_dtype, metric: Metric, take_min: bool, certify: bool,
 
 
 def bins_alive_from_chunk_mask(chunk_mask: torch.Tensor, chunk_size: int, n_pad: int):
-    """[n_chunks] chunk mask -> [n_bins] bin-alive flags (OR of overlaps).
-
-    A bin [i*512, (i+1)*512) overlaps chunks first..last; it is alive when
-    the alive-count prefix sum differs across that range. O(n_bins +
-    n_chunks) on the device, no host round trip."""
-    n_chunks = chunk_mask.shape[0]
-    n_bins = n_pad // BIN
-    dev = chunk_mask.device
-    cs = torch.zeros(n_chunks + 1, dtype=torch.int64, device=dev)
-    cs[1:] = torch.cumsum(chunk_mask.to(torch.int64), dim=0)
-    start = torch.arange(n_bins, device=dev) * BIN
-    first = torch.clamp(start // chunk_size, max=n_chunks)
-    last = torch.clamp((start + BIN - 1) // chunk_size + 1, max=n_chunks)
-    return cs[last] > cs[first]
+    """[n_chunks] chunk mask -> [n_bins] bin-alive flags (OR of overlaps),
+    :func:`scoring.tiles_alive_from_chunk_mask` at 512-row bins."""
+    return tiles_alive_from_chunk_mask(chunk_mask, chunk_size, n_pad, BIN)
 
 
 def survivor_bins(bin_alive: torch.Tensor):
@@ -853,6 +843,16 @@ KERNELS = {
     "K4-bf16": bf16x3_binmax_bf16, "K5": cert_fold_binmax, "K6": bf16_binmax,
     "K6-bf16": bf16_binmax_bf16,
 }
+
+
+def kernel_source(mode: str) -> str:
+    """The ``csrc/`` source (without ``.cu``) that builds the kernel of
+    ``mode`` (a key of :data:`KERNELS`)."""
+    if mode.startswith("K1"):
+        return "cert_cos_binmax"
+    if mode == "K5":
+        return "cert_fold_binmax"
+    return _MODES[mode][0]
 
 
 def kernel_smem_bytes(mode: str, d: int) -> int:

@@ -3,10 +3,13 @@
 Counterpart of the JAX package's ``ops/scoring.py``: device storage (f32,
 bfloat16 with its rounding residuals, int8 with its quantization), the
 certificate's per-query / per-row terms for Cosine, Dot and Euclid, the
-bf16x3 error bound, the two plain scoring programs the query paths can
-fall into (``direct`` for small stores, ``scan`` for wide k) and the
-windowed take-all collection (``collect_all``). The ``panel`` mode is
-served by the hand-written fused kernels (``ops/fused_topk.py``).
+bf16x3 error bound, the plain scoring programs the query paths can fall
+into (``direct`` for small stores, ``scan`` for wide k), the windowed
+take-all collection (``collect_all``) and the VPU metrics (Manhattan,
+Hamming, Jaccard: :func:`_vpu_scores`, the ``panel`` program and the
+pruned scan :func:`scan_pruned_topk_core`). The ``panel`` mode of the
+matmul metrics is served by the hand-written fused kernels
+(``ops/fused_topk.py``).
 
 Store precisions of f32 and bfloat16 storage (``prec``): "highest" and
 "high" score in full f32 here (the fused path runs "high" as bf16x3);
@@ -41,6 +44,7 @@ DIRECT_LIMIT = 1 << 22
 SMALL_PAD = 128
 MID_PAD = 512
 PANEL_BIN = 512
+PANEL_SCORE_BYTES = 1 << 30  # the largest staged panel score block
 PANEL_K_MAX = 1024
 SCAN_K_MAX = DIRECT_LIMIT // 4
 HIER_BIN = 512
@@ -163,7 +167,8 @@ def materialize(vectors_np: np.ndarray, dtype=torch.float32, *, device) -> Devic
     host[:n] = vectors_np
     vecs = torch.from_numpy(host).to(device)
     if dtype == torch.int8:
-        return _materialize_int8(vecs, n)
+        return _int8_slabs(lambda s, r: vecs[s : s + r], n_pad, n_pad, n, d,
+                           INGEST_SLAB_ROWS, vecs.device)
     if dtype == torch.bfloat16:
         return _materialize_bf16(vecs, n)
     if dtype != torch.float32:
@@ -173,25 +178,30 @@ def materialize(vectors_np: np.ndarray, dtype=torch.float32, *, device) -> Devic
     return DeviceVecs(_depth_padded(vecs), norms_sq, inv_norms, valid)
 
 
-# rows per slab of the bfloat16 ingest: its f32 temporaries stay near 1 GB
-# at d = 768, where a whole-store one would double a 10M-row f32 source
-BF16_SLAB_ROWS = 1 << 18
+# rows per slab of the bfloat16 and int8 ingest: its f32 temporaries stay
+# near 1 GB at d = 768, where a whole-store one would double a 10M-row f32
+# source
+INGEST_SLAB_ROWS = 1 << 18
 
 
 def _materialize_bf16(vecs_f32: torch.Tensor, n_valid: int,
-                      slab_rows: int = BF16_SLAB_ROWS) -> DeviceVecs:
+                      slab_rows: int = INGEST_SLAB_ROWS, n_pad: Optional[int] = None
+                      ) -> DeviceVecs:
     """bfloat16 storage with per-row ABSOLUTE rounding residuals attached:
     half the device memory of f32, and the certificate covers Cosine, Dot
     and Euclid on it. The codes, norms and residuals are computed slab by
-    slab and written in place (rows are independent)."""
-    n_pad, d = vecs_f32.shape
+    slab and written in place (rows are independent). ``n_pad`` (default:
+    the rows' count) pads the store past the given rows with zero rows,
+    which are never read."""
+    n, d = vecs_f32.shape
+    n_pad = n if n_pad is None else n_pad
     dev = vecs_f32.device
     vecs = _padded_empty(n_pad, d, torch.bfloat16, dev)
-    norms_sq = torch.empty((n_pad,), dtype=torch.float32, device=dev)
-    inv = torch.empty_like(norms_sq)
-    resid = torch.empty_like(norms_sq)
-    for s in range(0, n_pad, max(1, slab_rows)):
-        e = min(n_pad, s + slab_rows)
+    norms_sq = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
+    inv = torch.zeros_like(norms_sq)
+    resid = torch.zeros_like(norms_sq)
+    for s in range(0, n, max(1, slab_rows)):
+        e = min(n, s + slab_rows)
         x = vecs_f32[s:e].float()
         vecs[s:e] = x.to(torch.bfloat16)
         norms_sq[s:e], inv[s:e] = _device_norms(vecs[s:e])
@@ -201,16 +211,6 @@ def _materialize_bf16(vecs_f32: torch.Tensor, n_valid: int,
     resid = torch.where(valid, resid, 0.0)
     rbin, rmax = finalize_resid(resid)
     return DeviceVecs(vecs, norms_sq, inv, valid, resid, rbin, rmax)
-
-
-def _materialize_int8(vecs_f32: torch.Tensor, n_valid: int) -> DeviceVecs:
-    """Quantized cosine storage: per-row symmetric int8 with residuals."""
-    n_pad = vecs_f32.shape[0]
-    v8, norms_sq, inv, resid = _quantize_rows_int8_resid(vecs_f32)
-    valid = _valid_mask(n_pad, n_valid, vecs_f32.device)
-    resid = torch.where(valid, resid, 0.0)
-    rbin, rmax = finalize_resid(resid)
-    return DeviceVecs(_depth_padded(v8), norms_sq, inv, valid, resid, rbin, rmax)
 
 
 def _inv_or_zero(x: torch.Tensor) -> torch.Tensor:
@@ -393,28 +393,63 @@ def cert_global_slack(c0, c1, c2, lane_a, lane_b, norms_sq, q_valid=None):
 def materialize_from_device(vecs: torch.Tensor, n_valid: Optional[int] = None,
                             dtype=None) -> DeviceVecs:
     """Build a DeviceVecs from rows already on their device (no host round
-    trip), padding rows there. ``dtype`` (default: the rows' own) is the
-    storage: int8 quantizes, bfloat16 rounds with residuals (slab by slab),
-    float32 keeps. Rows past ``n_valid`` are masked out of every query. A
-    caller short of memory passes rows already padded to ``pad_rows(n)``:
-    the padding is then a no-op, not a copy."""
+    trip). ``dtype`` (default: the rows' own) is the storage: int8
+    quantizes and bfloat16 rounds with residuals, both slab by slab
+    (:data:`INGEST_SLAB_ROWS` rows of f32 temporaries at a time, the same
+    bits as a whole-store pass); float32 keeps. Rows past ``n_valid`` are
+    masked out of every query.
+
+    A caller short of memory passes f32 rows already padded to
+    ``pad_rows(n)`` with a depth that is a multiple of 16 (DEPTH_ALIGN):
+    float32 storage then adopts the caller's tensor as it is, with no copy.
+    Rows that need padding (more rows, or a deeper stride) are copied once
+    into the padded store; int8 and bfloat16 storage always write a new
+    tensor of their own type."""
     n, d = vecs.shape
     n_pad = pad_rows(n)
     n_valid = n if n_valid is None else n_valid
     dtype = vecs.dtype if dtype is None else dtype
-    if n_pad != n:
-        pad = vecs.new_zeros((n_pad - n, d))
-        vecs = torch.cat([vecs, pad])
     if dtype == torch.int8:
-        return _materialize_int8(vecs.float(), n_valid)
+        return _int8_slabs(lambda s, r: vecs[s : s + r], n, n_pad, n_valid, d,
+                           INGEST_SLAB_ROWS, vecs.device)
     if dtype == torch.bfloat16 and vecs.dtype != torch.bfloat16:
-        return _materialize_bf16(vecs, n_valid)
+        return _materialize_bf16(vecs, n_valid, n_pad=n_pad)
     if dtype not in (torch.float32, torch.bfloat16):
         raise OttersError(f"unsupported storage dtype {dtype}")
     vecs = vecs.to(dtype)
+    if n_pad != n:
+        vecs = torch.cat([vecs, vecs.new_zeros((n_pad - n, d))])
     norms_sq, inv_norms = _device_norms(vecs)
     return DeviceVecs(_depth_padded(vecs), norms_sq, inv_norms,
                       _valid_mask(n_pad, n_valid, vecs.device))
+
+
+def _int8_slabs(slab_fn, n: int, n_pad: int, n_valid: int, d: int, slab_rows: int,
+                device) -> DeviceVecs:
+    """The int8 slab walk over rows ``0 .. n`` of ``slab_fn`` into an
+    ``n_pad``-row store (rows past ``n`` stay zero: quantized zero rows),
+    valid below ``n_valid``. Each slab is quantized and written in place
+    into the preallocated int8 buffers, so the peak memory is the int8
+    store plus one slab and its temporaries."""
+    buf8 = _padded_empty(n_pad, d, torch.int8, device)
+    norms_sq = torch.zeros((n_pad,), dtype=torch.float32, device=device)
+    inv = torch.zeros((n_pad,), dtype=torch.float32, device=device)
+    resid = torch.zeros((n_pad,), dtype=torch.float32, device=device)
+    slab_rows = max(1, min(slab_rows, n_pad))
+    for start in range(0, n, slab_rows):
+        rows = min(slab_rows, n - start)
+        slab = torch.as_tensor(slab_fn(start, rows), dtype=torch.float32, device=device)
+        v8, nsq, iv, rs = _quantize_rows_int8_resid(slab)
+        end = start + rows
+        buf8[start:end] = v8
+        norms_sq[start:end] = nsq
+        inv[start:end] = iv
+        resid[start:end] = rs
+        del slab, v8, nsq, iv, rs
+    valid = _valid_mask(n_pad, n_valid, device)
+    resid = torch.where(valid, resid, 0.0)
+    rbin, rmax = finalize_resid(resid)
+    return DeviceVecs(buf8, norms_sq, inv, valid, resid, rbin, rmax)
 
 
 def materialize_int8_slabs(slab_fn, n: int, d: int, slab_rows: int, *, device) -> DeviceVecs:
@@ -425,27 +460,8 @@ def materialize_int8_slabs(slab_fn, n: int, d: int, slab_rows: int, *, device) -
     hold anything; validity masks them out). Each slab is quantized and
     written in place into the preallocated int8 buffers, so the peak memory
     is the int8 store plus one slab and its temporaries."""
-    device = torch.device(device)
     n_pad = pad_rows(n)
-    buf8 = _padded_empty(n_pad, d, torch.int8, device)
-    norms_sq = torch.zeros((n_pad,), dtype=torch.float32, device=device)
-    inv = torch.zeros((n_pad,), dtype=torch.float32, device=device)
-    resid = torch.zeros((n_pad,), dtype=torch.float32, device=device)
-    slab_rows = max(1, min(slab_rows, n_pad))
-    for start in range(0, n_pad, slab_rows):
-        rows = min(slab_rows, n_pad - start)
-        slab = torch.as_tensor(slab_fn(start, rows), dtype=torch.float32, device=device)
-        v8, nsq, iv, rs = _quantize_rows_int8_resid(slab)
-        end = start + rows
-        buf8[start:end] = v8
-        norms_sq[start:end] = nsq
-        inv[start:end] = iv
-        resid[start:end] = rs
-        del slab, v8, nsq, iv, rs
-    valid = _valid_mask(n_pad, n, device)
-    resid = torch.where(valid, resid, 0.0)
-    rbin, rmax = finalize_resid(resid)
-    return DeviceVecs(buf8, norms_sq, inv, valid, resid, rbin, rmax)
+    return _int8_slabs(slab_fn, n_pad, n_pad, n, d, slab_rows, torch.device(device))
 
 
 def materialize_f32_slabs(slab_fn, n: int, d: int, slab_rows: int, *, device) -> DeviceVecs:
@@ -495,12 +511,9 @@ def _score_block(queries, q_inv, q_sq, vecs, v_inv, v_sq, metric: Metric,
     dot      = q . v
 
     f32 queries over f32 / bfloat16 rows take the store precision ``prec``
-    (one bf16 pass for "default" / "bf16", full f32 otherwise)."""
-    if metric in VPU_METRICS:
-        raise NotImplementedError(
-            f"the {metric.value} metric (VPU metrics) is not ported yet"
-        )
-    if queries.dtype == torch.bfloat16:
+    (one bf16 pass for "default" / "bf16", full f32 otherwise); the VPU
+    metrics have no matmul form (:func:`_vpu_scores`) and read none."""
+    if queries.dtype == torch.bfloat16 and metric not in VPU_METRICS:
         # MIXED certified scan: bf16-rounded queries x stored rows, f32
         # accumulation (int8 codes and bf16 x int8 products are exact in
         # f32). Callers signal the mode by handing the queries in bf16.
@@ -525,6 +538,8 @@ def _score_block(queries, q_inv, q_sq, vecs, v_inv, v_sq, metric: Metric,
         q8, _, q_inv8 = _quantize_rows_int8(queries)
         dots = (q8.double() @ vecs.double().T).float()
         return dots * q_inv8[:, None] * v_inv[None, :]
+    if metric in VPU_METRICS:
+        return _vpu_scores(queries, vecs, metric)
     check_precision(prec)
     if prec in ONE_PASS:
         dots = one_pass_dots(queries, vecs)
@@ -538,6 +553,50 @@ def _score_block(queries, q_inv, q_sq, vecs, v_inv, v_sq, metric: Metric,
     if metric is Metric.Cosine:
         return dots * q_inv[:, None] * v_inv[None, :]
     return q_sq[:, None] + v_sq[None, :] - 2.0 * dots
+
+
+def _vpu_block(q, vb, metric: Metric):
+    """One [B, blk] score block for the metrics with no matmul form.
+
+    manhattan : sum |q - v|               (L1 distance)
+    hamming   : count of unequal components
+    jaccard   : sum min(q, v) / sum max(q, v)  (weighted Jaccard over
+                non-negative vectors; 0 when both rows are all zero)
+
+    For Hamming / Jaccard over bfloat16 rows, q and vb arrive in bfloat16
+    and the compare / min / max run in that type; the sums are f32."""
+    ql = q[:, None, :]
+    vl = vb[None, :, :]
+    if metric is Metric.Manhattan:
+        return (ql - vl).abs_().sum(dim=-1)
+    if metric is Metric.Hamming:
+        return (ql != vl).sum(dim=-1).to(torch.float32)
+    num = torch.minimum(ql, vl).float().sum(dim=-1)
+    den = torch.maximum(ql, vl).float().sum(dim=-1)
+    return torch.where(den > 0.0, num / torch.where(den > 0.0, den, 1.0), 0.0)
+
+
+def _vpu_scores(queries, vecs, metric: Metric):
+    """VPU metric scores [B, T] (Manhattan / Hamming / Jaccard).
+
+    The [B, blk, D] elementwise broadcast is bounded near 256 MB per block
+    (the JAX package's ``blk``); blocks run in order, the last one short
+    (the JAX package pads it with NaN rows and slices them off: the same
+    scores). These metrics are elementwise work by construction (~3 ops
+    per element). Hamming and Jaccard over bfloat16 rows compare in
+    bfloat16, the queries cast down once; every other case computes in f32."""
+    b, d = queries.shape
+    n = vecs.shape[0]
+    blk = max(8, min(n, (1 << 26) // max(1, b * d)))
+    in_bf16 = vecs.dtype == torch.bfloat16 and metric in (Metric.Hamming, Metric.Jaccard)
+    q = queries.to(torch.bfloat16) if in_bf16 else queries.float()
+    if n <= blk:
+        return _vpu_block(q, vecs if in_bf16 else vecs.float(), metric)
+    out = torch.empty((b, n), dtype=torch.float32, device=queries.device)
+    for s in range(0, n, blk):
+        vb = vecs[s : s + blk]
+        out[:, s : s + blk] = _vpu_block(q, vb if in_bf16 else vb.float(), metric)
+    return out
 
 
 def _filter_ok(scores, thr, cmp: Optional[Cmp]):
@@ -618,18 +677,16 @@ def direct_topk_core(
     return rows, scores.reshape(-1)[top_flat], ok.reshape(-1)[top_flat]
 
 
-def scan_topk_core(
-    vectors, norms_sq, inv_norms, valid, queries, row_mask, thr, *,
-    metric: Metric, k: int, take_min: bool, cmp: Optional[Cmp], tile: int,
-    q_valid=None, prec: str = "highest",
-):
-    """Streaming top-k over row tiles with a carried k-sized buffer.
+def _scan_tiles(vectors, norms_sq, inv_norms, valid, queries, row_mask, thr, starts, *,
+                metric: Metric, k: int, take_min: bool, cmp: Optional[Cmp], tile: int,
+                q_valid=None, prec: str = "highest"):
+    """Merge the row tiles that begin at ``starts`` (ascending) into a
+    carried k-sized buffer -> (rows, scores, valid).
 
     The JAX package skips a tile's merge when it cannot beat the k-th best
     (``lax.cond``); a skipped merge and a performed one give the same buffer
     (the carried entries come first, so they win every tie), so this loop
     always merges and never waits on the device to decide."""
-    n_pad, _ = vectors.shape
     b = queries.shape[0]
     dev = vectors.device
     q_sq, q_inv = _query_norms(queries)
@@ -638,7 +695,7 @@ def scan_topk_core(
     best_row = torch.zeros((k,), dtype=torch.int32, device=dev)
     best_score = torch.zeros((k,), device=dev)
     best_valid = torch.zeros((k,), dtype=torch.bool, device=dev)
-    for start in range(0, n_pad, tile):
+    for start in starts:
         sl = slice(start, start + tile)
         scores = _score_block(
             queries, q_inv, q_sq, vectors[sl], inv_norms[sl], norms_sq[sl], metric, prec
@@ -659,6 +716,115 @@ def scan_topk_core(
         m_valid = torch.cat([best_valid, ok.reshape(-1)[t_flat]])
         best_key, sel = _stable_topk(m_key, k)
         best_row, best_score, best_valid = m_row[sel], m_score[sel], m_valid[sel]
+    return best_row, best_score, best_valid
+
+
+def scan_topk_core(
+    vectors, norms_sq, inv_norms, valid, queries, row_mask, thr, *,
+    metric: Metric, k: int, take_min: bool, cmp: Optional[Cmp], tile: int,
+    q_valid=None, prec: str = "highest",
+):
+    """Streaming top-k over every row tile with a carried k-sized buffer."""
+    return _scan_tiles(
+        vectors, norms_sq, inv_norms, valid, queries, row_mask, thr,
+        range(0, vectors.shape[0], tile), metric=metric, k=k, take_min=take_min,
+        cmp=cmp, tile=tile, q_valid=q_valid, prec=prec,
+    )
+
+
+def tiles_alive_from_chunk_mask(chunk_mask: torch.Tensor, chunk_size: int, n_pad: int,
+                                tile: int) -> torch.Tensor:
+    """[n_chunks] chunk mask -> [n_pad / tile] tile-alive flags (the OR of
+    the chunks each tile overlaps). A tile [i*tile, (i+1)*tile) overlaps
+    chunks first..last; it is alive when the alive-count prefix sum differs
+    across that range. O(n_tiles + n_chunks) on the device, no host round
+    trip."""
+    n_chunks = chunk_mask.shape[0]
+    dev = chunk_mask.device
+    cs = torch.zeros(n_chunks + 1, dtype=torch.int64, device=dev)
+    cs[1:] = torch.cumsum(chunk_mask.to(torch.int64), dim=0)
+    start = torch.arange(n_pad // tile, device=dev) * tile
+    first = torch.clamp(start // chunk_size, max=n_chunks)
+    last = torch.clamp((start + tile - 1) // chunk_size + 1, max=n_chunks)
+    return cs[last] > cs[first]
+
+
+def scan_pruned_topk_core(
+    vectors, norms_sq, inv_norms, valid, queries, row_mask, thr, tile_alive, *,
+    metric: Metric, k: int, take_min: bool, cmp: Optional[Cmp], tile: int,
+    q_valid=None, prec: str = "highest",
+):
+    """Streaming top-k that skips dead tiles entirely: the pruning path of
+    the VPU metrics (Manhattan / Hamming / Jaccard), which no fused kernel
+    takes (the reference prunes independent of the metric, meta.rs:647-691).
+
+    The JAX package decides each tile inside ``lax.cond`` on the device; a
+    torch program cannot branch there, so the list of live tiles is read to
+    the host once per query (``collect_async`` waits for that one read) and
+    only those tiles are scored: a dead tile's rows are never read.
+    Soundness is the fused kernels' bin-skipping contract: every row of a
+    dead tile fails ``row_mask``."""
+    live = torch.nonzero(tile_alive).flatten().tolist()
+    return _scan_tiles(
+        vectors, norms_sq, inv_norms, valid, queries, row_mask, thr,
+        [t * tile for t in live], metric=metric, k=k, take_min=take_min, cmp=cmp,
+        tile=tile, q_valid=q_valid, prec=prec,
+    )
+
+
+def _panel_sizes(n_pad: int, b: int):
+    """Split n_pad rows into panels of about PANEL_SCORE_BYTES score bytes."""
+    target = max(PANEL_BIN * 2, PANEL_SCORE_BYTES // (4 * max(b, 1)))
+    panel = min(n_pad, (target // PANEL_BIN) * PANEL_BIN)
+    return [min(panel, n_pad - off) for off in range(0, n_pad, panel)]
+
+
+def panel_topk_core(
+    vectors, norms_sq, inv_norms, valid, queries, row_mask, thr, *,
+    metric: Metric, k: int, take_min: bool, cmp: Optional[Cmp], q_valid=None,
+    prec: str = "highest",
+):
+    """Two-level exact top-k for a large store and a small k: the ``panel``
+    program of the VPU metrics (the matmul metrics take the fused kernels).
+
+    Per panel of rows (its [B, size] score block near 1 GB), each 512-row
+    bin of every query reduces to its max key; the top-k bins hold every
+    top-k entry, so only their rows are gathered and merged into a carried
+    buffer, carried entries first, in the JAX package's order (its ties
+    resolve the same way)."""
+    b = queries.shape[0]
+    dev = vectors.device
+    q_sq, q_inv = _query_norms(queries)
+    best_key = torch.full((k,), _NEG_INF, device=dev)
+    best_row = torch.zeros((k,), dtype=torch.int32, device=dev)
+    best_score = torch.zeros((k,), device=dev)
+    best_valid = torch.zeros((k,), dtype=torch.bool, device=dev)
+    off = 0
+    for size in _panel_sizes(vectors.shape[0], b):
+        sl = slice(off, off + size)
+        scores = _score_block(
+            queries, q_inv, q_sq, vectors[sl], inv_norms[sl], norms_sq[sl], metric, prec
+        )
+        ok = valid[sl][None, :]
+        if row_mask is not None:
+            ok = ok & row_mask[sl][None, :]
+        if q_valid is not None:
+            ok = ok & q_valid[:, None]
+        ok = ok & _filter_ok(scores, thr, cmp) & ~torch.isnan(scores)
+        n_bins = size // PANEL_BIN
+        key3 = _masked_key(scores, ok, take_min).reshape(b, n_bins, PANEL_BIN)
+        bin_max = key3.amax(dim=2).reshape(-1)
+        _, top_bins = exact_topk_flat(bin_max, min(k, bin_max.shape[0]))
+        qi, bi = top_bins // n_bins, top_bins % n_bins
+        cand_row = (off + bi[:, None] * PANEL_BIN
+                    + torch.arange(PANEL_BIN, device=dev)[None, :]).reshape(-1)
+        m_key = torch.cat([best_key, key3[qi, bi].reshape(-1)])
+        m_row = torch.cat([best_row, cand_row.to(torch.int32)])
+        m_score = torch.cat([best_score, scores.reshape(b, n_bins, PANEL_BIN)[qi, bi].reshape(-1)])
+        m_valid = torch.cat([best_valid, ok.reshape(b, n_bins, PANEL_BIN)[qi, bi].reshape(-1)])
+        best_key, sel = _stable_topk(m_key, k)
+        best_row, best_score, best_valid = m_row[sel], m_score[sel], m_valid[sel]
+        off += size
     return best_row, best_score, best_valid
 
 
@@ -828,7 +994,9 @@ def run_vec_topk(
     """Execute an uncertified scoring program; returns host numpy
     (rows, scores, valid). Used by VecStore and the hash-collision redo.
 
-    The ``panel`` shape goes to the fused kernels: K2 over int8 rows; over
+    The VPU metrics take the plain programs (``panel`` included). For the
+    other metrics the ``panel`` shape goes to the fused kernels: K2 over
+    int8 rows; over
     f32 and bfloat16 rows the verified fast-exact K4 where
     :func:`fused_topk.fast_ok` allows it, re-run strictly (K3) when its
     check fails, else K3 (K4 for the store precision "high", K6 for the
@@ -843,10 +1011,6 @@ def run_vec_topk(
         return np.array([], np.int32), np.array([], np.float32), np.array([], bool)
     if dv.vectors.dtype == torch.int8 and metric is not Metric.Cosine:
         raise OttersError("int8 quantized storage supports the Cosine metric only")
-    if metric in VPU_METRICS:
-        raise NotImplementedError(
-            f"the {metric.value} metric (VPU metrics) is not ported yet"
-        )
     if needs_windowed(n_pad, b, k_eff):
         return collect_all(dv, queries, metric, k_eff, take_min, cmp, thr,
                            row_mask=row_mask, prec=prec)
@@ -856,7 +1020,7 @@ def run_vec_topk(
     cmp_eff = None if thr is None else cmp
     kwargs = dict(metric=metric, k=k_eff, take_min=take_min, cmp=cmp_eff, prec=prec)
     args = (dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, q, row_mask, thr_t)
-    if mode == "panel":
+    if mode == "panel" and metric not in VPU_METRICS:
         from . import fused_topk as ft
 
         fast = dv.vectors.dtype != torch.int8 and ft.fast_ok(
@@ -868,7 +1032,9 @@ def run_vec_topk(
             # pallas_ok): the scan program, chosen before any launch
             ft.kernel_takes.routed += b
             mode = "scan"
-    if mode == "panel":
+    if mode == "panel" and metric in VPU_METRICS:
+        out = panel_topk_core(*args, **kwargs)
+    elif mode == "panel":
         alive = torch.ones(n_pad // ft.BIN, dtype=torch.bool, device=q.device)
         rows, scores, valid, check, _ = ft.fused_topk(*args, alive, fast=fast, **kwargs)
         if fast and not bool(check):

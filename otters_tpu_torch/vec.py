@@ -15,8 +15,10 @@ Counterpart of the JAX package's ``vec.py`` (reference ``src/vec.rs``):
   batch (single-collector semantics, vec.rs:217-219). At scale that is a
   fused kernel (``ops/fused_topk.py``): K4 with a strict K3 rerun over f32
   and bfloat16 rows (exact over the stored values), K2 over int8 rows; the
-  store precision "default" / "bf16" scores one bf16 pass (K6 at scale). A
-  take(k) too wide for any device top-k streams score windows to the host.
+  store precision "default" / "bf16" scores one bf16 pass (K6 at scale). The
+  VPU metrics (Manhattan, Hamming, Jaccard) score on the plain programs
+  (``scoring._vpu_scores``). A take(k) too wide for any device top-k
+  streams score windows to the host.
 
 Not ported yet: ``save`` / ``load`` (they wait for ``io.py``); both raise
 ``NotImplementedError``.
@@ -59,7 +61,7 @@ class VecStore:
         self._device: Optional[scoring.DeviceVecs] = None
         # device storage: "float32" (exact) | "bfloat16" (half the memory,
         # exact over the stored values) | "int8" (cosine-only, approximate;
-        # see ops/scoring._materialize_int8)
+        # see ops/scoring.materialize)
         self._dtype = dtype
         self._where = None if device is None else torch.device(device)
         # scan precision of f32 / bf16 storage: "highest", "high",

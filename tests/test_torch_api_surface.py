@@ -38,7 +38,7 @@ def test_every_public_method_exists_on_the_port(name):
 
 STUBS = {
     "MetaStoreBuilder": ["with_sort_by", "with_z_order", "build_sharded"],
-    "MetaStore": ["delete_rows", "append", "save", "load", "precompile", "cache_stats"],
+    "MetaStore": ["delete_rows", "append", "save", "load"],
     "MetaQueryResults": ["to_pandas", "to_arrow"],
 }
 

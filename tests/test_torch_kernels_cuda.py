@@ -36,6 +36,11 @@ order than the plain product: K1 within ``mixed_cert_eps(d)``, K5 within
 sums the same exact bf16 products in another order than its plain
 version: within ``d 2^-24 |qh| |vh|`` (Cosine: of the unit scores), as K3.
 The probes: ``k_mm`` / ``k_mm_bins`` as K3, ``k_planes`` as K4.
+
+Beside the kernels, two torch paths are held on the card: the device Bloom
+build against the host build bit for bit, and the VPU metrics' programs
+(direct, panel, scan_pruned) against the same store on the CPU (the same
+indices; scores within rtol 1e-6, Hamming exactly).
 """
 
 import ctypes
@@ -904,10 +909,7 @@ def test_smem_mirrors_the_kernel(mode, entry, d):
     dev = _device()
     from otters_tpu_torch import kernels
 
-    source = ft._MODES[mode][0] if mode in ft._MODES else {
-        "K1": "cert_cos_binmax", "K1-bf16": "cert_cos_binmax", "K5": "cert_fold_binmax",
-        "k_planes": "profile_probes", "k_mm": "profile_probes",
-        "k_mm_bins": "profile_probes"}[mode]
+    source = ft.kernel_source(mode) if mode in ft.KERNELS else "profile_probes"
     lib = kernels.load(source)
     smem = getattr(lib, f"{entry}_smem_bytes")
     smem.argtypes = [ctypes.c_int]
@@ -936,3 +938,59 @@ def test_smem_mirrors_the_kernel(mode, entry, d):
         out = _call(mode, args, Metric.Cosine, False, None)
         torch.cuda.synchronize()
         assert bool(torch.isneginf(out).all())
+
+
+@pytest.mark.cuda
+def test_device_bloom_build_on_cuda_equals_host():
+    """The device Bloom build on the card: the host build's bits, with
+    hashes past 2^63, nulls, 16 hashes and per-chunk bits just under 2^24."""
+    _device()
+    from otters_tpu_torch.ops import bloom, hashing
+
+    rng = np.random.default_rng(5)
+    for n, chunk, bits, k in ((200_000, 1024, 9824, 7), (4_000, 100, (1 << 24) - 32, 16)):
+        g1, g2 = hashing.hash_strings([f"s{int(x)}" for x in rng.integers(0, 5000, n)])
+        g1[::3] |= np.uint64(1) << np.uint64(63)
+        g2[::5] |= np.uint64(1) << np.uint64(63)
+        nulls = rng.random(n) < 0.1
+        n_chunks = -(-n // chunk)
+        params = bloom.BloomParams(bits, k, bits // 32)
+        host = bloom.build_matrix(g1, g2, nulls, np.arange(n) // chunk, n_chunks, params,
+                                  chunk_size=chunk)
+        dev = bloom.build_matrix_device(g1, g2, nulls, chunk, n_chunks, params, "cuda")
+        np.testing.assert_array_equal(dev.cpu().numpy().view(np.uint32), host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["direct", "panel", "scan_pruned"])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric", [Metric.Manhattan, Metric.Hamming, Metric.Jaccard])
+def test_vpu_modes_on_cuda_equal_cpu(metric, storage, mode):
+    """The VPU metrics' programs on the card give the CPU's answers: the
+    same indices in the same order over integer rows (many ties), the
+    scores within rtol 1e-6 (Hamming exactly), the same chunk counts."""
+    dev = _device()
+    import otters_tpu_torch as tx
+
+    n, b = {"direct": (2_000, 2), "panel": (40_000, 128), "scan_pruned": (65_536, 64)}[mode]
+    rng = np.random.default_rng(6)
+    vecs = rng.integers(0, 4, size=(n, 64)).astype(np.float32)
+    q = rng.integers(0, 4, size=(b, 64)).astype(np.float32)
+    cat = [f"cat_{c % 16:02d}" for c in np.arange(n) // 1024]
+    out = []
+    for device in ("cpu", dev):
+        store = (tx.MetaStore.from_columns([tx.Column("category", tx.DataType.String)
+                                            .from_values(cat)])
+                 .with_vectors(vecs).with_chunk_size(1024).with_storage_dtype(storage)
+                 .with_device(device).build())
+        plan = store.query_batch(q, metric)
+        if mode != "panel":
+            plan = plan.meta_filter(tx.col("category").eq("cat_03"))
+        res = plan.take(10).collect()
+        st = store.last_query_stats()
+        out.append((res.indices, res.scores, st.evaluated_chunks))
+    assert out[1][0] == out[0][0] and out[1][2] == out[0][2]
+    if metric is Metric.Hamming:
+        assert out[1][1] == out[0][1]
+    else:
+        np.testing.assert_allclose(out[1][1], out[0][1], rtol=1e-6, atol=0)
