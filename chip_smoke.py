@@ -47,6 +47,37 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    with no nvcc build and no plan / aot_key cache miss, every query
    certified and equal to the exact f32 top-10 of the rows it keeps, and
    one round traced;
+   4m. the MetaStore lifecycle (``native.available()`` must hold: g++
+   builds the host library). (a) On 4s's store, the extended string
+   filters ``contains("_1")``, ``starts_with("cat_0")``, ``ends_with("7")``,
+   ``fuzzy("cat_7", 1)`` and ``~contains("_1") & price < 50``: the cold
+   hostmask timed (the column's arena pack once, then each filter's scan),
+   PATH_ROUNDS rounds of 8 pipelined certified batches (median q/s), every
+   query certified and equal to the exact f32 top-10 of the rows the filter
+   keeps (the truth from Python's ``in`` / ``startswith`` / ``endswith`` and
+   a plain Levenshtein on each category value), the pruned chunks equal to
+   the chunks with no matching row, no new hostmask or plan miss after the
+   warm-up, one round traced (K1's ms per batch, the idle share). (b)
+   ``delete_rows`` of 100,000 seeded rows plus the first batch's exact
+   top-10 under the bench filter, timed: no deleted row returned, every
+   query certified and equal to the truth over the survivors, ``len``
+   right. (c) 10M x 768 int8 stores over the bench columns sorted by price
+   and Z-ordered over (price, version, listed), built from the f32 CUDA
+   tensor (gathered slab by slab) with phase 4's ``fetch_vectors`` source
+   (called with original ids): build seconds beside 4s's unsorted build,
+   the pruned chunks equal to the host zonemap count over the permuted
+   columns, original ids, certified and equal to phase 4's truth, median
+   q/s of PATH_ROUNDS rounds, the peak memory. (d) At 1M x 768 (the append
+   rebuild holds the f32 snapshot on the host twice, and the file holds it
+   once): int8 and bf16 stores with ``keep_host_f32``, sorted by price, 1%
+   deleted; an append of 10,000 rows (the survivors' codes and residuals
+   bit for bit; certified answers equal to the truth over survivors and
+   appended rows); 1% deleted again, ``save`` to a file under ``build/``
+   and ``load`` onto the default device: the same indices, scores bit for
+   bit, ``certified`` flags, chunk counts and cert hints; the file's size,
+   save and load seconds; a 1M f32 ``VecStore`` (K4) round-tripped the same
+   way. One JSON line of these numbers with the card's name and power limit
+   and the phase's seconds;
    4f. bfloat16 storage: a 10M x 768 bf16 store made on the device from
    the same f32 rows (which stay the rerank source), the same columns,
    filter and batches; certified ``take(10, rerank_from=100)`` for Cosine
@@ -109,7 +140,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    rounds interleaved with its library call); ``k_mm`` may not beat its
    FFMA bound.
 
-Phases 4, 4s and 6 also trace one pipelined round with torch.profiler (device
+Phases 4, 4s, 4m and 6 also trace one pipelined round with torch.profiler (device
 time by kernel, the device's busy share). Every path sets the launch
 counts to 0 before it runs and asserts that its kernel launched (the VPU
 metrics of 6v run no kernel of their own). The script
@@ -599,24 +630,63 @@ def check_topk(label, rows, scores, want_rows, want_scores, tol):
     return len(diff), err
 
 
+class GcClock:
+    """The time Python's cyclic garbage collector takes while it is on:
+    the collections of each generation and their milliseconds, read from
+    ``gc.callbacks`` (a stall on the host shows here when the collector
+    walks large containers, e.g. a 10M-string column)."""
+
+    def __init__(self):
+        self.ms = [0.0, 0.0, 0.0]
+        self.count = [0, 0, 0]
+        self._t0 = None
+
+    def _hook(self, phase_, info):
+        if phase_ == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms[info["generation"]] += (time.perf_counter() - self._t0) * 1e3
+            self.count[info["generation"]] += 1
+            self._t0 = None
+
+    def __enter__(self):
+        import gc
+
+        gc.callbacks.append(self._hook)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._hook)
+
+    def __str__(self):
+        return (f"gc {sum(self.count)} collections ({self.count[2]} full), "
+                f"{sum(self.ms):.1f} ms ({self.ms[2]:.1f} full)")
+
+
 def timed_rounds(torch, dev, submit, read_launches):
     """PATH_ROUNDS timed rounds of a path: each sets every launch count to
     0, submits its pipelined batches (``submit()`` -> pendings), resolves
     them and synchronises -> (the last round's pendings, results and
-    launch counts, the median q/s, every round's q/s)."""
+    launch counts, the median q/s, every round's q/s). Each round's time in
+    the garbage collector is logged."""
     import otters_tpu_torch as tx
     from otters_tpu_torch.ops import fused_topk as ft
 
-    rounds = []
+    rounds, gcs = [], []
     for _ in range(PATH_ROUNDS):
         ft.reset_launches()
         sync(dev)
-        t0 = time.perf_counter()
-        pend = submit()
-        results = tx.resolve(pend)
-        sync(dev)
-        elapsed = time.perf_counter() - t0
+        with GcClock() as gc_clock:
+            t0 = time.perf_counter()
+            pend = submit()
+            results = tx.resolve(pend)
+            sync(dev)
+            elapsed = time.perf_counter() - t0
         rounds.append(len(pend) * B / elapsed)
+        gcs.append(f"{elapsed * 1e3:.1f} ms, {gc_clock}")
+    log(f"  rounds: {'; '.join(gcs)}")
     return pend, results, read_launches(), statistics.median(rounds), rounds
 
 
@@ -938,12 +1008,433 @@ def string_phase(torch, dev, f32, dv8, card=""):
     prof = None
     if dev.type == "cuda":
         prof = profile_batches(torch, pending, batches, "cert_cos_binmax_kernel")
-    del store, dv
+    return store, {
+        "ingest_s": bs.vectors_ingest_duration, "build_s": build_s, "bloom_host_s": host_s,
+        "bloom_device_s": statistics.median(dev_times), "hash_s": hash_s,
+        "precompile_s": precompile_s, "precompiled": readied, "string_eq_qps": qps,
+        "string_eq_qps_rounds": rounds, "k1_launches": launches, "profile": prof}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4m: the MetaStore lifecycle
+# ---------------------------------------------------------------------------
+
+LIFE_ROWS = 1_000_000  # (d): the append rebuild holds the f32 snapshot on the host twice
+LIFE_APPEND = 10_000
+LIFE_DELETE = 100_000  # (b): seeded tombstones in the 10M store
+
+
+def levenshtein(a: str, b: str) -> int:
+    """The plain full-table edit distance over UTF-8 bytes (the truth for
+    the port's banded ``fuzzy``)."""
+    a, b = a.encode("utf-8"), b.encode("utf-8")
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i]
+        for j, cb in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (ca != cb)))
+        prev = cur
+    return prev[-1]
+
+
+# the extended string filters of 4m (a): (the port's expression, the host
+# truth on one category value with Python's own operators, and whether the
+# bench's price < 50 leaf joins it)
+LIFE_FILTERS = {
+    "contains": (lambda tx: tx.col("category").contains("_1"), lambda v: "_1" in v, False),
+    "starts_with": (lambda tx: tx.col("category").starts_with("cat_0"),
+                    lambda v: v.startswith("cat_0"), False),
+    "ends_with": (lambda tx: tx.col("category").ends_with("7"), lambda v: v.endswith("7"), False),
+    "fuzzy": (lambda tx: tx.col("category").fuzzy("cat_7", 1),
+              lambda v: levenshtein(v, "cat_7") <= 1, False),
+    "not_contains_price": (
+        lambda tx: ~tx.col("category").contains("_1") & tx.col("price").lt(50.0),
+        lambda v: "_1" not in v, True),
+}
+
+
+def life_chunk_keep(torch, dev, name, n_chunks):
+    """The host truth of a 4m (a) filter per chunk (bench_columns: one
+    category value and one price band per chunk) -> (a device bool tensor
+    over chunk ids, the number of live chunks)."""
+    _, truth, price = LIFE_FILTERS[name]
+    keep16 = [truth(v) for v in CAT_VOCAB]
+    keep = [keep16[c % 16] and (not price or c % 2 == 1) for c in range(n_chunks)]
+    return torch.tensor(keep, device=dev), sum(keep)
+
+
+def check_truth(torch, label, f32, n, batches, results, row_ok):
+    """Each result's top-10 equals the exact f32 top-10 of ``f32[:n]``
+    under ``row_ok`` (the rows' ids in that tensor's order)."""
+    import otters_tpu_torch as tx
+
+    for q, res in zip(batches, results):
+        gt_rows, gt_scores = exact_topk(torch, f32, n, q, tx.Metric.Cosine, K, row_ok=row_ok)
+        assert sorted(res.indices) == sorted(gt_rows), (label, res.indices, gt_rows)
+        want = dict(zip(gt_rows, gt_scores))
+        err = max(abs(s - want[r]) for r, s in zip(res.indices, res.scores))
+        assert err <= 1e-5, f"{label}: rerank score differs from the f32 truth by {err}"
+
+
+def life_strings(torch, dev, store, f32, batches, card):
+    """4m (a): the extended string filters on phase 4s's 10M store -> stats."""
+    import numpy as np
+
+    import otters_tpu_torch as tx
+    from otters_tpu_torch.ops import fused_topk as ft
+
+    n, n_chunks = store.n_rows, store.n_chunks()
+    store._str_arena_cache.clear()
+    t0 = time.perf_counter()
+    store._column_arena("category")
+    pack_s = time.perf_counter() - t0
+    log(f"4m (a) arena pack of 'category' ({n} strings, once per column): {pack_s:.3f} s")
+    out = {"arena_pack_s": pack_s}
+    for name, (expr, _, _) in LIFE_FILTERS.items():
+        flt = expr(tx)
+        keep, live = life_chunk_keep(torch, dev, name, n_chunks)
+        plan = store.query_batch(batches[0], tx.Metric.Cosine).meta_filter(flt)
+        t0 = time.perf_counter()
+        plan._lower_plan()  # the cold hostmask: the scan, the masks, their copies
+        sync(dev)
+        scan_s = time.perf_counter() - t0
+
+        def pending(q, flt=flt):
+            return (store.query_batch(q, tx.Metric.Cosine).meta_filter(flt)
+                    .take(K, rerank_from=K_WIDE).collect_async())
+
+        tx.resolve([pending(batches[-1])])  # warm-up
+        before = store.cache_stats()
+        pend, results, launches, qps, rounds = timed_rounds(
+            torch, dev, lambda: [pending(q) for q in batches],
+            lambda: ft.cert_cos_binmax.launches)
+        after = store.cache_stats()
+        for cache in ("hostmask", "plan"):
+            assert after[cache]["misses"] == before[cache]["misses"], (name, before, after)
+        if dev.type == "cuda":
+            assert launches >= BATCHES, f"{name}: K1 launched {launches} times"
+        for i, p in enumerate(pend):
+            st = p.stats()
+            assert st.certified is True, f"4m {name} batch {i} not certified: {st}"
+            assert st.pruned_chunks == n_chunks - live, f"4m {name} batch {i}: {st}, live {live}"
+        check_truth(torch, f"4m {name}", f32, n, batches, results,
+                    lambda rows, keep=keep: keep[rows // CHUNK])
+        # the host verification result() runs on one batch's scan candidates
+        rows, _, valid = pend[0]._fetched[:3]
+        cand = np.asarray(rows)[np.asarray(valid, dtype=bool)].tolist()
+        t0 = time.perf_counter()
+        assert all(pend[0]._plan._row_satisfies(i) for i in cand)
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        prof = None
+        if dev.type == "cuda":
+            prof = profile_batches(torch, pending, batches, "cert_cos_binmax_kernel")
+        log(f"4m (a) {name}: cold hostmask {scan_s:.3f} s (scan + masks); {BATCHES} pipelined "
+            f"batches of {B}, {PATH_ROUNDS} rounds: {', '.join(f'{r:.1f}' for r in rounds)} q/s, "
+            f"median {qps:.1f} q/s on {card}; K1 launches {launches}; {n_chunks - live} of "
+            f"{n_chunks} chunks pruned; certified, equal to the host truth; no new hostmask "
+            f"or plan miss; host verification of a batch's {len(cand)} candidates "
+            f"{verify_ms:.3f} ms")
+        out[name] = {"hostmask_s": scan_s, "qps": qps, "qps_rounds": rounds,
+                     "verify_ms_per_batch": verify_ms,
+                     "k1_launches": launches, "pruned": n_chunks - live, "profile": prof}
+    out["cache_stats"] = store.cache_stats()
+    return out
+
+
+def life_delete(torch, dev, store, f32, batches, truths, card):
+    """4m (b): delete_rows on the same 10M store: LIFE_DELETE seeded rows
+    plus the bench filter's exact top-10 rows of the first batch -> stats."""
+    import numpy as np
+
+    import otters_tpu_torch as tx
+    from otters_tpu_torch.ops import fused_topk as ft
+
+    n = store.n_rows
+    rng = np.random.default_rng(SEED + 21)
+    dead = np.unique(np.concatenate([rng.choice(n, LIFE_DELETE, replace=False),
+                                     np.asarray(truths[0], dtype=np.int64)]))
+    t0 = time.perf_counter()
+    store.delete_rows(dead)
+    sync(dev)
+    delete_s = time.perf_counter() - t0
+    assert len(store) == n - len(dead), (len(store), n, len(dead))
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    alive[torch.from_numpy(dead).to(dev)] = False
+
+    def pending(q):
+        return (store.query_batch(q, tx.Metric.Cosine).meta_filter(bench_filter())
+                .take(K, rerank_from=K_WIDE).collect_async())
+
+    tx.resolve([pending(batches[-1])])
+    pend, results, launches, qps, rounds = timed_rounds(
+        torch, dev, lambda: [pending(q) for q in batches], lambda: ft.cert_cos_binmax.launches)
+    if dev.type == "cuda":
+        assert launches >= BATCHES, f"K1 launched {launches} times"
+    dead_set = set(dead.tolist())
+    for i, (p, res) in enumerate(zip(pend, results)):
+        assert p.stats().certified is True, f"4m delete batch {i}: {p.stats()}"
+        assert not dead_set & set(res.indices), f"4m delete batch {i} returned a deleted row"
+    assert set(truths[0]) <= dead_set  # every first-batch winner is gone
+    check_truth(torch, "4m delete", f32, n, batches, results,
+                lambda rows: odd_chunks(rows) & alive[rows])
+    log(f"4m (b) delete_rows of {len(dead)} rows ({LIFE_DELETE} seeded + the first batch's "
+        f"exact top-{K}): {delete_s:.3f} s; len {len(store)}; the bench filter: "
+        f"{', '.join(f'{r:.1f}' for r in rounds)} q/s, median {qps:.1f} q/s on {card}; "
+        f"K1 launches {launches}; no deleted row returned, certified, equal to the truth over "
+        f"the survivors")
+    return {"deleted": int(len(dead)), "delete_s": delete_s, "qps": qps, "qps_rounds": rounds,
+            "k1_launches": launches}
+
+
+def zonemap_pruned(store):
+    """The host zonemap count of the bench filter over a store's (permuted)
+    columns: chunks with min price < 50 and max version >= 2 survive."""
+    import numpy as np
+
+    n, c = store.n_rows, store.chunk_size()
+    offs = np.arange(0, n, c)
+    cols = store.columns()
+    pmin = np.minimum.reduceat(np.asarray(cols["price"].values())[:n], offs)
+    vmax = np.maximum.reduceat(np.asarray(cols["version"].values())[:n], offs)
+    return store.n_chunks() - int(((pmin < 50.0) & (vmax >= 2)).sum())
+
+
+def life_layouts(torch, dev, f32, batches, truths, unsorted_build_s, card):
+    """4m (c): sorted and Z-ordered 10M x 768 int8 stores over the bench's
+    columns, built from the f32 CUDA tensor (gathered slab by slab), with
+    phase 4's fetch_vectors rerank source (called with original ids)."""
+    import os
+
+    import numpy as np
+
+    import otters_tpu_torch as tx
+    from otters_tpu_torch.ops import fused_topk as ft
+
+    n = ROWS
+
+    def fetch(ids):
+        return f32[torch.as_tensor(np.asarray(ids, dtype=np.int64), device=dev)]
+
+    out = {}
+    for name, layout in (("sort_by_price", lambda b: b.with_sort_by("price")),
+                         ("z_order", lambda b: b.with_z_order(["price", "version", "listed"]))):
+        cols = bench_columns(n)
+        os.environ["OTTERS_BLOOM_DEVICE"] = "1"  # as 4s's unsorted build
+        try:
+            sync(dev)
+            t0 = time.perf_counter()
+            store = layout(
+                tx.MetaStore.from_columns(cols).with_vectors(f32, n_rows=n)
+                .with_storage_dtype("int8").with_chunk_size(CHUNK)
+                .with_rerank_source(fetch_vectors=fetch).with_device(dev)).build()
+            sync(dev)
+            build_s = time.perf_counter() - t0
+        finally:
+            del os.environ["OTTERS_BLOOM_DEVICE"]
+        pruned = zonemap_pruned(store)
+
+        def pending(q, store=store):
+            return (store.query_batch(q, tx.Metric.Cosine).meta_filter(bench_filter())
+                    .take(K, rerank_from=K_WIDE).collect_async())
+
+        tx.resolve([pending(batches[-1])])
+        pend, results, launches, qps, rounds = timed_rounds(
+            torch, dev, lambda: [pending(q) for q in batches],
+            lambda: ft.cert_cos_binmax.launches)
+        if dev.type == "cuda":
+            assert launches >= BATCHES, f"{name}: K1 launched {launches} times"
+        for i, p in enumerate(pend):
+            st = p.stats()
+            assert st.certified is True, f"4m {name} batch {i}: {st}"
+            assert st.pruned_chunks == pruned, f"4m {name} batch {i}: {st}, zonemap {pruned}"
+        for res, gt in zip(results, truths):  # original ids: phase 4's truth
+            assert sorted(res.indices) == sorted(gt), (name, res.indices, gt)
+        check_truth(torch, f"4m {name}", f32, n, batches[:1], results[:1], odd_chunks)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+        log(f"4m (c) {name}: build {build_s:.2f} s (unsorted 4s build {unsorted_build_s:.2f} s), "
+            f"{pruned} of {store.n_chunks()} chunks pruned (the host zonemap count over the "
+            f"permuted columns); {', '.join(f'{r:.1f}' for r in rounds)} q/s, median {qps:.1f} "
+            f"q/s on {card}; K1 launches {launches}; original ids, certified, equal to the f32 "
+            f"truth; peak device memory so far {peak:.1f} GB")
+        out[name] = {"build_s": build_s, "pruned": pruned, "qps": qps, "qps_rounds": rounds,
+                     "k1_launches": launches, "peak_gb": peak}
+        del store, pend, results, pending
+        torch.cuda.empty_cache()
+    return out
+
+
+def life_columns(n, start=0):
+    """bench_columns' values for rows start .. start + n as appended lists:
+    every appended row passes the bench filter."""
+    return {"price": [10.0 + (i % 20) for i in range(start, start + n)],
+            "version": [3] * n,
+            "category": [CAT_VOCAB[i % 16] for i in range(start, start + n)],
+            "listed": [1_672_531_200_000] * n}
+
+
+def life_append_save(torch, dev, f32, card, scratch):
+    """4m (d): append and persistence at LIFE_ROWS x 768, int8 (K1) and
+    bf16 (K1-bf16), keep_host_f32, sorted by price, 1% deleted; then a 1M
+    f32 VecStore (K4) saved and loaded."""
+    import os
+
+    import numpy as np
+
+    import otters_tpu_torch as tx
+    from otters_tpu_torch.ops import fused_topk as ft
+
+    n = LIFE_ROWS
+    log(f"4m (d) at {n} rows, not {ROWS}: at {ROWS} the append rebuild would hold the "
+        f"{ROWS * D * 4 / 1e9:.1f} GB f32 snapshot on the host twice, and the file would "
+        f"hold it once more")
+    rng = np.random.default_rng(SEED + 31)
+    g = torch.Generator(device=dev).manual_seed(SEED + 32)
+    host = f32[:n].cpu().numpy()
+    new_rows = torch.randn((LIFE_APPEND, D), generator=g, device=dev)
+    new_host = new_rows.cpu().numpy()
+    batches = [torch.randn((B, D), generator=g, device=dev) for _ in range(2)]
+    dead = rng.choice(n, n // 100, replace=False)
+    out = {}
+    for storage, kernel in (("int8", "K1"), ("bfloat16", "K1-bf16")):
+        old = (tx.MetaStore.from_columns(bench_columns(n)).with_vectors(host)
+               .with_storage_dtype(storage).with_chunk_size(CHUNK).with_sort_by("price")
+               .with_rerank_source(keep_host_f32=True).with_device(dev).build())
+        old.delete_rows(dead)
+        sync(dev)
+        t0 = time.perf_counter()
+        new = old.append(new_host, life_columns(LIFE_APPEND))
+        sync(dev)
+        append_s = time.perf_counter() - t0
+        keep = np.setdiff1d(np.arange(n), dead)
+        assert new.n_rows == len(keep) + LIFE_APPEND == len(new)
+        # the survivors' codes and residuals, bit for bit across the append
+        inv_old, inv_new = np.argsort(old._index_map), np.argsort(new._index_map)
+        old_pos = torch.from_numpy(inv_old[keep]).to(dev)
+        new_pos = torch.from_numpy(inv_new[: len(keep)]).to(dev)
+        assert torch.equal(old._dv.vectors[old_pos], new._dv.vectors[new_pos]), storage
+        assert torch.equal(old._dv.resid[old_pos], new._dv.resid[new_pos]), storage
+        del old, old_pos, new_pos
+        truth = torch.cat([f32[torch.from_numpy(keep).to(dev)], new_rows])
+        oc = new._orig_columns
+        passing = torch.from_numpy(
+            (np.asarray(oc["price"].values()) < 50.0) & (np.asarray(oc["version"].values()) >= 2)
+        ).to(dev)
+
+        def pending(q, store):
+            return (store.query_batch(q, tx.Metric.Cosine).meta_filter(bench_filter())
+                    .take(K, rerank_from=K_WIDE).collect_async())
+
+        ft.reset_launches()
+        pend = [pending(q, new) for q in batches]
+        res = tx.resolve(pend)
+        launches = counts()[kernel]
+        if dev.type == "cuda":
+            assert launches >= len(batches), f"{kernel} launched {launches} times"
+        assert all(p.stats().certified is True for p in pend), [p.stats() for p in pend]
+        check_truth(torch, f"4m append {storage}", truth, new.n_rows, batches, res,
+                    lambda rows: passing[rows])
+        del truth
+        # tombstones cross the file too
+        new.delete_rows(rng.choice(new.n_rows, new.n_rows // 100, replace=False))
+        pend = [pending(q, new) for q in batches]
+        res = tx.resolve(pend)
+        path = f"{scratch}/lifecycle_{storage}.npz"
+        t0 = time.perf_counter()
+        new.save(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = tx.MetaStore.load(path)  # the default device: the card
+        sync(dev)
+        load_s = time.perf_counter() - t0
+        os.remove(path)
+        assert loaded.device == new.device and len(loaded) == len(new)
+        assert loaded.cert_hints() == new.cert_hints()
+        pend2 = [pending(q, loaded) for q in batches]
+        res2 = tx.resolve(pend2)
+        for a, b, pa, pb in zip(res, res2, pend, pend2):
+            assert b.indices == a.indices and b.scores == a.scores, storage
+            sa, sb = pa.stats(), pb.stats()
+            assert (sb.certified, sb.pruned_chunks, sb.evaluated_chunks) == (
+                sa.certified, sa.pruned_chunks, sa.evaluated_chunks), (sa, sb)
+        log(f"4m (d) {storage}: {n} rows sorted by price, {len(dead)} deleted, append "
+            f"{LIFE_APPEND} rows in {append_s:.2f} s (survivors' codes and residuals bit for "
+            f"bit; certified, equal to the truth over survivors + appended); {kernel} launches "
+            f"{launches}; save {save_s:.2f} s ({size / 1e9:.2f} GB), load {load_s:.2f} s: the "
+            f"same indices, scores bit for bit, certified flags and chunk counts; on {card}")
+        out[storage] = {"append_s": append_s, "save_s": save_s, "load_s": load_s,
+                        "file_bytes": size, "launches": launches}
+        del new, loaded
+        torch.cuda.empty_cache()
+
+    vec = tx.VecStore(D, device=dev)
+    vec.add_vectors(host)
+    q_np = batches[0].cpu().numpy()
+    ft.reset_launches()
+    a = vec.query(q_np, tx.Metric.Cosine).take(K).collect()
+    launches = counts()["K4"]
+    if dev.type == "cuda":
+        assert launches >= 1, f"K4 launched {launches} times"
+    path = f"{scratch}/lifecycle_vec.npz"
+    t0 = time.perf_counter()
+    vec.save(path)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    loaded = tx.VecStore.load(path)
+    b = loaded.query(q_np, tx.Metric.Cosine).take(K).collect()
+    load_s = time.perf_counter() - t0
+    os.remove(path)
+    assert [(r.index, r.score) for r in b] == [(r.index, r.score) for r in a]
+    log(f"4m (d) VecStore f32 {n} x {D}: K4 launches {launches}; save {save_s:.2f} s "
+        f"({size / 1e9:.2f} GB), load + first query {load_s:.2f} s: the same indices and "
+        f"scores bit for bit")
+    out["vecstore"] = {"save_s": save_s, "load_query_s": load_s, "file_bytes": size,
+                       "k4_launches": launches}
+    return out
+
+
+def life_launches(life, storage):
+    """The launches of phase 4m's paths on a storage's K1 (each path's own
+    run, the counts set to 0 before it)."""
+    out = {}
+    if storage == "int8":
+        out.update({f"strings {k}": v["k1_launches"] for k, v in life["strings"].items()
+                    if isinstance(v, dict) and "k1_launches" in v})
+        out["delete"] = life["delete"]["k1_launches"]
+        out.update({k: v["k1_launches"] for k, v in life["layouts"].items()})
+    out["append"] = life["append_save"][storage]["launches"]
+    return out
+
+
+def lifecycle_phase(torch, dev, held, f32, batches, truths, unsorted_build_s, card):
+    """Phase 4m: the MetaStore lifecycle (extended string filters, deletes,
+    sorted and Z-ordered stores, append, persistence) -> its numbers.
+    ``held`` holds phase 4s's store, which is freed before (c)."""
+    import shutil
+    import tempfile
+
+    from otters_tpu_torch import native
+    from otters_tpu_torch._build import build_dir
+
+    assert native.available(), "the native host library did not build (g++)"
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    qs = [torch.randn((B, D), generator=g, device=dev) for _ in range(BATCHES)]
+    out = {"native_available": True}
+    store = held.pop()
+    out["strings"] = life_strings(torch, dev, store, f32, qs, card)
+    out["delete"] = life_delete(torch, dev, store, f32, batches, truths, card)
+    del store
     torch.cuda.empty_cache()
-    return {"ingest_s": bs.vectors_ingest_duration, "build_s": build_s, "bloom_host_s": host_s,
-            "bloom_device_s": statistics.median(dev_times), "hash_s": hash_s,
-            "precompile_s": precompile_s, "precompiled": readied, "string_eq_qps": qps,
-            "string_eq_qps_rounds": rounds, "k1_launches": launches, "profile": prof}
+    out["layouts"] = life_layouts(torch, dev, f32, batches, truths, unsorted_build_s, card)
+    scratch = tempfile.mkdtemp(dir=build_dir())  # inside the checkout, git-ignored
+    try:
+        out["append_save"] = life_append_save(torch, dev, f32, card, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    if dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
 
 
 def library_fn(torch, mode, q, v_live, n_live):
@@ -2137,9 +2628,20 @@ def main() -> int:
         torch.cuda.empty_cache()
     with phase(f"4s the bench's full column mix ({ROWS} x {D}): tensor ingest, device Bloom "
                "build, precompile, string_eq (K1)"):
-        strings = string_phase(torch, dev, f32, dv8, card)
+        store4s, strings = string_phase(torch, dev, f32, dv8, card)
         del dv8
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with phase(f"4m the MetaStore lifecycle ({ROWS} x {D} int8, K1): extended string filters, "
+               f"delete_rows, sorted and Z-ordered stores; append and persistence at "
+               f"{LIFE_ROWS} x {D}"):
+        held = [store4s]  # the phase frees it after (a) and (b)
+        del store4s
+        lifecycle = lifecycle_phase(torch, dev, held, f32, batches, truths,
+                                    strings["build_s"], card)
+        torch.cuda.empty_cache()
+    log("phase 4m: " + json.dumps({"card": card, "seconds": time.perf_counter() - t0,
+                                   **lifecycle}))
     with phase(f"4f bfloat16 storage ({ROWS} x {D}): K1 / K5 certified, K4 uncertified, "
                "K6 at the one-pass precisions"):
         store, dvb, bf16 = bf16_path(torch, dev, f32, batches, truths, card)
@@ -2197,6 +2699,7 @@ def main() -> int:
         ("K1", "cert_cos_binmax", "cert_cos_binmax", ":123 (_kernel[certify,cert_cos])",
          stats["launches"],
          {"path": f"certified main path {ROWS} x {D}", "path_qps": stats["qps"],
+          "lifecycle_launches": life_launches(lifecycle, "int8"),
           "batch_sweep": sweep["K1"], "path_profile": stats["profile"],
           "depth_launches": {d: depth[d]["certified int8 Cosine"] for d in DEPTHS}}),
         ("K2", "int8_binmax", "int8_binmax", ":149 (_kernel[int8, uncertified])",
@@ -2213,10 +2716,12 @@ def main() -> int:
          {"path": f"exact f32 {F32_ROWS} x {D}", "path_qps": f32_stats["qps"],
           "path_qps_rounds": f32_stats["qps_rounds"], "path_profile": f32_stats["profile"],
           "vecstore_launches": vec["K4"], "batch_sweep": sweep["K4"],
+          "lifecycle_vecstore_launches": lifecycle["append_save"]["vecstore"]["k4_launches"],
           "depth_launches": {d: depth[d]["uncertified f32 Cosine"] for d in DEPTHS}}),
         ("K1-bf16", "cert_cos_binmax_bf16", "cert_cos_binmax",
          ":234 (_kernel[certify,cert_cos], bf16 rows)", bf16["cosine"]["launches"],
          {"path": f"certified Cosine {bf16_path_name}",
+          "lifecycle_launches": life_launches(lifecycle, "bfloat16"),
           "path_qps": bf16["cosine"]["qps"], "batch_sweep": sweep["K1-bf16"]}),
         ("K5", "cert_fold_binmax", "cert_fold_binmax",
          ":244 (_kernel[certify, general fold])", bf16["dot"]["launches"],

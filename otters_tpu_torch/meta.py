@@ -37,16 +37,29 @@ returned rows are re-verified host-side against the actual strings; a hash
 collision that falsely includes a row re-runs the query with an exact
 host-computed row mask.
 
+The extended string predicates (contains / starts_with / ends_with /
+fuzzy and their negations) evaluate on the host, where the strings live:
+each (column, op, literal) becomes a row mask and an exact per-chunk any()
+(``_hostmask_for``, cached), which the device program reads as a
+``hostmask`` leaf, so pruning still works.
+
 The VPU metrics (Manhattan, Hamming, Jaccard) score on the plain programs
 (``scoring._vpu_scores``); a filtered one at scale skips dead tiles
 (``scoring.scan_pruned_topk_core``), and its rerank runs
 ``evaluate.exact_rerank``. ``precompile`` readies what a deployment serves
 and ``cache_stats`` reports the per-store caches.
 
-Not ported yet (each raises ``NotImplementedError`` where a query would
-need it, and every public method of the JAX package's classes exists here):
-with_sort_by / with_z_order, build_sharded, delete_rows / append,
-save / load, to_pandas / to_arrow and extended string predicates.
+After its build a store can be laid out for pruning (``with_sort_by`` /
+``with_z_order``: the rows are permuted before chunking, and results still
+name the original row ids), tombstoned (``delete_rows``: the validity mask,
+which every scoring path reads), rebuilt with rows appended (``append``)
+and saved to / loaded from one ``.npz`` file (``save`` / ``load``, the JAX
+package's format, in ``io.py``).
+
+Not ported yet (each raises ``NotImplementedError``, and every public
+method of the JAX package's classes exists here): build_sharded and the
+per-shard directory format (and ``load``'s ``mesh``), to_pandas /
+to_arrow.
 """
 
 from __future__ import annotations
@@ -71,6 +84,8 @@ from .ops import fused_topk, hashing, predicate, scoring
 from .ops import zonemap as zm
 from .ops.scoring import HostCopy
 from .types import (
+    NEGATED_CMP,
+    NEGATED_STRING_OPS,
     STRING_EXTENDED_OPS,
     VPU_METRICS,
     Cmp,
@@ -184,6 +199,74 @@ class _LruCache(dict):
             super().pop(next(iter(self)))
             self.evictions += 1
         super().__setitem__(key, val)
+
+
+def _chunk_offsets(n: int, c: int) -> np.ndarray:
+    return np.arange(0, n, c, dtype=np.int64)
+
+
+def _sort_permutation(col: Column, n: int, descending: bool) -> np.ndarray:
+    """Stable permutation ordering rows by a column, nulls always last."""
+    nulls = np.asarray(col.null_mask(), dtype=bool)[:n]
+    idx_nn = np.flatnonzero(~nulls)
+    if col.dtype is DataType.String:
+        vals = np.asarray(list(col.values())[:n], dtype=object)
+    else:
+        vals = np.asarray(col.values())[:n]
+    sub = idx_nn[np.argsort(vals[idx_nn], kind="stable")]
+    if descending:
+        sub = sub[::-1]
+    return np.concatenate([sub, np.flatnonzero(nulls)]).astype(np.int64)
+
+
+def _zorder_permutation(columns, names, n: int) -> np.ndarray:
+    """Stable permutation ordering rows along a Z-order (Morton) curve over
+    several columns (the reference's roadmap item "Something like
+    Z-ordering").
+
+    Each column becomes a dense-rank code (equal values share a code; every
+    dtype, String by lexicographic rank) scaled to ``b = min(16, 64 // k)``
+    bits, and the codes are bit-interleaved into one uint64 key. Nulls take
+    the top code, so they cluster in the high corner of the curve."""
+    k = len(names)
+    b = min(16, 64 // k)
+    top = (1 << b) - 1
+    codes = []
+    for nm in names:
+        colo = columns[nm]
+        nulls = np.asarray(colo.null_mask(), dtype=bool)[:n]
+        if colo.dtype is DataType.String:
+            vals = np.asarray(list(colo.values())[:n], dtype=object)
+        else:
+            vals = np.asarray(colo.values())[:n]
+        code = np.full(n, top, dtype=np.uint64)
+        idx_nn = np.flatnonzero(~nulls)
+        if idx_nn.size:
+            _, ranks = np.unique(vals[idx_nn], return_inverse=True)
+            u = int(ranks.max()) if ranks.size else 0
+            scaled = (
+                (ranks.astype(np.float64) * (top / u)).round().astype(np.uint64)
+                if u > 0
+                else np.zeros(idx_nn.size, dtype=np.uint64)
+            )
+            code[idx_nn] = scaled
+        codes.append(code)
+    key = np.zeros(n, dtype=np.uint64)
+    for j in range(b):
+        for i, code in enumerate(codes):
+            key |= ((code >> np.uint64(j)) & np.uint64(1)) << np.uint64(j * k + i)
+    return np.argsort(key, kind="stable").astype(np.int64)
+
+
+def _permute_column(col: Column, perm: np.ndarray) -> Column:
+    new = Column(col.name, col.dtype)
+    nulls = np.asarray(col.null_mask(), dtype=bool)[perm]
+    if col.dtype is DataType.String:
+        vals = col.values()
+        new._set_raw([vals[i] for i in perm], nulls)
+    else:
+        new._set_raw(np.asarray(col.values())[perm], nulls)
+    return new
 
 
 # ---------------------------------------------------------------------------
@@ -423,6 +506,8 @@ def _device_rerank_dispatch(store: "MetaStore", plist):
     for p in plist:
         rows, _, valid = p._fetched[0], p._fetched[1], p._fetched[2]
         idx = np.asarray(rows)[np.asarray(valid, dtype=bool)].astype(np.int64)
+        if store._index_map is not None:
+            idx = store._index_map[idx]  # the rerank source takes original ids
         # dedup preserving first-seen (scan output) order: tie-breaking in
         # the rerank follows this slot order
         _, first = np.unique(idx, return_index=True)
@@ -513,6 +598,8 @@ class MetaStoreBuilder:
         self._vectors_n = None
         self._chunk_size = 1024
         self._bloom: Tuple[str, float] = ("fpr", 0.01)
+        self._sort_by = None
+        self._z_order = None
         self._storage_dtype = "float32"
         self._rerank = None
         self._device = None
@@ -532,7 +619,7 @@ class MetaStoreBuilder:
         Exactly one of:
         - ``fetch_vectors(indices) -> [m, d] float32`` (numpy or a torch
           tensor, e.g. a gather from device-resident f32 rows), called with
-          row ids;
+          original ingestion-order row ids (a sorted store's too);
         - ``keep_host_f32=True`` — keep the ingested f32 rows host-side
           (unavailable for pre-built DeviceVecs)."""
         if (fetch_vectors is None) == (not keep_host_f32):
@@ -604,10 +691,27 @@ class MetaStoreBuilder:
         return self
 
     def with_sort_by(self, column: str, descending: bool = False) -> "MetaStoreBuilder":
-        raise NotImplementedError("MetaStoreBuilder.with_sort_by is not ported yet")
+        """Cluster rows by a column before chunking (the reference's roadmap
+        "Z-ordering" item): zonemap pruning bites when rows are clustered by
+        the filter's columns. Result indices still refer to the original
+        ingestion order."""
+        self._sort_by = (column, bool(descending))
+        return self
 
     def with_z_order(self, columns) -> "MetaStoreBuilder":
-        raise NotImplementedError("MetaStoreBuilder.with_z_order is not ported yet")
+        """Cluster rows along a Z-order (Morton) curve over several columns
+        before chunking, so zonemaps prune filters on any of them. Result
+        indices still refer to the original ingestion order. Mutually
+        exclusive with ``with_sort_by``; 1-8 columns."""
+        if isinstance(columns, str):
+            columns = [columns]  # a lone name, not its characters
+        names = [str(c) for c in columns]
+        if not 1 <= len(names) <= 8:
+            raise OttersError("with_z_order takes between 1 and 8 columns")
+        if len(set(names)) != len(names):
+            raise OttersError("with_z_order columns must be distinct")
+        self._z_order = tuple(names)
+        return self
 
     def build_sharded(self, mesh) -> "MetaStore":
         raise NotImplementedError(
@@ -630,6 +734,12 @@ class MetaStoreBuilder:
                 raise OttersError(
                     f"the pre-built DeviceVecs live on {vectors.vectors.device}, "
                     f"the store on {device}"
+                )
+            if self._sort_by is not None or self._z_order is not None:
+                raise OttersError(
+                    "with_sort_by / with_z_order are not supported for "
+                    "pre-built DeviceVecs (generate the slabs in sorted "
+                    "order instead)"
                 )
             n_rows = int(self._vectors_n)
             dim = int(vectors.vectors.shape[1])
@@ -682,6 +792,8 @@ class MetaStoreBuilder:
                         "DeviceVecs (their f32 form never existed); pass "
                         "fetch_vectors instead"
                     )
+                # snapshot before any sort / Z-order permutation: rerank
+                # ids are original ingestion-order row ids
                 if from_device:
                     # one copy to the host, as the JAX package's np.asarray
                     host_f32 = vectors[:n_rows].float().cpu().numpy()
@@ -695,12 +807,40 @@ class MetaStoreBuilder:
                 rerank_fetch = fetch
 
         build_start = time.perf_counter()
+
+        index_map = None
+        orig_columns = None
+        perm = None
+        if self._sort_by is not None and self._z_order is not None:
+            raise OttersError("with_sort_by and with_z_order are mutually exclusive")
+        if self._sort_by is not None:
+            sort_col, desc = self._sort_by
+            if sort_col not in self._schema:
+                raise OttersError(f"unknown column '{sort_col}' not present in schema")
+            perm = _sort_permutation(self._columns[sort_col], n_rows, desc)
+        elif self._z_order is not None:
+            for nm in self._z_order:
+                if nm not in self._schema:
+                    raise OttersError(f"unknown column '{nm}' not present in schema")
+            perm = _zorder_permutation(self._columns, self._z_order, n_rows)
+        order = None  # a device tensor's row order: perm, then its padding rows
+        if perm is not None:
+            orig_columns = self._columns
+            self._columns = {name: _permute_column(c, perm) for name, c in self._columns.items()}
+            if from_device:
+                perm_full = np.concatenate([perm, np.arange(n_rows, int(vectors.shape[0]))])
+                order = torch.from_numpy(perm_full).to(vectors.device)
+            else:
+                vectors = vectors[perm]
+            index_map = perm  # new position -> original row id
+
         ingest_start = time.perf_counter()
         if pre_built:
             dv = vectors
         elif from_device:
             dv = scoring.materialize_from_device(
-                vectors, n_valid=n_rows, dtype=getattr(torch, self._storage_dtype)
+                vectors, n_valid=n_rows, dtype=getattr(torch, self._storage_dtype),
+                order=order,
             )
         else:
             dtype = getattr(torch, self._storage_dtype)
@@ -745,8 +885,16 @@ class MetaStoreBuilder:
         store._col_reprs = col_reprs
         store._bloom_params = bloom_params
         store._chunk_lens = torch.from_numpy(chunk_lens).to(device)
+        store._bloom_config = self._bloom
+        store._index_map = index_map
+        store._orig_columns = orig_columns
+        store._sort_by = self._sort_by
+        store._z_order = self._z_order
         store._storage_dtype = self._storage_dtype
         store._rerank_fetch = rerank_fetch
+        store._rerank_config = self._rerank
+        if self._rerank is not None and self._rerank[1]:
+            store._rerank_host = host_f32  # save / append reuse it
         store._build_stats = MetaBuildStats(
             n_rows=n_rows,
             dim=dim,
@@ -777,18 +925,28 @@ class MetaStore:
         self._col_reprs: Dict[str, str] = {}
         self._bloom_params: Dict[str, bloom_ops.BloomParams] = {}
         self._chunk_lens = None
+        self._index_map = None  # set when built with with_sort_by / with_z_order
+        self._inv_index_map = None  # its inverse, built once (see _positions)
+        self._z_order = None
+        self._orig_columns = None
+        self._sort_by = None
         self._storage_dtype = "float32"
+        self._n_deleted = 0
         self._rerank_fetch = None
+        self._rerank_config = None  # the builder's (fetch, keep) tuple
+        self._rerank_host = None  # the keep_host_f32 snapshot (original order)
         # per-(filter, vec_filter, k) scan widths that recently certified
         self._cert_kwide_hint = _LruCache(64)
         # the per-store LRU caches under the JAX package's names and caps
         # (cache_stats): lowered plans; the per-shape launch decision (the
         # JAX package's AOT signature memo, keyed alike); the host masks of
-        # extended string predicates, which stays empty until those are
-        # ported
+        # extended string predicates
         self._plan_cache = _LruCache(256)
         self._aot_key_cache = _LruCache(512)
         self._hostmask_cache = _LruCache(128)
+        # one packed UTF-8 arena per string column, shared by every literal
+        self._str_arena_cache: Dict = {}
+        self._bloom_config = ("fpr", 0.01)
         self._build_stats: Optional[MetaBuildStats] = None
         self._last_stats: Optional[MetaQueryStats] = None
         # scan precision of f32 / bf16 storage: "highest" (exact; the
@@ -834,7 +992,7 @@ class MetaStore:
         return self._n_rows
 
     def __len__(self) -> int:
-        return self._n_rows
+        return self._n_rows - self._n_deleted
 
     def last_query_stats(self) -> Optional[MetaQueryStats]:
         return self._last_stats
@@ -850,9 +1008,9 @@ class MetaStore:
     def cache_stats(self) -> Dict[str, Dict[str, int]]:
         """Size / hit / miss / eviction counters of the per-store LRU caches
         (plan lowering, the launch-decision memo ``aot_key``, the host masks
-        ``hostmask``, which stays empty until the extended string predicates
-        are ported). A growing ``evictions`` count on a steady workload
-        means the working set exceeds the cap."""
+        of extended string predicates ``hostmask``). A growing
+        ``evictions`` count on a steady workload means the working set
+        exceeds the cap."""
         return {
             name: {
                 "size": len(c),
@@ -868,19 +1026,207 @@ class MetaStore:
             )
         }
 
-    # -- mutation, persistence (not ported yet) ---------------------------------
+    def _positions(self) -> np.ndarray:
+        """A sorted store's original row id -> its position: the inverse of
+        the index map, built at first use and kept (a scatter over every
+        row, too slow to repeat for each query at 10M rows)."""
+        if self._inv_index_map is None:
+            inv = np.empty(self._n_rows, dtype=np.int64)
+            inv[self._index_map] = np.arange(self._n_rows)
+            self._inv_index_map = inv
+        return self._inv_index_map
+
+    def _restore_cert_hints(self, hints) -> None:
+        for key, width in (hints or {}).items():
+            self._cert_kwide_hint[str(key)] = int(width)
+
+    # -- mutability (reference roadmap: "add/remove rows after build") -------
     def delete_rows(self, indices) -> None:
-        raise NotImplementedError("MetaStore.delete_rows is not ported yet")
+        """Tombstone rows in place (original row ids): deleted rows are never
+        returned.
+
+        The validity mask, which every scoring path reads, is updated on the
+        device; zonemaps stay conservative (a chunk whose only matching rows
+        were deleted may still be evaluated). ``append`` compacts
+        tombstones."""
+        idx = np.unique(np.asarray(list(indices), dtype=np.int64))
+        if idx.size == 0:
+            return
+        if idx.min() < 0 or idx.max() >= self._n_rows:
+            raise OttersError(f"delete index out of range 0..{self._n_rows - 1}")
+        if self._index_map is not None:
+            idx = self._positions()[idx]  # original ids -> current positions
+        valid = self._host_valid().copy()
+        newly = int(valid[idx].sum())
+        valid[idx] = False
+        self._dv = self._dv._replace(valid=self._place_valid(valid))
+        self._n_deleted += newly
+
+    def _host_valid(self) -> np.ndarray:
+        """[n_pad] validity mask on the host."""
+        return self._host_gather(self._dv.valid)
+
+    def _host_gather(self, arr: torch.Tensor) -> np.ndarray:
+        """Device tensor -> host numpy (bfloat16 upcast exactly to f32)."""
+        if arr.dtype == torch.bfloat16:
+            arr = arr.float()
+        return arr.cpu().numpy()
+
+    def _place_resid(self, resid_host: np.ndarray) -> None:
+        """Place an [n_pad] residual array on the device and re-derive its
+        bins and maximum."""
+        r = torch.where(self._dv.valid, _to_device(resid_host, self._device, torch.float32), 0.0)
+        rbin, rmax = scoring.finalize_resid(r)
+        self._dv = self._dv._replace(resid=r, resid_bin=rbin, resid_max=rmax)
+
+    def _carry_resid_forward(self, new: "MetaStore") -> None:
+        """Quantized append without keep_host_f32: the rebuild re-quantizes
+        the codes (int8: idempotent; bf16: exact), so the new store's
+        recomputed residuals collapse toward 0 -- sound against the codes,
+        not against the original source. Surviving rows therefore keep their
+        original residuals (always >= the recomputed ones); appended rows
+        keep the rebuild's."""
+        if (
+            self._storage_dtype not in ("int8", "bfloat16")
+            or self._rerank_config is not None
+            or self._dv is None
+            or self._dv.resid is None
+            or new._dv is None
+            or new._dv.resid is None
+        ):
+            return
+        n = self._n_rows
+        old_resid = self._host_gather(self._dv.resid)[:n]
+        valid = self._host_valid()[:n]
+        if self._index_map is not None:
+            inv = self._positions()
+            old_resid = old_resid[inv]  # device -> original order
+            valid = valid[inv]
+        carried = old_resid[np.flatnonzero(valid)]
+        n_keep = len(carried)
+        resid_new = new._host_gather(new._dv.resid).copy()
+        if new._index_map is not None:
+            orig = np.asarray(new._index_map, dtype=np.int64)
+            dev_pos = np.flatnonzero(orig < n_keep)
+            resid_new[dev_pos] = carried[orig[dev_pos]]
+        else:
+            resid_new[:n_keep] = carried
+        new._place_resid(resid_new)
+
+    def _place_valid(self, valid: np.ndarray) -> torch.Tensor:
+        """The updated [n_pad] validity mask, on the device."""
+        return _to_device(valid, self._device)
 
     def append(self, vectors, column_values: Dict[str, list]) -> "MetaStore":
-        raise NotImplementedError("MetaStore.append is not ported yet")
+        """Return a new store with rows appended (tombstones compacted), on
+        this store's device.
 
+        Rebuilds chunking / zonemaps / Bloom with the same configuration
+        (chunk size, Bloom, sort or Z-order, storage dtype, precision); row
+        ids in the new store are fresh (0..n-1 over surviving + new rows).
+        A ``keep_host_f32`` rerank source carries over (the true f32
+        snapshot is re-sourced, not the quantized storage); a
+        ``fetch_vectors`` source cannot -- ids change under compaction -- so
+        append raises then."""
+        new = self._append_builder(vectors, column_values).build()
+        new.precision = self.precision
+        self._carry_resid_forward(new)
+        return new
+
+    def _append_prep(self, vectors, column_values):
+        """Shared append validation + column assembly (host side) -> (keep,
+        inv_order, new_vecs, cols, cfg); ``keep`` holds the surviving rows
+        in original ingestion order."""
+        n = self._n_rows
+        valid = self._host_valid()[:n]
+        src_cols = self._orig_columns if self._orig_columns is not None else self._columns
+        inv_order = None
+        if self._index_map is not None:
+            # the device rows are in sorted order; restore original order
+            inv_order = self._positions()
+            valid = valid[inv_order]
+        cfg = self._rerank_config
+        if cfg is not None and not cfg[1]:
+            raise OttersError(
+                "append on a store with a fetch_vectors rerank source: row "
+                "ids change under compaction and the fetch cannot describe "
+                "the appended rows; rebuild via MetaStore.from_columns(...)"
+                ".with_rerank_source(fetch) with an updated fetch"
+            )
+        keep = np.flatnonzero(valid)
+        new_vecs = np.asarray(vectors, dtype=np.float32)
+        if new_vecs.ndim != 2 or (n and new_vecs.shape[1] != self._dim):
+            raise OttersError(f"appended vectors must be [m, {self._dim}]")
+        m = new_vecs.shape[0]
+        cols = []
+        for name in self._schema:
+            vals_new = column_values.get(name)
+            if vals_new is None or len(vals_new) != m:
+                raise OttersError(f"column '{name}' needs {m} appended values")
+            kept = _permute_column(src_cols[name], keep)
+            for v in vals_new:
+                kept.push(v)
+            cols.append(kept)
+        return keep, inv_order, new_vecs, cols, cfg
+
+    def _append_configured_builder(self, cols) -> "MetaStoreBuilder":
+        """A builder carrying this store's configuration (no vectors yet)."""
+        builder = MetaStore.from_columns(cols).with_chunk_size(self._chunk_size)
+        kind, val = self._bloom_config
+        builder = (
+            builder.with_bloom_fpr(val) if kind == "fpr" else builder.with_bloom_bits(int(val))
+        )
+        if self._sort_by is not None:
+            builder = builder.with_sort_by(self._sort_by[0], self._sort_by[1])
+        if self._z_order is not None:
+            builder = builder.with_z_order(self._z_order)
+        return builder.with_storage_dtype(self._storage_dtype).with_device(self._device)
+
+    def _append_builder(self, vectors, column_values) -> "MetaStoreBuilder":
+        """A configured builder over surviving + new rows in original
+        ingestion order (tombstones compacted).
+
+        Quantized stores without ``keep_host_f32`` rebuild from their codes:
+        re-quantizing int8 codes is idempotent (each row's max |code| is
+        127, so the scale is 1 and every code rounds to itself), so the
+        surviving rows' codes are bit-identical across append generations."""
+        n = self._n_rows
+        keep, inv_order, new_vecs, cols, cfg = self._append_prep(vectors, column_values)
+        if cfg is not None:
+            # keep_host_f32: re-source the true f32 rows (original order)
+            old_vecs = (
+                self._rerank_host[:n]
+                if self._rerank_host is not None
+                else np.asarray(self._rerank_fetch(np.arange(n, dtype=np.int64)),
+                                dtype=np.float32)
+            )
+        else:
+            old_vecs = self._host_gather(self._dv.vectors[:n])
+            if inv_order is not None:
+                old_vecs = old_vecs[inv_order]
+        builder = self._append_configured_builder(cols).with_vectors(
+            np.concatenate([old_vecs[keep].astype(np.float32), new_vecs], axis=0)
+        )
+        if cfg is not None:
+            builder = builder.with_rerank_source(keep_host_f32=True)
+        return builder
+
+    # -- persistence ---------------------------------------------------------
     def save(self, path: str) -> None:
-        raise NotImplementedError("MetaStore.save: io.py is not ported yet")
+        """Serialize to one file (``io.save_meta``; an .npz, no pickling,
+        the JAX package's format)."""
+        from . import io
+
+        io.save_meta(self, path)
 
     @staticmethod
-    def load(path: str, mesh=None) -> "MetaStore":
-        raise NotImplementedError("MetaStore.load: io.py is not ported yet")
+    def load(path: str, mesh=None, *, device=None) -> "MetaStore":
+        """Load a store saved by ``save`` (or by the JAX package) onto
+        ``device`` (default: the current CUDA device). ``mesh`` (the
+        sharded store) is not ported yet."""
+        from . import io
+
+        return io.load_meta(path, mesh=mesh, device=device)
 
     # -- warm-up ---------------------------------------------------------------
     def precompile(self, filters=None, batch_sizes=(1, 256), k: int = 10,
@@ -1022,6 +1368,74 @@ class MetaStore:
     def print_last_stats(self) -> None:
         self.print_build_stats()
         self.print_last_query_stats()
+
+    # -- extended string predicates (host side) --------------------------------
+    def _column_arena(self, name: str):
+        """Packed UTF-8 (data, offsets) arena of a string column, built once
+        and cached: every extended-predicate literal on the column shares it
+        (packing 10M strings costs more than scanning them)."""
+        cached = self._str_arena_cache.get(name)
+        if cached is None:
+            from .native import pack_utf8_arena
+
+            vals = self.columns()[name].values()
+            cached = pack_utf8_arena(
+                [v if isinstance(v, str) else "" for v in vals[: self._n_rows]]
+            )
+            self._str_arena_cache[name] = cached
+        return cached
+
+    def _hostmask_for(self, leaf):
+        """Row and chunk masks of an extended string predicate (contains /
+        starts_with / ends_with / fuzzy and their negations). Strings live
+        on the host only, so each (column, op, literal) is evaluated once
+        there, cached, and handed to the device program as mask tensors,
+        with an exact per-chunk any() so pruning still works."""
+        key = (leaf.column, leaf.cmp, leaf.rhs)
+        cached = self._hostmask_cache.get(key)
+        if cached is not None:
+            return cached
+        colo = self.columns()[leaf.column]
+        n = self._n_rows
+        nulls = np.asarray(colo.null_mask(), dtype=bool)[:n]
+        rhs = leaf.rhs
+        negated = leaf.cmp in NEGATED_STRING_OPS
+        base_cmp = NEGATED_CMP[leaf.cmp] if negated else leaf.cmp
+        modes = {
+            CmpOp.Contains: "contains",
+            CmpOp.StartsWith: "starts_with",
+            CmpOp.EndsWith: "ends_with",
+        }
+        if base_cmp in modes:
+            # the native arena scan (OpenMP; memchr / memcmp inner loops) or
+            # the vectorized numpy path, over the column's shared arena
+            from .ops import strscan
+
+            data, offsets = self._column_arena(leaf.column)
+            m = strscan.substr_mask(data, offsets, rhs, modes[base_cmp])
+            m = np.asarray(m, dtype=bool) & ~nulls
+        else:  # Fuzzy: one vectorized pass (native when available)
+            from .ops import strmatch
+
+            pattern, max_dist = rhs
+            m = strmatch.fuzzy_mask(colo.values()[:n], nulls, pattern, max_dist)
+        if negated:
+            # De Morgan leaves keep the nulls-excluded convention
+            m = ~np.asarray(m, dtype=bool) & ~nulls
+        n_pad = self._dv.vectors.shape[0]
+        row = np.zeros(n_pad, dtype=bool)
+        row[:n] = m
+        offs = _chunk_offsets(n, self._chunk_size)
+        chunk_any = np.logical_or.reduceat(m, offs) if n else np.zeros(0, bool)
+        # padded to the store's chunk-array length
+        n_chunks_dev = int(self._chunk_lens.shape[0])
+        if n_chunks_dev != len(chunk_any):
+            pad = np.zeros(n_chunks_dev, dtype=bool)
+            pad[: len(chunk_any)] = chunk_any
+            chunk_any = pad
+        cached = (_to_device(row, self._device), _to_device(chunk_any, self._device))
+        self._hostmask_cache[key] = cached
+        return cached
 
     # -- the device program ----------------------------------------------------
     def _prepare_program(self, queries, plan_static, metric, k, take_min, cmp,
@@ -1260,9 +1674,7 @@ class MetaQueryPlan:
         if leaf.kind == "null":
             return ("null", leaf.column, leaf.cmp), (store._chunk_lens,)
         if leaf.kind == "string" and leaf.cmp in STRING_EXTENDED_OPS:
-            raise NotImplementedError(
-                f"string predicate {leaf.cmp.value} is not ported yet (only Eq / Neq are)"
-            )
+            return ("hostmask", leaf.column, leaf.cmp), store._hostmask_for(leaf)
         if leaf.kind == "string":
             g1, _ = hashing.hash_string(leaf.rhs)
             rh = np.array([g1], dtype=np.uint64).view(np.int64)[0]
@@ -1366,9 +1778,23 @@ class MetaQueryPlan:
                     continue
                 if leaf.kind == "string":
                     vals = np.asarray(c.values()[:n], dtype=object)
-                    m = np.fromiter(
-                        (_str_cmp(v, leaf.rhs, leaf.cmp) for v in vals), bool, count=n
-                    )
+                    if leaf.cmp is CmpOp.Eq:
+                        m = vals == leaf.rhs
+                    elif leaf.cmp is CmpOp.Neq:
+                        m = vals != leaf.rhs
+                    elif leaf.cmp in (CmpOp.Fuzzy, CmpOp.NotFuzzy):
+                        from .ops import strmatch
+
+                        pattern, max_dist = leaf.rhs
+                        m = strmatch.fuzzy_mask(list(vals), nulls, pattern, max_dist)
+                        if leaf.cmp is CmpOp.NotFuzzy:
+                            m = ~np.asarray(m, dtype=bool)
+                    elif leaf.cmp in STRING_EXTENDED_OPS:
+                        m = np.fromiter(
+                            (_str_cmp(v, leaf.rhs, leaf.cmp) for v in vals), bool, count=n
+                        )
+                    else:
+                        m = np.zeros(n, dtype=bool)
                 else:
                     m = _np_cmp(np.asarray(c.values()[:n]), self._host_rhs(leaf), leaf.cmp)
                 cm |= np.asarray(m, dtype=bool) & ~nulls
@@ -1576,14 +2002,18 @@ class PendingMetaQuery:
 
     def _exact_rerank(self, indices):
         """Exact-f32 re-rank of a candidate set, re-applying the vec_filter
-        on the exact scores before truncating to k."""
+        on the exact scores before truncating to k. Candidates are fetched by
+        original row id; the returned indices are back in current positions
+        (the materialization and the final index-map remap expect them so)."""
         from .evaluate import exact_rerank
 
         plan = self._plan
         store = plan._store
+        idx = np.asarray(indices, dtype=np.int64)
+        orig = store._index_map[idx] if store._index_map is not None else idx
         rows, scrs = exact_rerank(
-            self._queries, indices, store._rerank_fetch, plan._metric,
-            len(indices), take_min=(self._take_type is TakeType.Min),
+            self._queries, orig.tolist(), store._rerank_fetch, plan._metric,
+            len(orig), take_min=(self._take_type is TakeType.Min),
         )
         if plan._vec_filter is not None:
             thr, cmp = plan._vec_filter
@@ -1591,7 +2021,10 @@ class PendingMetaQuery:
             keep = [i for i, s in enumerate(scrs) if _num_cmp(s, thr, op)]
             rows = [rows[i] for i in keep]
             scrs = [scrs[i] for i in keep]
-        return rows[: plan._take_count], scrs[: plan._take_count]
+        rows, scrs = rows[: plan._take_count], scrs[: plan._take_count]
+        if store._index_map is not None:
+            rows = store._positions()[np.asarray(rows, dtype=np.int64)].tolist()
+        return rows, scrs
 
     def result(self) -> MetaQueryResults:
         if self._result is not None:
@@ -1616,7 +2049,15 @@ class PendingMetaQuery:
             # hash collision re-run with an exact host row mask (p ~ 2^-64)
             collision_redo = False
             if self._has_filter and plan._has_string_leaf():
-                if not all(plan._row_satisfies(i) for i in indices):
+                n_res = len(indices)
+                if n_res > 256 and n_res * 64 > store.n_rows:
+                    # take-all-sized results: one vectorized host pass beats
+                    # millions of per-row CNF evaluations
+                    em = plan._host_exact_row_mask(store._dv.vectors.shape[0])
+                    sat = bool(em[np.asarray(indices, dtype=np.int64)].all())
+                else:
+                    sat = all(plan._row_satisfies(i) for i in indices)
+                if not sat:
                     thr, cmp = (None, None) if plan._vec_filter is None else plan._vec_filter
                     exact_mask = plan._host_exact_row_mask(store._dv.vectors.shape[0])
                     rows, scrs, valid = store._run_exact_mask_query(
@@ -1636,8 +2077,15 @@ class PendingMetaQuery:
                     if state is not None:
                         _device_rerank_finish(state[0], state[1], state[2].wait())
                 dr = self._device_rerank
-                if dr is not None and frozenset(indices) == dr[0]:
-                    indices, scores = list(dr[1]), list(dr[2])
+                idx0 = np.asarray(indices, dtype=np.int64)
+                orig0 = store._index_map[idx0] if store._index_map is not None else idx0
+                if dr is not None and frozenset(orig0.tolist()) == dr[0]:
+                    rows_orig = np.asarray(dr[1], dtype=np.int64)
+                    scores = list(dr[2])
+                    if store._index_map is not None:
+                        indices = store._positions()[rows_orig].tolist()
+                    else:
+                        indices = rows_orig.tolist()
                 else:
                     # a collision redo changed the candidate set
                     indices, scores = self._exact_rerank(indices)
@@ -1685,6 +2133,9 @@ class PendingMetaQuery:
             certified=self._certified,
             scan_k_wide=self._scan_k_wide,
         )
+        if store._index_map is not None and indices:
+            # sorted store: report original ingestion-order row ids
+            indices = store._index_map[np.asarray(indices, dtype=np.int64)].tolist()
         self._result = MetaQueryResults(col_names, data, indices, scores)
         return self._result
 
@@ -1796,11 +2247,26 @@ def resolve(pendings: List[PendingMetaQuery]) -> List[MetaQueryResults]:
 
 
 def _str_cmp(v: str, rhs, cmp: CmpOp) -> bool:
+    if cmp in NEGATED_STRING_OPS:
+        return not _str_cmp(v, rhs, NEGATED_CMP[cmp])
     if cmp is CmpOp.Eq:
         return v == rhs
     if cmp is CmpOp.Neq:
         return v != rhs
-    raise NotImplementedError(f"string predicate {cmp.value} is not ported yet")
+    if cmp is CmpOp.Contains:
+        return rhs in v
+    if cmp is CmpOp.StartsWith:
+        return v.startswith(rhs)
+    if cmp is CmpOp.EndsWith:
+        return v.endswith(rhs)
+    if cmp is CmpOp.Fuzzy:
+        from .ops.strmatch import MAX_DIST_CAP, bounded_levenshtein
+
+        pattern, max_dist = rhs
+        return bounded_levenshtein(
+            v.encode("utf-8"), pattern.encode("utf-8"), min(int(max_dist), MAX_DIST_CAP)
+        )
+    return False
 
 
 def _num_cmp(v: float, t: float, cmp: CmpOp) -> bool:

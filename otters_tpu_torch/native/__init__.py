@@ -1,9 +1,13 @@
-"""Native (C++) ingest kernels, loaded via ctypes.
+"""Native (C++) host kernels, loaded via ctypes: string hashing, the Bloom
+build and the extended string scans (substring / prefix / suffix over a
+packed UTF-8 arena, bounded Levenshtein).
 
 Compiles ``otters_native.cpp`` on first use with g++ (-O3 -fopenmp) into the
 package's build directory (``build/otters_tpu_torch/`` beside the package).
-Every entry point has a pure-Python fallback (ops/hashing.py, ops/bloom.py),
-so a missing compiler only costs ingest speed, never correctness. Hash
+Every entry point returns None without the library (or without its symbol),
+and its caller's pure-Python path takes over (ops/hashing.py, ops/bloom.py,
+ops/strscan.py, ops/strmatch.py), so a missing compiler only costs host
+speed, never correctness. Hash
 outputs are bit-for-bit identical to the Python implementation. This is host
 code only: nothing here touches the device.
 """
@@ -90,6 +94,22 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.c_void_p,
     ]
     lib.otters_bloom_build.restype = None
+    try:
+        lib.otters_fuzzy_mask.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+        ]
+        lib.otters_fuzzy_mask.restype = None
+    except AttributeError:
+        pass  # a stale library from before the fuzzy kernel existed
+    try:
+        lib.otters_substr_mask.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+        ]
+        lib.otters_substr_mask.restype = None
+    except AttributeError:
+        pass  # a stale library from before the substring kernel existed
     _lib = lib
     return _lib
 
@@ -154,3 +174,53 @@ def bloom_build(
         n_chunks, words, bits, k, matrix.ctypes.data,
     )
     return matrix.reshape(n_chunks, words)
+
+
+_SUBSTR_MODES = {"contains": 0, "starts_with": 1, "ends_with": 2}
+
+
+def substr_mask_arena(data: np.ndarray, offsets: np.ndarray, pattern: str, mode: str):
+    """uint8[n] substring / prefix / suffix mask over a packed UTF-8 arena
+    (``pack_utf8_arena`` layout); None if the library lacks the kernel.
+
+    The semantics are Python's ``pattern in s`` / ``s.startswith`` /
+    ``s.endswith`` on the same strings (a byte compare is exact for
+    whole-pattern UTF-8 matching). Nulls are the caller's to mask."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "otters_substr_mask"):
+        return None
+    n = len(offsets) - 1
+    pat = np.frombuffer(pattern.encode("utf-8"), dtype=np.uint8)
+    plen = len(pat)
+    pat = np.ascontiguousarray(pat) if plen else np.zeros(1, np.uint8)
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    if not len(data):
+        data = np.zeros(1, np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    out = np.zeros(n, dtype=np.uint8)
+    lib.otters_substr_mask(
+        data.ctypes.data, offsets.ctypes.data, n,
+        pat.ctypes.data, plen, _SUBSTR_MODES[mode], out.ctypes.data,
+    )
+    return out
+
+
+def fuzzy_mask(strings: Sequence[str], pattern: str, max_dist: int):
+    """uint8[n] bounded-Levenshtein mask over UTF-8 bytes; None if the
+    library lacks the kernel. ``max_dist`` is clamped to the kernel's band
+    (16)."""
+    max_dist = min(int(max_dist), 16)
+    lib = _load()
+    if lib is None or not hasattr(lib, "otters_fuzzy_mask"):
+        return None
+    n = len(strings)
+    data, offsets = pack_utf8_arena(strings)
+    pat_b = pattern.encode("utf-8")
+    pat = np.frombuffer(pat_b, dtype=np.uint8)
+    pat = np.ascontiguousarray(pat) if len(pat) else np.zeros(1, np.uint8)
+    out = np.zeros(n, dtype=np.uint8)
+    lib.otters_fuzzy_mask(
+        data.ctypes.data, offsets.ctypes.data, n,
+        pat.ctypes.data, len(pat_b), int(max_dist), out.ctypes.data,
+    )
+    return out

@@ -19,8 +19,9 @@ Semantics mirror the reference (and the JAX package) exactly:
 
 A compiled plan is an AND of OR-clauses; leaves carry a static descriptor
 ``(repr, column, cmp)`` where repr in {'i32', 'f32', 'i64', 'f64', 'str',
-'null', 'nanthr'} selects the compare, and a parameter tuple of device
-scalars (thresholds / hash + Bloom probe coordinates).
+'null', 'nanthr', 'hostmask'} selects the compare, and a parameter tuple of
+device tensors (thresholds / hash + Bloom probe coordinates / the host-made
+masks of an extended string predicate).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from . import bloom as bloom_ops
 #   'str'                         : (rh, bloom_words, bloom_masks)
 #   'null'                        : (chunk_lens[n_chunks],)
 #   'nanthr'                      : ()
+#   'hostmask'                    : (row_mask[n_pad], chunk_any[n_chunks])
 
 
 def _cmp(v, thr, cmp: CmpOp):
@@ -53,6 +55,10 @@ def _cmp(v, thr, cmp: CmpOp):
 
 def _leaf_row_mask(leaf, params, cols):
     rep, name, cmp = leaf
+    if rep == "hostmask":
+        # an extended string predicate, evaluated on the host: no column
+        # tensor is read
+        return params[0]
     c = cols[name]
     not_null = ~c["null"]
     if rep == "null":
@@ -82,6 +88,8 @@ def _leaf_row_mask(leaf, params, cols):
 
 def _leaf_chunk_mask(leaf, params, cols):
     rep, name, cmp = leaf
+    if rep == "hostmask":
+        return params[1]  # the exact per-chunk any(), made on the host
     c = cols[name]
     has_values = c["non_null"] > 0
     if rep == "null":

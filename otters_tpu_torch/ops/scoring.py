@@ -185,14 +185,15 @@ INGEST_SLAB_ROWS = 1 << 18
 
 
 def _materialize_bf16(vecs_f32: torch.Tensor, n_valid: int,
-                      slab_rows: int = INGEST_SLAB_ROWS, n_pad: Optional[int] = None
-                      ) -> DeviceVecs:
+                      slab_rows: int = INGEST_SLAB_ROWS, n_pad: Optional[int] = None,
+                      order: Optional[torch.Tensor] = None) -> DeviceVecs:
     """bfloat16 storage with per-row ABSOLUTE rounding residuals attached:
     half the device memory of f32, and the certificate covers Cosine, Dot
     and Euclid on it. The codes, norms and residuals are computed slab by
     slab and written in place (rows are independent). ``n_pad`` (default:
     the rows' count) pads the store past the given rows with zero rows,
-    which are never read."""
+    which are never read. ``order`` (see :func:`materialize_from_device`)
+    gathers each slab's rows."""
     n, d = vecs_f32.shape
     n_pad = n if n_pad is None else n_pad
     dev = vecs_f32.device
@@ -202,7 +203,7 @@ def _materialize_bf16(vecs_f32: torch.Tensor, n_valid: int,
     resid = torch.zeros_like(norms_sq)
     for s in range(0, n, max(1, slab_rows)):
         e = min(n, s + slab_rows)
-        x = vecs_f32[s:e].float()
+        x = (vecs_f32[s:e] if order is None else vecs_f32[order[s:e]]).float()
         vecs[s:e] = x.to(torch.bfloat16)
         norms_sq[s:e], inv[s:e] = _device_norms(vecs[s:e])
         resid[s:e] = bf16_abs_resid(x)
@@ -391,7 +392,7 @@ def cert_global_slack(c0, c1, c2, lane_a, lane_b, norms_sq, q_valid=None):
 
 
 def materialize_from_device(vecs: torch.Tensor, n_valid: Optional[int] = None,
-                            dtype=None) -> DeviceVecs:
+                            dtype=None, order: Optional[torch.Tensor] = None) -> DeviceVecs:
     """Build a DeviceVecs from rows already on their device (no host round
     trip). ``dtype`` (default: the rows' own) is the storage: int8
     quantizes and bfloat16 rounds with residuals, both slab by slab
@@ -404,18 +405,29 @@ def materialize_from_device(vecs: torch.Tensor, n_valid: Optional[int] = None,
     float32 storage then adopts the caller's tensor as it is, with no copy.
     Rows that need padding (more rows, or a deeper stride) are copied once
     into the padded store; int8 and bfloat16 storage always write a new
-    tensor of their own type."""
+    tensor of their own type.
+
+    ``order`` (a device int64 tensor of ``len(vecs)`` row ids: a sort's
+    permutation followed by the padding rows) stores the rows as
+    ``vecs[order]``. int8 and bfloat16 gather slab by slab, so a sorted
+    store never holds a second full-precision copy; float32 gathers once
+    (the store owns its rows)."""
     n, d = vecs.shape
     n_pad = pad_rows(n)
     n_valid = n if n_valid is None else n_valid
     dtype = vecs.dtype if dtype is None else dtype
     if dtype == torch.int8:
-        return _int8_slabs(lambda s, r: vecs[s : s + r], n, n_pad, n_valid, d,
-                           INGEST_SLAB_ROWS, vecs.device)
+        if order is None:
+            slab = lambda s, r: vecs[s : s + r]  # noqa: E731
+        else:
+            slab = lambda s, r: vecs[order[s : s + r]]  # noqa: E731
+        return _int8_slabs(slab, n, n_pad, n_valid, d, INGEST_SLAB_ROWS, vecs.device)
     if dtype == torch.bfloat16 and vecs.dtype != torch.bfloat16:
-        return _materialize_bf16(vecs, n_valid, n_pad=n_pad)
+        return _materialize_bf16(vecs, n_valid, n_pad=n_pad, order=order)
     if dtype not in (torch.float32, torch.bfloat16):
         raise OttersError(f"unsupported storage dtype {dtype}")
+    if order is not None:
+        vecs = vecs[order]
     vecs = vecs.to(dtype)
     if n_pad != n:
         vecs = torch.cat([vecs, vecs.new_zeros((n_pad - n, d))])

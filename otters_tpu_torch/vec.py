@@ -19,9 +19,8 @@ Counterpart of the JAX package's ``vec.py`` (reference ``src/vec.rs``):
   VPU metrics (Manhattan, Hamming, Jaccard) score on the plain programs
   (``scoring._vpu_scores``). A take(k) too wide for any device top-k
   streams score windows to the host.
-
-Not ported yet: ``save`` / ``load`` (they wait for ``io.py``); both raise
-``NotImplementedError``.
+- ``save`` / ``load`` write and read the JAX package's single-file format
+  (``io.py``), so a file crosses between the packages.
 """
 
 from __future__ import annotations
@@ -111,11 +110,18 @@ class VecStore:
 
     # ---- persistence -----------------------------------------------------
     def save(self, path: str) -> None:
-        raise NotImplementedError("VecStore.save: io.py is not ported yet")
+        """Serialize to one .npz file (``io.save_vec``)."""
+        from . import io
+
+        io.save_vec(self, path)
 
     @staticmethod
-    def load(path: str) -> "VecStore":
-        raise NotImplementedError("VecStore.load: io.py is not ported yet")
+    def load(path: str, *, device=None) -> "VecStore":
+        """Load a store saved by ``save`` (or by the JAX package); it runs on
+        ``device`` (default: the current CUDA device)."""
+        from . import io
+
+        return io.load_vec(path, device=device)
 
     # ---- device ----------------------------------------------------------
     def _host_matrix(self) -> np.ndarray:

@@ -37,10 +37,13 @@ sums the same exact bf16 products in another order than its plain
 version: within ``d 2^-24 |qh| |vh|`` (Cosine: of the unit scores), as K3.
 The probes: ``k_mm`` / ``k_mm_bins`` as K3, ``k_planes`` as K4.
 
-Beside the kernels, two torch paths are held on the card: the device Bloom
-build against the host build bit for bit, and the VPU metrics' programs
+Beside the kernels, torch paths are held on the card: the device Bloom
+build against the host build bit for bit; the VPU metrics' programs
 (direct, panel, scan_pruned) against the same store on the CPU (the same
-indices; scores within rtol 1e-6, Hamming exactly).
+indices; scores within rtol 1e-6, Hamming exactly); certified int8 queries
+over string-filtered (hostmask), sorted, Z-ordered, tombstoned and appended
+stores against the same stores on the CPU, and a store saved on the card
+and loaded on the CPU (the same indices, scores within 1e-5).
 """
 
 import ctypes
@@ -994,3 +997,86 @@ def test_vpu_modes_on_cuda_equal_cpu(metric, storage, mode):
         assert out[1][1] == out[0][1]
     else:
         np.testing.assert_allclose(out[1][1], out[0][1], rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The store's lifecycle on the card: string-filtered (hostmask), sorted,
+# Z-ordered, tombstoned and appended stores, and persistence
+# ---------------------------------------------------------------------------
+
+# 128 queries x 40,448 padded rows: past the direct program's limit, so K1 runs
+LIFECYCLE_N, LIFECYCLE_D, LIFECYCLE_B = 40_000, 64, 128
+
+
+def _lifecycle_store(case, device, vecs):
+    import otters_tpu_torch as tx
+
+    n = len(vecs)
+    idx = np.arange(n)
+    cols = [tx.Column("price", tx.DataType.Float64).from_values((idx * 7919 % 100).astype(float)),
+            tx.Column("category", tx.DataType.String).from_values(
+                [f"cat_{c % 16:02d}" for c in idx // 1024])]
+    b = (tx.MetaStore.from_columns(cols).with_vectors(vecs).with_chunk_size(1024)
+         .with_storage_dtype("int8").with_rerank_source(keep_host_f32=True).with_device(device))
+    if case == "sorted":
+        b = b.with_sort_by("price")
+    elif case == "zorder":
+        b = b.with_z_order(["price", "category"])
+    store = b.build()
+    if case in ("deleted", "appended"):
+        store.delete_rows(np.random.default_rng(3).choice(n, 2_000, replace=False))
+    if case == "appended":
+        new = np.random.default_rng(4).normal(size=(1_000, vecs.shape[1])).astype(np.float32)
+        store = store.append(new, {"price": [float(i % 100) for i in range(1_000)],
+                                   "category": ["cat_01"] * 1_000})
+    return store
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hostmask", "sorted", "zorder", "deleted", "appended"])
+def test_lifecycle_stores_on_cuda_equal_cpu(case):
+    """Certified int8 queries (K1 on the card, its plain version on the
+    CPU) over each kind of store: the same original row ids in order, the
+    same ``certified`` flags and pruned counts, scores within 1e-5."""
+    dev = _device()
+    import otters_tpu_torch as tx
+
+    rng = np.random.default_rng(8)
+    vecs = rng.normal(size=(LIFECYCLE_N, LIFECYCLE_D)).astype(np.float32)
+    q = rng.normal(size=(LIFECYCLE_B, LIFECYCLE_D)).astype(np.float32)
+    flt = (tx.col("category").contains("_1") & ~tx.col("category").ends_with("3")
+           if case == "hostmask" else tx.col("price").lt(30.0))
+    out = []
+    for device in ("cpu", dev):
+        store = _lifecycle_store(case, device, vecs)
+        ft.reset_launches()
+        res = (store.query_batch(q, tx.Metric.Cosine).meta_filter(flt)
+               .take(10, rerank_from=100).collect())
+        st = store.last_query_stats()
+        out.append((res.indices, res.scores, st.certified, st.pruned_chunks, len(store)))
+        if device is dev:
+            assert ft.cert_cos_binmax.launches >= 1
+    assert out[1][0] == out[0][0] and out[1][2:] == out[0][2:] and out[1][2] is True
+    np.testing.assert_allclose(out[1][1], out[0][1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_save_on_cuda_load_on_cpu(tmp_path):
+    """A sorted, tombstoned CUDA store saved and loaded on the CPU answers
+    as the CUDA store; the load's default device is the card."""
+    dev = _device()
+    import otters_tpu_torch as tx
+
+    rng = np.random.default_rng(9)
+    vecs = rng.normal(size=(LIFECYCLE_N, LIFECYCLE_D)).astype(np.float32)
+    q = rng.normal(size=(LIFECYCLE_B, LIFECYCLE_D)).astype(np.float32)
+    store = _lifecycle_store("deleted", dev, vecs)
+    path = str(tmp_path / "store.npz")
+    store.save(path)
+    for loaded, where in ((tx.MetaStore.load(path, device="cpu"), "cpu"),
+                          (tx.MetaStore.load(path), "cuda")):
+        assert loaded._dv.vectors.device.type == where
+        a = store.query_batch(q, tx.Metric.Cosine).take(10, rerank_from=100).collect()
+        b = loaded.query_batch(q, tx.Metric.Cosine).take(10, rerank_from=100).collect()
+        assert b.indices == a.indices and len(loaded) == len(store)
+        np.testing.assert_allclose(b.scores, a.scores, rtol=0, atol=1e-5)

@@ -638,19 +638,23 @@ def test_empty_query_vectors_in_batch():
 # ---------------------------------------------------------------------------
 
 
-def test_unported_storage_and_persistence_raise():
-    """Only persistence waits; bfloat16 storage is ported."""
+def test_unported_storage_and_persistence_raise(tmp_path):
+    """Nothing here waits any more: bfloat16 storage is ported, an unknown
+    dtype raises, and persistence round-trips (save, then load on the CPU
+    device, answering as before; the files against the JAX package are in
+    tests/test_torch_io.py)."""
     store = tx.VecStore(3, "bfloat16", device="cpu")
     store.add_vectors(np.eye(3, dtype=np.float32))
     assert store.device().vectors.dtype == torch.bfloat16
     assert [r.index for r in store.query([0.0, 1.0, 0.0], Metric.Cosine).take(1).collect()] == [1]
     with pytest.raises(OttersError, match="unsupported storage dtype"):
         tx.VecStore(3, "float16")
-    store = VecStore(3)
-    with pytest.raises(NotImplementedError, match="io.py"):
-        store.save("x")
-    with pytest.raises(NotImplementedError, match="io.py"):
-        tx.VecStore.load("x")
+    path = str(tmp_path / "x.npz")
+    store.save(path)
+    loaded = tx.VecStore.load(path, device="cpu")
+    assert len(loaded) == 3 and loaded._dtype == "bfloat16"
+    assert np.array_equal(loaded._host_matrix(), np.eye(3, dtype=np.float32))
+    assert [r.index for r in loaded.query([0.0, 1.0, 0.0], Metric.Cosine).take(1).collect()] == [1]
 
 
 def test_without_a_device_named_needs_cuda(monkeypatch):

@@ -63,3 +63,55 @@ def use_fused_path(monkeypatch, direct_limit=1 << 10):
     monkeypatch.setenv("OTTERS_PALLAS_INTERPRET", "1")
     monkeypatch.setattr(jscoring, "DIRECT_LIMIT", direct_limit)
     monkeypatch.setattr(tscoring, "DIRECT_LIMIT", direct_limit)
+
+
+# ---------------------------------------------------------------------------
+# The four query paths of a MetaStore (the lifecycle tests: strings, sorted
+# and Z-ordered stores, deletes / appends, persistence)
+# ---------------------------------------------------------------------------
+
+PATHS = ["direct", "scan", "fused", "take_all"]
+TAKE_ALL_K = 2500  # a rerank of every candidate on the take-all path
+
+
+def route(path, monkeypatch):
+    """Put both packages on ``path`` for a 3-query batch over a store of a
+    few thousand rows (build the stores after this): "direct" as they are;
+    "fused" and "scan" (a k past the fused kernel's) with the small direct
+    limit of :func:`use_fused_path`; "take_all" with a small scan limit too,
+    so no device top-k takes a k of thousands."""
+    if path != "direct":
+        use_fused_path(monkeypatch)
+    if path == "take_all":
+        import otters_tpu.ops.scoring as jscoring
+        import otters_tpu_torch.ops.scoring as tscoring
+
+        monkeypatch.setattr(jscoring, "SCAN_K_MAX", 1024)
+        monkeypatch.setattr(tscoring, "SCAN_K_MAX", 1024)
+
+
+def query_on_path(store, pkg, q, path, certify, flt=None, metric="Cosine"):
+    """One query of a rerank store on ``path``: take(10) from a widened
+    scan with the certificate on (auto) or off; the take-all path reranks
+    every candidate (certify) or returns every row's stored score."""
+    plan = store.query_batch(q, getattr(pkg.Metric, metric))
+    if flt is not None:
+        plan = plan.meta_filter(flt(pkg))
+    if path == "take_all":
+        return (plan.take(TAKE_ALL_K, rerank_from=TAKE_ALL_K) if certify else plan).collect()
+    k_wide = 1100 if path == "scan" else 40
+    return plan.take(10, rerank_from=k_wide, certify=None if certify else False).collect()
+
+
+def assert_same_on_path(rj, rt, sj, st, path):
+    """:func:`assert_same_results`; on the take-all path (thousands of
+    results over f32 sums taken in other orders, so near-tied neighbours may
+    swap) the same rows as a multiset, the scores rank for rank within
+    2e-5 and sorted, and the same stats."""
+    if path != "take_all":
+        assert_same_results(rj, rt, sj, st)
+        return
+    assert sorted(rt.indices) == sorted(rj.indices)
+    np.testing.assert_allclose(rt.scores, rj.scores, rtol=2e-5, atol=2e-5)
+    assert (np.diff(np.asarray(rt.scores)) <= 0).all()
+    assert stats_tuple(st) == stats_tuple(sj)
