@@ -35,6 +35,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    (``certify=False``): K2 (s8 wgmma), recall@10 against the f32 truth,
    PATH_ROUNDS timed rounds (median q/s) and one traced round (K2's ms per
    batch, the rest of the device time, the idle share), K2 timed;
+   4p. the row-sharded stores (``otters_tpu_torch.parallel``) on the card:
+   (a) a ``rows=4`` mesh (the card listed four times; the real devices when
+   there are several) and phase 4's f32 rows quantized slab by slab into
+   four int8 shards (``materialize_int8_slabs_sharded``), the same columns,
+   rerank source, filter and batches through ``build_sharded``: every query
+   certified and equal to phase 4's truth, the pruned and evaluated chunks
+   the host count, K1 launched once per shard and batch, PATH_ROUNDS timed
+   rounds (median q/s beside the single-device main path's), one round
+   traced (K1's ms per shard launch, the idle share) and the merge timed;
+   (b) ``certify=False`` on the same store (K2 per shard), recall@10
+   against the truth (``evaluate.mean_recall_at_k``); (c) a ``rows=2,
+   batch=2`` mesh: the same answers as (a), every query certified; (d) a
+   2M x 768 f32 store over ``rows=2``: K4 fast-exact per shard, equal to the
+   exact truth; (e) ``ShardedVecStore`` over 1M x 768 f32 rows, equal to
+   the exact top-10; (f) a 1M int8 store (``keep_host_f32``) saved as
+   ``sharded-v1`` under the git-ignored ``chip_scratch/`` and loaded with
+   and without a mesh: indices, scores bit for bit, flags and chunk counts
+   equal; the directory's bytes, save and load seconds;
    4s. bench.py's full column mix (price / version, String ``category``,
    DateTime ``listed``): a second 10M x 768 int8 store ingested from the
    same f32 CUDA tensor (``with_vectors(tensor, n_rows=n)``, quantized slab
@@ -154,6 +172,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -843,6 +862,265 @@ def uncert_path(torch, store, batches, truths, card=""):
     assert recall > 0.5, f"filtered_uncert recall@{K} = {recall}"
     return {"qps": qps, "qps_rounds": rounds, "launches": launched["K2"], "recall": recall,
             "profile": prof}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4p: the row-sharded stores over a mesh of devices
+# ---------------------------------------------------------------------------
+
+SHARD_F32_ROWS = 2_000_000  # 4p (d): the sharded exact f32 store
+SHARD_VEC_ROWS = 1_000_000  # 4p (e): ShardedVecStore; (f): the saved store
+SHARD_VEC_B = 16  # 4p (e): queries of the ShardedVecStore search
+
+
+def mesh_devices(torch, dev, n):
+    """``n`` mesh entries: the card listed ``n`` times, or the real devices
+    in turn when there are several."""
+    count = torch.cuda.device_count()
+    if count > 1:
+        return [torch.device("cuda", i % count) for i in range(n)]
+    return [dev] * n
+
+
+def f32_slabs(torch, f32, n):
+    """``slab_fn(start, rows)`` over rows ``0 .. n`` of the seeded f32 rows,
+    zero past ``n`` (the sharded geometry pads further than the tensor)."""
+
+    def slab_fn(start, rows):
+        end = min(start + rows, n)
+        part = f32[start:end] if end > start else f32[:0]
+        if part.shape[0] == rows:
+            return part
+        return torch.cat([part, part.new_zeros((rows - part.shape[0], f32.shape[1]))])
+
+    return slab_fn
+
+
+def sharded_store(torch, mesh, f32, n, fetch=None, storage="int8"):
+    """A sharded store over rows ``0 .. n`` of the seeded f32 rows with the
+    bench's price / version columns, built slab by slab into each shard ->
+    (store, build seconds)."""
+    import otters_tpu_torch as tx
+    from otters_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    make = (parallel.materialize_int8_slabs_sharded if storage == "int8"
+            else parallel.materialize_f32_slabs_sharded)
+    dv = make(f32_slabs(torch, f32, n), n, D, SLAB, mesh, chunk_size=CHUNK)
+    b = (tx.MetaStore.from_columns(price_version_columns(n)).with_vectors(dv, n_rows=n)
+         .with_chunk_size(CHUNK))
+    if fetch is not None:
+        b = b.with_rerank_source(fetch_vectors=fetch)
+    store = b.build_sharded(mesh)
+    for d in {mesh.devices[r, 0] for r in range(mesh.shape["rows"])}:
+        torch.cuda.synchronize(d)
+    return store, time.perf_counter() - t0
+
+
+def merge_ms(torch, mesh, b, k):
+    """The device time of the lead device's merge of one batch's partials:
+    one k-sized (rows, scores, ok) partial per program of the mesh, merged
+    by the stable top-k (``dist_query.merge_partials``)."""
+    from otters_tpu_torch.parallel.dist_query import merge_partials
+
+    dev = mesh.lead
+    n_prog = mesh.shape["rows"] * mesh.shape["batch"]
+    parts = [(torch.randint(0, 1 << 20, (k,), device=dev, dtype=torch.int32),
+              torch.rand(k, device=dev), torch.ones(k, dtype=torch.bool, device=dev))
+             for _ in range(n_prog)]
+
+    def run():
+        _, _, _, sel = merge_partials(parts, k, False, dev)
+        return sel
+
+    return time_ms(run, reps=20)
+
+
+def sharded_phase(torch, dev, f32, batches, truths, main_qps, card):
+    """Phase 4p: the row-sharded stores on the card -> their numbers.
+
+    (a) the certified main path over a ``rows=4`` mesh (the card listed four
+    times): phase 4's rows quantized slab by slab into four int8 shards,
+    8 pipelined batches, every query certified and equal to phase 4's
+    truth, K1 launched once per shard and batch, median q/s beside the
+    single-device path's, one round traced; (b) ``certify=False`` on the
+    same store (K2 per shard), recall@10; (c) a ``rows=2, batch=2`` mesh,
+    the same answers as (a); (d) a 2M f32 store over ``rows=2`` (K4
+    fast-exact per shard) equal to the exact truth; (e) ``ShardedVecStore``
+    over 1M f32 rows equal to the exact truth; (f) a 1M int8 store saved as
+    ``sharded-v1`` and loaded with and without a mesh, the answers bit for
+    bit."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import otters_tpu_torch as tx
+    from otters_tpu_torch import parallel
+    from otters_tpu_torch.evaluate import mean_recall_at_k
+    from otters_tpu_torch.ops import fused_topk as ft
+
+    n = ROWS
+    out = {"card": card}
+
+    def fetch(ids):
+        return f32[torch.as_tensor(np.asarray(ids, dtype=np.int64), device=dev)]
+
+    # (a) the certified main path over four row shards
+    mesh = parallel.make_mesh(rows=4, batch=1, devices=mesh_devices(torch, dev, 4))
+    store, build_s = sharded_store(torch, mesh, f32, n, fetch)
+    n_chunks = store.n_chunks()
+    log(f"4p (a) {n} x {D} int8 over {mesh}: built in {build_s:.2f} s, chunks {n_chunks}, "
+        f"{store._dv.vectors.shards[0].shape[0]} rows a shard")
+
+    def pending(q, certify=None, st=None):
+        return ((st or store).query_batch(q, tx.Metric.Cosine).meta_filter(bench_filter())
+                .take(K, rerank_from=K_WIDE, certify=certify).collect_async())
+
+    t0 = time.perf_counter()
+    tx.resolve([pending(batches[-1])])  # warm-up: the certificate learns its width
+    log(f"4p (a) warm-up batch: {time.perf_counter() - t0:.2f} s")
+    pend, results, launched, qps, rounds = timed_rounds(
+        torch, dev, lambda: [pending(q) for q in batches], counts)
+    log(f"4p (a) sharded certified path: {BATCHES} pipelined batches of {B}, {PATH_ROUNDS} "
+        f"rounds: {', '.join(f'{r:.1f}' for r in rounds)} q/s, median {qps:.1f} q/s against "
+        f"the single-device main path's {main_qps:.1f} q/s on {card}; launches {launched}")
+    assert launched["K1"] == 4 * BATCHES and launched["K2"] == 0, launched
+    for i, (p, res, gt) in enumerate(zip(pend, results, truths)):
+        st = p.stats()
+        assert st.certified is True, f"4p (a) batch {i} not certified: {st}"
+        assert st.pruned_chunks == (n_chunks + 1) // 2, f"4p (a) batch {i}: {st}"
+        assert st.evaluated_chunks == n_chunks - st.pruned_chunks, st
+        assert sorted(res.indices) == sorted(gt), (i, res.indices, gt)
+    prof = profile_batches(torch, pending, batches, "cert_cos_binmax_kernel")
+    merge = merge_ms(torch, mesh, B, K_WIDE)
+    log(f"4p (a) K1 per shard launch {prof['scan_ms_per_batch'] / 4:.3f} ms, the merge "
+        f"{merge:.3f} ms a batch, idle share {prof['idle_share']:.3f}")
+    out["a"] = {"qps": qps, "qps_rounds": rounds, "main_qps": main_qps, "build_s": build_s,
+                "launches": launched["K1"], "profile": prof,
+                "k1_ms_per_shard_launch": prof["scan_ms_per_batch"] / 4, "merge_ms": merge}
+    want_a = [r.indices for r in results]
+
+    # (b) uncertified on the same store: K2 on every shard
+    tx.resolve([pending(batches[-1], certify=False)])
+    pend, results, launched, qps, rounds = timed_rounds(
+        torch, dev, lambda: [pending(q, certify=False) for q in batches], counts)
+    assert launched["K2"] == 4 * BATCHES and launched["K1"] == 0, launched
+    recall = mean_recall_at_k(truths, [r.indices for r in results])
+    log(f"4p (b) uncertified (K2 per shard): median {qps:.1f} q/s on {card}, "
+        f"recall@{K} {recall:.4f}; launches {launched}")
+    assert recall > 0.5, recall
+    out["b"] = {"qps": qps, "qps_rounds": rounds, "launches": launched["K2"], "recall": recall}
+    del store, pend, results
+    torch.cuda.empty_cache()
+
+    # (c) rows=2, batch=2: the same answers as (a)
+    mesh_c = parallel.make_mesh(rows=2, batch=2, devices=mesh_devices(torch, dev, 4))
+    store_c, build_c = sharded_store(torch, mesh_c, f32, n, fetch)
+    tx.resolve([pending(batches[-1], st=store_c)])
+    ft.reset_launches()
+    t0 = time.perf_counter()
+    pend = [pending(q, st=store_c) for q in batches]
+    results = tx.resolve(pend)
+    sync(dev)
+    qps_c = len(batches) * B / (time.perf_counter() - t0)
+    launched = counts()
+    assert launched["K1"] == 4 * BATCHES, launched  # 2 row shards x 2 batch columns
+    for i, (p, res) in enumerate(zip(pend, results)):
+        assert p.stats().certified is True, (i, p.stats())
+        assert res.indices == want_a[i], (i, res.indices, want_a[i])
+    log(f"4p (c) rows=2, batch=2: built in {build_c:.2f} s, {qps_c:.1f} q/s (one round), "
+        f"every query certified and equal to (a); launches {launched}")
+    out["c"] = {"qps": qps_c, "build_s": build_c, "launches": launched["K1"]}
+    del store_c, pend, results
+    torch.cuda.empty_cache()
+
+    # (d) 2M f32 over rows=2: K4 fast-exact per shard, equal to the truth
+    mesh_d = parallel.make_mesh(rows=2, batch=1, devices=mesh_devices(torch, dev, 2))
+    nd = SHARD_F32_ROWS
+    store_d, build_d = sharded_store(torch, mesh_d, f32, nd, storage="float32")
+    plan = lambda q: (store_d.query_batch(q, tx.Metric.Cosine)  # noqa: E731
+                      .meta_filter(bench_filter()).take(K).collect_async())
+    tx.resolve([plan(batches[-1])])
+    ft.reset_launches()
+    res_d = tx.resolve([plan(q) for q in batches[:2]])
+    launched = counts()
+    assert launched["K4"] == 2 * 2 and launched["K3"] == 0, launched
+    tol = score_tol(tx.Metric.Cosine, batches[0], None)  # Cosine: no norms
+    worst = 0.0
+    for i, (q, res) in enumerate(zip(batches[:2], res_d)):
+        want = exact_topk(torch, f32, nd, q, tx.Metric.Cosine, K, row_ok=odd_chunks)
+        _, e = check_topk(f"4p (d) batch {i}", res.indices, res.scores, *want, tol)
+        worst = max(worst, e)
+    log(f"4p (d) {nd} x {D} f32 over rows=2: built in {build_d:.2f} s, 2 batches equal to "
+        f"the exact truth (max score diff {worst:.2e}); launches {launched}")
+    out["d"] = {"build_s": build_d, "launches": launched["K4"], "max_err": worst}
+    del store_d, res_d
+    torch.cuda.empty_cache()
+
+    # (e) ShardedVecStore over 1M f32 rows (no kernel, as in the JAX package)
+    nv = SHARD_VEC_ROWS
+    t0 = time.perf_counter()
+    vs = parallel.ShardedVecStore(mesh, f32[:nv])
+    build_e = time.perf_counter() - t0
+    q = batches[0][:SHARD_VEC_B]
+    t0 = time.perf_counter()
+    got = vs.search(q, tx.Metric.Cosine, k=K)
+    search_e = time.perf_counter() - t0
+    want = exact_topk(torch, f32, nv, q, tx.Metric.Cosine, K)
+    _, e = check_topk("4p (e)", [r.index for r in got], [r.score for r in got], *want,
+                      score_tol(tx.Metric.Cosine, q, None))
+    log(f"4p (e) ShardedVecStore {nv} x {D} over rows=4: built {build_e:.2f} s, search of "
+        f"{SHARD_VEC_B} queries {search_e:.3f} s, top-{K} equal to the exact truth "
+        f"(max score diff {e:.2e})")
+    out["e"] = {"build_s": build_e, "search_s": search_e, "max_err": e}
+    del vs
+    torch.cuda.empty_cache()
+
+    # (f) sharded-v1: save a 1M int8 store, load it with and without a mesh
+    host = f32[:nv].cpu().numpy()
+    store_f = (tx.MetaStore.from_columns(price_version_columns(nv)).with_vectors(host)
+               .with_chunk_size(CHUNK).with_storage_dtype("int8")
+               .with_rerank_source(keep_host_f32=True).build_sharded(mesh))
+    del host
+    # the checkout's git-ignored scratch directory
+    scratch_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_scratch")
+    os.makedirs(scratch_root, exist_ok=True)
+    scratch = tempfile.mkdtemp(dir=scratch_root)
+    try:
+        path = os.path.join(scratch, "sharded_store")
+        t0 = time.perf_counter()
+        store_f.save(path)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t0 = time.perf_counter()
+        loaded_mesh = tx.MetaStore.load(path, mesh=mesh)
+        load_mesh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded_one = tx.MetaStore.load(path, device=dev)
+        load_one_s = time.perf_counter() - t0
+
+        def answers(st):
+            pend = [pending(q, st=st) for q in batches[:2]]
+            res = tx.resolve(pend)
+            return [(r.indices, r.scores, p.stats().certified, p.stats().evaluated_chunks,
+                     p.stats().pruned_chunks) for p, r in zip(pend, res)]
+
+        want_f = answers(store_f)
+        assert all(a[2] is True for a in want_f), want_f
+        for name, st in (("mesh", loaded_mesh), ("one device", loaded_one)):
+            assert answers(st) == want_f, f"4p (f) the store loaded onto {name} answers otherwise"
+        log(f"4p (f) sharded-v1 of {nv} x {D} int8 (keep_host_f32): {size} bytes, save "
+            f"{save_s:.2f} s, load onto the mesh {load_mesh_s:.2f} s, onto one device "
+            f"{load_one_s:.2f} s; indices, scores bit for bit, flags and chunk counts equal")
+        out["f"] = {"bytes": size, "save_s": save_s, "load_mesh_s": load_mesh_s,
+                    "load_one_device_s": load_one_s}
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    del store_f, loaded_mesh, loaded_one
+    torch.cuda.empty_cache()
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
 
 
 CAT_VOCAB = [f"cat_{v:02d}" for v in range(16)]  # bench.py:233
@@ -2626,6 +2904,11 @@ def main() -> int:
         dv8 = store._dv
         del store
         torch.cuda.empty_cache()
+    with phase(f"4p the row-sharded stores ({ROWS} x {D} int8 over rows=4 and rows=2 x "
+               f"batch=2, {SHARD_F32_ROWS} f32 over rows=2, ShardedVecStore, sharded-v1)"):
+        sharded = sharded_phase(torch, dev, f32, batches, truths, stats["qps"], card)
+        torch.cuda.empty_cache()
+    log("phase 4p: " + json.dumps(sharded))
     with phase(f"4s the bench's full column mix ({ROWS} x {D}): tensor ingest, device Bloom "
                "build, precompile, string_eq (K1)"):
         store4s, strings = string_phase(torch, dev, f32, dv8, card)
@@ -2700,6 +2983,10 @@ def main() -> int:
          stats["launches"],
          {"path": f"certified main path {ROWS} x {D}", "path_qps": stats["qps"],
           "lifecycle_launches": life_launches(lifecycle, "int8"),
+          "sharded_launches": {"rows=4": sharded["a"]["launches"],
+                               "rows=2 x batch=2": sharded["c"]["launches"]},
+          "sharded_path_qps": sharded["a"]["qps"],
+          "sharded_ms_per_shard_launch": sharded["a"]["k1_ms_per_shard_launch"],
           "batch_sweep": sweep["K1"], "path_profile": stats["profile"],
           "depth_launches": {d: depth[d]["certified int8 Cosine"] for d in DEPTHS}}),
         ("K2", "int8_binmax", "int8_binmax", ":149 (_kernel[int8, uncertified])",
@@ -2707,6 +2994,8 @@ def main() -> int:
          {"path": f"filtered_uncert {ROWS} x {D}", "path_qps": uncert["qps"],
           "path_qps_rounds": uncert["qps_rounds"], "path_profile": uncert["profile"],
           "recall_at_10": uncert["recall"], "vecstore_launches": vec["K2"],
+          "sharded_launches": {"rows=4 uncertified": sharded["b"]["launches"]},
+          "sharded_recall_at_10": sharded["b"]["recall"],
           "batch_sweep": sweep["K2"],
           "depth_launches": {d: depth[d]["uncertified int8"] for d in depth}}),
         ("K3", "f32_binmax", "f32_binmax", ":182 (_kernel[prec=highest])", near["launches"],
@@ -2716,6 +3005,7 @@ def main() -> int:
          {"path": f"exact f32 {F32_ROWS} x {D}", "path_qps": f32_stats["qps"],
           "path_qps_rounds": f32_stats["qps_rounds"], "path_profile": f32_stats["profile"],
           "vecstore_launches": vec["K4"], "batch_sweep": sweep["K4"],
+          "sharded_launches": {f"{SHARD_F32_ROWS} f32 rows=2": sharded["d"]["launches"]},
           "lifecycle_vecstore_launches": lifecycle["append_save"]["vecstore"]["k4_launches"],
           "depth_launches": {d: depth[d]["uncertified f32 Cosine"] for d in DEPTHS}}),
         ("K1-bf16", "cert_cos_binmax_bf16", "cert_cos_binmax",

@@ -14,7 +14,14 @@ uncertified. Each TPU kernel mode on these paths is a kernel written by
 hand for Hopper (``csrc/``, see ``ops/fused_topk.py``). Also: ingest from a
 CUDA tensor (``with_vectors(tensor)``) with the device Bloom build
 (``OTTERS_BLOOM_DEVICE``), ``MetaStore.precompile`` and ``cache_stats``,
-and the VPU metrics (Manhattan, Hamming, Jaccard) with their pruned scan.
+the VPU metrics (Manhattan, Hamming, Jaccard) with their pruned scan, the
+store's lifecycle (sorted / Z-ordered layouts, ``delete_rows`` /
+``append``, ``save`` / ``load``), the row-sharded stores over a mesh of
+devices (``parallel``: ``make_mesh``, ``ShardedMetaStore`` through
+``MetaStoreBuilder.build_sharded``, ``ShardedVecStore``) with their
+per-shard directory format, pandas / Arrow ``adapters``, the synthetic
+``datasets`` and ``evaluate.recall_at_k``. Meshes that span processes
+(``parallel.init_distributed``) and ``aot.py`` are not ported yet.
 """
 
 from .column import Column
@@ -43,6 +50,9 @@ from .meta import (
 from .ops.distance import cosine_similarity, dot_product, euclidean_distance_squared
 from .types import Cmp, CmpOp, DataType, Metric, SearchResult, TakeType
 from .vec import VecQueryPlan, VecStore
+
+# submodules with additional surface (importable as otters_tpu_torch.<name>)
+from . import adapters, datasets, evaluate, io, parallel, utils  # noqa: E402,F401
 
 __version__ = "0.1.0"
 

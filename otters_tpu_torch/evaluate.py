@@ -1,10 +1,11 @@
-"""Exact re-ranking.
+"""Exact re-ranking and recall.
 
 ``exact_rerank`` is the exact-f32 step of ``take(k, rerank_from=...)``: the
 quantized scan hands over a widened candidate set, and the final top-k is
 re-scored against the true f32 rows (the reference's exactness contract,
 vec_compute.rs:77-294, over int8 storage). The VPU metrics rerank here
-too, one pending at a time, as in the JAX package.
+too, one pending at a time, as in the JAX package. ``recall_at_k`` and
+``mean_recall_at_k`` measure an approximate answer against an exact one.
 """
 
 from __future__ import annotations
@@ -58,3 +59,25 @@ def exact_rerank(
     order = order.cpu().numpy()
     rows = cand[order % len(cand)]
     return rows.tolist(), flat.cpu().numpy()[order].tolist()
+
+
+def recall_at_k(exact_indices: Sequence[int], approx_indices: Sequence[int]) -> float:
+    """|approx ∩ exact| / |exact| for one query's top-k lists.
+
+    >>> recall_at_k([1, 2, 3, 4], [4, 2, 9, 1])
+    0.75
+    >>> recall_at_k([], [])
+    1.0
+    """
+    if not exact_indices:
+        return 1.0
+    exact = set(exact_indices)
+    return len(exact & set(approx_indices)) / len(exact)
+
+
+def mean_recall_at_k(exact_lists, approx_lists) -> float:
+    """Average recall over many queries' top-k lists."""
+    pairs = list(zip(exact_lists, approx_lists, strict=True))
+    if not pairs:
+        return 1.0
+    return sum(recall_at_k(e, a) for e, a in pairs) / len(pairs)

@@ -1,4 +1,5 @@
-"""Persistence: save / load stores to one file.
+"""Persistence: save / load stores to one file, or a sharded store to a
+directory of per-shard files.
 
 The reference lists persistence as roadmap (README.md:207 "Persistence
 (save/load MetaStore to/from disk)"). The format is the JAX package's
@@ -16,9 +17,11 @@ deterministically from the same configuration.
   same.
 - Certificate width hints are kept (``cert_hints``).
 
-The per-shard directory format of the sharded store (``sharded-v1``) is not
-ported yet: a directory path raises ``NotImplementedError``, as does a
-``mesh``.
+The sharded store (``parallel.ShardedMetaStore``) saves to a directory in
+the JAX package's ``sharded-v1`` layout (:func:`save_meta_sharded`): one
+``.npz`` per row shard, a manifest and the columns. ``load_meta`` reads a
+file or a directory of either package, onto one device or, with
+``mesh``, straight into a sharded store.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from .column import Column
 from .errors import OttersError
@@ -35,11 +39,6 @@ from .types import DataType
 from .vec import VecStore
 
 _FORMAT_VERSION = 1
-
-_SHARDED = (
-    "the per-shard directory format and mesh loading wait for the multi-GPU "
-    "store (ROADMAP.md, Queue 1: parallel/)"
-)
 
 
 def _pack_strings(strings):
@@ -151,11 +150,14 @@ def load_meta(path: str, mesh=None, *, device=None) -> MetaStore:
     """Load a MetaStore saved by :func:`save_meta` (or by the JAX package)
     onto ``device`` (default: the current CUDA device), rebuilding its device
     state. A saved ``keep_host_f32`` rerank source is restored; a
-    ``fetch_vectors`` one must be re-attached by rebuilding from columns."""
+    ``fetch_vectors`` one must be re-attached by rebuilding from columns.
+
+    With ``mesh`` the store is rebuilt by direct sharded ingest over it
+    (``parallel.build_sharded``; ``device`` is then the mesh's). ``path``
+    may also be a per-shard directory written by
+    :func:`save_meta_sharded` (detected)."""
     if os.path.isdir(path):
-        raise NotImplementedError(f"MetaStore.load({path!r}): {_SHARDED}")
-    if mesh is not None:
-        raise NotImplementedError(f"MetaStore.load(mesh=...): {_SHARDED}")
+        return load_meta_dir(path, mesh=mesh, device=device)
     with np.load(path) as z:
         manifest = json.loads(bytes(z["manifest"]).decode("utf-8"))
         if manifest.get("kind") != "MetaStore":
@@ -178,15 +180,304 @@ def load_meta(path: str, mesh=None, *, device=None) -> MetaStore:
         builder = builder.with_storage_dtype(manifest.get("storage_dtype", "float32"))
         if manifest.get("rerank") == "keep_host_f32":
             builder = builder.with_rerank_source(keep_host_f32=True)
-        if device is not None:
-            builder = builder.with_device(device)
-        store = builder.build()
+        if mesh is not None:
+            # unaligned chunk sizes fall back to a single-device build +
+            # shard() inside the helper
+            from .parallel.meta_sharded import build_sharded_or_shard
+
+            store = build_sharded_or_shard(builder, mesh)
+        else:
+            if device is not None:
+                builder = builder.with_device(device)
+            store = builder.build()
         if "deleted" in z:
             deleted = np.flatnonzero(np.asarray(z["deleted"]))
             if deleted.size:
                 store.delete_rows(deleted)
         store._restore_cert_hints(manifest.get("cert_hints"))
         return store
+
+
+# ---- the per-shard directory format (sharded-v1) ----------------------------
+#
+# Persistence that scales with the mesh: neither save nor load stages the
+# whole vector payload on the host. A DIRECTORY holding
+#   manifest_{process:05d}.json  -- the configuration + that process's shard files
+#   meta.npz                     -- the columns (+ deleted ids, index_map)
+#   shard_{row_start:012d}.npz   -- one row shard's valid rows ("rows", and
+#                                   "resid" for quantized payloads)
+# The vector payload is stored in DEVICE row order: a sorted store records
+# its index_map and is rebuilt without re-sorting. The JAX package writes
+# and reads the same layout (a mesh of the port lives in one process, so it
+# writes one manifest; it reads the manifests of every process of a JAX
+# save).
+
+
+def _rows_payload(rows: torch.Tensor) -> np.ndarray:
+    """A shard's stored rows as the file holds them: int8 codes, f32 rows,
+    or bfloat16 as their exact 16-bit codes (uint16)."""
+    if rows.dtype == torch.bfloat16:
+        return rows.contiguous().view(torch.int16).cpu().numpy().view(np.uint16)
+    return rows.contiguous().cpu().numpy()
+
+
+def save_meta_sharded(store, path: str) -> None:
+    """Serialize a ShardedMetaStore as one file per row shard (see above).
+
+    The host stages one shard at a time; ``save_meta``'s whole-store gather
+    never happens. ``keep_host_f32`` stores save the TRUE f32 rows (host
+    resident already) so the rebuilt quantized codes are identical; other
+    stores save the device payload as it is (int8 codes round-trip bit for
+    bit: re-quantizing codes is idempotent, each row's max |code| being
+    127)."""
+    from .parallel.meta_sharded import ShardedMetaStore
+
+    if not isinstance(store, ShardedMetaStore):
+        raise OttersError("save_meta_sharded requires a ShardedMetaStore")
+    if os.path.exists(path) and not os.path.isdir(path):
+        raise OttersError(f"{path} exists and is not a directory")
+    os.makedirs(path, exist_ok=True)
+    n = store.n_rows
+    dv = store._dv
+    cfg = store._rerank_config
+    keep_rerank = bool(cfg is not None and cfg[1] and store._rerank_fetch is not None)
+    with_resid = dv.resid is not None and not keep_rerank
+    ranges, files = [], []
+    lo = 0
+    for r, shard in enumerate(dv.vectors.shards):
+        hi = min(lo + shard.shape[0], n)
+        if hi > lo:  # an all-padding shard writes nothing
+            if keep_rerank:
+                # the true f32 rows of this device range (original -> device
+                # order through index_map; host slicing of the snapshot)
+                ids = (store._index_map[lo:hi] if store._index_map is not None
+                       else np.arange(lo, hi, dtype=np.int64))
+                rows = (store._rerank_host[ids] if store._rerank_host is not None
+                        else np.asarray(store._rerank_fetch(ids), dtype=np.float32))
+                payload = {"rows": np.asarray(rows, dtype=np.float32)}
+            else:
+                payload = {"rows": _rows_payload(shard[: hi - lo])}
+                if with_resid:
+                    payload["resid"] = dv.resid.shards[r][: hi - lo].cpu().numpy()
+            fname = f"shard_{lo:012d}.npz"
+            with open(os.path.join(path, fname), "wb") as f:
+                np.savez(f, **payload)
+            ranges.append([int(lo), int(hi)])
+            files.append(fname)
+        lo += shard.shape[0]
+
+    bloom_kind, bloom_val = store._bloom_config
+    if keep_rerank:
+        payload_dtype = "float32"
+    else:
+        payload_dtype = {torch.int8: "int8", torch.bfloat16: "bfloat16"}.get(
+            dv.vectors.dtype, "float32")
+    manifest = {
+        "format_version": _FORMAT_VERSION,
+        "kind": "MetaStore",
+        "layout": "sharded-v1",
+        "n_rows": n,
+        "dim": store._dim,
+        "chunk_size": store.chunk_size(),
+        "bloom_kind": bloom_kind,
+        "bloom_val": bloom_val,
+        "schema": {k: c.dtype.value for k, c in store._columns.items()},
+        "sort_by": list(store._sort_by) if store._sort_by else None,
+        "z_order": list(store._z_order) if store._z_order else None,
+        "storage_dtype": store._storage_dtype,
+        "rerank": "keep_host_f32" if keep_rerank else ("fetch" if cfg is not None else None),
+        "payload_dtype": payload_dtype,
+        "order": "device",
+        "row_ranges": ranges,
+        "files": files,
+        "has_resid": bool(with_resid and files),
+        "cert_hints": store.cert_hints() or None,
+        # a load merges exactly manifests 0 .. process_count - 1
+        "process_count": 1,
+    }
+    with open(os.path.join(path, "manifest_00000.json"), "w") as f:
+        json.dump(manifest, f)
+    valid = store._host_valid()
+    pos = np.flatnonzero(~valid[:n]).astype(np.int64)
+    arrays = {"deleted": store._index_map[pos] if store._index_map is not None else pos}
+    if store._index_map is not None:
+        arrays["index_map"] = np.asarray(store._index_map, np.int64)
+    _column_blocks(arrays, store._columns, n)  # DEVICE order
+    with open(os.path.join(path, "meta.npz"), "wb") as f:
+        np.savez(f, **arrays)
+
+
+def load_meta_dir(path: str, mesh=None, *, device=None) -> MetaStore:
+    """Load a ``sharded-v1`` directory (see :func:`save_meta_sharded`).
+
+    With ``mesh`` the payload streams file by file straight into each
+    shard's device memory (the host holds one shard file and one slab);
+    without it the store is rebuilt on ``device`` through the same slab
+    streaming."""
+    import glob
+
+    from ._device import resolve_device
+    from .ops import scoring
+
+    mfs = sorted(glob.glob(os.path.join(path, "manifest_*.json")))
+    if not mfs:
+        raise OttersError(f"{path} does not contain a sharded MetaStore")
+    with open(mfs[0]) as f:
+        m0 = json.load(f)
+    if m0.get("kind") != "MetaStore" or m0.get("layout") != "sharded-v1":
+        raise OttersError(f"{path} does not contain a sharded MetaStore")
+    # merge exactly the manifests the last save wrote (stale higher-numbered
+    # manifests from an earlier wider save are ignored)
+    n_procs = int(m0.get("process_count", len(mfs)))
+    manifests = [m0]
+    for pid_i in range(1, n_procs):
+        p = os.path.join(path, f"manifest_{pid_i:05d}.json")
+        if not os.path.exists(p):
+            raise OttersError(
+                f"sharded store at {path} was saved by {n_procs} processes "
+                f"but manifest_{pid_i:05d}.json is missing"
+            )
+        with open(p) as f:
+            manifests.append(json.load(f))
+    n, d = m0["n_rows"], m0["dim"]
+    chunk = m0["chunk_size"]
+    storage = m0.get("storage_dtype", "float32")
+    payload_dtype = m0.get("payload_dtype", "float32")
+    pieces = sorted(
+        (int(r[0]), int(r[1]), os.path.join(path, f))
+        for mf in manifests
+        for r, f in zip(mf["row_ranges"], mf["files"])
+    )
+    covered = 0
+    for lo, hi, _ in pieces:
+        if lo != covered:
+            raise OttersError(
+                f"sharded store at {path} is missing rows "
+                f"[{covered}, {lo}) — were all processes' shards saved?"
+            )
+        covered = hi
+    if covered != n:
+        raise OttersError(f"sharded store at {path} is missing rows [{covered}, {n})")
+
+    with np.load(os.path.join(path, "meta.npz")) as z:
+        cols = _read_column_blocks(z, m0)
+        deleted = np.asarray(z["deleted"], np.int64) if "deleted" in z else np.zeros(0, np.int64)
+        index_map = np.asarray(z["index_map"], np.int64) if "index_map" in z else None
+
+    cache: dict = {}
+
+    def _read(a, b, key="rows"):
+        """Rows [a, b) of the logical payload; one file resident at a time
+        (the slab walks visit the ranges in order)."""
+        parts = []
+        for lo, hi, f in pieces:
+            if hi <= a or lo >= b:
+                continue
+            if cache.get("f") != f:
+                with np.load(f) as zz:
+                    cache.clear()
+                    cache["f"] = f
+                    cache["rows"] = zz["rows"]
+                    if "resid" in zz:
+                        cache["resid"] = zz["resid"]
+            parts.append(cache[key][max(a, lo) - lo : min(b, hi) - lo])
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+    def slab_fn(start, rows):
+        end = min(start + rows, n)
+        if end <= start:
+            return np.zeros((rows, d), np.float32)
+        block = _read(start, end)
+        if payload_dtype == "bfloat16":
+            block = torch.from_numpy(block.view(np.int16).copy()).view(torch.bfloat16)
+            block = block.float().numpy()
+        block = np.asarray(block, dtype=np.float32)
+        if block.shape[0] < rows:
+            block = np.concatenate([block, np.zeros((rows - block.shape[0], d), np.float32)])
+        return block
+
+    slab_rows = min(max(chunk, 1 << 16), 1 << 20)
+    if mesh is not None:
+        from .parallel import meta_sharded as msh
+
+        if not msh.scan_tile_aligned(chunk):
+            # unaligned chunk sizes cannot take direct sharded ingest:
+            # rebuild on the lead device and re-shard
+            return msh.ShardedMetaStore.shard(load_meta_dir(path, device=mesh.lead), mesh)
+        if storage == "int8":
+            dv = msh.materialize_int8_slabs_sharded(slab_fn, n, d, slab_rows, mesh,
+                                                    chunk_size=chunk)
+        else:
+            dv = msh.materialize_f32_slabs_sharded(slab_fn, n, d, slab_rows, mesh,
+                                                   chunk_size=chunk,
+                                                   dtype=getattr(torch, storage))
+    else:
+        device = resolve_device(device, "MetaStore.load(path, device='cpu')")
+        if storage == "int8":
+            dv = scoring.materialize_int8_slabs(slab_fn, n, d, slab_rows, device=device)
+        elif storage == "bfloat16":
+            # bf16 on one device: host assembly (the small-store path)
+            dv = scoring.materialize(slab_fn(0, n)[:n], dtype=torch.bfloat16, device=device)
+        else:
+            dv = scoring.materialize_f32_slabs(slab_fn, n, d, slab_rows, device=device)
+
+    builder = MetaStore.from_columns(cols).with_vectors(dv, n_rows=n).with_chunk_size(chunk)
+    if m0["bloom_kind"] == "fpr":
+        builder = builder.with_bloom_fpr(m0["bloom_val"])
+    else:
+        builder = builder.with_bloom_bits(int(m0["bloom_val"]))
+    # no with_sort_by / with_z_order: the payload and columns are already in
+    # device (sorted) order; the sort metadata is re-attached below
+    store = builder.build_sharded(mesh) if mesh is not None else (
+        builder.with_device(device).build())
+
+    if index_map is not None:
+        store._index_map = index_map
+        store._sort_by = tuple(m0["sort_by"]) if m0.get("sort_by") else None
+        store._z_order = tuple(m0["z_order"]) if m0.get("z_order") else None
+        inv = np.empty(n, dtype=np.int64)
+        inv[index_map] = np.arange(n)
+        orig = {}
+        for name, colo in store._columns.items():
+            vals = colo.values()
+            nulls = np.asarray(colo.null_mask(), dtype=bool)[:n]
+            ovals = vals[:n][inv] if isinstance(vals, np.ndarray) else [vals[i] for i in inv]
+            oc = Column(name, colo.dtype)
+            oc._set_raw(ovals, nulls[inv])
+            orig[name] = oc
+        store._orig_columns = orig
+
+    if m0.get("rerank") == "keep_host_f32":
+        host = np.empty((n, d), dtype=np.float32)
+        for lo, hi, f in pieces:
+            with np.load(f) as zz:
+                rows = np.asarray(zz["rows"], dtype=np.float32)
+            if index_map is not None:
+                host[index_map[lo:hi]] = rows
+            else:
+                host[lo:hi] = rows
+        store._rerank_host = host
+        store._rerank_config = (None, True)
+
+        def _fetch(ids, _hf=host):
+            return _hf[np.asarray(ids, dtype=np.int64)]
+
+        store._rerank_fetch = _fetch
+    elif m0.get("rerank") == "fetch":
+        store._rerank_config = None  # a fetch function cannot be serialized
+
+    if m0.get("has_resid") and storage in ("int8", "bfloat16"):
+        # the ORIGINAL true-f32 residual bounds (sound against the source
+        # data, not only against the codes), restored so that a re-attached
+        # fetch_vectors source keeps the certificate valid
+        resid_host = np.zeros(dv.vectors.shape[0], dtype=np.float32)
+        resid_host[:n] = np.concatenate([_read(lo, hi, "resid") for lo, hi, _ in pieces])
+        store._place_resid(resid_host)
+
+    if deleted.size:
+        store.delete_rows(deleted)
+    store._restore_cert_hints(m0.get("cert_hints"))
+    return store
 
 
 def save_vec(store: VecStore, path: str) -> None:

@@ -56,10 +56,10 @@ which every scoring path reads), rebuilt with rows appended (``append``)
 and saved to / loaded from one ``.npz`` file (``save`` / ``load``, the JAX
 package's format, in ``io.py``).
 
-Not ported yet (each raises ``NotImplementedError``, and every public
-method of the JAX package's classes exists here): build_sharded and the
-per-shard directory format (and ``load``'s ``mesh``), to_pandas /
-to_arrow.
+``MetaStoreBuilder.build_sharded(mesh)`` builds the row-sharded store of
+``parallel/meta_sharded.py`` over a device mesh, and ``load`` reads its
+per-shard directory format (``sharded-v1``) with or without a mesh. Every
+public method of the JAX package's classes exists here.
 """
 
 from __future__ import annotations
@@ -149,10 +149,17 @@ class MetaQueryResults:
         return self.data.get(name)
 
     def to_pandas(self):
-        raise NotImplementedError("MetaQueryResults.to_pandas: adapters.py is not ported yet")
+        """-> pandas DataFrame (index, score, metadata columns; nullable
+        dtypes for nulls). See ``adapters.results_to_pandas``."""
+        from .adapters import results_to_pandas
+
+        return results_to_pandas(self)
 
     def to_arrow(self):
-        raise NotImplementedError("MetaQueryResults.to_arrow: adapters.py is not ported yet")
+        """-> pyarrow.Table. See ``adapters.results_to_arrow``."""
+        from .adapters import results_to_arrow
+
+        return results_to_arrow(self)
 
     def __str__(self) -> str:
         from .display import AsciiTable, format_cell
@@ -308,60 +315,98 @@ class _Fetched:
 # ---------------------------------------------------------------------------
 
 
-def _build_device_column(col: Column, n: int, n_pad: int, chunk_size: int,
-                         n_chunks: int, bloom_cfg, device):
-    """-> (repr, device dict of tensors, bloom params or None) for one
-    column. Zonemap statistics are computed on the device (ops/zonemap.py),
-    replacing the reference's host fold (meta_compute.rs:32-132)."""
-    nulls_np = np.asarray(col.null_mask(), dtype=bool)[:n]
-    nulls = torch.from_numpy(nulls_np.copy()).to(device)
+class _StagedColumn(NamedTuple):
+    """One column's host arrays, ready to be placed on a device in row
+    ranges: the repr, the values (None for strings), the null mask and, for
+    strings, the 64-bit hash pair of every row."""
+
+    rep: str
+    vals: Optional[np.ndarray]
+    nulls: np.ndarray
+    hashes: Optional[Tuple[np.ndarray, np.ndarray]]
+
+
+def _stage_column(col: Column, n: int) -> _StagedColumn:
+    """The host side of a column's device state (its first ``n`` rows)."""
+    nulls = np.asarray(col.null_mask(), dtype=bool)[:n]
     dt = col.dtype
-    kw = dict(c=chunk_size, n_chunks=n_chunks, n_pad=n_pad)
 
     def vals(np_dtype):
-        arr = np.ascontiguousarray(np.asarray(col.values(), dtype=np_dtype)[:n])
-        return torch.from_numpy(arr).to(device)
+        return np.ascontiguousarray(np.asarray(col.values(), dtype=np_dtype)[:n])
 
     if dt is DataType.Int32:
-        return "i32", zm.build_i32(vals(np.int32), nulls, **kw), None
+        return _StagedColumn("i32", vals(np.int32), nulls, None)
     if dt is DataType.Bool:
         # 0/1 int32 on the device: zonemap min/max prune chunks for Eq
         # literals, matching the reference rule (type_utils.rs:446-584)
         b01 = np.asarray(col.values(), dtype=np.bool_)[:n].astype(np.int32)
-        return "i32", zm.build_i32(torch.from_numpy(b01).to(device), nulls, **kw), None
+        return _StagedColumn("i32", b01, nulls, None)
     if dt is DataType.Float32:
-        return "f32", zm.build_f32(vals(np.float32), nulls, **kw), None
+        return _StagedColumn("f32", vals(np.float32), nulls, None)
     if dt in (DataType.Int64, DataType.DateTime):
-        return "i64", zm.build_i64(vals(np.int64), nulls, **kw), None
+        return _StagedColumn("i64", vals(np.int64), nulls, None)
     if dt is DataType.Float64:
-        return "f64", zm.build_f64(vals(np.float64), nulls, **kw), None
-    # String: hashes + Bloom bits come from the host (strings never live on
-    # the device); padding + non-null counts run on the device
+        return _StagedColumn("f64", vals(np.float64), nulls, None)
+    # String: hashes come from the host (strings never live on the device)
     strings = list(col.values())[:n]
-    g1, g2 = hashing.hash_strings(strings)
-    rh = torch.from_numpy(np.ascontiguousarray(g1).view(np.int64)).to(device)
-    dev = zm.build_str_rows(rh, nulls, **kw)
+    return _StagedColumn("str", None, nulls, hashing.hash_strings(strings))
+
+
+_ZONEMAP_BUILDS = {"i32": zm.build_i32, "f32": zm.build_f32, "i64": zm.build_i64,
+                   "f64": zm.build_f64}
+
+
+def _column_state(st: _StagedColumn, lo: int, hi: int, n_pad: int, chunk_size: int,
+                  n_chunks: int, device) -> Dict[str, torch.Tensor]:
+    """Rows ``[lo, hi)`` of a staged column as an ``n_pad``-row device
+    state over ``n_chunks`` chunks (padding rows null), without the Bloom
+    words: the values or identity hashes, the null mask and the zonemaps,
+    computed on the device (ops/zonemap.py), replacing the reference's
+    host fold (meta_compute.rs:32-132)."""
+    nulls = torch.from_numpy(st.nulls[lo:hi].copy()).to(device)
+    kw = dict(c=chunk_size, n_chunks=n_chunks, n_pad=n_pad)
+    if st.rep == "str":
+        g1 = np.ascontiguousarray(st.hashes[0][lo:hi])
+        rh = torch.from_numpy(g1.view(np.int64)).to(device)
+        return zm.build_str_rows(rh, nulls, **kw)
+    vals = torch.from_numpy(np.ascontiguousarray(st.vals[lo:hi])).to(device)
+    return _ZONEMAP_BUILDS[st.rep](vals, nulls, **kw)
+
+
+def _bloom_params(bloom_cfg, chunk_size: int) -> bloom_ops.BloomParams:
     kind, val = bloom_cfg
     if kind == "fpr":
-        params = bloom_ops.BloomParams.from_fpr(val, chunk_size)
-    else:
-        params = bloom_ops.BloomParams.from_bits(val, chunk_size)
-    # OTTERS_BLOOM_DEVICE (the JAX package's switch): unset / "0" /
-    # "false" / "" = the host build; any other value = the device build
-    # where its geometry allows. Both give the same bits.
+        return bloom_ops.BloomParams.from_fpr(val, chunk_size)
+    return bloom_ops.BloomParams.from_bits(val, chunk_size)
+
+
+def _bloom_on_device() -> bool:
+    """OTTERS_BLOOM_DEVICE (the JAX package's switch): unset / "0" /
+    "false" / "" = the host build; any other value = the device build
+    where its geometry allows. Both give the same bits."""
     env = os.environ.get("OTTERS_BLOOM_DEVICE")
-    if (
-        env is not None
-        and env.lower() not in ("0", "false", "")
-        and bloom_ops.device_build_ok(params, n_chunks)
-    ):
+    return env is not None and env.lower() not in ("0", "false", "")
+
+
+def _build_device_column(col: Column, n: int, n_pad: int, chunk_size: int,
+                         n_chunks: int, bloom_cfg, device):
+    """-> (repr, device dict of tensors, bloom params or None) for one
+    column. String hashes and Bloom bits come from the host (strings never
+    live on the device); padding and non-null counts run on the device."""
+    st = _stage_column(col, n)
+    dev = _column_state(st, 0, n, n_pad, chunk_size, n_chunks, device)
+    if st.rep != "str":
+        return st.rep, dev, None
+    params = _bloom_params(bloom_cfg, chunk_size)
+    g1, g2 = st.hashes
+    if _bloom_on_device() and bloom_ops.device_build_ok(params, n_chunks):
         dev["bloom"] = bloom_ops.build_matrix_device(
-            g1, g2, nulls_np, chunk_size, n_chunks, params, device
+            g1, g2, st.nulls, chunk_size, n_chunks, params, device
         )
     else:
         chunk_ids = np.arange(n, dtype=np.int64) // chunk_size
         matrix = bloom_ops.build_matrix(
-            g1, g2, nulls_np, chunk_ids, n_chunks, params, chunk_size=chunk_size
+            g1, g2, st.nulls, chunk_ids, n_chunks, params, chunk_size=chunk_size
         )
         dev["bloom"] = bloom_ops.to_device(matrix, device)
     return "str", dev, params
@@ -714,9 +759,14 @@ class MetaStoreBuilder:
         return self
 
     def build_sharded(self, mesh) -> "MetaStore":
-        raise NotImplementedError(
-            "MetaStoreBuilder.build_sharded: the multi-GPU store is not ported yet"
-        )
+        """Build a ``ShardedMetaStore`` over ``mesh`` (``parallel.make_mesh``)
+        by direct sharded ingest: every row shard's vectors, columns,
+        zonemaps and Bloom words are placed on its own mesh device, so the
+        store never exists whole on one device. See
+        ``parallel.meta_sharded.build_sharded``."""
+        from .parallel.meta_sharded import build_sharded
+
+        return build_sharded(self, mesh)
 
     def build(self) -> "MetaStore":
         if self._vectors is None:
@@ -1433,9 +1483,14 @@ class MetaStore:
             pad = np.zeros(n_chunks_dev, dtype=bool)
             pad[: len(chunk_any)] = chunk_any
             chunk_any = pad
-        cached = (_to_device(row, self._device), _to_device(chunk_any, self._device))
+        cached = self._place_masks(row, chunk_any)
         self._hostmask_cache[key] = cached
         return cached
+
+    def _place_masks(self, row: np.ndarray, chunk: np.ndarray):
+        """A host row mask [n_pad] and chunk mask [n_chunks] as the params
+        of a ``hostmask`` leaf, on the device."""
+        return _to_device(row, self._device), _to_device(chunk, self._device)
 
     # -- the device program ----------------------------------------------------
     def _prepare_program(self, queries, plan_static, metric, k, take_min, cmp,

@@ -918,6 +918,7 @@ def collect_all(
     thr: Optional[float],
     row_mask=None,
     prec: str = "highest",
+    return_qidx: bool = False,
 ):
     """Windowed full-score collection for the take-all regime.
 
@@ -968,7 +969,10 @@ def collect_all(
     else:
         order = np.argsort(key, kind="stable")[:k_eff]
     rows = (order % n_pad).astype(np.int32)
-    return rows, scores_h.reshape(-1)[order], ok_h.reshape(-1)[order]
+    out = rows, scores_h.reshape(-1)[order], ok_h.reshape(-1)[order]
+    if return_qidx:
+        return out + ((order // n_pad).astype(np.int32),)
+    return out
 
 
 def choose_mode(n_pad: int, b: int, k_eff: int) -> str:

@@ -3,25 +3,33 @@ port's class of the same name.
 
 A method the port has not ported yet exists all the same and raises
 ``NotImplementedError`` (with the JAX package's signature), so a caller
-learns what is missing rather than meeting an ``AttributeError``.
+learns what is missing rather than meeting an ``AttributeError``: since the
+sharded stores and the adapters are ported, that is only
+``parallel.init_distributed`` (meshes that span processes).
 """
 
 import inspect
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 
 import otters_tpu as jx
 import otters_tpu.meta as jmeta
+import otters_tpu.parallel as jpar
 import otters_tpu_torch as tx
 import otters_tpu_torch.meta as tmeta
+import otters_tpu_torch.parallel as tpar
 
 CLASSES = ["MetaStoreBuilder", "MetaStore", "MetaQueryPlan", "MetaQueryResults", "VecStore",
-           "VecQueryPlan"]
+           "VecQueryPlan", "ShardedMetaStore", "ShardedVecStore"]
 
 
 def _cls(pkg, mod, name):
-    return getattr(pkg, name, None) or getattr(mod, name)
+    par = jpar if pkg is jx else tpar
+    return getattr(pkg, name, None) or getattr(mod, name, None) or getattr(par, name)
 
 
 def _public(cls):
@@ -38,7 +46,9 @@ def test_every_public_method_exists_on_the_port(name):
 
 # the ported methods' signatures are held in their own files:
 # with_sort_by / with_z_order in test_torch_sort.py, delete_rows / append in
-# test_torch_mutation.py, save / load in test_torch_io.py
+# test_torch_mutation.py, save / load in test_torch_io.py. The three cases
+# below held stubs; each now holds the method's signature equal to JAX's and
+# calls it.
 STUBS = {
     "MetaStoreBuilder": ["build_sharded"],
     "MetaQueryResults": ["to_pandas", "to_arrow"],
@@ -60,6 +70,40 @@ def test_unported_methods_raise_not_implemented_with_jax_signatures(name, method
         obj = builder.build()
     if name == "MetaQueryResults":
         obj = obj.query(np.ones(8, np.float32), tx.Metric.Cosine).take(3).collect()
-    args = {"build_sharded": (None,)}.get(method, ())
-    with pytest.raises(NotImplementedError):
-        getattr(obj, method)(*args)
+    args = {"build_sharded": (tpar.make_mesh(rows=2, devices=["cpu"] * 2),)}.get(method, ())
+    out = getattr(obj, method)(*args)
+    if method == "build_sharded":
+        assert isinstance(out, tpar.ShardedMetaStore) and len(out) == n
+    elif method == "to_pandas":
+        assert list(out["index"]) == obj.indices and list(out.columns) == ["index", "score", "id"]
+    else:
+        assert out.num_rows == 3 and out.column_names == ["index", "score", "id"]
+
+
+def test_init_distributed_raises_with_jax_signature():
+    jsig = inspect.signature(jpar.init_distributed)
+    tsig = inspect.signature(tpar.init_distributed)
+    assert [(p.name, p.default) for p in tsig.parameters.values()] == \
+        [(p.name, p.default) for p in jsig.parameters.values()]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
+        tpar.init_distributed()
+
+
+def test_submodules_import_without_jax_or_dataframes():
+    """``parallel``, ``adapters`` and ``datasets`` import neither JAX nor
+    the JAX package; ``import otters_tpu_torch`` needs neither pandas nor
+    pyarrow (the adapters import them inside their functions)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(tx.__file__)))
+    code = (
+        "import sys, otters_tpu_torch.parallel, otters_tpu_torch.adapters, "
+        "otters_tpu_torch.datasets, otters_tpu_torch.evaluate\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'otters_tpu', 'pandas', 'pyarrow')]\n"
+        "print(bad)\n"
+        "raise SystemExit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = repo
+    r = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

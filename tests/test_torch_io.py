@@ -14,9 +14,9 @@ same seeded stores are built in ``otters_tpu`` (JAX on the CPU) and
   and pruned / evaluated counts, the hints restored (f32, int8, bfloat16;
   plain, sorted and Z-ordered; tombstoned; ``keep_host_f32``), and a
   ``VecStore`` likewise;
-- a directory path (the per-shard format) and a ``mesh`` raise
-  ``NotImplementedError`` naming the multi-GPU item; ``load`` takes the
-  device as a keyword and defaults to CUDA.
+- a directory path is read as the per-shard format (a directory holding
+  no sharded store raises JAX's message); ``load`` takes the device as a
+  keyword and defaults to CUDA.
 """
 
 import inspect
@@ -30,6 +30,7 @@ import otters_tpu as jx
 import otters_tpu.meta as jmeta
 import otters_tpu_torch as tx
 import otters_tpu_torch.meta as tmeta
+from otters_tpu.errors import OttersError as JOttersError
 from otters_tpu_torch.errors import OttersError
 from torch_parity import columns, stats_tuple
 
@@ -192,14 +193,18 @@ def test_vec_files_cross_between_the_packages(dtype, direction, tmp_path):
 
 
 def test_sharded_format_and_mesh_raise(tmp_path):
+    """A directory is read as the per-shard format (tests of the format in
+    test_torch_io_sharded.py): one that holds no sharded store raises JAX's
+    message, and so does a VecStore load of a MetaStore file."""
     st = _store(tx, np.random.default_rng(1).normal(size=(N, D)).astype(np.float32),
                 "float32", "plain")
     path = str(tmp_path / "m.npz")
     st.save(path)
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(JOttersError) as ej:
+        jx.MetaStore.load(str(tmp_path))
+    with pytest.raises(OttersError) as et:
         tx.MetaStore.load(str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        tx.MetaStore.load(path, mesh=object(), device="cpu")
+    assert str(et.value) == str(ej.value) == f"{tmp_path} does not contain a sharded MetaStore"
     with pytest.raises(OttersError, match="does not contain a VecStore"):
         tx.VecStore.load(path, device="cpu")
 

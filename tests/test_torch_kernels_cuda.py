@@ -43,7 +43,11 @@ build against the host build bit for bit; the VPU metrics' programs
 indices; scores within rtol 1e-6, Hamming exactly); certified int8 queries
 over string-filtered (hostmask), sorted, Z-ordered, tombstoned and appended
 stores against the same stores on the CPU, and a store saved on the card
-and loaded on the CPU (the same indices, scores within 1e-5).
+and loaded on the CPU (the same indices, scores within 1e-5); the
+row-sharded stores over the card listed four times (``rows=4`` and ``rows=2,
+batch=2``) against the same stores on a CPU mesh, each shard launching its
+kernel (K1, K1-bf16, K2, K4, K5) once per query, and a sharded store saved
+on the card and loaded on a CPU mesh.
 """
 
 import ctypes
@@ -1080,3 +1084,88 @@ def test_save_on_cuda_load_on_cpu(tmp_path):
         b = loaded.query_batch(q, tx.Metric.Cosine).take(10, rerank_from=100).collect()
         assert b.indices == a.indices and len(loaded) == len(store)
         np.testing.assert_allclose(b.scores, a.scores, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The row-sharded stores on the card: every shard launches its kernel
+# ---------------------------------------------------------------------------
+
+# 128 queries over four shards of 40,960 rows: past the direct program's
+# limit on every shard (and 64 queries over two of 81,920 on rows=2 x batch=2)
+SHARDED_N, SHARDED_D, SHARDED_B = 150_000, 64, 128
+SHARDED_CASES = [  # (storage, metric, certify, the kernel each shard launches)
+    ("int8", "Cosine", True, "K1"),
+    ("int8", "Cosine", False, "K2"),
+    ("bfloat16", "DotProduct", True, "K5"),
+    ("bfloat16", "Cosine", True, "K1-bf16"),
+    ("float32", "Euclidean", None, "K4"),
+]
+
+
+def _sharded_store(storage, mesh, vecs):
+    import otters_tpu_torch as tx
+
+    idx = np.arange(len(vecs))
+    cols = [tx.Column("price", tx.DataType.Float64).from_values(
+        np.where((idx // 1024) % 2 == 0, 80.0, 10.0) + idx % 20)]
+    return (tx.MetaStore.from_columns(cols).with_vectors(vecs).with_chunk_size(1024)
+            .with_storage_dtype(storage).with_rerank_source(keep_host_f32=True)
+            .build_sharded(mesh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(4, 1), (2, 2)], ids=["rows4", "rows2x2"])
+@pytest.mark.parametrize("storage,metric,certify,mode", SHARDED_CASES)
+def test_sharded_stores_on_cuda_equal_cpu(storage, metric, certify, mode, layout):
+    """A sharded store on the card (the card listed four times) against the
+    same store on the CPU (the plain versions): each shard launches its
+    kernel once per query, and the answers agree: the same rows in order,
+    ``certified`` flags and pruned counts, scores within 1e-5 relative."""
+    dev = _device()
+    import otters_tpu_torch as tx
+    from otters_tpu_torch import parallel
+
+    rows, batch = layout
+    rng = np.random.default_rng(12)
+    vecs = rng.normal(size=(SHARDED_N, SHARDED_D)).astype(np.float32)
+    q = rng.normal(size=(SHARDED_B, SHARDED_D)).astype(np.float32)
+    out = []
+    for device in ("cpu", dev):
+        mesh = parallel.make_mesh(rows=rows, batch=batch, devices=[device] * 4)
+        store = _sharded_store(storage, mesh, vecs)
+        ft.reset_launches()
+        plan = (store.query_batch(q, getattr(tx.Metric, metric))
+                .meta_filter(tx.col("price").lt(50.0)))
+        res = (plan.take(10, rerank_from=100, certify=certify) if certify is not None
+               else plan.take(10)).collect()
+        st = store.last_query_stats()
+        out.append((res.indices, res.scores, st.certified, st.pruned_chunks))
+        if device is dev:
+            assert ft.KERNELS[mode].launches == rows * batch, {
+                m: f.launches for m, f in ft.KERNELS.items()}
+    assert out[1][0] == out[0][0] and out[1][2:] == out[0][2:]
+    assert out[1][2] is (True if certify else None)
+    np.testing.assert_allclose(out[1][1], out[0][1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_sharded_save_on_cuda_load_on_cpu(tmp_path):
+    """A sharded int8 store on the card saved as ``sharded-v1`` and loaded
+    onto a CPU mesh and onto the card without one answers as it does."""
+    dev = _device()
+    import otters_tpu_torch as tx
+    from otters_tpu_torch import parallel
+
+    rng = np.random.default_rng(13)
+    vecs = rng.normal(size=(SHARDED_N, SHARDED_D)).astype(np.float32)
+    q = rng.normal(size=(SHARDED_B, SHARDED_D)).astype(np.float32)
+    store = _sharded_store("int8", parallel.make_mesh(rows=4, devices=[dev] * 4), vecs)
+    store.delete_rows(np.arange(0, SHARDED_N, 97))
+    path = str(tmp_path / "sharded")
+    store.save(path)
+    want = store.query_batch(q, tx.Metric.Cosine).take(10, rerank_from=100).collect()
+    for loaded in (tx.MetaStore.load(path, mesh=parallel.make_mesh(rows=4, devices=["cpu"] * 4)),
+                   tx.MetaStore.load(path)):
+        got = loaded.query_batch(q, tx.Metric.Cosine).take(10, rerank_from=100).collect()
+        assert got.indices == want.indices and len(loaded) == len(store)
+        np.testing.assert_allclose(got.scores, want.scores, rtol=0, atol=1e-5)

@@ -115,3 +115,28 @@ def assert_same_on_path(rj, rt, sj, st, path):
     np.testing.assert_allclose(rt.scores, rj.scores, rtol=2e-5, atol=2e-5)
     assert (np.diff(np.asarray(rt.scores)) <= 0).all()
     assert stats_tuple(st) == stats_tuple(sj)
+
+
+def assert_same_metric(rj, rt, sj, st, metric):
+    """:func:`assert_same_results` with the tolerance of the metric's
+    scores: 1e-6 relative (the dots summed in other orders), and for Euclid
+    4 ulps of the largest score (``q^2 + v^2 - 2 q.v`` cancels)."""
+    assert rt.indices == rj.indices
+    atol = 1e-6
+    if metric == "Euclidean":
+        atol = 4 * float(np.spacing(np.float32(max(np.abs(rj.scores), default=1.0))))
+    np.testing.assert_allclose(rt.scores, rj.scores, rtol=1e-6, atol=atol)
+    assert stats_tuple(st) == stats_tuple(sj)
+
+
+MESHES = {"4x2": (4, 2), "8": (8, 1)}
+
+
+def twin_meshes(kind):
+    """(JAX mesh over conftest's 8 virtual CPU devices, the port's mesh of
+    the same shape over the CPU listed 8 times)."""
+    from otters_tpu.parallel import make_mesh as jmesh
+    from otters_tpu_torch.parallel import make_mesh as tmesh
+
+    rows, batch = MESHES[kind]
+    return jmesh(rows=rows, batch=batch), tmesh(rows=rows, batch=batch, devices=["cpu"] * 8)
