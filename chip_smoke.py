@@ -53,6 +53,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ``sharded-v1`` under the git-ignored ``chip_scratch/`` and loaded with
    and without a mesh: indices, scores bit for bit, flags and chunk counts
    equal; the directory's bytes, save and load seconds;
+   4pm. a mesh across two processes on the card (``spawn`` workers, gloo
+   between them, ``parallel.init_distributed(..., local_devices=[cuda:0,
+   cuda:0])``, ``make_mesh(rows=4)``: two of 4p's four shards each), phase
+   4's f32 tensor handed to both through CUDA IPC: the main path's store
+   built by ``materialize_int8_slabs_sharded`` and ``build_sharded``, every
+   query certified and equal to phase 4's truth, the pruned chunks the host
+   count, the same answers on both processes, K1 twice a batch in each,
+   no nvcc run and no ``aot`` compile in either (the parent built every
+   library), PATH_ROUNDS timed rounds (median q/s beside 4p's and the
+   single path's), one round traced in each process (K1's ms, the idle
+   share), the exchange's calls and ms a batch; ``certify=False`` (K2 per
+   shard, recall@10); 4p's 1M int8 store built by both and saved as
+   ``sharded-v1`` (two manifests, ``process_count`` 2), loaded by the
+   parent onto its one-process mesh and onto one device (scores bit for
+   bit); a take-all of 4 queries over it (a stable sort, equal to the
+   parent's). A worker that fails, disagrees or outlives its 300 s fails
+   the run;
    4s. bench.py's full column mix (price / version, String ``category``,
    DateTime ``listed``): a second 10M x 768 int8 store ingested from the
    same f32 CUDA tensor (``with_vectors(tensor, n_rows=n)``, quantized slab
@@ -213,8 +230,11 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 SEED = 1234
 
 
+_LOG_PREFIX = ""  # a 4pm worker's rank
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(_LOG_PREFIX + msg, flush=True)
 
 
 @contextlib.contextmanager
@@ -913,7 +933,7 @@ def sharded_store(torch, mesh, f32, n, fetch=None, storage="int8"):
         b = b.with_rerank_source(fetch_vectors=fetch)
     store = b.build_sharded(mesh)
     for d in {mesh.devices[r, 0] for r in range(mesh.shape["rows"])}:
-        torch.cuda.synchronize(d)
+        sync(d)
     return store, time.perf_counter() - t0
 
 
@@ -1121,6 +1141,249 @@ def sharded_phase(torch, dev, f32, batches, truths, main_qps, card):
     torch.cuda.empty_cache()
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4pm: a mesh across two processes on the card
+# ---------------------------------------------------------------------------
+
+PM_TIMEOUT_S = 300  # each worker's limit
+PM_TAKE_ALL_B = 4  # queries of the take-all over the saved store
+
+
+def answers_of(st, batches, pending):
+    """Each batch's (indices, scores, certified, evaluated, pruned) on ``st``."""
+    import otters_tpu_torch as tx
+
+    pend = [pending(q, st=st) for q in batches]
+    res = tx.resolve(pend)
+    return [[r.indices, [float(x) for x in r.scores], p.stats().certified,
+             p.stats().evaluated_chunks, p.stats().pruned_chunks] for p, r in zip(pend, res)]
+
+
+def take_all_of(st, q):
+    """``collect()`` with no ``take`` of ``q`` under the bench's filter ->
+    [count, sha256 of the indices and score bits]; its scores must be a
+    stable sort (non-increasing)."""
+    import hashlib
+
+    import numpy as np
+
+    import otters_tpu_torch as tx
+
+    res = st.query_batch(q, tx.Metric.Cosine).meta_filter(bench_filter()).collect()
+    scores = np.asarray(res.scores, np.float32)
+    assert np.all(np.diff(scores) <= 0), "the take-all is not sorted"
+    h = hashlib.sha256(np.asarray(res.indices, np.int64).tobytes())
+    h.update(scores.tobytes())
+    return [len(res.indices), h.hexdigest()]
+
+
+def pm_worker(rank, port, shared, batches_np, truths, path, outq):
+    """One of phase 4pm's two processes: (rank, its numbers) on ``outq``, or
+    (rank, {"error": the traceback}). ``shared`` holds phase 4's f32 tensor
+    (CUDA IPC); the worker takes it out, and drops it before it ends, so
+    the parent may free the rows (an IPC block a consumer never released
+    stays allocated in the producer)."""
+    import gc
+    import traceback
+
+    global _LOG_PREFIX
+    _LOG_PREFIX = f"[4pm rank {rank}] "
+    try:
+        res = pm_run(rank, port, shared.pop(), batches_np, truths, path)
+    except BaseException:
+        res = {"error": traceback.format_exc()}
+    gc.collect()
+    outq.put((rank, res))
+
+
+def pm_run(rank, port, f32, batches_np, truths, path):
+    """Phase 4pm in one worker: the main path's store over the two
+    processes' ``rows=4`` mesh, its rounds and checks, ``certify=False``,
+    then the saved 1M store -> the numbers and answers the parent checks."""
+    import numpy as np
+    import torch
+
+    import otters_tpu_torch as tx
+    from otters_tpu_torch import aot, kernels, parallel
+    from otters_tpu_torch.evaluate import mean_recall_at_k
+    from otters_tpu_torch.parallel import exchange
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = f32.device  # phase 4's tensor, through CUDA IPC
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    parallel.init_distributed(f"127.0.0.1:{port}", 2, rank, local_devices=[dev, dev])
+    mesh = parallel.make_mesh(rows=4)
+    assert mesh.programs() == [(2 * rank, 0), (2 * rank + 1, 0)], mesh
+    log(f"init_distributed + make_mesh: {time.perf_counter() - t0:.2f} s, {mesh}")
+    batches = [torch.from_numpy(b).to(dev) for b in batches_np]
+    out = {}
+
+    def fetch(ids):
+        return f32[torch.as_tensor(np.asarray(ids, dtype=np.int64), device=dev)]
+
+    store, build_s = sharded_store(torch, mesh, f32, ROWS, fetch)
+    n_chunks = store.n_chunks()
+    log(f"{ROWS} x {D} int8 over two processes: built in {build_s:.2f} s")
+
+    def pending(q, certify=None, st=None):
+        return ((st or store).query_batch(q, tx.Metric.Cosine).meta_filter(bench_filter())
+                .take(K, rerank_from=K_WIDE, certify=certify).collect_async())
+
+    tx.resolve([pending(batches[-1])])  # warm-up: the certificate learns its width
+    calls0, secs0 = exchange.calls, exchange.seconds
+    pend, results, launched, qps, rounds = timed_rounds(
+        torch, dev, lambda: [pending(q) for q in batches], counts)
+    per_batch = PATH_ROUNDS * BATCHES
+    ex_calls = (exchange.calls - calls0) / per_batch
+    ex_ms = (exchange.seconds - secs0) * 1e3 / per_batch
+    log(f"certified path: {BATCHES} pipelined batches of {B}, {PATH_ROUNDS} rounds: "
+        f"{', '.join(f'{r:.1f}' for r in rounds)} q/s, median {qps:.1f} q/s (this process's "
+        f"wall); launches {launched}; the exchange {ex_calls:.2f} calls, {ex_ms:.3f} ms a batch")
+    assert launched["K1"] == 2 * BATCHES and launched["K2"] == 0, launched
+    assert ex_calls <= 2, ex_calls
+    for i, (p, res, gt) in enumerate(zip(pend, results, truths)):
+        st = p.stats()
+        assert st.certified is True, f"4pm batch {i} not certified: {st}"
+        assert st.pruned_chunks == (n_chunks + 1) // 2, f"4pm batch {i}: {st}"
+        assert sorted(res.indices) == sorted(gt), (i, res.indices, gt)
+    prof = profile_batches(torch, pending, batches, "cert_cos_binmax_kernel")
+    out["a"] = {"qps": qps, "qps_rounds": rounds, "build_s": build_s, "launches": launched["K1"],
+                "exchange_calls_per_batch": ex_calls, "exchange_ms_per_batch": ex_ms,
+                "profile": prof, "k1_ms_per_shard_launch": prof["scan_ms_per_batch"] / 2,
+                "answers": [r.indices for r in results]}
+
+    tx.resolve([pending(batches[-1], certify=False)])
+    pend, results, launched, qps_b, _ = timed_rounds(
+        torch, dev, lambda: [pending(q, certify=False) for q in batches], counts)
+    assert launched["K2"] == 2 * BATCHES and launched["K1"] == 0, launched
+    recall = mean_recall_at_k(truths, [r.indices for r in results])
+    log(f"uncertified (K2 per shard): median {qps_b:.1f} q/s, recall@{K} {recall:.4f}; "
+        f"launches {launched}")
+    assert recall > 0.5, recall
+    out["b"] = {"qps": qps_b, "launches": launched["K2"], "recall": recall}
+    del store, pend, results
+    torch.cuda.empty_cache()
+
+    nv = SHARD_VEC_ROWS
+    host = f32[:nv].cpu().numpy()
+    t0 = time.perf_counter()
+    store_f = (tx.MetaStore.from_columns(price_version_columns(nv)).with_vectors(host)
+               .with_chunk_size(CHUNK).with_storage_dtype("int8")
+               .with_rerank_source(keep_host_f32=True).build_sharded(mesh))
+    del host
+    t1 = time.perf_counter()
+    store_f.save(path)  # collective: each process's shards and manifest
+    save_s = time.perf_counter() - t1
+    out["f"] = {"build_s": t1 - t0, "save_s": save_s,
+                "answers": answers_of(store_f, batches[:2], pending),
+                "take_all": take_all_of(store_f, batches[0][:PM_TAKE_ALL_B])}
+    assert all(a[2] is True for a in out["f"]["answers"]), out["f"]["answers"]
+    log(f"{nv} x {D} int8 built in {t1 - t0:.2f} s, saved as sharded-v1 in {save_s:.2f} s; "
+        f"take-all of {PM_TAKE_ALL_B} queries: {out['f']['take_all'][0]} results")
+    del store_f
+    out["nvcc_runs"], out["aot_stats"] = kernels.nvcc_runs, dict(aot.stats)
+    assert kernels.nvcc_runs == 0 and aot.stats["compiles"] == 0, (kernels.nvcc_runs, aot.stats)
+    return out
+
+
+def two_process_phase(torch, dev, f32, batches, truths, main_qps, sharded_qps, card):
+    """Phase 4pm: two spawned workers on the card form a gloo group and a
+    ``rows=4`` mesh across them (see ``pm_run``); the parent checks that
+    they agree, then loads their saved store onto its one-process mesh and
+    onto one device: answers bit for bit, the take-all equal -> the
+    numbers. A worker that fails, or outlives PM_TIMEOUT_S, fails the
+    phase (both are killed)."""
+    import queue
+    import shutil
+    import socket
+    import tempfile
+
+    import otters_tpu_torch as tx
+    from otters_tpu_torch import parallel
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    scratch_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_scratch")
+    os.makedirs(scratch_root, exist_ok=True)
+    scratch = tempfile.mkdtemp(dir=scratch_root)
+    path = os.path.join(scratch, "two_process_store")
+    ctx = torch.multiprocessing.get_context("spawn")
+    outq = ctx.Queue()
+    host_batches = [b.cpu().numpy() for b in batches]
+    procs = [ctx.Process(target=pm_worker, args=(rank, port, [f32], host_batches, truths, path,
+                                                 outq)) for rank in (0, 1)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < 2:
+            left = PM_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                rank, res = outq.get(timeout=max(left, 0.1))
+            except queue.Empty:
+                raise AssertionError(f"4pm: a worker outlived {PM_TIMEOUT_S} s") from None
+            assert "error" not in res, f"4pm worker {rank} failed:\n{res['error']}"
+            got[rank] = res
+        for p in procs:
+            p.join(timeout=30)
+            assert p.exitcode == 0, f"4pm worker exit code {p.exitcode}"
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if dev.type == "cuda":
+            torch.cuda.ipc_collect()  # the f32 rows' block, released by the workers
+    wall = time.perf_counter() - t0
+    try:
+        for key in ("answers",):
+            assert got[0]["a"][key] == got[1]["a"][key], "4pm: the processes answered otherwise"
+        assert got[0]["f"] == {**got[1]["f"], "build_s": got[0]["f"]["build_s"],
+                               "save_s": got[0]["f"]["save_s"]}, "4pm: (f) differs"
+        manifests = sorted(f for f in os.listdir(path) if f.startswith("manifest"))
+        assert manifests == ["manifest_00000.json", "manifest_00001.json"], manifests
+        for m in manifests:
+            with open(os.path.join(path, m)) as f:
+                assert json.load(f)["process_count"] == 2
+
+        def pending(q, st):
+            return (st.query_batch(q, tx.Metric.Cosine).meta_filter(bench_filter())
+                    .take(K, rerank_from=K_WIDE).collect_async())
+
+        mesh = parallel.make_mesh(rows=4, devices=[dev] * 4)
+        for name, st in (("a one-process mesh", tx.MetaStore.load(path, mesh=mesh)),
+                         ("one device", tx.MetaStore.load(path, device=dev))):
+            assert answers_of(st, batches[:2], pending) == got[0]["f"]["answers"], \
+                f"4pm: the two-process save loaded onto {name} answers otherwise"
+            if name == "a one-process mesh":
+                assert take_all_of(st, batches[0][:PM_TAKE_ALL_B]) == got[0]["f"]["take_all"], \
+                    "4pm: the take-all differs from the one-process mesh's"
+            del st
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    qps = [got[r]["a"]["qps"] for r in (0, 1)]
+    log(f"4pm two processes on one card: median q/s {qps[0]:.1f} / {qps[1]:.1f} (each "
+        f"process's wall) against 4p's one-process rows=4 {sharded_qps:.1f} and the single "
+        f"path's {main_qps:.1f} on {card}; K1 {[got[r]['a']['launches'] for r in (0, 1)]} "
+        f"launches, K1 per shard launch "
+        f"{[round(got[r]['a']['k1_ms_per_shard_launch'], 3) for r in (0, 1)]} ms, idle share "
+        f"{[round(got[r]['a']['profile']['idle_share'], 3) for r in (0, 1)]}, the exchange "
+        f"{[round(got[r]['a']['exchange_ms_per_batch'], 3) for r in (0, 1)]} ms and "
+        f"{got[0]['a']['exchange_calls_per_batch']:.2f} calls a batch; the save loaded bit for "
+        f"bit; phase wall {wall:.1f} s")
+    for r in (0, 1):
+        for part in ("a", "f"):
+            got[r][part].pop("answers", None)
+    return {"card": card, "wall_s": wall, "ranks": got, "sharded_qps": sharded_qps,
+            "main_qps": main_qps}
 
 
 CAT_VOCAB = [f"cat_{v:02d}" for v in range(16)]  # bench.py:233
@@ -1693,7 +1956,7 @@ def lifecycle_phase(torch, dev, held, f32, batches, truths, unsorted_build_s, ca
     import tempfile
 
     from otters_tpu_torch import native
-    from otters_tpu_torch._build import build_dir
+    from otters_tpu_torch.aot import cache_dir
 
     assert native.available(), "the native host library did not build (g++)"
     g = torch.Generator(device=dev).manual_seed(SEED + 41)
@@ -1705,7 +1968,7 @@ def lifecycle_phase(torch, dev, held, f32, batches, truths, unsorted_build_s, ca
     del store
     torch.cuda.empty_cache()
     out["layouts"] = life_layouts(torch, dev, f32, batches, truths, unsorted_build_s, card)
-    scratch = tempfile.mkdtemp(dir=build_dir())  # inside the checkout, git-ignored
+    scratch = tempfile.mkdtemp(dir=cache_dir())  # inside the checkout, git-ignored
     try:
         out["append_save"] = life_append_save(torch, dev, f32, card, scratch)
     finally:
@@ -2909,6 +3172,11 @@ def main() -> int:
         sharded = sharded_phase(torch, dev, f32, batches, truths, stats["qps"], card)
         torch.cuda.empty_cache()
     log("phase 4p: " + json.dumps(sharded))
+    with phase(f"4pm a mesh across two processes on the card ({ROWS} x {D} int8, rows=4, "
+               "gloo)"):
+        two_proc = two_process_phase(torch, dev, f32, batches, truths, stats["qps"],
+                                     sharded["a"]["qps"], card)
+    log("phase 4pm: " + json.dumps(two_proc))
     with phase(f"4s the bench's full column mix ({ROWS} x {D}): tensor ingest, device Bloom "
                "build, precompile, string_eq (K1)"):
         store4s, strings = string_phase(torch, dev, f32, dv8, card)
@@ -2986,6 +3254,8 @@ def main() -> int:
           "sharded_launches": {"rows=4": sharded["a"]["launches"],
                                "rows=2 x batch=2": sharded["c"]["launches"]},
           "sharded_path_qps": sharded["a"]["qps"],
+          "two_process_launches": [two_proc["ranks"][r]["a"]["launches"] for r in (0, 1)],
+          "two_process_qps": [two_proc["ranks"][r]["a"]["qps"] for r in (0, 1)],
           "sharded_ms_per_shard_launch": sharded["a"]["k1_ms_per_shard_launch"],
           "batch_sweep": sweep["K1"], "path_profile": stats["profile"],
           "depth_launches": {d: depth[d]["certified int8 Cosine"] for d in DEPTHS}}),
@@ -2995,6 +3265,7 @@ def main() -> int:
           "path_qps_rounds": uncert["qps_rounds"], "path_profile": uncert["profile"],
           "recall_at_10": uncert["recall"], "vecstore_launches": vec["K2"],
           "sharded_launches": {"rows=4 uncertified": sharded["b"]["launches"]},
+          "two_process_launches": [two_proc["ranks"][r]["b"]["launches"] for r in (0, 1)],
           "sharded_recall_at_10": sharded["b"]["recall"],
           "batch_sweep": sweep["K2"],
           "depth_launches": {d: depth[d]["uncertified int8"] for d in depth}}),

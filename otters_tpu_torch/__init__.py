@@ -19,9 +19,12 @@ store's lifecycle (sorted / Z-ordered layouts, ``delete_rows`` /
 ``append``, ``save`` / ``load``), the row-sharded stores over a mesh of
 devices (``parallel``: ``make_mesh``, ``ShardedMetaStore`` through
 ``MetaStoreBuilder.build_sharded``, ``ShardedVecStore``) with their
-per-shard directory format, pandas / Arrow ``adapters``, the synthetic
-``datasets`` and ``evaluate.recall_at_k``. Meshes that span processes
-(``parallel.init_distributed``) and ``aot.py`` are not ported yet.
+per-shard directory format, also across processes
+(``parallel.init_distributed``: the exchange between processes is gloo
+over host buffers), pandas / Arrow ``adapters``, the synthetic
+``datasets``, ``evaluate.recall_at_k``, and ``aot``: the cache of compiled
+programs and of the compiled kernel libraries (``OTTERS_AOT_CACHE``). The
+port does everything the JAX package does.
 """
 
 from .column import Column
@@ -52,7 +55,7 @@ from .types import Cmp, CmpOp, DataType, Metric, SearchResult, TakeType
 from .vec import VecQueryPlan, VecStore
 
 # submodules with additional surface (importable as otters_tpu_torch.<name>)
-from . import adapters, datasets, evaluate, io, parallel, utils  # noqa: E402,F401
+from . import adapters, aot, datasets, evaluate, io, parallel, utils  # noqa: E402,F401
 
 __version__ = "0.1.0"
 

@@ -208,9 +208,9 @@ def load_meta(path: str, mesh=None, *, device=None) -> MetaStore:
 #                                   "resid" for quantized payloads)
 # The vector payload is stored in DEVICE row order: a sorted store records
 # its index_map and is rebuilt without re-sorting. The JAX package writes
-# and reads the same layout (a mesh of the port lives in one process, so it
-# writes one manifest; it reads the manifests of every process of a JAX
-# save).
+# and reads the same layout. On a mesh that spans processes every process
+# calls save with the same path (a shared file system) and writes the
+# shards it owns and its own manifest; process 0 writes meta.npz.
 
 
 def _rows_payload(rows: torch.Tensor) -> np.ndarray:
@@ -229,7 +229,12 @@ def save_meta_sharded(store, path: str) -> None:
     resident already) so the rebuilt quantized codes are identical; other
     stores save the device payload as it is (int8 codes round-trip bit for
     bit: re-quantizing codes is idempotent, each row's max |code| being
-    127)."""
+    127).
+
+    On a mesh across processes this is collective (the validity mask is
+    gathered; every process returns once every file is written)."""
+    from .parallel import exchange
+    from .parallel.mesh import process_count, process_index
     from .parallel.meta_sharded import ShardedMetaStore
 
     if not isinstance(store, ShardedMetaStore):
@@ -242,11 +247,14 @@ def save_meta_sharded(store, path: str) -> None:
     cfg = store._rerank_config
     keep_rerank = bool(cfg is not None and cfg[1] and store._rerank_fetch is not None)
     with_resid = dv.resid is not None and not keep_rerank
+    mesh = store.mesh
     ranges, files = [], []
     lo = 0
-    for r, shard in enumerate(dv.vectors.shards):
-        hi = min(lo + shard.shape[0], n)
-        if hi > lo:  # an all-padding shard writes nothing
+    for r, (shard, n_r) in enumerate(zip(dv.vectors.shards, dv.vectors.rows)):
+        hi = min(lo + n_r, n)
+        # each row shard is written by one process; an all-padding shard
+        # writes nothing
+        if hi > lo and mesh.writer(r) == mesh.rank:
             if keep_rerank:
                 # the true f32 rows of this device range (original -> device
                 # order through index_map; host slicing of the snapshot)
@@ -264,7 +272,9 @@ def save_meta_sharded(store, path: str) -> None:
                 np.savez(f, **payload)
             ranges.append([int(lo), int(hi)])
             files.append(fname)
-        lo += shard.shape[0]
+        lo += n_r
+    spans = mesh.spans_processes
+    pid = process_index() if spans else 0
 
     bloom_kind, bloom_val = store._bloom_config
     if keep_rerank:
@@ -293,27 +303,51 @@ def save_meta_sharded(store, path: str) -> None:
         "has_resid": bool(with_resid and files),
         "cert_hints": store.cert_hints() or None,
         # a load merges exactly manifests 0 .. process_count - 1
-        "process_count": 1,
+        "process_count": process_count() if spans else 1,
     }
-    with open(os.path.join(path, "manifest_00000.json"), "w") as f:
+    with open(os.path.join(path, f"manifest_{pid:05d}.json"), "w") as f:
         json.dump(manifest, f)
+    # the deleted set is the only device-derived piece; its gather is
+    # collective across processes, the write process 0's alone (the
+    # columns are on every process's host)
     valid = store._host_valid()
-    pos = np.flatnonzero(~valid[:n]).astype(np.int64)
-    arrays = {"deleted": store._index_map[pos] if store._index_map is not None else pos}
-    if store._index_map is not None:
-        arrays["index_map"] = np.asarray(store._index_map, np.int64)
-    _column_blocks(arrays, store._columns, n)  # DEVICE order
-    with open(os.path.join(path, "meta.npz"), "wb") as f:
-        np.savez(f, **arrays)
+    if pid == 0:
+        pos = np.flatnonzero(~valid[:n]).astype(np.int64)
+        arrays = {"deleted": store._index_map[pos] if store._index_map is not None else pos}
+        if store._index_map is not None:
+            arrays["index_map"] = np.asarray(store._index_map, np.int64)
+        _column_blocks(arrays, store._columns, n)  # DEVICE order
+        with open(os.path.join(path, "meta.npz"), "wb") as f:
+            np.savez(f, **arrays)
+    if spans:
+        exchange.barrier()
+
+
+_FILE_DTYPES = {"int8": np.int8, "bfloat16": np.uint16, "float32": np.float32}
+
+
+def _held_rows(mesh, n: int, chunk: int):
+    """``mine(a, b)``: do rows [a, b) meet a row shard this process holds
+    (always, but on a mesh across processes)."""
+    if mesh is None or not mesh.spans_processes:
+        return lambda a, b: True
+    from .parallel import meta_sharded as msh
+    from .parallel.shards import shard_bounds
+
+    n_pad_s, _, _ = msh.sharded_geometry(n, chunk, mesh.shape["rows"])
+    bounds = shard_bounds(n_pad_s, mesh.shape["rows"])
+    held = [bounds[r] for r in mesh.local_rows()]
+    return lambda a, b: any(lo < b and a < hi for lo, hi in held)
 
 
 def load_meta_dir(path: str, mesh=None, *, device=None) -> MetaStore:
     """Load a ``sharded-v1`` directory (see :func:`save_meta_sharded`).
 
     With ``mesh`` the payload streams file by file straight into each
-    shard's device memory (the host holds one shard file and one slab);
-    without it the store is rebuilt on ``device`` through the same slab
-    streaming."""
+    shard's device memory (the host holds one shard file and one slab; on
+    a mesh across processes each process reads only the files of the
+    shards it holds, and the load is collective); without it the store is
+    rebuilt on ``device`` through the same slab streaming."""
     import glob
 
     from ._device import resolve_device
@@ -365,13 +399,21 @@ def load_meta_dir(path: str, mesh=None, *, device=None) -> MetaStore:
         index_map = np.asarray(z["index_map"], np.int64) if "index_map" in z else None
 
     cache: dict = {}
+    mine = _held_rows(mesh, n, chunk)
 
     def _read(a, b, key="rows"):
-        """Rows [a, b) of the logical payload; one file resident at a time
-        (the slab walks visit the ranges in order)."""
+        """Rows [a, b) of the logical payload (those of other processes'
+        shards as zeros); one file resident at a time (the slab walks visit
+        the ranges in order)."""
         parts = []
         for lo, hi, f in pieces:
             if hi <= a or lo >= b:
+                continue
+            s, e = max(a, lo), min(b, hi)
+            if not mine(s, e):
+                tail = (d,) if key == "rows" else ()
+                parts.append(np.zeros((e - s,) + tail, _FILE_DTYPES[payload_dtype]
+                                      if key == "rows" else np.float32))
                 continue
             if cache.get("f") != f:
                 with np.load(f) as zz:
@@ -380,13 +422,13 @@ def load_meta_dir(path: str, mesh=None, *, device=None) -> MetaStore:
                     cache["rows"] = zz["rows"]
                     if "resid" in zz:
                         cache["resid"] = zz["resid"]
-            parts.append(cache[key][max(a, lo) - lo : min(b, hi) - lo])
+            parts.append(cache[key][s - lo : e - lo])
         return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
     def slab_fn(start, rows):
         end = min(start + rows, n)
-        if end <= start:
-            return np.zeros((rows, d), np.float32)
+        if end <= start or not mine(start, end):
+            return np.broadcast_to(np.zeros((1, d), np.float32), (rows, d))
         block = _read(start, end)
         if payload_dtype == "bfloat16":
             block = torch.from_numpy(block.view(np.int16).copy()).view(torch.bfloat16)

@@ -2,11 +2,14 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ctypes (no PyTorch headers, so a
-build takes seconds). Libraries go to ``build/otters_tpu_torch/`` named by
-a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
-so an edited source rebuilds and an unchanged one is reused. Nothing is
-built at import: the first launch builds, and ``build`` lets a caller build
-every kernel up front, one ``nvcc`` per source, all started together.
+build takes seconds). Libraries go to ``aot.cache_dir()`` (by default
+``build/otters_tpu_torch/``) named by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one is reused, by this process or a later one (``aot.stats``
+counts the builds as ``compiles`` and the libraries found there as
+``disk_hits``). Nothing is built at import: the first launch builds, and
+``build`` lets a caller build every kernel up front, one ``nvcc`` per
+source, all started together.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import shutil
 import subprocess
 from typing import Dict, Iterable
 
-from ._build import build_dir
+from . import aot
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 NVCC_FLAGS = [
@@ -36,6 +39,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
 # nvcc processes started by this process (a warmed server starts none)
 nvcc_runs = 0
+_built = set()  # the sources this process built (their loads are no disk hits)
 
 
 def _nvcc() -> str:
@@ -52,7 +56,7 @@ def _lib_path(name: str) -> str:
         with open(path, "rb") as f:
             h.update(f.read())
     digest = h.hexdigest()
-    return os.path.join(build_dir(), f"lib{name}_{digest[:16]}.so")
+    return os.path.join(aot.cache_dir(), f"lib{name}_{digest[:16]}.so")
 
 
 def build(names: Iterable[str]) -> None:
@@ -71,6 +75,7 @@ def build(names: Iterable[str]) -> None:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
         nvcc_runs += 1
+        aot.stats["compiles"] += 1
     failed = []
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
@@ -79,6 +84,7 @@ def build(names: Iterable[str]) -> None:
             failed.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
             os.replace(tmp, out)
+            _built.add(name)
     if failed:
         raise RuntimeError("\n".join(failed))
 
@@ -87,7 +93,10 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building it on first use."""
     lib = _libs.get(name)
     if lib is None:
+        path = _lib_path(name)
         build([name])
-        lib = ctypes.CDLL(_lib_path(name))
+        if name not in _built:
+            aot.stats["disk_hits"] += 1
+        lib = ctypes.CDLL(path)
         _libs[name] = lib
     return lib

@@ -74,6 +74,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from . import aot
 from ._device import resolve_device
 from .column import Column
 from .display import format_build_stats, format_query_stats, metastore_head
@@ -619,7 +620,7 @@ def _same_device(have: torch.device, want: torch.device) -> bool:
 
 
 class _Launch(NamedTuple):
-    """A shape's launch decision (the ``aot_key`` memo's value): the tile
+    """A shape's launch decision (its program in ``aot._mem``): the tile
     program ("fused", "direct", "scan", "panel" or "scan_pruned"), the
     fast-exact and certified modes, and for the fused tile its kernel
     (``fused_topk.KERNELS`` key), its ring at the stored depth and the
@@ -988,7 +989,7 @@ class MetaStore:
         # per-(filter, vec_filter, k) scan widths that recently certified
         self._cert_kwide_hint = _LruCache(64)
         # the per-store LRU caches under the JAX package's names and caps
-        # (cache_stats): lowered plans; the per-shape launch decision (the
+        # (cache_stats): lowered plans; the per-shape aot signature (the
         # JAX package's AOT signature memo, keyed alike); the host masks of
         # extended string predicates
         self._plan_cache = _LruCache(256)
@@ -1057,7 +1058,7 @@ class MetaStore:
 
     def cache_stats(self) -> Dict[str, Dict[str, int]]:
         """Size / hit / miss / eviction counters of the per-store LRU caches
-        (plan lowering, the launch-decision memo ``aot_key``, the host masks
+        (plan lowering, the per-shape signature memo ``aot_key``, the host masks
         of extended string predicates ``hostmask``). A growing
         ``evictions`` count on a steady workload means the working set
         exceeds the cap."""
@@ -1288,11 +1289,11 @@ class MetaStore:
         store and arguments). ``filters`` is a list of expressions (None =
         unfiltered), each combined with every batch size.
 
-        Readying a program: nvcc builds every kernel source its launch needs
-        (``kernels.build``, into the git-ignored ``build/``; on a CUDA store
-        only), the plan and launch-decision memos are filled, and the
-        program runs once. ``rerank_from`` also warms the exact-rerank flow
-        once per (filter, batch size, pipeline depth in ``pipeline_depths``)
+        Readying a program: its launch decision enters ``aot``'s table, the
+        kernel libraries it needs are loaded, or built by nvcc into
+        ``aot.cache_dir()`` (on a CUDA store only), the plan and ``aot_key``
+        memos are filled, and the program runs once. ``rerank_from`` also
+        warms the exact-rerank flow once per (filter, batch size, pipeline depth in ``pipeline_depths``)
         with seeded random queries; ``cert_widths`` (where the certificate
         applies) readies the certificate's widen ladder, 4x steps from
         ``rerank_from`` clamped like the widen loop, without running it."""
@@ -1321,9 +1322,8 @@ class MetaStore:
                     launch, k_eff = self._prepare_program(
                         queries, plan_static, metric, k, take_min, cmp
                     )
-                    self._ready(launch)
                     # run once: validates the readied launch
-                    HostCopy(self._run_prepared(
+                    HostCopy.of(self._run_prepared(
                         launch, k_eff, cols_sub, queries, plan_params, thr, plan_static,
                         metric, take_min, cmp,
                     )).wait()
@@ -1344,10 +1344,9 @@ class MetaStore:
                             nxt = fused_topk.FUSED_K_MAX
                         if not self._direct_k_ok(nxt, int(b)):
                             break
-                        launch, _ = self._prepare_program(
+                        self._prepare_program(
                             queries, plan_static, metric, nxt, take_min, None, certify=True
                         )
-                        self._ready(launch)
                         count += 1
                         w = nxt
         return count
@@ -1388,13 +1387,6 @@ class MetaStore:
                         resolve(pend)
                     count += int(depth)
         return count
-
-    def _ready(self, launch: "_Launch") -> None:
-        """Build the kernel sources a launch needs (a CUDA store's)."""
-        if launch.sources and self._device.type == "cuda":
-            from . import kernels
-
-            kernels.build(launch.sources)
 
     # -- display -------------------------------------------------------------
     def head(self) -> None:
@@ -1497,11 +1489,11 @@ class MetaStore:
                          strict=False, certify=False):
         """Pick the mode as the JAX package's ``_prepare_program`` does ->
         (the launch decision, the effective k). ``strict`` turns the
-        fast-exact mode off (the redo after a failed check). The decision
-        per shape is memoized in the ``aot_key`` cache under the JAX
+        fast-exact mode off (the redo after a failed check). The shape's
+        signature is memoized in the ``aot_key`` cache under the JAX
         package's key (plan, batch, dtype, k, metric, direction, filter,
         precision, tile, fast, certify), so a query sequence hits and misses
-        it as the JAX package's AOT signature memo."""
+        it as the JAX package's AOT signature memo (:meth:`_program`)."""
         dv = self._dv
         n_pad = dv.vectors.shape[0]
         b = queries.shape[0]
@@ -1548,11 +1540,36 @@ class MetaStore:
             fused_topk.kernel_takes.routed += b
         memo = (plan_static, b, str(queries.dtype), k_eff, metric, take_min, cmp,
                 self.precision, tile, fast, certify)
-        launch = self._aot_key_cache.get(memo)
-        if launch is None:
-            launch = self._launch_decision(tile, fast, certify, metric, take_min)
-            self._aot_key_cache[memo] = launch
-        return launch, k_eff
+        return self._program("meta_query", memo, (dv, queries), tile, fast, certify, metric,
+                             take_min), k_eff
+
+    def _program(self, name, memo, args, tile, fast, certify, metric, take_min) -> "_Launch":
+        """A query shape's program through ``aot``: the ``aot_key`` memo
+        maps the shape to its signature (the shape, the store's device, chunk
+        size and mesh, every argument's shape and dtype), the signature to the
+        program in ``aot._mem``, made and readied on a miss.
+        ``OTTERS_DISABLE_AOT`` bypasses both, as in the JAX package."""
+        make = functools.partial(self._ready_launch, tile, fast, certify, metric, take_min)
+        if aot.disabled():
+            return make()
+        key = self._aot_key_cache.get(memo)
+        if key is None:
+            statics = repr((memo, str(self._device), self._chunk_size,
+                            getattr(self, "mesh", None)))
+            key = aot.signature(name, statics, args, {})
+            self._aot_key_cache[memo] = key
+        return aot.lookup(key) or aot.load_or_compile(key, make, (), {})
+
+    def _ready_launch(self, tile, fast, certify, metric, take_min) -> "_Launch":
+        """The launch decision with the kernel libraries it needs loaded
+        (built by nvcc into ``aot.cache_dir()`` if absent; a CUDA store's)."""
+        launch = self._launch_decision(tile, fast, certify, metric, take_min)
+        if launch.sources and self._device.type == "cuda":
+            from . import kernels
+
+            for source in launch.sources:
+                kernels.load(source)
+        return launch
 
     def _launch_decision(self, tile, fast, certify, metric, take_min) -> "_Launch":
         """The fused kernel a shape launches, its ring and the sources it
@@ -1970,7 +1987,7 @@ class MetaQueryPlan:
                         None if thr is None else cmp, strict=strict, certify=certify,
                     )
 
-                copy = HostCopy(run())
+                copy = HostCopy.of(run())
                 rerun_widened = run if certify else None
                 strict_redo = functools.partial(run, strict=True)
         return PendingMetaQuery(
@@ -2051,7 +2068,7 @@ class PendingMetaQuery:
         if self._fetched is None:
             fetched = self._copy.wait()
             if not bool(fetched[3]) and self._strict_redo is not None:
-                fetched = HostCopy(self._strict_redo()).wait()
+                fetched = HostCopy.of(self._strict_redo()).wait()
             self._fetched = fetched
         return self._fetched
 
@@ -2226,7 +2243,7 @@ class PendingMetaQuery:
                     break
                 nxt = cap = lo
             k_used = nxt
-            rows, _, valid, _, bound, ev, re_ = HostCopy(
+            rows, _, valid, _, bound, ev, re_ = HostCopy.of(
                 self._rerun_widened(k_run=k_used)
             ).wait()
             evaluated, rows_eval = int(ev), int(re_)

@@ -2,8 +2,10 @@
 build and the extended string scans (substring / prefix / suffix over a
 packed UTF-8 arena, bounded Levenshtein).
 
-Compiles ``otters_native.cpp`` on first use with g++ (-O3 -fopenmp) into the
-package's build directory (``build/otters_tpu_torch/`` beside the package).
+Compiles ``otters_native.cpp`` on first use with g++ (-O3 -fopenmp) into
+``aot.cache_dir()`` (by default ``build/otters_tpu_torch/`` beside the
+package), where a later process finds it (``aot.stats``: a build counts as
+one of ``compiles``, a library found there as one of ``disk_hits``).
 Every entry point returns None without the library (or without its symbol),
 and its caller's pure-Python path takes over (ops/hashing.py, ops/bloom.py,
 ops/strscan.py, ops/strmatch.py), so a missing compiler only costs host
@@ -22,7 +24,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from .._build import build_dir
+from .. import aot
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "otters_native.cpp")
@@ -61,7 +63,7 @@ def _load() -> Optional[ctypes.CDLL]:
     if _tried:
         return _lib
     _tried = True
-    candidates = [os.path.join(build_dir(), _LIB_NAME)]
+    candidates = [os.path.join(aot.cache_dir(), _LIB_NAME)]
 
     def _fresh(p: str) -> bool:  # stale .so (older than the source) is rebuilt
         try:
@@ -70,9 +72,12 @@ def _load() -> Optional[ctypes.CDLL]:
             return False
 
     path = next((p for p in candidates if os.path.exists(p) and _fresh(p)), None)
-    if path is None:
+    if path is not None:
+        aot.stats["disk_hits"] += 1
+    else:
         for p in candidates:
             if _compile(p):
+                aot.stats["compiles"] += 1
                 path = p
                 break
     if path is None:  # no compiler: fall back to any existing (stale) build

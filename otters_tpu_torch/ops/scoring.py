@@ -907,6 +907,14 @@ class HostCopy:
             self._event.synchronize()
         return tuple(h.numpy() for h in self._host)
 
+    @staticmethod
+    def of(outputs):
+        """A program's outputs on their way to the host: its device tensors
+        copied (a new HostCopy), or outputs already bound there (a mesh
+        across processes returns its exchange, ``parallel.exchange.Pending``)
+        as they are."""
+        return outputs if hasattr(outputs, "wait") else HostCopy(outputs)
+
 
 def collect_all(
     dv: DeviceVecs,

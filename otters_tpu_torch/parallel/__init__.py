@@ -5,13 +5,15 @@ parallel"), optionally shards the query batch, and merges per-shard exact
 top-k results with k-sized all-gathers. The port keeps that design on a
 ``[rows, batch]`` grid of torch devices (:class:`~.mesh.Mesh`): one tensor
 per row shard on its device, every shard's program run on its device, and
-the k-sized partials merged on the lead device. A mesh lives in one
-process; ``init_distributed`` (meshes that span processes) is not ported
-yet.
+the k-sized partials merged on the lead device. A mesh may span processes
+(``init_distributed``, JAX's ``jax.distributed.initialize``): each process
+then holds and runs the entries it owns, and a query's partials meet in
+one gloo ``all_gather`` of a host buffer (``exchange.py``), merged alike
+on every process's local lead.
 """
 
 from .dist_query import ShardedVecStore, sharded_topk
-from .mesh import Mesh, init_distributed, make_mesh
+from .mesh import Mesh, init_distributed, make_mesh, process_count, process_index
 from .meta_sharded import (
     ShardedMetaStore,
     build_sharded,
@@ -26,6 +28,8 @@ __all__ = [
     "sharded_topk",
     "init_distributed",
     "make_mesh",
+    "process_count",
+    "process_index",
     "Mesh",
     "ShardedMetaStore",
     "ShardedTensor",

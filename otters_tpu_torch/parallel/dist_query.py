@@ -10,7 +10,9 @@ per-chunk ``base_offset``, meta_compute.rs:184-188), and the k-sized
 ``(row, score, ok)`` partials are merged on the lead device in the order
 JAX's ``all_gather`` over ``("rows", "batch")`` lays them out, ties to the
 earlier position as ``lax.top_k``. Only O(devices * k) values cross
-devices, never a score matrix.
+devices, never a score matrix. On a mesh across processes each process
+runs its own entries, the partials meet in one gloo ``all_gather``
+(``exchange.py``) and every process merges them alike.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from ..errors import OttersError
 from ..ops import scoring
 from ..types import Cmp, Metric, SearchResult, TakeType, default_take_type
+from . import exchange
 from .mesh import Mesh
 from .shards import ShardedTensor, on_device, put_rows
 
@@ -58,7 +61,8 @@ def sharded_topk(
     prec: str = "highest",
     tile: Optional[int] = None,
 ):
-    """Run the sharded search; returns host (rows, scores, valid)."""
+    """Run the sharded search; returns host (rows, scores, valid).
+    Collective on a mesh across processes (one ``all_gather``)."""
     n_rows_shards = mesh.shape["rows"]
     n_pad = vectors.shape[0]
     if n_pad % n_rows_shards != 0:
@@ -80,26 +84,44 @@ def sharded_topk(
     n_local = n_pad // n_rows_shards
     k_local = min(k_eff, b_local * n_local)
     kwargs = dict(metric=metric, k=k_local, take_min=take_min, cmp=cmp_eff, prec=prec)
-    parts = []
-    for r in range(n_rows_shards):
-        for c in range(n_batch):
-            dev = mesh.devices[r, c]
-            with on_device(dev):
-                sl = slice(c * b_local, (c + 1) * b_local)
-                q = torch.from_numpy(q_host[sl]).to(dev)
-                qv = torch.from_numpy(q_valid[sl]).to(dev)
-                t = torch.full((), 0.0 if thr is None else thr, dtype=torch.float32, device=dev)
-                args = (vectors.local(r, c), norms_sq.local(r, c), inv_norms.local(r, c),
-                        valid.local(r, c), q,
-                        None if row_mask is None else row_mask.local(r, c), t)
-                if tile is not None and n_local % tile == 0 and n_local > tile:
-                    rows, scores, ok = scoring.scan_topk_core(*args, tile=tile, q_valid=qv,
-                                                              **kwargs)
-                else:
-                    rows, scores, ok = scoring.direct_topk_core(*args, q_valid=qv, **kwargs)
-                parts.append((rows + r * n_local, scores, ok))
-    rows_g, scores_g, ok_g, sel = merge_partials(parts, k_eff, take_min, mesh.lead)
+    parts = {}
+    for r, c in mesh.programs():
+        dev = mesh.devices[r, c]
+        with on_device(dev):
+            sl = slice(c * b_local, (c + 1) * b_local)
+            q = torch.from_numpy(q_host[sl]).to(dev)
+            qv = torch.from_numpy(q_valid[sl]).to(dev)
+            t = torch.full((), 0.0 if thr is None else thr, dtype=torch.float32, device=dev)
+            args = (vectors.local(r, c), norms_sq.local(r, c), inv_norms.local(r, c),
+                    valid.local(r, c), q,
+                    None if row_mask is None else row_mask.local(r, c), t)
+            if tile is not None and n_local % tile == 0 and n_local > tile:
+                rows, scores, ok = scoring.scan_topk_core(*args, tile=tile, q_valid=qv,
+                                                          **kwargs)
+            else:
+                rows, scores, ok = scoring.direct_topk_core(*args, q_valid=qv, **kwargs)
+            parts[(r, c)] = (rows + r * n_local, scores, ok)
+    if mesh.spans_processes:
+        parts = _exchange_partials(mesh, parts)
+    order = sorted(parts)
+    rows_g, scores_g, ok_g, sel = merge_partials([parts[rc] for rc in order], k_eff, take_min,
+                                                 mesh.lead)
     return rows_g[sel].cpu().numpy(), scores_g[sel].cpu().numpy(), ok_g[sel].cpu().numpy()
+
+
+def _exchange_partials(mesh: Mesh, parts):
+    """Every program's ``(rows, scores, ok)`` on the lead device from this
+    process's, through one ``all_gather`` of their records (collective)."""
+    lead = mesh.lead
+    rows, scores, ok = next(iter(parts.values()))
+    spec = [(rows.dtype, rows.shape[0]), (scores.dtype, scores.shape[0]), (torch.bool, ok.shape[0])]
+    recs = torch.cat([exchange.to_bytes(parts[rc], lead) for rc in mesh.programs()])
+
+    def finish(records):
+        return {rc: tuple(t.to(lead) for t in exchange.from_bytes(rec, spec))
+                for rc, rec in records.items()}
+
+    return exchange.Pending(mesh, recs, exchange.record_bytes(spec), finish).wait()
 
 
 class ShardedVecStore:
@@ -108,7 +130,8 @@ class ShardedVecStore:
     ``search`` answers as ``VecStore.query(...).collect()`` does, computed
     per shard and merged on the lead device. ``vectors`` is an ``[n, d]``
     numpy array or tensor (a CUDA tensor is sliced shard by shard, never
-    copied to the host)."""
+    copied to the host). On a mesh across processes every process passes
+    the same rows and calls ``search`` in the same order (collective)."""
 
     def __init__(self, mesh: Mesh, vectors, prec: str = "highest"):
         self.mesh = mesh
@@ -122,7 +145,10 @@ class ShardedVecStore:
             shards = []
             for r in range(n_shards):
                 lo, hi = r * (n_pad // n_shards), (r + 1) * (n_pad // n_shards)
-                block = torch.zeros((hi - lo, self.dim), device=mesh.devices[r, 0])
+                if mesh.home(r) is None:  # a shard of another process
+                    shards.append(None)
+                    continue
+                block = torch.zeros((hi - lo, self.dim), device=mesh.home(r))
                 avail = min(max(self._n - lo, 0), hi - lo)
                 if avail > 0:
                     block[:avail] = vectors[lo : lo + avail].float()
@@ -131,7 +157,8 @@ class ShardedVecStore:
         else:
             self.vectors = put_rows(mesh, np.asarray(vectors, dtype=np.float32), n_pad, 0.0)
         self.valid = put_rows(mesh, np.arange(n_pad) < self._n, n_pad, False)
-        norms = [scoring._device_norms(v) for v in self.vectors.shards]
+        norms = [(None, None) if v is None else scoring._device_norms(v)
+                 for v in self.vectors.shards]
         self.norms_sq = ShardedTensor(mesh, [nsq for nsq, _ in norms])
         self.inv_norms = ShardedTensor(mesh, [inv for _, inv in norms])
 

@@ -12,7 +12,7 @@ column) in mesh order, the program the JAX package's ``local_fn`` runs:
 on the shard's device (the fused Hopper kernel of ``ops/fused_topk.py``
 over the shard's live bins when the shapes qualify, else
 ``scan_pruned_topk_core``, ``direct_topk_core`` or ``panel_topk_core``),
-then composes on the lead device ``mesh.devices[0, 0]``:
+then composes on the lead device (``mesh.devices[0, 0]`` in one process):
 
 - the k-sized partials, concatenated rows-major over (rows, batch) as
   JAX's ``all_gather`` lays them out, merged by a stable top-k (ties to
@@ -24,7 +24,13 @@ then composes on the lead device ``mesh.devices[0, 0]``:
   query strictly);
 - the pruning statistics, summed over the row shards.
 
-Only O(shards * k) values and a few scalars cross devices.
+Only O(shards * k) values and a few scalars cross devices. On a mesh that
+spans processes each process runs only its own (row shard, batch column)
+programs; their records meet in one gloo ``all_gather`` where a single
+process would wait on its device (``exchange.py``), and every process
+composes them as above on its local lead, so all hold the same answer.
+Building, ``delete_rows``, ``append``, ``save`` and every query are then
+collective: each process calls them in the same order.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from ..ops import bloom as bloom_ops
 from ..ops import fused_topk, predicate, scoring
 from ..ops.scoring import HostCopy
 from ..types import VPU_METRICS, Cmp, CmpOp, Metric
+from . import exchange
 from .dist_query import merge_partials
 from .mesh import Mesh
 from .shards import ShardedTensor, on_device, put_rows, shard_bounds
@@ -117,25 +124,42 @@ def _sharded_resid_finalize(mesh: Mesh, resid: ShardedTensor, valid: ShardedTens
     straddle shards) and the global maximum on the lead device."""
     rs, bins, maxes = [], [], []
     for r_t, v_t in zip(resid.shards, valid.shards):
+        if r_t is None:  # a shard of another process
+            rs.append(None)
+            bins.append(None)
+            continue
         r_t = torch.where(v_t, r_t, 0.0)
         rbin, rmax = scoring.finalize_resid(r_t)
         rs.append(r_t)
         bins.append(rbin)
-        maxes.append(rmax.to(mesh.lead))
-    return ShardedTensor(mesh, rs), ShardedTensor(mesh, bins), torch.stack(maxes).max()
+        maxes.append(rmax)
+    return ShardedTensor(mesh, rs), ShardedTensor(mesh, bins), _mesh_max(mesh, maxes)
+
+
+def _mesh_max(mesh: Mesh, maxes) -> torch.Tensor:
+    """The largest of every shard's maximum (0-d tensors) on the lead
+    device; across processes each brings its own shards' (one
+    ``all_reduce``, so building is collective there)."""
+    m = torch.stack([x.to(mesh.lead) for x in maxes]).max()
+    if mesh.spans_processes:
+        m = torch.from_numpy(exchange.all_reduce_max(m.reshape(1).cpu().numpy()))[0].to(mesh.lead)
+    return m
 
 
 def _valid_shards(mesh: Mesh, n_pad_s: int, n: int) -> ShardedTensor:
     return ShardedTensor(mesh, [
-        torch.arange(lo, hi, device=mesh.devices[r, 0]) < n
+        None if mesh.home(r) is None else torch.arange(lo, hi, device=mesh.home(r)) < n
         for r, (lo, hi) in enumerate(shard_bounds(n_pad_s, mesh.shape["rows"]))
     ])
 
 
 def _slab_walk(slab_fn, n_pad_s: int, slab_rows: int, mesh: Mesh, write) -> None:
     """Walk ``slab_fn(start, rows)`` over ``[0, n_pad_s)`` and hand each
-    piece that falls in one row shard to ``write(r, local_start, f32 piece
-    on the shard's device)``."""
+    piece that falls in one row shard this process holds to ``write(r,
+    local_start, f32 piece on the shard's device)``. Every process calls
+    ``slab_fn`` for every slab, in order (as in the JAX package), so a
+    ``slab_fn`` may itself be collective; one that reads from disk may skip
+    the rows of other processes' shards."""
     bounds = shard_bounds(n_pad_s, mesh.shape["rows"])
     slab_rows = max(1, min(slab_rows, n_pad_s))
     for start in range(0, n_pad_s, slab_rows):
@@ -143,9 +167,9 @@ def _slab_walk(slab_fn, n_pad_s: int, slab_rows: int, mesh: Mesh, write) -> None
         slab = slab_fn(start, rows)
         for r, (lo, hi) in enumerate(bounds):
             a, b = max(start, lo), min(start + rows, hi)
-            if a >= b:
+            dev = mesh.home(r)
+            if a >= b or dev is None:
                 continue
-            dev = mesh.devices[r, 0]
             piece = torch.as_tensor(slab[a - start : b - start], dtype=torch.float32).to(dev)
             write(r, a - lo, piece)
 
@@ -159,14 +183,15 @@ def materialize_int8_slabs_sharded(
     ``scoring.materialize_int8_slabs`` (numpy or a tensor on any device);
     the peak per device is its shard plus one slab. ``chunk_size`` must
     match the builder's so the padded geometry agrees
-    (:func:`sharded_geometry`)."""
+    (:func:`sharded_geometry`). Collective on a mesh across processes
+    (every process calls ``slab_fn`` for every slab; one ``all_reduce``)."""
     n_pad_s, _, _ = sharded_geometry(n, chunk_size, mesh.shape["rows"])
     n_loc = n_pad_s // mesh.shape["rows"]
-    devs = [mesh.devices[r, 0] for r in range(mesh.shape["rows"])]
-    buf8 = [scoring._padded_empty(n_loc, d, torch.int8, dv) for dv in devs]
-    nsq = [torch.zeros(n_loc, device=dv) for dv in devs]
-    inv = [torch.zeros(n_loc, device=dv) for dv in devs]
-    resid = [torch.zeros(n_loc, device=dv) for dv in devs]
+    devs = [mesh.home(r) for r in range(mesh.shape["rows"])]
+    buf8 = _per_shard(devs, lambda dv: scoring._padded_empty(n_loc, d, torch.int8, dv))
+    nsq = _per_shard(devs, lambda dv: torch.zeros(n_loc, device=dv))
+    inv = _per_shard(devs, lambda dv: torch.zeros(n_loc, device=dv))
+    resid = _per_shard(devs, lambda dv: torch.zeros(n_loc, device=dv))
 
     def write(r, s, piece):
         v8, q_nsq, q_inv, q_resid = scoring._quantize_rows_int8_resid(piece)
@@ -187,14 +212,15 @@ def materialize_f32_slabs_sharded(
     """Slab-streamed f32 / bfloat16 ingest straight into per-shard device
     memory (``dtype`` torch.float32, the default, or torch.bfloat16, whose
     per-row absolute rounding residuals are computed slab by slab: the f32
-    source exists only inside this loop)."""
+    source exists only inside this loop). Collective on a mesh across
+    processes, as :func:`materialize_int8_slabs_sharded`."""
     dtype = torch.float32 if dtype is None else dtype
     bf16 = dtype == torch.bfloat16
     n_pad_s, _, _ = sharded_geometry(n, chunk_size, mesh.shape["rows"])
     n_loc = n_pad_s // mesh.shape["rows"]
-    devs = [mesh.devices[r, 0] for r in range(mesh.shape["rows"])]
-    buf = [scoring._padded_empty(n_loc, d, dtype, dv) for dv in devs]
-    resid = [torch.zeros(n_loc, device=dv) for dv in devs] if bf16 else None
+    devs = [mesh.home(r) for r in range(mesh.shape["rows"])]
+    buf = _per_shard(devs, lambda dv: scoring._padded_empty(n_loc, d, dtype, dv))
+    resid = _per_shard(devs, lambda dv: torch.zeros(n_loc, device=dv)) if bf16 else None
 
     def write(r, s, piece):
         e = s + piece.shape[0]
@@ -203,7 +229,7 @@ def materialize_f32_slabs_sharded(
         buf[r][s:e] = piece.to(dtype)
 
     _slab_walk(slab_fn, n_pad_s, slab_rows, mesh, write)
-    norms = [scoring._device_norms(b) for b in buf]
+    norms = [(None, None) if b is None else scoring._device_norms(b) for b in buf]
     nsq = ShardedTensor(mesh, [x for x, _ in norms])
     inv = ShardedTensor(mesh, [y for _, y in norms])
     valid = _valid_shards(mesh, n_pad_s, n)
@@ -213,20 +239,32 @@ def materialize_f32_slabs_sharded(
     return scoring.DeviceVecs(ShardedTensor(mesh, buf), nsq, inv, valid)
 
 
+def _per_shard(devs, make):
+    """``make(device)`` for each shard this process holds, None for the
+    others'."""
+    return [None if dv is None else make(dv) for dv in devs]
+
+
 def _gather_rows(st: ShardedTensor, ids: np.ndarray) -> np.ndarray:
     """Rows ``ids`` (ascending global ids) of a sharded row array as host
-    f32, each shard reading only its own rows."""
-    out, lo = [], 0
-    for shard in st.shards:
-        hi = lo + shard.shape[0]
+    f32, each shard reading only its own rows (on a mesh across processes
+    a collective: each process reads the shards it writes, and the pieces
+    meet in one gather)."""
+    mesh = st.mesh
+    got, lo = {}, 0
+    for r, (shard, n_r) in enumerate(zip(st.shards, st.rows)):
+        hi = lo + n_r
         sel = ids[(ids >= lo) & (ids < hi)] - lo
-        if sel.size:
+        if sel.size and shard is not None and mesh.writer(r) == mesh.rank:
             idx = torch.from_numpy(sel).to(shard.device)
-            out.append(shard[idx].float().cpu().numpy())
+            got[r] = shard[idx].float().cpu().numpy()
         lo = hi
-    if not out:
+    if mesh.spans_processes:
+        for part in exchange.all_gather_object(got):
+            got.update(part)
+    if not got:
         return np.zeros((0,) + st.shape[1:], np.float32)
-    return np.concatenate(out)
+    return np.concatenate([got[r] for r in sorted(got)])
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +281,11 @@ class ShardedMetaStore(MetaStore):
     ``collect_async`` / ``resolve``). Its device state: ``_dv`` a
     ``DeviceVecs`` of :class:`~.shards.ShardedTensor` fields (the global
     residual maximum a lead-device scalar), ``_device_cols`` and
-    ``_chunk_lens`` likewise sharded; ``_device`` is the lead device."""
+    ``_chunk_lens`` likewise sharded; ``_device`` is the lead device.
+
+    On a mesh across processes every query, ``delete_rows``, ``append``,
+    ``save``, ``shard`` and ``precompile`` is collective: each process calls
+    them in the same order (``len()`` and the statistics getters are not)."""
 
     def __init__(self, schema):
         super().__init__(schema)
@@ -427,7 +469,7 @@ class ShardedMetaStore(MetaStore):
 
         valid_s = put_row_t(dv.valid, False)
         # the rows keep their depth padding (the kernels read the stride)
-        vectors_s = ShardedTensor(mesh, [scoring._depth_padded(v)
+        vectors_s = ShardedTensor(mesh, [None if v is None else scoring._depth_padded(v)
                                          for v in put_row_t(dv.vectors, 0).shards])
         fields = [vectors_s, put_row_t(dv.norms_sq, 0.0), put_row_t(dv.inv_norms, 0.0), valid_s]
         if dv.resid is not None:
@@ -539,17 +581,20 @@ class ShardedMetaStore(MetaStore):
             fused_topk.kernel_takes.routed += b_pad
         memo = (plan_static, b_pad, k_eff, metric, take_min, cmp, self.precision, tile,
                 fast, certify)
-        launch = self._aot_key_cache.get(memo)
-        if launch is None:
-            launch = self._launch_decision(tile, fast, certify, metric, take_min)
-            self._aot_key_cache[memo] = launch
-        return launch
+        return self._program("sharded_meta_query", memo, (self._dv,), tile, fast, certify,
+                             metric, take_min)
 
     def _run_query_program(self, cols_sub, queries, plan_params, thr, plan_static,
                            metric, k, take_min, cmp, strict=False, certify=False):
-        """Run the per-shard programs and compose them on the lead device
-        -> lead-device tensors (rows, scores, ok, check, bound, evaluated,
-        rows_eval), the single-device program's layout."""
+        """Run this process's per-shard programs and compose them on the lead
+        device -> lead-device tensors (rows, scores, ok, check, bound,
+        evaluated, rows_eval), the single-device program's layout. On a mesh
+        across processes the local programs are enqueued and an
+        :class:`~.exchange.Pending` returned instead: its ``wait()`` (where
+        a single process waits on its device, ``HostCopy.of``) gathers every
+        process's records in one ``all_gather`` and composes them alike
+        everywhere. Collective there: every process runs the same queries in
+        the same order."""
         dv = self._dv
         if dv.vectors.dtype == torch.int8 and metric is not Metric.Cosine:
             raise OttersError("int8 quantized storage supports the Cosine metric only")
@@ -579,19 +624,18 @@ class ShardedMetaStore(MetaStore):
         qs[:b] = queries.to(lead, torch.float32)
         qv = torch.arange(b_pad, device=lead) < b
         d = dv.vectors.shape[1]
-        programs = [(r, c) for r in range(n_rows_s) for c in range(n_batch)]
+        programs = mesh.programs()
 
         def local_queries(r, c):
             dev = mesh.devices[r, c]
             sl = slice(c * b_local, (c + 1) * b_local)
             return qs[sl].to(dev), qv[sl].to(dev)
 
-        slack_g = None
+        maxima, slack_g = {}, None
         if certify:
             # the mesh-wide slack: the maxima of every shard's per-query
             # coefficients (valid queries only) and per-row lanes, composed
             # once, so it covers every (query, row) pair any shard scanned
-            maxima = []
             for r, c in programs:
                 with on_device(mesh.devices[r, c]):
                     dv_l = self._local_dv(r, c)
@@ -602,14 +646,20 @@ class ShardedMetaStore(MetaStore):
                         dv_l.norms_sq, d,
                     )
                     c0, c1, c2 = (torch.where(qv_l, x, 0.0) for x in (c0, c1, c2))
-                    maxima.append(torch.stack([
+                    maxima[(r, c)] = torch.stack([
                         c0.max(), c1.max(), lane_a.max(), c2.max(), dv_l.norms_sq.max(),
                         lane_b.max(),
-                    ]).to(lead))
-            g = torch.stack(maxima).amax(dim=0)
-            slack_g = g[0] + g[1] * g[2] + g[3] * torch.sqrt(g[4]) + g[5]
+                    ]).to(lead)
+            if tile != "fused" or not mesh.spans_processes:
+                # the direct / panel scans loosen their filter by it before
+                # they scan (across processes: one all_reduce first); the
+                # fused path needs it only after the merge
+                g = torch.stack(list(maxima.values())).amax(dim=0)
+                if mesh.spans_processes:
+                    g = torch.from_numpy(exchange.all_reduce_max(g.cpu().numpy())).to(lead)
+                slack_g = _slack(g)
 
-        parts, checks, bounds, evs, res = [], [], [], [], []
+        outs = {}
         kwargs = dict(metric=metric, k=k_local, take_min=take_min, cmp=cmp,
                       prec=self.precision)
         for r, c in programs:
@@ -679,32 +729,40 @@ class ShardedMetaStore(MetaStore):
                     check = None
                     bound_l = _core_bound(scores, ok, slack_g.to(dev), take_min) if certify \
                         else None
-                parts.append((rows + r * n_local, scores, ok))
-                if check is not None:
-                    checks.append(check.to(lead))
-                if bound_l is not None:
-                    bounds.append(bound_l.to(lead))
-                if c == 0:
-                    # the statistics sum over the row shards only
-                    evs.append(ev.to(lead))
-                    res.append(re_.to(lead))
+                outs[(r, c)] = (rows + r * n_local, scores, ok, check, bound_l, ev, re_)
 
-        # one failed fast-exact check fails the merge (the caller redoes it)
-        check_g = (torch.stack(checks).all() if checks
-                   else torch.ones((), dtype=torch.bool, device=lead))
-        rows_g, scores_g, ok_g, sel = merge_partials(parts, k_eff, take_min, lead)
-        bound_g = torch.full((), _NEG_INF, device=lead)
-        if certify:
-            # rows a shard returned but the merge dropped are bounded by the
-            # k-th merged key + the slack; the rest by each shard's bound
-            kth_key = scores_g[sel][-1]
-            if take_min:
-                kth_key = -kth_key  # the bound lives in the key space
-            bound_g = torch.where(ok_g[sel][-1], kth_key + slack_g, bound_g)
-            if bounds:
-                bound_g = torch.maximum(torch.stack(bounds).max(), bound_g)
-        return (rows_g[sel], scores_g[sel], ok_g[sel], check_g, bound_g,
-                torch.stack(evs).sum(dtype=torch.int32), torch.stack(res).sum(dtype=torch.int32))
+        def compose(outs, slack_g):
+            """Every program's outputs, composed on the lead device in mesh
+            order (rows-major over (rows, batch)), JAX's all_gather layout."""
+            order = sorted(outs)
+            if certify and slack_g is None:
+                slack_g = _slack(torch.stack([maxima[rc] for rc in order]).amax(dim=0))
+            # one failed fast-exact check fails the merge (the caller redoes it)
+            checks = [outs[rc][3].to(lead) for rc in order if outs[rc][3] is not None]
+            check_g = (torch.stack(checks).all() if checks
+                       else torch.ones((), dtype=torch.bool, device=lead))
+            rows_g, scores_g, ok_g, sel = merge_partials(
+                [outs[rc][:3] for rc in order], k_eff, take_min, lead)
+            bound_g = torch.full((), _NEG_INF, device=lead)
+            if certify:
+                # rows a shard returned but the merge dropped are bounded by
+                # the k-th merged key + the slack; the rest by each shard's
+                bounds = [outs[rc][4].to(lead) for rc in order if outs[rc][4] is not None]
+                kth_key = scores_g[sel][-1]
+                if take_min:
+                    kth_key = -kth_key  # the bound lives in the key space
+                bound_g = torch.where(ok_g[sel][-1], kth_key + slack_g, bound_g)
+                if bounds:
+                    bound_g = torch.maximum(torch.stack(bounds).max(), bound_g)
+            # the statistics sum over the row shards only
+            stats = [rc for rc in order if rc[1] == 0]
+            return (rows_g[sel], scores_g[sel], ok_g[sel], check_g, bound_g,
+                    torch.stack([outs[rc][5].to(lead) for rc in stats]).sum(dtype=torch.int32),
+                    torch.stack([outs[rc][6].to(lead) for rc in stats]).sum(dtype=torch.int32))
+
+        if not mesh.spans_processes:
+            return compose(outs, slack_g)
+        return _exchange_programs(mesh, outs, maxima if certify else None, slack_g, compose)
 
     def _run_exact_mask_query(self, queries, exact_mask, metric, k, take_min, cmp, thr):
         """Hash-collision fallback, shard-aware: the exact host row mask
@@ -725,7 +783,7 @@ class ShardedMetaStore(MetaStore):
                 {}, queries, plan_params, plan_static, k_eff, metric, take_min, thr, cmp,
             )
             return rows, scores, ok
-        rows, scores, ok, *_ = HostCopy(self._run_query_program(
+        rows, scores, ok, *_ = HostCopy.of(self._run_query_program(
             {}, queries, plan_params, 0.0 if thr is None else thr, plan_static, metric, k,
             take_min, None if thr is None else cmp, strict=True,
         )).wait()
@@ -740,7 +798,12 @@ class ShardedMetaStore(MetaStore):
         lists (<= k_eff each) meet on the host, where the global top-k_eff
         keeps the single-device order through the flat (query, global row)
         tie key. -> host (rows, scores, valid, check, bound, evaluated,
-        rows_eval)."""
+        rows_eval).
+
+        On a mesh across processes each process collects the row shards it
+        writes; every process then holds every shard's list at the shard's
+        global slot (padding slots sort last) after one ``all_gather``, and
+        sorts them alike (JAX's ``process_allgather`` merge)."""
         n_pad = self._dv.vectors.shape[0]
         b = queries.shape[0]
         if b * n_pad > scoring.TAKE_ALL_LIMIT:
@@ -749,14 +812,27 @@ class ShardedMetaStore(MetaStore):
                 f"{b * n_pad} candidate scores (> {scoring.TAKE_ALL_LIMIT});"
                 " use a smaller take(k) or fewer queries per batch"
             )
-        n_rows_s = self.mesh.shape["rows"]
+        mesh = self.mesh
+        n_rows_s = mesh.shape["rows"]
         n_loc = n_pad // n_rows_s
         nc_loc = self._chunk_lens.shape[0] // n_rows_s
+        k_r_g = min(k_eff, b * n_loc)
+        if mesh.spans_processes and n_rows_s * k_r_g > (1 << 27):
+            # the cross-process merge replicates every shard's candidate
+            # list onto every process; cap the replicated state
+            raise OttersError(
+                "take-all on a multi-process sharded store replicates "
+                f"{n_rows_s} x {k_r_g} merged candidates per host "
+                "(> 2^27); use a smaller take(k), fewer queries per "
+                "batch, or a single-process mesh"
+            )
         # the mask programs of every shard are enqueued before any window
         # streams
         blocks = []
         for r in range(n_rows_s):
-            dev = self.mesh.devices[r, 0]
+            if mesh.writer(r) != mesh.rank:
+                continue
+            dev = mesh.devices[r, 0]
             with on_device(dev):
                 dv_l = self._local_dv(r, 0)
                 dv_loc = scoring.DeviceVecs(dv_l.vectors, dv_l.norms_sq, dv_l.inv_norms,
@@ -798,6 +874,10 @@ class ShardedMetaStore(MetaStore):
             rows_all[sl] = grow
             sc_all[sl] = sc_r
             ok_all[sl] = ok_r
+        if mesh.spans_processes:
+            key, flat, rows_all, sc_all, ok_all, ev_total, re_total = _merge_take_all(
+                mesh, blocks, k_per, n_loc, k_r_g,
+                (key, flat, rows_all, sc_all, ok_all), ev_total, re_total)
         if not plan_static:
             ev_total = np.int32(self.n_chunks())
             re_total = np.int32(self.n_rows)
@@ -813,6 +893,80 @@ def _core_bound(scores, ok, slack_g, take_min=False):
     k-th slot means every passing local row was returned."""
     kth = -scores[-1] if take_min else scores[-1]
     return torch.where(ok[-1], kth + slack_g, _NEG_INF)
+
+
+def _merge_take_all(mesh: Mesh, blocks, k_per, n_loc, k_r_g, lists, ev_total, re_total):
+    """The take-all's cross-process merge: this process's candidate lists
+    (key, flat tie index, row, score, ok) placed at their shards' global
+    slots, padding slots (key +inf, flat int32 max, ok False) sorting last,
+    gathered in one ``all_gather`` -> every shard's lists in slot order on
+    every process, and the statistics summed."""
+    n_shards = mesh.shape["rows"]
+    gtotal = n_shards * k_r_g
+    fills = (np.float32(np.inf), np.iinfo(np.int32).max, 0, 0, False)
+    glob = [np.full(gtotal, f, dtype=a.dtype) for f, a in zip(fills, lists)]
+    off = 0
+    for (row_start, *_), k_r in zip(blocks, k_per):
+        slot = (row_start // n_loc) * k_r_g
+        for g, a in zip(glob, lists):
+            g[slot : slot + k_r] = a[off : off + k_r]
+        off += k_r
+    arrays = glob + [np.array([ev_total, re_total], np.int64)]
+    merged = [[] for _ in arrays]
+    for got in exchange.all_gather_bytes(np.concatenate([a.view(np.uint8) for a in arrays])):
+        o = 0
+        for m, a in zip(merged, arrays):
+            m.append(got[o : o + a.nbytes].copy().view(a.dtype))
+            o += a.nbytes
+    tot = np.sum(merged[-1], axis=0, dtype=np.int64)
+    return (*(np.concatenate(m) for m in merged[:-1]), np.int32(tot[0]), np.int32(tot[1]))
+
+
+def _slack(g: torch.Tensor) -> torch.Tensor:
+    """The certificate's mesh-wide slack from the six composed maxima."""
+    return g[0] + g[1] * g[2] + g[3] * torch.sqrt(g[4]) + g[5]
+
+
+def _exchange_programs(mesh: Mesh, outs, maxima, slack_g, compose):
+    """Across processes: this process's program outputs ``{(r, c): (rows,
+    scores, ok, check, bound, evaluated, rows_eval)}`` packed on the lead
+    device as one fixed-length record a program (with the certificate's
+    six maxima, which the fused path composes only after the merge) and
+    copied to the host without a wait -> an :class:`~.exchange.Pending`
+    whose ``wait()`` gathers every process's records and composes them all
+    with ``compose`` (host numpy, ``HostCopy.wait``'s layout). A mode
+    without a check or a bound (every program runs the same mode) leaves
+    them out again after the exchange."""
+    lead = mesh.lead
+    first = next(iter(outs.values()))
+    k_local = int(first[0].shape[0])
+    has_check, has_bound = first[3] is not None, first[4] is not None
+    spec = [(first[0].dtype, k_local), (first[1].dtype, k_local), (torch.bool, k_local),
+            (torch.bool, 1), (torch.float32, 1), (torch.int32, 2), (torch.float32, 6)]
+    recs = []
+    for rc in mesh.programs():
+        rows, scores, ok, check, bound, ev, re_ = outs[rc]
+        dev = rows.device
+        recs.append(exchange.to_bytes([
+            rows, scores, ok,
+            check if has_check else torch.ones((), dtype=torch.bool, device=dev),
+            bound.float() if has_bound else torch.full((), _NEG_INF, device=dev),
+            torch.stack([ev.to(dev), re_.to(dev)]),
+            maxima[rc] if maxima is not None else torch.zeros(6, device=dev),
+        ], lead))
+
+    def finish(records):
+        every = {}
+        for rc, rec in records.items():
+            rows, scores, ok, check, bound, ev_re, mx = (
+                t.to(lead) for t in exchange.from_bytes(rec, spec))
+            every[rc] = (rows, scores, ok, check[0] if has_check else None,
+                         bound[0] if has_bound else None, ev_re[0], ev_re[1])
+            if maxima is not None:
+                maxima[rc] = mx
+        return tuple(t.cpu().numpy() for t in compose(every, slack_g))
+
+    return exchange.Pending(mesh, torch.cat(recs), exchange.record_bytes(spec), finish)
 
 
 # ---------------------------------------------------------------------------
@@ -831,7 +985,10 @@ def _vectors_sharded(mesh: Mesh, src, n_rows: int, n_pad_s: int, dim: int,
     have = min(int(src.shape[0]), n_pad_s)
     fields = []
     for r, (lo, hi) in enumerate(shard_bounds(n_pad_s, n_shards)):
-        dev = mesh.devices[r, 0]
+        dev = mesh.home(r)
+        if dev is None:
+            fields.append(None)
+            continue
         avail = min(max(have - lo, 0), hi - lo)
         block = torch.zeros((hi - lo, dim), dtype=torch.float32, device=dev)
         if avail > 0:
@@ -848,12 +1005,12 @@ def _vectors_sharded(mesh: Mesh, src, n_rows: int, n_pad_s: int, dim: int,
                                       torch.arange(n_loc, device=dev) < n_valid)
         fields.append(part)
         del block
-    out = [ShardedTensor(mesh, [p[i] for p in fields]) for i in range(4)]
+    out = [ShardedTensor(mesh, [None if p is None else p[i] for p in fields])
+           for i in range(6 if storage != "float32" else 4)]
     if storage == "float32":
         return scoring.DeviceVecs(*out)
-    rmax = torch.stack([p.resid_max.to(mesh.lead) for p in fields]).max()
-    return scoring.DeviceVecs(*out, ShardedTensor(mesh, [p.resid for p in fields]),
-                              ShardedTensor(mesh, [p.resid_bin for p in fields]), rmax)
+    rmax = _mesh_max(mesh, [p.resid_max for p in fields if p is not None])
+    return scoring.DeviceVecs(*out, rmax)
 
 
 def _bloom_sharded(mesh: Mesh, st, n: int, c: int, n_chunks: int, n_chunks_s: int,
@@ -870,9 +1027,8 @@ def _bloom_sharded(mesh: Mesh, st, n: int, c: int, n_chunks: int, n_chunks_s: in
         for r in range(n_shards):
             lo, hi = r * nc_loc * c, min((r + 1) * nc_loc * c, n)
             hi = max(hi, lo)
-            shards.append(bloom_ops.build_matrix_device(
-                g1[lo:hi], g2[lo:hi], st.nulls[lo:hi], c, nc_loc, params,
-                mesh.devices[r, 0],
+            shards.append(None if mesh.home(r) is None else bloom_ops.build_matrix_device(
+                g1[lo:hi], g2[lo:hi], st.nulls[lo:hi], c, nc_loc, params, mesh.home(r),
             ))
         return ShardedTensor(mesh, shards)
     chunk_ids = np.arange(n, dtype=np.int64) // c
@@ -888,7 +1044,9 @@ def build_sharded(builder: MetaStoreBuilder, mesh: Mesh) -> ShardedMetaStore:
     Accepts ``build()``'s vector inputs, except that a pre-built DeviceVecs
     must already be sharded over THIS mesh with the matching geometry
     (:func:`materialize_int8_slabs_sharded` /
-    :func:`materialize_f32_slabs_sharded`)."""
+    :func:`materialize_f32_slabs_sharded`). On a mesh across processes each
+    process places the shards it owns from the same host data, and the
+    build is collective."""
     b = builder
     if b._vectors is None:
         raise OttersError("vectors must be provided to build MetaStore")
@@ -995,7 +1153,7 @@ def build_sharded(builder: MetaStoreBuilder, mesh: Mesh) -> ShardedMetaStore:
             )
     else:
         dv = _vectors_sharded(mesh, vectors, n_rows, n_pad_s, dim, b._storage_dtype)
-    for dev in {mesh.devices[r, 0] for r in range(n_shards)}:
+    for dev in {mesh.home(r) for r in mesh.local_rows()}:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)  # honest ingest timing
     ingest_dur = time.perf_counter() - ingest_start
@@ -1010,12 +1168,13 @@ def build_sharded(builder: MetaStoreBuilder, mesh: Mesh) -> ShardedMetaStore:
     for name in b._schema:
         st = _stage_column(columns[name], n_rows)
         per_shard = [
-            _column_state(st, lo, min(max(lo, n_rows), hi), n_loc, c, nc_loc,
-                          mesh.devices[r, 0])
+            None if mesh.home(r) is None
+            else _column_state(st, lo, min(max(lo, n_rows), hi), n_loc, c, nc_loc, mesh.home(r))
             for r, (lo, hi) in enumerate(bounds)
         ]
-        devcol = {key: ShardedTensor(mesh, [p[key] for p in per_shard])
-                  for key in per_shard[0]}
+        keys = next(p for p in per_shard if p is not None)
+        devcol = {key: ShardedTensor(mesh, [None if p is None else p[key] for p in per_shard])
+                  for key in keys}
         if st.rep == "str":
             params = _bloom_params(b._bloom, c)
             devcol["bloom"] = _bloom_sharded(mesh, st, n_rows, c, n_chunks, n_chunks_s, params)

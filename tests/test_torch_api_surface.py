@@ -1,11 +1,10 @@
 """Every public method of ``otters_tpu``'s user-facing classes exists on the
 port's class of the same name.
 
-A method the port has not ported yet exists all the same and raises
-``NotImplementedError`` (with the JAX package's signature), so a caller
-learns what is missing rather than meeting an ``AttributeError``: since the
-sharded stores and the adapters are ported, that is only
-``parallel.init_distributed`` (meshes that span processes).
+The port has ported every method; the cases that held stubs now hold each
+ported method's signature equal to JAX's and call it
+(``parallel.init_distributed``'s call runs in ``test_torch_multihost.py``'s
+workers).
 """
 
 import inspect
@@ -81,12 +80,18 @@ def test_unported_methods_raise_not_implemented_with_jax_signatures(name, method
 
 
 def test_init_distributed_raises_with_jax_signature():
+    """The port takes JAX's three parameters first, with JAX's defaults
+    (then its keyword-only ``local_devices``). No process group is made in
+    the pytest worker: the call itself, and the second call that raises,
+    run in the workers of ``test_torch_multihost.py``."""
     jsig = inspect.signature(jpar.init_distributed)
     tsig = inspect.signature(tpar.init_distributed)
-    assert [(p.name, p.default) for p in tsig.parameters.values()] == \
-        [(p.name, p.default) for p in jsig.parameters.values()]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        tpar.init_distributed()
+    jparams = [(p.name, p.default) for p in jsig.parameters.values()]
+    tparams = list(tsig.parameters.values())
+    assert [(p.name, p.default) for p in tparams[: len(jparams)]] == jparams
+    assert [(p.name, p.kind, p.default) for p in tparams[len(jparams):]] == \
+        [("local_devices", inspect.Parameter.KEYWORD_ONLY, None)]
+    assert tpar.process_index() == 0 and tpar.process_count() == 1
 
 
 def test_submodules_import_without_jax_or_dataframes():

@@ -47,7 +47,10 @@ and loaded on the CPU (the same indices, scores within 1e-5); the
 row-sharded stores over the card listed four times (``rows=4`` and ``rows=2,
 batch=2``) against the same stores on a CPU mesh, each shard launching its
 kernel (K1, K1-bf16, K2, K4, K5) once per query, and a sharded store saved
-on the card and loaded on a CPU mesh.
+on the card and loaded on a CPU mesh; two processes sharing the card over
+gloo (a ``rows=4`` mesh across them, ``parallel.init_distributed``) with K1
+and K2 on each of their shards against a CPU mesh; and a cold / warm pair
+of processes on a fresh ``OTTERS_AOT_CACHE`` (seven nvcc runs, then none).
 """
 
 import ctypes
@@ -1169,3 +1172,128 @@ def test_sharded_save_on_cuda_load_on_cpu(tmp_path):
         got = loaded.query_batch(q, tx.Metric.Cosine).take(10, rerank_from=100).collect()
         assert got.indices == want.indices and len(loaded) == len(store)
         np.testing.assert_allclose(got.scores, want.scores, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Meshes that span processes on the card, and the disk layer of aot
+# ---------------------------------------------------------------------------
+
+_TWO_PROCESS_WORKER = r"""
+import json, sys
+import numpy as np
+import torch
+from otters_tpu_torch.parallel import init_distributed, make_mesh
+from otters_tpu_torch.ops import fused_topk as ft
+from test_torch_kernels_cuda import SHARDED_B, SHARDED_D, SHARDED_N, _sharded_store
+import otters_tpu_torch as tx
+
+coord, pid, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+init_distributed(coord, 2, pid, local_devices=["cuda:0", "cuda:0"])
+mesh = make_mesh(rows=4)
+rng = np.random.default_rng(12)
+vecs = rng.normal(size=(SHARDED_N, SHARDED_D)).astype(np.float32)
+q = rng.normal(size=(SHARDED_B, SHARDED_D)).astype(np.float32)
+store = _sharded_store("int8", mesh, vecs)
+got = {}
+for certify, mode in ((True, "K1"), (False, "K2")):
+    ft.reset_launches()
+    res = (store.query_batch(q, tx.Metric.Cosine).meta_filter(tx.col("price").lt(50.0))
+           .take(10, rerank_from=100, certify=certify).collect())
+    st = store.last_query_stats()
+    got[mode] = [res.indices, [float(s) for s in res.scores], st.certified, st.pruned_chunks,
+                 ft.KERNELS[mode].launches]
+with open(f"{out}_{pid}.json", "w") as f:
+    json.dump(got, f)
+"""
+
+
+def _run_two(code, args, timeout=300):
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.dirname(tests), tests]))
+    procs = [subprocess.Popen([sys.executable, "-c", code, coord, str(pid), *args],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+             for pid in (0, 1)]
+    for pid, p in enumerate(procs):
+        try:
+            _, err = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for other in procs:
+                other.kill()
+            pytest.fail("two-process workers timed out")
+        assert p.returncode == 0, f"proc {pid}: {err[-3000:]}"
+
+
+@pytest.mark.cuda
+def test_two_processes_on_the_card_equal_a_cpu_mesh(tmp_path):
+    """Two processes sharing the card (gloo between them, two of four
+    ``rows=4`` shards each) launch K1 (certified) and K2 (``certify=False``)
+    on each of their shards, and answer as the same store on a CPU
+    ``rows=4`` mesh: the same rows in order and flags, scores within 1e-5."""
+    import json
+
+    import otters_tpu_torch as tx
+    from otters_tpu_torch import parallel
+
+    _device()
+    out = str(tmp_path / "out")
+    _run_two(_TWO_PROCESS_WORKER, [out])
+    got = []
+    for pid in (0, 1):
+        with open(f"{out}_{pid}.json") as f:
+            got.append(json.load(f))
+    rng = np.random.default_rng(12)
+    vecs = rng.normal(size=(SHARDED_N, SHARDED_D)).astype(np.float32)
+    q = rng.normal(size=(SHARDED_B, SHARDED_D)).astype(np.float32)
+    cpu = _sharded_store("int8", parallel.make_mesh(rows=4, devices=["cpu"] * 4), vecs)
+    for certify, mode in ((True, "K1"), (False, "K2")):
+        res = (cpu.query_batch(q, tx.Metric.Cosine).meta_filter(tx.col("price").lt(50.0))
+               .take(10, rerank_from=100, certify=certify).collect())
+        st = cpu.last_query_stats()
+        for rank in got:
+            indices, scores, certified, pruned, launches = rank[mode]
+            assert launches == 2, (mode, launches)  # two shards a process, one launch each
+            assert indices == res.indices and [certified, pruned] == [st.certified,
+                                                                      st.pruned_chunks]
+            np.testing.assert_allclose(scores, res.scores, rtol=1e-5, atol=1e-5)
+        assert got[0][mode][:4] == got[1][mode][:4]
+
+
+_BUILD_PROG = r"""
+from otters_tpu_torch import aot, kernels
+kernels.build(kernels.SOURCES)
+for name in kernels.SOURCES:
+    kernels.load(name)
+print("STATS", aot.stats["compiles"], aot.stats["disk_hits"], kernels.nvcc_runs)
+"""
+
+
+@pytest.mark.cuda
+def test_a_warm_process_builds_no_kernel(tmp_path):
+    """On a fresh ``OTTERS_AOT_CACHE`` the first process runs nvcc once per
+    source (seven; loading what it built is no disk hit), the second none
+    and loads all seven from the disk."""
+    import os
+    import subprocess
+    import sys
+
+    _device()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OTTERS_AOT_CACHE=str(tmp_path), PYTHONPATH=repo)
+    env.pop("OTTERS_DISABLE_AOT", None)
+    stats = []
+    for _ in range(2):
+        res = subprocess.run([sys.executable, "-c", _BUILD_PROG], capture_output=True, text=True,
+                             env=env, timeout=600)
+        assert res.returncode == 0, res.stderr[-3000:]
+        line = next(x for x in res.stdout.splitlines() if x.startswith("STATS"))
+        stats.append([int(v) for v in line.split()[1:]])
+    assert stats == [[7, 0, 7], [0, 7, 0]], stats
