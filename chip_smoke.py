@@ -141,6 +141,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    (``kernel_takes.routed``); the seven modes against their plain versions
    at each depth;
 5. the twin of examples/demo.py on the card;
+   5e. the twins of examples/async_serving.py, catalog.py,
+   certified_search.py and multichip.py (``otters_tpu_torch.examples``) at
+   their default sizes, each with its checks (multichip over the card
+   listed four times, ``rows=2, batch=2``);
 6. bench.py's exact-f32 section: a 4M x 768 f32 store built on the device,
    the same columns and filter, pipelined ``take(10)`` batches of 256
    Cosine queries through the verified fast-exact K4 (every check passes)
@@ -167,6 +171,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 7. VecStore at 1M x 768: f32 and bf16 storage (K4) and int8 storage
    (K2), each equal to the exact top-10 of its storage; a windowed
    take-all of 1.2M results equal to a stable sort of the score matrix;
+   7f. the on-card differential fuzz (``otters_tpu_torch.differential_fuzz``,
+   the port of scripts/tpu_differential_fuzz.py): trials drawn from seed 7
+   in the script's space (600k or 1M rows, d 64-768, b 1-256, k 5-100,
+   chunks of 512-4096 rows, int8 or f32) until 8 of fused size ran, b = 8
+   and chunks of 1000 among them, then a tie trial (rows copied from a few
+   vectors) whose fast check fails; each through the kernels and again
+   under ``OTTERS_DISABLE_PALLAS`` (the scan programs), equal within the
+   script's tolerances; a fused-size trial launched its kernel in the first
+   run (the tie trial K4 then K3) and none in the second; the direct-size
+   trials are counted apart; each trial logged;
 8. the three profiling probes (``otters_tpu_torch.profile_variants``,
    csrc/profile_probes.cu) at the shapes of
    scripts/kernel_profile_variants.py: each run by the module's timing
@@ -237,12 +251,25 @@ def log(msg: str) -> None:
     print(_LOG_PREFIX + msg, flush=True)
 
 
+PHASE_MEMORY = {}  # phase -> device GB (held at its start, its peak, held at its end)
+
+
 @contextlib.contextmanager
 def phase(name: str):
+    """Log a phase's start and end, its seconds and its device memory (the
+    run has a card): the allocator's peak counter is reset at the start, so
+    each phase's peak is its own (``PHASE_MEMORY``)."""
+    import torch
+
     t0 = time.perf_counter()
     log(f"== {name}")
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated() / 1e9
     yield
-    log(f"== {name}: done in {time.perf_counter() - t0:.2f} s")
+    peak, end = torch.cuda.max_memory_allocated() / 1e9, torch.cuda.memory_allocated() / 1e9
+    PHASE_MEMORY[name.split()[0]] = (start, peak, end)
+    log(f"== {name}: done in {time.perf_counter() - t0:.2f} s; device memory {start:.1f} GB "
+        f"at its start, peak {peak:.1f}, {end:.1f} at its end")
 
 
 def card_line() -> str:
@@ -1467,7 +1494,7 @@ def string_phase(torch, dev, f32, dv8, card=""):
     if dev.type == "cuda":
         log(f"4s memory after the ingest: {torch.cuda.memory_allocated(dev) / 1e9:.1f} GB "
             f"allocated (the f32 rows {f32.nbytes / 1e9:.1f} GB, phase 4's int8 rows and this "
-            f"store's {dv.vectors.nbytes / 1e9:.1f} GB each), peak so far "
+            f"store's {dv.vectors.nbytes / 1e9:.1f} GB each), the phase's peak so far "
             f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB of 80")
     log(f"4s ingest: with_vectors(f32 CUDA tensor, n_rows={n}) -> int8 in "
         f"{bs.vectors_ingest_duration:.3f} s (slabs of {sc.INGEST_SLAB_ROWS} rows); "
@@ -1796,7 +1823,7 @@ def life_layouts(torch, dev, f32, batches, truths, unsorted_build_s, card):
             f"{pruned} of {store.n_chunks()} chunks pruned (the host zonemap count over the "
             f"permuted columns); {', '.join(f'{r:.1f}' for r in rounds)} q/s, median {qps:.1f} "
             f"q/s on {card}; K1 launches {launches}; original ids, certified, equal to the f32 "
-            f"truth; peak device memory so far {peak:.1f} GB")
+            f"truth; the phase's peak device memory so far {peak:.1f} GB")
         out[name] = {"build_s": build_s, "pruned": pruned, "qps": qps, "qps_rounds": rounds,
                      "k1_launches": launches, "peak_gb": peak}
         del store, pend, results, pending
@@ -2909,6 +2936,48 @@ def vec_take_all(torch, store, dv, q_np):
     return secs
 
 
+FUZZ_TRIALS = 8  # phase 7f: fused-size trials, as scripts/tpu_differential_fuzz.py's 8
+FUZZ_SEED = 7
+
+
+def fuzz_phase(dev, card=""):
+    """The on-card differential fuzz (``otters_tpu_torch.differential_fuzz``
+    from seed 7): FUZZ_TRIALS fused-size trials at least (b = 8 and chunks
+    of 1000 among them), the direct-size trials drawn on the way, and the
+    tie trial; each once through the kernels and once with
+    ``OTTERS_DISABLE_PALLAS`` (the scan programs), equal within the script's
+    tolerances; a fused-size trial launched its kernel in the first run
+    (the tie trial K4 and its K3 re-run), none launched in the second and
+    its batch was routed -> (the records, the launches of each kernel over
+    the first runs)."""
+    from otters_tpu_torch import differential_fuzz as fz
+
+    recs = fz.run(FUZZ_TRIALS, FUZZ_SEED, device=dev,
+                  log=lambda r: log(fz.describe(r) + f" on {card}"))
+    launches = {}
+    for r in recs:
+        assert not r["switch_launches"], r
+        for mode, n in r["kernel_launches"].items():
+            launches[mode] = launches.get(mode, 0) + n
+    drawn, tie = recs[:-1], recs[-1]
+    fused = [r for r in drawn if r["route"] == "fused"]
+    direct = [r for r in drawn if r["route"] == "direct"]
+    assert len(fused) >= FUZZ_TRIALS and all(r["kernel_launches"] for r in fused)
+    assert any(r["b"] == fz.COVER_B for r in fused)
+    assert any(r["chunk"] == fz.COVER_CHUNK for r in fused)
+    assert tie["ties"] and tie["kernel_launches"] == {"K4": 1, "K3": 1}, tie
+    log(f"7f: {len(fused)} of {len(fused)} fused-size trials passed (at least {FUZZ_TRIALS}; "
+        f"b = {fz.COVER_B} in {sum(r['b'] == fz.COVER_B for r in fused)}, chunks of "
+        f"{fz.COVER_CHUNK} in {sum(r['chunk'] == fz.COVER_CHUNK for r in fused)}), a kernel "
+        f"launched in each first run, none under OTTERS_DISABLE_PALLAS")
+    log(f"7f: {len(direct)} direct-size trials (b x rows <= 2^22: trials "
+        f"{[r['trial'] for r in direct]}) ran the direct program in both runs, equal")
+    log(f"7f: the tie trial (trial {tie['trial']}) failed the fast check: K4 then K3 "
+        f"{tie['kernel_launches']}, equal to the scan program; launches over every first run "
+        f"{launches}")
+    return recs, launches
+
+
 def probe_bound(name, n_pad, d, b, t):
     """-> (bound ms, "bytes" or "operations") of one probe call: each input
     read once (v, or VH and VL; the queries), the output written once; the
@@ -3102,6 +3171,41 @@ def depth_phase(torch, dev):
     return out
 
 
+def examples_phase(torch, dev, card=""):
+    """The twins of examples/async_serving.py, catalog.py,
+    certified_search.py and multichip.py on the card at their default
+    sizes, each with its checks (``multichip`` over the card listed four
+    times: ``rows=2, batch=2``) -> the seconds of each."""
+    from otters_tpu_torch.examples import async_serving, catalog, certified_search, multichip
+
+    out = {}
+
+    def run(name, fn):
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            got = fn()
+        out[name] = time.perf_counter() - t0
+        lines = [ln for ln in text.getvalue().splitlines() if ln and not set(ln) <= set("+-")]
+        log(f"{name} ({out[name]:.2f} s on {card}): " + " / ".join(
+            ln for ln in lines if "|" not in ln))
+        return got, text.getvalue()
+
+    (results, results8), _ = run("async_serving", lambda: async_serving.main(device=dev))
+    assert len(results) == 8 and all(len(r) == K for r in results + results8)
+    assert all(v == "cat_3" for r in results for v in r.column("category").string_values())
+    (store, r8), text = run("catalog", lambda: catalog.main(device=dev))
+    assert store.device.type == "cuda" and "pruned_chunks" in text
+    assert len(r8) == 5 and all(v == "electronics" for v in r8.column("category").string_values())
+    (res, st), _ = run("certified_search", lambda: certified_search.main(device=dev))
+    assert st.certified is True and len(res) == K
+    (mstore, mres), text = run("multichip", lambda: multichip.main(devices=[dev] * 4))
+    assert "mesh: {'rows': 2, 'batch': 2} over 4 x " + torch.cuda.get_device_name(dev) in text
+    assert len(mstore) == 100_000 + 3 and len(mres) == K
+    assert "identical results" in text
+    return out
+
+
 def demo_phase():
     from otters_tpu_torch.demo import main as demo
 
@@ -3128,6 +3232,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
         return 1
+    # the kernels are what this run measures: the opt-in to the scan
+    # programs must not be set (phase 7f sets it for its second runs only)
+    assert not os.environ.get("OTTERS_DISABLE_PALLAS"), "OTTERS_DISABLE_PALLAS is set"
     try:
         import otters_tpu_torch  # noqa: F401
         from otters_tpu_torch import kernels
@@ -3222,6 +3329,8 @@ def main() -> int:
         depth = depth_phase(torch, dev)
     with phase("5 demo twin"):
         demo_phase()
+    with phase("5e the example twins (async_serving, catalog, certified_search, multichip)"):
+        examples = examples_phase(torch, dev, card)
     with phase(f"6 exact f32 path ({F32_ROWS} x {D}, K4 fast-exact; K6 at \"default\")"):
         store, dv, q0, f32_stats = f32_path(torch, dev, card)
         for m in ("K4", "K3", "K6"):
@@ -3241,10 +3350,17 @@ def main() -> int:
         torch.cuda.empty_cache()
     with phase(f"7 VecStore ({VEC_ROWS} x {D}, f32 and bf16 K4, int8 K2, take-all)"):
         vec = vecstore_path(torch, dev)
+    with phase(f"7f the on-card differential fuzz ({FUZZ_TRIALS}+ fused-size trials and a tie "
+               "trial, kernels against OTTERS_DISABLE_PALLAS)"):
+        fuzz, fuzz_launches = fuzz_phase(dev, card)
+        torch.cuda.empty_cache()
     with phase("8 profiling probes (k_mm, k_mm_bins, k_planes) at the script's shapes"):
         probes = probes_phase(torch, dev)
 
-    log(f"peak device memory allocated: {torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
+    top = max(PHASE_MEMORY, key=lambda p: PHASE_MEMORY[p][1])
+    log(f"peak device memory allocated: {PHASE_MEMORY[top][1]:.1f} GB, in phase {top}; "
+        "each phase's (GB at its start, peak, at its end): " + json.dumps(
+            {p: [round(x, 2) for x in m] for p, m in PHASE_MEMORY.items()}))
     bf16_path_name = f"bf16 {ROWS} x {D}"
     modes = [
         ("K1", "cert_cos_binmax", "cert_cos_binmax", ":123 (_kernel[certify,cert_cos])",
@@ -3340,7 +3456,12 @@ def main() -> int:
             **stats_, "path": "python -m otters_tpu_torch.profile_variants",
         })
     assert len(entries) == 13, len(entries)
-    log("phases 4s / 6v: " + json.dumps({"card": card, "4s": strings, "6v": vpu}))
+    for e in entries:
+        mode = {"int8_binmax": "K2", "f32_binmax": "K3", "bf16x3_binmax": "K4"}.get(e["name"])
+        if mode is not None:
+            e["fuzz_launches"] = fuzz_launches.get(mode, 0)
+    log("phases 4s / 6v / 5e / 7f: " + json.dumps({"card": card, "4s": strings, "6v": vpu,
+                                                   "5e": examples, "7f": fuzz}))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,12 @@ per-shard directory format, also across processes
 (``parallel.init_distributed``: the exchange between processes is gloo
 over host buffers), pandas / Arrow ``adapters``, the synthetic
 ``datasets``, ``evaluate.recall_at_k``, and ``aot``: the cache of compiled
-programs and of the compiled kernel libraries (``OTTERS_AOT_CACHE``). The
-port does everything the JAX package does.
+programs and of the compiled kernel libraries (``OTTERS_AOT_CACHE``).
+``resolve`` fetches the candidates of a group the device rerank does not
+take in one sorted ``fetch_vectors`` call; ``OTTERS_DISABLE_PALLAS``
+sends every shape to the scan programs, which the on-card differential
+fuzz (``differential_fuzz``) holds the kernels against; the JAX package's
+examples have twins in ``otters_tpu_torch.examples``.
 """
 
 from .column import Column

@@ -13,8 +13,9 @@ runs). The store is one device-resident state:
 A query dispatches chunk-mask pruning, the row mask and the scoring program
 without waiting on the device (``collect_async``); the small outputs are
 copied to pinned host buffers behind a CUDA event that ``result()`` and
-``resolve()`` wait on. Errors from the kernel or the device propagate:
-there is no fallback to another path.
+``resolve()`` wait on. ``resolve`` reranks each group of compatible
+pendings in one device program. Errors from the kernel or the device
+propagate: there is no fallback to another path.
 
 Scoring at scale runs the fused kernels (``ops/fused_topk.py``): f32 and
 bfloat16 storage take the verified fast-exact K4 (bf16x3) by default, with a
@@ -25,10 +26,10 @@ precisions "default" / "bf16" score one bf16 pass on every path (K6 at
 scale). With the certificate (``take(k, rerank_from=...)``) int8 storage
 takes K1 (Cosine), bfloat16 storage K1 for Cosine and K5 for Dot and
 Euclid; uncertified int8 takes K2. Any depth is taken: the store pads its
-rows' depth to a multiple of 16, K1 / K5 / K6 over f32 rows stream the
-query block for deep rows, and a depth K6 over bf16 rows or K2 cannot hold
-in shared memory goes to the scan program, decided from the shape
-(``fused_topk.kernel_takes``, JAX's ``pallas_ok``). A take(k) too wide for
+rows' depth to a multiple of 16 and the kernels' deep-row plans stream the
+query block. The shape route (``fused_topk.kernel_takes``, JAX's
+``pallas_ok``) sends a shape to the scan program only when the user asks
+for it by name (``OTTERS_DISABLE_PALLAS``). A take(k) too wide for
 any device top-k (the take-all regime) streams score windows to the host
 (``scoring.collect_all``).
 
@@ -542,8 +543,8 @@ def _device_rerank_dispatch(store: "MetaStore", plist):
     plan0 = plist[0]._plan
     metric = plan0._metric
     if metric in VPU_METRICS:
-        # a [P, B, M, D] broadcast would blow memory: each pending reranks
-        # on its own (evaluate.exact_rerank), as in the JAX package
+        # a [P, B, M, D] broadcast would blow memory: the host rerank
+        # (evaluate.exact_rerank) over resolve's one union prefetch
         return None
     dev = store._device
     k_final = plan0._take_count
@@ -1273,8 +1274,9 @@ class MetaStore:
     @staticmethod
     def load(path: str, mesh=None, *, device=None) -> "MetaStore":
         """Load a store saved by ``save`` (or by the JAX package) onto
-        ``device`` (default: the current CUDA device). ``mesh`` (the
-        sharded store) is not ported yet."""
+        ``device`` (default: the current CUDA device), or with ``mesh`` as
+        the row-sharded store over that mesh (``parallel.ShardedMetaStore``;
+        a ``sharded-v1`` directory or a single file)."""
         from . import io
 
         return io.load_meta(path, mesh=mesh, device=device)
@@ -1534,7 +1536,7 @@ class MetaStore:
             fused_topk.kernel_mode(dtype, metric, take_min, certify, self.precision, fast),
             self._dim,
         ):
-            # the kernel does not take this depth (the JAX package's
+            # the kernel does not take this shape (the JAX package's
             # pallas_ok): the scan program, chosen before any launch
             tile, fast = "scan", False
             fused_topk.kernel_takes.routed += b
@@ -2050,6 +2052,7 @@ class PendingMetaQuery:
         self._rerun_widened = rerun_widened
         self._result: Optional[MetaQueryResults] = None
         self._fetched = None
+        self._rerank_prefetch = None  # set by resolve(): (sorted ids, their rows)
         self._device_rerank = None  # set by resolve(): (cand set, rows, scores)
         self._certified: Optional[bool] = None
         self._scan_k_wide: Optional[int] = None
@@ -2083,8 +2086,18 @@ class PendingMetaQuery:
         store = plan._store
         idx = np.asarray(indices, dtype=np.int64)
         orig = store._index_map[idx] if store._index_map is not None else idx
+        fetch = store._rerank_fetch
+        if self._rerank_prefetch is not None:
+            pf_ids, mat = self._rerank_prefetch
+
+            def fetch(ids, _ids=pf_ids, _m=mat, _f=store._rerank_fetch):
+                ids = np.asarray(ids, dtype=np.int64)
+                pos = np.minimum(np.searchsorted(_ids, ids), len(_ids) - 1)
+                if (_ids[pos] == ids).all():
+                    return _m[torch.as_tensor(pos, device=_m.device)]
+                return _f(ids)  # e.g. a collision redo changed the set
         rows, scrs = exact_rerank(
-            self._queries, orig.tolist(), store._rerank_fetch, plan._metric,
+            self._queries, orig.tolist(), fetch, plan._metric,
             len(orig), take_min=(self._take_type is TakeType.Min),
         )
         if plan._vec_filter is not None:
@@ -2249,6 +2262,7 @@ class PendingMetaQuery:
             evaluated, rows_eval = int(ev), int(re_)
             ok_np = np.asarray(valid, dtype=bool)
             indices = np.asarray(rows)[ok_np].astype(np.int64).tolist()
+            self._rerank_prefetch = None
             self._device_rerank = None
             if (
                 self._has_filter
@@ -2295,7 +2309,10 @@ class PendingMetaQuery:
 def resolve(pendings: List[PendingMetaQuery]) -> List[MetaQueryResults]:
     """Finalize many in-flight queries: wait for their scans, enqueue one
     exact rerank per compatible group (same store, batch shape, metric,
-    filter and k), then drain the groups and build the results."""
+    filter and k), then drain the groups and build the results. A group the
+    device rerank does not take (the VPU metrics) fetches its members'
+    candidates in one sorted ``fetch_vectors`` call, which each member's
+    host rerank reads."""
     todo = [p for p in pendings if p._copy is not None and p._result is None]
     by_group: Dict[tuple, Tuple[MetaStore, list]] = {}
     for p in todo:
@@ -2308,13 +2325,29 @@ def resolve(pendings: List[PendingMetaQuery]) -> List[MetaQueryResults]:
             by_group.setdefault(gkey, (plan._store, []))[1].append(p)
     for p in todo:
         p._fetch()
-    states = []
+    states, host_groups = [], []
     for store, plist in by_group.values():
         state = _device_rerank_dispatch(store, plist)
-        if state is not None:
+        if state is None:
+            host_groups.append((store, plist))
+        else:
             states.append(state)
     for plist, cands, copy in states:
         _device_rerank_finish(plist, cands, copy.wait())
+    for store, plist in host_groups:
+        ids = []
+        for p in plist:
+            rows, valid = p._fetched[0], p._fetched[2]
+            idx = np.asarray(rows)[np.asarray(valid, dtype=bool)].astype(np.int64)
+            ids.append(store._index_map[idx] if store._index_map is not None else idx)
+        # the sorted union: each member looks its rows up by searchsorted,
+        # and ascending ids make the user's fetch a gather in order
+        ids_arr = np.unique(np.concatenate(ids))
+        if ids_arr.size == 0:
+            continue
+        mat = _to_device(store._rerank_fetch(ids_arr), store._device, torch.float32)
+        for p in plist:
+            p._rerank_prefetch = (ids_arr, mat)
     return [p.result() for p in pendings]
 
 

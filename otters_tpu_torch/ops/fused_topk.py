@@ -36,8 +36,9 @@ FFMA consumers). The stored rows' depth is padded to a multiple of 16
 (``scoring.pad_depth``): the launch reads it from the rows' stride and pads
 the queries to it. :func:`kernel_takes`, the counterpart of the JAX
 package's ``pallas_ok``, tells from the shape whether a kernel fits (every
-kernel takes any d: the deep-row plan streams the query block); the
-callers send a shape it refuses to the scan program before any launch.
+kernel takes any d: the deep-row plan streams the query block) and refuses
+every shape under ``OTTERS_DISABLE_PALLAS``; the callers send a shape it
+refuses to the scan program before any launch.
 
 Phase 2 re-scores the winning bins and selects the k results in plain
 torch (it is XLA code in the JAX package), at the phase-1 precision for
@@ -54,6 +55,7 @@ the JAX package's ``_pallas_topk_jit``).
 from __future__ import annotations
 
 import ctypes
+import os
 import functools
 from typing import NamedTuple, Optional
 
@@ -873,10 +875,14 @@ def kernel_takes(mode: str, d: int) -> bool:
     must fit a block (232,448 B); unlike a TPU's VMEM budget it does not
     grow with the batch. Every kernel runs on the Hopper scan and takes any
     d (the deep-row plan streams the query block; K3 and K4 stream theirs
-    at every depth), so only a caller that swaps this check refuses a
-    shape. A shape it refuses goes to the scan program
-    (``scoring.scan_topk_core``), and the caller adds the batch's queries
-    to ``kernel_takes.routed``."""
+    at every depth). ``OTTERS_DISABLE_PALLAS`` (JAX's name, so that a
+    deployment's environment carries across) refuses every shape: the user
+    asks for the scan programs by name, as the on-card differential fuzz
+    (``differential_fuzz``) does. A shape it refuses goes to the scan
+    program (``scoring.scan_topk_core``, torch ops on the same device), and
+    the caller adds the batch's queries to ``kernel_takes.routed``."""
+    if os.environ.get("OTTERS_DISABLE_PALLAS"):
+        return False
     return kernel_smem_bytes(mode, pad_depth(d)) <= _SMEM_MAX
 
 

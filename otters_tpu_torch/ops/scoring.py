@@ -1024,8 +1024,9 @@ def run_vec_topk(
     f32 and bfloat16 rows the verified fast-exact K4 where
     :func:`fused_topk.fast_ok` allows it, re-run strictly (K3) when its
     check fails, else K3 (K4 for the store precision "high", K6 for the
-    one-pass "default" / "bf16"); a depth the kernel does not take
-    (:func:`fused_topk.kernel_takes`) goes to the scan program. The
+    one-pass "default" / "bf16"); a shape the kernel does not take
+    (:func:`fused_topk.kernel_takes`: any under ``OTTERS_DISABLE_PALLAS``)
+    goes to the scan program. The
     take-all regime streams windows to the host (:func:`collect_all`)."""
     check_precision(prec)
     n_pad = dv.vectors.shape[0]
@@ -1052,7 +1053,7 @@ def run_vec_topk(
         )
         kernel = ft.kernel_mode(dv.vectors.dtype, metric, take_min, False, prec, fast)
         if not ft.kernel_takes(kernel, dv.vectors.shape[1]):
-            # the kernel does not take this depth (the JAX package's
+            # the kernel does not take this shape (the JAX package's
             # pallas_ok): the scan program, chosen before any launch
             ft.kernel_takes.routed += b
             mode = "scan"

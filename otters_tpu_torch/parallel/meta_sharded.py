@@ -576,7 +576,7 @@ class ShardedMetaStore(MetaStore):
             fused_topk.kernel_mode(dtype, metric, take_min, certify, self.precision, fast),
             self._dim,
         ):
-            # the kernel does not take this depth: the direct / panel programs
+            # the kernel does not take this shape: the direct / panel programs
             tile, fast, certify = "auto", False, supported
             fused_topk.kernel_takes.routed += b_pad
         memo = (plan_static, b_pad, k_eff, metric, take_min, cmp, self.precision, tile,

@@ -19,7 +19,9 @@ def test_import_leaves_jax_and_otters_tpu_out():
     code = (
         "import sys, otters_tpu_torch, otters_tpu_torch.meta, otters_tpu_torch.demo, "
         "otters_tpu_torch.ops.fused_topk, otters_tpu_torch.state, otters_tpu_torch.kernels, "
-        "otters_tpu_torch.vec, otters_tpu_torch.ops.distance\n"
+        "otters_tpu_torch.vec, otters_tpu_torch.ops.distance, otters_tpu_torch.differential_fuzz, "
+        "otters_tpu_torch.examples.async_serving, otters_tpu_torch.examples.catalog, "
+        "otters_tpu_torch.examples.certified_search, otters_tpu_torch.examples.multichip\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'otters_tpu' or m.startswith('otters_tpu.')]\n"
         "print(bad)\n"
