@@ -1,0 +1,9 @@
+"""The benchmark's own tests: ``python -m pytest benchmark/tests`` from the
+root of the checkout (on the CPU; the tests marked ``cuda`` skip there)."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
