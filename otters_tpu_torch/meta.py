@@ -66,6 +66,7 @@ public method of the JAX package's classes exists here.
 from __future__ import annotations
 
 import functools
+import itertools
 import os
 import time
 import warnings
@@ -85,6 +86,7 @@ from .ops import bloom as bloom_ops
 from .ops import fused_topk, hashing, predicate, scoring
 from .ops import zonemap as zm
 from .ops.scoring import HostCopy
+from .utils.profiling import count, span
 from .types import (
     NEGATED_CMP,
     NEGATED_STRING_OPS,
@@ -105,13 +107,24 @@ from .types import (
 
 @dataclass
 class MetaQueryStats:
+    """One query's counts and host timers, in seconds of
+    ``time.perf_counter()`` (filled whether or not a profiler runs)."""
+
     total_chunks: int
     pruned_chunks: int
     evaluated_chunks: int
     vectors_compared: int
-    prune_duration: float  # seconds
+    # the host seconds of this query's filter lowering and its mask enqueue
+    prune_duration: float
+    # the sum of this query's own host intervals: its scan's set-up, launch
+    # and phase-2 enqueue, its wait for its own outputs, its rerank and
+    # certificate (a resolve group's shared intervals split evenly among its
+    # members); under pipelining not the wall time from collect_async to the
+    # result, which holds the wait behind other queries
     score_duration: float
+    # the host materialisation of the results
     merge_duration: float
+    # the query's wall latency, from collect_async to its finished result
     total_duration: float
     # exactness certificate (take(k, rerank_from=...) on int8 / bf16 storage):
     # None = not applicable; True = recall 1.0 by construction; False =
@@ -312,6 +325,62 @@ class _Fetched:
         return self._outputs
 
 
+_REQUEST_IDS = itertools.count()  # each query's id in its spans (collect_async)
+
+
+class _HostClock:
+    """A query's own host seconds by part (``MetaQueryStats``' timers)."""
+
+    __slots__ = ("prune", "score")
+
+    def __init__(self):
+        self.prune = 0.0
+        self.score = 0.0
+
+
+def _charge(clocks, since: float) -> None:
+    """Add the seconds since ``since`` to the score time of the queries
+    whose ``clocks`` shared them, split evenly."""
+    dt = (time.perf_counter() - since) / len(clocks)
+    for c in clocks:
+        c.score += dt
+
+
+class _Part:
+    """A span of one part of the scoring whose host seconds count in the
+    score time of the queries whose ``clocks`` share it (:func:`_charge`),
+    whether or not a profiler runs."""
+
+    __slots__ = ("clocks", "span", "t0")
+
+    def __init__(self, name: str, clocks, request=None):
+        self.clocks = clocks
+        self.span = span(name, request)
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        self.span.__enter__()
+
+    def __exit__(self, *exc):
+        self.span.__exit__(*exc)
+        _charge(self.clocks, self.t0)
+        return False
+
+
+def _wait(copy, clocks, request=None) -> tuple:
+    """``copy.wait()``: the host blocked on the device for the queries
+    whose ``clocks`` wait on it."""
+    with _Part("otters.finish.wait", clocks, request):
+        return copy.wait()
+
+
+def _fetch_vectors(store, ids):
+    """The user's rerank source for the original row ids ``ids``."""
+    with span("otters.fetch_vectors"):
+        count("otters.fetch_rows", len(ids))
+        return store._rerank_fetch(ids)
+
+
 # ---------------------------------------------------------------------------
 # Device state construction
 # ---------------------------------------------------------------------------
@@ -421,7 +490,7 @@ def _build_device_column(col: Column, n: int, n_pad: int, chunk_size: int,
 
 def _meta_query_program(store: "MetaStore", cols, queries, plan_static,
                         plan_params, thr, *, metric, k, take_min, cmp, tile,
-                        certify, fast=False):
+                        certify, fast=False, clock=None):
     """The whole meta query, enqueued on the device without waiting:
 
     zonemap chunk-mask pruning + stats -> row-mask predicate tensors ->
@@ -433,7 +502,26 @@ def _meta_query_program(store: "MetaStore", cols, queries, plan_static,
     NOT among the returned candidates; -inf otherwise. fast=True (f32 / bf16
     rows): the 4th output is the fast-exact check, False when the query
     must be re-run strictly. Returns device tensors (rows, scores, ok,
-    check, bound, evaluated, rows_eval)."""
+    check, bound, evaluated, rows_eval). ``clock`` (a query's
+    ``_HostClock``) takes the host seconds of the masks as pruning, the
+    rest as scoring."""
+    t0 = time.perf_counter()
+    with span("otters.submit.masks"):
+        evaluated, rows_eval, rmask, alive = _program_masks(
+            store, cols, plan_static, plan_params, tile)
+    t1 = time.perf_counter()
+    out = _program_scores(store, queries, rmask, alive, thr, metric=metric, k=k,
+                          take_min=take_min, cmp=cmp, tile=tile, certify=certify, fast=fast)
+    if clock is not None:
+        clock.prune += t1 - t0
+        clock.score += time.perf_counter() - t1
+    return (*out, evaluated, rows_eval)
+
+
+def _program_masks(store: "MetaStore", cols, plan_static, plan_params, tile):
+    """The query program's pruning, enqueued -> (evaluated chunks, their
+    rows, the row mask or None, the live 512-row bins of the fused scan or
+    the live tiles of the pruned VPU scan, else None)."""
     dv = store._dv
     dev = dv.vectors.device
     n_pad = dv.vectors.shape[0]
@@ -448,6 +536,7 @@ def _meta_query_program(store: "MetaStore", cols, queries, plan_static,
         evaluated = torch.full((), n_chunks, dtype=torch.int32, device=dev)
         rows_eval = chunk_lens.sum(dtype=torch.int32)
         rmask = None
+    alive = None
     if tile == "fused":
         # the hand-written kernel: pruned bins cost no loads and no math
         if plan_static:
@@ -456,34 +545,7 @@ def _meta_query_program(store: "MetaStore", cols, queries, plan_static,
             )
         else:
             alive = torch.ones(n_pad // fused_topk.BIN, dtype=torch.bool, device=dev)
-        rows, scores, ok, check, bound = fused_topk.fused_topk(
-            dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, queries, rmask,
-            thr, alive, metric=metric, k=k, take_min=take_min, cmp=cmp,
-            certify=certify, prec=store.precision, fast=fast, resid=dv.resid,
-        )
-        return rows, scores, ok, check, bound, evaluated, rows_eval
-
-    # direct / scan / panel / scan_pruned: one global certificate term; the certified scan runs
-    # MIXED (bf16-rounded queries x stored rows), signaled to _score_block
-    # by the bf16 query dtype
-    cert_slack = None
-    thr_core = thr
-    q_core = queries
-    if certify:
-        d = dv.vectors.shape[1]
-        qh32, c0, c1, c2 = scoring.cert_query_coeffs(metric, queries, d)
-        lane_a, lane_b = scoring.cert_row_lanes(
-            metric, dv.vectors.dtype, dv.resid, dv.inv_norms, dv.norms_sq, d
-        )
-        cert_slack = scoring.cert_global_slack(c0, c1, c2, lane_a, lane_b, dv.norms_sq)
-        if cmp in (Cmp.Gt, Cmp.Gte):
-            thr_core = thr - cert_slack
-        elif cmp in (Cmp.Lt, Cmp.Lte):
-            thr_core = thr + cert_slack
-        q_core = qh32.to(torch.bfloat16)
-    args = (dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, q_core, rmask, thr_core)
-    kwargs = dict(metric=metric, k=k, take_min=take_min, cmp=cmp, prec=store.precision)
-    if tile == "scan_pruned":
+    elif tile == "scan_pruned":
         # the pruning path of the VPU metrics: dead tiles are never read
         if plan_static:
             alive = scoring.tiles_alive_from_chunk_mask(
@@ -491,28 +553,65 @@ def _meta_query_program(store: "MetaStore", cols, queries, plan_static,
             )
         else:
             alive = torch.ones(n_pad // scoring.SCAN_TILE, dtype=torch.bool, device=dev)
-        rows, scores, ok = scoring.scan_pruned_topk_core(
-            *args, alive, tile=scoring.SCAN_TILE, **kwargs
+    return evaluated, rows_eval, rmask, alive
+
+
+def _program_scores(store: "MetaStore", queries, rmask, alive, thr, *, metric, k,
+                    take_min, cmp, tile, certify, fast):
+    """The query program's scoring, enqueued -> (rows, scores, ok, check,
+    bound) (see _meta_query_program)."""
+    dv = store._dv
+    dev = dv.vectors.device
+    if tile == "fused":
+        return fused_topk.fused_topk(
+            dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, queries, rmask,
+            thr, alive, metric=metric, k=k, take_min=take_min, cmp=cmp,
+            certify=certify, prec=store.precision, fast=fast, resid=dv.resid,
         )
+
+    # direct / scan / panel / scan_pruned: one global certificate term; the certified scan runs
+    # MIXED (bf16-rounded queries x stored rows), signaled to _score_block
+    # by the bf16 query dtype
+    with span("otters.submit.scan_setup"):
+        cert_slack = None
+        thr_core = thr
+        q_core = queries
+        if certify:
+            d = dv.vectors.shape[1]
+            qh32, c0, c1, c2 = scoring.cert_query_coeffs(metric, queries, d)
+            lane_a, lane_b = scoring.cert_row_lanes(
+                metric, dv.vectors.dtype, dv.resid, dv.inv_norms, dv.norms_sq, d
+            )
+            cert_slack = scoring.cert_global_slack(c0, c1, c2, lane_a, lane_b, dv.norms_sq)
+            if cmp in (Cmp.Gt, Cmp.Gte):
+                thr_core = thr - cert_slack
+            elif cmp in (Cmp.Lt, Cmp.Lte):
+                thr_core = thr + cert_slack
+            q_core = qh32.to(torch.bfloat16)
+    args = (dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, q_core, rmask, thr_core)
+    kwargs = dict(metric=metric, k=k, take_min=take_min, cmp=cmp, prec=store.precision)
+    with span("otters.submit.launch"):
+        if tile == "scan_pruned":
+            rows, scores, ok = scoring.scan_pruned_topk_core(
+                *args, alive, tile=scoring.SCAN_TILE, **kwargs
+            )
+        elif tile == "panel":
+            rows, scores, ok = scoring.panel_topk_core(*args, **kwargs)
+        elif tile == "scan":
+            rows, scores, ok = scoring.scan_topk_core(*args, tile=scoring.SCAN_TILE, **kwargs)
+        else:
+            rows, scores, ok = scoring.direct_topk_core(*args, **kwargs)
+    with span("otters.submit.phase2"):
+        if certify:
+            # every unreturned candidate's scan key <= the k-th returned one
+            # (exact global top-k); with fewer than k valid candidates every
+            # passing row was returned and nothing is unexamined
+            kth_key = -scores[-1] if take_min else scores[-1]
+            bound = torch.where(ok[-1], kth_key + cert_slack, float("-inf"))
+        else:
+            bound = torch.full((), float("-inf"), device=dev)
         check = torch.ones((), dtype=torch.bool, device=dev)
-        bound = torch.full((), float("-inf"), device=dev)
-        return rows, scores, ok, check, bound, evaluated, rows_eval
-    if tile == "panel":
-        rows, scores, ok = scoring.panel_topk_core(*args, **kwargs)
-    elif tile == "scan":
-        rows, scores, ok = scoring.scan_topk_core(*args, tile=scoring.SCAN_TILE, **kwargs)
-    else:
-        rows, scores, ok = scoring.direct_topk_core(*args, **kwargs)
-    if certify:
-        # every unreturned candidate's scan key <= the k-th returned one
-        # (exact global top-k); with fewer than k valid candidates every
-        # passing row was returned and nothing is unexamined
-        kth_key = -scores[-1] if take_min else scores[-1]
-        bound = torch.where(ok[-1], kth_key + cert_slack, float("-inf"))
-    else:
-        bound = torch.full((), float("-inf"), device=dev)
-    check = torch.ones((), dtype=torch.bool, device=dev)
-    return rows, scores, ok, check, bound, evaluated, rows_eval
+    return rows, scores, ok, check, bound
 
 
 def _rerank_scores(q: torch.Tensor, v: torch.Tensor, metric: Metric) -> torch.Tensor:
@@ -564,7 +663,7 @@ def _device_rerank_dispatch(store: "MetaStore", plist):
         cands.append(cand)
     m = max(len(c) for c in cands)
     ids_arr = np.unique(np.concatenate(cands))
-    vecs = _to_device(store._rerank_fetch(ids_arr), dev, torch.float32)
+    vecs = _to_device(_fetch_vectors(store, ids_arr), dev, torch.float32)
     n_p = len(plist)
     pos = np.zeros((n_p, m), dtype=np.int64)
     valid_m = np.zeros((n_p, m), dtype=bool)
@@ -1590,25 +1689,27 @@ class MetaStore:
                        sources=tuple(sorted(sources)))
 
     def _run_prepared(self, launch, k_eff, cols_sub, queries, plan_params, thr, plan_static,
-                      metric, take_min, cmp):
+                      metric, take_min, cmp, clock=None):
         """Enqueue a prepared launch -> device tensors (see
         _meta_query_program)."""
         thr_t = _scalar(float(thr), torch.float32, self._device)
         return _meta_query_program(
             self, cols_sub, queries, plan_static, plan_params, thr_t,
             metric=metric, k=k_eff, take_min=take_min, cmp=cmp, tile=launch.tile,
-            certify=launch.certify, fast=launch.fast,
+            certify=launch.certify, fast=launch.fast, clock=clock,
         )
 
     def _run_query_program(self, cols_sub, queries, plan_params, thr, plan_static,
-                           metric, k, take_min, cmp, strict=False, certify=False):
+                           metric, k, take_min, cmp, strict=False, certify=False,
+                           clock=None):
         """Prepare (:meth:`_prepare_program`) and enqueue the program ->
-        device tensors (see _meta_query_program)."""
-        launch, k_eff = self._prepare_program(
-            queries, plan_static, metric, k, take_min, cmp, strict=strict, certify=certify
-        )
+        device tensors (see _meta_query_program, which fills ``clock``)."""
+        with span("otters.submit.plan"):
+            launch, k_eff = self._prepare_program(
+                queries, plan_static, metric, k, take_min, cmp, strict=strict, certify=certify
+            )
         return self._run_prepared(launch, k_eff, cols_sub, queries, plan_params, thr,
-                                  plan_static, metric, take_min, cmp)
+                                  plan_static, metric, take_min, cmp, clock=clock)
 
     def _certify_supported(self, metric, take_min, cmp) -> bool:
         """Can the exactness certificate cover this plan shape? int8 storage:
@@ -1899,8 +2000,14 @@ class MetaQueryPlan:
         (the pruned scan) reads its list of live tiles to the host once."""
         if self._meta_error is not None:
             raise OttersError(self._meta_error)
+        seq = next(_REQUEST_IDS)
+        with span("otters.submit", seq):
+            return self._submit(seq)
+
+    def _submit(self, seq: int) -> "PendingMetaQuery":
         store = self._store
         total_start = time.perf_counter()
+        clock = _HostClock()
         k = self._take_count if self._take_count is not None else store.n_rows
         if self._rerank_from is not None:
             if store._rerank_fetch is None:
@@ -1911,19 +2018,18 @@ class MetaQueryPlan:
             k = self._rerank_from  # widen the device scan; result() reranks
         take_type = self._take_type or default_take_type(self._metric)
         take_min = take_type is TakeType.Min
-        queries = self._device_queries()
-        b = queries.shape[0]
-        has_filter = self._meta_filter is not None and len(self._meta_filter.clauses) > 0
+        with span("otters.submit.plan"):
+            queries = self._device_queries()
+            b = queries.shape[0]
+            has_filter = self._meta_filter is not None and len(self._meta_filter.clauses) > 0
+            prune_start = time.perf_counter()
+            if has_filter and store.n_chunks() > 0:
+                plan_static, plan_params, used = self._lower_plan()
+                cols_sub = {name: store._device_cols[name] for name in used}
+            else:
+                plan_static, plan_params, cols_sub = (), (), {}
+            clock.prune += time.perf_counter() - prune_start
 
-        prune_start = time.perf_counter()
-        if has_filter and store.n_chunks() > 0:
-            plan_static, plan_params, used = self._lower_plan()
-            cols_sub = {name: store._device_cols[name] for name in used}
-        else:
-            plan_static, plan_params, cols_sub = (), (), {}
-        prune_dur = time.perf_counter() - prune_start
-
-        score_start = time.perf_counter()
         copy = None
         rerun_widened = None
         strict_redo = None
@@ -1976,27 +2082,31 @@ class MetaQueryPlan:
                     )
                 # take-all regime (reference meta.rs:638-640): no device
                 # top-k buffer fits, so score windows stream to the host
-                copy = _Fetched(store._windowed_collect(
-                    cols_sub, queries, plan_params, plan_static, min(k, b * n_pad),
-                    self._metric, take_min, thr, cmp,
-                ))
+                with _Part("otters.submit.launch", [clock]):
+                    copy = _Fetched(store._windowed_collect(
+                        cols_sub, queries, plan_params, plan_static, min(k, b * n_pad),
+                        self._metric, take_min, thr, cmp,
+                    ))
             else:
 
-                def run(k_run=k, strict=False):
+                def run(k_run=k, strict=False, clock=None):
                     return store._run_query_program(
                         cols_sub, queries, plan_params, 0.0 if thr is None else thr,
                         plan_static, self._metric, k_run, take_min,
                         None if thr is None else cmp, strict=strict, certify=certify,
+                        clock=clock,
                     )
 
-                copy = HostCopy.of(run())
+                # a rerun (strict or widened) counts in the interval that runs it
+                outputs = run(clock=clock)
+                with _Part("otters.submit.phase2", [clock]):
+                    copy = HostCopy.of(outputs)
                 rerun_widened = run if certify else None
                 strict_redo = functools.partial(run, strict=True)
         return PendingMetaQuery(
             plan=self, copy=copy, queries=queries, k=k, take_type=take_type,
-            has_filter=has_filter, total_start=total_start, prune_dur=prune_dur,
-            score_start=score_start, rerun_widened=rerun_widened,
-            strict_redo=strict_redo,
+            has_filter=has_filter, total_start=total_start, seq=seq, clock=clock,
+            rerun_widened=rerun_widened, strict_redo=strict_redo,
         )
 
 
@@ -2037,7 +2147,7 @@ class PendingMetaQuery:
     """In-flight meta query: device program enqueued, results not fetched."""
 
     def __init__(self, plan: MetaQueryPlan, copy: Optional[HostCopy], queries, k,
-                 take_type, has_filter, total_start, prune_dur, score_start,
+                 take_type, has_filter, total_start, seq, clock,
                  rerun_widened=None, strict_redo=None):
         self._plan = plan
         self._copy = copy
@@ -2047,8 +2157,8 @@ class PendingMetaQuery:
         self._take_type = take_type
         self._has_filter = has_filter
         self._total_start = total_start
-        self._prune_dur = prune_dur
-        self._score_start = score_start
+        self._seq = seq  # the query's id in its spans
+        self._clock = clock
         self._rerun_widened = rerun_widened
         self._result: Optional[MetaQueryResults] = None
         self._fetched = None
@@ -2069,9 +2179,13 @@ class PendingMetaQuery:
         4th output) re-runs the scan strictly in exact f32 here, where the
         outputs are fetched anyway; collect_async never waits for it."""
         if self._fetched is None:
-            fetched = self._copy.wait()
+            clocks = [self._clock]
+            fetched = _wait(self._copy, clocks, self._seq)
             if not bool(fetched[3]) and self._strict_redo is not None:
-                fetched = HostCopy.of(self._strict_redo()).wait()
+                t0 = time.perf_counter()
+                copy = HostCopy.of(self._strict_redo())
+                _charge(clocks, t0)
+                fetched = _wait(copy, clocks, self._seq)
             self._fetched = fetched
         return self._fetched
 
@@ -2086,11 +2200,11 @@ class PendingMetaQuery:
         store = plan._store
         idx = np.asarray(indices, dtype=np.int64)
         orig = store._index_map[idx] if store._index_map is not None else idx
-        fetch = store._rerank_fetch
+        fetch = functools.partial(_fetch_vectors, store)
         if self._rerank_prefetch is not None:
             pf_ids, mat = self._rerank_prefetch
 
-            def fetch(ids, _ids=pf_ids, _m=mat, _f=store._rerank_fetch):
+            def fetch(ids, _ids=pf_ids, _m=mat, _f=fetch):
                 ids = np.asarray(ids, dtype=np.int64)
                 pos = np.minimum(np.searchsorted(_ids, ids), len(_ids) - 1)
                 if (_ids[pos] == ids).all():
@@ -2112,8 +2226,14 @@ class PendingMetaQuery:
         return rows, scrs
 
     def result(self) -> MetaQueryResults:
-        if self._result is not None:
-            return self._result
+        if self._result is None:
+            with span("otters.finish", self._seq):
+                self._finish()
+        return self._result
+
+    def _finish(self) -> MetaQueryResults:
+        """Finalize (``result()``'s work; ``resolve`` calls it in its own
+        span)."""
         plan = self._plan
         store = plan._store
         n_chunks = store.n_chunks()
@@ -2156,72 +2276,77 @@ class PendingMetaQuery:
                     collision_redo = True
 
             if plan._rerank_from is not None and indices:
+                clocks = [self._clock]
                 if self._device_rerank is None:
                     # plain collect(): the batched rerank as a group of one
-                    state = _device_rerank_dispatch(store, [self])
+                    with _Part("otters.finish.rerank", clocks, self._seq):
+                        state = _device_rerank_dispatch(store, [self])
                     if state is not None:
-                        _device_rerank_finish(state[0], state[1], state[2].wait())
-                dr = self._device_rerank
-                idx0 = np.asarray(indices, dtype=np.int64)
-                orig0 = store._index_map[idx0] if store._index_map is not None else idx0
-                if dr is not None and frozenset(orig0.tolist()) == dr[0]:
-                    rows_orig = np.asarray(dr[1], dtype=np.int64)
-                    scores = list(dr[2])
-                    if store._index_map is not None:
-                        indices = store._positions()[rows_orig].tolist()
+                        fetched = _wait(state[2], clocks, self._seq)
+                        with _Part("otters.finish.rerank", clocks, self._seq):
+                            _device_rerank_finish(state[0], state[1], fetched)
+                with _Part("otters.finish.rerank", clocks, self._seq):
+                    dr = self._device_rerank
+                    idx0 = np.asarray(indices, dtype=np.int64)
+                    orig0 = store._index_map[idx0] if store._index_map is not None else idx0
+                    if dr is not None and frozenset(orig0.tolist()) == dr[0]:
+                        rows_orig = np.asarray(dr[1], dtype=np.int64)
+                        scores = list(dr[2])
+                        if store._index_map is not None:
+                            indices = store._positions()[rows_orig].tolist()
+                        else:
+                            indices = rows_orig.tolist()
                     else:
-                        indices = rows_orig.tolist()
-                else:
-                    # a collision redo changed the candidate set
-                    indices, scores = self._exact_rerank(indices)
+                        # a collision redo changed the candidate set
+                        indices, scores = self._exact_rerank(indices)
 
                 if self._rerun_widened is not None:
-                    indices, scores, evaluated, rows_eval = self._certify_or_widen(
-                        indices, scores, bound, collision_redo, b,
-                        evaluated, rows_eval,
-                    )
+                    with _Part("otters.finish.certify", clocks, self._seq):
+                        indices, scores, evaluated, rows_eval = self._certify_or_widen(
+                            indices, scores, bound, collision_redo, b,
+                            evaluated, rows_eval,
+                        )
             elif self._rerun_widened is not None:
                 # the scan returned ZERO candidates: provably complete (the
                 # loosened threshold drops no truly passing row)
                 self._certified = not collision_redo
                 self._scan_k_wide = self._k
-        score_dur = time.perf_counter() - self._score_start
-
         # ---- merge phase: result-column materialization (host) ----
-        merge_start = time.perf_counter()
-        col_names = sorted(store.schema().keys())
-        data: Dict[str, Column] = {}
-        idx = np.asarray(indices, dtype=np.int64)
-        for name in col_names:
-            src = store.columns()[name]
-            dst = Column(name, src.dtype)
-            if idx.size:
-                nulls = np.asarray(src.null_mask(), dtype=bool)[idx]
-                if src.dtype is DataType.String:
-                    vals = src.values()
-                    sel = [vals[i] for i in idx]
-                else:
-                    sel = np.asarray(src.values())[idx]
-                dst._set_raw(sel, nulls)
-            data[name] = dst
-        merge_dur = time.perf_counter() - merge_start
+        with span("otters.finish.merge", self._seq):
+            merge_start = time.perf_counter()
+            col_names = sorted(store.schema().keys())
+            data: Dict[str, Column] = {}
+            idx = np.asarray(indices, dtype=np.int64)
+            for name in col_names:
+                src = store.columns()[name]
+                dst = Column(name, src.dtype)
+                if idx.size:
+                    nulls = np.asarray(src.null_mask(), dtype=bool)[idx]
+                    if src.dtype is DataType.String:
+                        vals = src.values()
+                        sel = [vals[i] for i in idx]
+                    else:
+                        sel = np.asarray(src.values())[idx]
+                    dst._set_raw(sel, nulls)
+                data[name] = dst
+            merge_dur = time.perf_counter() - merge_start
 
-        self._stats = store._last_stats = MetaQueryStats(
-            total_chunks=n_chunks,
-            pruned_chunks=n_chunks - evaluated,
-            evaluated_chunks=evaluated,
-            vectors_compared=rows_eval * b,
-            prune_duration=self._prune_dur,
-            score_duration=score_dur,
-            merge_duration=merge_dur,
-            total_duration=time.perf_counter() - self._total_start,
-            certified=self._certified,
-            scan_k_wide=self._scan_k_wide,
-        )
-        if store._index_map is not None and indices:
-            # sorted store: report original ingestion-order row ids
-            indices = store._index_map[np.asarray(indices, dtype=np.int64)].tolist()
-        self._result = MetaQueryResults(col_names, data, indices, scores)
+            self._stats = store._last_stats = MetaQueryStats(
+                total_chunks=n_chunks,
+                pruned_chunks=n_chunks - evaluated,
+                evaluated_chunks=evaluated,
+                vectors_compared=rows_eval * b,
+                prune_duration=self._clock.prune,
+                score_duration=self._clock.score,
+                merge_duration=merge_dur,
+                total_duration=time.perf_counter() - self._total_start,
+                certified=self._certified,
+                scan_k_wide=self._scan_k_wide,
+            )
+            if store._index_map is not None and indices:
+                # sorted store: report original ingestion-order row ids
+                indices = store._index_map[np.asarray(indices, dtype=np.int64)].tolist()
+            self._result = MetaQueryResults(col_names, data, indices, scores)
         return self._result
 
     def _certify_or_widen(self, indices, scores, bound, collision_redo, b,
@@ -2256,9 +2381,9 @@ class PendingMetaQuery:
                     break
                 nxt = cap = lo
             k_used = nxt
-            rows, _, valid, _, bound, ev, re_ = HostCopy.of(
-                self._rerun_widened(k_run=k_used)
-            ).wait()
+            copy = HostCopy.of(self._rerun_widened(k_run=k_used))
+            with span("otters.finish.wait"):
+                rows, _, valid, _, bound, ev, re_ = copy.wait()
             evaluated, rows_eval = int(ev), int(re_)
             ok_np = np.asarray(valid, dtype=bool)
             indices = np.asarray(rows)[ok_np].astype(np.int64).tolist()
@@ -2278,10 +2403,12 @@ class PendingMetaQuery:
                 )
                 ok_np = np.asarray(valid, dtype=bool)
                 indices = np.asarray(rows)[ok_np].astype(np.int64).tolist()
-                indices, scores = self._exact_rerank(indices)
+                with span("otters.finish.rerank"):
+                    indices, scores = self._exact_rerank(indices)
                 certified = False
                 break
-            indices, scores = self._exact_rerank(indices)
+            with span("otters.finish.rerank"):
+                indices, scores = self._exact_rerank(indices)
             certified = _cert_ok(bound, scores, plan._take_count, plan._vec_filter, take_min)
         self._certified = certified
         self._scan_k_wide = k_used
@@ -2313,6 +2440,11 @@ def resolve(pendings: List[PendingMetaQuery]) -> List[MetaQueryResults]:
     device rerank does not take (the VPU metrics) fetches its members'
     candidates in one sorted ``fetch_vectors`` call, which each member's
     host rerank reads."""
+    with span("otters.finish", tuple(p._seq for p in pendings)):
+        return _resolve(pendings)
+
+
+def _resolve(pendings: List[PendingMetaQuery]) -> List[MetaQueryResults]:
     todo = [p for p in pendings if p._copy is not None and p._result is None]
     by_group: Dict[tuple, Tuple[MetaStore, list]] = {}
     for p in todo:
@@ -2327,28 +2459,35 @@ def resolve(pendings: List[PendingMetaQuery]) -> List[MetaQueryResults]:
         p._fetch()
     states, host_groups = [], []
     for store, plist in by_group.values():
-        state = _device_rerank_dispatch(store, plist)
+        with _Part("otters.finish.rerank", [p._clock for p in plist],
+                   tuple(p._seq for p in plist)):
+            state = _device_rerank_dispatch(store, plist)
         if state is None:
             host_groups.append((store, plist))
         else:
             states.append(state)
     for plist, cands, copy in states:
-        _device_rerank_finish(plist, cands, copy.wait())
+        clocks, seqs = [p._clock for p in plist], tuple(p._seq for p in plist)
+        fetched = _wait(copy, clocks, seqs)
+        with _Part("otters.finish.rerank", clocks, seqs):
+            _device_rerank_finish(plist, cands, fetched)
     for store, plist in host_groups:
-        ids = []
-        for p in plist:
-            rows, valid = p._fetched[0], p._fetched[2]
-            idx = np.asarray(rows)[np.asarray(valid, dtype=bool)].astype(np.int64)
-            ids.append(store._index_map[idx] if store._index_map is not None else idx)
-        # the sorted union: each member looks its rows up by searchsorted,
-        # and ascending ids make the user's fetch a gather in order
-        ids_arr = np.unique(np.concatenate(ids))
-        if ids_arr.size == 0:
-            continue
-        mat = _to_device(store._rerank_fetch(ids_arr), store._device, torch.float32)
-        for p in plist:
-            p._rerank_prefetch = (ids_arr, mat)
-    return [p.result() for p in pendings]
+        with _Part("otters.finish.rerank", [p._clock for p in plist],
+                   tuple(p._seq for p in plist)):
+            ids = []
+            for p in plist:
+                rows, valid = p._fetched[0], p._fetched[2]
+                idx = np.asarray(rows)[np.asarray(valid, dtype=bool)].astype(np.int64)
+                ids.append(store._index_map[idx] if store._index_map is not None else idx)
+            # the sorted union: each member looks its rows up by searchsorted,
+            # and ascending ids make the user's fetch a gather in order
+            ids_arr = np.unique(np.concatenate(ids))
+            if ids_arr.size == 0:
+                continue
+            mat = _to_device(_fetch_vectors(store, ids_arr), store._device, torch.float32)
+            for p in plist:
+                p._rerank_prefetch = (ids_arr, mat)
+    return [p._finish() if p._result is None else p._result for p in pendings]
 
 
 def _str_cmp(v: str, rhs, cmp: CmpOp) -> bool:

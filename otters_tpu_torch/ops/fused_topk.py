@@ -62,6 +62,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..types import VPU_METRICS, Cmp, Metric
+from ..utils.profiling import span
 from .scoring import (
     CERT_BIN,
     DEPTH_ALIGN,
@@ -949,50 +950,66 @@ def fused_topk(
                            cmp=cmp, resid=resid, q_valid=q_valid)
     if fast and not fast_ok(metric, take_min, cmp, k, prec):
         raise ValueError("the fast-exact mode does not apply to this query")
-    n_pad, d = vectors.shape
-    b = queries.shape[0]
-    dev = vectors.device
-    if mode == "K2":
-        # uncertified quantized cosine: symmetric int8 queries; both phases
-        # take exact int32 dots
-        q_kern, _, _ = _quantize_rows_int8(queries.float())
-        q32 = q_kern.float()  # for the query norms only
-    elif mode.startswith("K6"):
-        # one bf16 pass: the kernel takes the queries rounded to bf16, the
-        # epilogue their unrounded f32 norms
-        q32 = queries.float()
-        q_kern = q32.to(torch.bfloat16).contiguous()
-    else:
-        q32 = q_kern = queries.float().contiguous()
-    q_sq, q_inv = _query_norms(q32)
-    thr1 = thr
-    slack = torch.zeros((), device=dev)
-    if fast:
-        base = high_precision_bound(d)
-        if metric is Metric.Cosine:
-            # cosine is norm-scaled: the bound is dimension-only
-            slack = torch.full((), base, device=dev)
+    with span("otters.submit.scan_setup"):
+        n_pad, d = vectors.shape
+        b = queries.shape[0]
+        dev = vectors.device
+        if mode == "K2":
+            # uncertified quantized cosine: symmetric int8 queries; both phases
+            # take exact int32 dots
+            q_kern, _, _ = _quantize_rows_int8(queries.float())
+            q32 = q_kern.float()  # for the query norms only
+        elif mode.startswith("K6"):
+            # one bf16 pass: the kernel takes the queries rounded to bf16, the
+            # epilogue their unrounded f32 norms
+            q32 = queries.float()
+            q_kern = q32.to(torch.bfloat16).contiguous()
         else:
-            # |dot_bf16x3 - dot| <= base ||q|| ||v||, bounded globally by the
-            # max norms (on the device); Euclid doubles it for the -2 dot term
-            mult = 2.0 if metric is Metric.Euclidean else 1.0
-            slack = base * torch.sqrt(q_sq.max()) * torch.sqrt(norms_sq.max()) * mult
-        # loosen the phase-1 filter so no row that truly passes is excluded
-        if cmp in (Cmp.Gt, Cmp.Gte):
-            thr1 = thr - slack
-        elif cmp in (Cmp.Lt, Cmp.Lte):
-            thr1 = thr + slack
-    q_ok = torch.ones(b, device=dev) if q_valid is None else q_valid.to(torch.float32)
-    rmask01 = valid.to(torch.float32)
-    if row_mask is not None:
-        rmask01 = rmask01 * row_mask.to(torch.float32)
-    surv, n_surv = survivor_bins(bin_alive)
-    bins = KERNELS[mode](
-        q_kern, vectors, inv_norms, norms_sq, rmask01, q_inv, q_sq, q_ok,
-        thr1.reshape(1).to(torch.float32), surv, n_surv, metric, take_min, cmp,
-    )
+            q32 = q_kern = queries.float().contiguous()
+        q_sq, q_inv = _query_norms(q32)
+        thr1 = thr
+        slack = torch.zeros((), device=dev)
+        if fast:
+            base = high_precision_bound(d)
+            if metric is Metric.Cosine:
+                # cosine is norm-scaled: the bound is dimension-only
+                slack = torch.full((), base, device=dev)
+            else:
+                # |dot_bf16x3 - dot| <= base ||q|| ||v||, bounded globally by the
+                # max norms (on the device); Euclid doubles it for the -2 dot term
+                mult = 2.0 if metric is Metric.Euclidean else 1.0
+                slack = base * torch.sqrt(q_sq.max()) * torch.sqrt(norms_sq.max()) * mult
+            # loosen the phase-1 filter so no row that truly passes is excluded
+            if cmp in (Cmp.Gt, Cmp.Gte):
+                thr1 = thr - slack
+            elif cmp in (Cmp.Lt, Cmp.Lte):
+                thr1 = thr + slack
+        q_ok = torch.ones(b, device=dev) if q_valid is None else q_valid.to(torch.float32)
+        rmask01 = valid.to(torch.float32)
+        if row_mask is not None:
+            rmask01 = rmask01 * row_mask.to(torch.float32)
+        surv, n_surv = survivor_bins(bin_alive)
+    with span("otters.submit.launch"):
+        bins = KERNELS[mode](
+            q_kern, vectors, inv_norms, norms_sq, rmask01, q_inv, q_sq, q_ok,
+            thr1.reshape(1).to(torch.float32), surv, n_surv, metric, take_min, cmp,
+        )
 
     # ---- phase 2: winner-bin rescore and exact selection ----
+    with span("otters.submit.phase2"):
+        return _phase2(mode, bins, q_kern, q_sq, q_inv, vectors, norms_sq, inv_norms, valid,
+                       row_mask, q_valid, thr, slack, metric=metric, k=k, take_min=take_min,
+                       cmp=cmp, fast=fast)
+
+
+def _phase2(mode, bins, q_kern, q_sq, q_inv, vectors, norms_sq, inv_norms, valid, row_mask,
+            q_valid, thr, slack, *, metric, k, take_min, cmp, fast):
+    """Phase 2 of the uncertified paths: the winner bins of ``bins`` (the
+    [n_bins, b] bin maxima) rescored, the exact selection, the fast mode's
+    check -> (rows, scores, ok, check, bound)."""
+    b = q_kern.shape[0]
+    d = vectors.shape[1]
+    dev = vectors.device
     flat = bins.reshape(-1)  # slot = bin * b + query
     n_slots = flat.shape[0]
     boundary = torch.full((), _NEG_INF, device=dev)
@@ -1116,22 +1133,32 @@ def _fused_cert(mode, vectors, norms_sq, inv_norms, valid, queries, row_mask, th
         raise ValueError(f"the certified scan takes no {cmp} score filter here")
     if resid is None:
         raise ValueError("certified fused scan needs the per-row residuals")
-    d = vectors.shape[1]
-    b = queries.shape[0]
-    dev = vectors.device
-    cs = cert_scan(mode, vectors, norms_sq, inv_norms, valid, queries, row_mask, thr,
-                   bin_alive, metric=metric, cmp=cmp, resid=resid, q_valid=q_valid)
-    _, qh32, c0, c1, c2, lane_a, lane_b, q_sq, q_inv, thr1 = cs
-    if mode == "K5":
-        # the kernel folds the whole slack, c0 included
-        flat = cert_fold_binmax(*cs.ops, metric, take_min, cmp).reshape(-1)
-    else:
-        # the Cosine fold's per-query c0 joins here: max(key) + c0 is the
-        # fully adjusted bin max (max is monotone; -inf stays -inf)
-        flat = (KERNELS[mode](*cs.ops, cmp) + c0[None, :]).reshape(-1)
-    # slot = bin * b + query
+    with span("otters.submit.scan_setup"):
+        cs = cert_scan(mode, vectors, norms_sq, inv_norms, valid, queries, row_mask, thr,
+                       bin_alive, metric=metric, cmp=cmp, resid=resid, q_valid=q_valid)
+    with span("otters.submit.launch"):
+        if mode == "K5":
+            # the kernel folds the whole slack, c0 included
+            flat = cert_fold_binmax(*cs.ops, metric, take_min, cmp).reshape(-1)
+        else:
+            # the Cosine fold's per-query c0 joins here: max(key) + c0 is the
+            # fully adjusted bin max (max is monotone; -inf stays -inf)
+            flat = (KERNELS[mode](*cs.ops, cmp) + cs.c0[None, :]).reshape(-1)
+        # slot = bin * b + query
+    with span("otters.submit.phase2"):
+        return _cert_phase2(mode, flat, cs, vectors, norms_sq, inv_norms, valid, row_mask,
+                            q_valid, metric=metric, k=k, take_min=take_min, cmp=cmp)
 
-    # ---- phase 2: winner-bin rescore and adjusted-key selection ----
+
+def _cert_phase2(mode, flat, cs: CertScan, vectors, norms_sq, inv_norms, valid, row_mask,
+                 q_valid, *, metric, k, take_min, cmp):
+    """Phase 2 of the certified paths: the winner bins of ``flat`` (the
+    adjusted bin maxima) rescored, candidates selected by the adjusted key,
+    the bound -> (rows, scores, ok, check, bound)."""
+    _, qh32, c0, c1, c2, lane_a, lane_b, q_sq, q_inv, thr1 = cs
+    d = vectors.shape[1]
+    b = qh32.shape[0]
+    dev = vectors.device
     kb = min(k, flat.shape[0])
     _, top_slots = exact_topk_flat(flat, kb)
     # phase-1 term of the bound: an unselected bin's adjusted max bounds

@@ -60,6 +60,7 @@ from ..ops import bloom as bloom_ops
 from ..ops import fused_topk, predicate, scoring
 from ..ops.scoring import HostCopy
 from ..types import VPU_METRICS, Cmp, CmpOp, Metric
+from ..utils.profiling import span
 from . import exchange
 from .dist_query import merge_partials
 from .mesh import Mesh
@@ -585,10 +586,13 @@ class ShardedMetaStore(MetaStore):
                              metric, take_min)
 
     def _run_query_program(self, cols_sub, queries, plan_params, thr, plan_static,
-                           metric, k, take_min, cmp, strict=False, certify=False):
+                           metric, k, take_min, cmp, strict=False, certify=False,
+                           clock=None):
         """Run this process's per-shard programs and compose them on the lead
         device -> lead-device tensors (rows, scores, ok, check, bound,
-        evaluated, rows_eval), the single-device program's layout. On a mesh
+        evaluated, rows_eval), the single-device program's layout. ``clock``
+        (a query's) takes the host seconds of the shards' masks as pruning,
+        the rest after the launch decision as scoring. On a mesh
         across processes the local programs are enqueued and an
         :class:`~.exchange.Pending` returned instead: its ``wait()`` (where
         a single process waits on its device, ``HostCopy.of``) gathers every
@@ -617,8 +621,10 @@ class ShardedMetaStore(MetaStore):
         nc_local = self._chunk_lens.shape[0] // n_rows_s
         k_eff = min(k, b * n_pad)
         k_local = min(k_eff, b_local * n_local)
-        launch = self._sharded_launch(plan_static, b_pad, b_local, n_local, k_eff, metric,
-                                      take_min, cmp, strict, certify)
+        with span("otters.submit.plan"):
+            launch = self._sharded_launch(plan_static, b_pad, b_local, n_local, k_eff, metric,
+                                          take_min, cmp, strict, certify)
+        t_start, mask_s = time.perf_counter(), 0.0
         tile, fast, certify = launch.tile, launch.fast, launch.certify
         qs = torch.zeros((b_pad, queries.shape[1]), dtype=torch.float32, device=lead)
         qs[:b] = queries.to(lead, torch.float32)
@@ -668,18 +674,22 @@ class ShardedMetaStore(MetaStore):
                 dv_l = self._local_dv(r, c)
                 q_l, qv_l = local_queries(r, c)
                 clens = self._chunk_lens.local(r, c)
-                if plan_static:
-                    cols_l = self._local_cols(cols_sub, r, c)
-                    params_l = self._local_params(plan_static, plan_params, r, c)
-                    cmask = predicate.chunk_mask(plan_static, params_l, cols_l, nc_local, dev)
-                    ev = cmask.sum(dtype=torch.int32)
-                    re_ = (clens * cmask).sum(dtype=torch.int32)
-                    rmask = predicate.row_mask(plan_static, params_l, cols_l, n_local, dev)
-                else:
-                    # padded chunks have length 0; count only real ones
-                    ev = (clens > 0).sum(dtype=torch.int32)
-                    re_ = clens.sum(dtype=torch.int32)
-                    rmask = None
+                t0 = time.perf_counter()
+                with span("otters.submit.masks"):
+                    if plan_static:
+                        cols_l = self._local_cols(cols_sub, r, c)
+                        params_l = self._local_params(plan_static, plan_params, r, c)
+                        cmask = predicate.chunk_mask(plan_static, params_l, cols_l, nc_local,
+                                                     dev)
+                        ev = cmask.sum(dtype=torch.int32)
+                        re_ = (clens * cmask).sum(dtype=torch.int32)
+                        rmask = predicate.row_mask(plan_static, params_l, cols_l, n_local, dev)
+                    else:
+                        # padded chunks have length 0; count only real ones
+                        ev = (clens > 0).sum(dtype=torch.int32)
+                        re_ = clens.sum(dtype=torch.int32)
+                        rmask = None
+                mask_s += time.perf_counter() - t0
                 thr_l = torch.full((), float(thr), dtype=torch.float32, device=dev)
                 thr_core, q_core = thr_l, q_l
                 if certify and tile != "fused":
@@ -760,9 +770,13 @@ class ShardedMetaStore(MetaStore):
                     torch.stack([outs[rc][5].to(lead) for rc in stats]).sum(dtype=torch.int32),
                     torch.stack([outs[rc][6].to(lead) for rc in stats]).sum(dtype=torch.int32))
 
-        if not mesh.spans_processes:
-            return compose(outs, slack_g)
-        return _exchange_programs(mesh, outs, maxima if certify else None, slack_g, compose)
+        with span("otters.submit.phase2"):
+            out = (compose(outs, slack_g) if not mesh.spans_processes else
+                   _exchange_programs(mesh, outs, maxima if certify else None, slack_g, compose))
+        if clock is not None:
+            clock.prune += mask_s
+            clock.score += time.perf_counter() - t_start - mask_s
+        return out
 
     def _run_exact_mask_query(self, queries, exact_mask, metric, k, take_min, cmp, thr):
         """Hash-collision fallback, shard-aware: the exact host row mask

@@ -1,5 +1,5 @@
-"""Utility helpers (profiling)."""
+"""Utility helpers (profiling: the trace and the query path's spans)."""
 
-from .profiling import trace
+from .profiling import count, dropped, enabled, records, span, summary, trace
 
-__all__ = ["trace"]
+__all__ = ["count", "dropped", "enabled", "records", "span", "summary", "trace"]
