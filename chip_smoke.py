@@ -140,6 +140,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    int8 query block with two ring stages), each with nothing routed
    (``kernel_takes.routed``); the seven modes against their plain versions
    at each depth;
+   4w. the split plan at ``openai5m.f1p``'s shape: 5M bf16 rows of depth
+   1,536 (rounded from f32, with residuals), half the chunks dead;
+   K1-bf16 (Cosine, and Gt), K5 (Dot, Euclid) and K6-bf16 (Cosine, Euclid)
+   through their wrappers at b = 256 and 600 against their plain versions,
+   each launch counted on ``split_launches`` (zeroed before it), then each
+   timed at b = 256 beside its library call and its bound;
 5. the twin of examples/demo.py on the card;
    5e. the twins of examples/async_serving.py, catalog.py,
    certified_search.py and multichip.py (``otters_tpu_torch.examples``) at
@@ -237,6 +243,10 @@ DEPTHS = (100, 2048)  # stored as 112; past every resident query block
 # K2 only: the deepest rows its resident int8 query block holds beside two
 # ring stages
 DEPTH_K2 = 3072
+# the split plan's phase: openai5m.f1p's store (K1-bf16, K5 and K6-bf16
+# keep the head of the query block resident and stream its tail)
+SPLIT_ROWS = 5_000_000
+SPLIT_D = 1536
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
@@ -2005,6 +2015,71 @@ def lifecycle_phase(torch, dev, held, f32, batches, truths, unsorted_build_s, ca
     return out
 
 
+def split_phase(torch, dev):
+    """K1-bf16, K5 and K6-bf16 on the split plan at ``openai5m.f1p``'s shape
+    (SPLIT_ROWS bf16 rows of depth SPLIT_D, half the chunks dead): each
+    through its wrapper at b = 256 and 600 against its plain version, every
+    launch on the split plan (``split_launches`` zeroed before it), then
+    timed at b = 256 -> {mode: time_mode's numbers}."""
+    from otters_tpu_torch.ops import fused_topk as ft
+    from otters_tpu_torch.ops import scoring as sc
+    from otters_tpu_torch.types import Cmp, Metric
+
+    n, d = SPLIT_ROWS, SPLIT_D
+    for mode in ("K1-bf16", "K5", "K6-bf16"):
+        plan = ft.sm90_plan(mode, d)
+        assert plan.split, f"{mode} at d = {d}: {plan} is not the split plan"
+        log(f"{mode} at d = {d}: {plan}, {ft.kernel_smem_bytes(mode, d)} B of shared memory")
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    f32 = torch.zeros((sc.pad_rows(n), d), device=dev)
+    for s in range(0, n, SLAB):
+        r = min(SLAB, n - s)
+        f32[s : s + r] = torch.randn((r, d), generator=g, device=dev)
+    dvb = sc.materialize_from_device(f32, n_valid=n, dtype=torch.bfloat16)
+    del f32
+    torch.cuda.empty_cache()
+    n_chunks = -(-n // CHUNK)
+    chunk_mask = torch.arange(n_chunks, device=dev) % 2 == 1
+    queries = torch.randn((K1_WIDE_B, d), generator=g, device=dev)
+    cases = [
+        ("K1-bf16", Metric.Cosine, False, None, 0.0),
+        ("K1-bf16", Metric.Cosine, False, Cmp.Gt, 0.05),
+        ("K5", Metric.DotProduct, False, None, 0.0),
+        # squared distances about 3,072: at 2,950 some bins hold no row of
+        # a query, none of them by a row within the tolerance of the
+        # threshold (at 2,900, b = 600, one such row flips a bin's -inf
+        # between kernel and plain, on the narrow plan as on the split)
+        ("K5", Metric.Euclidean, True, Cmp.Lt, 2950.0),
+        ("K6-bf16", Metric.Cosine, False, None, 0.0),
+        ("K6-bf16", Metric.Euclidean, True, None, 0.0),
+    ]
+    for mode, metric, take_min, cmp, thr in cases:
+        for b in (B, K1_WIDE_B):
+            args = mode_inputs(mode, dvb, queries[:b], chunk_mask, thr, metric, cmp)
+            ft.reset_launches()
+            err, tol = compare_mode(mode, args, metric, take_min, cmp)
+            fn = ft.KERNELS[mode]
+            assert (fn.launches, fn.split_launches) == (1, 1), (
+                f"{mode} b={b}: {fn.launches} launches, {fn.split_launches} on the split plan")
+            log(f"{mode} vs plain on the split plan ({n} rows, d={d}, b={b}, {metric.value}"
+                f"{' take-min' if take_min else ''}, {cmp.value if cmp else 'no'} filter): "
+                f"max_abs_err={err:.3e} tol={tol:.3e} err/tol={err / tol:.3f}, "
+                f"split_launches {fn.split_launches} of {fn.launches}")
+    timing = {}
+    for mode in ("K1-bf16", "K5", "K6-bf16"):
+        ft.reset_launches()
+        timing[mode] = time_mode(torch, mode, dvb, queries[:B], n_chunks,
+                                 Metric.DotProduct if mode == "K5" else None)
+        fn = ft.KERNELS[mode]
+        assert fn.launches > 0 and fn.split_launches == fn.launches, (
+            f"{mode}: {fn.split_launches} of {fn.launches} launches on the split plan")
+        timing[mode]["split_launches"] = fn.split_launches
+    assert ft.kernel_takes.routed == 0, "a query was routed away from the kernels by shape"
+    del dvb
+    torch.cuda.empty_cache()
+    return timing
+
+
 def library_fn(torch, mode, q, v_live, n_live):
     """One PyTorch call (plus a bin max) for the same function: the
     yardstick; the port never calls it. K1 / K5: a bf16 matmul on rows cast
@@ -2039,9 +2114,9 @@ def library_fn(torch, mode, q, v_live, n_live):
     )
 
 
-def scan_bound(mode, n_live, b, v_elt, q_elt):
+def scan_bound(mode, n_live, b, v_elt, q_elt, d=D):
     """-> (bound ms, "bytes" or "operations", bytes, operations) for one call
-    over ``n_live`` live bins (Cosine; K5 Dot or Euclid). The function must
+    over ``n_live`` live bins of depth ``d`` (Cosine; K5 Dot or Euclid). The function must
     read each live row once with the side data it needs (Cosine: inv and
     rmask, K1 also its lane; K5: nsq, rmask and both lanes), each query with
     its per-query values (q_inv and q_ok; K5 q_sq, q_ok, c0, c1, c2), thr
@@ -2053,10 +2128,10 @@ def scan_bound(mode, n_live, b, v_elt, q_elt):
     live_rows = n_live * ft.BIN
     side = {"K1": 12, "K1-bf16": 12, "K5": 16}.get(mode, 8)
     per_query = 20 if mode == "K5" else 8
-    bytes_moved = (live_rows * (D * v_elt + side) + b * (D * q_elt + per_query) + 4
+    bytes_moved = (live_rows * (d * v_elt + side) + b * (d * q_elt + per_query) + 4
                    + n_live * 4 + 4 + n_live * b * 4)
     products = {"K4": 3, "K4-bf16": 2}.get(mode, 1)
-    ops = 2.0 * b * D * live_rows * products
+    ops = 2.0 * b * d * live_rows * products
     peak = {"K2": PEAK_INT8_OPS, "K3": PEAK_F32_FLOPS,
             "K3-bf16": PEAK_F32_FLOPS}.get(mode, PEAK_BF16_FLOPS)
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_S, ops / peak
@@ -2103,11 +2178,12 @@ def time_mode(torch, mode, dv, queries, n_chunks, metric=None):
         library_ms = time_ms(library, reps=10)
     del v_live, library
     torch.cuda.empty_cache()
+    d = dv.vectors.shape[1]
     bound_ms, bound_by, bytes_moved, ops = scan_bound(
-        mode, n_live, args[0].shape[0], dv.vectors.element_size(), args[0].element_size()
+        mode, n_live, args[0].shape[0], dv.vectors.element_size(), args[0].element_size(), d
     )
     tflops = ops / (kernel_ms * 1e-3) / 1e12
-    log(f"{mode} ({metric.value}) at the path's shapes, b={args[0].shape[0]}: live rows "
+    log(f"{mode} ({metric.value}) at the path's shapes, b={args[0].shape[0]}, d={d}: live rows "
         f"{live_rows}, kernel {kernel_ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
         f"({bound_by}: {bytes_moved / 1e9:.3f} GB, {ops / 1e12:.3f} T ops), "
@@ -3327,6 +3403,9 @@ def main() -> int:
     with phase(f"4d depths {DEPTHS} and {DEPTH_K2} ({DEPTH_ROWS} rows): any d on the kernels, "
                "deep rows on the deep-row plan, nothing routed"):
         depth = depth_phase(torch, dev)
+    with phase(f"4w the split plan ({SPLIT_ROWS} x {SPLIT_D} bf16 rows, openai5m.f1p's shape): "
+               "K1-bf16, K5, K6-bf16 against plain, split_launches, timed"):
+        split = split_phase(torch, dev)
     with phase("5 demo twin"):
         demo_phase()
     with phase("5e the example twins (async_serving, catalog, certified_search, multichip)"):
@@ -3399,7 +3478,8 @@ def main() -> int:
          ":234 (_kernel[certify,cert_cos], bf16 rows)", bf16["cosine"]["launches"],
          {"path": f"certified Cosine {bf16_path_name}",
           "lifecycle_launches": life_launches(lifecycle, "bfloat16"),
-          "path_qps": bf16["cosine"]["qps"], "batch_sweep": sweep["K1-bf16"]}),
+          "path_qps": bf16["cosine"]["qps"], "batch_sweep": sweep["K1-bf16"],
+          "split_plan": split["K1-bf16"]}),
         ("K5", "cert_fold_binmax", "cert_fold_binmax",
          ":244 (_kernel[certify, general fold])", bf16["dot"]["launches"],
          {"path": f"certified Dot {bf16_path_name}",
@@ -3409,6 +3489,7 @@ def main() -> int:
           "euclid_ms": k5_euclid["ms"], "euclid_plain_ms": k5_euclid["plain_ms"],
           "euclid_max_abs_err": k5_euclid["max_abs_err"],
           "near_tie_scan_k_wide": bf16_small["widen"], "batch_sweep": sweep["K5"],
+          "split_plan": split["K5"],
           "depth_launches": {d: depth[d]["certified bf16 Dot"] for d in DEPTHS}}),
         ("K3-bf16", "f32_binmax_bf16", "f32_binmax",
          ":182 (_kernel[prec=highest], bf16 rows)", bf16_small["launches"],
@@ -3431,6 +3512,7 @@ def main() -> int:
           "path_qps": bf16["default"]["qps"], "recall_at_10": bf16["default"]["recall"],
           "path_profile": bf16["default"]["profile"],
           "bf16_precision_qps": bf16["bf16"]["qps"], "batch_sweep": sweep["K6-bf16"],
+          "split_plan": split["K6-bf16"],
           "depth_launches": {d: depth[d]['bf16 "default"'] for d in DEPTHS}}),
     ]
     entries = []

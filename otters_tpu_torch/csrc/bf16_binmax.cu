@@ -32,8 +32,9 @@
 //   k-block of 128 rows (32 KB; of 64 rows when fewer than 4 stages fit).
 // - bf16 rows: A is read from the swizzled stage by descriptor, as K1 and
 //   K5 read bf16 rows; no conversion, no query permutation. A stage holds
-//   one k-block of 256 rows (of 128 when fewer than 4 stages fit),
-//   K1-bf16's shapes (K5's two k-blocks of 128 rows timed the same or
+//   one k-block of 256 rows (of 128 when fewer than 4 stages fit; beside
+//   only the head of the query block where 128 rows would leave fewer: the
+//   split plan), K1-bf16's shapes (K5's two k-blocks of 128 rows timed the same or
 //   slower; PERF.md, the K6 / K4 variants).
 // The key is key_of unchanged (binmax_common.cuh SlotKey), each slot's
 // q_ok and metric norm in registers.
@@ -87,8 +88,10 @@ __global__ void __launch_bounds__(sm90::THREADS, 1) bf16_binmax_sm90_kernel(
 
 // the stage shapes (sm90::with_plan), wide then narrow: over f32 rows one
 // k-block of 128 rows (32 KB), of 64 rows when fewer than 4 stages fit;
-// over bf16 rows one k-block of 256 rows, of 128 when fewer than 4 fit
-// (K1-bf16's); streamed past 2
+// over bf16 rows one k-block of 256 rows, of 128 when fewer than 4 fit,
+// and 4 stages of 256 rows beside the head of the query block where 128
+// rows would leave fewer (the split plan; K1-bf16's shapes); streamed past
+// 2
 template <typename RowT> struct Shape;
 template <> struct Shape<float> { static constexpr int KS1 = 1, TM1 = 128, KS2 = 1, TM2 = 64; };
 template <> struct Shape<__nv_bfloat16> {

@@ -29,7 +29,9 @@
 // queries to match the fragment order in which the kernel reads the rows
 // (k1_query_perm). A stage holds two 64-deep k-blocks of 128 rows over
 // int8 rows and one of 256 rows over bf16 rows (plan_for), so each
-// warpgroup issues 16 products between barrier waits. Over int8 rows the
+// warpgroup issues 16 products between barrier waits; over bf16 rows at d
+// = 1,296-1,536 the split plan keeps 4 such stages by holding only the
+// first 8 query k-blocks resident. Over int8 rows the
 // products are f16 when the query block allows it (the scan's note).
 //
 // Bound at the main path's shapes (10M x 768 int8 store, 256 queries, half
@@ -101,7 +103,9 @@ __global__ void __launch_bounds__(sm90::THREADS, 1) cert_cos_binmax_kernel(
 // barrier waits), bf16 rows one k-block of 256 rows (the 256-row box keeps
 // the same work per wait); either takes one k-block of 128 rows when fewer
 // than 4 stages would fit, and streams the query block beside it when
-// fewer than 2 would (deep rows).
+// fewer than 2 would (deep rows). Where one k-block of 128 rows would
+// still leave fewer than 4 stages, bf16 rows keep 4 stages of 256 rows
+// beside only the head of the query block (the split plan).
 template <typename RowT>
 struct Shape;
 template <>

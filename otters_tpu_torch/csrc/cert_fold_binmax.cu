@@ -21,8 +21,9 @@
 // same fold, without adding c0 to the bin maxima).
 //
 // Design: the scan of csrc/cert_scan_sm90.cuh, as K1 over bf16 rows (a
-// persistent grid over the survivor list, the query block resident, or
-// streamed through the ring past about d = 1,536, a TMA ring feeding two
+// persistent grid over the survivor list, the query block resident (its
+// head only at d = 1,296-1,536), or streamed through the ring past about
+// d = 1,536, a TMA ring feeding two
 // ping-pong consumer warpgroups, wgmma m64n64k16 with A read from the
 // swizzled stage by descriptor, the key applied in registers). A stage
 // holds two 64-deep k-blocks of 128 rows (one when fewer than 4 stages
@@ -124,7 +125,8 @@ __global__ void __launch_bounds__(sm90::THREADS, 1) cert_fold_binmax_kernel(
 }
 
 // the stage shapes (sm90::with_plan): two k-blocks of 128 rows, one when
-// fewer than 4 stages fit, streamed past 2
+// fewer than 4 stages fit, 4 stages of two beside the head of the query
+// block where one would leave fewer (the split plan), streamed past 2
 constexpr int KS1 = 2, TM1 = 128, KS2 = 1, TM2 = 128;
 using RowT = __nv_bfloat16;
 

@@ -1,7 +1,7 @@
 // The scan of every bin-max kernel for Hopper (sm_90a): a persistent grid
-// over the survivor list, the query block resident in shared memory (or
-// streamed beside the rows, for deep rows), a TMA ring with warp
-// specialisation, and wgmma (or FFMA, for exact f32).
+// over the survivor list, the query block resident in shared memory (or,
+// for deep rows, streamed beside the rows past a resident head, or whole),
+// a TMA ring with warp specialisation, and wgmma (or FFMA, for exact f32).
 //
 // What it computes: for every live 512-row bin (the survivor list
 // surv[0 : n_surv), read on the device) and every query of the CTA's
@@ -67,6 +67,14 @@
 //   step beside the row k-blocks, in the same layout, and the consumers
 //   read B from the stage. Any depth then fits; the query block is read
 //   again for every row sub-tile (from L2).
+// - The split plan (bf16 rows, one plane of each): where the whole query
+//   block would stay resident beside fewer than 4 stages (at d = 1,536 its
+//   192 KB leave 2 stages of 16 KB: 32 KB of rows in flight on an SM), only
+//   its first R k-blocks stay resident and the rest ride in the stages as
+//   in the streamed plan, so the ring keeps 4 stages (of the wide shape
+//   where they fit: 128 KB of rows in flight). The consumers take B from
+//   the resident head for the depth steps below R and from the stage
+//   beyond; the products and their order are those of the other plans.
 // - One producer thread keeps an even number of ring stages of KS k-blocks
 //   of [TM rows x KD deep] in flight with full / empty mbarrier pairs (KD =
 //   64, 128 for int8 queries, one 128-byte row box for f32 queries:
@@ -236,13 +244,14 @@ __host__ __device__ constexpr int stage_bytes() {
 }
 
 // dynamic shared memory for `stages` stages at depth d: 1 KB of alignment
-// slack, the resident query blocks of NQ planes (none when streamed), the
-// ring, the reduction buffer and the barriers
+// slack, the resident query blocks of NQ planes (all nk k-blocks; with the
+// query k-blocks streamed, the first `resident` of them: none, or the
+// split plan's head), the ring, the reduction buffer and the barriers
 template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1,
           typename QT = __nv_bfloat16>
-__host__ __device__ inline size_t smem_bytes(int d, int stages) {
+__host__ __device__ inline size_t smem_bytes(int d, int stages, int resident = 0) {
     const int nk = (d + kdepth<QT>() - 1) / kdepth<QT>();
-    return 1024 + (STREAM ? 0 : (size_t)nk * NQ * qblock_bytes<QT>())
+    return 1024 + (size_t)(STREAM ? resident : nk) * NQ * qblock_bytes<QT>()
          + (size_t)stages * stage_bytes<RowT, KS, TM, STREAM, NQ, NV, QT>()
          + RED_BYTES + (size_t)(2 * stages + 1) * 8;
 }
@@ -253,9 +262,10 @@ __host__ __device__ inline size_t smem_bytes(int d, int stages) {
 // be a lap ahead of its barrier's phase
 template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1,
           typename QT = __nv_bfloat16>
-__host__ __device__ inline int stages_for(int d) {
+__host__ __device__ inline int stages_for(int d, int resident = 0) {
     int s = MAX_STAGES;
-    while (s > 2 && smem_bytes<RowT, KS, TM, STREAM, NQ, NV, QT>(d, s) > SMEM_LIMIT) s -= 2;
+    while (s > 2 && smem_bytes<RowT, KS, TM, STREAM, NQ, NV, QT>(d, s, resident) > SMEM_LIMIT)
+        s -= 2;
     return s;
 }
 
@@ -263,35 +273,67 @@ __host__ __device__ inline int stages_for(int d) {
 // TM1 rows) when 4 stages of it fit beside the resident query block, else
 // the narrow one (KS2 of TM2) when 2 of it fit, else the narrow one with
 // the query block streamed; KS1 = 0: no resident plan, the narrow shape
-// streamed at every depth. with_plan calls f(KS, TM, STREAM) with the
-// plan's values as integral constants; ops/fused_topk.py::sm90_plan mirrors
-// the choice.
-enum Plan { WIDE = 0, NARROW = 1, STREAMED = 2 };
+// streamed at every depth. Where the narrow plan would keep fewer than 4
+// stages and the rows are bf16 with one query plane (K1-bf16, K5,
+// K6-bf16), the split plan instead: the first R query k-blocks resident,
+// the rest streamed, with 4 stages of the wide shape and the largest R
+// that leaves them, else of the narrow shape likewise (over int8 rows K1's
+// f16 products need the whole block resident: it keeps the narrow plan).
+// with_plan calls f(KS, TM, STREAM, resident) with the first three as
+// integral constants and the count of resident query k-blocks (nk when
+// the block is resident, R split, 0 streamed); ops/fused_topk.py::sm90_plan
+// mirrors the choice.
+struct Plan {
+    bool wide;     // the stage shape: KS1 x TM1, else KS2 x TM2
+    bool stream;   // the stages carry the query k-blocks past the resident ones
+    int resident;  // query k-blocks resident in shared memory
+};
+
+template <typename RowT, int NQ, int NV>
+constexpr bool splits() { return sizeof(RowT) == 2 && NQ == 1 && NV == 1; }
 
 template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1,
           typename QT = __nv_bfloat16>
 inline Plan plan_for(int d) {
     if constexpr (KS1 > 0) {
-        if (smem_bytes<RowT, KS1, TM1, false, NQ, NV, QT>(d, 4) <= SMEM_LIMIT) return WIDE;
-        if (smem_bytes<RowT, KS2, TM2, false, NQ, NV, QT>(d, 2) <= SMEM_LIMIT) return NARROW;
+        const int nk = (d + kdepth<QT>() - 1) / kdepth<QT>();
+        if (smem_bytes<RowT, KS1, TM1, false, NQ, NV, QT>(d, 4) <= SMEM_LIMIT)
+            return {true, false, nk};
+        if (smem_bytes<RowT, KS2, TM2, false, NQ, NV, QT>(d, 2) <= SMEM_LIMIT) {
+            if constexpr (splits<RowT, NQ, NV>()) {
+                if (smem_bytes<RowT, KS2, TM2, false, NQ, NV, QT>(d, 4) > SMEM_LIMIT) {
+                    for (int r = nk - 1; r > 0; --r)
+                        if (smem_bytes<RowT, KS1, TM1, true, NQ, NV, QT>(d, 4, r) <= SMEM_LIMIT)
+                            return {true, true, r};
+                    for (int r = nk - 1; r > 0; --r)
+                        if (smem_bytes<RowT, KS2, TM2, true, NQ, NV, QT>(d, 4, r) <= SMEM_LIMIT)
+                            return {false, true, r};
+                }
+            }
+            return {false, false, nk};
+        }
     }
-    return STREAMED;
+    return {false, true, 0};
 }
 
 template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1,
           typename QT = __nv_bfloat16, typename F>
 auto with_plan(int d, const F& f) {
     using std::integral_constant;
+    using Wide = integral_constant<int, KS1>;
+    using WideRows = integral_constant<int, TM1>;
+    using Narrow = integral_constant<int, KS2>;
+    using NarrowRows = integral_constant<int, TM2>;
+    const Plan p = plan_for<RowT, KS1, TM1, KS2, TM2, NQ, NV, QT>(d);
     if constexpr (KS1 > 0) {
-        const Plan p = plan_for<RowT, KS1, TM1, KS2, TM2, NQ, NV, QT>(d);
-        if (p == WIDE)
-            return f(integral_constant<int, KS1>{}, integral_constant<int, TM1>{},
-                     std::false_type{});
-        if (p == NARROW)
-            return f(integral_constant<int, KS2>{}, integral_constant<int, TM2>{},
-                     std::false_type{});
+        if (!p.stream)
+            return p.wide ? f(Wide{}, WideRows{}, std::false_type{}, p.resident)
+                          : f(Narrow{}, NarrowRows{}, std::false_type{}, p.resident);
+        if constexpr (splits<RowT, NQ, NV>())
+            if (p.wide) return f(Wide{}, WideRows{}, std::true_type{}, p.resident);
     }
-    return f(integral_constant<int, KS2>{}, integral_constant<int, TM2>{}, std::true_type{});
+    // streamed, or split with the narrow shape
+    return f(Narrow{}, NarrowRows{}, std::true_type{}, p.resident);
 }
 
 // the plan's ring stages and shared memory at depth d (exported by each
@@ -299,21 +341,23 @@ auto with_plan(int d, const F& f) {
 template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1,
           typename QT = __nv_bfloat16>
 int plan_stages(int d) {
-    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV, QT>(d, [&](auto ks, auto tm, auto st) {
-        return stages_for<RowT, decltype(ks)::value, decltype(tm)::value,
-                          decltype(st)::value, NQ, NV, QT>(d);
-    });
+    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV, QT>(
+        d, [&](auto ks, auto tm, auto st, int resident) {
+            return stages_for<RowT, decltype(ks)::value, decltype(tm)::value,
+                              decltype(st)::value, NQ, NV, QT>(d, resident);
+        });
 }
 
 template <typename RowT, int KS1, int TM1, int KS2, int TM2, int NQ = 1, int NV = 1,
           typename QT = __nv_bfloat16>
 size_t plan_smem(int d) {
-    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV, QT>(d, [&](auto ks, auto tm, auto st) {
-        constexpr int KS = decltype(ks)::value, TM = decltype(tm)::value;
-        constexpr bool S = decltype(st)::value;
-        return smem_bytes<RowT, KS, TM, S, NQ, NV, QT>(
-            d, stages_for<RowT, KS, TM, S, NQ, NV, QT>(d));
-    });
+    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV, QT>(
+        d, [&](auto ks, auto tm, auto st, int resident) {
+            constexpr int KS = decltype(ks)::value, TM = decltype(tm)::value;
+            constexpr bool S = decltype(st)::value;
+            return smem_bytes<RowT, KS, TM, S, NQ, NV, QT>(
+                d, stages_for<RowT, KS, TM, S, NQ, NV, QT>(d, resident), resident);
+        });
 }
 
 // ---------------------------------------------------------------------------
@@ -559,6 +603,7 @@ struct ScanArgs {
     const float* side[4];  // per-row side arrays [n_pad] (NSIDE of them)
     float* out;          // [n_bins, b]
     int d, b, n_qb, stages;
+    int resident;        // streamed plans: query k-blocks kept resident (split: R; else 0)
 };
 
 // bf16 pair of two floats, round to nearest even, lo in the low half
@@ -634,8 +679,11 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
     const int nk = (a.d + KD - 1) / KD;   // KD-deep k-blocks
     const int nks = (nk + KS - 1) / KS;   // ring stages per TM-row sub-tile
     const int S = a.stages;
+    // the query k-blocks resident (all, or the split plan's head); the
+    // stages carry those of depth steps >= R
+    const int R = STREAM ? a.resident : nk;
     const uint32_t q_s = base;            // the resident query blocks
-    const uint32_t tiles = q_s + (STREAM ? 0 : nk * QSTEP);
+    const uint32_t tiles = q_s + R * QSTEP;
     const uint32_t red = tiles + S * STAGE;
     const uint32_t bars = red + RED_BYTES;  // full[S], empty[S], qbar
     int* red_g = reinterpret_cast<int*>(gbase + (red - base));
@@ -671,10 +719,10 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
         if (tid == CONSUMERS) {
             // plane p of query block qblk: rows p * n_qb * 64 + 64 qblk
             const int qrow = qblk * QB, qplane = a.n_qb * QB;
-            if constexpr (!STREAM) {
+            if (R > 0) {
                 const uint32_t qbar = bars + 16 * S;
-                mbar_expect_tx(qbar, nk * QSTEP);
-                for (int c = 0; c < nk; ++c)
+                mbar_expect_tx(qbar, R * QSTEP);
+                for (int c = 0; c < R; ++c)
                     for (int pl = 0; pl < NQ; ++pl)
                         tma_load_2d(q_s + c * QSTEP + pl * QBLK, qmap, qbar, c * KD,
                                     qrow + pl * qplane);
@@ -692,8 +740,10 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                         const uint32_t full = bars + 8 * st;
                         const uint32_t dst = tiles + st * STAGE;
                         const int nkb = min(KS, nk - ks * KS);
+                        // the step's query k-blocks past the resident head
+                        const int nkq = STREAM ? min(nkb, max(0, ks * KS + nkb - R)) : 0;
                         mbar_wait(bars + 8 * (S + st), ph ^ 1);
-                        mbar_expect_tx(full, nkb * (RTILE + (STREAM ? QSTEP : 0)));
+                        mbar_expect_tx(full, nkb * RTILE + nkq * QSTEP);
                         for (int kb = 0; kb < nkb; ++kb) {
                             const int k0 = (ks * KS + kb) * KD;
                             if constexpr (F32 && !FFMA) {
@@ -706,7 +756,7 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                                 if constexpr (RTILE == 2 * TILE)  // the low row plane
                                     tma_load_2d(dst + kb * RTILE + TILE, vmap2, full, k0, row0);
                             }
-                            if constexpr (STREAM)
+                            if (STREAM && ks * KS + kb >= R)
                                 for (int pl = 0; pl < NQ; ++pl)
                                     for (int h = 0; h < QH; ++h)
                                         tma_load_2d(dst + KS * RTILE + kb * QSTEP + pl * QBLK
@@ -884,10 +934,9 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
         for (int j = 0; j < 16; ++j) cols[j] = 8 * (j >> 1) + 2 * t + (j & 1);
         const auto key = make_key(qblk * QB, cols);
         bool f16 = false;
-        if constexpr (!STREAM) {
-            mbar_wait(bars + 16 * S, 0);
-            if constexpr (INT8 && !S8) f16 = queries_to_f16(gbase, nk, tid, f16_flag, unscale_g);
-        }
+        if (R > 0) mbar_wait(bars + 16 * S, 0);
+        if constexpr (!STREAM && INT8 && !S8)
+            f16 = queries_to_f16(gbase, nk, tid, f16_flag, unscale_g);
 
         // the bin walk, with f16 (int8 rows only) or bf16 products
         const auto walk = [&](auto f16_tag) {
@@ -901,12 +950,14 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
             uint32_t ph = 0;
             const auto advance = [&]() { if (++st == S) { st = 0; ph ^= 1; } };
             if (wg == 1) advance();  // the ring alternates between the warpgroups
-            // B of plane pl of k-block kb of depth step ks: resident, or in the
-            // stage
+            // B of plane pl of k-block kb of depth step ks: resident (below
+            // R), or in the stage
             const auto qdesc = [&](int ks, int kb, int kk, int pl = 0) {
+                const int k = ks * KS + kb;
                 const uint32_t off = pl * QBLK + kk * 32;
-                return desc_sw128(STREAM ? tiles + st * STAGE + KS * RTILE + kb * QSTEP + off
-                                         : q_s + (ks * KS + kb) * QSTEP + off);
+                return desc_sw128(STREAM && k >= R
+                                      ? tiles + st * STAGE + KS * RTILE + kb * QSTEP + off
+                                      : q_s + k * QSTEP + off);
             };
             for (int slot = p0; slot < n_surv; slot += P) {
                 const int bin = a.surv[slot];
@@ -1272,12 +1323,13 @@ int launch_plan(const GetKernel& get_kernel, const LaunchFn& launch_fn, const vo
     constexpr bool TWO_MAPS = row_planes<RowT, NV>() == 2;
     if (n_qb < 1 || per_group < 1 || dq % kdepth<QT>() || TWO_MAPS != (v2 != nullptr))
         return (int)cudaErrorInvalidValue;
-    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV, QT>(d, [&](auto ks, auto tm, auto st) {
+    return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV, QT>(d, [&](auto ks, auto tm, auto st,
+                                                                   int resident) {
         constexpr int KS = decltype(ks)::value, TM = decltype(tm)::value;
         constexpr bool STREAM = decltype(st)::value;
         const auto kernel = get_kernel(ks, tm, st);
-        const int stages = stages_for<RowT, KS, TM, STREAM, NQ, NV, QT>(d);
-        const size_t smem = smem_bytes<RowT, KS, TM, STREAM, NQ, NV, QT>(d, stages);
+        const int stages = stages_for<RowT, KS, TM, STREAM, NQ, NV, QT>(d, resident);
+        const size_t smem = smem_bytes<RowT, KS, TM, STREAM, NQ, NV, QT>(d, stages, resident);
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
@@ -1295,6 +1347,7 @@ int launch_plan(const GetKernel& get_kernel, const LaunchFn& launch_fn, const vo
         a.b = b;
         a.n_qb = n_qb;
         a.stages = stages;
+        a.resident = STREAM ? resident : 0;
         if constexpr (TWO_MAPS)
             launch_fn(kernel, dim3(n_qb * per_group), smem, qmap, vmap, vmap2, a);
         else

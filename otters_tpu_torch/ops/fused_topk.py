@@ -29,7 +29,8 @@ only; each replaces one mode of the TPU kernel
   every metric and score filter.
 
 Every kernel runs the Hopper scan of ``csrc/cert_scan_sm90.cuh``
-(:func:`sm90_plan` mirrors its ring plans, the deep-row plan included; K4
+(:func:`sm90_plan` mirrors its ring plans, the deep-row and split plans
+included; K4
 with two query planes, :func:`query_planes`, and over f32 rows two row
 planes split in the kernel; K2 with int8 queries, K3 with f32 queries and
 FFMA consumers). The stored rows' depth is padded to a multiple of 16
@@ -211,14 +212,15 @@ def _kernel_fns(source: str, entry: str, n_ptrs: int, n_ints: int):
     return smem, launch
 
 
-def _launch(wrapper, source, entry, q, v, ptrs, ints, d):
+def _launch(wrapper, source, entry, q, v, ptrs, ints, d, split=False):
     """Launch ``entry`` of ``source`` on q's stream with the pointers
     ``ptrs`` (q and v first) and the output [n_bins, b], pre-filled with
     -inf, then n_bins, d (the rows' stored depth, :func:`stored_depth`) and
     the ints ``ints`` (b first). ``q`` is already padded to whole query
     blocks and at least to depth d; b is the real batch. Raises if the
     kernel cannot build or launch; counts the launch on
-    ``wrapper.launches``."""
+    ``wrapper.launches``, and on ``wrapper.split_launches`` too where the
+    sm90 plan is ``split`` (:attr:`ScanPlan.split`)."""
     b = ints[0]
     assert d % DEPTH_ALIGN == 0, d
     if v.data_ptr() % 16 or q.data_ptr() % 16:
@@ -239,6 +241,7 @@ def _launch(wrapper, source, entry, q, v, ptrs, ints, d):
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     wrapper.launches += 1
+    wrapper.split_launches += split
     return out
 
 
@@ -355,12 +358,21 @@ SM90_SHAPES = {
 class ScanPlan(NamedTuple):
     """A launch's ring: ``stages`` stages of ``ks`` k-blocks of ``rows``
     rows; ``streamed``: the query k-blocks ride in the stages (deep rows)
-    instead of the resident query block."""
+    instead of the resident query block, past its first ``resident``
+    k-blocks (the query k-blocks kept in shared memory: all of them when not
+    streamed, 0 on the deep-row plan, the head on the split plan)."""
 
     ks: int
     rows: int
     stages: int
     streamed: bool
+    resident: int
+
+    @property
+    def split(self) -> bool:
+        """The split plan: the query block's head resident, its tail
+        streamed."""
+        return self.streamed and self.resident > 0
 
 
 class ScanGeometry(NamedTuple):
@@ -377,6 +389,7 @@ class ScanGeometry(NamedTuple):
     rows: int
     stages: int
     streamed: bool
+    resident: int
     smem: int
     planes: int = 1
 
@@ -384,32 +397,37 @@ class ScanGeometry(NamedTuple):
     def n_ctas(self) -> int:
         return self.n_qb * self.per_group
 
+    @property
+    def split(self) -> bool:
+        return self.streamed and self.resident > 0
+
 
 def sm90_smem_bytes(d: int, row_bytes: int, stages: int, ks: int, rows: int,
-                    streamed: bool = False, planes: int = 1, q_bytes: int = 2) -> int:
+                    streamed: bool = False, planes: int = 1, q_bytes: int = 2,
+                    resident: int = 0) -> int:
     """The scan's dynamic shared memory (the C side's ``sm90::smem_bytes``):
     1 KB of alignment slack, the resident query blocks (64 queries of one
     k-block of ``q_bytes`` elements per k-block and query plane: 8 KB for
-    bf16 and int8; none when streamed), the ring of ``stages`` stages of
-    ``ks`` [rows x :func:`stage_depth`] row tiles (each with its queries of
-    that depth when streamed), the per-query maxima and scales with the
-    f16 flag, and the barriers."""
+    bf16 and int8; when streamed, only the first ``resident``), the ring of
+    ``stages`` stages of ``ks`` [rows x :func:`stage_depth`] row tiles (each
+    with room for its queries of that depth when streamed), the per-query
+    maxima and scales with the f16 flag, and the barriers."""
     kd = kblock_depth(q_bytes)
     nk = -(-d // kd)
     qblock = planes * QUERY_BLOCK * kd * q_bytes
     sd = stage_depth(row_bytes, q_bytes)
     stage = ks * (rows * sd * row_bytes + (planes * QUERY_BLOCK * sd * q_bytes if streamed else 0))
-    return (1024 + (0 if streamed else nk * qblock) + stages * stage
+    return (1024 + (resident if streamed else nk) * qblock + stages * stage
             + 2 * QUERY_BLOCK * 4 + 8 + (2 * stages + 1) * 8)
 
 
 def sm90_stages(d: int, row_bytes: int, ks: int, rows: int, streamed: bool = False,
-                planes: int = 1, q_bytes: int = 2) -> int:
+                planes: int = 1, q_bytes: int = 2, resident: int = 0) -> int:
     """The most ring stages that fit: an even number up to SM90_MAX_STAGES,
     never below 2 (the two consumer warpgroups take alternate stages)."""
     s = SM90_MAX_STAGES
     while s > 2 and sm90_smem_bytes(d, row_bytes, s, ks, rows, streamed, planes,
-                                    q_bytes) > _SMEM_MAX:
+                                    q_bytes, resident) > _SMEM_MAX:
         s -= 2
     return s
 
@@ -419,16 +437,35 @@ def sm90_plan(mode: str, d: int) -> ScanPlan:
     ``d``, the C side's ``sm90::plan_for``: the wide stage shape when 4
     stages of it fit beside the resident query block (of every query
     plane), else the narrow one when 2 fit, else the narrow one with the
-    query block streamed (any d); a mode with no wide shape always streams."""
+    query block streamed (any d); a mode with no wide shape always streams.
+    Where the narrow plan would keep fewer than 4 stages, a mode over bf16
+    rows with one query plane (the C side's ``sm90::splits``; K1 over int8
+    rows needs the whole block resident for its f16 products) keeps only
+    the head of the query block resident instead, the largest that leaves
+    4 stages of the wide shape, else of the narrow one, and streams the
+    rest."""
     row_bytes, planes, wide, narrow, qb = SM90_SHAPES[mode]
+    nk = -(-d // kblock_depth(qb))
+
+    def fits(ks_rows, stages, streamed=False, resident=0):
+        return sm90_smem_bytes(d, row_bytes, stages, *ks_rows, streamed, planes, qb,
+                               resident) <= _SMEM_MAX
+
     if wide is not None:
-        if sm90_smem_bytes(d, row_bytes, 4, *wide, planes=planes, q_bytes=qb) <= _SMEM_MAX:
+        if fits(wide, 4):
             return ScanPlan(*wide, sm90_stages(d, row_bytes, *wide, planes=planes, q_bytes=qb),
-                            False)
-        if sm90_smem_bytes(d, row_bytes, 2, *narrow, planes=planes, q_bytes=qb) <= _SMEM_MAX:
+                            False, nk)
+        if fits(narrow, 2):
+            if row_bytes == 2 and planes == 1 and not fits(narrow, 4):
+                for ks_rows in (wide, narrow):
+                    r = next((r for r in range(nk - 1, 0, -1) if fits(ks_rows, 4, True, r)), 0)
+                    if r:
+                        return ScanPlan(*ks_rows, sm90_stages(d, row_bytes, *ks_rows, True,
+                                                              planes, qb, r), True, r)
             return ScanPlan(*narrow,
-                            sm90_stages(d, row_bytes, *narrow, planes=planes, q_bytes=qb), False)
-    return ScanPlan(*narrow, sm90_stages(d, row_bytes, *narrow, True, planes, qb), True)
+                            sm90_stages(d, row_bytes, *narrow, planes=planes, q_bytes=qb), False,
+                            nk)
+    return ScanPlan(*narrow, sm90_stages(d, row_bytes, *narrow, True, planes, qb), True, 0)
 
 
 def sm90_geometry(mode: str, b: int, d: int, n_sms: int) -> ScanGeometry:
@@ -528,7 +565,7 @@ def _sm90_launch(wrapper, mode, source, entry, q, v, per_query, ptrs, ints, perm
     head, tail = ptrs
     return _launch(
         wrapper, source, entry, qk, v, [qk, v, *head, *pq, *tail],
-        [q.shape[0], geom.dq, geom.n_qb, geom.per_group, *ints], dp,
+        [q.shape[0], geom.dq, geom.n_qb, geom.per_group, *ints], dp, geom.split,
     )
 
 
@@ -569,7 +606,8 @@ def cert_cos_binmax(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv,
 
     CPU tensors take the plain version; CUDA tensors launch the Hopper
     kernel (csrc/cert_cos_binmax.cu) and raise if it cannot build or
-    launch. ``cert_cos_binmax.launches`` counts kernel launches."""
+    launch. ``cert_cos_binmax.launches`` counts kernel launches
+    (``.split_launches`` those on the split plan)."""
     return _cert_cos(cert_cos_binmax, "cert_cos_binmax", torch.int8, q, v, inv, rmask,
                      lane_a, q_inv, q_ok, thr, surv, n_surv, cmp)
 
@@ -578,7 +616,8 @@ def cert_cos_binmax_bf16(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_sur
                          cmp: Optional[Cmp] = None):
     """K1 bin maxima over bfloat16 rows: the same function and kernel
     source as :func:`cert_cos_binmax`, the rows loaded as bf16 (no
-    conversion). ``.launches`` counts kernel launches."""
+    conversion). ``.launches`` counts kernel launches (``.split_launches``
+    those on the split plan)."""
     return _cert_cos(cert_cos_binmax_bf16, "cert_cos_binmax_bf16", torch.bfloat16, q, v,
                      inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv, cmp)
 
@@ -635,7 +674,8 @@ def cert_fold_binmax(q, v, inv, nsq, rmask, lane_a, lane_b, q_inv, q_sq, q_ok, c
                      take_min: bool = False, cmp: Optional[Cmp] = None):
     """K5 bin maxima (see :func:`cert_fold_binmax_plain`). CPU tensors take
     the plain version; CUDA tensors launch csrc/cert_fold_binmax.cu or
-    raise. ``.launches`` counts kernel launches."""
+    raise. ``.launches`` counts kernel launches (``.split_launches`` those on
+    the split plan)."""
     b, d = q.shape
     n_pad = v.shape[0]
     per_query = [("q_inv", q_inv), ("q_sq", q_sq), ("q_ok", q_ok), ("c0", c0),
@@ -671,9 +711,9 @@ def cert_fold_binmax(q, v, inv, nsq, rmask, lane_a, lane_b, q_inv, q_sq, q_ok, c
     )
 
 
-cert_cos_binmax.launches = 0
-cert_cos_binmax_bf16.launches = 0
-cert_fold_binmax.launches = 0
+cert_cos_binmax.launches = cert_cos_binmax.split_launches = 0
+cert_cos_binmax_bf16.launches = cert_cos_binmax_bf16.split_launches = 0
+cert_fold_binmax.launches = cert_fold_binmax.split_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -813,7 +853,8 @@ def _binmax(mode, wrapper, q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv,
 def _mode_wrapper(mode: str, doc: str):
     """The wrapper of an uncertified kernel: CPU tensors take
     :func:`binmax_plain`, CUDA tensors launch the kernel or raise;
-    ``.launches`` counts kernel launches."""
+    ``.launches`` counts kernel launches (``.split_launches`` those on the
+    split plan)."""
 
     def wrapper(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv,
                 metric: Metric = Metric.Cosine, take_min: bool = False,
@@ -823,7 +864,7 @@ def _mode_wrapper(mode: str, doc: str):
 
     wrapper.__name__ = wrapper.__qualname__ = _MODES[mode][1]
     wrapper.__doc__ = f"{doc} (see :func:`binmax_plain`). {_mode_wrapper.__doc__}"
-    wrapper.launches = 0
+    wrapper.launches = wrapper.split_launches = 0
     return wrapper
 
 
@@ -866,7 +907,7 @@ def kernel_smem_bytes(mode: str, d: int) -> int:
     plan = sm90_plan(mode, d)
     shape = SM90_SHAPES[mode]
     return sm90_smem_bytes(d, shape.row_bytes, plan.stages, plan.ks, plan.rows, plan.streamed,
-                           shape.planes, shape.q_bytes)
+                           shape.planes, shape.q_bytes, plan.resident)
 
 
 def kernel_takes(mode: str, d: int) -> bool:
@@ -891,10 +932,10 @@ kernel_takes.routed = 0  # queries sent to the scan program by shape
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count, and the count of queries routed
-    away from the kernels by shape, to 0."""
+    """Set every kernel's launch counts (``launches``, ``split_launches``),
+    and the count of queries routed away from the kernels by shape, to 0."""
     for fn in KERNELS.values():
-        fn.launches = 0
+        fn.launches = fn.split_launches = 0
     kernel_takes.routed = 0
 
 

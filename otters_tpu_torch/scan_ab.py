@@ -4,7 +4,7 @@ source trees.
     python otters_tpu_torch/scan_ab.py [ROOT:LABEL ...] [--rounds N]
         [--modes K1,K1-bf16,K2,K3,K3-bf16,K5,K6,K6-bf16,K4,K4-bf16,k_planes,k_mm,
                  k_mm_bins]
-        [--b 64,256]
+        [--b 64,256] [--d 768]
 
 Each ROOT is a checkout (or a copy of ``otters_tpu_torch/`` under ROOT);
 the default is this checkout. The trees are measured in interleaved rounds
@@ -23,7 +23,10 @@ matmul, TF32 off, on rows upcast beforehand). The shapes are the paths' of
 over 10,000,384 int8 rows (K1 ``wide``: queries whose magnitudes span more
 than f16's range, so the scan multiplies in bf16; K2 with int8 queries)
 and K1-bf16 / K5 (Dot) / K6-bf16 / K4-bf16 / K3-bf16 (Cosine) over as many
-bf16 rows; K6, K4 and K3 (Cosine) over 4,000,256 f32 rows; the probes
+bf16 rows; K6, K4 and K3 (Cosine) over 4,000,256 f32 rows. ``--d`` sets
+another depth for the kernels (not the probes), with the rows cut to keep
+their bytes: at d = 1,536 the bf16-row modes run over 5,000,192 rows, the
+scale of the benchmark's ``openai5m.f1p``. The probes
 k_planes, k_mm and k_mm_bins at the shapes of
 scripts/kernel_profile_variants.py (1,007,616 f32 rows or their VH / VL,
 every bin). The rows and their side data are random, made
@@ -38,7 +41,7 @@ import statistics
 import subprocess
 import sys
 
-D, BIN = 768, 512
+D, BIN = 768, 512  # D: the probes' depth, the default depth and that of N_BINS
 N_BINS = {"K1": 19532, "K1-bf16": 19532, "K2": 19532, "K3": 7813, "K3-bf16": 19532,
           "K5": 19532, "K6": 7813, "K6-bf16": 19532, "K4": 7813, "K4-bf16": 19532}
 F32_ROWS = ("K6", "K4", "K3")  # the modes over f32 rows
@@ -74,20 +77,25 @@ def _timers(torch):
     return per_call, back_to_back
 
 
-def _operands(torch, ft, mode, g, dev):
+def _n_bins(mode: str, d: int) -> int:
+    """The bins of ``mode`` at depth d: as many bytes of rows as at D."""
+    return N_BINS[mode] * D // d
+
+
+def _operands(torch, ft, mode, g, dev, d):
     """(rows, a function of the kernel's queries (bf16; K4 and K3 f32, K2
-    int8) giving the wrapper's args, kernel, plain) of ``mode``."""
-    n = N_BINS[mode] * BIN
+    int8) giving the wrapper's args, kernel, plain) of ``mode`` at depth d."""
+    n = _n_bins(mode, d) * BIN
     if mode in ("K1", "K2"):
-        v = torch.randint(-127, 128, (n, D), generator=g, device=dev, dtype=torch.int8)
+        v = torch.randint(-127, 128, (n, d), generator=g, device=dev, dtype=torch.int8)
     elif mode in F32_ROWS:
-        v = torch.randn((n, D), generator=g, device=dev)
+        v = torch.randn((n, d), generator=g, device=dev)
     else:
-        v = torch.randn((n, D), generator=g, device=dev).bfloat16()
+        v = torch.randn((n, d), generator=g, device=dev).bfloat16()
     inv = torch.rand(n, generator=g, device=dev) * 0.01 + 0.001
     rmask = (torch.rand(n, generator=g, device=dev) < 0.9).float()
     lane = torch.rand(n, generator=g, device=dev) * 1e-5
-    nsq = v[:, :64].float().square().sum(1) * (D / 64)
+    nsq = v[:, :64].float().square().sum(1) * (d / 64)
     thr = torch.zeros(1, device=dev)
 
     def args(qk, surv, n_surv):
@@ -198,7 +206,7 @@ def _sass_stats(kernels) -> dict:
     return out
 
 
-def _measure(root: str, label: str, modes, bs) -> dict:
+def _measure(root: str, label: str, modes, bs, d: int) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -211,14 +219,14 @@ def _measure(root: str, label: str, modes, bs) -> dict:
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda")
     per_call, back_to_back = _timers(torch)
-    res = {"label": label}
+    res = {"label": label, "d": d}
     for mode in modes:
         if mode in ("k_planes", "k_mm", "k_mm_bins"):
             _measure_probe(torch, mode, dev, bs, per_call, back_to_back, res)
             continue
         g = torch.Generator(device=dev).manual_seed(0)
-        v, args, kernel, plain = _operands(torch, ft, mode, g, dev)
-        n_bins = N_BINS[mode]
+        v, args, kernel, plain = _operands(torch, ft, mode, g, dev, d)
+        n_bins = _n_bins(mode, d)
         surv, n_surv = ft.survivor_bins((torch.arange(n_bins, device=dev) // 2) % 2 == 1)
         live = surv[: int(n_surv[0])].long()
         rows = (live[:, None] * BIN + torch.arange(BIN, device=dev)).reshape(-1)
@@ -228,7 +236,7 @@ def _measure(root: str, label: str, modes, bs) -> dict:
         vl_live = (v[rows] - v_live.float()).bfloat16() if mode == "K4" else None
         sl = torch.tensor([40], dtype=torch.int32, device=dev)
         for b in bs:
-            q = torch.randn((b, D), generator=g, device=dev)
+            q = torch.randn((b, d), generator=g, device=dev)
             for kind in ("normal", "wide") if mode == "K1" else ("normal",):
                 qk = q.clone()
                 if kind == "wide":  # every query: half its elements 2^-40 of the rest
@@ -258,7 +266,7 @@ def _measure(root: str, label: str, modes, bs) -> dict:
 
 def main(argv) -> int:
     opts = {"--rounds": "2", "--modes": "K1,K1-bf16,K5,K6,K6-bf16,K4,K4-bf16,k_planes",
-            "--b": "64,256"}
+            "--b": "64,256", "--d": str(D)}
     for key in list(opts):
         if key in argv:
             i = argv.index(key)
@@ -266,7 +274,7 @@ def main(argv) -> int:
             argv = argv[:i] + argv[i + 2:]
     if argv and argv[0] == "--child":
         modes, bs = opts["--modes"].split(","), [int(x) for x in opts["--b"].split(",")]
-        print(json.dumps(_measure(argv[1], argv[2], modes, bs)), flush=True)
+        print(json.dumps(_measure(argv[1], argv[2], modes, bs, int(opts["--d"]))), flush=True)
         return 0
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     trees = [a.split(":", 1) for a in argv] or [[here, "this"]]
@@ -274,7 +282,8 @@ def main(argv) -> int:
     for _ in range(int(opts["--rounds"])):
         for root, label in trees:
             p = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root, label,
-                                "--modes", opts["--modes"], "--b", opts["--b"]],
+                                "--modes", opts["--modes"], "--b", opts["--b"],
+                                "--d", opts["--d"]],
                                capture_output=True, text=True)
             lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
             print(lines[-1] if lines else json.dumps({"label": label, "rc": p.returncode,

@@ -15,7 +15,8 @@
   shared memory to the scan program before any launch, and count it; every
   kernel (K1, K2, K5, K6, K4 and K3 over their row types) takes any depth
   through the deep-row plan of ``csrc/cert_scan_sm90.cuh``, mirrored by
-  ``sm90_plan`` (the card tests hold the mirror against the C side), so
+  ``sm90_plan`` with the split plan of the bf16-row modes (the card tests
+  hold the mirror against the C side), so
   the route is held here by a refusing check; K4 streams its two query
   planes and K3 its f32 query block at every depth.
 - The f32-row fragment order of K6 and K4 (``f32_query_perm``), replayed;
@@ -287,7 +288,7 @@ SM90_MODES = ["K1", "K1-bf16", "K2", "K3", "K3-bf16", "K5", "K6", "K6-bf16", "K4
 @pytest.mark.parametrize("d", DEPTHS)
 def test_sm90_plan_fits_every_depth(mode, d):
     """An even ring of at least 2 stages within 232,448 B at every depth;
-    the query block (of every query plane) is streamed exactly when the
+    the query block (of every query plane) is streamed whole exactly when the
     resident block would leave fewer than 2 stages of the narrow shape, or
     always for a mode with no resident plan (K3, K4, the probes k_mm /
     k_mm_bins on K3's); at d = 768 K1 keeps its plans, K2 / K5 / K6 /
@@ -296,20 +297,35 @@ def test_sm90_plan_fits_every_depth(mode, d):
     and the FFMA probes 4 streamed stages of 256 f32 rows and K3-bf16 6 of
     128 bf16 rows, with the f32 queries. K2's 128-deep int8 query k-blocks (8 KB) stay
     resident up to d = 3,072 (two stages of the narrow shape there) and are
-    streamed at 8,192; the other resident plans stream from d = 2,048."""
+    streamed at 8,192; the other resident plans stream from d = 2,048. At
+    d = 1,392 and 1,536 the bf16-row modes with a resident plan (K1-bf16,
+    K5, K6-bf16) take the split plan: 4 stages of their wide shape beside
+    the head of the query block, the rest streamed."""
     dp = ts.pad_depth(d)
     row_bytes, planes, wide, narrow, q_bytes = ft.SM90_SHAPES[mode]
     plan = ft.sm90_plan(mode, dp)
     assert plan.stages >= 2 and plan.stages % 2 == 0 and plan.stages <= ft.SM90_MAX_STAGES
     smem = ft.sm90_smem_bytes(dp, row_bytes, plan.stages, plan.ks, plan.rows, plan.streamed,
-                              planes, q_bytes)
+                              planes, q_bytes, plan.resident)
     assert smem == ft.kernel_smem_bytes(mode, dp) <= SMEM_MAX
     resident_fits = wide is not None and ft.sm90_smem_bytes(
         dp, row_bytes, 2, *narrow, planes=planes, q_bytes=q_bytes) <= SMEM_MAX
-    assert plan.streamed is (not resident_fits)
-    if plan.streamed:
+    narrow_4 = wide is not None and ft.sm90_smem_bytes(
+        dp, row_bytes, 4, *narrow, planes=planes, q_bytes=q_bytes) <= SMEM_MAX
+    nk = -(-dp // ft.kblock_depth(q_bytes))
+    # the split plan: bf16 rows with a resident plan, where the narrow one
+    # would keep 2 stages (d = 1,392 and 1,536 here)
+    assert plan.split is (mode in ("K1-bf16", "K5", "K6-bf16") and resident_fits
+                          and not narrow_4)
+    assert plan.split is (mode in ("K1-bf16", "K5", "K6-bf16") and d in (1392, 1536))
+    assert plan.streamed is (not resident_fits or plan.split)
+    if not plan.streamed:
+        assert plan.resident == nk
+    if plan.split:
+        assert (plan.ks, plan.rows, plan.stages) == wide + (4,) and 0 < plan.resident < nk
+    elif plan.streamed:
         # every stage carries its query k-blocks; one more stage would not fit
-        assert (plan.ks, plan.rows) == narrow
+        assert (plan.ks, plan.rows) == narrow and plan.resident == 0
         assert plan.stages == ft.SM90_MAX_STAGES or ft.sm90_smem_bytes(
             dp, row_bytes, plan.stages + 2, *narrow, True, planes, q_bytes) > SMEM_MAX
     elif ft.sm90_smem_bytes(dp, row_bytes, 4, *wide, planes=planes, q_bytes=q_bytes) <= SMEM_MAX:
@@ -320,22 +336,86 @@ def test_sm90_plan_fits_every_depth(mode, d):
     assert kd == (128 if mode == "K2" else 64)
     geom = ft.sm90_geometry(mode, 600, dp, 132)
     assert geom.dq % kd == 0 and 0 <= geom.dq - dp < kd
-    assert (geom.ks, geom.rows, geom.stages, geom.streamed) == plan
+    assert (geom.ks, geom.rows, geom.stages, geom.streamed, geom.resident) == plan
     assert geom.n_qb == 10 and geom.per_group == 13
     if d == 768:
-        assert plan == {"K1": (2, 128, 8, False), "K1-bf16": (1, 256, 4, False),
-                        "K2": (1, 256, 4, False), "K3": (1, 256, 4, True),
-                        "K3-bf16": (1, 128, 6, True), "k_mm": (1, 256, 4, True),
-                        "k_mm_bins": (1, 256, 4, True),
-                        "K5": (2, 128, 4, False), "K6": (1, 128, 4, False),
-                        "K6-bf16": (1, 256, 4, False), "K4": (1, 128, 4, True),
-                        "K4-bf16": (1, 128, 6, True)}[mode]
+        assert plan[:4] == {"K1": (2, 128, 8, False), "K1-bf16": (1, 256, 4, False),
+                            "K2": (1, 256, 4, False), "K3": (1, 256, 4, True),
+                            "K3-bf16": (1, 128, 6, True), "k_mm": (1, 256, 4, True),
+                            "k_mm_bins": (1, 256, 4, True),
+                            "K5": (2, 128, 4, False), "K6": (1, 128, 4, False),
+                            "K6-bf16": (1, 256, 4, False), "K4": (1, 128, 4, True),
+                            "K4-bf16": (1, 128, 6, True)}[mode]
     if mode == "K2":
         assert plan.streamed is (d > 3072)
         if d == 3072:
-            assert plan == (1, 128, 2, False)
+            assert plan == (1, 128, 2, False, 24)
     elif d >= 2048:
         assert plan.streamed
+
+
+SPLIT_MODES = ["K1-bf16", "K5", "K6-bf16"]  # bf16 rows, one query plane, a resident plan
+
+
+@pytest.mark.parametrize("mode", SPLIT_MODES)
+@pytest.mark.parametrize("d", [1296, 1344, 1392, 1536])
+def test_split_plan_keeps_rows_in_flight(mode, d):
+    """Where the whole query block (8 KB a k-block) leaves 2 stages of the
+    narrow shape, 32 KB of bf16 rows in flight (stored d = 1,296 to 1,536;
+    from 1,552 the block no longer fits beside 2 and these modes stream it
+    whole), the split plan keeps an even ring of at least 4 stages of the
+    wide shape, each with room for the query k-blocks of its depth step,
+    beside the first R query k-blocks: R the largest that fits, one more
+    does not. K1-bf16 and K6-bf16: 256 rows (32 KB) and 8 KB of queries a
+    stage, R = 8; K5: two k-blocks of 128 rows and two of queries, R = 4;
+    128 KB of rows in flight either way. The arithmetic: 1 KB slack + head
+    + ring + 520 B of maxima, scales and flag + 8 B a barrier."""
+    row_bytes, planes, wide, narrow, q_bytes = ft.SM90_SHAPES[mode]
+    nk = -(-d // 64)
+    assert ft.sm90_smem_bytes(d, 2, 2, *narrow) <= SMEM_MAX < ft.sm90_smem_bytes(d, 2, 4, *narrow)
+    plan = ft.sm90_plan(mode, d)
+    assert plan.split and plan.streamed and (plan.ks, plan.rows) == wide
+    assert plan.stages >= 4 and plan.stages % 2 == 0
+    assert 0 < plan.resident < nk and plan.resident == {"K5": 4}.get(mode, 8)
+    ks, rows = wide
+    stage = ks * (rows * 64 * 2 + 64 * 64 * 2)
+    smem = 1024 + plan.resident * 8192 + plan.stages * stage + 520 + (2 * plan.stages + 1) * 8
+    assert smem == ft.kernel_smem_bytes(mode, d) <= SMEM_MAX
+    assert ft.sm90_smem_bytes(d, 2, plan.stages, ks, rows, True, resident=plan.resident + 1) \
+        == smem + 8192 > SMEM_MAX
+    assert plan.stages * ks * rows * 64 * 2 == 4 * 32768
+    geom = ft.sm90_geometry(mode, 256, d, 132)
+    assert geom.split and (geom.resident, geom.smem) == (plan.resident, smem)
+
+
+def _plan_without_split(mode, d):
+    """The plan of ``mode`` at d by the rule without the split plan."""
+    row_bytes, planes, wide, narrow, qb = ft.SM90_SHAPES[mode]
+    kw = dict(planes=planes, q_bytes=qb)
+    if wide is not None:
+        if ft.sm90_smem_bytes(d, row_bytes, 4, *wide, **kw) <= SMEM_MAX:
+            return (*wide, ft.sm90_stages(d, row_bytes, *wide, **kw), False)
+        if ft.sm90_smem_bytes(d, row_bytes, 2, *narrow, **kw) <= SMEM_MAX:
+            return (*narrow, ft.sm90_stages(d, row_bytes, *narrow, **kw), False)
+    return (*narrow, ft.sm90_stages(d, row_bytes, *narrow, True, **kw), True)
+
+
+@pytest.mark.parametrize("mode", SM90_MODES + ["k_planes"])
+def test_only_the_split_depths_change_a_plan(mode):
+    """At every stored depth from 16 to 8,192 the plan is the one the rule
+    without the split plan gives, except over bf16 rows at d = 1,296 to
+    1,536 (K1-bf16, K5, K6-bf16), where that rule's narrow plan kept 2
+    stages; K1 over int8 rows keeps its narrow plan there (its f16 products
+    need the whole block resident)."""
+    split = []
+    for d in range(16, 8193, 16):
+        plan = ft.sm90_plan(mode, d)
+        if plan.split:
+            split.append(d)
+            assert _plan_without_split(mode, d)[2:] == (2, False)
+        else:
+            assert plan[:4] == _plan_without_split(mode, d), d
+    assert split == (list(range(1296, 1537, 16)) if mode in SPLIT_MODES else [])
 
 
 @pytest.mark.parametrize("d", [16, 100, 768, 2048, 3072, 8192])
@@ -358,7 +438,7 @@ def test_k3_streams_its_queries_at_every_depth(d):
         assert ft.stage_depth(row_bytes, 4) == 128 // row_bytes
         stage = rows * 128 + 64 * (128 // row_bytes) * 4
         assert stage == {4: 40960, 2: 32768}[row_bytes]
-        assert ft.sm90_plan(mode, dp) == (1, rows, stages, True)
+        assert ft.sm90_plan(mode, dp) == (1, rows, stages, True, 0)
         assert ft.kernel_smem_bytes(mode, dp) == 1024 + stages * stage + 520 \
             + (2 * stages + 1) * 8 <= SMEM_MAX
         assert 1024 + (stages + 2) * stage + 520 + (2 * stages + 5) * 8 > SMEM_MAX
@@ -383,9 +463,10 @@ def test_k2_plan_mirrors_the_kernel(d):
         want = 1024 + nk * 8192 + plan.stages * plan.ks * plan.rows * 128 + 520 \
             + (2 * plan.stages + 1) * 8
     assert ft.kernel_smem_bytes("K2", d) == want <= SMEM_MAX
-    assert plan == {16: (1, 256, 6, False), 768: (1, 256, 4, False),
-                    2048: (1, 128, 6, False), 3072: (1, 128, 2, False),
-                    8192: (1, 128, 8, True)}[d]
+    assert plan[:4] == {16: (1, 256, 6, False), 768: (1, 256, 4, False),
+                        2048: (1, 128, 6, False), 3072: (1, 128, 2, False),
+                        8192: (1, 128, 8, True)}[d]
+    assert plan.resident == (0 if plan.streamed else nk)
 
 
 @pytest.mark.parametrize("d", [16, 768, 832, 848, 896, 2048, 4096])
@@ -400,7 +481,7 @@ def test_k4_bf16_streams_its_planes_at_every_depth(d):
     arithmetic: 1 KB slack + planes + ring + 520 B of maxima, scales and
     flag + 8 B a barrier."""
     plan = ft.sm90_plan("K4-bf16", d)
-    assert plan == (1, 128, 6, True)
+    assert plan == (1, 128, 6, True, 0)
     assert ft.kernel_smem_bytes("K4-bf16", d) == 1024 + 6 * 32768 + 520 + 13 * 8 <= SMEM_MAX
     assert 1024 + 8 * 32768 + 520 + 17 * 8 > SMEM_MAX
     nk = -(-d // 64)
@@ -425,7 +506,7 @@ def test_k4_streams_its_planes_at_every_depth(d):
     KB each, would hold 96 KB). The arithmetic: 1 KB slack + planes + ring
     + 520 B of maxima, scales and flag + 8 B a barrier."""
     plan = ft.sm90_plan("K4", d)
-    assert plan == (1, 128, 4, True) == ft.sm90_plan("k_planes", d)
+    assert plan == (1, 128, 4, True, 0) == ft.sm90_plan("k_planes", d)
     stage = 128 * 64 * 4 + 2 * 8192
     assert stage == 49152
     assert ft.kernel_smem_bytes("K4", d) == 1024 + 4 * stage + 520 + 9 * 8 <= SMEM_MAX

@@ -40,11 +40,16 @@ def _walk(geom, n_surv):
 def test_k1_geometry_covers_the_batch(b, d, row_bytes):
     mode = "K1" if row_bytes == 1 else "K1-bf16"
     geom = ft.sm90_geometry(mode, b, d, N_SMS)
-    assert geom.smem == ft.sm90_smem_bytes(d, row_bytes, geom.stages, geom.ks, geom.rows)
+    assert geom.smem == ft.sm90_smem_bytes(d, row_bytes, geom.stages, geom.ks, geom.rows,
+                                           geom.streamed, resident=geom.resident)
     assert geom.smem <= SMEM_MAX
     assert geom.stages >= 2 and geom.stages % 2 == 0
-    assert (geom.ks, geom.rows, geom.stages, geom.streamed) == ft.sm90_plan(mode, d)
-    assert not geom.streamed  # the query block stays resident up to d = 1,392
+    plan = ft.sm90_plan(mode, d)
+    assert (geom.ks, geom.rows, geom.stages, geom.streamed, geom.resident) == plan
+    # the query block stays resident up to d = 1,392 (over bf16 rows at
+    # 1,392 its first 8 k-blocks: the split plan)
+    assert geom.resident == (8 if (d, row_bytes) == (1392, 2) else -(-d // 64))
+    assert geom.split is plan.split is ((d, row_bytes) == (1392, 2))
     assert geom.n_qb == -(-b // ft.QUERY_BLOCK)
     assert geom.dq % 64 == 0 and 0 <= geom.dq - d < 64
     # the persistent grid: an equal share of the card per query block
@@ -68,13 +73,19 @@ def test_k1_geometry_covers_the_batch(b, d, row_bytes):
 
 
 @pytest.mark.parametrize("d,row_bytes,plan", [
-    (768, 1, (2, 128, 8)), (768, 2, (1, 256, 4)), (1392, 1, (1, 128, 6)),
-    (1392, 2, (1, 128, 2)), (96, 2, (1, 256, 6))])
+    (768, 1, (2, 128, 8, False, 12)), (768, 2, (1, 256, 4, False, 12)),
+    (1392, 1, (1, 128, 6, False, 22)), (1392, 2, (1, 256, 4, True, 8)),
+    (96, 2, (1, 256, 6, False, 2)), (1536, 1, (1, 128, 4, False, 24)),
+    (1536, 2, (1, 256, 4, True, 8))])
 def test_k1_stage_plan(d, row_bytes, plan):
     """int8 rows: two 64-deep k-blocks of 128 rows a stage; bf16 rows: one
-    of 256 rows; one of 128 rows when fewer than 4 stages would fit."""
+    of 256 rows; one of 128 rows when fewer than 4 stages would fit. Over
+    bf16 rows at d = 1,392 and 1,536 one of 128 rows would leave 2 stages
+    beside the query block (32 KB of rows in flight): the split plan keeps
+    its first 8 k-blocks resident and 4 stages of 256 rows with room for a
+    query k-block each (128 KB of rows in flight)."""
     mode = "K1" if row_bytes == 1 else "K1-bf16"
-    assert ft.sm90_plan(mode, d) == (*plan, False)
+    assert ft.sm90_plan(mode, d) == plan
 
 
 @pytest.mark.parametrize("dq", [64, 128, 768, 1408])

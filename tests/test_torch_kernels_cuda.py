@@ -12,8 +12,10 @@ with Eq filters); over bfloat16 rows K3,
 K5 (the general certified fold, Dot and Euclid, at b = 1 to 600, d = 100
 to 2048, with masked bins and NaN rows), and K4 and K6 on the Hopper scan
 (b = 1 to 600, d = 16 to 2048; K4 streams its two query planes with the
-rows); the shared-memory figures of the depth route and the sm90 plans
-(the probes' too) against the C side, with K6 and K4 over f32 and bf16
+rows); K1-bf16, K5 and K6-bf16 at d = 1,536 on the split plan (with
+masked bins and NaN rows) and its launch counter; the shared-memory
+figures of the depth route and the sm90 plans (the probes' too, the split
+plan's depths too) against the C side, with K6 and K4 over f32 and bf16
 rows and the probes launched at every depth there; the three profiling
 probes (``profile_variants``) at b = 1 to 600 and d = 98 to 768, and every
 dot of ``k_mm`` against float64. A depth that is not a multiple of 16 (d =
@@ -368,9 +370,10 @@ def test_k1_query_scales(mode, b, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,row_bytes", [("K1", 1), ("K1-bf16", 2)])
-@pytest.mark.parametrize("d", [16, 96, 768, 1392])
+@pytest.mark.parametrize("d", [16, 96, 768, 1296, 1344, 1392, 1536])
 def test_k1_smem_mirrors_the_kernel(mode, row_bytes, d):
-    """``sm90_plan`` / ``sm90_smem_bytes`` equal the C side's figures."""
+    """``sm90_plan`` / ``sm90_smem_bytes`` equal the C side's figures (over
+    bf16 rows at d = 1,296-1,536 the split plan's)."""
     _device()
     from otters_tpu_torch import kernels
 
@@ -380,9 +383,10 @@ def test_k1_smem_mirrors_the_kernel(mode, row_bytes, d):
     smem.argtypes = stages.argtypes = [ctypes.c_int]
     smem.restype = ctypes.c_size_t
     stages.restype = ctypes.c_int
-    ks, rows, s, streamed = ft.sm90_plan(mode, d)
+    ks, rows, s, streamed, resident = ft.sm90_plan(mode, d)
     assert stages(d) == s
-    assert smem(d) == ft.sm90_smem_bytes(d, row_bytes, s, ks, rows, streamed)
+    assert smem(d) == ft.sm90_smem_bytes(d, row_bytes, s, ks, rows, streamed,
+                                         resident=resident)
 
 
 # K6 and K4 over bf16 rows, on the Hopper scan
@@ -908,7 +912,8 @@ def test_k5_dots_equal_float64(d):
     ("K4", "bf16x3_binmax"), ("K4-bf16", "bf16x3_binmax_bf16"), ("k_planes", "probe_planes"),
     ("k_mm", "probe_mm"), ("k_mm_bins", "probe_mm_bins")])
 @pytest.mark.parametrize(
-    "d", [16, 112, 768, 832, 896, 1392, 1408, 1536, 2048, 2976, 2992, 3072, 4096, 8192])
+    "d", [16, 112, 768, 832, 896, 1296, 1344, 1392, 1408, 1536, 1552, 2048, 2976, 2992, 3072,
+          4096, 8192])
 def test_smem_mirrors_the_kernel(mode, entry, d):
     """``kernel_smem_bytes`` (and the sm90 plans' stage counts) equal the C
     side's figures at every depth the shape check and the plans turn on;
@@ -948,6 +953,60 @@ def test_smem_mirrors_the_kernel(mode, entry, d):
         out = _call(mode, args, Metric.Cosine, False, None)
         torch.cuda.synchronize()
         assert bool(torch.isneginf(out).all())
+
+
+# the split plan at d = 1,536 (the first 8 query k-blocks resident, K5's
+# first 4, the rest riding in the stages)
+SPLIT_CASES = [("K1-bf16", Metric.Cosine, False), ("K5", Metric.DotProduct, False),
+               ("K5", Metric.Euclidean, True), ("K6-bf16", Metric.Cosine, False),
+               ("K6-bf16", Metric.Euclidean, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 256, 600])
+@pytest.mark.parametrize("mode,metric,take_min", SPLIT_CASES)
+def test_split_plan_matches_plain(mode, metric, take_min, b):
+    """K1-bf16, K5 and K6-bf16 at d = 1,536 on the split plan, at one, four
+    and ten (the last partial) query blocks, with whole bins masked beside
+    dead bins and NaN rows: the same bins as the plain version's, the
+    masked ones -inf, each launch counted on ``split_launches``."""
+    dev = _device()
+    d = 1536
+    assert ft.sm90_plan(mode, d).split
+    args = _bf16_operands(mode, dev, metric, n=20_000, d=d, b=b)
+    v, surv, n_surv = args[1], args[-2], args[-1]
+    rmask = args[3 if mode == "K1-bf16" else 4]
+    live = surv[: int(n_surv[0])].long()
+    masked = live[::3]
+    rmask.view(-1, ft.BIN)[masked] = 0.0
+    v[live[1::3] * ft.BIN + 5] = float("nan")
+    fn = ft.KERNELS[mode]
+    before = fn.split_launches
+    _check_plain(mode, args, metric, take_min, None)
+    assert fn.split_launches == before + 1
+    out = _call(mode, args, metric, take_min, None)
+    torch.cuda.synchronize()
+    assert bool(torch.isneginf(out[masked]).all())
+
+
+@pytest.mark.cuda
+def test_split_launches_counts_the_split_plan():
+    """``split_launches`` counts one a launch of K1-bf16 at d = 1,536 and
+    none of K1 over int8 rows at d = 768 or 1,536, or of K1-bf16 at 768,
+    whose plans keep the whole query block resident; ``reset_launches``
+    zeroes it."""
+    dev = _device()
+    for mode, d, split in (("K1-bf16", 1536, 1), ("K1", 768, 0), ("K1", 1536, 0),
+                           ("K1-bf16", 768, 0)):
+        fn = ft.KERNELS[mode]
+        args = _k1_operands(mode, dev, b=256, d=d, cmp=None)
+        launches, splits = fn.launches, fn.split_launches
+        fn(*args, None)
+        fn(*args, None)
+        torch.cuda.synchronize()
+        assert (fn.launches - launches, fn.split_launches - splits) == (2, 2 * split)
+    ft.reset_launches()
+    assert not any(fn.launches or fn.split_launches for fn in ft.KERNELS.values())
 
 
 @pytest.mark.cuda
