@@ -2177,15 +2177,19 @@ class PendingMetaQuery:
     def _fetch(self) -> tuple:
         """The scan's outputs on the host. A failed fast-exact check (the
         4th output) re-runs the scan strictly in exact f32 here, where the
-        outputs are fetched anyway; collect_async never waits for it."""
+        outputs are fetched anyway; collect_async never waits for it. The
+        redo and its wait are the span ``otters.finish.strict``, counted on
+        ``otters.strict_reruns``."""
         if self._fetched is None:
             clocks = [self._clock]
             fetched = _wait(self._copy, clocks, self._seq)
             if not bool(fetched[3]) and self._strict_redo is not None:
-                t0 = time.perf_counter()
-                copy = HostCopy.of(self._strict_redo())
-                _charge(clocks, t0)
-                fetched = _wait(copy, clocks, self._seq)
+                with span("otters.finish.strict", self._seq):
+                    count("otters.strict_reruns")
+                    t0 = time.perf_counter()
+                    copy = HostCopy.of(self._strict_redo())
+                    _charge(clocks, t0)
+                    fetched = _wait(copy, clocks, self._seq)
             self._fetched = fetched
         return self._fetched
 

@@ -63,7 +63,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..types import VPU_METRICS, Cmp, Metric
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .scoring import (
     CERT_BIN,
     DEPTH_ALIGN,
@@ -1031,6 +1031,8 @@ def fused_topk(
             rmask01 = rmask01 * row_mask.to(torch.float32)
         surv, n_surv = survivor_bins(bin_alive)
     with span("otters.submit.launch"):
+        if fast:
+            count("otters.fast_checks")
         bins = KERNELS[mode](
             q_kern, vectors, inv_norms, norms_sq, rmask01, q_inv, q_sq, q_ok,
             thr1.reshape(1).to(torch.float32), surv, n_surv, metric, take_min, cmp,

@@ -34,6 +34,7 @@ import torch
 
 from ..errors import OttersError
 from ..types import VPU_METRICS, Cmp, Metric
+from ..utils.profiling import count
 
 # Rows are padded to a multiple of SCAN_TILE for large stores so the scan can
 # walk [N, D] in whole tiles.
@@ -160,9 +161,17 @@ def _valid_mask(n_pad: int, n: int, device) -> torch.Tensor:
 
 
 def materialize(vectors_np: np.ndarray, dtype=torch.float32, *, device) -> DeviceVecs:
-    """Ship an [n, d] host array to the device with norms computed there."""
+    """Ship an [n, d] host array to the device with norms computed there.
+    f32 rows travel at their stored depth and become the store as they
+    land, so the device holds no second copy."""
     n, d = vectors_np.shape
     n_pad = pad_rows(n)
+    if dtype == torch.float32:
+        host = np.zeros((n_pad, pad_depth(d)), dtype=np.float32)
+        host[:n, :d] = vectors_np
+        vecs = torch.from_numpy(host).to(device)[:, :d]
+        norms_sq, inv_norms = _device_norms(vecs)
+        return DeviceVecs(vecs, norms_sq, inv_norms, _valid_mask(n_pad, n, device))
     host = np.zeros((n_pad, d), dtype=np.float32)
     host[:n] = vectors_np
     vecs = torch.from_numpy(host).to(device)
@@ -171,14 +180,10 @@ def materialize(vectors_np: np.ndarray, dtype=torch.float32, *, device) -> Devic
                            INGEST_SLAB_ROWS, vecs.device)
     if dtype == torch.bfloat16:
         return _materialize_bf16(vecs, n)
-    if dtype != torch.float32:
-        raise OttersError(f"unsupported storage dtype {dtype}")
-    valid = _valid_mask(n_pad, n, device)
-    norms_sq, inv_norms = _device_norms(vecs)
-    return DeviceVecs(_depth_padded(vecs), norms_sq, inv_norms, valid)
+    raise OttersError(f"unsupported storage dtype {dtype}")
 
 
-# rows per slab of the bfloat16 and int8 ingest: its f32 temporaries stay
+# rows per slab of every ingest and of the norms: its f32 temporaries stay
 # near 1 GB at d = 768, where a whole-store one would double a 10M-row f32
 # source
 INGEST_SLAB_ROWS = 1 << 18
@@ -219,9 +224,21 @@ def _inv_or_zero(x: torch.Tensor) -> torch.Tensor:
 
 
 def _device_norms(vecs: torch.Tensor):
-    v32 = vecs.float()
-    norms_sq = (v32 * v32).sum(dim=1)
-    return norms_sq, _inv_or_zero(torch.sqrt(norms_sq))
+    """-> (norms_sq, inv_norms) of the rows ``vecs``, computed over slabs of
+    :data:`INGEST_SLAB_ROWS` rows into preallocated outputs, so the f32
+    temporaries never exceed one slab. Rows reduce independently: the bits
+    are those of one pass over the whole store."""
+    n = vecs.shape[0]
+    norms_sq = torch.empty((n,), dtype=torch.float32, device=vecs.device)
+    inv = torch.empty_like(norms_sq)
+    step = max(1, INGEST_SLAB_ROWS)
+    for s in range(0, n, step):
+        v32 = vecs[s : s + step].float()
+        nsq = (v32 * v32).sum(dim=1)
+        norms_sq[s : s + step] = nsq
+        inv[s : s + step] = _inv_or_zero(torch.sqrt(nsq))
+        del v32, nsq
+    return norms_sq, inv
 
 
 def _quantize_rows_int8(vecs: torch.Tensor):
@@ -403,15 +420,15 @@ def materialize_from_device(vecs: torch.Tensor, n_valid: Optional[int] = None,
     A caller short of memory passes f32 rows already padded to
     ``pad_rows(n)`` with a depth that is a multiple of 16 (DEPTH_ALIGN):
     float32 storage then adopts the caller's tensor as it is, with no copy.
-    Rows that need padding (more rows, or a deeper stride) are copied once
-    into the padded store; int8 and bfloat16 storage always write a new
-    tensor of their own type.
+    Rows that need padding (more rows, or a deeper stride), another type or
+    an order are written slab by slab into the padded store, so the peak
+    is the caller's rows, the store and one slab; int8 and bfloat16
+    storage always write a new tensor of their own type.
 
     ``order`` (a device int64 tensor of ``len(vecs)`` row ids: a sort's
     permutation followed by the padding rows) stores the rows as
-    ``vecs[order]``. int8 and bfloat16 gather slab by slab, so a sorted
-    store never holds a second full-precision copy; float32 gathers once
-    (the store owns its rows)."""
+    ``vecs[order]``, gathered slab by slab, so a sorted store never holds
+    a second full-precision copy."""
     n, d = vecs.shape
     n_pad = pad_rows(n)
     n_valid = n if n_valid is None else n_valid
@@ -426,14 +443,16 @@ def materialize_from_device(vecs: torch.Tensor, n_valid: Optional[int] = None,
         return _materialize_bf16(vecs, n_valid, n_pad=n_pad, order=order)
     if dtype not in (torch.float32, torch.bfloat16):
         raise OttersError(f"unsupported storage dtype {dtype}")
-    if order is not None:
-        vecs = vecs[order]
-    vecs = vecs.to(dtype)
-    if n_pad != n:
-        vecs = torch.cat([vecs, vecs.new_zeros((n_pad - n, d))])
+    adopt = (order is None and vecs.dtype == dtype and n_pad == n
+             and pad_depth(d) == d and vecs.is_contiguous())
+    if not adopt:
+        buf = _padded_empty(n_pad, d, dtype, vecs.device)
+        for s in range(0, n, max(1, INGEST_SLAB_ROWS)):
+            e = min(n, s + INGEST_SLAB_ROWS)
+            buf[s:e] = vecs[s:e] if order is None else vecs[order[s:e]]
+        vecs = buf
     norms_sq, inv_norms = _device_norms(vecs)
-    return DeviceVecs(_depth_padded(vecs), norms_sq, inv_norms,
-                      _valid_mask(n_pad, n_valid, vecs.device))
+    return DeviceVecs(vecs, norms_sq, inv_norms, _valid_mask(n_pad, n_valid, vecs.device))
 
 
 def _int8_slabs(slab_fn, n: int, n_pad: int, n_valid: int, d: int, slab_rows: int,
@@ -479,8 +498,10 @@ def materialize_int8_slabs(slab_fn, n: int, d: int, slab_rows: int, *, device) -
 def materialize_f32_slabs(slab_fn, n: int, d: int, slab_rows: int, *, device) -> DeviceVecs:
     """Build an f32 DeviceVecs slab by slab with in-place writes.
 
-    Same ``slab_fn`` contract as :func:`materialize_int8_slabs`; the peak
-    memory is the store plus one slab (a concatenation would double it)."""
+    Same ``slab_fn`` contract as :func:`materialize_int8_slabs`. The rows
+    and their norms are written slab by slab into preallocated buffers, so
+    the peak memory is the store, its norms and one slab with its f32
+    temporaries, besides whatever ``slab_fn`` reads from."""
     device = torch.device(device)
     n_pad = pad_rows(n)
     buf = _padded_empty(n_pad, d, torch.float32, device)
@@ -1065,6 +1086,7 @@ def run_vec_topk(
         if fast and not bool(check):
             # the verified fast-exact check failed (ties near the boundary):
             # re-run strictly in exact f32
+            count("otters.strict_reruns")
             rows, scores, valid, _, _ = ft.fused_topk(*args, alive, fast=False, **kwargs)
         out = (rows, scores, valid)
     elif mode == "direct":
