@@ -327,8 +327,9 @@ def rows_alive(chunk_mask, n_pad):
 CERT_MODES = ("K1", "K1-bf16", "K5")  # the certified scans
 # the kernel names of the uncertified scans on the Hopper scan, for the
 # profiler (K4 over f32 rows on the exact f32 path, the others on the bf16
-# store's paths)
-SCAN_NAMES = {"K4": "bf16x3_binmax_sm90_kernel", "K4-bf16": "bf16x3_binmax_sm90_kernel",
+# store's paths); K4's matches both its plans' kernels, bf16x3_binmax_sm90_kernel
+# and, at b > 64, bf16x3_binmax_pair_kernel
+SCAN_NAMES = {"K4": "bf16x3_binmax", "K4-bf16": "bf16x3_binmax_sm90_kernel",
               "K6-bf16": "bf16_binmax_sm90_kernel", "K2": "int8_binmax_sm90_kernel"}
 
 
@@ -2204,8 +2205,8 @@ def b_sweep(torch, mode, dv, queries, n_chunks, metric=None):
 def profile_batches(torch, pending, batches, scan=None):
     """One pipelined round under torch.profiler: device time by kernel and
     the device's busy share of the wall time; with ``scan`` (a substring of
-    the scan kernel's name) also its time per batch, the rest of the device
-    time per batch and the idle share -> those numbers."""
+    the scan kernel's name) also its time per batch, which must not be 0, the
+    rest of the device time per batch and the idle share -> those numbers."""
     import otters_tpu_torch as tx
     from torch.profiler import ProfilerActivity, profile
 
@@ -2224,6 +2225,7 @@ def profile_batches(torch, pending, batches, scan=None):
     if scan is None:
         return None
     scan_ms = sum(e.self_device_time_total for e in events if scan in e.key) / 1e3
+    assert scan_ms > 0, f"no device time under a kernel named like {scan!r}"
     n = len(batches)
     out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
            "scan_ms_per_batch": scan_ms / n, "rest_ms_per_batch": (busy_ms - scan_ms) / n,

@@ -102,4 +102,37 @@ __device__ __forceinline__ SlotKey make_slot_key(int q0, const int (&cols)[16],
     return k;
 }
 
+// SlotKey with the metric, and whether a score filter applies, fixed at
+// compile time: the same keys bit for bit, without the other metrics'
+// forms and, with no filter, without the orderings against thr. (With
+// cmp_mask 7 a key passes the filter exactly when neither the score nor
+// thr is NaN; a NaN score fails anyway, and a NaN thr clears the ok bits.)
+// For K4's pair plan, whose key runs while the tensor cores wait.
+template <int METRIC, bool FILTER>
+struct FixedSlotKey {
+    static constexpr int NSIDE = SlotKey::NSIDE;
+    SlotKey k;
+
+    __device__ __forceinline__ void prep(float (&)[NSIDE]) const {}
+    __device__ __forceinline__ float operator()(float dot, const float (&s)[NSIDE],
+                                                int j) const {
+        if constexpr (FILTER)
+            return key_of(dot, k.qn[j], k.qn[j], (k.ok >> j) & 1u, s[0], s[1], s[2], k.t,
+                          METRIC, k.sgn, k.cmask);
+        const float sc = score_of(dot, k.qn[j], k.qn[j], s[0], s[1], METRIC);
+        const bool ok = ((k.ok >> j) & 1u) & (s[2] > 0.f) & !isnan(sc);
+        return ok ? __fmul_rn(k.sgn, sc) : -INFINITY;
+    }
+};
+
+template <int METRIC, bool FILTER>
+__device__ __forceinline__ FixedSlotKey<METRIC, FILTER> make_fixed_slot_key(
+    int q0, const int (&cols)[16], const float* q_inv, const float* q_sq, const float* q_ok,
+    float thr, int take_min, int cmp) {
+    FixedSlotKey<METRIC, FILTER> f{make_slot_key(q0, cols, q_inv, q_sq, q_ok, thr, METRIC,
+                                                 take_min, cmp)};
+    if (!FILTER && isnan(thr)) f.k.ok = 0;
+    return f;
+}
+
 }  // namespace binmax

@@ -16,8 +16,9 @@
 // (csrc/f32_binmax.cu, exact f32), K5 (csrc/cert_fold_binmax.cu, the
 // general certified fold), K6 over f32 and bf16 rows (csrc/bf16_binmax.cu,
 // one bf16 pass), K4 (csrc/bf16x3_binmax.cu, bf16x3) over bf16 rows (the
-// rows' low plane is 0: two query planes) and over f32 rows (two row
-// planes split in registers), and the profiling probes of
+// rows' low plane is 0: two query planes) and over f32 rows (scan_pair:
+// two row planes split in registers, 128 queries a CTA), and the
+// profiling probes of
 // csrc/profile_probes.cu (k_planes: bf16x3 over two bf16 row arrays;
 // k_mm and k_mm_bins: exact f32 over f32 rows; the raw dot as the key, no
 // side data). The header is templated on the row type (int8,
@@ -47,19 +48,39 @@
 //   consumers wait for and add to the running sum element by element with
 //   __fadd_rn: the tensor cores' own accumulation never spans more than
 //   one 64-deep step, so scoring.high_precision_bound holds.
-// - Two row planes (NV = 2, with NQ = 2: bf16x3, K4 over f32 rows and
-//   k_planes): each 64-deep k-block's partial is the three products vh.qh
-//   + vl.qh + vh.ql of every 16-deep step (the first overwrites it), then
-//   added with __fadd_rn as above. Over f32 rows the k-block lands once (as
-//   for K6) and each thread splits its A fragment in registers, vh =
-//   bf16_rn(x), vl = bf16_rn(x - vh) with the difference exact (JAX's
-//   astype roundings; an inf row gives a NaN low plane, as there), and
-//   issues the register-A form three times a step. Over two bf16 row
-//   arrays (VH, VL split beforehand) a second row map loads the low
-//   plane's k-block beside the high one in every stage, and A is read by
-//   descriptor. Either way a k-block holds 4 bytes a row element, and the
-//   stages stream both query planes (resident they would take 192 KB at d
-//   = 768).
+// - Two row planes (NV = 2, with NQ = 2: bf16x3 over two bf16 row arrays,
+//   the probe k_planes): each 64-deep k-block's partial is the three
+//   products vh.qh + vl.qh + vh.ql of every 16-deep step (the first
+//   overwrites it), then added with __fadd_rn as above. A second row map
+//   loads the low plane's k-block (VL, split beforehand) beside the high
+//   one in every stage, and A is read by descriptor. A k-block holds 4
+//   bytes a row element, and the stages stream both query planes (resident
+//   they would take 192 KB at d = 768). Over f32 rows K4 takes the pair
+//   plan below.
+// - The pair plan (scan_pair; K4 over f32 rows, every batch): a CTA holds a
+//   pair of query blocks, 128 queries (n_qp = ceil(n_qb / 2) pairs, an odd
+//   last block padded with q_ok = 0 lanes; CTA c holds pair c % n_qp). A
+//   stage is one 64-deep k-block of 128 f32 rows (32 KB) and both planes'
+//   k-blocks of the 128 queries (32 KB), 3 stages; both consumer
+//   warpgroups take every stage (its empty barrier counts 2), warpgroup w
+//   its rows 64 w .. 64 w + 63 times all 128 queries. The k-block lands
+//   once (as for K6) and each thread splits its A fragment in registers,
+//   vh = bf16_rn(x), vl = bf16_rn(x - vh) with the difference exact (JAX's
+//   astype roundings; an inf row gives a NaN low plane, as there): per
+//   16-deep step one split fragment feeds vh.qh, vl.qh, vh.ql as
+//   m64n128k16 products into the k-block's partial, added with __fadd_rn
+//   as above. SM-side traffic per (row, query) pair and 64-deep k-block is
+//   4 B (a CTA of 64 queries would move 6 B: a row's 256 B over 64
+//   queries, a query's 256 B of planes over 128 rows), and each row is
+//   fetched from L2 and split once per pair of query blocks. At b <= 64
+//   half the lanes are padding, and the pair still measured faster there
+//   than a 64-query CTA in scan (PERF.md). A
+//   warpgroup splits the next k-block's fragment while the current one's
+//   products run (two fragment buffers). A thread holds one m-block by 128
+//   queries: 64 running and 64 partial accumulators and 64 registers of
+//   split fragments, about 200 of 232; ptxas spills nothing. The key runs
+//   after each 128-row sub-tile, then a shuffle reduce-scatter leaves each
+//   lane the running max of 4 queries.
 // - Deep rows (the streamed plan): when the resident query block (8 KB per
 //   k-block and plane) would leave fewer than two ring stages, or always
 //   for a kernel with no resident plan (K3, K4, the probes), no query block
@@ -101,8 +122,7 @@
 //     A fragment (four 16-byte loads a row: chunks 2t, 2t + 1 of each half,
 //     t = lane % 4; the caller permutes the query depth to match, see
 //     ops/fused_topk.py::f32_query_perm), rounds it to bf16 in registers
-//     (one cvt.rn.bf16x2 per pair; with two row planes it splits it into
-//     vh and vl) and issues the register-A form. With
+//     (one cvt.rn.bf16x2 per pair) and issues the register-A form. With
 //     that chunk order the 8 threads of a quarter-warp's load touch 8
 //     distinct bank groups under the swizzle, so the loads are free of
 //     bank conflicts.
@@ -166,8 +186,14 @@
 //   touched again; the overlap comes from the other warpgroup.
 // - Register pressure with two row planes over f32 rows: the running and
 //   partial accumulators and both A planes of every m-block live across a
-//   k-block (192 registers a thread with two m-blocks, of setmaxnreg's
-//   232); ptxas spills a few hundred bytes there (PERF.md).
+//   k-block. The pair plan holds one m-block by 128 queries and the split
+//   fragments of two k-blocks, about 200 registers a thread of
+//   setmaxnreg's 232, with no spill (two m-blocks by 64 queries, the
+//   64-query CTA it replaced, spilled 316 bytes); folding the
+//   previous sub-tile's sums under the next one's products (the key's work
+//   overlapped) would hold both sums and spilled 486 bytes, slower
+//   (PERF.md). ptxas reports the launch bound's 168 registers for
+//   each kernel; the consumers' code after setmaxnreg.inc uses up to 232.
 // - Roundings: the keys' multiplies and adds are __fmul_rn / __fadd_rn.
 
 #pragma once
@@ -227,19 +253,13 @@ __host__ __device__ constexpr int tile_bytes() {
     return TM * stage_depth<RowT, QT>() * (int)sizeof(RowT);
 }
 
-// row planes of a k-block in shared memory: NV bf16 arrays (two row
-// planes read from two arrays); f32 rows land once and are split into
-// their NV planes in registers
-template <typename RowT, int NV>
-__host__ __device__ constexpr int row_planes() { return sizeof(RowT) == 4 ? 1 : NV; }
-
-// one ring stage: KS row k-blocks (of every row plane), and with a
+// one ring stage: KS row k-blocks (of each of the NV row planes), and with a
 // streamed query block the KS query k-blocks (NQ planes each) of the same
 // depth step
 template <typename RowT, int KS, int TM, bool STREAM, int NQ = 1, int NV = 1,
           typename QT = __nv_bfloat16>
 __host__ __device__ constexpr int stage_bytes() {
-    return KS * (row_planes<RowT, NV>() * tile_bytes<RowT, TM, QT>()
+    return KS * (NV * tile_bytes<RowT, TM, QT>()
                  + (STREAM ? NQ * QB * stage_depth<RowT, QT>() * (int)sizeof(QT) : 0));
 }
 
@@ -360,6 +380,29 @@ size_t plan_smem(int d) {
         });
 }
 
+// The pair plan (scan_pair: K4 over f32 rows, at every batch size):
+// a CTA holds a pair of query blocks, and a stage one 64-deep k-block of
+// PAIR_ROWS f32 rows (two 128-byte swizzled half boxes of 32 deep, 32 KB)
+// with both query planes' k-blocks of the pair (32 KB), which both
+// consumer warpgroups share. Its shared memory: 1 KB of alignment slack,
+// the ring, scan's reduction buffer sized for 128 queries (the maxima; the
+// scales and the flag unused), and the barriers; the most stages that fit
+// (3), odd or even: every stage serves both warpgroups, so no waiter can
+// be a lap ahead of its barrier.
+constexpr int PAIR_Q = 2 * QB;  // queries of a CTA
+constexpr int PAIR_ROWS = 128;  // rows of a stage, 64 for each warpgroup
+constexpr int PAIR_STAGE = PAIR_ROWS * TK * 4 + 2 * PAIR_Q * TK * 2;
+constexpr int PAIR_RED_BYTES = 2 * PAIR_Q * 4 + 8;
+
+__host__ __device__ constexpr size_t pair_smem_bytes(int stages) {
+    return 1024 + (size_t)stages * PAIR_STAGE + PAIR_RED_BYTES + (size_t)(2 * stages + 1) * 8;
+}
+__host__ __device__ constexpr int pair_stages() {
+    int s = MAX_STAGES;
+    while (s > 2 && pair_smem_bytes(s) > SMEM_LIMIT) --s;
+    return s;
+}
+
 // ---------------------------------------------------------------------------
 // PTX wrappers
 // ---------------------------------------------------------------------------
@@ -436,6 +479,10 @@ __device__ __forceinline__ void fence_acc(int (&d)[32]) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
 
 #define SM90_ACC_OUT                                                                   \
     "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),            \
@@ -497,6 +544,39 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a
             " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_ACC_REGS
             ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}"
             : SM90_ACC_OUT : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+#define SM90_ACC64_OUT                                                                 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),            \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),          \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),      \
+    "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),      \
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+    "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),      \
+    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),      \
+    "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),      \
+    "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),      \
+    "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),      \
+    "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define SM90_ACC64_REGS                                                                \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// D[64 rows x 128 queries] += A[64 x 16] (registers, bf16, the fragment of
+// wgmma_rs) . B[16 x 128]; with accumulate = 0, D = A . B. Accumulator
+// element i: row g + 8 ((i >> 1) & 1), query 8 (i >> 2) + 2 t + (i & 1), so
+// elements 0..31 are those of wgmma_rs over queries 0..63 and 32..63 those
+// over queries 64..127.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t db,
+                                              int accumulate = 1) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_ACC64_REGS
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}"
+        : SM90_ACC64_OUT : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 
 // a float as an int whose signed order is the float order (NaN excluded),
@@ -633,8 +713,8 @@ __device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uin
 // in the stages; NQ: query planes (2: qh and ql), each k-block's products
 // summed apart and added to the running sum with __fadd_rn; NV: row planes
 // (2: vh and vl, with NQ = 2: the three products vh.qh + vl.qh + vh.ql of
-// bf16x3), over f32 rows split in registers or over bf16 rows read from
-// two arrays (vmap2 the map of the low plane); QT: the query element type
+// bf16x3) over bf16 rows read from two arrays (vmap2 the map of the low
+// plane; over f32 rows, scan_pair); QT: the query element type
 // (bf16; int8, K2: int8 rows, A by descriptor, wgmma m64n64k32 s8 x s8 into
 // exact s32 sums, each converted to f32 with __int2float_rn before the key;
 // f32, K3: the FFMA consumers, exact f32 dots on the CUDA cores). Under
@@ -660,15 +740,15 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
     static_assert(!FFMA || (STREAM && NQ == 1 && NV == 1 && TM == ffma_rows<RowT>() && KS == 1
                             && !INT8),
                   "f32 queries: f32 or bf16 rows, streamed, one plane, ffma_rows-row stages");
-    static_assert(NV == 1 || (NV == 2 && NQ == 2 && !INT8),
-                  "two row planes: bf16x3 over f32 or bf16 rows, with two query planes");
-    static_assert(NQ == 1 || (NQ == 2 && (sizeof(RowT) == 2 || NV == 2)),
-                  "two query planes: bf16 rows, or f32 rows split into two planes");
+    static_assert(NV == 1 || (NV == 2 && NQ == 2 && sizeof(RowT) == 2),
+                  "two row planes: bf16x3 over two bf16 row arrays, with two query planes");
+    static_assert(NQ == 1 || (NQ == 2 && sizeof(RowT) == 2),
+                  "two query planes: bf16 rows (bf16x3 over f32 rows is scan_pair)");
     constexpr int KD = stage_depth<RowT, QT>();   // depth of a k-block
     constexpr int QBLK = QB * KD * (int)sizeof(QT);  // one query k-block of one plane
     constexpr int QH = QBLK / (QB * 128);         // its 128-byte boxes (f32: 32 deep each)
     constexpr int TILE = tile_bytes<RowT, TM, QT>();  // one [TM x KD] k-block of one array
-    constexpr int RTILE = row_planes<RowT, NV>() * TILE;  // of every row plane
+    constexpr int RTILE = NV * TILE;  // of every row plane
     constexpr int MB = TM / 64;                   // m-blocks of a warpgroup
     constexpr int STAGE = stage_bytes<RowT, KS, TM, STREAM, NQ, NV, QT>();
     constexpr int QSTEP = NQ * QBLK;              // one k-block of every query plane
@@ -998,10 +1078,8 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                         // A from registers (int8 rows with bf16 queries, f32
                         // rows): a0 (row g, depth
                         // 2t..2t+1), a1 (row g + 8), a2 (row g, depth 2t + 8..),
-                        // a3 (row g + 8, depth 2t + 8..) of each 16-deep step kk;
-                        // al the low plane of split f32 rows (NV = 2)
+                        // a3 (row g + 8, depth 2t + 8..) of each 16-deep step kk
                         [[maybe_unused]] uint32_t af[KS][MB][4][4];
-                        [[maybe_unused]] uint32_t al[NV == 2 && F32 ? KS : 1][MB][4][4];
                         if constexpr ((INT8 && !S8) || F32) {
 #pragma unroll
                             for (int kb = 0; kb < KS; ++kb) {
@@ -1035,21 +1113,10 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                                                 const float4 x0 = *reinterpret_cast<const float4*>(tg);
                                                 const float4 x1 =
                                                     *reinterpret_cast<const float4*>(tg + 8 * 128);
-                                                if constexpr (NV == 2) {
-                                                    split_bf16x2(x0.x, x0.y, af[kb][mb][kk][0],
-                                                                 al[kb][mb][kk][0]);
-                                                    split_bf16x2(x1.x, x1.y, af[kb][mb][kk][1],
-                                                                 al[kb][mb][kk][1]);
-                                                    split_bf16x2(x0.z, x0.w, af[kb][mb][kk][2],
-                                                                 al[kb][mb][kk][2]);
-                                                    split_bf16x2(x1.z, x1.w, af[kb][mb][kk][3],
-                                                                 al[kb][mb][kk][3]);
-                                                } else {
-                                                    af[kb][mb][kk][0] = bf16x2_of(x0.x, x0.y);
-                                                    af[kb][mb][kk][1] = bf16x2_of(x1.x, x1.y);
-                                                    af[kb][mb][kk][2] = bf16x2_of(x0.z, x0.w);
-                                                    af[kb][mb][kk][3] = bf16x2_of(x1.z, x1.w);
-                                                }
+                                                af[kb][mb][kk][0] = bf16x2_of(x0.x, x0.y);
+                                                af[kb][mb][kk][1] = bf16x2_of(x1.x, x1.y);
+                                                af[kb][mb][kk][2] = bf16x2_of(x0.z, x0.w);
+                                                af[kb][mb][kk][3] = bf16x2_of(x1.z, x1.w);
                                             }
                                         }
                                     }
@@ -1057,10 +1124,11 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                             }
                         }
                         if constexpr (NV == 2) {
-                            // bf16x3: each k-block's three products vh.qh,
-                            // vl.qh, vh.ql per 16-deep step into the partial
-                            // (its first product overwrites it), completed,
-                            // then added to the running sum in IEEE f32
+                            // bf16x3 over two bf16 row arrays: each
+                            // k-block's three products vh.qh, vl.qh, vh.ql
+                            // per 16-deep step into the partial (its first
+                            // product overwrites it), completed, then added
+                            // to the running sum in IEEE f32
 #pragma unroll
                             for (int kb = 0; kb < KS; ++kb)
                                 if (kb < nkb) {
@@ -1073,20 +1141,11 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
                                         const uint64_t ql = qdesc(ks, kb, kk, 1);
 #pragma unroll
                                         for (int mb = 0; mb < MB; ++mb) {
-                                            if constexpr (F32) {
-                                                const uint32_t(&h)[4] = af[kb][mb][kk];
-                                                const uint32_t(&l)[4] = al[kb][mb][kk];
-                                                wgmma_rs<false>(pd[mb], h[0], h[1], h[2], h[3], qh,
-                                                                kk > 0);
-                                                wgmma_rs<false>(pd[mb], l[0], l[1], l[2], l[3], qh);
-                                                wgmma_rs<false>(pd[mb], h[0], h[1], h[2], h[3], ql);
-                                            } else {
-                                                const uint32_t ah = tiles + st * STAGE + kb * RTILE
-                                                                  + mb * 64 * 128 + kk * 32;
-                                                wgmma_ss(pd[mb], desc_sw128(ah), qh, kk > 0);
-                                                wgmma_ss(pd[mb], desc_sw128(ah + TILE), qh);
-                                                wgmma_ss(pd[mb], desc_sw128(ah), ql);
-                                            }
+                                            const uint32_t ah = tiles + st * STAGE + kb * RTILE
+                                                              + mb * 64 * 128 + kk * 32;
+                                            wgmma_ss(pd[mb], desc_sw128(ah), qh, kk > 0);
+                                            wgmma_ss(pd[mb], desc_sw128(ah + TILE), qh);
+                                            wgmma_ss(pd[mb], desc_sw128(ah), ql);
                                         }
                                     }
                                     wgmma_commit();
@@ -1228,6 +1287,239 @@ __device__ __forceinline__ void scan(const CUtensorMap* qmap, const CUtensorMap*
     }
 }
 
+// x as a value the compiler cannot see through: the key's loads of the
+// per-query data stay in the epilogue instead of being hoisted out of the
+// bin walk into registers that would live across the products
+__device__ __forceinline__ int opaque(int x) {
+    asm volatile("" : "+r"(x));
+    return x;
+}
+
+// m[0 : 2N) -> m[0 : N): lanes with bit s set keep the upper half, the
+// others the lower, each the max of its own and the partner's (lane ^ s)
+template <int N>
+__device__ __forceinline__ void max_scatter(float (&m)[32], int lane, int s) {
+    const bool up = lane & s;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+        const float send = up ? m[k] : m[k + N];
+        const float keep = up ? m[k + N] : m[k];
+        m[k] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, s));
+    }
+}
+
+// The scan on the pair plan: bf16x3 over f32 rows (K4), a pair of query
+// blocks (PAIR_Q queries) a CTA. CTA c holds pair c % n_qp (a.n_qb holds
+// n_qp; plane p of pair c at rows p * n_qp * 128 + 128 c of the query
+// map) and takes survivor slots p, p + P, ... as scan does. The producer
+// fills each stage with a 64-deep k-block of PAIR_ROWS rows and both
+// planes' k-blocks of the pair's queries; warpgroup w takes rows 64 w ..
+// 64 w + 63 of every stage and multiplies them by all 128 queries: per
+// 16-deep step its A fragment is loaded and split once (vh, vl) and feeds
+// vh.qh, vl.qh, vh.ql as m64n128k16 products into the k-block's partial
+// (the first overwrites it), which is then added to the running sum with
+// __fadd_rn, as in scan; the next k-block's fragment is split meanwhile
+// into a second buffer. A thread holds one m-block: 64 running and 64
+// partial accumulators and 2 x 32 registers of split A. Both warpgroups
+// release every stage (the empty barrier counts 2). After each 128-row
+// sub-tile the key folds the thread's 2 rows into its 32 query slots, and
+// a shuffle reduce-scatter over the 8 lanes that share them leaves each
+// lane the running max of 4 queries, written once per bin by shared-memory
+// atomicMax as in scan.
+template <int NSIDE, typename MakeKey>
+__device__ __forceinline__ void scan_pair(const CUtensorMap* qmap, const CUtensorMap* vmap,
+                                          const ScanArgs& a, const MakeKey& make_key) {
+    constexpr int HALF = PAIR_ROWS * 128;   // one half box: [PAIR_ROWS rows x 32 f32]
+    constexpr int RTILE = 2 * HALF;         // the rows' k-block
+    constexpr int QPLANE = PAIR_Q * 128;    // one plane's k-block of the pair
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t tiles = (raw + 1023u) & ~1023u;
+    const unsigned char* tile_g = smem_raw + (tiles - raw);
+    const int nk = (a.d + TK - 1) / TK;
+    const int S = a.stages;
+    const uint32_t red = tiles + S * PAIR_STAGE;
+    const uint32_t bars = red + PAIR_RED_BYTES;  // full[S], empty[S]
+    int* red_g = reinterpret_cast<int*>(smem_raw + (red - raw));
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int pair = blockIdx.x % a.n_qb;
+    const int p0 = blockIdx.x / a.n_qb;
+    const int P = gridDim.x / a.n_qb;
+    const int n_surv = *a.n_surv;
+
+    if (tid < PAIR_Q) red_g[tid] = ordered(-INFINITY);
+    if (tid == 0) {
+        for (int s = 0; s < S; ++s) {
+            mbar_init(bars + 8 * s, 1);
+            mbar_init(bars + 8 * (S + s), 2);  // one warp of each warpgroup
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp >= 8) {
+        // ---- producer warpgroup: one thread issues every copy ----
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+        if (tid == CONSUMERS) {
+            const int qrow = pair * PAIR_Q, qplane = a.n_qb * PAIR_Q;
+            int st = 0;
+            uint32_t ph = 0;
+            for (int slot = p0; slot < n_surv; slot += P) {
+                const int bin = a.surv[slot];
+                for (int sp = 0; sp < BIN / PAIR_ROWS; ++sp)
+                    for (int kb = 0; kb < nk; ++kb) {
+                        const int row0 = bin * BIN + sp * PAIR_ROWS, k0 = kb * TK;
+                        const uint32_t full = bars + 8 * st;
+                        const uint32_t dst = tiles + st * PAIR_STAGE;
+                        mbar_wait(bars + 8 * (S + st), ph ^ 1);
+                        mbar_expect_tx(full, PAIR_STAGE);
+                        tma_load_2d(dst, vmap, full, k0, row0);
+                        tma_load_2d(dst + HALF, vmap, full, k0 + 32, row0);
+                        for (int pl = 0; pl < 2; ++pl)
+                            for (int h = 0; h < 2; ++h)
+                                tma_load_2d(dst + RTILE + pl * QPLANE + h * QB * 128, qmap, full,
+                                            k0, qrow + pl * qplane + h * QB);
+                        if (++st == S) { st = 0; ph ^= 1; }
+                    }
+            }
+        }
+        return;
+    }
+
+    // ---- two consumer warpgroups, both on every stage ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int wg = warp >> 2, wq = warp & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int r = 64 * wg + 16 * wq + g;  // the thread's rows of a stage: r, r + 8
+    int st = 0;
+    uint32_t ph = 0;
+    // the split A fragments of two k-blocks: buffer B of k-blocks kb with kb % 2 = B
+    uint32_t ah[2][4][4], al[2][4][4];
+    // load the A fragment of each 16-deep step kk of stage `at` (chunk 2t + kk % 2 of
+    // half kk / 2, at physical chunk c ^ (r % 8); rows r and r + 8 share it) and
+    // split it into buffer B: vh, vl
+    const auto load_split = [&](auto buf, int at) {
+        constexpr int B = decltype(buf)::value;
+        const unsigned char* tk = tile_g + at * PAIR_STAGE;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            const int c = (2 * t + (kk & 1)) ^ (r & 7);
+            const unsigned char* tg = tk + (kk >> 1) * HALF + r * 128 + c * 16;
+            const float4 x0 = *reinterpret_cast<const float4*>(tg);
+            const float4 x1 = *reinterpret_cast<const float4*>(tg + 8 * 128);
+            split_bf16x2(x0.x, x0.y, ah[B][kk][0], al[B][kk][0]);
+            split_bf16x2(x1.x, x1.y, ah[B][kk][1], al[B][kk][1]);
+            split_bf16x2(x0.z, x0.w, ah[B][kk][2], al[B][kk][2]);
+            split_bf16x2(x1.z, x1.w, ah[B][kk][3], al[B][kk][3]);
+        }
+    };
+    for (int slot = p0; slot < n_surv; slot += P) {
+        const int bin = a.surv[slot];
+        float best[4];  // the bin max of slots 4 g + k (k = 0..3) of the pair
+#pragma unroll
+        for (int k = 0; k < 4; ++k) best[k] = -INFINITY;
+        for (int sp = 0; sp < BIN / PAIR_ROWS; ++sp) {
+            // the rows' side data, read now and first used after the products
+            const size_t row = (size_t)bin * BIN + sp * PAIR_ROWS + r;
+            float sv[2][NSIDE > 0 ? NSIDE : 1];
+#pragma unroll
+            for (int j = 0; j < NSIDE; ++j) {
+                sv[0][j] = __ldg(a.side[j] + row);
+                sv[1][j] = __ldg(a.side[j] + row + 8);
+            }
+            float d[64], pd[64];
+#pragma unroll
+            for (int i = 0; i < 64; ++i) d[i] = pd[i] = 0.f;
+            // one k-block from buffer B: its three products vh.qh, vl.qh, vh.ql
+            // per step into the partial (the first overwrites it); meanwhile the
+            // next k-block's stage is waited for and its fragment split into the
+            // other buffer; then the products complete, the partial is added in
+            // IEEE f32 and the stage released (one warp speaks for the
+            // warpgroup: wgmma.wait_group is warpgroup-wide)
+            const auto step = [&](auto buf, int kb) {
+                constexpr int B = decltype(buf)::value;
+                const uint32_t qs = tiles + st * PAIR_STAGE + RTILE;
+                fence_acc(pd);
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+                    const uint64_t qh = desc_sw128(qs + kk * 32);
+                    const uint64_t ql = desc_sw128(qs + QPLANE + kk * 32);
+                    const uint32_t(&h)[4] = ah[B][kk];
+                    const uint32_t(&l)[4] = al[B][kk];
+                    wgmma_rs_n128(pd, h[0], h[1], h[2], h[3], qh, kk > 0);
+                    wgmma_rs_n128(pd, l[0], l[1], l[2], l[3], qh);
+                    wgmma_rs_n128(pd, h[0], h[1], h[2], h[3], ql);
+                }
+                wgmma_commit();
+                const int nst = st + 1 == S ? 0 : st + 1;
+                if (kb + 1 < nk) {
+                    mbar_wait(bars + 8 * nst, nst == 0 ? ph ^ 1 : ph);
+                    load_split(std::integral_constant<int, 1 - B>{}, nst);
+                }
+                wgmma_wait<0>();
+                fence_acc(pd);
+#pragma unroll
+                for (int i = 0; i < 64; ++i) d[i] = __fadd_rn(d[i], pd[i]);
+                if (wq == (st & 3) && lane == 0) mbar_arrive(bars + 8 * (S + st));
+                if (nst == 0) ph ^= 1;
+                st = nst;
+            };
+            mbar_wait(bars + 8 * st, ph);
+            load_split(std::integral_constant<int, 0>{}, st);
+            for (int kb = 0; kb < nk; kb += 2) {
+                step(std::integral_constant<int, 0>{}, kb);
+                if (kb + 1 < nk) step(std::integral_constant<int, 1>{}, kb + 1);
+            }
+            // the key of each half's 16 slots; accumulator element i of the
+            // pair's slot j (0..31): 4 (j / 2) + j % 2 for row r, + 2 for r + 8
+            float m[32];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                // slot j (0..15) of the half: its column 8 (j / 2) + 2 t + j % 2
+                int cols[16];
+#pragma unroll
+                for (int j = 0; j < 16; ++j) cols[j] = 8 * (j >> 1) + 2 * t + (j & 1);
+                const auto key = make_key(opaque(pair * PAIR_Q + h * QB), cols);
+                if constexpr (NSIDE > 0) {
+                    key.prep(sv[0]);
+                    key.prep(sv[1]);
+                }
+#pragma unroll
+                for (int j = 0; j < 16; ++j) {
+                    const int i = 4 * ((16 * h + j) >> 1) + (j & 1);
+                    if constexpr (NSIDE > 0)
+                        m[16 * h + j] = fmaxf(key(d[i], sv[0], j), key(d[i + 2], sv[1], j));
+                    else
+                        m[16 * h + j] = fmaxf(key(d[i], j), key(d[i + 2], j));
+                }
+            }
+            // over the 8 lanes of the same t (lane bits 4, 3, 2 = g): each
+            // keeps the max of slots 4 g .. 4 g + 3
+            max_scatter<16>(m, lane, 16);
+            max_scatter<8>(m, lane, 8);
+            max_scatter<4>(m, lane, 4);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) best[k] = fmaxf(best[k], m[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const int j = 4 * g + k;  // the pair's column of slot j
+            atomicMax(red_g + 8 * (j >> 1) + 2 * t + (j & 1), ordered(best[k]));
+        }
+        asm volatile("bar.sync 1, 256;" ::: "memory");
+        if (tid < PAIR_Q) {
+            const int q = pair * PAIR_Q + tid;
+            if (q < a.b) a.out[(size_t)bin * a.b + q] = unordered(red_g[tid]);
+            red_g[tid] = ordered(-INFINITY);
+        }
+        asm volatile("bar.sync 1, 256;" ::: "memory");  // reset before the next bin's maxima
+    }
+}
+
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
@@ -1306,6 +1598,24 @@ inline bool make_maps(CUtensorMap* qmap, CUtensorMap* vmap, const void* q, int b
         && row_map(vmap, v) && (vmap2 == nullptr || row_map(vmap2, v2));
 }
 
+// the scan's arguments of a launch: side[0 : n_side), n_groups query groups
+// (blocks, or pairs on the pair plan)
+inline ScanArgs scan_args(const float* const* side, int n_side, const void* surv,
+                          const void* n_surv, void* out, int d, int b, int n_groups,
+                          int stages, int resident) {
+    ScanArgs a = {};
+    a.surv = (const int*)surv;
+    a.n_surv = (const int*)n_surv;
+    for (int i = 0; i < n_side; ++i) a.side[i] = side[i];
+    a.out = (float*)out;
+    a.d = d;
+    a.b = b;
+    a.n_qb = n_groups;
+    a.stages = stages;
+    a.resident = resident;
+    return a;
+}
+
 // Launch kernel<KS, TM, STREAM> of the plan of d on a persistent grid of
 // n_qb * per_group CTAs: set its shared memory, encode the maps (q holds
 // NQ planes of n_qb * 64 queries each, one after the other; over two bf16
@@ -1320,7 +1630,7 @@ int launch_plan(const GetKernel& get_kernel, const LaunchFn& launch_fn, const vo
                 const void* v, const float* const* side, int n_side, const void* surv,
                 const void* n_surv, void* out, int n_bins, int d, int b, int dq, int n_qb,
                 int per_group, const void* v2 = nullptr) {
-    constexpr bool TWO_MAPS = row_planes<RowT, NV>() == 2;
+    constexpr bool TWO_MAPS = NV == 2;
     if (n_qb < 1 || per_group < 1 || dq % kdepth<QT>() || TWO_MAPS != (v2 != nullptr))
         return (int)cudaErrorInvalidValue;
     return with_plan<RowT, KS1, TM1, KS2, TM2, NQ, NV, QT>(d, [&](auto ks, auto tm, auto st,
@@ -1338,22 +1648,36 @@ int launch_plan(const GetKernel& get_kernel, const LaunchFn& launch_fn, const vo
                                      (long long)n_bins * BIN, d, TWO_MAPS ? &vmap2 : nullptr,
                                      v2))
             return (int)cudaErrorInvalidValue;
-        ScanArgs a = {};
-        a.surv = (const int*)surv;
-        a.n_surv = (const int*)n_surv;
-        for (int i = 0; i < n_side; ++i) a.side[i] = side[i];
-        a.out = (float*)out;
-        a.d = d;
-        a.b = b;
-        a.n_qb = n_qb;
-        a.stages = stages;
-        a.resident = STREAM ? resident : 0;
+        const ScanArgs a = scan_args(side, n_side, surv, n_surv, out, d, b, n_qb, stages,
+                                     STREAM ? resident : 0);
         if constexpr (TWO_MAPS)
             launch_fn(kernel, dim3(n_qb * per_group), smem, qmap, vmap, vmap2, a);
         else
             launch_fn(kernel, dim3(n_qb * per_group), smem, qmap, vmap, a);
         return (int)cudaGetLastError();
     });
+}
+
+// Launch a kernel of scan_pair (f32 rows) on a persistent grid of n_qp *
+// per_group CTAs, n_qp pairs of query blocks (q holds both planes of
+// n_qp * 128 queries each, one after the other), as launch_plan does.
+template <typename Kernel, typename LaunchFn>
+int launch_pair(Kernel kernel, const LaunchFn& launch_fn, const void* q, const void* v,
+                const float* const* side, int n_side, const void* surv, const void* n_surv,
+                void* out, int n_bins, int d, int b, int dq, int n_qp, int per_group) {
+    if (n_qp < 1 || per_group < 1 || dq % TK) return (int)cudaErrorInvalidValue;
+    const int stages = pair_stages();
+    const size_t smem = pair_smem_bytes(stages);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    CUtensorMap qmap, vmap;
+    if (!make_maps<float, PAIR_ROWS>(&qmap, &vmap, q, 2 * n_qp * PAIR_Q, dq, v,
+                                     (long long)n_bins * BIN, d))
+        return (int)cudaErrorInvalidValue;
+    launch_fn(kernel, dim3(n_qp * per_group), smem, qmap, vmap,
+              scan_args(side, n_side, surv, n_surv, out, d, b, n_qp, stages, 0));
+    return (int)cudaGetLastError();
 }
 
 }  // namespace sm90

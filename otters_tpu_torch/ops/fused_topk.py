@@ -90,6 +90,9 @@ assert BIN == CERT_BIN  # resid_bin granularity must match the kernel's bins
 # its sequence to this boundary (meta.py widen loop)
 FUSED_K_MAX = 1024
 QUERY_BLOCK = 64  # queries per kernel block (every csrc/*.cu kernel's QB)
+# queries of a CTA on the pair plan (csrc/cert_scan_sm90.cuh's PAIR_Q), K4's
+# over f32 rows
+PAIR_QUERIES = 2 * QUERY_BLOCK
 _CMP_CODE = {None: 0, Cmp.Gt: 1, Cmp.Gte: 2, Cmp.Lt: 3, Cmp.Lte: 4, Cmp.Eq: 5}
 _METRIC_CODE = {Metric.Cosine: 0, Metric.DotProduct: 1, Metric.Euclidean: 2}
 _NEG_INF = float("-inf")
@@ -212,15 +215,17 @@ def _kernel_fns(source: str, entry: str, n_ptrs: int, n_ints: int):
     return smem, launch
 
 
-def _launch(wrapper, source, entry, q, v, ptrs, ints, d, split=False):
+def _launch(wrapper, source, entry, q, v, ptrs, ints, d, split=False, wide=False):
     """Launch ``entry`` of ``source`` on q's stream with the pointers
     ``ptrs`` (q and v first) and the output [n_bins, b], pre-filled with
     -inf, then n_bins, d (the rows' stored depth, :func:`stored_depth`) and
     the ints ``ints`` (b first). ``q`` is already padded to whole query
     blocks and at least to depth d; b is the real batch. Raises if the
     kernel cannot build or launch; counts the launch on
-    ``wrapper.launches``, and on ``wrapper.split_launches`` too where the
-    sm90 plan is ``split`` (:attr:`ScanPlan.split`)."""
+    ``wrapper.launches``, on ``wrapper.split_launches`` too where the sm90
+    plan is ``split`` (:attr:`ScanPlan.split`), and on
+    ``wrapper.wide_launches`` where it is the pair plan (``wide``, 128
+    queries a CTA: :attr:`ScanGeometry.wide`)."""
     b = ints[0]
     assert d % DEPTH_ALIGN == 0, d
     if v.data_ptr() % 16 or q.data_ptr() % 16:
@@ -242,6 +247,7 @@ def _launch(wrapper, source, entry, q, v, ptrs, ints, d, split=False):
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     wrapper.launches += 1
     wrapper.split_launches += split
+    wrapper.wide_launches += wide
     return out
 
 
@@ -376,11 +382,12 @@ class ScanPlan(NamedTuple):
 
 
 class ScanGeometry(NamedTuple):
-    """How an sm90 kernel covers a batch: ``n_qb`` 64-query blocks (the
-    batch padded to whole blocks), ``per_group`` persistent CTAs per block,
-    the query depth padded to ``dq``, its ring (:class:`ScanPlan`) in
-    ``smem`` bytes of shared memory, and its query ``planes`` (2:
-    :func:`query_planes`)."""
+    """How an sm90 kernel covers a batch: ``n_qb`` 64-query blocks, the
+    ``queries`` of a CTA (64, or :data:`PAIR_QUERIES` on the pair plan:
+    :func:`sm90_queries`), so ``n_qp`` groups of them (the batch padded to
+    whole groups), ``per_group`` persistent CTAs per group, the query depth
+    padded to ``dq``, its ring (:class:`ScanPlan`) in ``smem`` bytes of
+    shared memory, and its query ``planes`` (2: :func:`query_planes`)."""
 
     n_qb: int
     per_group: int
@@ -392,10 +399,21 @@ class ScanGeometry(NamedTuple):
     resident: int
     smem: int
     planes: int = 1
+    queries: int = QUERY_BLOCK
+
+    @property
+    def n_qp(self) -> int:
+        """The CTAs' query groups: n_qb blocks, or their pairs."""
+        return -(-self.n_qb * QUERY_BLOCK // self.queries)
+
+    @property
+    def wide(self) -> bool:
+        """The pair plan: 128 queries a CTA."""
+        return self.queries == PAIR_QUERIES
 
     @property
     def n_ctas(self) -> int:
-        return self.n_qb * self.per_group
+        return self.n_qp * self.per_group
 
     @property
     def split(self) -> bool:
@@ -404,37 +422,52 @@ class ScanGeometry(NamedTuple):
 
 def sm90_smem_bytes(d: int, row_bytes: int, stages: int, ks: int, rows: int,
                     streamed: bool = False, planes: int = 1, q_bytes: int = 2,
-                    resident: int = 0) -> int:
-    """The scan's dynamic shared memory (the C side's ``sm90::smem_bytes``):
-    1 KB of alignment slack, the resident query blocks (64 queries of one
-    k-block of ``q_bytes`` elements per k-block and query plane: 8 KB for
-    bf16 and int8; when streamed, only the first ``resident``), the ring of
+                    resident: int = 0, queries: int = QUERY_BLOCK) -> int:
+    """The scan's dynamic shared memory (the C side's ``sm90::smem_bytes``,
+    and ``sm90::pair_smem_bytes`` at 128 ``queries``): 1 KB of alignment
+    slack, the resident query blocks (the CTA's queries of one k-block of
+    ``q_bytes`` elements per k-block and query plane: 8 KB for 64 bf16 or
+    int8 queries; when streamed, only the first ``resident``), the ring of
     ``stages`` stages of ``ks`` [rows x :func:`stage_depth`] row tiles (each
     with room for its queries of that depth when streamed), the per-query
     maxima and scales with the f16 flag, and the barriers."""
     kd = kblock_depth(q_bytes)
     nk = -(-d // kd)
-    qblock = planes * QUERY_BLOCK * kd * q_bytes
+    qblock = planes * queries * kd * q_bytes
     sd = stage_depth(row_bytes, q_bytes)
-    stage = ks * (rows * sd * row_bytes + (planes * QUERY_BLOCK * sd * q_bytes if streamed else 0))
+    stage = ks * (rows * sd * row_bytes + (planes * queries * sd * q_bytes if streamed else 0))
     return (1024 + (resident if streamed else nk) * qblock + stages * stage
-            + 2 * QUERY_BLOCK * 4 + 8 + (2 * stages + 1) * 8)
+            + 2 * queries * 4 + 8 + (2 * stages + 1) * 8)
 
 
 def sm90_stages(d: int, row_bytes: int, ks: int, rows: int, streamed: bool = False,
-                planes: int = 1, q_bytes: int = 2, resident: int = 0) -> int:
-    """The most ring stages that fit: an even number up to SM90_MAX_STAGES,
-    never below 2 (the two consumer warpgroups take alternate stages)."""
+                planes: int = 1, q_bytes: int = 2, resident: int = 0,
+                queries: int = QUERY_BLOCK) -> int:
+    """The most ring stages that fit, up to SM90_MAX_STAGES and never below
+    2: an even number (the two consumer warpgroups take alternate stages),
+    or any on the pair plan (128 ``queries``), whose stages both take."""
+    step = 1 if queries == PAIR_QUERIES else 2
     s = SM90_MAX_STAGES
     while s > 2 and sm90_smem_bytes(d, row_bytes, s, ks, rows, streamed, planes,
-                                    q_bytes, resident) > _SMEM_MAX:
-        s -= 2
+                                    q_bytes, resident, queries) > _SMEM_MAX:
+        s -= step
     return s
+
+
+def sm90_queries(mode: str) -> int:
+    """The queries of a CTA of ``mode``: 128 on the pair plan (a pair of
+    query blocks, the C side's ``sm90::scan_pair``), K4's over f32 rows at
+    every batch size (at b <= 64 half of them padding, and still faster
+    there than 64 a CTA); 64 otherwise."""
+    return PAIR_QUERIES if mode == "K4" else QUERY_BLOCK
 
 
 def sm90_plan(mode: str, d: int) -> ScanPlan:
     """The ring of ``mode`` (a key of :data:`SM90_SHAPES`) at stored depth
-    ``d``, the C side's ``sm90::plan_for``: the wide stage shape when 4
+    ``d``. On the pair plan (:func:`sm90_queries`) the narrow shape
+    streamed with the queries of the pair, as many stages as fit (3 for
+    K4: 64 KB each). Otherwise the C side's
+    ``sm90::plan_for``: the wide stage shape when 4
     stages of it fit beside the resident query block (of every query
     plane), else the narrow one when 2 fit, else the narrow one with the
     query block streamed (any d); a mode with no wide shape always streams.
@@ -446,6 +479,9 @@ def sm90_plan(mode: str, d: int) -> ScanPlan:
     rest."""
     row_bytes, planes, wide, narrow, qb = SM90_SHAPES[mode]
     nk = -(-d // kblock_depth(qb))
+    if sm90_queries(mode) == PAIR_QUERIES:
+        return ScanPlan(*narrow, sm90_stages(d, row_bytes, *narrow, True, planes, qb,
+                                             queries=PAIR_QUERIES), True, 0)
 
     def fits(ks_rows, stages, streamed=False, resident=0):
         return sm90_smem_bytes(d, row_bytes, stages, *ks_rows, streamed, planes, qb,
@@ -471,13 +507,16 @@ def sm90_plan(mode: str, d: int) -> ScanPlan:
 def sm90_geometry(mode: str, b: int, d: int, n_sms: int) -> ScanGeometry:
     """The launch of ``mode`` for a batch of ``b`` queries over rows of
     stored depth ``d`` on a card of ``n_sms`` SMs. The shared memory admits
-    one CTA per SM, so each query block gets an equal share of the SMs, at
-    least one CTA (a query block's planes share its CTAs)."""
+    one CTA per SM, so each query group (a block, or a pair of blocks on
+    the pair plan) gets an equal share of the SMs, at least one CTA (a
+    group's planes share its CTAs)."""
     n_qb = max(1, -(-b // QUERY_BLOCK))
+    queries = sm90_queries(mode)
+    n_qp = -(-n_qb * QUERY_BLOCK // queries)
     shape = SM90_SHAPES[mode]
     kd = kblock_depth(shape.q_bytes)
-    return ScanGeometry(n_qb, max(1, n_sms // n_qb), -(-d // kd) * kd, *sm90_plan(mode, d),
-                        kernel_smem_bytes(mode, d), shape.planes)
+    return ScanGeometry(n_qb, max(1, n_sms // n_qp), -(-d // kd) * kd, *sm90_plan(mode, d),
+                        kernel_smem_bytes(mode, d), shape.planes, queries)
 
 
 def _fragment_perm(dq: int, t, kk, e) -> torch.Tensor:
@@ -527,15 +566,15 @@ def query_planes(q):
 
 
 def sm90_pad_queries(q, per_query, geom: ScanGeometry, perm=None):
-    """An sm90 kernel's query operands: the batch padded to ``geom.n_qb``
-    blocks (padded lanes zero, so q_ok = 0 keeps them out of every bin
-    max), the depth to ``geom.dq`` with zeros, the depth of each 64-deep
-    block gathered by ``perm`` (:func:`k1_query_perm` over int8 rows,
-    :func:`f32_query_perm` over f32 rows), and with two ``geom.planes``
-    the padded f32 queries split into them (:func:`query_planes`) ->
-    (q, per_query)."""
+    """An sm90 kernel's query operands: the batch padded to ``geom.n_qp``
+    groups of ``geom.queries`` (padded lanes zero, so q_ok = 0 keeps them
+    out of every bin max), the depth to ``geom.dq`` with zeros, the depth
+    of each 64-deep block gathered by ``perm`` (:func:`k1_query_perm` over
+    int8 rows, :func:`f32_query_perm` over f32 rows), and with two
+    ``geom.planes`` the padded f32 queries split into them
+    (:func:`query_planes`) -> (q, per_query)."""
     b, d = q.shape
-    pad = geom.n_qb * QUERY_BLOCK - b
+    pad = geom.n_qp * geom.queries - b
     qk = q if (pad, geom.dq) == (0, d) else torch.nn.functional.pad(q, (0, geom.dq - d, 0, pad))
     if perm is not None:
         qk = qk.index_select(1, perm)
@@ -565,7 +604,7 @@ def _sm90_launch(wrapper, mode, source, entry, q, v, per_query, ptrs, ints, perm
     head, tail = ptrs
     return _launch(
         wrapper, source, entry, qk, v, [qk, v, *head, *pq, *tail],
-        [q.shape[0], geom.dq, geom.n_qb, geom.per_group, *ints], dp, geom.split,
+        [q.shape[0], geom.dq, geom.n_qb, geom.per_group, *ints], dp, geom.split, geom.wide,
     )
 
 
@@ -711,9 +750,8 @@ def cert_fold_binmax(q, v, inv, nsq, rmask, lane_a, lane_b, q_inv, q_sq, q_ok, c
     )
 
 
-cert_cos_binmax.launches = cert_cos_binmax.split_launches = 0
-cert_cos_binmax_bf16.launches = cert_cos_binmax_bf16.split_launches = 0
-cert_fold_binmax.launches = cert_fold_binmax.split_launches = 0
+for _fn in (cert_cos_binmax, cert_cos_binmax_bf16, cert_fold_binmax):
+    _fn.launches = _fn.split_launches = _fn.wide_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -854,7 +892,7 @@ def _mode_wrapper(mode: str, doc: str):
     """The wrapper of an uncertified kernel: CPU tensors take
     :func:`binmax_plain`, CUDA tensors launch the kernel or raise;
     ``.launches`` counts kernel launches (``.split_launches`` those on the
-    split plan)."""
+    split plan, ``.wide_launches`` those on the pair plan)."""
 
     def wrapper(q, v, inv, nsq, rmask, q_inv, q_sq, q_ok, thr, surv, n_surv,
                 metric: Metric = Metric.Cosine, take_min: bool = False,
@@ -864,7 +902,7 @@ def _mode_wrapper(mode: str, doc: str):
 
     wrapper.__name__ = wrapper.__qualname__ = _MODES[mode][1]
     wrapper.__doc__ = f"{doc} (see :func:`binmax_plain`). {_mode_wrapper.__doc__}"
-    wrapper.launches = wrapper.split_launches = 0
+    wrapper.launches = wrapper.split_launches = wrapper.wide_launches = 0
     return wrapper
 
 
@@ -907,7 +945,7 @@ def kernel_smem_bytes(mode: str, d: int) -> int:
     plan = sm90_plan(mode, d)
     shape = SM90_SHAPES[mode]
     return sm90_smem_bytes(d, shape.row_bytes, plan.stages, plan.ks, plan.rows, plan.streamed,
-                           shape.planes, shape.q_bytes, plan.resident)
+                           shape.planes, shape.q_bytes, plan.resident, sm90_queries(mode))
 
 
 def kernel_takes(mode: str, d: int) -> bool:
@@ -932,10 +970,11 @@ kernel_takes.routed = 0  # queries sent to the scan program by shape
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch counts (``launches``, ``split_launches``),
-    and the count of queries routed away from the kernels by shape, to 0."""
+    """Set every kernel's launch counts (``launches``, ``split_launches``,
+    ``wide_launches``), and the count of queries routed away from the
+    kernels by shape, to 0."""
     for fn in KERNELS.values():
-        fn.launches = fn.split_launches = 0
+        fn.launches = fn.split_launches = fn.wide_launches = 0
     kernel_takes.routed = 0
 
 

@@ -287,12 +287,13 @@ SM90_MODES = ["K1", "K1-bf16", "K2", "K3", "K3-bf16", "K5", "K6", "K6-bf16", "K4
 @pytest.mark.parametrize("mode", SM90_MODES)
 @pytest.mark.parametrize("d", DEPTHS)
 def test_sm90_plan_fits_every_depth(mode, d):
-    """An even ring of at least 2 stages within 232,448 B at every depth;
-    the query block (of every query plane) is streamed whole exactly when the
+    """An even ring of at least 2 stages within 232,448 B at every depth
+    (K4's pair plan: any count, its stages serve both warpgroups); the
+    query block (of every query plane) is streamed whole exactly when the
     resident block would leave fewer than 2 stages of the narrow shape, or
     always for a mode with no resident plan (K3, K4, the probes k_mm /
     k_mm_bins on K3's); at d = 768 K1 keeps its plans, K2 / K5 / K6 /
-    K6-bf16 take their wide shapes, K4 its 4 streamed stages of 128 f32
+    K6-bf16 take their wide shapes, K4 its 3 streamed stages of 128 f32
     rows and K4-bf16 its 6 of 128 bf16 rows, both with both planes, K3
     and the FFMA probes 4 streamed stages of 256 f32 rows and K3-bf16 6 of
     128 bf16 rows, with the f32 queries. K2's 128-deep int8 query k-blocks (8 KB) stay
@@ -304,9 +305,13 @@ def test_sm90_plan_fits_every_depth(mode, d):
     dp = ts.pad_depth(d)
     row_bytes, planes, wide, narrow, q_bytes = ft.SM90_SHAPES[mode]
     plan = ft.sm90_plan(mode, dp)
-    assert plan.stages >= 2 and plan.stages % 2 == 0 and plan.stages <= ft.SM90_MAX_STAGES
+    queries = ft.sm90_queries(mode)
+    pair = queries == ft.PAIR_QUERIES  # K4 over f32 rows
+    assert pair is (mode == "K4")
+    assert plan.stages >= 2 and (pair or plan.stages % 2 == 0)
+    assert plan.stages <= ft.SM90_MAX_STAGES
     smem = ft.sm90_smem_bytes(dp, row_bytes, plan.stages, plan.ks, plan.rows, plan.streamed,
-                              planes, q_bytes, plan.resident)
+                              planes, q_bytes, plan.resident, queries)
     assert smem == ft.kernel_smem_bytes(mode, dp) <= SMEM_MAX
     resident_fits = wide is not None and ft.sm90_smem_bytes(
         dp, row_bytes, 2, *narrow, planes=planes, q_bytes=q_bytes) <= SMEM_MAX
@@ -327,7 +332,8 @@ def test_sm90_plan_fits_every_depth(mode, d):
         # every stage carries its query k-blocks; one more stage would not fit
         assert (plan.ks, plan.rows) == narrow and plan.resident == 0
         assert plan.stages == ft.SM90_MAX_STAGES or ft.sm90_smem_bytes(
-            dp, row_bytes, plan.stages + 2, *narrow, True, planes, q_bytes) > SMEM_MAX
+            dp, row_bytes, plan.stages + (1 if pair else 2), *narrow, True, planes, q_bytes,
+            queries=queries) > SMEM_MAX
     elif ft.sm90_smem_bytes(dp, row_bytes, 4, *wide, planes=planes, q_bytes=q_bytes) <= SMEM_MAX:
         assert (plan.ks, plan.rows) == wide and plan.stages >= 4
     else:
@@ -337,14 +343,16 @@ def test_sm90_plan_fits_every_depth(mode, d):
     geom = ft.sm90_geometry(mode, 600, dp, 132)
     assert geom.dq % kd == 0 and 0 <= geom.dq - dp < kd
     assert (geom.ks, geom.rows, geom.stages, geom.streamed, geom.resident) == plan
-    assert geom.n_qb == 10 and geom.per_group == 13
+    assert geom.n_qb == 10
+    # K4's CTAs hold pairs of query blocks: five pairs
+    assert (geom.n_qp, geom.per_group) == ((5, 26) if pair else (10, 13))
     if d == 768:
         assert plan[:4] == {"K1": (2, 128, 8, False), "K1-bf16": (1, 256, 4, False),
                             "K2": (1, 256, 4, False), "K3": (1, 256, 4, True),
                             "K3-bf16": (1, 128, 6, True), "k_mm": (1, 256, 4, True),
                             "k_mm_bins": (1, 256, 4, True),
                             "K5": (2, 128, 4, False), "K6": (1, 128, 4, False),
-                            "K6-bf16": (1, 256, 4, False), "K4": (1, 128, 4, True),
+                            "K6-bf16": (1, 256, 4, False), "K4": (1, 128, 3, True),
                             "K4-bf16": (1, 128, 6, True)}[mode]
     if mode == "K2":
         assert plan.streamed is (d > 3072)
@@ -389,9 +397,10 @@ def test_split_plan_keeps_rows_in_flight(mode, d):
 
 
 def _plan_without_split(mode, d):
-    """The plan of ``mode`` at d by the rule without the split plan."""
+    """The plan of ``mode`` at d by the rule without the split plan (K4's
+    pair plan: the narrow shape streamed, 128 queries a CTA)."""
     row_bytes, planes, wide, narrow, qb = ft.SM90_SHAPES[mode]
-    kw = dict(planes=planes, q_bytes=qb)
+    kw = dict(planes=planes, q_bytes=qb, queries=ft.sm90_queries(mode))
     if wide is not None:
         if ft.sm90_smem_bytes(d, row_bytes, 4, *wide, **kw) <= SMEM_MAX:
             return (*wide, ft.sm90_stages(d, row_bytes, *wide, **kw), False)
@@ -493,41 +502,65 @@ def test_k4_bf16_streams_its_planes_at_every_depth(d):
         assert 1024 + 12 * 2 * 8192 + 6 * 8192 + 520 + 13 * 8 > SMEM_MAX
 
 
+@pytest.mark.parametrize("b", [1, 64, 65, 128, 192, 256, 600])
 @pytest.mark.parametrize("d", [16, 768, 832, 848, 896, 2048, 4096])
-def test_k4_streams_its_planes_at_every_depth(d):
+def test_k4_streams_its_planes_at_every_depth(d, b):
     """K4 over f32 rows has no resident plan either. Its rows land as f32
     and are split in the kernel, so a k-block holds 4 bytes a row element,
-    as the probe k_planes' two bf16 row planes do (the same plan). Resident,
-    the two query planes (16 KB per 64 deep) would take 192 KB at d = 768
-    and leave room for 2 ring stages of [64 rows x 64 deep] f32 (32 KB of
-    rows in flight) and none of 128 rows. Streamed, a stage carries a
-    128-row k-block (32 KB) and both planes' k-blocks (16 KB), so 4 stages
-    fit at every depth: 128 KB of rows in flight (6 stages of 64 rows, 32
-    KB each, would hold 96 KB). The arithmetic: 1 KB slack + planes + ring
-    + 520 B of maxima, scales and flag + 8 B a barrier."""
+    as the probe k_planes' two bf16 row planes do. Resident, the two query
+    planes (16 KB per 64 deep) would take 192 KB at d = 768 and leave room
+    for 2 ring stages of [64 rows x 64 deep] f32 (32 KB of rows in flight)
+    and none of 128 rows. K4 takes the pair plan at every batch size: a
+    CTA holds 128 queries (a pair of query blocks, half of them padding at
+    b <= 64), and a stage one 128-row k-block (32 KB) with both planes'
+    k-blocks of the 128 queries (32 KB), which both consumer warpgroups
+    share: 3 stages (odd: every stage serves both), 96 KB of rows in
+    flight, 4 B a (row, query) pair moved to the SM. k_planes keeps 64
+    queries a CTA: a stage of a 128-row k-block (32 KB) and both planes'
+    k-blocks of 64 queries (16 KB), 4 stages (6 of 64 rows, 32 KB each,
+    would hold 96 KB), 6 B a pair. The arithmetic: 1 KB slack + ring + the
+    maxima and scales of the CTA's queries and the flag + 8 B a barrier.
+    The persistent grid: an equal share of the 132 SMs per pair (66 CTAs a
+    pair at b = 256, all 132 on the one pair at b <= 128)."""
     plan = ft.sm90_plan("K4", d)
-    assert plan == (1, 128, 4, True, 0) == ft.sm90_plan("k_planes", d)
-    stage = 128 * 64 * 4 + 2 * 8192
-    assert stage == 49152
-    assert ft.kernel_smem_bytes("K4", d) == 1024 + 4 * stage + 520 + 9 * 8 <= SMEM_MAX
-    assert ft.kernel_smem_bytes("k_planes", d) == ft.kernel_smem_bytes("K4", d)
-    assert 1024 + 6 * stage + 520 + 13 * 8 > SMEM_MAX
+    assert plan == (1, 128, 3, True, 0)
+    assert ft.sm90_plan("k_planes", d) == (1, 128, 4, True, 0)
+    assert ft.sm90_queries("K4") == ft.PAIR_QUERIES == 128
+    assert ft.sm90_queries("k_planes") == ft.sm90_queries("K4-bf16") == 64
+    planes_stage = 128 * 64 * 4 + 2 * 8192
+    assert planes_stage == 49152
+    assert ft.kernel_smem_bytes("k_planes", d) == 1024 + 4 * planes_stage + 520 + 9 * 8 \
+        <= SMEM_MAX < 1024 + 6 * planes_stage + 520 + 13 * 8
     narrow = 64 * 64 * 4 + 2 * 8192
     assert ft.sm90_smem_bytes(d, 4, 6, 1, 64, True, 2) == 1024 + 6 * narrow + 520 + 13 * 8 \
         <= SMEM_MAX < 1024 + 8 * narrow + 520 + 17 * 8
+    pair = 128 * 64 * 4 + 2 * 128 * 64 * 2
+    assert pair == 65536 == ft.sm90_smem_bytes(d, 4, 1, 1, 128, True, 2, queries=128) \
+        - ft.sm90_smem_bytes(d, 4, 0, 1, 128, True, 2, queries=128) - 16
+    pair_smem = 1024 + 3 * pair + (2 * 128 * 4 + 8) + 7 * 8
+    assert ft.kernel_smem_bytes("K4", d) == pair_smem == 198720 <= SMEM_MAX \
+        < 1024 + 4 * pair + 1032 + 9 * 8
     nk = -(-d // 64)
     if d == 768:
         assert 1024 + nk * 2 * 8192 + 2 * 16384 + 520 + 5 * 8 <= SMEM_MAX
         assert 1024 + nk * 2 * 8192 + 2 * 32768 + 520 + 5 * 8 > SMEM_MAX
-    geom = ft.sm90_geometry("K4", 256, d, 132)
-    assert (geom.planes, geom.n_qb, geom.per_group) == (2, 4, 33)
+    geom = ft.sm90_geometry("K4", b, d, 132)
+    n_qb, n_qp = -(-b // 64), -(-b // 128)
+    assert (geom.planes, geom.n_qb, geom.n_qp, geom.per_group, geom.wide) \
+        == (2, n_qb, n_qp, 132 // n_qp, True)
+    assert (geom.ks, geom.rows, geom.stages, geom.streamed, geom.resident) == plan
+    assert geom.smem == pair_smem
+    assert geom.queries * geom.n_qp >= b > geom.queries * (geom.n_qp - 1)
+    if b == 256:
+        assert (geom.n_qp, geom.per_group, geom.n_ctas) == (2, 66, 132)
 
 
 @pytest.mark.parametrize("b,d", [(70, 100), (64, 768), (1, 16), (130, 2048)])
 def test_k4_pad_queries_equal_jax_split(b, d):
     """K4's query operands over f32 rows (``sm90_pad_queries`` with
-    ``f32_query_perm``): the batch padded to whole 64-query blocks, the
-    depth to a multiple of 64 with zeros, each 64-deep block permuted to
+    ``f32_query_perm``): the batch padded to whole pairs of query blocks
+    (the pair plan: 1, 64 and 70 queries to 128, 130 to 256), the depth to
+    a multiple of 64 with zeros, each 64-deep block permuted to
     the fragment order, then split into qh and ql stacked, bit for bit
     JAX's split (``jnp.astype``, as ``otters_tpu/ops/pallas_topk.py`` at
     prec="high") of the permuted, padded queries; the per-query operands
@@ -539,7 +572,8 @@ def test_k4_pad_queries_equal_jax_split(b, d):
     geom = ft.sm90_geometry("K4", b, ts.pad_depth(d), 132)
     perm = ft.f32_query_perm(geom.dq)
     qk, (ok,) = ft.sm90_pad_queries(torch.from_numpy(q), (torch.from_numpy(q_ok),), geom, perm)
-    n = geom.n_qb * 64
+    n = geom.n_qp * geom.queries
+    assert n == {70: 128, 64: 128, 1: 128, 130: 256}[b]
     padded = np.zeros((n, geom.dq), np.float32)
     padded[:b, :d] = q
     padded = padded[:, perm.numpy()]

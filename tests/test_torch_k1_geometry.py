@@ -8,9 +8,10 @@ runs only on the card; what surrounds it is Python that these tests reach:
 ``sm90_pad_queries`` and ``k1_query_perm`` (the int8-row fragment order).
 The kernel's CTA -> (query block, bin slots) mapping is replayed here from
 the geometry; so are the two-plane query layout of K4 over bf16 rows
-(``query_planes``) and K2's int8 query blocks (128-deep k-blocks, no
-permutation). The other sm90 kernels' plans (K2, K3, K5, K6, K4) and the
-deep-row plan: ``tests/test_torch_depth.py``.
+(``query_planes``), K4's pair plan over f32 rows (a CTA of 128 queries)
+and K2's int8 query blocks (128-deep k-blocks, no permutation). The other
+sm90 kernels' plans (K2, K3, K5, K6, K4) and the deep-row plan:
+``tests/test_torch_depth.py``.
 """
 
 import numpy as np
@@ -24,12 +25,12 @@ N_SMS = 132  # an H100 SXM
 
 
 def _walk(geom, n_surv):
-    """The (query block, survivor slot) pairs the kernel's CTAs visit: CTA
-    c takes query block c % n_qb and slots p, p + per_group, ... with p =
-    c // n_qb."""
+    """The (query group, survivor slot) pairs the kernel's CTAs visit: CTA
+    c takes query group c % n_qp (a block of 64 queries, or a pair of them
+    on K4's pair plan) and slots p, p + per_group, ... with p = c // n_qp."""
     seen = []
     for cta in range(geom.n_ctas):
-        p, qblk = divmod(cta, geom.n_qb)
+        p, qblk = divmod(cta, geom.n_qp)
         seen += [(qblk, slot) for slot in range(p, n_surv, geom.per_group)]
     return seen
 
@@ -140,6 +141,49 @@ def test_k4_bf16_planes_cover_the_batch(b, d):
     assert torch.equal(ql[:b, :d], (q - q.bfloat16().float()).bfloat16().float())
     err = (qh[:b, :d] + ql[:b, :d] - q).abs()
     assert bool((err <= ql[:b, :d].abs() * 2.0**-8 + 1e-45).all())
+
+
+@pytest.mark.parametrize("d", [16, 768, 2048])
+@pytest.mark.parametrize("b", [1, 64, 65, 128, 192, 256, 600])
+def test_k4_pair_geometry_covers_the_batch(b, d):
+    """K4 over f32 rows at every batch size: the pair plan, each CTA
+    holding a pair of query blocks (128 queries; the batch padded to whole
+    pairs with zero lanes, q_ok = 0: at b <= 64 half the lanes, and a whole
+    block where the count of blocks is odd), ``per_group`` = 132 // n_qp
+    CTAs a pair (66 at b = 256), each (pair, live bin) computed once; the
+    f32 queries padded to n_qp pairs, permuted to the fragment order and
+    split into qh then ql (the C side's plane p of pair c at rows p n_qp
+    128 + 128 c)."""
+    geom = ft.sm90_geometry("K4", b, d, N_SMS)
+    n_qb = -(-b // ft.QUERY_BLOCK)
+    assert geom.n_qb == n_qb and geom.wide
+    assert geom.queries == ft.PAIR_QUERIES == 128
+    assert geom.n_qp == -(-n_qb // 2)
+    assert geom.per_group == max(1, N_SMS // geom.n_qp)
+    assert geom.n_ctas == geom.n_qp * geom.per_group <= max(N_SMS, geom.n_qp)
+    assert (geom.stages, geom.smem) == (3, 198720)
+    assert geom.smem == ft.sm90_smem_bytes(d, 4, geom.stages, 1, 128, True, 2,
+                                           queries=geom.queries) <= SMEM_MAX
+    if b == 256:
+        assert (geom.n_qp, geom.per_group) == (2, 66)
+    n_surv = 31
+    seen = _walk(geom, n_surv)
+    assert len(seen) == len(set(seen)) == geom.n_qp * n_surv
+    rng = np.random.default_rng(b * 3 + d)
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    perm = ft.f32_query_perm(geom.dq)
+    qk, (qo,) = ft.sm90_pad_queries(q, (torch.ones(b),), geom, perm)
+    rows = geom.n_qp * geom.queries
+    assert rows - b < 128 and rows % 128 == 0
+    if n_qb % 2:  # the odd block's pad: a whole block of zero lanes
+        assert rows - -(-b // 64) * 64 == 64
+    assert qk.shape == (2 * rows, geom.dq) and qk.dtype == torch.bfloat16
+    assert qo[:b].eq(1).all() and qo[b:].eq(0).all() and qo.shape == (rows,)
+    assert qk[b:rows].eq(0).all() and qk[rows + b:].eq(0).all()
+    back = torch.argsort(perm)
+    qh, ql = qk[:b, back][:, :d].float(), qk[rows : rows + b, back][:, :d].float()
+    assert torch.equal(qh, q.bfloat16().float())
+    assert torch.equal(ql, (q - qh).bfloat16().float())
 
 
 @pytest.mark.parametrize("d", [112, 768, 3072, 8192])

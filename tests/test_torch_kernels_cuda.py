@@ -12,7 +12,9 @@ with Eq filters); over bfloat16 rows K3,
 K5 (the general certified fold, Dot and Euclid, at b = 1 to 600, d = 100
 to 2048, with masked bins and NaN rows), and K4 and K6 on the Hopper scan
 (b = 1 to 600, d = 16 to 2048; K4 streams its two query planes with the
-rows); K1-bf16, K5 and K6-bf16 at d = 1,536 on the split plan (with
+rows; K4 over f32 rows on the pair plan, and 256 queries in one launch bit
+for bit those of four launches of 64); K1-bf16, K5 and
+K6-bf16 at d = 1,536 on the split plan (with
 masked bins and NaN rows) and its launch counter; the shared-memory
 figures of the depth route and the sm90 plans (the probes' too, the split
 plan's depths too) against the C side, with K6 and K4 over f32 and bf16
@@ -781,15 +783,47 @@ def _one_row_per_bin(args, dev, n_pad):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [16, 100, 768, 2048])
-@pytest.mark.parametrize("b", [1, 64, 256, 600])
+@pytest.mark.parametrize("b", [1, 64, 65, 128, 192, 256, 600])
 @pytest.mark.parametrize("metric", [Metric.Cosine, Metric.DotProduct, Metric.Euclidean])
 def test_k4_matches_plain(metric, b, d):
-    """K4 over f32 rows at one, one full, four and ten (the last partial)
-    query blocks, at one 16-deep step, a padded depth, the main path's and
-    deep rows."""
+    """K4 over f32 rows on the pair plan at one query and one full query
+    block (one pair, 127 and 64 of its lanes q_ok = 0), two blocks (the
+    second holding one query), two full, three (a pair padded by a block
+    of q_ok = 0 lanes), four and ten (the last partial), at one 16-deep
+    step, a padded depth, the main path's and deep rows; each launch
+    counted on ``wide_launches``."""
     dev = _device()
     args = _operands("K4", dev, d=d, b=b, n=20_000)
+    wide = ft.bf16x3_binmax.wide_launches
     _check_plain("K4", args, metric, metric is Metric.Euclidean, None)
+    assert ft.bf16x3_binmax.wide_launches == wide + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 768, 2048])
+def test_k4_pair_plan_equals_four_query_blocks(d):
+    """The bin maxima of 256 queries in one launch (two pairs of query
+    blocks, 128 queries a CTA, 66 CTAs a pair) are bit for bit those of
+    the same queries in four launches of 64 (one pair each, half its lanes
+    padding, 132 CTAs), every metric: a query's dots do not depend on the
+    batch around it, its CTA's share of the bins or its lane, since every
+    CTA splits each row and query alike and issues the same three products
+    per 16-deep step in the same order, into a partial per 64-deep k-block
+    added with __fadd_rn."""
+    dev = _device()
+    args = _operands("K4", dev, d=d, b=256, n=20_000)
+    fn = ft.bf16x3_binmax
+    for metric in (Metric.Cosine, Metric.DotProduct, Metric.Euclidean):
+        take_min = metric is Metric.Euclidean
+        launches, wide = fn.launches, fn.wide_launches
+        whole = fn(*args, metric, take_min, None)
+        parts = [fn(*(t[s : s + 64] if i in (0, 5, 6, 7) else t for i, t in enumerate(args)),
+                    metric, take_min, None) for s in range(0, 256, 64)]
+        torch.cuda.synchronize()
+        assert (fn.launches - launches, fn.wide_launches - wide) == (5, 5)
+        got, want = whole.view(torch.int32), torch.cat(parts, dim=1).view(torch.int32)
+        assert bool(torch.isfinite(whole).any())
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -823,16 +857,18 @@ def test_k4_eq_filter():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [70, 256])
 @pytest.mark.parametrize("metric", [Metric.Cosine, Metric.DotProduct, Metric.Euclidean])
-def test_k4_masked_bins_nan_and_inf_rows(metric):
+def test_k4_masked_bins_nan_and_inf_rows(metric, b):
     """Whole bins masked beside dead bins, NaN rows and rows with one inf
     element (their side data finite): an inf splits into an inf high plane
     and a NaN low plane, as JAX's split does, so the dot and score are NaN
     and the row fails the filter like a masked one; the bins stay equal to
-    the plain version's."""
+    the plain version's (both on the pair plan: 70 queries, a pair padded
+    by 58 lanes, and 256)."""
     dev = _device()
     take_min = metric is Metric.Euclidean
-    args = _operands("K4", dev, d=768, b=70, n=20_000)
+    args = _operands("K4", dev, d=768, b=b, n=20_000)
     v, rmask, surv, n_surv = args[1], args[4], args[-2], args[-1]
     live = surv[: int(n_surv[0])].long()
     masked = live[::3]
@@ -845,17 +881,19 @@ def test_k4_masked_bins_nan_and_inf_rows(metric):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [64, 256])
 @pytest.mark.parametrize("scale", [1e-30, 1e-36])
-def test_k4_keeps_subnormal_low_planes(scale):
+def test_k4_keeps_subnormal_low_planes(scale, b):
     """Rows scaled to 1e-30 and to 1e-36, where the low planes x - bf16(x)
     (about 2^-9 |x|) fall below 2^-126 and are subnormal: Dot metric, one
     unmasked row per bin, so each bin max is that row's bf16x3 dot, within
     the bound's 4 d 2^-24 |q| |v| share of the float64 sum of the split
     products (torch's casts keep subnormals). A flushed low plane would
-    lose qh.vl, about 2^-9 |q| |v|."""
+    lose qh.vl, about 2^-9 |q| |v|. At 64 queries (one pair, half its lanes
+    padding) and 256."""
     dev = _device()
     g = torch.Generator(device=dev).manual_seed(6)
-    n, d, b = 20_000, 768, 64
+    n, d = 20_000, 768
     n_pad = sc.pad_rows(n)
     f32 = torch.randn((n_pad, d), generator=g, device=dev) * scale
     f32[n:] = 0.0
@@ -920,7 +958,8 @@ def test_smem_mirrors_the_kernel(mode, entry, d):
     K2, K3 and K6 over bf16 rows and K4 over f32 and bf16 rows take every
     one of these depths and launch there (against the plain version at 70
     queries, and with no live bin), and so do the probes k_planes, k_mm
-    and k_mm_bins (against their plain versions)."""
+    and k_mm_bins (against their plain versions). K4 over f32 rows: the
+    pair plan's figures at every depth, and both launches take it."""
     dev = _device()
     from otters_tpu_torch import kernels
 
@@ -935,6 +974,9 @@ def test_smem_mirrors_the_kernel(mode, entry, d):
         stages.argtypes = [ctypes.c_int]
         stages.restype = ctypes.c_int
         assert stages(d) == ft.sm90_plan(mode, d).stages
+    if mode == "K4":
+        assert smem(d) == 198720 and ft.sm90_plan(mode, d).stages == 3
+        wide = ft.bf16x3_binmax.wide_launches
     if mode in pv.PROBES:
         ops = pv.make_inputs(dev, n_pad=4 * pv.T, d=d, b=70, seed=d)
         args = pv.probe_args(mode, ops)
@@ -953,6 +995,8 @@ def test_smem_mirrors_the_kernel(mode, entry, d):
         out = _call(mode, args, Metric.Cosine, False, None)
         torch.cuda.synchronize()
         assert bool(torch.isneginf(out).all())
+    if mode == "K4":
+        assert ft.bf16x3_binmax.wide_launches == wide + 2
 
 
 # the split plan at d = 1,536 (the first 8 query k-blocks resident, K5's
