@@ -488,108 +488,115 @@ def _build_device_column(col: Column, n: int, n_pad: int, chunk_size: int,
 # ---------------------------------------------------------------------------
 
 
-def _meta_query_program(store: "MetaStore", cols, queries, plan_static,
-                        plan_params, thr, *, metric, k, take_min, cmp, tile,
-                        certify, fast=False, clock=None):
-    """The whole meta query, enqueued on the device without waiting:
+def _device_program(dv: scoring.DeviceVecs, chunk_lens, chunk_size: int, cols, plan_static,
+                    plan_params, queries, thr, launch: "_Launch", *, metric, k, take_min, cmp,
+                    prec, q_valid=None, mesh_cert=None, local_plan=None, clock=None):
+    """One device's whole meta query, enqueued without waiting: a single
+    store's, or one shard's of a mesh (:mod:`.parallel.meta_sharded`):
 
     zonemap chunk-mask pruning + stats -> row-mask predicate tensors ->
-    scoring with fused masking -> exact global top-k (the fusion of the
-    reference's prune/score/merge phases, meta.rs:632-709).
+    scoring with fused masking -> exact top-k over the device's rows (the
+    fusion of the reference's prune/score/merge phases, meta.rs:632-709).
 
-    certify=True (int8 / bf16 + rerank): the 5th output is a sound bound,
-    in the key space (negated for take-min), on the true score of every row
-    NOT among the returned candidates; -inf otherwise. fast=True (f32 / bf16
-    rows): the 4th output is the fast-exact check, False when the query
-    must be re-run strictly. Returns device tensors (rows, scores, ok,
-    check, bound, evaluated, rows_eval). ``clock`` (a query's
-    ``_HostClock``) takes the host seconds of the masks as pruning, the
-    rest as scoring."""
+    ``launch`` gives the tile program and the modes. certify (int8 / bf16 +
+    rerank): the 5th output is a sound bound, in the key space (negated for
+    take-min), on the true score of every row NOT among the returned
+    candidates; -inf otherwise. fast (f32 / bf16 rows): the 4th output is
+    the fast-exact check, False when the query must be re-run strictly.
+    ``q_valid`` marks a padded batch's real queries. ``mesh_cert`` (a
+    mesh's certified direct / panel programs): this device's
+    ``scoring.cert_terms`` and the mesh-wide slack, in place of the
+    device's own. ``local_plan`` and ``clock``: see
+    :func:`_device_masks` and ``_HostClock`` (the host seconds of the masks
+    go to pruning, the rest to scoring). Returns device tensors (rows,
+    scores, ok, check, bound, evaluated, rows_eval), rows local to the
+    device."""
     t0 = time.perf_counter()
     with span("otters.submit.masks"):
-        evaluated, rows_eval, rmask, alive = _program_masks(
-            store, cols, plan_static, plan_params, tile)
+        evaluated, rows_eval, rmask, alive = _device_masks(
+            dv, chunk_lens, chunk_size, cols, plan_static, plan_params, launch.tile,
+            local_plan=local_plan)
     t1 = time.perf_counter()
-    out = _program_scores(store, queries, rmask, alive, thr, metric=metric, k=k,
-                          take_min=take_min, cmp=cmp, tile=tile, certify=certify, fast=fast)
+    out = _device_scores(dv, queries, rmask, alive, thr, launch, metric=metric, k=k,
+                         take_min=take_min, cmp=cmp, prec=prec, q_valid=q_valid,
+                         mesh_cert=mesh_cert)
     if clock is not None:
         clock.prune += t1 - t0
         clock.score += time.perf_counter() - t1
     return (*out, evaluated, rows_eval)
 
 
-def _program_masks(store: "MetaStore", cols, plan_static, plan_params, tile):
-    """The query program's pruning, enqueued -> (evaluated chunks, their
-    rows, the row mask or None, the live 512-row bins of the fused scan or
-    the live tiles of the pruned VPU scan, else None)."""
-    dv = store._dv
+def _device_masks(dv: scoring.DeviceVecs, chunk_lens, chunk_size: int, cols, plan_static,
+                  plan_params, tile=None, local_plan=None):
+    """A device's pruning, enqueued -> (evaluated chunks, their rows, the
+    row mask or None, the live 512-row bins of the fused scan or the live
+    tiles of the pruned VPU scan, else None). ``local_plan`` (a shard's)
+    maps the store's columns and plan parameters to the shard's; unfiltered,
+    a shard then counts only its chunks with rows (its padding chunks have
+    none), where a single store counts all of its chunks."""
     dev = dv.vectors.device
     n_pad = dv.vectors.shape[0]
-    chunk_lens = store._chunk_lens
     n_chunks = chunk_lens.shape[0]
     if plan_static:
+        if local_plan is not None:
+            cols, plan_params = local_plan(cols, plan_params)
         cmask = predicate.chunk_mask(plan_static, plan_params, cols, n_chunks, dev)
         evaluated = cmask.sum(dtype=torch.int32)
         rows_eval = (chunk_lens * cmask).sum(dtype=torch.int32)
         rmask = predicate.row_mask(plan_static, plan_params, cols, n_pad, dev)
     else:
-        evaluated = torch.full((), n_chunks, dtype=torch.int32, device=dev)
+        if local_plan is None:
+            evaluated = torch.full((), n_chunks, dtype=torch.int32, device=dev)
+        else:
+            evaluated = (chunk_lens > 0).sum(dtype=torch.int32)
         rows_eval = chunk_lens.sum(dtype=torch.int32)
         rmask = None
     alive = None
     if tile == "fused":
         # the hand-written kernel: pruned bins cost no loads and no math
         if plan_static:
-            alive = fused_topk.bins_alive_from_chunk_mask(
-                cmask, store._chunk_size, n_pad
-            )
+            alive = fused_topk.bins_alive_from_chunk_mask(cmask, chunk_size, n_pad)
         else:
             alive = torch.ones(n_pad // fused_topk.BIN, dtype=torch.bool, device=dev)
     elif tile == "scan_pruned":
         # the pruning path of the VPU metrics: dead tiles are never read
         if plan_static:
-            alive = scoring.tiles_alive_from_chunk_mask(
-                cmask, store._chunk_size, n_pad, scoring.SCAN_TILE
-            )
+            alive = scoring.tiles_alive_from_chunk_mask(cmask, chunk_size, n_pad,
+                                                        scoring.SCAN_TILE)
         else:
             alive = torch.ones(n_pad // scoring.SCAN_TILE, dtype=torch.bool, device=dev)
     return evaluated, rows_eval, rmask, alive
 
 
-def _program_scores(store: "MetaStore", queries, rmask, alive, thr, *, metric, k,
-                    take_min, cmp, tile, certify, fast):
-    """The query program's scoring, enqueued -> (rows, scores, ok, check,
-    bound) (see _meta_query_program)."""
-    dv = store._dv
-    dev = dv.vectors.device
+def _device_scores(dv: scoring.DeviceVecs, queries, rmask, alive, thr, launch: "_Launch", *,
+                   metric, k, take_min, cmp, prec, q_valid, mesh_cert):
+    """A device's scoring, enqueued -> (rows, scores, ok, check, bound) (see
+    :func:`_device_program`)."""
+    tile, certify = launch.tile, launch.certify
     if tile == "fused":
         return fused_topk.fused_topk(
             dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, queries, rmask,
             thr, alive, metric=metric, k=k, take_min=take_min, cmp=cmp,
-            certify=certify, prec=store.precision, fast=fast, resid=dv.resid,
+            certify=certify, prec=prec, fast=launch.fast, resid=dv.resid, q_valid=q_valid,
         )
 
     # direct / scan / panel / scan_pruned: one global certificate term; the certified scan runs
     # MIXED (bf16-rounded queries x stored rows), signaled to _score_block
     # by the bf16 query dtype
     with span("otters.submit.scan_setup"):
-        cert_slack = None
         thr_core = thr
         q_core = queries
         if certify:
-            d = dv.vectors.shape[1]
-            qh32, c0, c1, c2 = scoring.cert_query_coeffs(metric, queries, d)
-            lane_a, lane_b = scoring.cert_row_lanes(
-                metric, dv.vectors.dtype, dv.resid, dv.inv_norms, dv.norms_sq, d
-            )
-            cert_slack = scoring.cert_global_slack(c0, c1, c2, lane_a, lane_b, dv.norms_sq)
-            if cmp in (Cmp.Gt, Cmp.Gte):
-                thr_core = thr - cert_slack
-            elif cmp in (Cmp.Lt, Cmp.Lte):
-                thr_core = thr + cert_slack
-            q_core = qh32.to(torch.bfloat16)
+            if mesh_cert is None:
+                terms = scoring.cert_terms(metric, queries, dv.vectors.dtype, dv.resid,
+                                           dv.inv_norms, dv.norms_sq, dv.vectors.shape[1])
+                slack = scoring.cert_global_slack(*terms[1:], dv.norms_sq)
+            else:
+                terms, slack = mesh_cert
+            thr_core = scoring.loosened(thr, slack, cmp)
+            q_core = terms[0].to(torch.bfloat16)  # qh32
     args = (dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, q_core, rmask, thr_core)
-    kwargs = dict(metric=metric, k=k, take_min=take_min, cmp=cmp, prec=store.precision)
+    kwargs = dict(metric=metric, k=k, take_min=take_min, cmp=cmp, q_valid=q_valid, prec=prec)
     with span("otters.submit.launch"):
         if tile == "scan_pruned":
             rows, scores, ok = scoring.scan_pruned_topk_core(
@@ -604,13 +611,14 @@ def _program_scores(store: "MetaStore", queries, rmask, alive, thr, *, metric, k
     with span("otters.submit.phase2"):
         if certify:
             # every unreturned candidate's scan key <= the k-th returned one
-            # (exact global top-k); with fewer than k valid candidates every
-            # passing row was returned and nothing is unexamined
+            # (exact top-k over the device's rows); with fewer than k valid
+            # candidates every passing row was returned and nothing is
+            # unexamined
             kth_key = -scores[-1] if take_min else scores[-1]
-            bound = torch.where(ok[-1], kth_key + cert_slack, float("-inf"))
+            bound = torch.where(ok[-1], kth_key + slack, float("-inf"))
         else:
-            bound = torch.full((), float("-inf"), device=dev)
-        check = torch.ones((), dtype=torch.bool, device=dev)
+            bound = torch.full((), float("-inf"), device=dv.vectors.device)
+        check = torch.ones((), dtype=torch.bool, device=dv.vectors.device)
     return rows, scores, ok, check, bound
 
 
@@ -1691,19 +1699,19 @@ class MetaStore:
     def _run_prepared(self, launch, k_eff, cols_sub, queries, plan_params, thr, plan_static,
                       metric, take_min, cmp, clock=None):
         """Enqueue a prepared launch -> device tensors (see
-        _meta_query_program)."""
+        _device_program)."""
         thr_t = _scalar(float(thr), torch.float32, self._device)
-        return _meta_query_program(
-            self, cols_sub, queries, plan_static, plan_params, thr_t,
-            metric=metric, k=k_eff, take_min=take_min, cmp=cmp, tile=launch.tile,
-            certify=launch.certify, fast=launch.fast, clock=clock,
+        return _device_program(
+            self._dv, self._chunk_lens, self._chunk_size, cols_sub, plan_static, plan_params,
+            queries, thr_t, launch, metric=metric, k=k_eff, take_min=take_min, cmp=cmp,
+            prec=self.precision, clock=clock,
         )
 
     def _run_query_program(self, cols_sub, queries, plan_params, thr, plan_static,
                            metric, k, take_min, cmp, strict=False, certify=False,
                            clock=None):
         """Prepare (:meth:`_prepare_program`) and enqueue the program ->
-        device tensors (see _meta_query_program, which fills ``clock``)."""
+        device tensors (see _device_program, which fills ``clock``)."""
         with span("otters.submit.plan"):
             launch, k_eff = self._prepare_program(
                 queries, plan_static, metric, k, take_min, cmp, strict=strict, certify=certify
@@ -1741,19 +1749,14 @@ class MetaStore:
         to the host (``scoring.collect_all``) at the store precision. ->
         host (rows, scores, valid, check, bound, evaluated, rows_eval), the
         query program's layout."""
-        dv = self._dv
-        dev = dv.vectors.device
-        n_pad = dv.vectors.shape[0]
         if plan_static:
-            cmask = predicate.chunk_mask(plan_static, plan_params, cols_sub,
-                                         self._chunk_lens.shape[0], dev)
-            rmask = predicate.row_mask(plan_static, plan_params, cols_sub, n_pad, dev)
-            ev = int(cmask.sum())
-            re_ = int((self._chunk_lens * cmask).sum())
+            ev, re_, rmask, _ = _device_masks(self._dv, self._chunk_lens, self._chunk_size,
+                                              cols_sub, plan_static, plan_params)
+            ev, re_ = int(ev), int(re_)
         else:
             rmask, ev, re_ = None, self.n_chunks(), self.n_rows
         rows, scores, valid = scoring.collect_all(
-            dv, queries, metric, k_eff, take_min=take_min, cmp=cmp, thr=thr,
+            self._dv, queries, metric, k_eff, take_min=take_min, cmp=cmp, thr=thr,
             row_mask=rmask, prec=self.precision,
         )
         return rows, scores, valid, np.bool_(True), np.float32(-np.inf), ev, re_

@@ -73,11 +73,11 @@ from .scoring import (
     _query_norms,
     _stable_topk,
     cert_global_slack,
-    cert_query_coeffs,
-    cert_row_lanes,
+    cert_terms,
     check_precision,
     exact_topk_flat,
     high_precision_bound,
+    loosened,
     one_pass_dots,
     pad_depth,
     require_full_f32,
@@ -164,6 +164,16 @@ def survivor_bins(bin_alive: torch.Tensor):
     surv.scatter_(0, pos, torch.arange(n_bins, dtype=torch.int32, device=dev))
     n_surv = alive.sum().to(torch.int32).reshape(1)
     return surv[:n_bins], n_surv
+
+
+def _scan_masks(valid, row_mask, bin_alive, q_valid, b: int, dev):
+    """-> (q_ok[b], rmask01[n_pad], surv, n_surv): the kernels' query and row
+    masks as f32 0 / 1 and the survivor list of the live bins."""
+    q_ok = torch.ones(b, device=dev) if q_valid is None else q_valid.to(torch.float32)
+    rmask01 = valid.to(torch.float32)
+    if row_mask is not None:
+        rmask01 = rmask01 * row_mask.to(torch.float32)
+    return (q_ok, rmask01, *survivor_bins(bin_alive))
 
 
 def _check_operands(kernel: str, q, n_pad: int, operands) -> None:
@@ -1060,15 +1070,8 @@ def fused_topk(
                 mult = 2.0 if metric is Metric.Euclidean else 1.0
                 slack = base * torch.sqrt(q_sq.max()) * torch.sqrt(norms_sq.max()) * mult
             # loosen the phase-1 filter so no row that truly passes is excluded
-            if cmp in (Cmp.Gt, Cmp.Gte):
-                thr1 = thr - slack
-            elif cmp in (Cmp.Lt, Cmp.Lte):
-                thr1 = thr + slack
-        q_ok = torch.ones(b, device=dev) if q_valid is None else q_valid.to(torch.float32)
-        rmask01 = valid.to(torch.float32)
-        if row_mask is not None:
-            rmask01 = rmask01 * row_mask.to(torch.float32)
-        surv, n_surv = survivor_bins(bin_alive)
+            thr1 = loosened(thr, slack, cmp)
+        q_ok, rmask01, surv, n_surv = _scan_masks(valid, row_mask, bin_alive, q_valid, b, dev)
     with span("otters.submit.launch"):
         if fast:
             count("otters.fast_checks")
@@ -1179,24 +1182,15 @@ def cert_scan(mode, vectors, norms_sq, inv_norms, valid, queries, row_mask, thr,
     d = vectors.shape[1]
     b = queries.shape[0]
     dev = vectors.device
-    qh32, c0, c1, c2 = cert_query_coeffs(metric, queries, d)
+    qh32, c0, c1, c2, lane_a, lane_b = cert_terms(metric, queries, vectors.dtype, resid,
+                                                  inv_norms, norms_sq, d)
     q_kern = qh32.to(torch.bfloat16)
-    lane_a, lane_b = cert_row_lanes(metric, vectors.dtype, resid, inv_norms, norms_sq, d)
     q_sq, q_inv = _query_norms(qh32)
     # the global slack only loosens the score filter, so no truly passing
     # row is dropped on its scan score
     slack_g = cert_global_slack(c0, c1, c2, lane_a, lane_b, norms_sq, q_valid=q_valid)
-    thr1 = thr
-    if cmp in (Cmp.Gt, Cmp.Gte):
-        thr1 = thr - slack_g
-    elif cmp in (Cmp.Lt, Cmp.Lte):
-        thr1 = thr + slack_g
-    thr1 = thr1.reshape(1).to(torch.float32)
-    q_ok = torch.ones(b, device=dev) if q_valid is None else q_valid.to(torch.float32)
-    rmask01 = valid.to(torch.float32)
-    if row_mask is not None:
-        rmask01 = rmask01 * row_mask.to(torch.float32)
-    surv, n_surv = survivor_bins(bin_alive)
+    thr1 = loosened(thr, slack_g, cmp).reshape(1).to(torch.float32)
+    q_ok, rmask01, surv, n_surv = _scan_masks(valid, row_mask, bin_alive, q_valid, b, dev)
     if mode == "K5":
         ops = [q_kern, vectors, inv_norms, norms_sq, rmask01, lane_a, lane_b, q_inv, q_sq,
                q_ok, c0, c1, c2, thr1, surv, n_surv]

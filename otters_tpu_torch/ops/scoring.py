@@ -391,21 +391,45 @@ def cert_row_lanes(metric: Metric, storage_dtype, resid, inv_norms, norms_sq, d:
     raise OttersError(f"certificate does not support metric {metric}")
 
 
-def cert_global_slack(c0, c1, c2, lane_a, lane_b, norms_sq, q_valid=None):
-    """Scalar >= slack(q, row) over every valid (q, row) pair — loosens the
-    score filter so no truly passing row is dropped on its scan score, and
-    is the global term of the direct/scan certificates."""
+def cert_terms(metric: Metric, queries, storage_dtype, resid, inv_norms, norms_sq, d: int):
+    """The certificate terms of ``queries`` against one device's rows ->
+    (qh32, c0, c1, c2, lane_a, lane_b): :func:`cert_query_coeffs`' and
+    :func:`cert_row_lanes`'."""
+    return (*cert_query_coeffs(metric, queries, d),
+            *cert_row_lanes(metric, storage_dtype, resid, inv_norms, norms_sq, d))
+
+
+def cert_maxima(c0, c1, c2, lane_a, lane_b, norms_sq, q_valid=None):
+    """-> the six maxima of the terms (valid queries only), in
+    :func:`cert_slack`'s order: c0, c1, lane_a, c2, norms_sq, lane_b."""
     if q_valid is not None:
         c0 = torch.where(q_valid, c0, 0.0)
         c1 = torch.where(q_valid, c1, 0.0)
         c2 = torch.where(q_valid, c2, 0.0)
-    vn_max = torch.sqrt(norms_sq.max())
-    return (
-        c0.max()
-        + c1.max() * lane_a.max()
-        + c2.max() * vn_max
-        + lane_b.max()
-    )
+    return c0.max(), c1.max(), lane_a.max(), c2.max(), norms_sq.max(), lane_b.max()
+
+
+def cert_slack(c0, c1, lane_a, c2, norms_sq, lane_b):
+    """The certificate's slack from the maxima of its terms (one device's,
+    or a mesh's composed): >= slack(q, row) over every pair they cover."""
+    return c0 + c1 * lane_a + c2 * torch.sqrt(norms_sq) + lane_b
+
+
+def cert_global_slack(c0, c1, c2, lane_a, lane_b, norms_sq, q_valid=None):
+    """Scalar >= slack(q, row) over every valid (q, row) pair — loosens the
+    score filter so no truly passing row is dropped on its scan score, and
+    is the global term of the direct/scan certificates."""
+    return cert_slack(*cert_maxima(c0, c1, c2, lane_a, lane_b, norms_sq, q_valid))
+
+
+def loosened(thr, slack, cmp: Optional[Cmp]):
+    """The score filter's threshold moved by ``slack`` toward passing, so no
+    row that truly passes fails on an approximate score."""
+    if cmp in (Cmp.Gt, Cmp.Gte):
+        return thr - slack
+    if cmp in (Cmp.Lt, Cmp.Lte):
+        return thr + slack
+    return thr
 
 
 def materialize_from_device(vecs: torch.Tensor, n_valid: Optional[int] = None,

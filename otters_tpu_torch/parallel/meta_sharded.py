@@ -9,7 +9,8 @@ column) in mesh order, the program the JAX package's ``local_fn`` runs:
 
     local zonemap chunk mask  ->  local row mask  ->  local exact top-k
 
-on the shard's device (the fused Hopper kernel of ``ops/fused_topk.py``
+on the shard's device, as the single store's program
+(``meta._device_program``: the fused Hopper kernel of ``ops/fused_topk.py``
 over the shard's live bins when the shapes qualify, else
 ``scan_pruned_topk_core``, ``direct_topk_core`` or ``panel_topk_core``),
 then composes on the lead device (``mesh.devices[0, 0]`` in one process):
@@ -35,6 +36,7 @@ collective: each process calls them in the same order.
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 from typing import Dict, Optional
@@ -50,14 +52,18 @@ from ..meta import (
     _bloom_on_device,
     _bloom_params,
     _column_state,
+    _device_masks,
+    _device_program,
+    _HostClock,
     _Launch,
     _permute_column,
+    _scalar,
     _sort_permutation,
     _stage_column,
     _zorder_permutation,
 )
 from ..ops import bloom as bloom_ops
-from ..ops import fused_topk, predicate, scoring
+from ..ops import fused_topk, scoring
 from ..ops.scoring import HostCopy
 from ..types import VPU_METRICS, Cmp, CmpOp, Metric
 from ..utils.profiling import span
@@ -304,17 +310,16 @@ class ShardedMetaStore(MetaStore):
             for f in self._dv
         ))
 
-    def _local_cols(self, cols, r: int, c: int) -> Dict[str, Dict[str, torch.Tensor]]:
-        return {name: {key: t.local(r, c) for key, t in colarrs.items()}
-                for name, colarrs in cols.items()}
-
-    def _local_params(self, plan_static, plan_params, r: int, c: int):
-        """A plan's parameters for one shard: sharded params (hostmask
-        masks, the null leaf's chunk lengths) as that shard's block, every
-        other one (thresholds, hashes, Bloom probe coordinates) replicated
-        onto the shard's device."""
+    def _local_plan(self, cols, plan_params, r: int, c: int):
+        """A plan's columns and parameters for one shard -> (cols, params):
+        the columns, and sharded params (hostmask masks, the null leaf's
+        chunk lengths), as that shard's block, every other param
+        (thresholds, hashes, Bloom probe coordinates) replicated onto the
+        shard's device."""
         dev = self.mesh.devices[r, c]
-        return tuple(
+        cols_l = {name: {key: t.local(r, c) for key, t in colarrs.items()}
+                  for name, colarrs in cols.items()}
+        return cols_l, tuple(
             tuple(
                 tuple(p.local(r, c) if isinstance(p, ShardedTensor) else p.to(dev)
                       for p in leaf_params)
@@ -618,135 +623,74 @@ class ShardedMetaStore(MetaStore):
         b_pad = max(n_batch, -(-b // n_batch) * n_batch)
         n_local = n_pad // n_rows_s
         b_local = b_pad // n_batch
-        nc_local = self._chunk_lens.shape[0] // n_rows_s
         k_eff = min(k, b * n_pad)
         k_local = min(k_eff, b_local * n_local)
         with span("otters.submit.plan"):
             launch = self._sharded_launch(plan_static, b_pad, b_local, n_local, k_eff, metric,
                                           take_min, cmp, strict, certify)
-        t_start, mask_s = time.perf_counter(), 0.0
-        tile, fast, certify = launch.tile, launch.fast, launch.certify
+        t_start, shard_clock = time.perf_counter(), _HostClock()
+        if launch.tile == "auto":
+            direct = b_local * n_local <= scoring.DIRECT_LIMIT or n_local % scoring.PANEL_BIN != 0
+            launch = launch._replace(tile="direct" if direct else "panel")
+        certify = launch.certify
         qs = torch.zeros((b_pad, queries.shape[1]), dtype=torch.float32, device=lead)
         qs[:b] = queries.to(lead, torch.float32)
         qv = torch.arange(b_pad, device=lead) < b
-        d = dv.vectors.shape[1]
         programs = mesh.programs()
 
-        def local_queries(r, c):
-            dev = mesh.devices[r, c]
-            sl = slice(c * b_local, (c + 1) * b_local)
-            return qs[sl].to(dev), qv[sl].to(dev)
-
-        maxima, slack_g = {}, None
-        if certify:
-            # the mesh-wide slack: the maxima of every shard's per-query
-            # coefficients (valid queries only) and per-row lanes, composed
-            # once, so it covers every (query, row) pair any shard scanned
-            for r, c in programs:
-                with on_device(mesh.devices[r, c]):
-                    dv_l = self._local_dv(r, c)
-                    q_l, qv_l = local_queries(r, c)
-                    _, c0, c1, c2 = scoring.cert_query_coeffs(metric, q_l, d)
-                    lane_a, lane_b = scoring.cert_row_lanes(
-                        metric, dv_l.vectors.dtype, dv_l.resid, dv_l.inv_norms,
-                        dv_l.norms_sq, d,
-                    )
-                    c0, c1, c2 = (torch.where(qv_l, x, 0.0) for x in (c0, c1, c2))
-                    maxima[(r, c)] = torch.stack([
-                        c0.max(), c1.max(), lane_a.max(), c2.max(), dv_l.norms_sq.max(),
-                        lane_b.max(),
-                    ]).to(lead)
-            if tile != "fused" or not mesh.spans_processes:
-                # the direct / panel scans loosen their filter by it before
-                # they scan (across processes: one all_reduce first); the
-                # fused path needs it only after the merge
-                g = torch.stack(list(maxima.values())).amax(dim=0)
-                if mesh.spans_processes:
-                    g = torch.from_numpy(exchange.all_reduce_max(g.cpu().numpy())).to(lead)
-                slack_g = _slack(g)
-
-        outs = {}
-        kwargs = dict(metric=metric, k=k_local, take_min=take_min, cmp=cmp,
-                      prec=self.precision)
+        shard_in, terms, maxima, slack_g = {}, {}, {}, None
         for r, c in programs:
             dev = mesh.devices[r, c]
             with on_device(dev):
-                dv_l = self._local_dv(r, c)
-                q_l, qv_l = local_queries(r, c)
-                clens = self._chunk_lens.local(r, c)
-                t0 = time.perf_counter()
-                with span("otters.submit.masks"):
-                    if plan_static:
-                        cols_l = self._local_cols(cols_sub, r, c)
-                        params_l = self._local_params(plan_static, plan_params, r, c)
-                        cmask = predicate.chunk_mask(plan_static, params_l, cols_l, nc_local,
-                                                     dev)
-                        ev = cmask.sum(dtype=torch.int32)
-                        re_ = (clens * cmask).sum(dtype=torch.int32)
-                        rmask = predicate.row_mask(plan_static, params_l, cols_l, n_local, dev)
-                    else:
-                        # padded chunks have length 0; count only real ones
-                        ev = (clens > 0).sum(dtype=torch.int32)
-                        re_ = clens.sum(dtype=torch.int32)
-                        rmask = None
-                mask_s += time.perf_counter() - t0
-                thr_l = torch.full((), float(thr), dtype=torch.float32, device=dev)
-                thr_core, q_core = thr_l, q_l
-                if certify and tile != "fused":
-                    # the mixed certified scan: bf16-rounded queries x stored
-                    # rows, the filter loosened by the mesh-wide slack
-                    qh32, _, _, _ = scoring.cert_query_coeffs(metric, q_l, d)
-                    slack = slack_g.to(dev)
-                    if cmp in (Cmp.Gt, Cmp.Gte):
-                        thr_core = thr_l - slack
-                    elif cmp in (Cmp.Lt, Cmp.Lte):
-                        thr_core = thr_l + slack
-                    q_core = qh32.to(torch.bfloat16)
-                args = (dv_l.vectors, dv_l.norms_sq, dv_l.inv_norms, dv_l.valid, q_core,
-                        rmask, thr_core)
-                if tile == "fused":
-                    # the kernel per shard, over the shard's live bins; it
-                    # loosens its filter by its own local slack
-                    if plan_static:
-                        alive = fused_topk.bins_alive_from_chunk_mask(
-                            cmask, self._chunk_size, n_local)
-                    else:
-                        alive = torch.ones(n_local // fused_topk.BIN, dtype=torch.bool,
-                                           device=dev)
-                    rows, scores, ok, check, bound_l = fused_topk.fused_topk(
-                        dv_l.vectors, dv_l.norms_sq, dv_l.inv_norms, dv_l.valid, q_l, rmask,
-                        thr_l, alive, certify=certify, fast=fast,
-                        resid=dv_l.resid if certify else None, q_valid=qv_l, **kwargs,
-                    )
-                elif tile == "scan_pruned":
-                    if plan_static:
-                        alive = scoring.tiles_alive_from_chunk_mask(
-                            cmask, self._chunk_size, n_local, scoring.SCAN_TILE)
-                    else:
-                        alive = torch.ones(n_local // scoring.SCAN_TILE, dtype=torch.bool,
-                                           device=dev)
-                    rows, scores, ok = scoring.scan_pruned_topk_core(
-                        *args, alive, tile=scoring.SCAN_TILE, q_valid=qv_l, **kwargs)
-                    check, bound_l = None, None
-                else:
-                    if b_local * n_local <= scoring.DIRECT_LIMIT or (
-                        n_local % scoring.PANEL_BIN != 0
-                    ):
-                        core = scoring.direct_topk_core
-                    else:
-                        core = scoring.panel_topk_core
-                    rows, scores, ok = core(*args, q_valid=qv_l, **kwargs)
-                    check = None
-                    bound_l = _core_bound(scores, ok, slack_g.to(dev), take_min) if certify \
-                        else None
-                outs[(r, c)] = (rows + r * n_local, scores, ok, check, bound_l, ev, re_)
+                sl = slice(c * b_local, (c + 1) * b_local)
+                dv_l, q_l, qv_l = shard_in[(r, c)] = (
+                    self._local_dv(r, c), qs[sl].to(dev), qv[sl].to(dev))
+                if certify:
+                    # the mesh-wide slack: the maxima of every shard's
+                    # certificate terms (valid queries only), composed once,
+                    # so it covers every (query, row) pair any shard scanned
+                    t = terms[(r, c)] = scoring.cert_terms(
+                        metric, q_l, dv_l.vectors.dtype, dv_l.resid, dv_l.inv_norms,
+                        dv_l.norms_sq, dv_l.vectors.shape[1])
+                    maxima[(r, c)] = torch.stack(scoring.cert_maxima(
+                        *t[1:], dv_l.norms_sq, q_valid=qv_l)).to(lead)
+        if certify and (launch.tile != "fused" or not mesh.spans_processes):
+            # the direct / panel scans loosen their filter by it before they
+            # scan (across processes: one all_reduce first); the fused path
+            # needs it only after the merge
+            g = torch.stack(list(maxima.values())).amax(dim=0)
+            if mesh.spans_processes:
+                g = torch.from_numpy(exchange.all_reduce_max(g.cpu().numpy())).to(lead)
+            slack_g = scoring.cert_slack(*g)
+
+        outs = {}
+        for r, c in programs:
+            dev = mesh.devices[r, c]
+            dv_l, q_l, qv_l = shard_in[(r, c)]
+            with on_device(dev):
+                # the single store's program on the shard's rows; the fused
+                # kernel loosens its filter by its own local slack
+                rows, scores, ok, check, bound, ev, re_ = _device_program(
+                    dv_l, self._chunk_lens.local(r, c), self._chunk_size, cols_sub,
+                    plan_static, plan_params, q_l, _scalar(float(thr), torch.float32, dev),
+                    launch, metric=metric, k=k_local, take_min=take_min, cmp=cmp,
+                    prec=self.precision, q_valid=qv_l,
+                    mesh_cert=(terms[(r, c)], slack_g.to(dev))
+                    if certify and launch.tile != "fused" else None,
+                    local_plan=functools.partial(self._local_plan, r=r, c=c),
+                    clock=shard_clock)
+                if launch.tile != "fused":
+                    # the scans return no check, and a bound only certified
+                    check, bound = None, bound if certify else None
+                outs[(r, c)] = (rows + r * n_local, scores, ok, check, bound, ev, re_)
 
         def compose(outs, slack_g):
             """Every program's outputs, composed on the lead device in mesh
             order (rows-major over (rows, batch)), JAX's all_gather layout."""
             order = sorted(outs)
             if certify and slack_g is None:
-                slack_g = _slack(torch.stack([maxima[rc] for rc in order]).amax(dim=0))
+                slack_g = scoring.cert_slack(*torch.stack([maxima[rc] for rc in order])
+                                             .amax(dim=0))
             # one failed fast-exact check fails the merge (the caller redoes it)
             checks = [outs[rc][3].to(lead) for rc in order if outs[rc][3] is not None]
             check_g = (torch.stack(checks).all() if checks
@@ -774,8 +718,8 @@ class ShardedMetaStore(MetaStore):
             out = (compose(outs, slack_g) if not mesh.spans_processes else
                    _exchange_programs(mesh, outs, maxima if certify else None, slack_g, compose))
         if clock is not None:
-            clock.prune += mask_s
-            clock.score += time.perf_counter() - t_start - mask_s
+            clock.prune += shard_clock.prune
+            clock.score += time.perf_counter() - t_start - shard_clock.prune
         return out
 
     def _run_exact_mask_query(self, queries, exact_mask, metric, k, take_min, cmp, thr):
@@ -829,7 +773,6 @@ class ShardedMetaStore(MetaStore):
         mesh = self.mesh
         n_rows_s = mesh.shape["rows"]
         n_loc = n_pad // n_rows_s
-        nc_loc = self._chunk_lens.shape[0] // n_rows_s
         k_r_g = min(k_eff, b * n_loc)
         if mesh.spans_processes and n_rows_s * k_r_g > (1 << 27):
             # the cross-process merge replicates every shard's candidate
@@ -853,12 +796,10 @@ class ShardedMetaStore(MetaStore):
                                             dv_l.valid)
                 rmask = ev = re_ = None
                 if plan_static:
-                    cols_l = self._local_cols(cols_sub, r, 0)
-                    params_l = self._local_params(plan_static, plan_params, r, 0)
-                    cmask = predicate.chunk_mask(plan_static, params_l, cols_l, nc_loc, dev)
-                    rmask = predicate.row_mask(plan_static, params_l, cols_l, n_loc, dev)
-                    ev = cmask.sum(dtype=torch.int32)
-                    re_ = (self._chunk_lens.local(r, 0) * cmask).sum(dtype=torch.int32)
+                    ev, re_, rmask, _ = _device_masks(
+                        dv_loc, self._chunk_lens.local(r, 0), self._chunk_size, cols_sub,
+                        plan_static, plan_params,
+                        local_plan=functools.partial(self._local_plan, r=r, c=0))
                 blocks.append((r * n_loc, dev, dv_loc, rmask, ev, re_))
         k_per = [min(k_eff, b * n_loc) for _ in blocks]
         total = int(np.sum(k_per, dtype=np.int64))
@@ -900,15 +841,6 @@ class ShardedMetaStore(MetaStore):
                 np.float32(-np.inf), ev_total, re_total)
 
 
-def _core_bound(scores, ok, slack_g, take_min=False):
-    """A shard's certificate bound on the direct / panel programs: the k-th
-    local scan key (negated score for take_min) + the mesh-wide slack
-    covers every local row not returned (an exact local top-k); an invalid
-    k-th slot means every passing local row was returned."""
-    kth = -scores[-1] if take_min else scores[-1]
-    return torch.where(ok[-1], kth + slack_g, _NEG_INF)
-
-
 def _merge_take_all(mesh: Mesh, blocks, k_per, n_loc, k_r_g, lists, ev_total, re_total):
     """The take-all's cross-process merge: this process's candidate lists
     (key, flat tie index, row, score, ok) placed at their shards' global
@@ -934,11 +866,6 @@ def _merge_take_all(mesh: Mesh, blocks, k_per, n_loc, k_r_g, lists, ev_total, re
             o += a.nbytes
     tot = np.sum(merged[-1], axis=0, dtype=np.int64)
     return (*(np.concatenate(m) for m in merged[:-1]), np.int32(tot[0]), np.int32(tot[1]))
-
-
-def _slack(g: torch.Tensor) -> torch.Tensor:
-    """The certificate's mesh-wide slack from the six composed maxima."""
-    return g[0] + g[1] * g[2] + g[3] * torch.sqrt(g[4]) + g[5]
 
 
 def _exchange_programs(mesh: Mesh, outs, maxima, slack_g, compose):

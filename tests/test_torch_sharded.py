@@ -588,3 +588,130 @@ def test_sharded_tensor_slices_and_replicas_keep_the_row_stride():
     copy = shards._copy_to(rows[4:], torch.device("cpu"))
     assert copy.stride(0) == rows.stride(0) == 32 and torch.equal(copy, rows[4:])
     assert st.local(1, 1) is st.shards[1]  # the same device: no copy
+
+
+# ---------------------------------------------------------------------------
+# The per-shard program against the single store's (the port alone)
+# ---------------------------------------------------------------------------
+
+# (storage, metric, the shard's tile, certified, fast-exact); the fused
+# tiles run the plain kernels, "panel" is where the fused kernel refuses
+PROGRAM_CASES = {
+    "fused-int8-cosine-cert": ("int8", "Cosine", "fused", True, False),
+    "fused-bf16-euclid-cert": ("bfloat16", "Euclidean", "fused", True, False),
+    "fused-f32-fast": ("float32", "Cosine", "fused", False, True),
+    "direct-int8-cosine-cert": ("int8", "Cosine", "direct", True, False),
+    "panel-bf16-dot-cert": ("bfloat16", "DotProduct", "panel", True, False),
+    "scan_pruned-manhattan": ("float32", "Manhattan", "scan_pruned", False, False),
+}
+
+
+def _program_stores(storage, metric, rows):
+    """(single-device store, store on a ``rows`` x 1 mesh) of the same rows
+    and columns: whole 1024-row chunks on whole 8192-row scan tiles, so both
+    pad alike; a price column whose odd chunks (or, for the pruned scan,
+    odd scan tiles) hold 50-59 and the others 0-9."""
+    from otters_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(41)
+    vpu = metric == "Manhattan"
+    n, d, run = (65536, 8, 8192) if vpu else (32768, 16, 1024)
+    vecs = (rng.integers(0, 4, size=(n, d)) if vpu else rng.normal(size=(n, d)))
+    vecs = vecs.astype(np.float32)
+    price = (np.arange(n) // run % 2 * 50 + np.arange(n) % 10).astype(np.float32)
+    b = (tx.MetaStore.from_columns(columns(tx, [("price", "Float32", price)]))
+         .with_vectors(vecs).with_chunk_size(1024).with_storage_dtype(storage)
+         .with_rerank_source(keep_host_f32=True))
+    mesh = make_mesh(rows=rows, batch=1, devices=["cpu"] * rows)
+    q = (rng.integers(0, 4, size=(3, d)) if vpu else rng.normal(size=(3, d)))
+    return b.with_device("cpu").build(), b.build_sharded(mesh), q.astype(np.float32)
+
+
+def _lowered(store, q, metric, flt):
+    """A filtered query's device inputs -> (cols, plan_static, plan_params,
+    queries)."""
+    plan = _plan(store, tx, q, metric, flt)
+    static, params, used = plan._lower_plan()
+    return {nm: store._device_cols[nm] for nm in used}, static, params, plan._device_queries()
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("case", list(PROGRAM_CASES))
+def test_shard_runs_the_single_stores_program(case, rows, monkeypatch):
+    """Each shard runs the single store's program: on a one-shard mesh its
+    outputs (rows, scores, ok, check, bound and the pruning counts) are the
+    single store's bit for bit, with the mesh-wide slack in the direct /
+    panel programs' place; on two shards the answers and statistics are
+    the single store's."""
+    from otters_tpu_torch import meta
+    from otters_tpu_torch.parallel import meta_sharded
+
+    storage, metric, tile, certify, fast = PROGRAM_CASES[case]
+    if tile != "direct":
+        use_fused_path(monkeypatch)
+    if tile == "panel":
+        monkeypatch.setenv("OTTERS_DISABLE_PALLAS", "1")
+    single, sharded, q = _program_stores(storage, metric, rows)
+    calls = []
+
+    def spy(*a, **kw):
+        out = meta._device_program(*a, **kw)
+        calls.append((a, kw, out))
+        return out
+
+    monkeypatch.setattr(meta_sharded, "_device_program", spy)
+    flt = lambda p: p.col("price").lt(10.0)  # noqa: E731
+    take = dict(k=10, rerank_from=40) if certify else dict(k=10)
+    for f in (flt, None) if tile != "scan_pruned" else (flt,):
+        rs, rm = (_plan(s, tx, q, metric, f).take(**take).collect() for s in (single, sharded))
+        assert_same_metric(rs, rm, single, sharded, metric)
+        assert (sharded.last_query_stats().certified is True) == certify
+    launch = calls[0][0][8]
+    assert (launch.tile, launch.certify, launch.fast) == (tile, certify, fast)
+    assert len(calls) % rows == 0 and all(c[0][8] == launch for c in calls)
+    if rows > 1:
+        return
+    # one shard: its program's outputs are the single store's own
+    take_min = metric == "Euclidean"
+    thr, cmp = (0.5, tx.Cmp.Gt) if not take_min else (40.0, tx.Cmp.Lt)
+    if metric == "Manhattan":
+        thr, cmp = 30.0, tx.Cmp.Lt
+        take_min = True
+    cols_m, static_m, params_m, queries = _lowered(sharded, q, metric, flt)
+    sharded._run_query_program(cols_m, queries, params_m, thr, static_m,
+                               getattr(tx.Metric, metric), 10, take_min, cmp, certify=certify)
+    a, kw, shard_out = calls[-1]
+    # the direct / panel programs take the mesh-wide slack, the kernel its own
+    assert a[8] == launch and (kw["mesh_cert"] is not None) == (certify and tile != "fused")
+    cols_1, static_1, params_1, _ = _lowered(single, q, metric, flt)
+    kw = {key: kw[key] for key in ("metric", "k", "take_min", "cmp", "prec")}
+    single_out = meta._device_program(single._dv, single._chunk_lens, single._chunk_size,
+                                      cols_1, static_1, params_1, queries, a[7], launch, **kw)
+    assert len(shard_out) == len(single_out) == 7
+    for got, want in zip(shard_out, single_out):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("with_q_valid", [False, True], ids=["all", "q_valid"])
+def test_global_slack_is_the_slack_of_the_six_maxima(with_q_valid):
+    """``cert_global_slack`` (a single device's, the maxima as scalars) and
+    the mesh's slack (each device's six maxima stacked, composed by amax)
+    are one formula, bit for bit; the masked queries count for nothing."""
+    from otters_tpu_torch.ops import scoring as tsc
+
+    rng = np.random.default_rng(5)
+    vecs = rng.normal(size=(300, 24)).astype(np.float32) * 3
+    dv = tsc.materialize(vecs, torch.bfloat16, device="cpu")
+    q = torch.from_numpy(rng.normal(size=(6, dv.vectors.shape[1])).astype(np.float32))
+    q_valid = torch.tensor([True, False, True, True, False, True]) if with_q_valid else None
+    t = tsc.cert_terms(tx.Metric.Euclidean, q, dv.vectors.dtype, dv.resid, dv.inv_norms,
+                       dv.norms_sq, dv.vectors.shape[1])
+    assert all(float(x.max()) > 0 for x in t[1:])
+    single = tsc.cert_global_slack(*t[1:], dv.norms_sq, q_valid=q_valid)
+    maxima = torch.stack(tsc.cert_maxima(*t[1:], dv.norms_sq, q_valid=q_valid))
+    mesh = tsc.cert_slack(*torch.stack([maxima, torch.zeros(6)]).amax(dim=0))
+    assert torch.equal(single, mesh)
+    keep = slice(None) if q_valid is None else q_valid
+    c0, c1, c2 = (x[keep].max() for x in t[1:4])
+    want = c0 + c1 * t[4].max() + c2 * torch.sqrt(dv.norms_sq.max()) + t[5].max()
+    assert torch.equal(single, want)
