@@ -325,6 +325,9 @@ def rows_alive(chunk_mask, n_pad):
 
 
 CERT_MODES = ("K1", "K1-bf16", "K5")  # the certified scans
+# K1's kernels for the profiler: cert_cos_binmax_kernel, and over int8 rows
+# at more than one query block cert_cos_binmax_pair_kernel
+K1_SCAN = "cert_cos_binmax"
 # the kernel names of the uncertified scans on the Hopper scan, for the
 # profiler (K4 over f32 rows on the exact f32 path, the others on the bf16
 # store's paths); K4's matches both its plans' kernels, bf16x3_binmax_sm90_kernel
@@ -871,7 +874,7 @@ def main_path(torch, dev, n, card=""):
         checked += q.shape[0]
     log(f"exact f32 ground truth: top-{K} equal for {checked} queries "
         f"({BATCHES} batches of {B} + one of 32)")
-    prof = profile_batches(torch, pending, batches, "cert_cos_binmax_kernel")
+    prof = profile_batches(torch, pending, batches, K1_SCAN)
     stats = {"qps": qps, "qps_rounds": rounds, "build_s": build_s, "synth_s": synth_s,
              "launches": launches, "scan_k_wide": pend[-1].stats().scan_k_wide,
              "profile": prof}
@@ -1050,7 +1053,7 @@ def sharded_phase(torch, dev, f32, batches, truths, main_qps, card):
         assert st.pruned_chunks == (n_chunks + 1) // 2, f"4p (a) batch {i}: {st}"
         assert st.evaluated_chunks == n_chunks - st.pruned_chunks, st
         assert sorted(res.indices) == sorted(gt), (i, res.indices, gt)
-    prof = profile_batches(torch, pending, batches, "cert_cos_binmax_kernel")
+    prof = profile_batches(torch, pending, batches, K1_SCAN)
     merge = merge_ms(torch, mesh, B, K_WIDE)
     log(f"4p (a) K1 per shard launch {prof['scan_ms_per_batch'] / 4:.3f} ms, the merge "
         f"{merge:.3f} ms a batch, idle share {prof['idle_share']:.3f}")
@@ -1289,7 +1292,7 @@ def pm_run(rank, port, f32, batches_np, truths, path):
         assert st.certified is True, f"4pm batch {i} not certified: {st}"
         assert st.pruned_chunks == (n_chunks + 1) // 2, f"4pm batch {i}: {st}"
         assert sorted(res.indices) == sorted(gt), (i, res.indices, gt)
-    prof = profile_batches(torch, pending, batches, "cert_cos_binmax_kernel")
+    prof = profile_batches(torch, pending, batches, K1_SCAN)
     out["a"] = {"qps": qps, "qps_rounds": rounds, "build_s": build_s, "launches": launched["K1"],
                 "exchange_calls_per_batch": ex_calls, "exchange_ms_per_batch": ex_ms,
                 "profile": prof, "k1_ms_per_shard_launch": prof["scan_ms_per_batch"] / 2,
@@ -1586,7 +1589,7 @@ def string_phase(torch, dev, f32, dv8, card=""):
         f"pruned {n_chunks - live_chunks} of {n_chunks} chunks")
     prof = None
     if dev.type == "cuda":
-        prof = profile_batches(torch, pending, batches, "cert_cos_binmax_kernel")
+        prof = profile_batches(torch, pending, batches, K1_SCAN)
     return store, {
         "ingest_s": bs.vectors_ingest_duration, "build_s": build_s, "bloom_host_s": host_s,
         "bloom_device_s": statistics.median(dev_times), "hash_s": hash_s,
@@ -1706,7 +1709,7 @@ def life_strings(torch, dev, store, f32, batches, card):
         verify_ms = (time.perf_counter() - t0) * 1e3
         prof = None
         if dev.type == "cuda":
-            prof = profile_batches(torch, pending, batches, "cert_cos_binmax_kernel")
+            prof = profile_batches(torch, pending, batches, K1_SCAN)
         log(f"4m (a) {name}: cold hostmask {scan_s:.3f} s (scan + masks); {BATCHES} pipelined "
             f"batches of {B}, {PATH_ROUNDS} rounds: {', '.join(f'{r:.1f}' for r in rounds)} q/s, "
             f"median {qps:.1f} q/s on {card}; K1 launches {launches}; {n_chunks - live} of "
@@ -2028,9 +2031,9 @@ def split_phase(torch, dev):
 
     n, d = SPLIT_ROWS, SPLIT_D
     for mode in ("K1-bf16", "K5", "K6-bf16"):
-        plan = ft.sm90_plan(mode, d)
+        plan = ft.sm90_plan(mode, d, 1)
         assert plan.split, f"{mode} at d = {d}: {plan} is not the split plan"
-        log(f"{mode} at d = {d}: {plan}, {ft.kernel_smem_bytes(mode, d)} B of shared memory")
+        log(f"{mode} at d = {d}: {plan}, {ft.kernel_smem_bytes(mode, d, 1)} B of shared memory")
     g = torch.Generator(device=dev).manual_seed(SEED + 22)
     f32 = torch.zeros((sc.pad_rows(n), d), device=dev)
     for s in range(0, n, SLAB):
@@ -3239,7 +3242,7 @@ def depth_phase(torch, dev):
                 args = mode_inputs(mode, dv, q[:b], chunk_mask, metric=metric)
                 e, tol = compare_mode(mode, args, metric)
                 log(f"d={d} {mode} vs plain ({n} rows, b={b}, plan "
-                    f"{tuple(ft.sm90_plan(mode, sc.pad_depth(d)))}): max_abs_err={e:.3e} "
+                    f"{tuple(ft.sm90_plan(mode, sc.pad_depth(d), b))}): max_abs_err={e:.3e} "
                     f"tol={tol:.3e}")
         if d != DEPTH_K2:
             del dvb, dvf

@@ -10,7 +10,7 @@ there loads them and compiles nothing (``stats``: ``disk_hits`` against
 ``compiles``).
 
 A *program* of the port is the launch decision a query shape takes (its
-scan tile, fast-exact and certified modes, the kernel and its Hopper plan)
+scan tile, fast-exact and certified modes and the kernel)
 with the libraries it needs loaded or built. ``MetaStore`` and
 ``ShardedMetaStore`` key it by :func:`signature` and keep it in the
 in-memory table ``_mem`` (``lookup`` / ``load_or_compile``); the store's

@@ -33,6 +33,13 @@
 // = 1,296-1,536 the split plan keeps 4 such stages by holding only the
 // first 8 query k-blocks resident. Over int8 rows the
 // products are f16 when the query block allows it (the scan's note).
+// Over int8 rows at more than one query block the entry
+// cert_cos_binmax_pair takes the pair plan instead (sm90::scan_pair_s8,
+// cert_cos_binmax_pair_kernel): 128 queries a CTA, 256-row stages that
+// both warpgroups share beside the resident head of the pair's query
+// block, m64n128k16 products, each row converted once per pair; the
+// caller has already rewritten each pair to f16 where the rule allows
+// (cert_cos_binmax_f16_queries, cert_cos_binmax_f16_queries_kernel).
 //
 // Bound at the main path's shapes (10M x 768 int8 store, 256 queries, half
 // of the 1024-row chunks pruned): about 5.0M live rows x 768 B = 3.84 GB,
@@ -98,6 +105,78 @@ __global__ void __launch_bounds__(sm90::THREADS, 1) cert_cos_binmax_kernel(
     sm90::scan<RowT, NSIDE, KS, TM, STREAM>(&qmap, &vmap, a, make_key);
 }
 
+// The f16 rule of sm90::queries_to_f16 (sm90::f16_scale, bf16x2_to_f16)
+// for the pair plan, applied to the caller's padded, permuted bf16 queries
+// q [n_groups * 128, dq] in place: CTA c takes group c, a warp a query at
+// a time. The group takes f16 (flags[c] = 1) if every query is ok and
+// every element comes back exactly, and is then rewritten as f16(x 2^s);
+// unscale[q] = 2^-s (1 for a query that is not ok).
+// ops/fused_topk.py::f16_queries is the plain version.
+__global__ void __launch_bounds__(256) cert_cos_binmax_f16_queries_kernel(
+    uint32_t* __restrict__ q, float* __restrict__ unscale, int* __restrict__ flags, int dq)
+{
+    constexpr int G = sm90::PAIR_Q;
+    __shared__ float up_s[G], down_s[G];
+    __shared__ int all_ok;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int words = dq / 2;  // bf16 pairs a query
+    uint32_t* qg = q + (size_t)blockIdx.x * G * words;
+    if (threadIdx.x == 0) all_ok = 1;
+    __syncthreads();
+    for (int r = warp; r < G; r += 8) {
+        uint32_t m = 0;
+        for (int k = lane; k < words; k += 32) m = sm90::bf16x2_absmax(m, qg[(size_t)r * words + k]);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+        const sm90::F16Scale sc = sm90::f16_scale(m);
+        if (lane == 0) {
+            up_s[r] = sc.up;
+            down_s[r] = sc.down;
+            if (!sc.ok) all_ok = 0;
+        }
+    }
+    __syncthreads();
+    bool good = true;
+    for (int r = warp; r < G; r += 8)
+        for (int k = lane; k < words; k += 32)
+            sm90::bf16x2_to_f16(qg[(size_t)r * words + k], up_s[r], down_s[r], good);
+    const bool f16 = __syncthreads_and(good) && all_ok;
+    if (f16)
+        for (int r = warp; r < G; r += 8)
+            for (int k = lane; k < words; k += 32) {
+                uint32_t& w = qg[(size_t)r * words + k];
+                w = sm90::bf16x2_to_f16(w, up_s[r], down_s[r], good);
+            }
+    if (threadIdx.x < G) unscale[(size_t)blockIdx.x * G + threadIdx.x] = down_s[threadIdx.x];
+    if (threadIdx.x == 0) flags[blockIdx.x] = f16;
+}
+
+// the pair plan over int8 rows (sm90::scan_pair_s8): 128 queries a CTA,
+// rewritten by the caller to f16 where f16[pair] is 1
+__global__ void __launch_bounds__(sm90::THREADS, 1) cert_cos_binmax_pair_kernel(
+    const __grid_constant__ CUtensorMap qmap,  // [bq, dq] f16 or bf16 queries, 128 a pair
+    const __grid_constant__ CUtensorMap vmap,  // [n_pad, d] int8 rows
+    const sm90::ScanArgs a,                    // side = {inv, rmask, lane_a}; n_qb = n_qp
+    const float* __restrict__ q_inv,           // [bq]
+    const float* __restrict__ q_ok,            // [bq] 0/1
+    const float* __restrict__ unscale,         // [bq] 2^-s of the f16 queries
+    const int* __restrict__ f16,               // [n_qp] 1: the pair's queries are f16
+    const float* __restrict__ thr,             // [1]
+    int cmp)                                   // 0 none, 1 Gt, 2 Gte
+{
+    float t = cmp == 0 ? -INFINITY : *thr;  // as in cert_cos_binmax_kernel
+    if (cmp == 1) t = t == INFINITY ? __int_as_float(0x7fc00000) : nextafterf(t, INFINITY);
+    const auto make_key = [&](int q0, const int (&cols)[16]) {
+        CosKey k;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+            k.qi[j] = q_ok[q0 + cols[j]] > 0.f ? q_inv[q0 + cols[j]] : __int_as_float(0x7fc00000);
+        k.t = t;
+        return k;
+    };
+    sm90::scan_pair_s8<NSIDE>(&qmap, &vmap, a, make_key, unscale, f16);
+}
+
 // The stage shapes (sm90::with_plan): int8 rows take 2 k-blocks of 128 rows
 // a stage (each warpgroup converts and multiplies 16 products between two
 // barrier waits), bf16 rows one k-block of 256 rows (the 256-row box keeps
@@ -153,6 +232,43 @@ extern "C" size_t cert_cos_binmax_smem_bytes(int d) { return smem_for<int8_t>(d)
 extern "C" size_t cert_cos_binmax_bf16_smem_bytes(int d) { return smem_for<__nv_bfloat16>(d); }
 extern "C" int cert_cos_binmax_stages(int d) { return stages_of<int8_t>(d); }
 extern "C" int cert_cos_binmax_bf16_stages(int d) { return stages_of<__nv_bfloat16>(d); }
+// the pair plan over int8 rows (the head of the query block resident:
+// sm90::pair_s8_resident)
+extern "C" size_t cert_cos_binmax_pair_smem_bytes(int d) {
+    return sm90::PairShape<int8_t>::smem(d);
+}
+extern "C" int cert_cos_binmax_pair_stages(int d) { return sm90::PairShape<int8_t>::stages(d); }
+
+// the f16 rule on the card: q [n_groups * 128, dq] bf16, rewritten in place
+extern "C" int cert_cos_binmax_f16_queries(void* q, void* unscale, void* flags, int n_groups,
+                                           int dq, void* stream)
+{
+    if (n_groups < 1 || dq < 2 || dq % 2) return (int)cudaErrorInvalidValue;
+    cert_cos_binmax_f16_queries_kernel<<<n_groups, 256, 0, (cudaStream_t)stream>>>(
+        (uint32_t*)q, (float*)unscale, (int*)flags, dq);
+    return (int)cudaGetLastError();
+}
+
+// q: [n_qp * 128, dq] 16-bit queries, pair c f16 (scaled by 2^s, unscale
+// holding 2^-s) where f16[c] is 1, else bf16; n_qp = ceil(n_qb / 2)
+extern "C" int cert_cos_binmax_pair_launch(
+    const void* q, const void* v, const void* inv, const void* rmask,
+    const void* lane_a, const void* q_inv, const void* q_ok, const void* unscale,
+    const void* f16, const void* thr, const void* surv, const void* n_surv, void* out,
+    int n_bins, int d, int b, int dq, int n_qb, int per_group, int cmp, void* stream)
+{
+    const float* side[3] = {(const float*)inv, (const float*)rmask, (const float*)lane_a};
+    const auto launch_fn = [&](auto kernel, dim3 grid, size_t smem, const CUtensorMap& qmap,
+                               const CUtensorMap& vmap, const sm90::ScanArgs& a) {
+        kernel<<<grid, sm90::THREADS, smem, (cudaStream_t)stream>>>(
+            qmap, vmap, a, (const float*)q_inv, (const float*)q_ok, (const float*)unscale,
+            (const int*)f16, (const float*)thr, cmp);
+    };
+    return sm90::launch_pair<int8_t>(cert_cos_binmax_pair_kernel, launch_fn, q, v, side, 3,
+                                     surv, n_surv, out, n_bins, d, b, dq, (n_qb + 1) / 2,
+                                     per_group);
+}
+
 extern "C" int cert_cos_binmax_launch(
     const void* q, const void* v, const void* inv, const void* rmask,
     const void* lane_a, const void* q_inv, const void* q_ok, const void* thr,

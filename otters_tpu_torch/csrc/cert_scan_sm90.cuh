@@ -17,7 +17,8 @@
 // general certified fold), K6 over f32 and bf16 rows (csrc/bf16_binmax.cu,
 // one bf16 pass), K4 (csrc/bf16x3_binmax.cu, bf16x3) over bf16 rows (the
 // rows' low plane is 0: two query planes) and over f32 rows (scan_pair:
-// two row planes split in registers, 128 queries a CTA), and the
+// two row planes split in registers, 128 queries a CTA), K1 over int8 rows
+// at more than one query block (scan_pair_s8: 128 queries a CTA), and the
 // profiling probes of
 // csrc/profile_probes.cu (k_planes: bf16x3 over two bf16 row arrays;
 // k_mm and k_mm_bins: exact f32 over f32 rows; the raw dot as the key, no
@@ -81,6 +82,34 @@
 //   split fragments, about 200 of 232; ptxas spills nothing. The key runs
 //   after each 128-row sub-tile, then a shuffle reduce-scatter leaves each
 //   lane the running max of 4 queries.
+// - The pair plan over int8 rows (scan_pair_s8; K1 at more than one query
+//   block, ops/fused_topk.py::K1_PAIR_FROM): as above, a CTA of 128
+//   queries on a pair of blocks; a stage is one 64-deep k-block of 256
+//   int8 rows (16 KB, plain) and, past the resident head, the pair's query
+//   k-block (16 KB); the first R query k-blocks of the pair stay resident
+//   (16 KB each, the largest R that leaves 4 stages: R = 6 from d = 384,
+//   so 4 stages at d = 768, 231,504 B). Both warpgroups take every stage,
+//   warpgroup w rows 128 w .. 128 w + 127 as two m-blocks by all 128
+//   queries. Each row is converted to f16 (or bf16) once per pair, twice
+//   per 256-query request (the 64-query plan converted it four times), and
+//   SM-side traffic per (row, query) pair and 64-deep k-block is 0.5 B of
+//   rows (64 B over 128 queries) plus 0.5 B of queries (128 B over 256
+//   rows) on the streamed depth steps only: 0.75 B at d = 768 (the 64-query
+//   plan moved 1.0 B: a row's 64 B over 64 queries). A group is one
+//   m-block's four m64n128k16 products of one k-block, from registers; the
+//   next group's fragment is converted into the other of two 16-register
+//   buffers while the current group runs, and a warpgroup waits only for
+//   the older group (wait_group 1) before it reuses that buffer or releases
+//   a stage. A thread holds 2 x 64 running sums, 2 x 16 fragment registers
+//   and 12 of side data; the code reaches R228 of setmaxnreg's 232 and
+//   ptxas spills nothing (256-row stages with the fragments of two whole
+//   k-blocks spilled 192-260 bytes; 128-row stages, 1.5 B a pair with the
+//   queries streamed, measured slower: PERF.md). The queries arrive rewritten: the
+//   caller applies queries_to_f16's rule to each pair (ops/fused_topk.py::
+//   f16_queries, on the card csrc/cert_cos_binmax.cu's
+//   cert_cos_binmax_f16_queries_kernel) and passes the f16 (or bf16) pair, its
+//   per-query 2^-s and a flag per pair; the sums are unscaled before the
+//   key, as in scan.
 // - Deep rows (the streamed plan): when the resident query block (8 KB per
 //   k-block and plane) would leave fewer than two ring stages, or always
 //   for a kernel with no resident plan (K3, K4, the probes), no query block
@@ -150,7 +179,9 @@
 //   queries times 2^s, and each dot is multiplied by 2^-s (exact) before
 //   the key. A block with a query whose magnitudes span more than f16's
 //   range stays bf16 and converts the rows to bf16; so does the streamed
-//   plan, which holds no whole query block to rewrite.
+//   plan, which holds no whole query block to rewrite. The pair plan takes
+//   the same rule per pair from the caller (it streams its queries, which
+//   cannot be rewritten in place): a pair is f16 if both of its blocks are.
 // - The epilogue stays in registers: the rows' side data is read from
 //   global memory (__ldg) when a sub-tile starts and first used after its
 //   products; the key folds each accumulator into a running per-query max;
@@ -181,9 +212,12 @@
 // - The f16 rewrite of the queries is a generic-proxy store into memory
 //   that wgmma reads through the async proxy: a proxy fence and a barrier
 //   stand between them.
-// - Register hazards of asynchronous wgmma: each stage's products complete
-//   (wgmma.wait_group 0) before its fragment and accumulator registers are
-//   touched again; the overlap comes from the other warpgroup.
+// - Register hazards of asynchronous wgmma: in scan each stage's products
+//   complete (wgmma.wait_group 0) before its fragment and accumulator
+//   registers are touched again, and the overlap comes from the other
+//   warpgroup; the pair plans keep two fragment buffers and wait for the
+//   older group only, so that a buffer is rewritten after its group is
+//   complete.
 // - Register pressure with two row planes over f32 rows: the running and
 //   partial accumulators and both A planes of every m-block live across a
 //   k-block. The pair plan holds one m-block by 128 queries and the split
@@ -389,10 +423,15 @@ size_t plan_smem(int d) {
 // scales and the flag unused), and the barriers; the most stages that fit
 // (3), odd or even: every stage serves both warpgroups, so no waiter can
 // be a lap ahead of its barrier.
+// Over int8 rows (K1, scan_pair_s8) a stage holds one 64-deep k-block of
+// PAIR_S8_ROWS int8 rows (plain, 64 B a row) and the pair's bf16 or f16
+// query k-block (16 KB): 24 KB, 9 stages.
 constexpr int PAIR_Q = 2 * QB;  // queries of a CTA
 constexpr int PAIR_ROWS = 128;  // rows of a stage, 64 for each warpgroup
 constexpr int PAIR_STAGE = PAIR_ROWS * TK * 4 + 2 * PAIR_Q * TK * 2;
 constexpr int PAIR_RED_BYTES = 2 * PAIR_Q * 4 + 8;
+constexpr int PAIR_S8_ROWS = 256;  // rows of an int8 stage, 128 for each warpgroup
+constexpr int PAIR_S8_STAGE = PAIR_S8_ROWS * TK + PAIR_Q * TK * 2;
 
 __host__ __device__ constexpr size_t pair_smem_bytes(int stages) {
     return 1024 + (size_t)stages * PAIR_STAGE + PAIR_RED_BYTES + (size_t)(2 * stages + 1) * 8;
@@ -400,6 +439,28 @@ __host__ __device__ constexpr size_t pair_smem_bytes(int stages) {
 __host__ __device__ constexpr int pair_stages() {
     int s = MAX_STAGES;
     while (s > 2 && pair_smem_bytes(s) > SMEM_LIMIT) --s;
+    return s;
+}
+
+// Over int8 rows the head of the pair's query block stays resident: R
+// k-blocks of 16 KB before the ring (the largest R <= nk that leaves
+// PAIR_S8_MIN_STAGES stages), then as many stages as fit; the stages carry
+// the query k-blocks of depth steps >= R.
+constexpr int PAIR_S8_QBLOCK = PAIR_Q * TK * 2;
+constexpr int PAIR_S8_MIN_STAGES = 4;
+__host__ __device__ constexpr size_t pair_s8_smem_bytes(int stages, int resident) {
+    return 1024 + (size_t)resident * PAIR_S8_QBLOCK + (size_t)stages * PAIR_S8_STAGE
+         + PAIR_RED_BYTES + (size_t)(2 * stages + 1) * 8;
+}
+__host__ __device__ constexpr int pair_s8_resident(int d) {
+    int r = (d + TK - 1) / TK;
+    while (r > 0 && pair_s8_smem_bytes(PAIR_S8_MIN_STAGES, r) > SMEM_LIMIT) --r;
+    return r;
+}
+__host__ __device__ constexpr int pair_s8_stages(int d) {
+    const int r = pair_s8_resident(d);
+    int s = MAX_STAGES;
+    while (s > 2 && pair_s8_smem_bytes(s, r) > SMEM_LIMIT) --s;
     return s;
 }
 
@@ -564,19 +625,27 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a
     "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
     "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
-// D[64 rows x 128 queries] += A[64 x 16] (registers, bf16, the fragment of
-// wgmma_rs) . B[16 x 128]; with accumulate = 0, D = A . B. Accumulator
-// element i: row g + 8 ((i >> 1) & 1), query 8 (i >> 2) + 2 t + (i & 1), so
-// elements 0..31 are those of wgmma_rs over queries 0..63 and 32..63 those
-// over queries 64..127.
+// D[64 rows x 128 queries] += A[64 x 16] (registers, the fragment of
+// wgmma_rs) . B[16 x 128], in bf16 or f16; with accumulate = 0, D = A . B.
+// Accumulator element i: row g + 8 ((i >> 1) & 1), query 8 (i >> 2) + 2 t +
+// (i & 1), so elements 0..31 are those of wgmma_rs over queries 0..63 and
+// 32..63 those over queries 64..127.
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1,
                                               uint32_t a2, uint32_t a3, uint64_t db,
                                               int accumulate = 1) {
-    asm volatile(
-        "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_ACC64_REGS
-        ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}"
-        : SM90_ACC64_OUT : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+    if constexpr (F16)
+        asm volatile(
+            "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+            " wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " SM90_ACC64_REGS
+            ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}"
+            : SM90_ACC64_OUT : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+    else
+        asm volatile(
+            "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+            " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_ACC64_REGS
+            ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}"
+            : SM90_ACC64_OUT : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 
 // a float as an int whose signed order is the float order (NaN excluded),
@@ -609,6 +678,43 @@ __device__ __forceinline__ uint32_t s8x2_convert(uint32_t w, int i, int j) {
     }
 }
 
+// The f16 rule of one query (queries_to_f16, and for the pair plan the
+// caller's rewrite, csrc/cert_cos_binmax.cu): its largest magnitude m (bf16
+// bits) gives s = 141 - (m >> 7) (0 for a zero query), which puts it in
+// [2^14, 2^15); the query is ok if m is finite (m < inf excludes inf and
+// NaN) and s <= 126 (2^-s a normal float); up = 2^s and down = 2^-s, both
+// 1 where it is not.
+struct F16Scale {
+    float up, down;
+    bool ok;
+};
+__device__ __forceinline__ F16Scale f16_scale(uint32_t m) {
+    const int s = m == 0 ? 0 : 141 - (int)(m >> 7);
+    const bool ok = m < 0x7f80u && s <= 126;
+    return {ok ? __int_as_float((127 + s) << 23) : 1.f,
+            ok ? __int_as_float((127 - s) << 23) : 1.f, ok};
+}
+
+// m folded with the magnitudes (bf16 bits) of a pair of bf16 values
+__device__ __forceinline__ uint32_t bf16x2_absmax(uint32_t m, uint32_t w) {
+    return max(m, max(w & 0x7fffu, (w >> 16) & 0x7fffu));
+}
+
+// a pair of bf16 values -> the pair of f16 values of each times up; ok
+// stays true while each is exactly up times its bf16 value (the scaled f32
+// value, and the way back by down: an underflow fails one of the two)
+__device__ __forceinline__ uint32_t bf16x2_to_f16(uint32_t w, float up, float down, bool& ok) {
+    uint32_t o = 0;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+        const float f = __uint_as_float((w >> (16 * k)) << 16);
+        const __half h = __float2half_rn(f * up);
+        ok = ok && __half2float(h) == f * up && __half2float(h) * down == f;
+        o |= (uint32_t)__half_as_ushort(h) << (16 * k);
+    }
+    return o;
+}
+
 // Rewrite the resident bf16 query blocks (qg, nk 64-deep blocks of [64 x
 // 128 B]) in place as f16, each query scaled by 2^s (its largest magnitude
 // into [2^14, 2^15)), if every element comes back exactly; unscale[q] =
@@ -628,30 +734,14 @@ __device__ __forceinline__ bool queries_to_f16(unsigned char* qg, int nk, int ti
             const uint4 x = row[c * STEP + h];
             const uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-            for (int k = 0; k < 4; ++k) m = max(m, max(w[k] & 0x7fffu, (w[k] >> 16) & 0x7fffu));
+            for (int k = 0; k < 4; ++k) m = bf16x2_absmax(m, w[k]);
         }
     m = max(m, __shfl_xor_sync(0xffffffffu, m, 1));
     m = max(m, __shfl_xor_sync(0xffffffffu, m, 2));
-    // magnitudes below 2^(e - 126) with e the biased exponent; s <= 126
-    // keeps 2^-s a normal float, m < inf excludes inf and NaN
-    const int s = m == 0 ? 0 : 141 - (int)(m >> 7);
-    bool ok = m < 0x7f80u && s <= 126;
-    const float up = ok ? __int_as_float((127 + s) << 23) : 1.f;
-    const float down = ok ? __int_as_float((127 - s) << 23) : 1.f;
-    // a pair of bf16 values -> a pair of f16 values; ok stays true while
-    // each is exactly 2^s times its bf16 value (the scaled f32 value, and
-    // the way back: an underflow fails one of the two)
-    const auto to_f16 = [&](uint32_t pair) -> uint32_t {
-        uint32_t o = 0;
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-            const float f = __uint_as_float((pair >> (16 * k)) << 16);
-            const __half h = __float2half_rn(f * up);
-            ok = ok && __half2float(h) == f * up && __half2float(h) * down == f;
-            o |= (uint32_t)__half_as_ushort(h) << (16 * k);
-        }
-        return o;
-    };
+    const F16Scale sc = f16_scale(m);
+    bool ok = sc.ok;
+    const float up = sc.up, down = sc.down;
+    const auto to_f16 = [&](uint32_t pair) { return bf16x2_to_f16(pair, up, down, ok); };
     for (int c = 0; c < nk && ok; ++c)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -1308,6 +1398,113 @@ __device__ __forceinline__ void max_scatter(float (&m)[32], int lane, int s) {
     }
 }
 
+// A pair plan's producer (one thread): for each of the CTA's survivor
+// slots p0, p0 + P, ..., each TM-row sub-tile of its bin and each of its
+// nk k-blocks, it waits until the next of the S stages (STAGE bytes from
+// tiles) is free and has fill(dst, full, row0, k0, kb) load it (rows from
+// row0, depth from k0 = 64 kb), to arrive on the stage's full barrier.
+template <int TM, int STAGE, typename Fill>
+__device__ __forceinline__ void pair_produce(const ScanArgs& a, int nk, int S, uint32_t tiles,
+                                             uint32_t bars, int p0, int P, int n_surv,
+                                             const Fill& fill) {
+    int st = 0;
+    uint32_t ph = 0;
+    for (int slot = p0; slot < n_surv; slot += P) {
+        const int bin = a.surv[slot];
+        for (int sp = 0; sp < BIN / TM; ++sp)
+            for (int kb = 0; kb < nk; ++kb) {
+                const int row0 = bin * BIN + sp * TM, k0 = kb * TK;
+                const uint32_t full = bars + 8 * st;
+                const uint32_t dst = tiles + st * STAGE;
+                mbar_wait(bars + 8 * (S + st), ph ^ 1);
+                fill(dst, full, row0, k0, kb);
+                if (++st == S) { st = 0; ph ^= 1; }
+            }
+    }
+}
+
+// The key of a pair plan's sub-tile (scan_pair, scan_pair_s8): the
+// thread's sums of MB m-blocks (acc(mb, i): element i of m-block mb as
+// wgmma_rs_n128 lays it out, rows r + 64 mb and r + 64 mb + 8), times 2^-s
+// where F16 (unscale, per query), keyed by make_key's key of each half of
+// the pair with the side data side(mb, 0) and side(mb, 1) of those rows,
+// the max over the rows into the thread's 32 query slots; a shuffle
+// reduce-scatter over the 8 lanes that share them then leaves each lane
+// the max of slots 4 g .. 4 g + 3, folded into best.
+template <int NSIDE, int MB, bool F16, typename MakeKey, typename Acc, typename Side>
+__device__ __forceinline__ void pair_key(const MakeKey& make_key, int pair, int lane,
+                                         const float* __restrict__ unscale, const Acc& acc,
+                                         const Side& side, float (&best)[4]) {
+    const int t = lane & 3;
+    // accumulator element i of the pair's slot j (0..31): 4 (j / 2) + j % 2
+    // for row r, + 2 for r + 8
+    float m[32];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        // slot j (0..15) of the half: its column 8 (j / 2) + 2 t + j % 2
+        int cols[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) cols[j] = 8 * (j >> 1) + 2 * t + (j & 1);
+        const int q0 = opaque(pair * PAIR_Q + h * QB);
+        const auto key = make_key(q0, cols);
+        float qmul[16];  // 2^-s of each slot (f16 products)
+        if constexpr (F16) {
+#pragma unroll
+            for (int j = 0; j < 16; ++j) qmul[j] = __ldg(unscale + q0 + cols[j]);
+        }
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) {
+            if constexpr (NSIDE > 0) {
+                key.prep(side(mb, 0));
+                key.prep(side(mb, 1));
+            }
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+                const int i = 4 * ((16 * h + j) >> 1) + (j & 1);
+                float d0 = acc(mb, i), d1 = acc(mb, i + 2);
+                if constexpr (F16) {
+                    d0 = d0 * qmul[j];
+                    d1 = d1 * qmul[j];
+                }
+                float k2;
+                if constexpr (NSIDE > 0)
+                    k2 = fmaxf(key(d0, side(mb, 0), j), key(d1, side(mb, 1), j));
+                else
+                    k2 = fmaxf(key(d0, j), key(d1, j));
+                m[16 * h + j] = mb == 0 ? k2 : fmaxf(m[16 * h + j], k2);
+            }
+        }
+    }
+    // over the 8 lanes of the same t (lane bits 4, 3, 2 = g): each keeps
+    // the max of slots 4 g .. 4 g + 3
+    max_scatter<16>(m, lane, 16);
+    max_scatter<8>(m, lane, 8);
+    max_scatter<4>(m, lane, 4);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) best[k] = fmaxf(best[k], m[k]);
+}
+
+// A pair plan's bin write-out: each lane's maxima of its slots 4 g ..
+// 4 g + 3 into the CTA's per-query maxima (shared atomicMax), then the
+// bin's row of out for the pair's real queries, and the maxima reset to
+// -inf for the next bin.
+__device__ __forceinline__ void pair_write_bin(const float (&best)[4], int* red_g, int lane,
+                                               int pair, int bin, const ScanArgs& a) {
+    const int tid = threadIdx.x, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const int j = 4 * g + k;  // the pair's column of slot j
+        atomicMax(red_g + 8 * (j >> 1) + 2 * t + (j & 1), ordered(best[k]));
+    }
+    asm volatile("bar.sync 1, 256;" ::: "memory");
+    if (tid < PAIR_Q) {
+        const int q = pair * PAIR_Q + tid;
+        if (q < a.b) a.out[(size_t)bin * a.b + q] = unordered(red_g[tid]);
+        red_g[tid] = ordered(-INFINITY);
+    }
+    asm volatile("bar.sync 1, 256;" ::: "memory");  // reset before the next bin's maxima
+}
+
 // The scan on the pair plan: bf16x3 over f32 rows (K4), a pair of query
 // blocks (PAIR_Q queries) a CTA. CTA c holds pair c % n_qp (a.n_qb holds
 // n_qp; plane p of pair c at rows p * n_qp * 128 + 128 c of the query
@@ -1365,26 +1562,17 @@ __device__ __forceinline__ void scan_pair(const CUtensorMap* qmap, const CUtenso
         asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
         if (tid == CONSUMERS) {
             const int qrow = pair * PAIR_Q, qplane = a.n_qb * PAIR_Q;
-            int st = 0;
-            uint32_t ph = 0;
-            for (int slot = p0; slot < n_surv; slot += P) {
-                const int bin = a.surv[slot];
-                for (int sp = 0; sp < BIN / PAIR_ROWS; ++sp)
-                    for (int kb = 0; kb < nk; ++kb) {
-                        const int row0 = bin * BIN + sp * PAIR_ROWS, k0 = kb * TK;
-                        const uint32_t full = bars + 8 * st;
-                        const uint32_t dst = tiles + st * PAIR_STAGE;
-                        mbar_wait(bars + 8 * (S + st), ph ^ 1);
-                        mbar_expect_tx(full, PAIR_STAGE);
-                        tma_load_2d(dst, vmap, full, k0, row0);
-                        tma_load_2d(dst + HALF, vmap, full, k0 + 32, row0);
-                        for (int pl = 0; pl < 2; ++pl)
-                            for (int h = 0; h < 2; ++h)
-                                tma_load_2d(dst + RTILE + pl * QPLANE + h * QB * 128, qmap, full,
-                                            k0, qrow + pl * qplane + h * QB);
-                        if (++st == S) { st = 0; ph ^= 1; }
-                    }
-            }
+            pair_produce<PAIR_ROWS, PAIR_STAGE>(
+                a, nk, S, tiles, bars, p0, P, n_surv,
+                [&](uint32_t dst, uint32_t full, int row0, int k0, int kb) {
+                    mbar_expect_tx(full, PAIR_STAGE);
+                    tma_load_2d(dst, vmap, full, k0, row0);
+                    tma_load_2d(dst + HALF, vmap, full, k0 + 32, row0);
+                    for (int pl = 0; pl < 2; ++pl)
+                        for (int h = 0; h < 2; ++h)
+                            tma_load_2d(dst + RTILE + pl * QPLANE + h * QB * 128, qmap, full,
+                                        k0, qrow + pl * qplane + h * QB);
+                });
         }
         return;
     }
@@ -1474,50 +1662,218 @@ __device__ __forceinline__ void scan_pair(const CUtensorMap* qmap, const CUtenso
                 step(std::integral_constant<int, 0>{}, kb);
                 if (kb + 1 < nk) step(std::integral_constant<int, 1>{}, kb + 1);
             }
-            // the key of each half's 16 slots; accumulator element i of the
-            // pair's slot j (0..31): 4 (j / 2) + j % 2 for row r, + 2 for r + 8
-            float m[32];
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                // slot j (0..15) of the half: its column 8 (j / 2) + 2 t + j % 2
-                int cols[16];
-#pragma unroll
-                for (int j = 0; j < 16; ++j) cols[j] = 8 * (j >> 1) + 2 * t + (j & 1);
-                const auto key = make_key(opaque(pair * PAIR_Q + h * QB), cols);
-                if constexpr (NSIDE > 0) {
-                    key.prep(sv[0]);
-                    key.prep(sv[1]);
-                }
-#pragma unroll
-                for (int j = 0; j < 16; ++j) {
-                    const int i = 4 * ((16 * h + j) >> 1) + (j & 1);
-                    if constexpr (NSIDE > 0)
-                        m[16 * h + j] = fmaxf(key(d[i], sv[0], j), key(d[i + 2], sv[1], j));
-                    else
-                        m[16 * h + j] = fmaxf(key(d[i], j), key(d[i + 2], j));
-                }
-            }
-            // over the 8 lanes of the same t (lane bits 4, 3, 2 = g): each
-            // keeps the max of slots 4 g .. 4 g + 3
-            max_scatter<16>(m, lane, 16);
-            max_scatter<8>(m, lane, 8);
-            max_scatter<4>(m, lane, 4);
-#pragma unroll
-            for (int k = 0; k < 4; ++k) best[k] = fmaxf(best[k], m[k]);
+            pair_key<NSIDE, 1, false>(make_key, pair, lane, nullptr,
+                                      [&](int, int i) { return d[i]; },
+                                      [&](int, int h) -> auto& { return sv[h]; }, best);
         }
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const int j = 4 * g + k;  // the pair's column of slot j
-            atomicMax(red_g + 8 * (j >> 1) + 2 * t + (j & 1), ordered(best[k]));
-        }
-        asm volatile("bar.sync 1, 256;" ::: "memory");
-        if (tid < PAIR_Q) {
-            const int q = pair * PAIR_Q + tid;
-            if (q < a.b) a.out[(size_t)bin * a.b + q] = unordered(red_g[tid]);
-            red_g[tid] = ordered(-INFINITY);
-        }
-        asm volatile("bar.sync 1, 256;" ::: "memory");  // reset before the next bin's maxima
+        pair_write_bin(best, red_g, lane, pair, bin, a);
     }
+}
+
+// The scan on the pair plan over int8 rows with bf16 queries (K1), a pair
+// of query blocks (PAIR_Q queries) a CTA, CTA c on pair c % n_qp (a.n_qb
+// holds n_qp; pair c at rows 128 c of the query map) and survivor slots p,
+// p + P, ... as in scan_pair. The caller has rewritten the queries: where
+// f16[pair] is 1 they are f16, each query scaled by 2^s (unscale[q] =
+// 2^-s, fused_topk.f16_queries, the rule of queries_to_f16), else bf16.
+// The producer loads the first a.resident query k-blocks of the pair once
+// (the resident head), then fills each stage with a 64-deep k-block of
+// PAIR_S8_ROWS rows and, past the head, the pair's query k-block;
+// warpgroup w takes its MB m-blocks of every stage (rows 64 MB w ..) and
+// multiplies them by all 128 queries. A group is one m-block's four
+// m64n128k16 products of one k-block, A from registers (loaded and
+// converted once, f16 or bf16, s8x2_convert), B from the head or the
+// stage, straight into running sums that span the whole depth as in scan;
+// the next group's fragment is converted into the other of two buffers
+// while the current group runs, and only the older group is waited for
+// (wait_group 1) before its buffer is reused and, at a k-block's end, the
+// stage before is released. Both warpgroups release every stage (the empty
+// barrier counts 2). After each sub-tile the sums are unscaled (f16) and
+// keyed, and a shuffle reduce-scatter leaves each lane the running max of
+// 4 queries, as in scan_pair.
+template <int NSIDE, typename MakeKey>
+__device__ __forceinline__ void scan_pair_s8(const CUtensorMap* qmap, const CUtensorMap* vmap,
+                                             const ScanArgs& a, const MakeKey& make_key,
+                                             const float* __restrict__ unscale,
+                                             const int* __restrict__ f16_pair) {
+    constexpr int TM = PAIR_S8_ROWS;
+    constexpr int MB = 2;             // m-blocks of a warpgroup
+    static_assert(TM == 128 * MB, "two m-blocks a warpgroup");
+    constexpr int RT = TM * TK;       // the rows' k-block: [TM rows x 64 B], plain
+    constexpr int STAGE = PAIR_S8_STAGE;
+    constexpr int QBLK = PAIR_S8_QBLOCK;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t q_s = (raw + 1023u) & ~1023u;  // the resident head of the query block
+    const int nk = (a.d + TK - 1) / TK;
+    const int S = a.stages;
+    const int R = a.resident;
+    const uint32_t tiles = q_s + R * QBLK;
+    const unsigned char* tile_g = smem_raw + (tiles - raw);
+    const uint32_t red = tiles + S * STAGE;
+    const uint32_t bars = red + PAIR_RED_BYTES;  // full[S], empty[S], qbar
+    int* red_g = reinterpret_cast<int*>(smem_raw + (red - raw));
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int pair = blockIdx.x % a.n_qb;
+    const int p0 = blockIdx.x / a.n_qb;
+    const int P = gridDim.x / a.n_qb;
+    const int n_surv = *a.n_surv;
+
+    if (tid < PAIR_Q) red_g[tid] = ordered(-INFINITY);
+    if (tid == 0) {
+        for (int s = 0; s < S; ++s) {
+            mbar_init(bars + 8 * s, 1);
+            mbar_init(bars + 8 * (S + s), 2);  // one warp of each warpgroup
+        }
+        mbar_init(bars + 16 * S, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp >= 8) {
+        // ---- producer warpgroup: one thread issues every copy ----
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+        if (tid == CONSUMERS) {
+            const int qrow = pair * PAIR_Q;
+            if (R > 0) {
+                const uint32_t qbar = bars + 16 * S;
+                mbar_expect_tx(qbar, R * QBLK);
+                for (int c = 0; c < R; ++c)
+                    for (int h = 0; h < 2; ++h)
+                        tma_load_2d(q_s + c * QBLK + h * QB * 128, qmap, qbar, c * TK,
+                                    qrow + h * QB);
+            }
+            pair_produce<TM, STAGE>(
+                a, nk, S, tiles, bars, p0, P, n_surv,
+                [&](uint32_t dst, uint32_t full, int row0, int k0, int kb) {
+                    mbar_expect_tx(full, kb < R ? RT : STAGE);
+                    tma_load_2d(dst, vmap, full, k0, row0);
+                    if (kb >= R)  // past the resident head: the step's query k-block
+                        for (int h = 0; h < 2; ++h)
+                            tma_load_2d(dst + RT + h * QB * 128, qmap, full, k0,
+                                        qrow + h * QB);
+                });
+        }
+        return;
+    }
+
+    // ---- two consumer warpgroups, both on every stage ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int wg = warp >> 2, wq = warp & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int r = 64 * MB * wg + 16 * wq + g;  // m-block mb's rows: r + 64 mb, + 8
+    if (R > 0) mbar_wait(bars + 16 * S, 0);
+    const auto walk = [&](auto f16_tag) {
+        constexpr bool F16 = decltype(f16_tag)::value;
+        int st = 0;
+        uint32_t ph = 0;
+        // the A fragments of two groups (a group: one m-block's products of
+        // one k-block): the group in flight and the next one
+        uint32_t af[2][4][4];
+        // load the A fragment of m-block mb of stage `at` (16 bytes a row:
+        // bytes 16 t .., which the query permutation k1_query_perm puts at the
+        // depths of the m16n8k16 layout) and convert it into buffer B
+        const auto load_cvt = [&](auto buf, int at, int mb) {
+            constexpr int B = decltype(buf)::value;
+            const unsigned char* tg = tile_g + at * STAGE + (r + 64 * mb) * TK + 16 * t;
+            const uint4 x0 = *reinterpret_cast<const uint4*>(tg);
+            const uint4 x1 = *reinterpret_cast<const uint4*>(tg + 8 * TK);
+            const uint32_t w0[4] = {x0.x, x0.y, x0.z, x0.w};
+            const uint32_t w1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                af[B][kk][0] = s8x2_convert<F16>(w0[kk], 0, 1);
+                af[B][kk][1] = s8x2_convert<F16>(w1[kk], 0, 1);
+                af[B][kk][2] = s8x2_convert<F16>(w0[kk], 2, 3);
+                af[B][kk][3] = s8x2_convert<F16>(w1[kk], 2, 3);
+            }
+        };
+        // release a stage: the warpgroup's products on it are complete
+        // (wgmma.wait_group is warpgroup-wide), so one warp speaks for it
+        const auto release = [&](int at) {
+            if (wq == (at & 3) && lane == 0) mbar_arrive(bars + 8 * (S + at));
+        };
+        constexpr std::integral_constant<int, 0> B0{};
+        constexpr std::integral_constant<int, 1> B1{};
+        for (int slot = p0; slot < n_surv; slot += P) {
+            const int bin = a.surv[slot];
+            float best[4];  // the bin max of slots 4 g + k (k = 0..3) of the pair
+#pragma unroll
+            for (int k = 0; k < 4; ++k) best[k] = -INFINITY;
+            for (int sp = 0; sp < BIN / TM; ++sp) {
+                // the rows' side data, read now and first used after the products
+                const size_t row = (size_t)bin * BIN + sp * TM + r;
+                float sv[MB][2][NSIDE > 0 ? NSIDE : 1];
+#pragma unroll
+                for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+                    for (int j = 0; j < NSIDE; ++j) {
+                        sv[mb][0][j] = __ldg(a.side[j] + row + 64 * mb);
+                        sv[mb][1][j] = __ldg(a.side[j] + row + 64 * mb + 8);
+                    }
+                float d[MB][64];
+#pragma unroll
+                for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+                    for (int i = 0; i < 64; ++i) d[mb][i] = 0.f;
+                int prev = -1;  // the stage of the last k-block issued before this one
+                // the group of m-block mb of k-block kb on the current stage from
+                // buffer B (the query k-block resident below R, else in the
+                // stage), then the group before it waited for (its buffer is
+                // free again)
+                const auto issue = [&](auto buf, int mb, int kb) {
+                    constexpr int B = decltype(buf)::value;
+                    const uint32_t qs = kb < R ? q_s + kb * QBLK : tiles + st * STAGE + RT;
+                    fence_acc(d[mb]);
+                    wgmma_fence();
+#pragma unroll
+                    for (int kk = 0; kk < 4; ++kk) {
+                        const uint32_t(&f)[4] = af[B][kk];
+                        wgmma_rs_n128<F16>(d[mb], f[0], f[1], f[2], f[3],
+                                           desc_sw128(qs + kk * 32));
+                    }
+                    wgmma_commit();
+                    wgmma_wait<1>();
+                };
+                // k-block kb's groups are issued: the stage before it is released
+                // (its groups are complete), and the next k-block's stage waited
+                // for and its first m-block converted into buffer B while the
+                // products run
+                const auto kblock_done = [&](auto buf, int kb) {
+                    if (prev >= 0) release(prev);
+                    prev = st;
+                    if (++st == S) { st = 0; ph ^= 1; }
+                    if (kb + 1 < nk) {
+                        mbar_wait(bars + 8 * st, ph);
+                        load_cvt(buf, st, 0);
+                    }
+                };
+                // m-block 0's groups from buffer 0, m-block 1's from buffer 1
+                mbar_wait(bars + 8 * st, ph);
+                load_cvt(B0, st, 0);
+                for (int kb = 0; kb < nk; ++kb) {
+                    issue(B0, 0, kb);
+                    load_cvt(B1, st, 1);
+                    issue(B1, 1, kb);
+                    kblock_done(B0, kb);
+                }
+                wgmma_wait<0>();
+                release(prev);
+#pragma unroll
+                for (int mb = 0; mb < MB; ++mb) fence_acc(d[mb]);
+                pair_key<NSIDE, MB, F16>(make_key, pair, lane, unscale,
+                                         [&](int mb, int i) { return d[mb][i]; },
+                                         [&](int mb, int h) -> auto& { return sv[mb][h]; },
+                                         best);
+            }
+            pair_write_bin(best, red_g, lane, pair, bin, a);
+        }
+    };
+    if (f16_pair[pair]) walk(std::true_type{});
+    else walk(std::false_type{});
 }
 
 // ---------------------------------------------------------------------------
@@ -1658,25 +2014,47 @@ int launch_plan(const GetKernel& get_kernel, const LaunchFn& launch_fn, const vo
     });
 }
 
-// Launch a kernel of scan_pair (f32 rows) on a persistent grid of n_qp *
-// per_group CTAs, n_qp pairs of query blocks (q holds both planes of
-// n_qp * 128 queries each, one after the other), as launch_plan does.
-template <typename Kernel, typename LaunchFn>
+// the pair plan of RowT: its rows a stage, query planes, and its stages,
+// resident query k-blocks and shared memory at depth d; over f32 rows
+// scan_pair's, over int8 rows scan_pair_s8's
+template <typename RowT>
+struct PairShape;
+template <>
+struct PairShape<float> {
+    static constexpr int ROWS = PAIR_ROWS, NQ = 2;
+    static int stages(int) { return pair_stages(); }
+    static int resident(int) { return 0; }
+    static size_t smem(int) { return pair_smem_bytes(pair_stages()); }
+};
+template <>
+struct PairShape<int8_t> {
+    static constexpr int ROWS = PAIR_S8_ROWS, NQ = 1;
+    static int stages(int d) { return pair_s8_stages(d); }
+    static int resident(int d) { return pair_s8_resident(d); }
+    static size_t smem(int d) { return pair_s8_smem_bytes(pair_s8_stages(d), pair_s8_resident(d)); }
+};
+
+// Launch a kernel of scan_pair (f32 rows) or scan_pair_s8 (int8 rows) on a
+// persistent grid of n_qp * per_group CTAs, n_qp pairs of query blocks (q
+// holds the NQ planes of n_qp * 128 queries each, one after the other), as
+// launch_plan does.
+template <typename RowT = float, typename Kernel, typename LaunchFn>
 int launch_pair(Kernel kernel, const LaunchFn& launch_fn, const void* q, const void* v,
                 const float* const* side, int n_side, const void* surv, const void* n_surv,
                 void* out, int n_bins, int d, int b, int dq, int n_qp, int per_group) {
+    using Shape = PairShape<RowT>;
     if (n_qp < 1 || per_group < 1 || dq % TK) return (int)cudaErrorInvalidValue;
-    const int stages = pair_stages();
-    const size_t smem = pair_smem_bytes(stages);
+    const int stages = Shape::stages(d), resident = Shape::resident(d);
+    const size_t smem = Shape::smem(d);
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     CUtensorMap qmap, vmap;
-    if (!make_maps<float, PAIR_ROWS>(&qmap, &vmap, q, 2 * n_qp * PAIR_Q, dq, v,
-                                     (long long)n_bins * BIN, d))
+    if (!make_maps<RowT, Shape::ROWS>(&qmap, &vmap, q, Shape::NQ * n_qp * PAIR_Q, dq, v,
+                                      (long long)n_bins * BIN, d))
         return (int)cudaErrorInvalidValue;
     launch_fn(kernel, dim3(n_qp * per_group), smem, qmap, vmap,
-              scan_args(side, n_side, surv, n_surv, out, d, b, n_qp, stages, 0));
+              scan_args(side, n_side, surv, n_surv, out, d, b, n_qp, stages, resident));
     return (int)cudaGetLastError();
 }
 

@@ -731,14 +731,14 @@ class _Launch(NamedTuple):
     """A shape's launch decision (its program in ``aot._mem``): the tile
     program ("fused", "direct", "scan", "panel" or "scan_pruned"), the
     fast-exact and certified modes, and for the fused tile its kernel
-    (``fused_topk.KERNELS`` key), its ring at the stored depth and the
-    ``csrc/`` sources it needs (a fast launch's strict rerun included)."""
+    (``fused_topk.KERNELS`` key; its ring depends on the batch too and is
+    chosen at the launch) and the ``csrc/`` sources it needs (a fast
+    launch's strict rerun included)."""
 
     tile: str
     fast: bool
     certify: bool
     mode: Optional[str] = None
-    plan: Optional[fused_topk.ScanPlan] = None
     sources: Tuple[str, ...] = ()
 
 
@@ -1681,8 +1681,7 @@ class MetaStore:
         return launch
 
     def _launch_decision(self, tile, fast, certify, metric, take_min) -> "_Launch":
-        """The fused kernel a shape launches, its ring and the sources it
-        needs."""
+        """The fused kernel a shape launches and the sources it needs."""
         if tile != "fused":
             return _Launch(tile, fast, certify)
         dtype = self._dv.vectors.dtype
@@ -1692,9 +1691,7 @@ class MetaStore:
             sources.add(fused_topk.kernel_source(
                 fused_topk.kernel_mode(dtype, metric, take_min, False, self.precision)
             ))
-        return _Launch(tile, fast, certify, mode,
-                       fused_topk.sm90_plan(mode, scoring.pad_depth(self._dim)),
-                       sources=tuple(sorted(sources)))
+        return _Launch(tile, fast, certify, mode, sources=tuple(sorted(sources)))
 
     def _run_prepared(self, launch, k_eff, cols_sub, queries, plan_params, thr, plan_static,
                       metric, take_min, cmp, clock=None):

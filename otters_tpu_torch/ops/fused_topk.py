@@ -29,10 +29,12 @@ only; each replaces one mode of the TPU kernel
   every metric and score filter.
 
 Every kernel runs the Hopper scan of ``csrc/cert_scan_sm90.cuh``
-(:func:`sm90_plan` mirrors its ring plans, the deep-row and split plans
-included; K4
+(:func:`sm90_plan` mirrors its ring plans, the deep-row, split and pair
+plans included; K4
 with two query planes, :func:`query_planes`, and over f32 rows two row
-planes split in the kernel; K2 with int8 queries, K3 with f32 queries and
+planes split in the kernel; K1 over int8 rows at more than one query block
+on the pair plan, its queries rewritten to f16 pair by pair,
+:func:`f16_queries`; K2 with int8 queries, K3 with f32 queries and
 FFMA consumers). The stored rows' depth is padded to a multiple of 16
 (``scoring.pad_depth``): the launch reads it from the rows' stride and pads
 the queries to it. :func:`kernel_takes`, the counterpart of the JAX
@@ -90,9 +92,12 @@ assert BIN == CERT_BIN  # resid_bin granularity must match the kernel's bins
 # its sequence to this boundary (meta.py widen loop)
 FUSED_K_MAX = 1024
 QUERY_BLOCK = 64  # queries per kernel block (every csrc/*.cu kernel's QB)
-# queries of a CTA on the pair plan (csrc/cert_scan_sm90.cuh's PAIR_Q), K4's
-# over f32 rows
+# queries of a CTA on the pair plan (csrc/cert_scan_sm90.cuh's PAIR_Q): K4's
+# over f32 rows, and K1's over int8 rows from a batch of K1_PAIR_FROM (more
+# than one query block; a single block is faster on 64 queries a CTA)
 PAIR_QUERIES = 2 * QUERY_BLOCK
+K1_PAIR_FROM = QUERY_BLOCK + 1
+PAIR_MIN_STAGES = 4  # stages the pair plan over int8 rows keeps beside its resident head
 _CMP_CODE = {None: 0, Cmp.Gt: 1, Cmp.Gte: 2, Cmp.Lt: 3, Cmp.Lte: 4, Cmp.Eq: 5}
 _METRIC_CODE = {Metric.Cosine: 0, Metric.DotProduct: 1, Metric.Euclidean: 2}
 _NEG_INF = float("-inf")
@@ -340,21 +345,23 @@ class ScanShape(NamedTuple):
     in registers; k_planes' VH and VL), its query ``planes``, the ``wide``
     and ``narrow`` stage shapes (ks k-blocks, rows) (no wide shape, None,
     the C side's KS1 = 0: no resident plan, the narrow shape streamed at
-    every depth) and ``q_bytes`` of a query element (1: K2's int8, 4: K3's
-    f32, else bf16)."""
+    every depth), ``q_bytes`` of a query element (1: K2's int8, 4: K3's
+    f32, else bf16) and the stage shape of its ``pair`` plan (None: no pair
+    plan; :func:`sm90_queries`)."""
 
     row_bytes: int
     planes: int
     wide: Optional[tuple]
     narrow: tuple
     q_bytes: int = 2
+    pair: Optional[tuple] = None
 
 
 # kernel -> its stages: the C sides' shapes (cert_cos_binmax.cu Shape,
 # cert_fold_binmax.cu, bf16_binmax.cu Shape, bf16x3_binmax.cu Shape,
 # int8_binmax.cu, f32_binmax.cu, profile_probes.cu)
 SM90_SHAPES = {
-    "K1": ScanShape(1, 1, (2, 128), (1, 128)),
+    "K1": ScanShape(1, 1, (2, 128), (1, 128), pair=(1, 256)),
     "K1-bf16": ScanShape(2, 1, (1, 256), (1, 128)),
     "K2": ScanShape(1, 1, (1, 256), (1, 128), q_bytes=1),
     # the FFMA consumers' stages: sm90::ffma_rows, 256 f32 or 128 bf16 rows
@@ -363,7 +370,7 @@ SM90_SHAPES = {
     "K5": ScanShape(2, 1, (2, 128), (1, 128)),
     "K6": ScanShape(4, 1, (1, 128), (1, 64)),
     "K6-bf16": ScanShape(2, 1, (1, 256), (1, 128)),
-    "K4": ScanShape(4, 2, None, (1, 128)),
+    "K4": ScanShape(4, 2, None, (1, 128), pair=(1, 128)),
     "K4-bf16": ScanShape(2, 2, None, (1, 128)),
     "k_planes": ScanShape(4, 2, None, (1, 128)),
     "k_mm": ScanShape(4, 1, None, (1, 256), q_bytes=4),
@@ -376,7 +383,8 @@ class ScanPlan(NamedTuple):
     rows; ``streamed``: the query k-blocks ride in the stages (deep rows)
     instead of the resident query block, past its first ``resident``
     k-blocks (the query k-blocks kept in shared memory: all of them when not
-    streamed, 0 on the deep-row plan, the head on the split plan)."""
+    streamed, 0 on the deep-row plan, the head on the split plan and on the
+    pair plan over int8 rows, :class:`PairPlan`)."""
 
     ks: int
     rows: int
@@ -391,13 +399,25 @@ class ScanPlan(NamedTuple):
         return self.streamed and self.resident > 0
 
 
+class PairPlan(ScanPlan):
+    """The ring of the pair plan (:func:`sm90_queries`): never the split
+    plan, though over int8 rows it keeps the head of the pair's query
+    block resident and streams the rest."""
+
+    __slots__ = ()
+    split = False
+
+
 class ScanGeometry(NamedTuple):
     """How an sm90 kernel covers a batch: ``n_qb`` 64-query blocks, the
     ``queries`` of a CTA (64, or :data:`PAIR_QUERIES` on the pair plan:
     :func:`sm90_queries`), so ``n_qp`` groups of them (the batch padded to
     whole groups), ``per_group`` persistent CTAs per group, the query depth
     padded to ``dq``, its ring (:class:`ScanPlan`) in ``smem`` bytes of
-    shared memory, and its query ``planes`` (2: :func:`query_planes`)."""
+    shared memory, its query ``planes`` (2: :func:`query_planes`), and
+    ``f16``: K1 over int8 rows on the pair plan, whose queries
+    :func:`sm90_pad_queries` rewrites to f16 pair by pair
+    (:func:`f16_queries`) for the ``*_pair`` entry."""
 
     n_qb: int
     per_group: int
@@ -410,6 +430,7 @@ class ScanGeometry(NamedTuple):
     smem: int
     planes: int = 1
     queries: int = QUERY_BLOCK
+    f16: bool = False
 
     @property
     def n_qp(self) -> int:
@@ -426,8 +447,14 @@ class ScanGeometry(NamedTuple):
         return self.n_qp * self.per_group
 
     @property
+    def plan(self) -> ScanPlan:
+        """Its ring: a :class:`PairPlan` where ``wide``."""
+        return (PairPlan if self.wide else ScanPlan)(
+            self.ks, self.rows, self.stages, self.streamed, self.resident)
+
+    @property
     def split(self) -> bool:
-        return self.streamed and self.resident > 0
+        return self.plan.split
 
 
 def sm90_smem_bytes(d: int, row_bytes: int, stages: int, ks: int, rows: int,
@@ -464,19 +491,28 @@ def sm90_stages(d: int, row_bytes: int, ks: int, rows: int, streamed: bool = Fal
     return s
 
 
-def sm90_queries(mode: str) -> int:
-    """The queries of a CTA of ``mode``: 128 on the pair plan (a pair of
-    query blocks, the C side's ``sm90::scan_pair``), K4's over f32 rows at
-    every batch size (at b <= 64 half of them padding, and still faster
-    there than 64 a CTA); 64 otherwise."""
-    return PAIR_QUERIES if mode == "K4" else QUERY_BLOCK
+def sm90_queries(mode: str, b: int) -> int:
+    """The queries of a CTA of ``mode`` at a batch of ``b``: 128 on the
+    pair plan (a pair of query blocks, the C side's ``sm90::scan_pair`` /
+    ``scan_pair_s8``), K4's over f32 rows at every batch size (at b <= 64
+    half of them padding, and still faster there than 64 a CTA) and K1's
+    over int8 rows from b = :data:`K1_PAIR_FROM`, two query blocks (at b <=
+    64 the 64-query plan measured faster: PERF.md); 64 otherwise."""
+    if SM90_SHAPES[mode].pair is not None and (mode != "K1" or b >= K1_PAIR_FROM):
+        return PAIR_QUERIES
+    return QUERY_BLOCK
 
 
-def sm90_plan(mode: str, d: int) -> ScanPlan:
+def sm90_plan(mode: str, d: int, b: int) -> ScanPlan:
     """The ring of ``mode`` (a key of :data:`SM90_SHAPES`) at stored depth
-    ``d``. On the pair plan (:func:`sm90_queries`) the narrow shape
-    streamed with the queries of the pair, as many stages as fit (3 for
-    K4: 64 KB each). Otherwise the C side's
+    ``d`` and a batch of ``b``. On the pair plan (:func:`sm90_queries`) its
+    stage shape (``ScanShape.pair``) streamed with the pair's query
+    k-blocks, as many stages as fit, at every depth: K4's 3 stages of 64 KB
+    (the C side's ``sm90::pair_stages``); over int8 rows (K1) 256 rows a
+    stage (32 KB with the queries) beside the head of the pair's query
+    block, the largest that leaves :data:`PAIR_MIN_STAGES` stages (16 KB a
+    k-block; ``sm90::pair_s8_resident``: 6 at d >= 384, so 4 stages).
+    Otherwise the C side's
     ``sm90::plan_for``: the wide stage shape when 4
     stages of it fit beside the resident query block (of every query
     plane), else the narrow one when 2 fit, else the narrow one with the
@@ -487,11 +523,15 @@ def sm90_plan(mode: str, d: int) -> ScanPlan:
     the head of the query block resident instead, the largest that leaves
     4 stages of the wide shape, else of the narrow one, and streams the
     rest."""
-    row_bytes, planes, wide, narrow, qb = SM90_SHAPES[mode]
+    row_bytes, planes, wide, narrow, qb, pair = SM90_SHAPES[mode]
     nk = -(-d // kblock_depth(qb))
-    if sm90_queries(mode) == PAIR_QUERIES:
-        return ScanPlan(*narrow, sm90_stages(d, row_bytes, *narrow, True, planes, qb,
-                                             queries=PAIR_QUERIES), True, 0)
+    if sm90_queries(mode, b) == PAIR_QUERIES:
+        kw = dict(streamed=True, planes=planes, q_bytes=qb, queries=PAIR_QUERIES)
+        r = 0
+        if row_bytes == 1:
+            r = next((r for r in range(nk, 0, -1) if sm90_smem_bytes(
+                d, row_bytes, PAIR_MIN_STAGES, *pair, resident=r, **kw) <= _SMEM_MAX), 0)
+        return PairPlan(*pair, sm90_stages(d, row_bytes, *pair, resident=r, **kw), True, r)
 
     def fits(ks_rows, stages, streamed=False, resident=0):
         return sm90_smem_bytes(d, row_bytes, stages, *ks_rows, streamed, planes, qb,
@@ -521,12 +561,13 @@ def sm90_geometry(mode: str, b: int, d: int, n_sms: int) -> ScanGeometry:
     the pair plan) gets an equal share of the SMs, at least one CTA (a
     group's planes share its CTAs)."""
     n_qb = max(1, -(-b // QUERY_BLOCK))
-    queries = sm90_queries(mode)
+    queries = sm90_queries(mode, b)
     n_qp = -(-n_qb * QUERY_BLOCK // queries)
     shape = SM90_SHAPES[mode]
     kd = kblock_depth(shape.q_bytes)
-    return ScanGeometry(n_qb, max(1, n_sms // n_qp), -(-d // kd) * kd, *sm90_plan(mode, d),
-                        kernel_smem_bytes(mode, d), shape.planes, queries)
+    return ScanGeometry(n_qb, max(1, n_sms // n_qp), -(-d // kd) * kd, *sm90_plan(mode, d, b),
+                        kernel_smem_bytes(mode, d, b), shape.planes, queries,
+                        mode == "K1" and queries == PAIR_QUERIES)
 
 
 def _fragment_perm(dq: int, t, kk, e) -> torch.Tensor:
@@ -575,14 +616,70 @@ def query_planes(q):
     return torch.cat([qh, ql])
 
 
+def f16_queries(qk):
+    """K1's f16 products over int8 rows on the pair plan, decided for each
+    pair of query blocks by the rule that the C side's
+    ``sm90::queries_to_f16`` applies in the kernel to the resident block of
+    the 64-query plan, and applied to ``qk`` in place. Each query (a row of
+    the padded, permuted bf16 queries ``qk``, [n * 128, dq]) is scaled by
+    2^s, s = 141 - e with e the biased exponent of its largest magnitude (s
+    = 0 for a zero query), which puts that magnitude in [2^14, 2^15). A pair
+    takes f16 if every query's largest magnitude is finite with s <= 126 (so
+    2^-s is a normal float) and every element x comes back exactly:
+    f16(x 2^s) = x 2^s and f16(x 2^s) 2^-s = x in f32; its rows of ``qk``
+    then hold the f16 bits of x 2^s. -> (qk; [n * 128] f32 2^-s, 1 for a
+    query that fails; [n] int32 flags, 1 where the pair takes f16). On the
+    card one launch of ``cert_cos_binmax_f16_queries`` (csrc/
+    cert_cos_binmax.cu), no host synchronisation; these torch ops on the
+    CPU."""
+    group = PAIR_QUERIES
+    n, dq = qk.shape[0] // group, qk.shape[1]
+    if qk.device.type == "cuda":
+        unscale = torch.empty(qk.shape[0], device=qk.device)
+        flags = torch.empty(n, dtype=torch.int32, device=qk.device)
+        err = _f16_fn()(qk.data_ptr(), unscale.data_ptr(), flags.data_ptr(), n, dq,
+                        torch.cuda.current_stream(qk.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"cert_cos_binmax_f16_queries failed: CUDA error {err}")
+        return qk, unscale, flags
+    m = (qk.view(torch.int16) & 0x7FFF).amax(1).int()  # the largest magnitude's bf16 bits
+    s = torch.where(m == 0, 0, 141 - (m >> 7))
+    ok = (m < 0x7F80) & (s <= 126)
+    s = torch.where(ok, s, 0)
+    up = ((127 + s) << 23).view(torch.float32)[:, None]
+    down = ((127 - s) << 23).view(torch.float32)
+    x = qk.float()
+    h = (x * up).half()
+    hf = h.float()
+    good = ((hf == x * up) & (hf * down[:, None] == x)).view(n, -1).all(1)
+    flag = good & ok.view(n, group).all(1)
+    qk.view(n, group, dq)[flag] = h.view(torch.bfloat16).view(n, group, dq)[flag]
+    return qk, down, flag.int()
+
+
+@functools.lru_cache(maxsize=None)
+def _f16_fn():
+    """The C function ``cert_cos_binmax_f16_queries`` (q, unscale, flags,
+    n_groups, dq, stream), built on the first call."""
+    from .. import kernels
+
+    fn = kernels.load("cert_cos_binmax").cert_cos_binmax_f16_queries
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def sm90_pad_queries(q, per_query, geom: ScanGeometry, perm=None):
     """An sm90 kernel's query operands: the batch padded to ``geom.n_qp``
     groups of ``geom.queries`` (padded lanes zero, so q_ok = 0 keeps them
     out of every bin max), the depth to ``geom.dq`` with zeros, the depth
     of each 64-deep block gathered by ``perm`` (:func:`k1_query_perm` over
-    int8 rows, :func:`f32_query_perm` over f32 rows), and with two
+    int8 rows, :func:`f32_query_perm` over f32 rows), with two
     ``geom.planes`` the padded f32 queries split into them
-    (:func:`query_planes`) -> (q, per_query)."""
+    (:func:`query_planes`), and with ``geom.f16`` (K1 over int8 rows on the
+    pair plan) each pair rewritten to f16 where it takes f16 products
+    (:func:`f16_queries`), its 2^-s and flags appended to ``per_query`` ->
+    (q, per_query)."""
     b, d = q.shape
     pad = geom.n_qp * geom.queries - b
     qk = q if (pad, geom.dq) == (0, d) else torch.nn.functional.pad(q, (0, geom.dq - d, 0, pad))
@@ -592,6 +689,10 @@ def sm90_pad_queries(q, per_query, geom: ScanGeometry, perm=None):
         qk = query_planes(qk)
     if pad:
         per_query = tuple(torch.nn.functional.pad(t, (0, pad)) for t in per_query)
+    if geom.f16:  # in place: the gathered copy (K1 over int8 rows always has perm)
+        assert perm is not None
+        qk, unscale, flags = f16_queries(qk.contiguous())
+        per_query = (*per_query, unscale, flags)
     return qk.contiguous(), tuple(per_query)
 
 
@@ -603,9 +704,10 @@ def _n_sms(device: int) -> int:
 def _sm90_launch(wrapper, mode, source, entry, q, v, per_query, ptrs, ints, perm=None):
     """Launch the sm90 kernel of ``mode``: its geometry at the rows' stored
     depth, the queries padded (gathered by ``perm(dq, device)``, split into
-    the geometry's planes), then ``_launch`` with the pointers q, v,
-    ``ptrs[0]``, the padded ``per_query`` operands, ``ptrs[1]`` and the ints
-    b, dq, n_qb, per_group, ``ints``."""
+    the geometry's planes, rewritten to f16 for K1's ``entry_pair`` on the
+    pair plan), then ``_launch`` with the pointers q, v, ``ptrs[0]``, the
+    padded ``per_query`` operands, ``ptrs[1]`` and the ints b, dq, n_qb,
+    per_group, ``ints``."""
     dp = stored_depth(v)
     dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
     geom = sm90_geometry(mode, q.shape[0], dp, _n_sms(dev))
@@ -613,7 +715,7 @@ def _sm90_launch(wrapper, mode, source, entry, q, v, per_query, ptrs, ints, perm
                               None if perm is None else perm(geom.dq, q.device))
     head, tail = ptrs
     return _launch(
-        wrapper, source, entry, qk, v, [qk, v, *head, *pq, *tail],
+        wrapper, source, f"{entry}_pair" if geom.f16 else entry, qk, v, [qk, v, *head, *pq, *tail],
         [q.shape[0], geom.dq, geom.n_qb, geom.per_group, *ints], dp, geom.split, geom.wide,
     )
 
@@ -654,9 +756,11 @@ def cert_cos_binmax(q, v, inv, rmask, lane_a, q_inv, q_ok, thr, surv, n_surv,
     """K1 bin maxima over int8 rows (see :func:`cert_cos_binmax_plain`).
 
     CPU tensors take the plain version; CUDA tensors launch the Hopper
-    kernel (csrc/cert_cos_binmax.cu) and raise if it cannot build or
-    launch. ``cert_cos_binmax.launches`` counts kernel launches
-    (``.split_launches`` those on the split plan)."""
+    kernel (csrc/cert_cos_binmax.cu; at more than one query block the
+    entry ``cert_cos_binmax_pair``, the pair plan) and raise if it cannot
+    build or launch. ``cert_cos_binmax.launches`` counts kernel launches
+    (``.split_launches`` those on the split plan, ``.wide_launches`` those
+    on the pair plan)."""
     return _cert_cos(cert_cos_binmax, "cert_cos_binmax", torch.int8, q, v, inv, rmask,
                      lane_a, q_inv, q_ok, thr, surv, n_surv, cmp)
 
@@ -947,25 +1051,27 @@ def kernel_source(mode: str) -> str:
     return _MODES[mode][0]
 
 
-def kernel_smem_bytes(mode: str, d: int) -> int:
+def kernel_smem_bytes(mode: str, d: int, b: int) -> int:
     """The dynamic shared memory the kernel of ``mode`` (a key of
-    :data:`SM90_SHAPES`) asks for at stored depth ``d`` (a multiple of 16),
-    mirroring its source's ``*_smem_bytes``: its plan's, which always
-    fits."""
-    plan = sm90_plan(mode, d)
+    :data:`SM90_SHAPES`) asks for at stored depth ``d`` (a multiple of 16)
+    and a batch of ``b``, mirroring its source's ``*_smem_bytes`` (K1's
+    ``cert_cos_binmax_pair_smem_bytes`` on the pair plan): its plan's,
+    which always fits."""
+    plan = sm90_plan(mode, d, b)
     shape = SM90_SHAPES[mode]
     return sm90_smem_bytes(d, shape.row_bytes, plan.stages, plan.ks, plan.rows, plan.streamed,
-                           shape.planes, shape.q_bytes, plan.resident, sm90_queries(mode))
+                           shape.planes, shape.q_bytes, plan.resident, sm90_queries(mode, b))
 
 
 def kernel_takes(mode: str, d: int) -> bool:
     """Does the kernel of ``mode`` take rows of logical depth ``d``? The
     port's counterpart of the JAX package's ``pallas_ok``, decided from the
     shape before any launch: the kernel's shared memory at the stored depth
-    must fit a block (232,448 B); unlike a TPU's VMEM budget it does not
-    grow with the batch. Every kernel runs on the Hopper scan and takes any
-    d (the deep-row plan streams the query block; K3 and K4 stream theirs
-    at every depth). ``OTTERS_DISABLE_PALLAS`` (JAX's name, so that a
+    must fit a block (232,448 B) on each plan a batch may take (K1 over int8
+    rows: the 64-query plan and the pair plan); unlike a TPU's VMEM budget
+    it does not grow with the batch. Every kernel runs on the Hopper scan
+    and takes any d (the deep-row plan streams the query block; K3, K4 and
+    the pair plans stream theirs at every depth). ``OTTERS_DISABLE_PALLAS`` (JAX's name, so that a
     deployment's environment carries across) refuses every shape: the user
     asks for the scan programs by name, as the on-card differential fuzz
     (``differential_fuzz``) does. A shape it refuses goes to the scan
@@ -973,7 +1079,7 @@ def kernel_takes(mode: str, d: int) -> bool:
     the caller adds the batch's queries to ``kernel_takes.routed``."""
     if os.environ.get("OTTERS_DISABLE_PALLAS"):
         return False
-    return kernel_smem_bytes(mode, pad_depth(d)) <= _SMEM_MAX
+    return all(kernel_smem_bytes(mode, pad_depth(d), b) <= _SMEM_MAX for b in (1, K1_PAIR_FROM))
 
 
 kernel_takes.routed = 0  # queries sent to the scan program by shape

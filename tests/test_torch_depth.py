@@ -209,7 +209,7 @@ def test_shape_check_routes_only_what_cannot_fit(mode, d, takes):
     K5 and K6 over f32 and bf16 rows through their resident or deep-row
     plans, K4 and K3 stream their query blocks at every depth."""
     assert ft.kernel_takes(mode, d) is takes
-    assert (ft.kernel_smem_bytes(mode, ts.pad_depth(d)) <= SMEM_MAX) is takes
+    assert (ft.kernel_smem_bytes(mode, ts.pad_depth(d), 1) <= SMEM_MAX) is takes
 
 
 @pytest.mark.parametrize("case", ["K6-bf16", "K2"])
@@ -301,18 +301,20 @@ def test_sm90_plan_fits_every_depth(mode, d):
     streamed at 8,192; the other resident plans stream from d = 2,048. At
     d = 1,392 and 1,536 the bf16-row modes with a resident plan (K1-bf16,
     K5, K6-bf16) take the split plan: 4 stages of their wide shape beside
-    the head of the query block, the rest streamed."""
+    the head of the query block, the rest streamed. At b = 600 K1 over
+    int8 rows takes its pair plan (``sm90_plan(mode, d, b)``, the same for
+    every batch of more than one query block)."""
     dp = ts.pad_depth(d)
-    row_bytes, planes, wide, narrow, q_bytes = ft.SM90_SHAPES[mode]
-    plan = ft.sm90_plan(mode, dp)
-    queries = ft.sm90_queries(mode)
+    row_bytes, planes, wide, narrow, q_bytes = ft.SM90_SHAPES[mode][:5]
+    plan = ft.sm90_plan(mode, dp, 1)
+    queries = ft.sm90_queries(mode, 1)
     pair = queries == ft.PAIR_QUERIES  # K4 over f32 rows
     assert pair is (mode == "K4")
     assert plan.stages >= 2 and (pair or plan.stages % 2 == 0)
     assert plan.stages <= ft.SM90_MAX_STAGES
     smem = ft.sm90_smem_bytes(dp, row_bytes, plan.stages, plan.ks, plan.rows, plan.streamed,
                               planes, q_bytes, plan.resident, queries)
-    assert smem == ft.kernel_smem_bytes(mode, dp) <= SMEM_MAX
+    assert smem == ft.kernel_smem_bytes(mode, dp, 1) <= SMEM_MAX
     resident_fits = wide is not None and ft.sm90_smem_bytes(
         dp, row_bytes, 2, *narrow, planes=planes, q_bytes=q_bytes) <= SMEM_MAX
     narrow_4 = wide is not None and ft.sm90_smem_bytes(
@@ -342,10 +344,15 @@ def test_sm90_plan_fits_every_depth(mode, d):
     assert kd == (128 if mode == "K2" else 64)
     geom = ft.sm90_geometry(mode, 600, dp, 132)
     assert geom.dq % kd == 0 and 0 <= geom.dq - dp < kd
-    assert (geom.ks, geom.rows, geom.stages, geom.streamed, geom.resident) == plan
+    # ten query blocks: K1 over int8 rows takes its pair plan there
+    pair_600 = mode in ("K4", "K1")
+    assert geom.wide is pair_600 and ft.sm90_queries(mode, 600) == geom.queries
+    assert (geom.ks, geom.rows, geom.stages, geom.streamed, geom.resident) \
+        == ft.sm90_plan(mode, dp, 600) == (plan if mode != "K1" else ft.sm90_plan(mode, dp, 65))
+    assert geom.smem == ft.kernel_smem_bytes(mode, dp, 600) <= SMEM_MAX
     assert geom.n_qb == 10
-    # K4's CTAs hold pairs of query blocks: five pairs
-    assert (geom.n_qp, geom.per_group) == ((5, 26) if pair else (10, 13))
+    # K4's and K1's CTAs hold pairs of query blocks: five pairs
+    assert (geom.n_qp, geom.per_group) == ((5, 26) if pair_600 else (10, 13))
     if d == 768:
         assert plan[:4] == {"K1": (2, 128, 8, False), "K1-bf16": (1, 256, 4, False),
                             "K2": (1, 256, 4, False), "K3": (1, 256, 4, True),
@@ -378,17 +385,17 @@ def test_split_plan_keeps_rows_in_flight(mode, d):
     stage, R = 8; K5: two k-blocks of 128 rows and two of queries, R = 4;
     128 KB of rows in flight either way. The arithmetic: 1 KB slack + head
     + ring + 520 B of maxima, scales and flag + 8 B a barrier."""
-    row_bytes, planes, wide, narrow, q_bytes = ft.SM90_SHAPES[mode]
+    row_bytes, planes, wide, narrow, q_bytes = ft.SM90_SHAPES[mode][:5]
     nk = -(-d // 64)
     assert ft.sm90_smem_bytes(d, 2, 2, *narrow) <= SMEM_MAX < ft.sm90_smem_bytes(d, 2, 4, *narrow)
-    plan = ft.sm90_plan(mode, d)
+    plan = ft.sm90_plan(mode, d, 1)
     assert plan.split and plan.streamed and (plan.ks, plan.rows) == wide
     assert plan.stages >= 4 and plan.stages % 2 == 0
     assert 0 < plan.resident < nk and plan.resident == {"K5": 4}.get(mode, 8)
     ks, rows = wide
     stage = ks * (rows * 64 * 2 + 64 * 64 * 2)
     smem = 1024 + plan.resident * 8192 + plan.stages * stage + 520 + (2 * plan.stages + 1) * 8
-    assert smem == ft.kernel_smem_bytes(mode, d) <= SMEM_MAX
+    assert smem == ft.kernel_smem_bytes(mode, d, 1) <= SMEM_MAX
     assert ft.sm90_smem_bytes(d, 2, plan.stages, ks, rows, True, resident=plan.resident + 1) \
         == smem + 8192 > SMEM_MAX
     assert plan.stages * ks * rows * 64 * 2 == 4 * 32768
@@ -399,8 +406,8 @@ def test_split_plan_keeps_rows_in_flight(mode, d):
 def _plan_without_split(mode, d):
     """The plan of ``mode`` at d by the rule without the split plan (K4's
     pair plan: the narrow shape streamed, 128 queries a CTA)."""
-    row_bytes, planes, wide, narrow, qb = ft.SM90_SHAPES[mode]
-    kw = dict(planes=planes, q_bytes=qb, queries=ft.sm90_queries(mode))
+    row_bytes, planes, wide, narrow, qb = ft.SM90_SHAPES[mode][:5]
+    kw = dict(planes=planes, q_bytes=qb, queries=ft.sm90_queries(mode, 1))
     if wide is not None:
         if ft.sm90_smem_bytes(d, row_bytes, 4, *wide, **kw) <= SMEM_MAX:
             return (*wide, ft.sm90_stages(d, row_bytes, *wide, **kw), False)
@@ -418,7 +425,7 @@ def test_only_the_split_depths_change_a_plan(mode):
     need the whole block resident)."""
     split = []
     for d in range(16, 8193, 16):
-        plan = ft.sm90_plan(mode, d)
+        plan = ft.sm90_plan(mode, d, 1)
         if plan.split:
             split.append(d)
             assert _plan_without_split(mode, d)[2:] == (2, False)
@@ -447,13 +454,13 @@ def test_k3_streams_its_queries_at_every_depth(d):
         assert ft.stage_depth(row_bytes, 4) == 128 // row_bytes
         stage = rows * 128 + 64 * (128 // row_bytes) * 4
         assert stage == {4: 40960, 2: 32768}[row_bytes]
-        assert ft.sm90_plan(mode, dp) == (1, rows, stages, True, 0)
-        assert ft.kernel_smem_bytes(mode, dp) == 1024 + stages * stage + 520 \
+        assert ft.sm90_plan(mode, dp, 1) == (1, rows, stages, True, 0)
+        assert ft.kernel_smem_bytes(mode, dp, 1) == 1024 + stages * stage + 520 \
             + (2 * stages + 1) * 8 <= SMEM_MAX
         assert 1024 + (stages + 2) * stage + 520 + (2 * stages + 5) * 8 > SMEM_MAX
         geom = ft.sm90_geometry(mode, 256, dp, 132)
         assert (geom.planes, geom.n_qb, geom.per_group, geom.dq) == (1, 4, 33, -(-dp // 64) * 64)
-        assert geom.streamed and geom.smem == ft.kernel_smem_bytes(mode, dp)
+        assert geom.streamed and geom.smem == ft.kernel_smem_bytes(mode, dp, 256)
 
 
 @pytest.mark.parametrize("d", [16, 768, 2048, 3072, 8192])
@@ -465,13 +472,13 @@ def test_k2_plan_mirrors_the_kernel(d):
     k-blocks ride in the stages. The arithmetic: 1 KB slack + resident
     block + ring + 520 B of maxima, scales and flag + 8 B a barrier."""
     nk = -(-d // 128)
-    plan = ft.sm90_plan("K2", d)
+    plan = ft.sm90_plan("K2", d, 1)
     if plan.streamed:
         want = 1024 + plan.stages * (plan.rows * 128 + 8192) + 520 + (2 * plan.stages + 1) * 8
     else:
         want = 1024 + nk * 8192 + plan.stages * plan.ks * plan.rows * 128 + 520 \
             + (2 * plan.stages + 1) * 8
-    assert ft.kernel_smem_bytes("K2", d) == want <= SMEM_MAX
+    assert ft.kernel_smem_bytes("K2", d, 1) == want <= SMEM_MAX
     assert plan[:4] == {16: (1, 256, 6, False), 768: (1, 256, 4, False),
                         2048: (1, 128, 6, False), 3072: (1, 128, 2, False),
                         8192: (1, 128, 8, True)}[d]
@@ -489,9 +496,9 @@ def test_k4_bf16_streams_its_planes_at_every_depth(d):
     KB), so 6 stages fit at every depth: 96 KB of rows in flight. The
     arithmetic: 1 KB slack + planes + ring + 520 B of maxima, scales and
     flag + 8 B a barrier."""
-    plan = ft.sm90_plan("K4-bf16", d)
+    plan = ft.sm90_plan("K4-bf16", d, 1)
     assert plan == (1, 128, 6, True, 0)
-    assert ft.kernel_smem_bytes("K4-bf16", d) == 1024 + 6 * 32768 + 520 + 13 * 8 <= SMEM_MAX
+    assert ft.kernel_smem_bytes("K4-bf16", d, 1) == 1024 + 6 * 32768 + 520 + 13 * 8 <= SMEM_MAX
     assert 1024 + 8 * 32768 + 520 + 17 * 8 > SMEM_MAX
     nk = -(-d // 64)
     resident_64 = 1024 + nk * 2 * 8192 + 2 * 8192 + 520 + 5 * 8
@@ -522,14 +529,14 @@ def test_k4_streams_its_planes_at_every_depth(d, b):
     maxima and scales of the CTA's queries and the flag + 8 B a barrier.
     The persistent grid: an equal share of the 132 SMs per pair (66 CTAs a
     pair at b = 256, all 132 on the one pair at b <= 128)."""
-    plan = ft.sm90_plan("K4", d)
+    plan = ft.sm90_plan("K4", d, b)
     assert plan == (1, 128, 3, True, 0)
-    assert ft.sm90_plan("k_planes", d) == (1, 128, 4, True, 0)
-    assert ft.sm90_queries("K4") == ft.PAIR_QUERIES == 128
-    assert ft.sm90_queries("k_planes") == ft.sm90_queries("K4-bf16") == 64
+    assert ft.sm90_plan("k_planes", d, b) == (1, 128, 4, True, 0)
+    assert ft.sm90_queries("K4", b) == ft.PAIR_QUERIES == 128
+    assert ft.sm90_queries("k_planes", b) == ft.sm90_queries("K4-bf16", b) == 64
     planes_stage = 128 * 64 * 4 + 2 * 8192
     assert planes_stage == 49152
-    assert ft.kernel_smem_bytes("k_planes", d) == 1024 + 4 * planes_stage + 520 + 9 * 8 \
+    assert ft.kernel_smem_bytes("k_planes", d, b) == 1024 + 4 * planes_stage + 520 + 9 * 8 \
         <= SMEM_MAX < 1024 + 6 * planes_stage + 520 + 13 * 8
     narrow = 64 * 64 * 4 + 2 * 8192
     assert ft.sm90_smem_bytes(d, 4, 6, 1, 64, True, 2) == 1024 + 6 * narrow + 520 + 13 * 8 \
@@ -538,7 +545,7 @@ def test_k4_streams_its_planes_at_every_depth(d, b):
     assert pair == 65536 == ft.sm90_smem_bytes(d, 4, 1, 1, 128, True, 2, queries=128) \
         - ft.sm90_smem_bytes(d, 4, 0, 1, 128, True, 2, queries=128) - 16
     pair_smem = 1024 + 3 * pair + (2 * 128 * 4 + 8) + 7 * 8
-    assert ft.kernel_smem_bytes("K4", d) == pair_smem == 198720 <= SMEM_MAX \
+    assert ft.kernel_smem_bytes("K4", d, b) == pair_smem == 198720 <= SMEM_MAX \
         < 1024 + 4 * pair + 1032 + 9 * 8
     nk = -(-d // 64)
     if d == 768:

@@ -2,7 +2,10 @@
 
 K1 (certified Cosine) over int8 and bfloat16 rows at b = 1 to 600 and d =
 96 to 2048 (the deep-row plan), with its live-bin edge cases and queries
-far from unit scale or too wide for f16; K2 / K3 / K4 / K6 over int8 / f32
+far from unit scale or too wide for f16, over int8 rows from b = 65 on the
+pair plan (counted on ``wide_launches``; bit for bit the bin maxima of the
+same queries launched one at a time, and its f16 rewrite on the card the
+plain version's); K2 / K3 / K4 / K6 over int8 / f32
 rows (K6 and K4 at b = 1 to 600, d = 100 to 2048 (K4 from d = 16), every
 metric and filter; K4 with masked bins, NaN and inf rows, and rows small
 enough that their low bf16 planes are subnormal; K2 at b = 1 to 600 and d
@@ -303,11 +306,14 @@ def _k1_operands(mode, dev, *, b, d, cmp, thr=0.05, live="some", n=20_000, seed=
 
 
 def _check_k1(mode, args, cmp, live):
+    """One launch against the plain version; over int8 rows a batch of more
+    than one query block is counted on ``wide_launches`` (the pair plan)."""
     fn = ft.KERNELS[mode]
-    before = fn.launches
+    before, wide = fn.launches, fn.wide_launches
     got = fn(*args, cmp)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
+    assert fn.wide_launches == wide + (mode == "K1" and args[0].shape[0] > ft.QUERY_BLOCK)
     want = ft.cert_cos_binmax_plain(*args, cmp)
     fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
     assert torch.equal(fin_g, fin_w)
@@ -322,14 +328,16 @@ def _check_k1(mode, args, cmp, live):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cmp", [None, Cmp.Gt, Cmp.Gte])
 @pytest.mark.parametrize("d", [96, 768, 1392, 2048])
-@pytest.mark.parametrize("b", [1, 70, 256, 600])
+@pytest.mark.parametrize("b", [1, 64, 65, 70, 128, 192, 256, 600])
 @pytest.mark.parametrize("mode", ["K1", "K1-bf16"])
 def test_k1_matches_plain(mode, b, d, cmp):
-    """K1 over int8 and bf16 rows at batch sizes of one, two, four and ten
-    query blocks, depths of one and a half, twelve, 21.75 and (the deep-row
-    plan, the query block streamed through the ring) 32 64-deep blocks, each
-    score filter; 60% of the bins alive: within ``mixed_cert_eps(d)`` of
-    the plain version."""
+    """K1 over int8 and bf16 rows at batch sizes of one query, one full
+    query block, two blocks (the second holding one or six queries), two,
+    three (over int8 rows a pair padded by a block of q_ok = 0 lanes), four
+    and ten blocks (over int8 rows from two blocks the pair plan), depths of
+    one and a half, twelve, 21.75 and (the deep-row plan, the query block
+    streamed through the ring) 32 64-deep blocks, each score filter; 60% of
+    the bins alive: within ``mixed_cert_eps(d)`` of the plain version."""
     dev = _device()
     _check_k1(mode, _k1_operands(mode, dev, b=b, d=d, cmp=cmp), cmp, "some")
 
@@ -358,37 +366,99 @@ def _q_scale(kind, b, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["tiny", "huge", "wide"])
-@pytest.mark.parametrize("b", [1, 70])
+@pytest.mark.parametrize("b", [1, 70, 256])
 @pytest.mark.parametrize("mode", ["K1", "K1-bf16"])
 def test_k1_query_scales(mode, b, kind):
     """Queries far from unit scale, or spanning more than f16's range
     within one query: within ``mixed_cert_eps(d)`` of the plain version
     (over int8 rows the f16 products' scale is undone exactly, and a block
-    that f16 cannot hold exactly keeps bf16 products)."""
+    that f16 cannot hold exactly keeps bf16 products; on the pair plan, b
+    = 70 and 256, the pair holding that block keeps them for both of its
+    blocks, whose flags differ, and the other pair takes f16)."""
     dev = _device()
     args = _k1_operands(mode, dev, b=b, d=768, cmp=None, q_scale=_q_scale(kind, b, 768))
     _check_k1(mode, args, None, "some")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,row_bytes", [("K1", 1), ("K1-bf16", 2)])
-@pytest.mark.parametrize("d", [16, 96, 768, 1296, 1344, 1392, 1536])
-def test_k1_smem_mirrors_the_kernel(mode, row_bytes, d):
+@pytest.mark.parametrize("mode,row_bytes,b,entry", [
+    ("K1", 1, 1, "cert_cos_binmax"), ("K1-bf16", 2, 1, "cert_cos_binmax_bf16"),
+    ("K1", 1, 256, "cert_cos_binmax_pair")])
+@pytest.mark.parametrize("d", [16, 96, 384, 768, 1296, 1344, 1392, 1536, 4096])
+def test_k1_smem_mirrors_the_kernel(mode, row_bytes, b, entry, d):
     """``sm90_plan`` / ``sm90_smem_bytes`` equal the C side's figures (over
-    bf16 rows at d = 1,296-1,536 the split plan's)."""
+    bf16 rows at d = 1,296-1,536 the split plan's; over int8 rows at more
+    than one query block the pair plan's, its resident head included)."""
     _device()
     from otters_tpu_torch import kernels
 
-    entry = {"K1": "cert_cos_binmax", "K1-bf16": "cert_cos_binmax_bf16"}[mode]
     lib = kernels.load("cert_cos_binmax")
     smem, stages = getattr(lib, f"{entry}_smem_bytes"), getattr(lib, f"{entry}_stages")
     smem.argtypes = stages.argtypes = [ctypes.c_int]
     smem.restype = ctypes.c_size_t
     stages.restype = ctypes.c_int
-    ks, rows, s, streamed, resident = ft.sm90_plan(mode, d)
+    ks, rows, s, streamed, resident = ft.sm90_plan(mode, d, b)
     assert stages(d) == s
     assert smem(d) == ft.sm90_smem_bytes(d, row_bytes, s, ks, rows, streamed,
-                                         resident=resident)
+                                         resident=resident,
+                                         queries=ft.sm90_queries(mode, b))
+    assert smem(d) == ft.kernel_smem_bytes(mode, d, b) <= 232448
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["normal", "wide"])
+@pytest.mark.parametrize("d,b", [(96, 256), (768, 65), (768, 256), (1392, 192)])
+def test_k1_pair_plan_equals_single_queries(d, b, kind):
+    """Over int8 rows the bin maxima of b queries on the pair plan (128 a
+    CTA, one launch counted on ``wide_launches``) are bit for bit those of
+    the same queries launched one at a time on the 64-query plan (none of
+    them wide): each query's dots are the same f16 products (scaled by the
+    same 2^s, per pair or per block) in the same order, keyed alike. With
+    ``kind`` "wide" query 0 spans more than f16's range: its pair keeps
+    bf16 products for the other 127 queries too, which the single launches
+    multiply in f16, and the sums still agree bit for bit (the same exact
+    products, scaled by a power of two)."""
+    dev = _device()
+    scale = _q_scale(kind, b, d) if kind == "wide" else None
+    args = _k1_operands("K1", dev, b=b, d=d, cmp=Cmp.Gte, thr=-0.5, q_scale=scale)
+    fn = ft.cert_cos_binmax
+    launches, wide = fn.launches, fn.wide_launches
+    whole = fn(*args, Cmp.Gte)
+    parts = [fn(*(t[s : s + 1] if i in (0, 5, 6) else t for i, t in enumerate(args)), Cmp.Gte)
+             for s in range(b)]
+    torch.cuda.synchronize()
+    assert (fn.launches - launches, fn.wide_launches - wide) == (b + 1, 1)
+    want = torch.cat(parts, dim=1)
+    assert bool(torch.isfinite(want).any())
+    assert torch.equal(whole.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["normal", "tiny", "huge", "wide", "nan"])
+def test_k1_f16_queries_on_the_card_equal_the_cpu(kind):
+    """The pair plan's f16 rewrite on the card (one launch of
+    ``cert_cos_binmax_f16_queries``) gives the plain version's queries,
+    scales and flags bit for bit: three pairs of 768-deep queries, scaled
+    by 1e-15 or 1e15, one query spanning more than f16's range (its pair
+    keeps bf16), a NaN element."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((384, 768), generator=g, device=dev)
+    q *= {"tiny": 1e-15, "huge": 1e15}.get(kind, 1.0)
+    if kind == "wide":
+        q[200, ::2] *= 2.0 ** -40
+    if kind == "nan":
+        q[5, 9] = float("nan")
+    q = q.bfloat16()
+    on_card = ft.f16_queries(q.clone())
+    on_cpu = ft.f16_queries(q.cpu())
+    flags = {"wide": [1, 0, 1], "nan": [0, 1, 1]}.get(kind, [1, 1, 1])
+    assert on_card[2].tolist() == on_cpu[2].tolist() == flags
+    for a, c in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu().view(torch.int32) if a.dtype == torch.float32 else
+                           a.cpu().view(torch.int16) if a.dtype == torch.bfloat16 else a.cpu(),
+                           c.view(torch.int32) if c.dtype == torch.float32 else
+                           c.view(torch.int16) if c.dtype == torch.bfloat16 else c)
 
 
 # K6 and K4 over bf16 rows, on the Hopper scan
@@ -968,14 +1038,14 @@ def test_smem_mirrors_the_kernel(mode, entry, d):
     smem = getattr(lib, f"{entry}_smem_bytes")
     smem.argtypes = [ctypes.c_int]
     smem.restype = ctypes.c_size_t
-    assert smem(d) == ft.kernel_smem_bytes(mode, d)
+    assert smem(d) == ft.kernel_smem_bytes(mode, d, 1)
     if mode in ft.SM90_SHAPES:
         stages = getattr(lib, f"{entry}_stages")
         stages.argtypes = [ctypes.c_int]
         stages.restype = ctypes.c_int
-        assert stages(d) == ft.sm90_plan(mode, d).stages
+        assert stages(d) == ft.sm90_plan(mode, d, 1).stages
     if mode == "K4":
-        assert smem(d) == 198720 and ft.sm90_plan(mode, d).stages == 3
+        assert smem(d) == 198720 and ft.sm90_plan(mode, d, 1).stages == 3
         wide = ft.bf16x3_binmax.wide_launches
     if mode in pv.PROBES:
         ops = pv.make_inputs(dev, n_pad=4 * pv.T, d=d, b=70, seed=d)
@@ -1016,7 +1086,7 @@ def test_split_plan_matches_plain(mode, metric, take_min, b):
     masked ones -inf, each launch counted on ``split_launches``."""
     dev = _device()
     d = 1536
-    assert ft.sm90_plan(mode, d).split
+    assert ft.sm90_plan(mode, d, b).split
     args = _bf16_operands(mode, dev, metric, n=20_000, d=d, b=b)
     v, surv, n_surv = args[1], args[-2], args[-1]
     rmask = args[3 if mode == "K1-bf16" else 4]
