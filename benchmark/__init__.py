@@ -1,4 +1,4 @@
-"""The benchmark of ``otters_tpu_torch`` on one NVIDIA H100.
+"""The benchmark of ``otters_tpu_torch`` on NVIDIA H100s (a cell's ``chips``).
 
 Run one cell (a workload of ``BENCHMARK.json``) from the root of a checkout:
 

@@ -2,16 +2,23 @@
 of query batches that the traffic cycles through.
 
 The configuration names how each is made: ``inputs`` the file
-``inputs/<name>.py`` whose ``make`` draws the rows and queries on the device
-from one ``torch.Generator``, and each column's ``values`` the file
-``columns/<values>.py`` whose ``make`` gives its values. The same seed gives
-the same inputs. Both the program and the reference are handed these.
+``inputs/<name>.py`` whose ``make`` gives the rows and draws the queries on
+the device from one ``torch.Generator``, and each column's ``values`` the
+file ``columns/<values>.py`` whose ``make`` gives its values. The same seed
+gives the same inputs. Both the program and the reference are handed these.
+
+The rows are either one ``[n, d]`` float32 tensor on the device
+(``inputs/gaussian.py``) or a source that makes them on demand: an object
+with ``n``, ``d``, ``slab(start, count, device)`` and ``take(ids, device)``,
+each giving float32 rows on the device named (``inputs/gaussian_by_id.py``).
+Where the rows are such a source, no tensor of them all exists: the build,
+the rerank source and the reference remake the rows they need.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -21,7 +28,7 @@ from . import spec
 
 @dataclass
 class Inputs:
-    rows: torch.Tensor  # [n, d] float32
+    rows: Any  # [n, d] float32 tensor, or a source that makes rows by id
     n: int
     columns: Dict[str, np.ndarray]  # name -> [n] values
     queries: torch.Tensor  # [pool, batch, d] float32

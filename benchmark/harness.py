@@ -2,7 +2,10 @@
 window, the comparison with the reference, and the metrics by name.
 
 ``run.py`` is the command; the tests call ``run_cell`` on the CPU at small
-sizes (``overrides``).
+sizes (``overrides``). A run takes one device or a list of them: with more
+than one, the store spans them (``system.build``), the reference scores on
+all of them, and the result's ``device`` gives the number of cards and the
+fullest card's memory peak.
 """
 
 from __future__ import annotations
@@ -80,13 +83,17 @@ def _values(readers, rec: Record) -> Dict[str, Dict]:
     return out
 
 
-def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
+def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, devices,
              t_process: float, overrides: Optional[Dict] = None) -> Dict:
-    """-> the result line's fields (``correct`` ... ``checks``)."""
+    """-> the result line's fields (``correct`` ... ``checks``). ``devices``:
+    one device, or a list (the first leads: the inputs' queries, the
+    program's merge and the reference's are there)."""
     _T0[0] = t_process
     import otters_tpu_torch as tx
 
-    dev = torch.device(device)
+    devs = system.devices(devices)
+    dev = devs[0]
+    cards = system.cards(devs)
     on_card = dev.type == "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
     sz = sizes(cell, overrides)
@@ -94,25 +101,27 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     kind = spec.part("traffic", cell.mix["kind"])
     filt = cell.mix["filter"]
     keep_from = spec.keep_from(cell.mix, n)
-    log(f"cell {cell.name}: {n} x {d} {cell.config['storage_dtype']}, batch {batch}, "
-        f"mix {json.dumps(cell.mix)}, {filt['column']} {filt['op']} {keep_from}, seed {seed}")
+    log(f"cell {cell.name}: {n} x {d} {cell.config['storage_dtype']} "
+        f"{cell.config['metric']}, batch {batch}, mix {json.dumps(cell.mix)}, "
+        f"{filt['column']} {filt['op']} {keep_from}, seed {seed}, devices "
+        f"{[str(x) for x in devs]}")
 
     t0 = time.perf_counter()
     inputs = data.make(cell.config, n, d, sz["pool"], batch, seed, dev)
-    system.sync(dev)
+    system.sync(devs)
     log(f"inputs made on {dev}: {time.perf_counter() - t0:.3f} s")
-    store, build_s = system.build(tx, cell.config, inputs, dev)
+    store, build_s = system.build(tx, cell.config, inputs, devs)
     log(f"build: {build_s:.3f} s, {store.n_chunks()} chunks")
     api = system.Requests(tx, store, cell.config, cell.mix, keep_from)
     t0 = time.perf_counter()
     n_programs, warm = kind.warm(api, inputs.queries, cell.mix)
-    system.sync(dev)
+    system.sync(devs)
     log(f"precompile ({n_programs} programs) and warm-up: {time.perf_counter() - t0:.3f} s, "
         f"certified {sum(r.certified is True for r in warm)} of {len(warm)}")
     log(f"counters after set-up: {json.dumps(system.counters(tx))}")
     system.reset_launches()
     gc.collect()
-    system.sync(dev)
+    system.sync(devs)
     setup_s = time.perf_counter() - t_process
 
     prof = None
@@ -124,18 +133,21 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
             with record_function(trace.WINDOW_SPAN):
                 window = kind.run(api, inputs.queries, cell.mix, min(seconds, TRACE_SECONDS),
                                   record_function)
-                system.sync(dev)
+                system.sync(devs)
     else:
         window = kind.run(api, inputs.queries, cell.mix, seconds)
     found = guard.offenders()
     if found:
         raise RuntimeError(f"modules of JAX or the JAX package are loaded: {found}")
-    memory_peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    peaks = {str(c): torch.cuda.max_memory_allocated(c) for c in cards}
+    memory_peak = max(peaks.values(), default=0)
     counts = system.counters(tx)
     log(f"window: {len(window.requests)} requests, {window.queries} queries in "
         f"{window.seconds:.3f} s, {window.gc}; counters {json.dumps(counts)}; "
         f"certified {sum(r.certified is True for r in window.requests)} of "
         f"{len(window.requests)}; memory peak {memory_peak / 1e9:.3f} GB")
+    if len(cards) > 1:
+        log(f"memory peak by card: {json.dumps(peaks)}")
     log(f"queries sent in each second: {window.qps_by_second(batch)}")
     if on_card:
         log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -143,10 +155,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     dtrace = None
     if prof is not None:
         t0 = time.perf_counter()
-        dtrace = trace.reduce(prof)
+        dtrace = trace.reduce(prof, [c.index for c in cards])
         del prof
         log(f"trace reduced in {time.perf_counter() - t0:.3f} s: busy {dtrace.busy_s:.6f} s "
             f"of {dtrace.window_s:.6f} s")
+        if dtrace.card_busy_s:
+            log("idle share by card: " + json.dumps(
+                {c: 1.0 - b / dtrace.window_s for c, b in dtrace.card_busy_s.items()}))
 
     # the program's state goes before the reference runs
     del api, store, warm
@@ -154,13 +169,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     if on_card:
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    metric = cell.config["metric"]
     keep = reference.keep_mask(inputs.columns[filt["column"]], filt["op"], keep_from)
-    ref = reference.topk(inputs.rows, keep, inputs.queries, int(cell.mix["k"]),
-                         cell.config["metric"])
+    ref = reference.topk(inputs.rows, keep, inputs.queries, int(cell.mix["k"]), metric,
+                         devices=cards or [dev])
     answers = [judge.Answer(r.pool, r.indices, r.scores, r.certified) for r in window.requests]
     verdict = judge.judge(answers, ref, inputs.rows, inputs.queries, keep,
                           float(cell.config["limits"]["worst_gap"]),
-                          bool(cell.config.get("certified", False)))
+                          bool(cell.config.get("certified", False)), metric)
     log(f"reference and comparison: {time.perf_counter() - t0:.3f} s")
 
     rec = Record(cell=cell, batch=batch, live_rows=int(np.count_nonzero(keep)),
@@ -173,7 +189,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     out["device"] = {
         "platform": "gpu" if on_card else dev.type,
         "kind": torch.cuda.get_device_name(dev) if on_card else dev.type,
-        "count": 1,
+        "count": max(1, len(cards)),
         "memory_peak_bytes": int(memory_peak),
     }
     if dtrace is not None:

@@ -6,8 +6,10 @@ pool entry. Numbers, each with its limit:
 - ``worst_gap``: over every rank of every answer, the larger of how far the
   answer's reported score lies from the reference's score at that rank and
   how far the true score of the row it returned there lies below the
-  reference's. Its limit is the configuration's (``limits``), set from the
-  program's readings and the TF32 control's.
+  reference's. Scores are compared as keys where higher is better
+  (``reference.key``: a take-min metric's distances negated), so the gap
+  means the same for every metric. Its limit is the configuration's
+  (``limits``), set from the program's readings and the TF32 control's.
 - ``short_answers``: answers with fewer results than the reference finds
   (limit 0).
 - ``filter_violations``: returned rows that the filter drops, or that are no
@@ -57,8 +59,9 @@ def _gap(ref_keys: List[float], got_keys: List[float], true_keys: List[float]) -
 
 
 def judge(answers: List[Answer], ref: reference.TopK, rows, queries, keep: np.ndarray,
-          gap_limit: float, certified: bool) -> Verdict:
-    """``queries``: [pool, batch, d], the pool entry of each answer's group."""
+          gap_limit: float, certified: bool, metric: str = "cosine") -> Verdict:
+    """``queries``: [pool, batch, d], the pool entry of each answer's group;
+    ``rows``: the store's rows, a tensor or a row source (``data.py``)."""
     n = len(keep)
     numbers = {"worst_gap": 0.0, "short_answers": 0, "filter_violations": 0}
     if certified:
@@ -70,8 +73,8 @@ def judge(answers: List[Answer], ref: reference.TopK, rows, queries, keep: np.nd
         if key not in seen:
             inside = [i for i in a.indices if 0 <= i < n]
             bad = len(a.indices) - len(inside) + int(np.count_nonzero(~keep[inside]))
-            got = sorted(a.scores, reverse=True)
-            true = reference.best_of_rows(rows, queries[a.pool], inside)
+            got = sorted(reference.key(list(a.scores), metric), reverse=True)
+            true = reference.best_of_rows(rows, queries[a.pool], inside, metric)
             true += [float("-inf")] * (len(got) - len(true))
             seen[key] = (_gap(ref.keys[a.pool], got, true), bad,
                          len(a.indices) < len(ref.rows[a.pool]))

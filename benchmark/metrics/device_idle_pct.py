@@ -1,4 +1,5 @@
-"""The share of the traced window in which no device operation ran, in %."""
+"""The share of the traced window in which no device operation ran on a card,
+in %: the mean over the cell's cards of each card's share (``trace.py``)."""
 
 
 def read(rec):

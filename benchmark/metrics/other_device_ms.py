@@ -1,7 +1,8 @@
 """Device ms a request outside the scan kernels: phase 2, the certificate,
 the exact rerank and the copies (the summed durations of every other device
-operation in the traced window, over its requests). A device trace in which
-no kernel matches the configuration's ``scan_kernels`` fails the run."""
+operation in the traced window, over its requests, summed over the cell's
+cards: on one card exactly that card's). A device trace in which no kernel
+matches the configuration's ``scan_kernels`` fails the run."""
 
 
 def read(rec):

@@ -1,7 +1,8 @@
 """Phase 1 scan kernel launches a request over the traced window
 (``fused_topk.KERNELS[*].launches``, which the harness sets to 0 before the
 window): 1 where every request certified at its first scan width, more with
-strict redos or a widened scan, 0 where the scan ran no kernel (the CPU)."""
+strict redos or a widened scan (a sharded store: one a shard), 0 where the
+scan ran no kernel (the CPU)."""
 
 
 def read(rec):

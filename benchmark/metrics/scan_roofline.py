@@ -1,10 +1,12 @@
 """The phase 1 scan's share of its roofline, in %.
 
-The least time of one request's scan (``roofline.for_config`` over the rows
-the filter keeps and the request's queries) over the device time a request
-spends in the kernels whose names hold the configuration's
-``scan_kernels`` pattern. No trace or no device in it (the CPU rehearsal):
-no value. A device trace in which no kernel matches fails the run."""
+The least time of one request's scan on one card (``roofline.for_config``
+over the rows the filter keeps and the request's queries) over the device
+time a request spends in the kernels whose names hold the configuration's
+``scan_kernels`` pattern, summed over the cell's cards: on one card exactly
+that card's time, on several the mean share of each card's roofline. No
+trace or no device in it (the CPU rehearsal): no value. A device trace in
+which no kernel matches fails the run."""
 
 from benchmark import roofline
 

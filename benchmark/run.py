@@ -1,4 +1,4 @@
-"""Run one cell of the benchmark of ``otters_tpu_torch`` on one H100.
+"""Run one cell of the benchmark of ``otters_tpu_torch`` on its H100s.
 
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
@@ -6,8 +6,9 @@ from the root of a checkout. The last line of standard output is the result
 (``correct``, ``attempted``, ``failed``, ``metrics``, ``device``, with
 ``--trace 1`` also ``breakdown``, and ``checks`` last); the numbers compared
 with the reference, each beside its limit, are also the last lines of
-standard error. With no CUDA device, or fewer than the cell asks for, it
-prints no result and exits with 3.
+standard error. The cell's ``chips`` cards (``cuda:0`` ...) hold its store.
+With no CUDA device, or fewer than the cell asks for, it prints no result
+and exits with 3.
 """
 
 import time
@@ -65,8 +66,8 @@ def main(argv=None) -> int:
         print(f"{cell.name} needs {cell.chips} CUDA device(s); this machine has {have}",
               file=sys.stderr)
         return 3
-    out = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda:0",
-                           T_PROCESS)
+    devices = [f"cuda:{i}" for i in range(cell.chips)]
+    out = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), devices, T_PROCESS)
     found = guard.offenders()
     if found:
         print(f"modules of JAX or the JAX package are loaded: {found}", file=sys.stderr)

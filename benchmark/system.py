@@ -2,46 +2,108 @@
 
 A store is built from the benchmark's f32 rows as the configuration states:
 its columns, storage dtype, chunk size and rerank source (the file
-``rerank/<rerank_source>.py``). A request is
+``rerank/<rerank_source>.py``). On one device, rows made as one tensor go to
+``build()``; on several (the cell's ``chips`` cards), the store is built
+across them by the port's own path, ``make_mesh(rows=<devices>)`` and
+``build_sharded``. Rows made by id (a row source, ``data.py``) are fed to a
+mesh of the run's devices slab by slab, each slab made on the device of the
+shard that holds it (``materialize_*_slabs_sharded`` into
+``with_vectors(DeviceVecs, n_rows=n)``; one device is a one-shard mesh, since
+the port's single-device slab ingest has no bfloat16 form). A request is
 ``query_batch(q, metric).meta_filter(<column> <op> value).take(k, rerank_from)``
 sent with ``collect_async``.
 """
 
 from __future__ import annotations
 
+import math
 import time
+from typing import List
 
 import torch
 
 from . import spec
 
-METRICS = {"cosine": "Cosine"}
+METRICS = {"cosine": "Cosine", "l2": "Euclidean", "dot": "DotProduct"}
+SLAB_ROWS = 1 << 16  # rows made at once where rows are made by id
 
 
-def sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+def devices(devs) -> List[torch.device]:
+    """A device or a list of them -> the list, a CUDA device named without
+    an index taken as the current one."""
+    devs = devs if isinstance(devs, (list, tuple)) else [devs]
+    out = []
+    for d in devs:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        out.append(d)
+    return out
+
+
+def cards(devs) -> List[torch.device]:
+    """The distinct CUDA devices among ``devs``, in order."""
+    out = []
+    for d in devices(devs):
+        if d.type == "cuda" and d not in out:
+            out.append(d)
+    return out
+
+
+def sync(devs) -> None:
+    for d in cards(devs):
+        torch.cuda.synchronize(d)
 
 
 def filter_expr(tx, mix: dict, value: int):
     return getattr(tx.col(mix["filter"]["column"]), mix["filter"]["op"])(value)
 
 
-def build(tx, config: dict, inputs, device):
+def _slabs_by_id(config: dict, rows, n: int, mesh):
+    """The store's rows made by id straight into each shard's memory."""
+    from otters_tpu_torch.parallel import meta_sharded
+
+    shards, chunk = mesh.shape["rows"], int(config["chunk_size"])
+    n_loc = meta_sharded.sharded_geometry(n, chunk, shards)[0] // shards
+    slab_rows = math.gcd(n_loc, SLAB_ROWS)  # a slab lies in one shard
+
+    def slab(start, count):
+        out = rows.slab(start, count, mesh.home(start // n_loc))
+        if start + count > n:
+            out[max(0, n - start):] = 0.0  # the padding rows, zero as the program's own
+        return out
+
+    if config["storage_dtype"] == "int8":
+        return meta_sharded.materialize_int8_slabs_sharded(slab, n, rows.d, slab_rows, mesh,
+                                                           chunk_size=chunk)
+    return meta_sharded.materialize_f32_slabs_sharded(
+        slab, n, rows.d, slab_rows, mesh, chunk_size=chunk,
+        dtype=getattr(torch, config["storage_dtype"]))
+
+
+def build(tx, config: dict, inputs, devs):
     """-> (the store, the synchronised seconds of its build)."""
+    devs = devices(devs)
     columns = [tx.Column(c["name"], getattr(tx.DataType, c["dtype"]))
                .from_values(inputs.columns[c["name"]]) for c in config["columns"]]
     rerank = spec.part("rerank", config["rerank_source"])
-    sync(device)
+    whole = isinstance(inputs.rows, torch.Tensor)
+    sync(devs)
     t0 = time.perf_counter()
     builder = (
         tx.MetaStore.from_columns(columns)
-        .with_vectors(inputs.rows, n_rows=inputs.n)
         .with_storage_dtype(config["storage_dtype"])
         .with_chunk_size(int(config["chunk_size"]))
     )
-    store = rerank.apply(builder, inputs).with_device(device).build()
-    sync(device)
+    if whole and len(devs) == 1:
+        builder = builder.with_vectors(inputs.rows, n_rows=inputs.n)
+        store = rerank.apply(builder, inputs).with_device(devs[0]).build()
+    else:
+        mesh = tx.parallel.make_mesh(rows=len(devs), devices=devs)
+        vectors = inputs.rows if whole else _slabs_by_id(config, inputs.rows, inputs.n, mesh)
+        builder = builder.with_vectors(vectors, n_rows=inputs.n)
+        store = rerank.apply(builder, inputs).build_sharded(mesh)
+    sync(devs)
     return store, time.perf_counter() - t0
 
 

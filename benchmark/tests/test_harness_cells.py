@@ -96,10 +96,13 @@ def test_a_part_is_found_by_its_name(tmp_path, monkeypatch):
 
 def expected_metrics(cell, traced):
     """What a run on the CPU reports: every end-to-end metric of the cell, or
-    every per-layer one that reads no device trace."""
+    every per-layer one that reads no device trace. ``strict_reruns`` reads
+    only where the fast-exact check ran, which b x rows under 2^22 (the
+    direct program of these sizes) never does."""
     if not traced:
         return {m["name"] for m in cell.end_to_end}
-    return {m["name"] for m in cell.per_layer if m["source"] != "device_trace"}
+    return {m["name"] for m in cell.per_layer
+            if m["source"] != "device_trace" and m["name"] != "strict_reruns"}
 
 
 @pytest.mark.parametrize("name", CELLS)

@@ -5,7 +5,12 @@ Each fault is planted in the program for one run on the CPU at a small size
 (the harness's look for a chip skipped): an answer altered where the
 results are made, half of each batch's queries left out, and the previous
 request's answer handed back (a step that returns its state unchanged).
-One chip holds each cell, so no exchange between chips can be left out.
+One chip holds each cell, so no exchange between chips can be left out
+(``test_harness_by_id.py`` leaves it out of a store over four shards).
+
+For a take-min metric (squared L2) the comparison itself catches a wrong
+row, a short answer and the order of the other direction (the farthest
+pairs, as a take-max metric would take them).
 """
 
 import time
@@ -17,7 +22,7 @@ import torch
 import otters_tpu_torch as tx
 from otters_tpu_torch import meta
 
-from benchmark import control, harness, spec
+from benchmark import control, harness, judge, reference, spec
 
 SMALL = {"rows": 30_000, "dim": 64, "batch": 32}
 
@@ -51,12 +56,16 @@ def half_batch(monkeypatch):
 
 
 def stale_resolve(monkeypatch):
+    """Each request of a round gets the answer of the request before it (the
+    first, the previous round's last): the window's first round repeats the
+    warm-up's pool entries, so a whole previous round would go unseen in a
+    window of one round."""
     resolve, last = tx.resolve, []
 
     def stale(pendings):
-        fresh = resolve(pendings)
-        out = last[0] if last else fresh
-        last[:] = [fresh]
+        fresh = list(resolve(pendings))
+        out = (last or fresh[:1]) + fresh[:-1]
+        last[:] = fresh[-1:]
         return out
 
     monkeypatch.setattr(tx, "resolve", stale)
@@ -81,7 +90,10 @@ def stale_result(monkeypatch):
     ("cohere10m.f1p", stale_resolve),
     ("cohere10m.f1p.serial", stale_result),
 ])
-def test_a_broken_timed_path_is_not_correct(name, fault, monkeypatch):
+def test_a_broken_timed_path_is_not_correct(name, fault, monkeypatch, one_thread):
+    """A stale answer shows from the window's second request on (the first
+    repeats the warm-up's pool entry): one thread keeps the short window
+    long enough for several."""
     fault(monkeypatch)
     out = run(name)
     assert out["correct"] is False and out["failed"] > 0
@@ -104,6 +116,47 @@ def test_the_tf32_control_fails_where_the_program_passes(name):
                                overrides=sizes)
     assert program["correct"] is True
     assert program["checks"]["worst_gap"]["value"] < limit / 3
+
+
+def _l2_case():
+    g = torch.Generator().manual_seed(5)
+    rows = torch.randn((200, 16), generator=g)
+    queries = torch.randn((2, 3, 16), generator=g)
+    keep = np.arange(200) >= 20
+    return rows, queries, keep, reference.topk(rows, keep, queries, 10, "l2")
+
+
+def _l2_verdict(rows, queries, keep, ref, answers):
+    return judge.judge([judge.Answer(p, r, s) for p, (r, s) in enumerate(answers)], ref, rows,
+                       queries, keep, 1e-4, certified=True, metric="l2")
+
+
+def test_take_min_faults_are_caught():
+    rows, queries, keep, ref = _l2_case()
+    # the program's answer: rows and their squared distances, nearest first
+    sound = [(r, [-x for x in k]) for r, k in zip(ref.rows, ref.keys)]
+    v = _l2_verdict(rows, queries, keep, ref, sound)
+    assert v.correct and v.numbers["worst_gap"] == 0.0
+
+    # a wrong row: the last one swapped for a kept row outside the answer
+    d = reference.pair_scores(queries[0].reshape(-1, 16), rows, metric="l2").min(0).values
+    other = next(i for i in torch.argsort(d).tolist() if keep[i] and i not in ref.rows[0])
+    wrong = [(sound[0][0][:-1] + [other], sound[0][1][:-1] + [float(d[other])]), sound[1]]
+    v = _l2_verdict(rows, queries, keep, ref, wrong)
+    assert not v.correct and v.failed == 1 and v.numbers["worst_gap"] > 1e-4
+
+    # a short answer
+    short = [(sound[0][0][:-1], sound[0][1][:-1]), sound[1]]
+    v = _l2_verdict(rows, queries, keep, ref, short)
+    assert not v.correct and v.numbers["short_answers"] == 1
+
+    # the order of the other direction: the ten farthest pairs, farthest first
+    keys = reference.key(reference.pair_scores(queries[0], rows, metric="l2"), "l2")
+    flat = torch.where(torch.as_tensor(keep)[None, :], -keys, float("-inf")).reshape(-1)
+    top = torch.topk(flat, 10).indices
+    swapped = [((top % 200).tolist(), flat[top].tolist()), sound[1]]
+    v = _l2_verdict(rows, queries, keep, ref, swapped)
+    assert not v.correct and v.numbers["worst_gap"] > 10.0
 
 
 def test_a_missing_answer_counts_short():

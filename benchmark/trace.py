@@ -1,11 +1,15 @@
 """The traced run: device operations and host spans from ``torch.profiler``,
 reduced to what the per-layer readers and the ``breakdown`` need.
 
-Device time is the union of the device operations' intervals (kernels,
-copies and sets), so overlapping operations are not counted twice. An idle
-gap is a stretch of the window in which no device operation ran; it is
-named by the harness span and the innermost host operation running at its
-middle.
+A card's busy time is the union of its device operations' intervals
+(kernels, copies and sets), so overlapping operations are not counted
+twice; ``busy_s`` is the mean over the cell's cards, so that
+``1 - busy_s / window_s`` is the mean of each card's idle share. An idle gap
+is a stretch of the window in which no device operation ran on a card; it
+is named by the harness span and the innermost host operation running at
+its middle, and by its card where the cell has more than one. ``op_s`` sums
+each operation's device seconds over every card. With one card (or none:
+the CPU) every device operation lies on one timeline.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from __future__ import annotations
 import bisect
 from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 WINDOW_SPAN = "bench.window"
 TOP = 10  # entries of each breakdown list
@@ -27,9 +31,10 @@ def _short(name: str) -> str:
 @dataclass
 class DeviceTrace:
     window_s: float
-    busy_s: float  # union of the device operations' intervals
-    op_s: Dict[str, float]  # device seconds by operation name (summed durations)
+    busy_s: float  # the mean over the cards of the union of each one's device operations
+    op_s: Dict[str, float]  # device seconds by operation name (summed durations, all cards)
     gaps_s: Dict[str, float] = field(default_factory=dict)  # idle seconds by host activity
+    card_busy_s: Dict[str, float] = field(default_factory=dict)  # by card, several only
 
     def sum_s(self, pattern: str = "") -> float:
         return sum(s for name, s in self.op_s.items() if pattern in name)
@@ -55,16 +60,16 @@ class DeviceTrace:
 
 
 def _events(prof) -> Tuple[list, list]:
-    """-> (device [(start_ns, end_ns, name)], host [(start_ns, end_ns, name)]),
-    from the profiler's raw events (a harness span's annotation on the device
-    timeline is no device operation)."""
+    """-> (device [(start_ns, end_ns, name, card index)], host [(start_ns,
+    end_ns, name)]), from the profiler's raw events (a harness span's
+    annotation on the device timeline is no device operation)."""
     dev, host = [], []
     for e in prof.profiler.kineto_results.events():
         item = (e.start_ns(), e.end_ns(), e.name())
         kind = e.device_type().name
         if kind == "CUDA":
             if not (e.is_user_annotation() or item[2].startswith("bench.")):
-                dev.append(item)
+                dev.append(item + (e.device_index(),))
         elif kind == "CPU":
             host.append(item)
     return dev, host
@@ -101,28 +106,41 @@ def _labels(bench, ops, points: List[float]) -> List[str]:
     return out
 
 
-def reduce(prof) -> DeviceTrace:
+def _gaps(busy, w0: float, w1: float) -> List[Tuple[float, float]]:
+    edges = [(w0, w0)] + busy + [(w1, w1)]
+    return [(prev_end, nxt_start) for (_, prev_end), (nxt_start, _) in zip(edges, edges[1:])
+            if nxt_start > prev_end]
+
+
+def reduce(prof, cards: Sequence[int] = ()) -> DeviceTrace:
+    """``cards``: the CUDA indices of the cell's cards (at most one: every
+    device operation on one timeline)."""
     dev, host = _events(prof)
     window = [(s, e) for s, e, name in host if name == WINDOW_SPAN]
     if not window:
         raise RuntimeError(f"the trace holds no {WINDOW_SPAN} span")
     w0, w1 = window[0]
+    several = len(cards) > 1
     op_s: Dict[str, float] = defaultdict(float)
-    spans = []
-    for s, e, name in dev:
+    spans: Dict[int, list] = {c: [] for c in cards} if several else {None: []}
+    for s, e, name, card in dev:
         s, e = max(s, w0), min(e, w1)
         if e > s:
             op_s[name] += (e - s) / 1e9
-            spans.append((s, e))
-    busy = _union(spans)
+            if several and card in spans:
+                spans[card].append((s, e))
+            elif not several:
+                spans[None].append((s, e))
+    busy = {c: _union(iv) for c, iv in spans.items()}
     bench = sorted(h for h in host if h[2].startswith("bench.") and h[2] != WINDOW_SPAN)
     ops = sorted((h for h in host if not h[2].startswith("bench.")), key=lambda h: (h[0], -h[1]))
-    edges = [(w0, w0)] + busy + [(w1, w1)]
-    gaps = [(prev_end, nxt_start) for (_, prev_end), (nxt_start, _) in zip(edges, edges[1:])
-            if nxt_start > prev_end]
+    gaps = sorted((s, e, c) for c, b in busy.items() for s, e in _gaps(b, w0, w1))
     gaps_s: Dict[str, float] = defaultdict(float)
-    for (s, e), label in zip(gaps, _labels(bench, ops, [(s + e) / 2 for s, e in gaps])):
-        gaps_s[label] += (e - s) / 1e9
+    for (s, e, c), label in zip(gaps, _labels(bench, ops, [(s + e) / 2 for s, e, _ in gaps])):
+        gaps_s[f"cuda:{c} {label}" if several else label] += (e - s) / 1e9
+    card_busy = {c: sum(e - s for s, e in b) / 1e9 for c, b in busy.items()}
     return DeviceTrace(window_s=(w1 - w0) / 1e9,
-                       busy_s=sum(e - s for s, e in busy) / 1e9,
-                       op_s=dict(op_s), gaps_s=dict(gaps_s))
+                       busy_s=sum(card_busy.values()) / len(card_busy),
+                       op_s=dict(op_s), gaps_s=dict(gaps_s),
+                       card_busy_s={f"cuda:{c}": v for c, v in card_busy.items()} if several
+                       else {})
