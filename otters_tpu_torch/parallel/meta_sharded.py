@@ -66,7 +66,7 @@ from ..ops import bloom as bloom_ops
 from ..ops import fused_topk, scoring
 from ..ops.scoring import HostCopy
 from ..types import VPU_METRICS, Cmp, CmpOp, Metric
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import exchange
 from .dist_query import merge_partials
 from .mesh import Mesh
@@ -603,7 +603,12 @@ class ShardedMetaStore(MetaStore):
         a single process waits on its device, ``HostCopy.of``) gathers every
         process's records in one ``all_gather`` and composes them alike
         everywhere. Collective there: every process runs the same queries in
-        the same order."""
+        the same order. While a profiler records, the spans
+        ``otters.submit.mesh_cert`` (each shard's inputs and certificate
+        terms, the mesh-wide slack), ``otters.submit.shards`` (every shard's
+        program, the single store's spans inside it) and
+        ``otters.submit.compose`` (inside ``otters.submit.phase2``) name its
+        parts, and ``otters.shard_programs`` counts the programs issued."""
         dv = self._dv
         if dv.vectors.dtype == torch.int8 and metric is not Metric.Cosine:
             raise OttersError("int8 quantized storage supports the Cosine metric only")
@@ -639,46 +644,49 @@ class ShardedMetaStore(MetaStore):
         programs = mesh.programs()
 
         shard_in, terms, maxima, slack_g = {}, {}, {}, None
-        for r, c in programs:
-            dev = mesh.devices[r, c]
-            with on_device(dev):
-                sl = slice(c * b_local, (c + 1) * b_local)
-                dv_l, q_l, qv_l = shard_in[(r, c)] = (
-                    self._local_dv(r, c), qs[sl].to(dev), qv[sl].to(dev))
-                if certify:
-                    # the mesh-wide slack: the maxima of every shard's
-                    # certificate terms (valid queries only), composed once,
-                    # so it covers every (query, row) pair any shard scanned
-                    t = terms[(r, c)] = scoring.cert_terms(
-                        metric, q_l, dv_l.vectors.dtype, dv_l.resid, dv_l.inv_norms,
-                        dv_l.norms_sq, dv_l.vectors.shape[1])
-                    maxima[(r, c)] = torch.stack(scoring.cert_maxima(
-                        *t[1:], dv_l.norms_sq, q_valid=qv_l)).to(lead)
-        if certify and (launch.tile != "fused" or not mesh.spans_processes):
-            # the direct / panel scans loosen their filter by it before they
-            # scan (across processes: one all_reduce first); the fused path
-            # needs it only after the merge
-            g = torch.stack(list(maxima.values())).amax(dim=0)
-            if mesh.spans_processes:
-                g = torch.from_numpy(exchange.all_reduce_max(g.cpu().numpy())).to(lead)
-            slack_g = scoring.cert_slack(*g)
+        with span("otters.submit.mesh_cert"):
+            for r, c in programs:
+                dev = mesh.devices[r, c]
+                with on_device(dev):
+                    sl = slice(c * b_local, (c + 1) * b_local)
+                    dv_l, q_l, qv_l = shard_in[(r, c)] = (
+                        self._local_dv(r, c), qs[sl].to(dev), qv[sl].to(dev))
+                    if certify:
+                        # the mesh-wide slack: the maxima of every shard's
+                        # certificate terms (valid queries only), composed once,
+                        # so it covers every (query, row) pair any shard scanned
+                        t = terms[(r, c)] = scoring.cert_terms(
+                            metric, q_l, dv_l.vectors.dtype, dv_l.resid, dv_l.inv_norms,
+                            dv_l.norms_sq, dv_l.vectors.shape[1])
+                        maxima[(r, c)] = torch.stack(scoring.cert_maxima(
+                            *t[1:], dv_l.norms_sq, q_valid=qv_l)).to(lead)
+            if certify and (launch.tile != "fused" or not mesh.spans_processes):
+                # the direct / panel scans loosen their filter by it before they
+                # scan (across processes: one all_reduce first); the fused path
+                # needs it only after the merge
+                g = torch.stack(list(maxima.values())).amax(dim=0)
+                if mesh.spans_processes:
+                    g = torch.from_numpy(exchange.all_reduce_max(g.cpu().numpy())).to(lead)
+                slack_g = scoring.cert_slack(*g)
 
         outs = {}
-        for r, c in programs:
-            dev = mesh.devices[r, c]
-            dv_l, q_l, qv_l = shard_in[(r, c)]
-            with on_device(dev):
-                # the single store's program on the shard's rows; the fused
-                # kernel loosens its filter by its own local slack
-                rows, scores, ok, check, bound, ev, re_ = _device_program(
-                    dv_l, self._chunk_lens.local(r, c), self._chunk_size, cols_sub,
-                    plan_static, plan_params, q_l, _scalar(float(thr), torch.float32, dev),
-                    launch, metric=metric, k=k_local, take_min=take_min, cmp=cmp,
-                    prec=self.precision, q_valid=qv_l,
-                    mesh_cert=(terms[(r, c)], slack_g.to(dev))
-                    if certify and launch.tile != "fused" else None,
-                    local_plan=functools.partial(self._local_plan, r=r, c=c),
-                    clock=shard_clock)
+        with span("otters.submit.shards"):
+            for r, c in programs:
+                dev = mesh.devices[r, c]
+                dv_l, q_l, qv_l = shard_in[(r, c)]
+                with on_device(dev):
+                    # the single store's program on the shard's rows; the fused
+                    # kernel loosens its filter by its own local slack
+                    rows, scores, ok, check, bound, ev, re_ = _device_program(
+                        dv_l, self._chunk_lens.local(r, c), self._chunk_size, cols_sub,
+                        plan_static, plan_params, q_l, _scalar(float(thr), torch.float32, dev),
+                        launch, metric=metric, k=k_local, take_min=take_min, cmp=cmp,
+                        prec=self.precision, q_valid=qv_l,
+                        mesh_cert=(terms[(r, c)], slack_g.to(dev))
+                        if certify and launch.tile != "fused" else None,
+                        local_plan=functools.partial(self._local_plan, r=r, c=c),
+                        clock=shard_clock)
+                    count("otters.shard_programs")
                 if launch.tile != "fused":
                     # the scans return no check, and a bound only certified
                     check, bound = None, bound if certify else None
@@ -714,7 +722,7 @@ class ShardedMetaStore(MetaStore):
                     torch.stack([outs[rc][5].to(lead) for rc in stats]).sum(dtype=torch.int32),
                     torch.stack([outs[rc][6].to(lead) for rc in stats]).sum(dtype=torch.int32))
 
-        with span("otters.submit.phase2"):
+        with span("otters.submit.phase2"), span("otters.submit.compose"):
             out = (compose(outs, slack_g) if not mesh.spans_processes else
                    _exchange_programs(mesh, outs, maxima if certify else None, slack_g, compose))
         if clock is not None:
