@@ -490,7 +490,8 @@ def _build_device_column(col: Column, n: int, n_pad: int, chunk_size: int,
 
 def _device_program(dv: scoring.DeviceVecs, chunk_lens, chunk_size: int, cols, plan_static,
                     plan_params, queries, thr, launch: "_Launch", *, metric, k, take_min, cmp,
-                    prec, q_valid=None, mesh_cert=None, local_plan=None, clock=None):
+                    prec, q_valid=None, mesh_cert=None, with_maxima=False, local_plan=None,
+                    clock=None):
     """One device's whole meta query, enqueued without waiting: a single
     store's, or one shard's of a mesh (:mod:`.parallel.meta_sharded`):
 
@@ -506,7 +507,10 @@ def _device_program(dv: scoring.DeviceVecs, chunk_lens, chunk_size: int, cols, p
     ``q_valid`` marks a padded batch's real queries. ``mesh_cert`` (a
     mesh's certified direct / panel programs): this device's
     ``scoring.cert_terms`` and the mesh-wide slack, in place of the
-    device's own. ``local_plan`` and ``clock``: see
+    device's own. ``with_maxima`` (a mesh's certified fused programs): an
+    8th output, the six maxima of the certificate terms the fused scan
+    reduced for its own slack (``scoring.cert_maxima``'s scalars), which
+    the mesh composes its slack from. ``local_plan`` and ``clock``: see
     :func:`_device_masks` and ``_HostClock`` (the host seconds of the masks
     go to pruning, the rest to scoring). Returns device tensors (rows,
     scores, ok, check, bound, evaluated, rows_eval), rows local to the
@@ -519,11 +523,11 @@ def _device_program(dv: scoring.DeviceVecs, chunk_lens, chunk_size: int, cols, p
     t1 = time.perf_counter()
     out = _device_scores(dv, queries, rmask, alive, thr, launch, metric=metric, k=k,
                          take_min=take_min, cmp=cmp, prec=prec, q_valid=q_valid,
-                         mesh_cert=mesh_cert)
+                         mesh_cert=mesh_cert, with_maxima=with_maxima)
     if clock is not None:
         clock.prune += t1 - t0
         clock.score += time.perf_counter() - t1
-    return (*out, evaluated, rows_eval)
+    return (*out[:5], evaluated, rows_eval, *out[5:])
 
 
 def _device_masks(dv: scoring.DeviceVecs, chunk_lens, chunk_size: int, cols, plan_static,
@@ -569,15 +573,16 @@ def _device_masks(dv: scoring.DeviceVecs, chunk_lens, chunk_size: int, cols, pla
 
 
 def _device_scores(dv: scoring.DeviceVecs, queries, rmask, alive, thr, launch: "_Launch", *,
-                   metric, k, take_min, cmp, prec, q_valid, mesh_cert):
-    """A device's scoring, enqueued -> (rows, scores, ok, check, bound) (see
-    :func:`_device_program`)."""
+                   metric, k, take_min, cmp, prec, q_valid, mesh_cert, with_maxima):
+    """A device's scoring, enqueued -> (rows, scores, ok, check, bound), and
+    the certificate's maxima with ``with_maxima`` (see :func:`_device_program`)."""
     tile, certify = launch.tile, launch.certify
     if tile == "fused":
         return fused_topk.fused_topk(
             dv.vectors, dv.norms_sq, dv.inv_norms, dv.valid, queries, rmask,
             thr, alive, metric=metric, k=k, take_min=take_min, cmp=cmp,
             certify=certify, prec=prec, fast=launch.fast, resid=dv.resid, q_valid=q_valid,
+            with_maxima=with_maxima,
         )
 
     # direct / scan / panel / scan_pruned: one global certificate term; the certified scan runs

@@ -74,7 +74,8 @@ from .scoring import (
     _quantize_rows_int8,
     _query_norms,
     _stable_topk,
-    cert_global_slack,
+    cert_maxima,
+    cert_slack,
     cert_terms,
     check_precision,
     exact_topk_flat,
@@ -1121,6 +1122,7 @@ def fused_topk(
     fast: bool = False,
     resid=None,
     q_valid=None,
+    with_maxima: bool = False,
 ):
     """Fused pruned scoring + top-k candidates.
 
@@ -1138,12 +1140,15 @@ def fused_topk(
     only when the fast mode cannot certify its answer (re-run with
     fast=False); ``bound`` is the certificate's bound, in the key space
     (negated for take_min), on the true score of every row not returned
-    (-inf without certify)."""
+    (-inf without certify). ``with_maxima`` (certify): a 6th output, the
+    certificate terms' six maxima over these rows and the valid queries
+    (:func:`~.scoring.cert_maxima`'s scalars), which a mesh composes its
+    slack from."""
     mode = kernel_mode(vectors.dtype, metric, take_min, certify, prec, fast)
     if certify:
         return _fused_cert(mode, vectors, norms_sq, inv_norms, valid, queries, row_mask,
                            thr, bin_alive, metric=metric, k=k, take_min=take_min,
-                           cmp=cmp, resid=resid, q_valid=q_valid)
+                           cmp=cmp, resid=resid, q_valid=q_valid, with_maxima=with_maxima)
     if fast and not fast_ok(metric, take_min, cmp, k, prec):
         raise ValueError("the fast-exact mode does not apply to this query")
     with span("otters.submit.scan_setup"):
@@ -1275,6 +1280,7 @@ class CertScan(NamedTuple):
     q_sq: torch.Tensor  # [b] norms of the bf16-rounded queries
     q_inv: torch.Tensor
     thr1: torch.Tensor  # [1] the score filter's threshold, loosened
+    maxima: tuple  # the terms' six maxima over the valid queries (cert_slack's order)
 
 
 def cert_scan(mode, vectors, norms_sq, inv_norms, valid, queries, row_mask, thr,
@@ -1282,9 +1288,10 @@ def cert_scan(mode, vectors, norms_sq, inv_norms, valid, queries, row_mask, thr,
     """Set up the certified scan as the JAX package's ``_pallas_topk_jit``
     does: queries rounded once to bf16 (kept unquantized), the per-query
     coefficients c0 / c1 / c2 and per-row lanes of the certificate fold,
-    the score filter loosened by the global slack, the survivor list. K1
-    (``mode`` "K1" / "K1-bf16") takes the Cosine lane and leaves c0 to
-    phase 2; K5 takes every term."""
+    the score filter loosened by the global slack (from the terms' six
+    maxima, kept for a mesh's slack), the survivor list. K1 (``mode`` "K1"
+    / "K1-bf16") takes the Cosine lane and leaves c0 to phase 2; K5 takes
+    every term."""
     d = vectors.shape[1]
     b = queries.shape[0]
     dev = vectors.device
@@ -1294,22 +1301,23 @@ def cert_scan(mode, vectors, norms_sq, inv_norms, valid, queries, row_mask, thr,
     q_sq, q_inv = _query_norms(qh32)
     # the global slack only loosens the score filter, so no truly passing
     # row is dropped on its scan score
-    slack_g = cert_global_slack(c0, c1, c2, lane_a, lane_b, norms_sq, q_valid=q_valid)
-    thr1 = loosened(thr, slack_g, cmp).reshape(1).to(torch.float32)
+    maxima = cert_maxima(c0, c1, c2, lane_a, lane_b, norms_sq, q_valid=q_valid)
+    thr1 = loosened(thr, cert_slack(*maxima), cmp).reshape(1).to(torch.float32)
     q_ok, rmask01, surv, n_surv = _scan_masks(valid, row_mask, bin_alive, q_valid, b, dev)
     if mode == "K5":
         ops = [q_kern, vectors, inv_norms, norms_sq, rmask01, lane_a, lane_b, q_inv, q_sq,
                q_ok, c0, c1, c2, thr1, surv, n_surv]
     else:
         ops = [q_kern, vectors, inv_norms, rmask01, lane_a, q_inv, q_ok, thr1, surv, n_surv]
-    return CertScan(ops, qh32, c0, c1, c2, lane_a, lane_b, q_sq, q_inv, thr1)
+    return CertScan(ops, qh32, c0, c1, c2, lane_a, lane_b, q_sq, q_inv, thr1, maxima)
 
 
 def _fused_cert(mode, vectors, norms_sq, inv_norms, valid, queries, row_mask, thr,
-                bin_alive, *, metric, k, take_min, cmp, resid, q_valid):
+                bin_alive, *, metric, k, take_min, cmp, resid, q_valid, with_maxima):
     """The certified paths: K1 (Cosine over int8 or bf16 rows) and K5 (Dot,
     Euclid take-min, over bf16 rows). Candidates are selected by the
-    certificate-adjusted key, with the bound on every row not returned."""
+    certificate-adjusted key, with the bound on every row not returned;
+    ``with_maxima``: the terms' six maxima as a 6th output."""
     allowed = (None, Cmp.Lt, Cmp.Lte) if take_min else (None, Cmp.Gt, Cmp.Gte)
     if cmp not in allowed:
         raise ValueError(f"the certified scan takes no {cmp} score filter here")
@@ -1328,8 +1336,9 @@ def _fused_cert(mode, vectors, norms_sq, inv_norms, valid, queries, row_mask, th
             flat = (KERNELS[mode](*cs.ops, cmp) + cs.c0[None, :]).reshape(-1)
         # slot = bin * b + query
     with span("otters.submit.phase2"):
-        return _cert_phase2(mode, flat, cs, vectors, norms_sq, inv_norms, valid, row_mask,
-                            q_valid, metric=metric, k=k, take_min=take_min, cmp=cmp)
+        out = _cert_phase2(mode, flat, cs, vectors, norms_sq, inv_norms, valid, row_mask,
+                           q_valid, metric=metric, k=k, take_min=take_min, cmp=cmp)
+    return (*out, cs.maxima) if with_maxima else out
 
 
 def _cert_phase2(mode, flat, cs: CertScan, vectors, norms_sq, inv_norms, valid, row_mask,
@@ -1337,7 +1346,7 @@ def _cert_phase2(mode, flat, cs: CertScan, vectors, norms_sq, inv_norms, valid, 
     """Phase 2 of the certified paths: the winner bins of ``flat`` (the
     adjusted bin maxima) rescored, candidates selected by the adjusted key,
     the bound -> (rows, scores, ok, check, bound)."""
-    _, qh32, c0, c1, c2, lane_a, lane_b, q_sq, q_inv, thr1 = cs
+    _, qh32, c0, c1, c2, lane_a, lane_b, q_sq, q_inv, thr1, _ = cs
     d = vectors.shape[1]
     b = qh32.shape[0]
     dev = vectors.device

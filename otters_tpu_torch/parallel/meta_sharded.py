@@ -19,7 +19,10 @@ then composes on the lead device (``mesh.devices[0, 0]`` in one process):
   JAX's ``all_gather`` lays them out, merged by a stable top-k (ties to
   the earlier position, as ``lax.top_k``);
 - the certificate: a mesh-wide slack from the maxima of every shard's
-  per-query coefficients and per-row lanes; the merged bound is the
+  per-query coefficients and per-row lanes (on the fused tile the six
+  maxima each shard's certified scan reduces for its own slack; the
+  direct and panel scans need the slack before they scan, so there a
+  pre-pass computes each shard's terms first); the merged bound is the
   largest local bound or the k-th merged key plus that slack;
 - one failed fast-exact check fails the whole merge (the caller redoes the
   query strictly);
@@ -603,12 +606,19 @@ class ShardedMetaStore(MetaStore):
         a single process waits on its device, ``HostCopy.of``) gathers every
         process's records in one ``all_gather`` and composes them alike
         everywhere. Collective there: every process runs the same queries in
-        the same order. While a profiler records, the spans
-        ``otters.submit.mesh_cert`` (each shard's inputs and certificate
-        terms, the mesh-wide slack), ``otters.submit.shards`` (every shard's
-        program, the single store's spans inside it) and
-        ``otters.submit.compose`` (inside ``otters.submit.phase2``) name its
-        parts, and ``otters.shard_programs`` counts the programs issued."""
+        the same order. The mesh-wide slack comes from each shard's six
+        certificate maxima: on the fused tile those its program's scan
+        reduces for its own slack (composed after the merge), on the
+        direct and panel tiles those of a pre-pass over each shard's
+        certificate terms (the scans loosen their filter by the slack). While
+        a profiler records, the spans ``otters.submit.mesh_cert`` (each
+        shard's queries and query mask placed on its device, and on the
+        direct and panel tiles the pre-pass and the slack),
+        ``otters.submit.shards`` (every shard's program, the single store's
+        spans inside it) and ``otters.submit.compose`` (inside
+        ``otters.submit.phase2``) name its parts; ``otters.shard_programs``
+        counts the programs issued and ``otters.shard_maxima_reused`` those
+        whose maxima came from their own scan."""
         dv = self._dv
         if dv.vectors.dtype == torch.int8 and metric is not Metric.Cosine:
             raise OttersError("int8 quantized storage supports the Cosine metric only")
@@ -643,6 +653,12 @@ class ShardedMetaStore(MetaStore):
         qv = torch.arange(b_pad, device=lead) < b
         programs = mesh.programs()
 
+        # the mesh-wide slack: the maxima of every shard's certificate terms
+        # (valid queries only), composed once, so it covers every (query,
+        # row) pair any shard scanned. A fused program reduces them for its
+        # own slack and hands them out; the direct / panel scans loosen their
+        # filter by the mesh-wide slack before they scan, so theirs come first
+        reuse = certify and launch.tile == "fused"
         shard_in, terms, maxima, slack_g = {}, {}, {}, None
         with span("otters.submit.mesh_cert"):
             for r, c in programs:
@@ -651,19 +667,14 @@ class ShardedMetaStore(MetaStore):
                     sl = slice(c * b_local, (c + 1) * b_local)
                     dv_l, q_l, qv_l = shard_in[(r, c)] = (
                         self._local_dv(r, c), qs[sl].to(dev), qv[sl].to(dev))
-                    if certify:
-                        # the mesh-wide slack: the maxima of every shard's
-                        # certificate terms (valid queries only), composed once,
-                        # so it covers every (query, row) pair any shard scanned
+                    if certify and not reuse:
                         t = terms[(r, c)] = scoring.cert_terms(
                             metric, q_l, dv_l.vectors.dtype, dv_l.resid, dv_l.inv_norms,
                             dv_l.norms_sq, dv_l.vectors.shape[1])
                         maxima[(r, c)] = torch.stack(scoring.cert_maxima(
                             *t[1:], dv_l.norms_sq, q_valid=qv_l)).to(lead)
-            if certify and (launch.tile != "fused" or not mesh.spans_processes):
-                # the direct / panel scans loosen their filter by it before they
-                # scan (across processes: one all_reduce first); the fused path
-                # needs it only after the merge
+            if certify and not reuse:
+                # across processes: one all_reduce first
                 g = torch.stack(list(maxima.values())).amax(dim=0)
                 if mesh.spans_processes:
                     g = torch.from_numpy(exchange.all_reduce_max(g.cpu().numpy())).to(lead)
@@ -677,16 +688,20 @@ class ShardedMetaStore(MetaStore):
                 with on_device(dev):
                     # the single store's program on the shard's rows; the fused
                     # kernel loosens its filter by its own local slack
-                    rows, scores, ok, check, bound, ev, re_ = _device_program(
+                    rows, scores, ok, check, bound, ev, re_, *mx = _device_program(
                         dv_l, self._chunk_lens.local(r, c), self._chunk_size, cols_sub,
                         plan_static, plan_params, q_l, _scalar(float(thr), torch.float32, dev),
                         launch, metric=metric, k=k_local, take_min=take_min, cmp=cmp,
                         prec=self.precision, q_valid=qv_l,
                         mesh_cert=(terms[(r, c)], slack_g.to(dev))
-                        if certify and launch.tile != "fused" else None,
+                        if certify and not reuse else None,
+                        with_maxima=reuse,
                         local_plan=functools.partial(self._local_plan, r=r, c=c),
                         clock=shard_clock)
                     count("otters.shard_programs")
+                    if reuse:
+                        maxima[(r, c)] = torch.stack(mx[0])
+                        count("otters.shard_maxima_reused")
                 if launch.tile != "fused":
                     # the scans return no check, and a bound only certified
                     check, bound = None, bound if certify else None
@@ -697,7 +712,7 @@ class ShardedMetaStore(MetaStore):
             order (rows-major over (rows, batch)), JAX's all_gather layout."""
             order = sorted(outs)
             if certify and slack_g is None:
-                slack_g = scoring.cert_slack(*torch.stack([maxima[rc] for rc in order])
+                slack_g = scoring.cert_slack(*torch.stack([maxima[rc].to(lead) for rc in order])
                                              .amax(dim=0))
             # one failed fast-exact check fails the merge (the caller redoes it)
             checks = [outs[rc][3].to(lead) for rc in order if outs[rc][3] is not None]
@@ -880,7 +895,8 @@ def _exchange_programs(mesh: Mesh, outs, maxima, slack_g, compose):
     """Across processes: this process's program outputs ``{(r, c): (rows,
     scores, ok, check, bound, evaluated, rows_eval)}`` packed on the lead
     device as one fixed-length record a program (with the certificate's
-    six maxima, which the fused path composes only after the merge) and
+    six maxima, which the fused path takes from each program's own scan
+    and composes only after the merge) and
     copied to the host without a wait -> an :class:`~.exchange.Pending`
     whose ``wait()`` gathers every process's records and composes them all
     with ``compose`` (host numpy, ``HostCopy.wait``'s layout). A mode

@@ -9,7 +9,9 @@ the rerank remaking rows by id), on four CPU shards at small sizes:
   .take(10, rerank_from=100)`` with the plain reference's rows, in its
   take-min order, and distances within the configuration's limit;
 - the sharding layer's spans nest inside ``otters.submit``, each once a
-  request, and a single store records none of them;
+  request, and a single store records none of them; each shard computes
+  its certificate terms once a request, in its fused scan (whose maxima
+  the mesh's slack reuses) or in the direct programs' pre-pass;
 - the configuration's inputs keep their bits (a pinned digest).
 """
 
@@ -24,7 +26,7 @@ import pytest
 from torch.profiler import profile
 
 import otters_tpu_torch as tx
-from otters_tpu_torch.ops import scoring
+from otters_tpu_torch.ops import fused_topk, scoring
 from otters_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -102,11 +104,28 @@ def test_the_sharded_store_answers_as_the_reference(seed):
         np.testing.assert_allclose(res.scores, distances, rtol=0.0, atol=limit)
 
 
-def test_the_sharding_spans_nest_once_a_request(log):
+@pytest.mark.parametrize("tile", ["fused", "direct"])
+def test_the_sharding_spans_nest_once_a_request(log, tile, monkeypatch):
+    """The sharding spans, each once a request; each shard computes its
+    certificate terms once: in its fused scan, which hands its maxima to
+    the mesh (``otters.shard_maxima_reused``, one a shard), or in the
+    direct programs' pre-pass inside ``otters.submit.mesh_cert``, counting
+    none."""
     inputs, store = _sharded(2**40 + 43)
+    cert_terms = scoring.cert_terms
+
+    def counted(*a, **kw):
+        profiling.count("test.cert_terms")
+        return cert_terms(*a, **kw)
+
+    monkeypatch.setattr(scoring, "cert_terms", counted)
+    monkeypatch.setattr(fused_topk, "cert_terms", counted)
+    # a few queries: b x rows a shard within DIRECT_LIMIT, the direct tile
+    queries = inputs.queries if tile == "fused" else inputs.queries[:, :4]
     with profile():
-        pendings = [_submit(store, q) for q in inputs.queries]
+        pendings = [_submit(store, q) for q in queries]
         tx.resolve(pendings)
+    assert all(p.stats().certified is True for p in pendings)
     recs = profiling.records()
     by_id = {r.id: r for r in recs}
     seqs = {p._seq for p in pendings}
@@ -128,6 +147,16 @@ def test_the_sharding_spans_nest_once_a_request(log):
     counted = [r for r in recs if r.name == "otters.shard_programs"]
     assert len(counted) == SHARDS * len(pendings) and all(r.parent in shards for r in counted)
     assert sum(r.value for r in counted) == SHARDS * len(pendings)
+    reused = [r for r in recs if r.name == "otters.shard_maxima_reused"]
+    terms = [by_id[r.parent] for r in recs if r.name == "test.cert_terms"]
+    assert len(terms) == SHARDS * len(pendings)
+    if tile == "fused":
+        assert len(reused) == SHARDS * len(pendings) and all(r.parent in shards for r in reused)
+        assert sum(r.value for r in reused) == SHARDS * len(pendings)
+        assert all(s.name == "otters.submit.scan_setup" and s.parent in shards for s in terms)
+    else:
+        assert reused == []
+        assert all(s.name == "otters.submit.mesh_cert" for s in terms)
 
 
 def test_a_single_store_records_no_sharding_span(log):

@@ -682,14 +682,82 @@ def test_shard_runs_the_single_stores_program(case, rows, monkeypatch):
                                getattr(tx.Metric, metric), 10, take_min, cmp, certify=certify)
     a, kw, shard_out = calls[-1]
     # the direct / panel programs take the mesh-wide slack, the kernel its own
+    # and hands out the certificate maxima it reduced for it
     assert a[8] == launch and (kw["mesh_cert"] is not None) == (certify and tile != "fused")
+    assert kw["with_maxima"] == (certify and tile == "fused")
     cols_1, static_1, params_1, _ = _lowered(single, q, metric, flt)
-    kw = {key: kw[key] for key in ("metric", "k", "take_min", "cmp", "prec")}
+    kw = {key: kw[key] for key in ("metric", "k", "take_min", "cmp", "prec", "with_maxima")}
     single_out = meta._device_program(single._dv, single._chunk_lens, single._chunk_size,
                                       cols_1, static_1, params_1, queries, a[7], launch, **kw)
-    assert len(shard_out) == len(single_out) == 7
-    for got, want in zip(shard_out, single_out):
+    assert len(shard_out) == len(single_out) == 7 + kw["with_maxima"]
+    for got, want in zip(shard_out[:7], single_out[:7]):
         assert got.dtype == want.dtype and torch.equal(got, want)
+    for got, want in zip(shard_out[7:], single_out[7:]):
+        assert len(got) == 6 and torch.equal(torch.stack(got), torch.stack(want))
+
+
+@pytest.mark.parametrize("case", ["fused-bf16-euclid-cert", "fused-int8-cosine-cert"])
+def test_fused_shards_hand_the_mesh_their_certificate_maxima(case, monkeypatch):
+    """On the fused tile (K5 over bf16 rows, K1 over int8 rows) each of four
+    shards computes its certificate terms once a request, in its own scan,
+    and the mesh-wide slack is composed from the six maxima that scan
+    reduced: the composed rows, scores, ok and bound are those an explicit
+    pre-pass gives (``cert_slack`` of the amax of each shard's
+    ``cert_maxima``), bit for bit."""
+    from otters_tpu_torch import meta
+    from otters_tpu_torch.ops import fused_topk as tft
+    from otters_tpu_torch.ops import scoring as tsc
+    from otters_tpu_torch.parallel import meta_sharded
+    from otters_tpu_torch.parallel.dist_query import merge_partials
+
+    storage, metric, tile, certify, _ = PROGRAM_CASES[case]
+    assert (tile, certify) == ("fused", True)
+    use_fused_path(monkeypatch)
+    _, sharded, q = _program_stores(storage, metric, 4)
+    take_min = metric == "Euclidean"
+    thr, cmp = (40.0, tx.Cmp.Lt) if take_min else (0.5, tx.Cmp.Gt)
+    m = getattr(tx.Metric, metric)
+    flt = lambda p: p.col("price").lt(10.0)  # noqa: E731
+    cols, static, params, queries = _lowered(sharded, q, metric, flt)
+    cert_terms, terms_calls, programs = tsc.cert_terms, [], []
+
+    def counted(*a, **kw):
+        terms_calls.append(a[1].shape)
+        return cert_terms(*a, **kw)
+
+    def spy(*a, **kw):
+        out = meta._device_program(*a, **kw)
+        programs.append((a, kw, out))
+        return out
+
+    monkeypatch.setattr(tsc, "cert_terms", counted)
+    monkeypatch.setattr(tft, "cert_terms", counted)
+    monkeypatch.setattr(meta_sharded, "_device_program", spy)
+    got = sharded._run_query_program(cols, queries, params, thr, static, m, 10, take_min,
+                                     cmp, certify=True)
+    assert len(programs) == 4 and len(terms_calls) == 4  # once a shard
+    assert all(kw["with_maxima"] and kw["mesh_cert"] is None for _, kw, _ in programs)
+    maxima = []
+    for (a, kw, out) in programs:
+        dv_l, q_l = a[0], a[6]
+        t = cert_terms(m, q_l, dv_l.vectors.dtype, dv_l.resid, dv_l.inv_norms, dv_l.norms_sq,
+                       dv_l.vectors.shape[1])
+        maxima.append(torch.stack(tsc.cert_maxima(*t[1:], dv_l.norms_sq,
+                                                  q_valid=kw["q_valid"])))
+        assert torch.equal(torch.stack(out[7]), maxima[-1])
+    slack = tsc.cert_slack(*torch.stack(maxima).amax(dim=0))
+    n_local = sharded._dv.vectors.shape[0] // 4
+    rows_g, scores_g, ok_g, sel = merge_partials(
+        [(out[0] + r * n_local, out[1], out[2]) for r, (_, _, out) in enumerate(programs)],
+        10, take_min, torch.device("cpu"))
+    kth_key = -scores_g[sel][-1] if take_min else scores_g[sel][-1]
+    bound = torch.maximum(torch.stack([out[4] for _, _, out in programs]).max(),
+                          torch.where(ok_g[sel][-1], kth_key + slack, float("-inf")))
+    rows, scores, ok, check, bound_got = got[:5]
+    assert float(slack) > 0 and bool(ok.any()) and bool(check)
+    for a, b in ((rows, rows_g[sel]), (scores, scores_g[sel]), (ok, ok_g[sel]),
+                 (bound_got, bound)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("with_q_valid", [False, True], ids=["all", "q_valid"])
